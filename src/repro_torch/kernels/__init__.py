@@ -1,0 +1,29 @@
+"""Hand-written Hopper kernels for the paper's benchmarks.
+
+Each subpackage follows the kernel/ops/ref triple:
+
+* ``kernel.py`` — the wrapper that launches the CUDA C++ kernel from
+  ``repro_torch/csrc`` (checks its arguments, allocates outputs, counts
+  launches),
+* ``ops.py``    — the public function: the kernel for a CUDA tensor, the
+  plain version for a CPU tensor or on ``use_ref=True``,
+* ``ref.py``    — the plain PyTorch version of the same function.
+
+Ported so far: kmeans, stencil2d (HotSpot), coclustering, gemm.
+"""
+
+from .coclustering import cluster_sums, cluster_sums_ref
+from .gemm import gemm, gemm_ref
+from .kmeans import (
+    kmeans_assign_reduce,
+    kmeans_assign_reduce_ref,
+    kmeans_iteration,
+    kmeans_iteration_ref,
+)
+from .stencil2d import hotspot_step, hotspot_step_ref
+
+__all__ = [
+    "cluster_sums", "cluster_sums_ref", "gemm", "gemm_ref", "hotspot_step",
+    "hotspot_step_ref", "kmeans_assign_reduce", "kmeans_assign_reduce_ref",
+    "kmeans_iteration", "kmeans_iteration_ref",
+]

@@ -1,0 +1,146 @@
+"""Builds ``repro_torch/csrc/*.cu`` into one shared library at first use.
+
+``nvcc`` compiles each source for ``sm_90a`` (all sources started together,
+one compiler process each), links them into ``libkernels.so`` and the result
+is loaded with ``ctypes``: the sources expose a plain C interface, so a build
+takes seconds.  The library lands in ``build/repro_torch/`` at the root of a
+checkout, or in ``build/`` beside the package when the package is installed
+elsewhere.  A stamp file holds a hash of the sources and the flags, so an
+edited ``.cu`` rebuilds.  A missing compiler or a failed build raises with
+the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+CUTLASS_INCLUDE = Path("/usr/local/cutlass/include")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib: ctypes.CDLL | None = None
+#: seconds the last build in this process took (0.0 when the library on
+#: disk was up to date)
+build_seconds: float = 0.0
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    root = PACKAGE_DIR.parent.parent  # <root>/src/repro_torch in a checkout
+    if PACKAGE_DIR.parent.name == "src" and (root / "pyproject.toml").exists():
+        return root / "build" / "repro_torch"
+    return PACKAGE_DIR / "build"
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home:
+            candidates.append(os.path.join(home, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built here"
+    )
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile the sources if the library is missing or stale; return its
+    path.  The compiler's output is kept in ``build.log`` beside it."""
+    global build_seconds
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    out = build_dir()
+    lib_path, stamp = out / "libkernels.so", out / "libkernels.hash"
+    digest = _digest(srcs)
+    if (lib_path.exists() and stamp.exists()
+            and stamp.read_text() == digest):
+        return lib_path
+
+    nvcc = find_nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    include = ["-I", str(CSRC_DIR)]
+    if CUTLASS_INCLUDE.is_dir():
+        include += ["-I", str(CUTLASS_INCLUDE)]
+    t0 = time.perf_counter()
+    procs = []
+    for src in srcs:
+        obj = out / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, *include, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, proc in procs:
+        text, _ = proc.communicate()
+        log.append(f"== {src.name} (exit {proc.returncode})\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        tmp = out / f"libkernels.{os.getpid()}.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (exit {link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append("link")
+    (out / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n" + "\n".join(log))
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def build_log() -> str:
+    path = build_dir() / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on the first call in a process."""
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(str(build()))
+    return _lib
+
+
+def bind(name: str, argtypes: list) -> "ctypes._CFuncPtr":
+    """One C launcher with its argument types set (pointers and the stream
+    as ``c_void_p``, or ctypes would cut them to 32 bits).  Every launcher
+    returns ``cudaGetLastError()`` as an int."""
+    fn = getattr(load(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")

@@ -1,0 +1,66 @@
+"""Shared helpers for the hand-written Hopper kernels.
+
+Every kernel in this package is CUDA C++ under ``repro_torch/csrc``, built
+for ``sm_90a`` by :mod:`repro_torch.kernels._build` and called through a
+plain C interface.  Each ``ops.py`` wrapper launches its kernel for a CUDA
+tensor and takes the plain PyTorch version in ``ref.py`` only for a tensor
+that lies on the CPU.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    return cdiv(x, m) * m
+
+
+def pad_to(x: torch.Tensor, axis: int, multiple: int, value=0) -> torch.Tensor:
+    """Pad ``axis`` up to a multiple of ``multiple`` with ``value``."""
+    size = x.shape[axis]
+    target = round_up(size, multiple)
+    if target == size:
+        return x
+    # F.pad lists (before, after) pairs from the last axis backwards.
+    pads = [0, 0] * x.ndim
+    pads[2 * (x.ndim - 1 - axis % x.ndim) + 1] = target - size
+    return F.pad(x, pads, value=value)
+
+
+#: Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates,
+#: at the full 700 W power limit), used only for roofline bounds.
+H100_SXM_HBM_BYTES_PER_S = 3.35e12
+H100_SXM_FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+H100_SXM_BF16_FLOPS = 989e12  # tensor cores
+#: Shared memory one block can use on an H100 (opt-in above 48 KiB).
+H100_MAX_SHARED_BYTES = 232_448
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int,
+                      device: torch.device | None = None) -> None:
+    """Raise on what a kernel does not take: the kernels read dense
+    row-major buffers of fixed types on one CUDA device."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(
+            f"{name}: on {t.device}, but the first argument is on {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {tuple(dtypes)}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim} dimensions, got {t.ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous (call .contiguous())")
