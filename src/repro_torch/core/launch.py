@@ -32,6 +32,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -43,19 +44,6 @@ from .faults import FaultInjector, RecoveryPolicy
 from .plan_ir import CommPattern, ExecutionPlan, LaunchPlan
 from .planner import Planner, Topology
 from .superblock import EvenWork, WorkDistribution
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """``None`` means the GPU, and fails where there is none: the CPU is
-    used only when the caller names it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device found: this package runs on the GPU unless "
-                "the caller asks for another device (device='cpu')"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 @dataclasses.dataclass(frozen=True)

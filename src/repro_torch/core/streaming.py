@@ -21,7 +21,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from .launch import resolve_device
+from repro_torch.device import resolve_device
 
 
 def iter_chunks(array: np.ndarray, chunk_rows: int) -> Iterable[np.ndarray]:

@@ -14,8 +14,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.launch import resolve_device
 from repro_torch.core.streaming import stream_kmeans
+from repro_torch.device import resolve_device
 
 
 def main(argv=None):

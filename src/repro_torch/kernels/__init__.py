@@ -9,9 +9,11 @@ Each subpackage follows the kernel/ops/ref triple:
   plain version for a CPU tensor or on ``use_ref=True``,
 * ``ref.py``    — the plain PyTorch version of the same function.
 
-Ported so far: kmeans, stencil2d (HotSpot), coclustering, gemm.
+Ported so far (eight kernels): kmeans, stencil2d (HotSpot), coclustering,
+gemm, black_scholes, spmv_ell, md5, nbody.
 """
 
+from .black_scholes import black_scholes, black_scholes_ref
 from .coclustering import cluster_sums, cluster_sums_ref
 from .gemm import gemm, gemm_ref
 from .kmeans import (
@@ -20,10 +22,16 @@ from .kmeans import (
     kmeans_iteration,
     kmeans_iteration_ref,
 )
+from .md5 import md5_search, md5_search_ref, md5_u32x2
+from .nbody import nbody_forces, nbody_forces_ref, nbody_step, nbody_step_ref
+from .spmv_ell import spmv_ell, spmv_ell_ref
 from .stencil2d import hotspot_step, hotspot_step_ref
 
 __all__ = [
-    "cluster_sums", "cluster_sums_ref", "gemm", "gemm_ref", "hotspot_step",
-    "hotspot_step_ref", "kmeans_assign_reduce", "kmeans_assign_reduce_ref",
-    "kmeans_iteration", "kmeans_iteration_ref",
+    "black_scholes", "black_scholes_ref", "cluster_sums", "cluster_sums_ref",
+    "gemm", "gemm_ref", "hotspot_step", "hotspot_step_ref",
+    "kmeans_assign_reduce", "kmeans_assign_reduce_ref", "kmeans_iteration",
+    "kmeans_iteration_ref", "md5_search", "md5_search_ref", "md5_u32x2",
+    "nbody_forces", "nbody_forces_ref", "nbody_step", "nbody_step_ref",
+    "spmv_ell", "spmv_ell_ref",
 ]

@@ -40,6 +40,13 @@ def pad_to(x: torch.Tensor, axis: int, multiple: int, value=0) -> torch.Tensor:
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
 H100_SXM_FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 H100_SXM_BF16_FLOPS = 989e12  # tensor cores
+#: 32-bit integer instructions a second: the issue ceiling, one warp
+#: instruction per clock on each of an SM's 4 schedulers, 132 SMs x 128
+#: lanes x 1.98 GHz boost clock ~= 33.5e12 (derived, not a published peak).
+#: The 64 INT32 lanes of an SM are no ceiling: the compiler issues adds,
+#: shifts and moves as IMAD on the FMA pipe too, so the mix runs on both,
+#: but no mix issues faster than this.  A 3-input op (LOP3, IADD3) is one.
+H100_SXM_INT32_OPS = 132 * 128 * 1.98e9
 #: Shared memory one block can use on an H100 (opt-in above 48 KiB).
 H100_MAX_SHARED_BYTES = 232_448
 
@@ -47,6 +54,20 @@ H100_MAX_SHARED_BYTES = 232_448
 @functools.cache
 def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+#: threads per block of the grid-stride kernels (their ``kThreads``)
+STRIDE_THREADS = 256
+#: blocks per SM of a grid-stride kernel's fixed grid
+STRIDE_BLOCKS_PER_SM = 8
+
+
+def stride_grid(items: int, device: torch.device) -> int:
+    """Blocks of a grid-stride kernel that walks ``items`` (one per thread
+    at a time): enough for every item, at most ``STRIDE_BLOCKS_PER_SM`` on
+    each SM of ``device``."""
+    return max(1, min(cdiv(items, STRIDE_THREADS),
+                      STRIDE_BLOCKS_PER_SM * sm_count(device.index)))
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int,

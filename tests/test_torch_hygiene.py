@@ -2,6 +2,7 @@
 or launch anything for a CPU tensor, or run on the CPU because no GPU was
 found."""
 
+import importlib
 import os
 import re
 import subprocess
@@ -14,18 +15,23 @@ import torch
 
 import repro_torch.kernels as TK
 from repro_torch.core import Context
-from repro_torch.core.launch import resolve_device
-from repro_torch.kernels import _build
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build, common
+from repro_torch.kernels.black_scholes.kernel import black_scholes_cuda
 from repro_torch.kernels.coclustering.kernel import cluster_sums_cuda
 from repro_torch.kernels.gemm.kernel import gemm_cuda
 from repro_torch.kernels.kmeans.kernel import kmeans_cuda
+from repro_torch.kernels.md5.kernel import md5_search_cuda
+from repro_torch.kernels.nbody.kernel import nbody_cuda
+from repro_torch.kernels.spmv_ell.kernel import spmv_ell_cuda
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 
-MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
-           "repro_torch.obs", "repro_torch.convert",
+MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
+           "repro_torch.kernels", "repro_torch.kernels.md5", "repro_torch.obs",
+           "repro_torch.convert",
            "repro_torch.core.streaming", "repro_torch.examples.quickstart",
            "repro_torch.examples.streaming_kmeans", "chip_smoke"]
 
@@ -74,13 +80,43 @@ def test_source_scan_finds_no_forbidden_import():
         assert not FORBIDDEN.search(good), good
 
 
+def test_kernels_do_not_import_the_launch_layer():
+    """``core`` builds on ``kernels``; a kernel module that imported
+    ``core`` back would make a cycle."""
+    upward = re.compile(r"^\s*(from\s+(\.\.\.?core\b|repro_torch\.core\b)|"
+                        r"import\s+repro_torch\.core\b)", re.MULTILINE)
+    for bad in ("from ...core.launch import x", "from repro_torch.core import y",
+                "import repro_torch.core.launch"):
+        assert upward.search(bad), bad
+    hits = [str(p.relative_to(ROOT))
+            for p in sorted((PORT / "kernels").rglob("*.py"))
+            if upward.search(p.read_text())]
+    assert hits == []
+
+
+def test_stride_grid_covers_the_items_up_to_eight_blocks_an_sm(monkeypatch):
+    monkeypatch.setattr(common, "sm_count", lambda index: 132)
+    dev = torch.device("cuda", 0)
+    assert common.stride_grid(1, dev) == 1
+    assert common.stride_grid(257, dev) == 2
+    assert common.stride_grid(2**30, dev) == 8 * 132
+
+
+#: the ported kernels' subpackages
+PORTED = ("kmeans", "stencil2d", "coclustering", "gemm", "black_scholes",
+          "spmv_ell", "md5", "nbody")
+
+
 def test_kernels_call_no_library_in_place_of_a_kernel():
-    """The launch path of the four kernels holds none of the calls that
+    """The launch path of the ported kernels holds none of the calls that
     would stand in for a hand-written kernel."""
     stand_ins = re.compile(
         r"torch\.matmul|\bindex_add_?\b|scatter_add|bincount|conv2d|"
-        r"torch\.compile|cublas|cudnn|@")
-    for sub in ("kmeans", "stencil2d", "coclustering", "gemm"):
+        r"torch\.compile|torch\.sparse|torch\.special|cublas|cudnn|@")
+    for bad in ("torch.sparse.mm(a, x)", "torch.sparse_csr_tensor(",
+                "torch.special.ndtr(d)"):
+        assert stand_ins.search(bad), bad
+    for sub in PORTED:
         for name in ("kernel.py", "ops.py"):
             text = (PORT / "kernels" / sub / name).read_text()
             code = "\n".join(ln.split("#")[0] for ln in text.splitlines())
@@ -100,7 +136,8 @@ def no_build(monkeypatch):
 
     for name in ("build", "load", "bind", "find_nvcc"):
         monkeypatch.setattr(_build, name, refuse)
-    counters = (kmeans_cuda, hotspot_cuda, cluster_sums_cuda, gemm_cuda)
+    counters = (kmeans_cuda, hotspot_cuda, cluster_sums_cuda, gemm_cuda,
+                black_scholes_cuda, spmv_ell_cuda, md5_search_cuda, nbody_cuda)
     before = [w.launches for w in counters]
     yield
     assert [w.launches for w in counters] == before
@@ -118,10 +155,21 @@ def _inputs():
         "cluster_sums": (TK.cluster_sums, TK.cluster_sums_ref,
                          (f32(50, 20), ints(4, 50), ints(3, 20), 4, 3), {}),
         "gemm": (TK.gemm, TK.gemm_ref, (f32(20, 30), f32(30, 10)), {}),
+        "black_scholes": (TK.black_scholes, TK.black_scholes_ref,
+                          (f32(50) + 5, f32(50) + 1, f32(50) + 0.25), {}),
+        "spmv_ell": (TK.spmv_ell, TK.spmv_ell_ref,
+                     (f32(40, 8), ints(40, (40, 8)), f32(40)), {}),
+        "md5": (TK.md5_search, TK.md5_search_ref, (300, (1, 2, 3, 4)),
+                {"device": "cpu"}),
+        "nbody": (TK.nbody_forces, TK.nbody_forces_ref, (f32(70, 4),), {}),
     }
 
 
-@pytest.mark.parametrize("name", ["kmeans", "hotspot", "cluster_sums", "gemm"])
+NAMES = ["kmeans", "hotspot", "cluster_sums", "gemm", "black_scholes",
+         "spmv_ell", "md5", "nbody"]
+
+
+@pytest.mark.parametrize("name", NAMES)
 def test_cpu_tensor_takes_plain_version_without_the_build(name, no_build):
     fn, ref, args, kw = _inputs()[name]
     got, want = fn(*args, **kw), ref(*args, **kw)
@@ -130,18 +178,37 @@ def test_cpu_tensor_takes_plain_version_without_the_build(name, no_build):
     else:
         assert torch.equal(got, want)
     # and use_ref=True names the plain version outright
-    again = fn(*args, use_ref=True)
+    again = fn(*args, use_ref=True, **kw)
     assert torch.equal(again[0] if isinstance(again, tuple) else again,
                        want[0] if isinstance(want, tuple) else want)
 
 
 @pytest.mark.parametrize("name,wrapper", [
     ("kmeans", kmeans_cuda), ("hotspot", hotspot_cuda),
-    ("cluster_sums", cluster_sums_cuda), ("gemm", gemm_cuda)])
+    ("cluster_sums", cluster_sums_cuda), ("gemm", gemm_cuda),
+    ("black_scholes", black_scholes_cuda), ("spmv_ell", spmv_ell_cuda),
+    ("nbody", nbody_cuda)])
 def test_cuda_wrapper_refuses_a_cpu_tensor(name, wrapper, no_build):
     _, _, args, _ = _inputs()[name]
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         wrapper(*args)
+
+
+def test_md5_wrapper_refuses_the_cpu(no_build):
+    """The MD5 search takes no tensor: its wrapper refuses a CPU device."""
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        md5_search_cuda(300, (1, 2, 3, 4), "cpu")
+
+
+def test_md5_search_without_cuda_raises_instead_of_running_on_cpu(
+        monkeypatch, no_build):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for search in (TK.md5_search,
+                   lambda n, t: TK.md5_search(n, t, use_ref=True),
+                   TK.md5_search_ref):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            search(300, (1, 2, 3, 4))
+    assert int(TK.md5_search(300, (1, 2, 3, 4), device="cpu")) == 300
 
 
 def test_context_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
@@ -164,8 +231,9 @@ def test_missing_compiler_raises_with_a_reason(monkeypatch, tmp_path):
 
 def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
-    assert [p.name for p in srcs] == ["cluster_sums.cu", "gemm.cu",
-                                      "hotspot.cu", "kmeans.cu"]
+    assert [p.name for p in srcs] == [
+        "black_scholes.cu", "cluster_sums.cu", "gemm.cu", "hotspot.cu",
+        "kmeans.cu", "md5.cu", "nbody.cu", "spmv_ell.cu"]
     assert _build.build_dir() == ROOT / "build" / "repro_torch"
     d1 = _build._digest(srcs)
     assert d1 == _build._digest(srcs) and len(d1) == 64
@@ -181,3 +249,34 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
                          cwd=str(ROOT))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_counts_sass_opcodes_per_kernel(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    smoke = importlib.import_module("chip_smoke")
+    text = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN37_GLOBAL__N__e51410c_6_md5_cu_f5ec055b17md5_search_"
+        "kernelEjjjjjPi",
+        '\t.headerflags\t@"EF_CUDA_SM90"',
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;"
+        "     /* 0x00000a00ff017b82 */",
+        "                                                   "
+        "     /* 0x000fe20000000800 */",
+        "        /*0010*/                   LOP3.LUT R2, R3, R4, R5, 0x96, !PT ;",
+        "        /*0020*/               @P0 EXIT ;",
+        "        /*0030*/              @!P0 BRA 0x120;",
+        "\t\tFunction : _ZN12_GLOBAL__N_115spmv_ell_kernelILb1EEEvPKfPKiS2_Pfxiii",
+        "        /*0000*/                   IADD3 R1, R2, R3, R4 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_115spmv_ell_kernelILb0EEEvPKfPKiS2_Pfxiii",
+        "        /*0000*/                   IADD3 R1, R2, R3, R4 ;",
+        "        /*0010*/                   SHF.L.W.U32.HI R1, R1, 0x7, R1 ;",
+    ])
+    assert smoke.sass_opcode_counts(text) == {
+        "md5_search_kernel": {"total": 4, "BRA": 1, "EXIT": 1, "LDC": 1,
+                              "LOP3": 1},
+        "spmv_ell_kernel": {"total": 1, "IADD3": 1},
+        "spmv_ell_kernel#1": {"total": 2, "IADD3": 1, "SHF": 1},
+    }
+    assert smoke.demangled_name("_Z11gemm_kernelPKfS0_Pfiii") == "gemm_kernel"
+    assert smoke.demangled_name("main") == "main"
