@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
-its plain PyTorch version on the card, and drives the port's main path —
+its plain PyTorch version on the card, and drives the port's paths —
 annotated-kernel launches through ``Context.launch`` (the 1-D stencil,
 HotSpot, K-Means, co-clustering sums, GEMM, and the paper's section 4.2
 benchmarks Black-Scholes, SpMV, MD5 and N-Body) and host-memory streaming
-through ``stream_kmeans`` — at sizes a user of the paper's benchmarks would
-call real.  Phases (each prints one JSON line with the
-seconds it took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``.
-Any exception or any comparison outside its tolerance ends the run with a
-non-zero exit code.  The last three lines of the output are the kernel
-table, the card's name and power limit, and the verdict.
+through ``stream_kmeans``, at sizes a user of the paper's benchmarks would
+call real; then LM serving through ``ServeEngine`` with phi3-mini-3.8b at
+full width in bf16 (random weights from ``--seed``), whose prefills and
+decode steps run the flash- and decode-attention kernels.  Phases (each
+prints one JSON line with the seconds it took): ``env``, ``build``,
+``kernels``, ``launch``, ``stream``, ``serve``.  Any exception or any
+comparison outside its tolerance ends the run with a non-zero exit code.
+The last three lines of the output are the kernel table, the card's name
+and power limit, and the verdict.
 
 It needs a CUDA device and fails without one.  ``--rehearse`` runs the same
 control flow at toy sizes on the CPU with the plain versions, to find wrong
@@ -24,6 +27,7 @@ line says ``"ok": false``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -32,9 +36,12 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -48,13 +55,18 @@ from repro_torch.core import (  # noqa: E402
     RowDist,
     StencilDist,
 )
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.streaming import stream_kmeans  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
+    attention_ref,
     black_scholes,
     black_scholes_ref,
     cluster_sums,
     cluster_sums_ref,
+    decode_attention,
+    decode_attention_ref,
+    flash_attention,
     gemm,
     gemm_ref,
     hotspot_step,
@@ -81,6 +93,12 @@ from repro_torch.kernels.common import (  # noqa: E402
 from repro_torch.kernels.coclustering.kernel import (  # noqa: E402
     cluster_sums_cuda,
 )
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention_cuda,
+)
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_cuda,
+)
 from repro_torch.kernels.gemm.kernel import gemm_cuda  # noqa: E402
 from repro_torch.kernels.kmeans.kernel import kmeans_cuda  # noqa: E402
 from repro_torch.kernels.md5.kernel import md5_search_cuda  # noqa: E402
@@ -89,6 +107,15 @@ from repro_torch.kernels.nbody.kernel import nbody_cuda  # noqa: E402
 from repro_torch.kernels.nbody.ref import SOFTENING2  # noqa: E402
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell_cuda  # noqa: E402
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
+from repro_torch.models import api as model_api  # noqa: E402
+from repro_torch.models import attention as model_attention  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.obs.trace import Tracer  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    Request,
+    ServeEngine,
+    _splice_state,
+)
 
 #: the wrappers whose ``launches`` counters prove the path went through the
 #: hand-written kernels
@@ -101,6 +128,8 @@ WRAPPERS = {
     "spmv_ell": spmv_ell_cuda,
     "md5": md5_search_cuda,
     "nbody": nbody_cuda,
+    "flash_attention": flash_attention_cuda,
+    "decode_attention": decode_attention_cuda,
 }
 
 
@@ -122,6 +151,22 @@ class Sizes:
     md5_n: int = 1 << 30  # keys
     nbody_n: int = 1 << 17  # bodies
     nbody_slab: int = 1024  # targets held against the float64 version
+    # attention kernels: (B, HQ, HKV, S, D) and (B, HQ, HKV, T, D), the
+    # serving path's (phi3-mini-3.8b: prefill of 2048 tokens; 8 slots of a
+    # 2184-position cache) and gemma-2b's MQA (group 8, head_dim 256)
+    flash: tuple = (1, 32, 32, 2048, 96)
+    flash_gemma: tuple = (1, 8, 1, 1000, 256)
+    decode: tuple = (8, 32, 32, 2184, 96)
+    decode_gemma: tuple = (8, 8, 1, 2184, 256)
+    # the LM serving path
+    serve_smoke: bool = False  # phi3-mini-3.8b's full config, not its smoke
+    serve_requests: int = 24
+    serve_slots: int = 8
+    serve_prompt: tuple = (128, 2048)  # prompt lengths, heavy-tailed
+    serve_new: tuple = (32, 128)  # max_new_tokens, uniform
+    serve_check_len: int = 2048  # prompt of the prefill check
+    serve_f32_layers: int = 2  # depth of the f32 check at full width
+    profile_steps: int = 3
     reps: int = 5
 
 
@@ -131,11 +176,16 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             stream_n=(1 << 13) + 100, stream_chunk_rows=1 << 11,
             stream_iters=2, bs_n=(1 << 12) + 3, spmv=((1 << 10) + 8, 16),
             md5_n=1 << 13, nbody_n=1000, nbody_slab=256,
-            reps=1)
+            flash=(1, 4, 4, 64, 32), flash_gemma=(1, 4, 1, 40, 64),
+            decode=(3, 4, 4, 70, 32), decode_gemma=(3, 4, 1, 70, 64),
+            serve_smoke=True, serve_requests=6, serve_slots=3,
+            serve_prompt=(4, 24), serve_new=(2, 6), serve_check_len=24,
+            profile_steps=1, reps=1)
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
 CS_R, CS_C = 8, 6  # co-clustering example: 8 row and 6 column clusters
 RISKFREE = 0.02  # Black-Scholes' default rate, for put-call parity
+SERVE_ARCH = "phi3-mini-3.8b"
 #: the MD5 target sits this far below n, so that every block of keys runs
 MD5_PLANT_BELOW_N = 4099
 MD5_NO_MATCH = (1, 2, 3, 4)  # a digest no key of the runs has
@@ -158,16 +208,36 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn, device: torch.device, reps: int,
-            warmup: bool = True) -> float | None:
+#: host seconds a kernel call may take (checks, allocations, the ctypes
+#: call), covered by the device sleep ahead of queued calls
+KERNEL_HOST_S = 1e-3
+SM_CLOCK_HZ = 1.98e9  # boost clock: the sleep counts cycles
+
+
+def time_ms(fn, device: torch.device, reps: int, warmup: bool = True,
+            queued: float = 0.0) -> float | None:
     """Median of ``reps`` runs after one warm-up, by CUDA events.  Every
     timed shape is larger than the L2 cache, so no flush is needed.  A
-    plain version that takes seconds is timed once, without a warm-up."""
+    plain version that takes seconds is timed once, without a warm-up.
+    ``queued`` (host seconds a call may take): for calls shorter than their
+    own host work, the ``reps`` calls are enqueued behind a device sleep
+    that long, and timed back to back between two events, so that the mean
+    is the device's time and not the host's."""
     if warmup or device.type != "cuda":
         fn()
         sync(device)
     if device.type != "cuda":
         return None  # a rehearsal measures nothing
+    if queued:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(reps * queued * SM_CLOCK_HZ))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -400,6 +470,274 @@ def nbody_slab_check(name, got, plain, posm, lo, hi):
     return worst
 
 
+def attn_tensors(b, hq, hkv, s, t, d, dtype, gen, device):
+    """q (b, hq, s, d), k and v (b, hkv, t, d): normal with std 0.5 (the
+    reference sweep's inputs), made in f32 and cast to ``dtype``."""
+    def normal(*shape):
+        return (0.5 * torch.randn(shape, generator=gen, device=device)) \
+            .to(dtype)
+    return normal(b, hq, s, d), normal(b, hkv, t, d), normal(b, hkv, t, d)
+
+
+def flash_inputs(shape, dtype, gen, device, t=None, **kw):
+    """(q, k, v, keyword arguments) for a (B, HQ, HKV, S, D) shape; T = S
+    unless given; causal unless the keywords say otherwise."""
+    b, hq, hkv, s, d = shape
+    return (*attn_tensors(b, hq, hkv, s, t or s, d, dtype, gen, device),
+            {"causal": True, **kw})
+
+
+def decode_inputs(shape, dtype, gen, device, kv_len=None):
+    """(q, k, v, kv_len) for a (B, HQ, HKV, T, D) shape; ``kv_len`` spread
+    over [1, T] with both ends present, unless one length is given."""
+    b, hq, hkv, t, d = shape
+    q, k, v = attn_tensors(b, hq, hkv, 1, t, d, dtype, gen, device)
+    if kv_len is None:
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device=device)
+        lens[0], lens[-1] = 1, t
+    else:
+        lens = torch.full((b,), kv_len, device=device)
+    return q[:, :, 0].contiguous(), k, v, lens.to(torch.int32)
+
+
+def rate_of(dtype: torch.dtype) -> float:
+    return H100_SXM_BF16_FLOPS if dtype == torch.bfloat16 \
+        else H100_SXM_FP32_FLOPS
+
+
+def visible_pairs(s: int, t: int, causal: bool, window: int | None,
+                  q_offset: int) -> int:
+    """(query, key) pairs the masks let through: the work attention needs."""
+    q = q_offset + np.arange(s)
+    hi = np.minimum(q, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(q, k, v, kw):
+    """q, k, v read and o written once; 4 D flops a visible pair (Q K^T
+    and P V) at the peak of the inputs' type."""
+    b, hq, s, d = q.shape
+    pairs = visible_pairs(s, k.shape[2], kw.get("causal", True),
+                          kw.get("window"), kw.get("q_offset", 0))
+    return bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                 4.0 * b * hq * d * pairs, rate_of(q.dtype))
+
+
+def decode_work(q, k, v, kv_len):
+    """K and V up to kv_len, q and out, and the f32 lse, once each; 4 D
+    flops a (key, query head)."""
+    b, hq, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    keys = float(kv_len.clamp(max=t).sum())
+    return bound(2 * hkv * d * keys * k.element_size()
+                 + 2 * q.numel() * q.element_size() + 4 * b * hq,
+                 4.0 * hq * d * keys, rate_of(q.dtype))
+
+
+#: Attention tolerances against the plain version in the inputs' type: the
+#: reference sweep's (tests/test_kernels.py): f32 2e-4 on the output (order
+#: of summation) and 1e-4 on the lse; bf16 3e-2 (8 bits of mantissa; the
+#: plain version also rounds its logits and probabilities to bf16 where the
+#: kernels keep f32), lse alike.
+ATTN_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+#: bf16's unit roundoff (8 significant bits)
+BF16_U = 2.0 ** -8
+#: A bf16 kernel is also held against the f32 plain version of the same
+#: (bf16-valued) inputs, element by element, within
+#: ``BF16_U * (2 |want| + 8 rms)``, ``rms`` over the row's head_dim.  The
+#: kernels compute in f32 and round twice: the output to bf16 (at most
+#: ``u |want|``; the second ``u`` covers the two f32 orders of summation),
+#: and p to bf16 before P.V, as the reference kernel does, which adds a sum
+#: of independent errors of standard deviation about ``u / sqrt(3)`` of the
+#: row's rms: ``8 u rms`` is 14 of them.  The 3e-2 above is larger than a
+#: typical output (about 0.5 / sqrt(keys) for these inputs), so only this
+#: limit sees a dropped tile; ``planted_faults`` shows that it does.
+BF16_OUT_ABS, BF16_OUT_RMS = 2.0, 8.0
+#: the kernels' lse is f32 from unrounded p: the f32 limit, absolute
+BF16_LSE_ATOL = 1e-4
+
+
+def as_f32(inputs):
+    """The inputs with every floating tensor widened to f32 (exactly)."""
+    return tuple(x.float() if torch.is_tensor(x) and x.is_floating_point()
+                 else x for x in inputs)
+
+
+def bf16_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """A bf16 attention output against the f32 plain version: the largest
+    share of its element's limit that a difference takes (above 1 fails),
+    the share of elements outside their limit, and the largest difference."""
+    g, w = got.double(), want.double()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    limit = BF16_U * (BF16_OUT_ABS * w.abs() + BF16_OUT_RMS * rms)
+    diff = (g - w).abs()
+    share = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    share = torch.where(torch.isfinite(g), share,
+                        torch.full_like(share, float("inf")))
+    return {"limit_share": float(share.max()),
+            "outside": float((share > 1).double().mean()),
+            "max_abs_err": float(torch.nan_to_num(diff).max())}
+
+
+def bf16_lse_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest lse difference over ``BF16_LSE_ATOL``."""
+    return float(torch.nan_to_num((got.double() - want.double()).abs(),
+                                  nan=float("inf")).max()) / BF16_LSE_ATOL
+
+
+def bf16_check(name: str, out: torch.Tensor, want: torch.Tensor,
+               lse=None, want_lse=None) -> dict:
+    """The limit holds a kernel's result; a rehearsal's result on the CPU is
+    the bf16 plain version, which rounds its logits to bf16 (its lse is off
+    by about 1e-3), so there the gap is reported and not required."""
+    gap = bf16_gap(out, want)
+    if lse is not None:
+        gap["lse_limit_share"] = bf16_lse_gap(lse, want_lse)
+    worst = max(gap["limit_share"], gap.get("lse_limit_share", 0.0))
+    require(worst <= 1.0 or not out.is_cuda, f"{name}: bf16 output outside "
+            f"BF16_U * "
+            f"({BF16_OUT_ABS} |want| + {BF16_OUT_RMS} rms) of the f32 plain "
+            "version (lse 1e-4):", gap)
+    return gap
+
+
+def flash_check(name, got, want, *inputs):
+    """Against the plain version in the inputs' type; in bf16 also against
+    the f32 plain version (whose errors the row reports)."""
+    tol = ATTN_TOL[got.dtype][0]
+    err = check_close(name, got, want, rtol=tol, atol=tol)
+    if got.dtype != torch.bfloat16:
+        return err
+    q, k, v, kw = as_f32(inputs)
+    want32 = attention_ref(q, k, v, **kw)
+    gap = bf16_check(name, got, want32)
+    return gap["max_abs_err"], err[1], {
+        "bf16_limit_share": gap["limit_share"],
+        "bf16_plain_max_abs_err": err[0]}
+
+
+def decode_check(name, got, want, *inputs):
+    tol, lse_tol = ATTN_TOL[got[0].dtype]
+    err = check_close(f"{name}/out", got[0], want[0], rtol=tol, atol=tol)
+    check_close(f"{name}/lse", got[1], want[1], rtol=lse_tol, atol=lse_tol)
+    if got[0].dtype != torch.bfloat16:
+        return err
+    q, k, v, n = as_f32(inputs)
+    want32 = decode_attention_ref(q, k, v, kv_len=n, with_lse=True)
+    gap = bf16_check(name, got[0], want32[0], got[1], want32[1])
+    return gap["max_abs_err"], err[1], {
+        "bf16_limit_share": gap["limit_share"],
+        "bf16_lse_limit_share": gap["lse_limit_share"],
+        "bf16_plain_max_abs_err": err[0]}
+
+
+def masked_attention(q, k, v, keep):
+    """f32 attention of q (B, HQ, S, D) on k, v (B, HKV, T, D) over the keys
+    ``keep`` (broadcast to (B, HQ, S, T)) lets through; a row with none
+    gives zeros, as the kernels do.  Returns (out, lse)."""
+    group = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(group, 1)
+    vv = v.float().repeat_interleave(group, 1)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kk) \
+        / q.shape[-1] ** 0.5
+    logits = logits.masked_fill(~keep, float("-inf"))
+    m = logits.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhst,bhtd->bhsd", p, vv) / l.clamp_min(1e-30)
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+def planted_faults(kind: str, inputs, want32) -> list[dict]:
+    """Outputs of wrong kernels, made by the f32 plain computation with keys
+    left out and rounded to bf16 like a kernel's output, held to the bf16
+    limit: each must fail it, or the limit could not tell a wrong kernel
+    from a right one.  Flash: one tile of keys past the middle dropped for
+    the rows past it; the diagonal tile dropped for the second half of the
+    rows; the output zeroed past a quarter of the rows.  Decode: one tile in
+    the middle of each row's keys; each row's last, partial tile; the first
+    quarter of the cache (one split's worth)."""
+    if kind == "flash":
+        q, k, v, kw = inputs
+        require(kw.get("causal", True) and not kw.get("window")
+                and not kw.get("q_offset"), "planted faults: plain causal")
+        s, t = q.shape[2], k.shape[2]
+        tile = min(64, t // 4)
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        causal = kpos <= qpos
+        t0 = (t // 2) // tile * tile
+        diag = (kpos // tile == qpos // tile) & (qpos >= s // 2)
+        zeroed = want32.clone()
+        zeroed[:, :, s // 4:] = 0
+        faults = {
+            "kv_tile_dropped": masked_attention(
+                q, k, v, causal & ~((kpos >= t0) & (kpos < t0 + tile)
+                                    & (qpos >= t0 + tile)))[0],
+            "diagonal_tile_dropped": masked_attention(
+                q, k, v, causal & ~diag)[0],
+            "rows_zeroed": zeroed,
+        }
+        want_lse = None
+    else:
+        q, k, v, n = inputs
+        t = k.shape[2]
+        tile = min(64, t // 4)
+        kpos = torch.arange(t, device=q.device)[None, :]
+        n = n.long()[:, None]
+        valid = kpos < n
+        mid = (n // 2) // tile * tile
+        last = (n - 1) // tile * tile
+        want_lse = want32[1]
+        want32 = want32[0]
+        faults = {}
+        for label, drop in (
+                ("mid_tile_dropped", (kpos >= mid) & (kpos < mid + tile)
+                 & (n > 2 * tile)),
+                ("last_tile_dropped", (kpos >= last) & (n > tile)),
+                ("split_dropped", (kpos < t // 4) & (n > t // 4))):
+            keep = (valid & ~drop)[:, None, None, :]
+            out, lse = masked_attention(q[:, :, None], k, v, keep)
+            faults[label] = (out[:, :, 0], lse[:, :, 0])
+    rows = []
+    for label, fault in faults.items():
+        out, lse = fault if isinstance(fault, tuple) else (fault, None)
+        gap = bf16_gap(out.to(torch.bfloat16), want32)
+        if lse is not None:
+            gap["lse_limit_share"] = bf16_lse_gap(lse, want_lse)
+        caught = gap["limit_share"] > 1 or gap.get("lse_limit_share", 0) > 1
+        require(caught, f"planted fault {label} passes the bf16 limit:", gap)
+        rows.append({"fault": label, **gap})
+    return rows
+
+
+def flash_main_check(name, got, want, *inputs):
+    abs_err, rel_err, extra = flash_check(name, got, want, *inputs)
+    q, k, v, kw = as_f32(inputs)
+    extra["planted_faults"] = planted_faults(
+        "flash", inputs, attention_ref(q, k, v, **kw))
+    return abs_err, rel_err, extra
+
+
+def decode_main_check(name, got, want, *inputs):
+    abs_err, rel_err, extra = decode_check(name, got, want, *inputs)
+    q, k, v, n = as_f32(inputs)
+    extra["planted_faults"] = planted_faults(
+        "decode", inputs,
+        decode_attention_ref(q, k, v, kv_len=n, with_lse=True))
+    return abs_err, rel_err, extra
+
+
+def sdpa_decode_setup(q, k, v, kv_len):
+    """The library call's arguments: q as one query row, kv_len as a mask
+    (built outside the timed region)."""
+    mask = torch.arange(k.shape[2], device=q.device)[None, :] \
+        < kv_len[:, None]
+    return q[:, :, None], k, v, mask[:, None, None, :]
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -545,6 +883,9 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
         lo = (n - s) // 2
         return nbody_slab_check(name, got[lo:lo + s], want[lo:lo + s], posm,
                                 lo, lo + s)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
 
     def gemm_case(name, dtype, tol, rate):
         return dict(
@@ -711,13 +1052,120 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                                  H100_SXM_FP32_FLOPS),
             shape=lambda p: [p.shape[0]],
         ),
+        # The serving path's prefill at phi3-mini's width, causal, bf16;
+        # gemma-2b's MQA (8 query heads on one kv head of 256 dims) held
+        # and timed beside it (not a shape of the serving path: no
+        # launches of its own); ragged and f32 cases of the reference sweep.
+        dict(
+            name="flash_attention", wrapper="flash_attention",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:110",
+            main=lambda: flash_inputs(sizes.flash, bf16, gen, device),
+            also={"gemma": lambda: flash_inputs(sizes.flash_gemma, bf16,
+                                                gen, device)},
+            ragged=lambda: [
+                flash_inputs((1, 8, 2, 256, 64), f32, gen, device),  # GQA
+                flash_inputs((1, 4, 1, 128, 32), f32, gen, device,
+                             window=64),  # sliding window
+                flash_inputs((2, 4, 2, 100, 32), f32, gen, device),  # S=100
+                flash_inputs((1, 4, 2, 40, 32), f32, gen, device, t=100,
+                             q_offset=60),  # q_offset > 0, S < T, ragged T
+                flash_inputs((1, 4, 4, 128, 64), bf16, gen, device),
+                flash_inputs((1, 8, 1, 130, 256), f32, gen, device),  # MQA
+            ],
+            fn=lambda q, k, v, kw: flash_attention(q, k, v, **kw),
+            plain=lambda q, k, v, kw: attention_ref(q, k, v, **kw),
+            library=lambda q, k, v, kw: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            check=flash_check,
+            main_check=flash_main_check,
+            work=flash_work,
+            queued=KERNEL_HOST_S,
+            shape=lambda q, k, v, kw: [q.shape[0], q.shape[1], k.shape[1],
+                                       q.shape[2], k.shape[2], q.shape[3]],
+        ),
+        # The serving path's decode step: 8 slots, kv_len over [1, T];
+        # gemma-2b's MQA beside it, as for flash attention.
+        dict(
+            name="decode_attention", wrapper="decode_attention",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:94",
+            main=lambda: decode_inputs(sizes.decode, bf16, gen, device),
+            also={"gemma": lambda: decode_inputs(sizes.decode_gemma, bf16,
+                                                 gen, device)},
+            ragged=lambda: [
+                decode_inputs((2, 8, 2, 512, 64), f32, gen, device),
+                decode_inputs((1, 4, 4, 300, 32), f32, gen, device,
+                              kv_len=1),
+                decode_inputs((2, 4, 1, 256, 64), f32, gen, device),
+                decode_inputs((8, 32, 32, 300, 96), bf16, gen, device),
+                decode_inputs((2, 8, 1, 300, 256), f32, gen, device),
+            ],
+            fn=lambda q, k, v, n: decode_attention(q, k, v, kv_len=n,
+                                                   with_lse=True),
+            plain=lambda q, k, v, n: decode_attention_ref(
+                q, k, v, kv_len=n, with_lse=True),
+            library=lambda q4, k, v, m: F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=m, enable_gqa=True),
+            library_setup=sdpa_decode_setup,
+            check=decode_check,
+            main_check=decode_main_check,
+            work=decode_work,
+            queued=KERNEL_HOST_S,
+            shape=lambda q, k, v, n: [q.shape[0], q.shape[1], k.shape[1],
+                                      k.shape[2], q.shape[2]],
+        ),
     ]
+
+
+def measure(case: dict, inputs, sizes: Sizes, device: torch.device) -> dict:
+    """One shape of a kernel: its result held against the plain version
+    (``main_check``, else ``check``), then the kernel, the plain version
+    and the library call timed, and the bound of the work."""
+    got = case["fn"](*inputs)
+    sync(device)
+    plain_reps = case.get("plain_reps", sizes.reps)
+    plain_ms = None
+    if plain_reps == 1:
+        # A plain version that takes seconds runs once, timed, and that run
+        # is the one the kernel is held against.
+        kept = []
+        plain_ms = time_ms(lambda: kept.append(case["plain"](*inputs)),
+                           device, 1, warmup=False)
+        want = kept.pop()
+    else:
+        want = case["plain"](*inputs)
+    abs_err, rel_err, *extra = case.get("main_check", case["check"])(
+        f"{case['name']}/{list(case['shape'](*inputs))}", got, want, *inputs)
+    first = want[0] if isinstance(want, tuple) else want
+    require(float(first.abs().max()) > 0, case["name"], "compared all zeros")
+    del got, want, first
+    queued = case.get("queued", 0.0)
+    if plain_reps > 1:
+        plain_ms = time_ms(lambda: case["plain"](*inputs), device,
+                           plain_reps, queued=queued)
+    bound_ms, bound_by = case["work"](*inputs)
+    library_ms = None
+    if case["library"]:
+        lib_inputs = case.get("library_setup", lambda *a: a)(*inputs)
+        library_ms = time_ms(lambda: case["library"](*lib_inputs),
+                             device, sizes.reps, queued=queued)
+        del lib_inputs
+    return {
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "ms": time_ms(lambda: case["fn"](*inputs), device, sizes.reps,
+                      queued=queued),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "shape": case["shape"](*inputs),
+        **(extra[0] if extra else {}),
+    }
 
 
 def phase_kernels(sizes: Sizes, device: torch.device,
                   gen: torch.Generator) -> list[dict]:
-    """Each kernel against its plain version on the card, at the main-path
-    shape and at one ragged shape, then timed at the main-path shape."""
+    """Each kernel against its plain version on the card, at ragged shapes,
+    then at the main-path shape (and at the shapes in ``also``), where it is
+    also timed."""
     t0 = time.perf_counter()
     # The plain versions multiply in true f32, like the kernels.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -741,51 +1189,19 @@ def phase_kernels(sizes: Sizes, device: torch.device,
         ragged_shape = case["shape"](*raggeds[0])
         del raggeds, inputs, got
 
-        inputs = case["main"]()
-        got = case["fn"](*inputs)
-        sync(device)
-        plain_reps = case.get("plain_reps", sizes.reps)
-        plain_ms = None
-        if plain_reps == 1:
-            # A plain version that takes seconds runs once, timed, and that
-            # run is the one the kernel is held against.
-            kept = []
-            plain_ms = time_ms(lambda: kept.append(case["plain"](*inputs)),
-                               device, 1, warmup=False)
-            want = kept.pop()
-        else:
-            want = case["plain"](*inputs)
-        abs_err, rel_err = case.get("main_check", case["check"])(
-            f"{name}/main", got, want, *inputs)
-        first = want[0] if isinstance(want, tuple) else want
-        require(float(first.abs().max()) > 0, name, "compared all zeros")
-        del got, want, first
-        if plain_reps > 1:
-            plain_ms = time_ms(lambda: case["plain"](*inputs), device,
-                               plain_reps)
-        bound_ms, bound_by = case["work"](*inputs)
-        library_ms = None
-        if case["library"]:
-            lib_inputs = case.get("library_setup", lambda *a: a)(*inputs)
-            library_ms = time_ms(lambda: case["library"](*lib_inputs),
-                                 device, sizes.reps)
-            del lib_inputs
-        row = {
-            "name": name, "route": "cuda", "source": case["source"],
-            "replaces": case["replaces"], "launches": None,
-            "max_abs_err": abs_err, "max_rel_err": rel_err,
-            "ms": time_ms(lambda: case["fn"](*inputs), device, sizes.reps),
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "shape": case["shape"](*inputs),
-            "ragged_shape": ragged_shape,
-            "ragged_max_abs_err": ragged_err,
-        }
-        if plain_reps != sizes.reps:
-            row["plain_runs"] = plain_reps
+        row = {"name": name, "route": "cuda", "source": case["source"],
+               "replaces": case["replaces"], "launches": None,
+               **measure(case, case["main"](), sizes, device),
+               "ragged_shape": ragged_shape,
+               "ragged_max_abs_err": ragged_err}
+        for label, make in case.get("also", {}).items():
+            row[label] = measure(case, make(), sizes, device)
+        if case.get("plain_reps", sizes.reps) != sizes.reps:
+            row["plain_runs"] = case["plain_reps"]
+        if case.get("queued"):
+            row["timing"] = (f"mean of {sizes.reps} back-to-back calls "
+                             "queued behind a device sleep: device time")
         rows.append(row)
-        del inputs
         if device.type == "cuda":
             torch.cuda.empty_cache()
     emit({"phase": "kernels", "tf32": False, "rows": rows,
@@ -1215,6 +1631,365 @@ def phase_stream(sizes: Sizes, device: torch.device, seed: int) -> dict:
     return out
 
 
+#: Tolerance of the serving path's bf16 logits, kernels against plain
+#: versions, as a share of the largest logit: bf16 keeps 8 bits, each of
+#: the 32 layers rounds its attention output (and the plain path also its
+#: logits and probabilities) at other places than the kernels do, and these
+#: differences of ~2^-8 of a layer's output add up through the residual
+#: stream; 5e-2 of the largest logit is some ten times that estimate.  It
+#: checks the path as a whole, not the kernels: those are held, layer by
+#: layer, to the bf16 limit of the kernels phase (``layer_gaps``).
+BF16_LOGIT_TOL = 5e-2
+#: f32 at full width: the reference's test_prefill_decode_matches_full_forward.
+F32_LOGIT_TOL = 2e-3
+
+
+def serve_traffic(sizes: Sizes, vocab: int, seed: int) -> list[Request]:
+    """Requests from ``seed``: prompt lengths heavy-tailed over
+    ``serve_prompt`` (the shortest times 1 + Lomax(1.5): median about 1.6x
+    the shortest, some at the longest), the first request at the longest;
+    ``max_new_tokens`` uniform over ``serve_new``; greedy, except every
+    fourth request at temperature 0.8."""
+    rng = np.random.default_rng(seed)
+    lo, hi = sizes.serve_prompt
+    reqs = []
+    for rid in range(sizes.serve_requests):
+        plen = hi if rid == 0 else int(min(hi, lo * (1.0 + rng.pareto(1.5))))
+        reqs.append(Request(
+            rid=rid, prompt=rng.integers(0, vocab, plen).astype(np.int32),
+            max_new_tokens=int(rng.integers(sizes.serve_new[0],
+                                            sizes.serve_new[1] + 1)),
+            temperature=0.8 if rid % 4 == 3 else 0.0))
+    return reqs
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Every call of ``module.name`` inside the block, as (arguments,
+    keyword arguments, result), in the list it yields."""
+    fn, calls = getattr(module, name), []
+
+    def spy(*args, **kw):
+        result = fn(*args, **kw)
+        calls.append((args, kw, result))
+        return result
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def layer_gaps(what: str, calls, n_layers: int) -> dict:
+    """Each attention-kernel call of a model pass (one a layer) held
+    against the plain version on f32 copies of its own inputs: bf16 within
+    the bf16 limit of the kernels phase, f32 within the reference sweep's
+    2e-4 (lse 1e-4).  Returns the worst over the layers."""
+    require(len(calls) == n_layers, what, len(calls), "attention calls for",
+            n_layers, "layers")
+    plain = attention_ref if what == "prefill" else decode_attention_ref
+    worst = {"calls": len(calls), "max_abs_err": 0.0}
+    for i, (args, kw, got) in enumerate(calls):
+        want = plain(*as_f32(args), **kw)
+        out, lse = got if isinstance(got, tuple) else (got, None)
+        want_out, want_lse = want if isinstance(want, tuple) else (want, None)
+        name = f"serve/{what} layer {i}"
+        if out.dtype == torch.bfloat16:
+            gap = bf16_check(name, out, want_out, lse, want_lse)
+            err = gap["max_abs_err"]
+            worst["limit_share"] = max(worst.get("limit_share", 0.0),
+                                       gap["limit_share"],
+                                       gap.get("lse_limit_share", 0.0))
+        else:
+            tol, lse_tol = ATTN_TOL[out.dtype]
+            err = check_close(name, out, want_out, rtol=tol, atol=tol)[0]
+            if lse is not None:
+                check_close(f"{name}/lse", lse, want_lse, rtol=lse_tol,
+                            atol=lse_tol)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+    return worst
+
+
+def logits_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Largest difference over the largest logit, in float64, and the share
+    of positions whose top token agrees."""
+    g, w = got.double(), want.double()
+    require(torch.isfinite(g).all(), "logits have non-finite values")
+    return {"max_abs_diff": float((g - w).abs().max()),
+            "max_abs_logit": float(w.abs().max()),
+            "rel_to_max": float((g - w).abs().max() / w.abs().max()),
+            "argmax_agree": float((g.argmax(-1) == w.argmax(-1))
+                                  .double().mean())}
+
+
+@torch.no_grad()
+def serve_check(params, cfg, sizes: Sizes, device, gen, max_len) -> dict:
+    """One prefill of ``serve_check_len`` tokens and one decode step of all
+    slots (their prompts spread over [1, serve_check_len]) with the kernels
+    (attention_impl "cuda"): every layer's kernel call against the plain
+    version on f32 copies of its own inputs (``layer_gaps``), and the logits
+    against the plain path ("naive": the materialized prefill and
+    ``decode_attention_ref``) on the same weights and the same cache, within
+    ``BF16_LOGIT_TOL`` of the largest logit in bf16 and ``F32_LOGIT_TOL``
+    element-wise in f32."""
+    plain = cfg.scaled(attention_impl="naive")
+    n, slots = sizes.serve_check_len, sizes.serve_slots
+    toks = torch.randint(0, cfg.vocab, (1, n), generator=gen, device=device,
+                         dtype=torch.int32)
+    out = {"prefill_tokens": n}
+    logits = []
+    for c in (cfg, plain):
+        cache = model_api.init_decode_state(c, 1, max_len, device)
+        with recorded(model_attention, "flash_attention") as calls:
+            logits.append(transformer.forward(params, toks, c, mode="prefill",
+                                              cache=cache)[0])
+        if c is cfg:
+            out["prefill_layers"] = layer_gaps("prefill", calls, cfg.n_layers)
+        del calls
+    out["prefill"] = logits_gap(*logits)
+    lengths = np.linspace(1, n, slots).astype(int)
+    prompts = [torch.randint(0, cfg.vocab, (int(m),), generator=gen,
+                             device=device, dtype=torch.int32)
+               for m in lengths]
+    # A cache of one slot a prompt, each filled by its own prefill and
+    # spliced in as the engine does.
+    state = model_api.init_decode_state(cfg, slots, max_len, device)
+    for i, p in enumerate(prompts):
+        one = model_api.init_decode_state(cfg, 1, max_len, device)
+        state = _splice_state(
+            state, model_api.prefill(params, {"tokens": p[None]}, cfg, one)[1],
+            i)
+    step = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    # Each call writes its own k/v at ``pos`` before reading the cache, so
+    # both read the same prefix.
+    with recorded(model_attention, "cuda_decode") as calls:
+        dec = [model_api.decode_step(params, step, cfg, state)[0]]
+    out["decode_layers"] = layer_gaps("decode", calls, cfg.n_layers)
+    del calls
+    dec.append(model_api.decode_step(params, step, plain, state)[0])
+    out["decode"] = dict(logits_gap(*dec), kv_len=(lengths + 1).tolist())
+    if cfg.torch_dtype == torch.float32:
+        check_close("serve/f32 prefill", logits[0], logits[1],
+                    rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL)
+        check_close("serve/f32 decode", dec[0], dec[1], rtol=F32_LOGIT_TOL,
+                    atol=F32_LOGIT_TOL)
+    else:
+        for what in ("prefill", "decode"):
+            require(out[what]["rel_to_max"] <= BF16_LOGIT_TOL, "serve/bf16",
+                    what, out[what])
+    out["state"] = state  # for the profile, dropped before printing
+    out["step"] = step
+    return out
+
+
+def device_us(evt) -> float:
+    t = getattr(evt, "device_time_total", None)
+    return t if t is not None else getattr(evt, "cuda_time_total", 0.0)
+
+
+def kernel_device_ms(prof, *names) -> float | None:
+    """Device ms of the kernels whose names hold one of ``names``, from
+    ``torch.profiler``; None where the profiler saw none."""
+    total = sum(device_us(evt) for evt in prof.key_averages()
+                if any(n in evt.key for n in names))
+    return total / 1e3 if total > 0 else None
+
+
+def device_breakdown(prof, calls: int, top: int = 8) -> dict:
+    """All device time the profiler saw, per call, and its ``top`` largest
+    kernels by name: where a step's device time goes."""
+    rows = sorted(((device_us(e), e.count, e.key)
+                   for e in prof.key_averages() if device_us(e) > 0),
+                  reverse=True)
+    return {"device_ms": sum(r[0] for r in rows) / 1e3 / calls,
+            "top": [{"kernel": key[:100], "ms": us / 1e3 / calls,
+                     "launches": n / calls} for us, n, key in rows[:top]]}
+
+
+@torch.no_grad()
+def serve_profile(params, cfg, sizes: Sizes, device, state, step,
+                  toks) -> dict:
+    """The attention kernels' share of a decode step of all slots and of a
+    prefill: CUDA-event times of the step (the host's issue time
+    included), the device time of all kernels and of the attention kernels
+    from ``torch.profiler`` over the same calls, the largest kernels, and
+    where a call waits for the device."""
+    n = sizes.profile_steps
+    decode = lambda: model_api.decode_step(params, step, cfg, state)  # noqa
+    prefill = lambda: model_api.prefill(  # noqa: E731
+        params, {"tokens": toks}, cfg,
+        model_api.init_decode_state(cfg, 1, toks.shape[1], device))
+    out = {}
+    for what, fn, kernels in (
+            ("decode_step", decode, ("decode_attention_kernel",
+                                     "decode_combine_kernel")),
+            ("prefill", prefill, ("flash_attention_kernel",))):
+        out[f"{what}_ms"] = time_ms(fn, device, n)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync(device)
+        out[f"{what}_kernels"] = device_breakdown(prof, n)
+        attn_ms = kernel_device_ms(prof, *kernels)
+        if attn_ms is not None:
+            attn_ms /= n
+            out[f"{what}_attention_ms"] = attn_ms
+            out[f"{what}_attention_share"] = attn_ms / out[f"{what}_ms"]
+            out[f"{what}_attention_device_share"] = \
+                attn_ms / out[f"{what}_kernels"]["device_ms"]
+        out[f"{what}_syncs"] = sync_points(fn)
+    return out
+
+
+def sync_points(fn) -> dict:
+    """Where one call waits for the device, by PyTorch's sync debug mode:
+    the number of synchronizing operations (it warns at each), and the
+    innermost Python frames of the first (it raises there)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    count = sum("synchroniz" in str(w.message) for w in caught)
+    first = None
+    if count:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            first = [f"{os.path.relpath(f.filename)}:{f.lineno} {f.name}"
+                     for f in traceback.extract_tb(e.__traceback__)][-8:]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return {"count": count, "first": first}
+
+
+def pct(values, q) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def phase_serve(sizes: Sizes, device: torch.device, seed: int) -> dict:
+    """LM serving at phi3-mini-3.8b's full width in bf16: the bf16 check at
+    full depth and the f32 check at two layers, the attention kernels'
+    share of a step, then ``ServeEngine`` over the seeded traffic with
+    every launch counter set to 0 just before and read just after."""
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    cfg = get_smoke_config(SERVE_ARCH) if sizes.serve_smoke \
+        else get_config(SERVE_ARCH)
+    require(cfg.attention_impl == "cuda", cfg.attention_impl)
+    max_len = sizes.serve_prompt[1] + sizes.serve_new[1] + 8
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t1 = time.perf_counter()
+    params = model_api.init_params(gen, cfg, device)
+    sync(device)
+    out = {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "params": model_api.param_count(params),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "init_seconds": time.perf_counter() - t1}
+
+    t1 = time.perf_counter()
+    check = serve_check(params, cfg, sizes, device, gen, max_len)
+    state, step = check.pop("state"), check.pop("step")
+    out["check"] = dict(check, seconds=time.perf_counter() - t1)
+    if on_card:
+        toks = torch.randint(0, cfg.vocab, (1, sizes.serve_check_len),
+                             generator=gen, device=device, dtype=torch.int32)
+        t1 = time.perf_counter()
+        out["profile"] = serve_profile(params, cfg, sizes, device, state,
+                                       step, toks)
+        out["profile"]["seconds"] = time.perf_counter() - t1
+    del state, step
+
+    t1 = time.perf_counter()
+    cfg32 = cfg.scaled(n_layers=sizes.serve_f32_layers, dtype="float32")
+    params32 = model_api.init_params(gen, cfg32, device)
+    check32 = serve_check(params32, cfg32, sizes, device, gen, max_len)
+    for key in ("state", "step"):
+        check32.pop(key)
+    out["check_f32"] = dict(check32, n_layers=cfg32.n_layers,
+                            seconds=time.perf_counter() - t1)
+    del params32
+    if on_card:
+        torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    reqs = serve_traffic(sizes, cfg.vocab, seed)
+    tracer = Tracer(clock=time.perf_counter)
+    engine = ServeEngine(params, cfg, slots=sizes.serve_slots,
+                         max_len=max_len, seed=seed, tracer=tracer,
+                         device=device)
+    out["engine_setup_seconds"] = time.perf_counter() - t1
+    # The serving path: every count set to 0 just before, read just after.
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    submitted = {}
+    t1 = time.perf_counter()
+    for r in reqs:
+        submitted[r.rid] = time.perf_counter()
+        engine.submit(r)
+    done = engine.run(max_steps=100_000)
+    sync(device)
+    wall = time.perf_counter() - t1
+    counts = {name: w.launches for name, w in WRAPPERS.items()}
+
+    require(len(done) == len(reqs), "completed", len(done), "of", len(reqs))
+    bad = [(r.rid, r.status, len(r.output), r.max_new_tokens) for r in done
+           if r.status != "ok" or len(r.output) != r.max_new_tokens]
+    require(not bad, "requests not ok:", bad)
+    prefills = [e for e in tracer.events if e["name"].startswith("prefill:")]
+    steps = [e["dur"] * 1e3 for e in tracer.events
+             if e["name"] == "decode_step"]
+    ttft = [(e["ts"] + e["dur"] - submitted[e["args"]["rid"]]) * 1e3
+            for e in prefills]
+    n_steps = engine.stats["steps"]
+    require(len(prefills) == len(reqs) and len(steps) == n_steps)
+    expect = {"flash_attention": cfg.n_layers * len(prefills),
+              "decode_attention": cfg.n_layers * n_steps}
+    if on_card:
+        for name, n in counts.items():
+            require(n == expect.get(name, 0), name, "launched", n,
+                    "times in the engine run, expected", expect.get(name, 0))
+    tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
+    out.update({
+        "slots": sizes.serve_slots, "max_len": max_len,
+        "requests": len(reqs), "completed_ok": len(done),
+        "prompt_lengths": sorted(len(r.prompt) for r in reqs),
+        "prefill_tokens": engine.stats["prefill_tokens"],
+        "decode_tokens": engine.stats["decode_tokens"],
+        "decode_steps": n_steps, "retries": engine.stats["retries"],
+        "ttft_ms": {"p50": pct(ttft, 50), "p90": pct(ttft, 90),
+                    "max": max(ttft)},
+        "decode_step_ms": {"p50": pct(steps, 50), "p90": pct(steps, 90)},
+        "prefill_ms_by_len": sorted(
+            (e["args"]["prompt_len"], e["dur"] * 1e3) for e in prefills),
+        "engine_seconds": wall,
+        "tokens_per_s": tokens / wall,
+        "decode_tokens_per_s": engine.stats["decode_tokens"] / wall,
+        "kernel_launches": counts, "expected_launches": expect,
+    })
+    if on_card:
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["prefill_ms_by_len"] = [[n, ms] for n, ms in out["prefill_ms_by_len"]]
+    del engine, params
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1238,12 +2013,16 @@ def main(argv=None) -> int:
     phase_build(device)
     rows = phase_kernels(sizes, device, gen)
 
-    # The main path: every count set to 0 just before, read just after.
+    # The launch and streaming path: every count set to 0 just before, read
+    # just after.
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
     launch = phase_launch(sizes, device, gen)
     stream = phase_stream(sizes, device, args.seed)
     counts = {name: w.launches for name, w in WRAPPERS.items()}
+    # The serving path zeroes and reads the counts around its engine run.
+    serve = phase_serve(sizes, device, args.seed)
+    served = serve["kernel_launches"]
 
     per_row = {
         "kmeans": counts["kmeans"], "hotspot": counts["hotspot"],
@@ -1253,6 +2032,8 @@ def main(argv=None) -> int:
         "black_scholes": counts["black_scholes"],
         "spmv_ell": counts["spmv_ell"], "md5": counts["md5"],
         "nbody": counts["nbody"],
+        "flash_attention": served["flash_attention"],
+        "decode_attention": served["decode_attention"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
     for row in rows:
@@ -1262,7 +2043,8 @@ def main(argv=None) -> int:
                 f"{row['name']}: the main path never launched this kernel")
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "main_path_launches": counts,
-          "stream_launches": stream.get("kernel_launches")})
+          "stream_launches": stream.get("kernel_launches"),
+          "serve_launches": served})
 
     if args.rehearse:
         emit({"kernels": rows})

@@ -1,11 +1,13 @@
 """State carried across from the reference package.
 
-This system has no weights; its state is arrays with distributions, and
-launch descriptions.  This module turns the reference package's objects,
-handed over as numpy arrays and plain Python values, into this package's,
-without importing the reference: a ``Distribution`` or ``WorkDistribution``
+The launch path's state is arrays with distributions, and launch
+descriptions; the serving path's is a model config and its parameters.
+This module turns the reference package's objects, handed over as numpy
+arrays and plain Python values, into this package's, without importing the
+reference: a ``Distribution``, ``WorkDistribution`` or ``ModelConfig``
 instance is mapped to the class of the same name here by
-``type(obj).__name__`` and its dataclass fields.  The parity tests build
+``type(obj).__name__`` and its dataclass fields, and a parameter tree of
+float32 numpy arrays becomes the port's module.  The parity tests build
 every input with numpy from a seed and hand it to both sides through this
 one door.
 """
@@ -16,12 +18,16 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
 from .core import distributions as _dists
 from .core import superblock as _work
 from .core.dist_array import DistributedArray
 from .core.distributions import Distribution
 from .core.superblock import WorkDistribution
+from .device import resolve_device
+from .models.config import ModelConfig
+from .models.transformer import Transformer
 
 
 def _same_named(obj: Any, module, base: type) -> Any:
@@ -60,3 +66,53 @@ def array_from_reference(ctx, name: str, np_value: np.ndarray,
     value = np.ascontiguousarray(np_value)
     return ctx.array(value, dist=None if dist is None
                      else dist_from_reference(dist), name=name)
+
+
+#: the reference's ``attention_impl`` values, as this package names them
+_ATTENTION_IMPL = {"pallas": "cuda", "xla": "xla", "naive": "naive"}
+
+
+def config_from_reference(ref_cfg: Any) -> ModelConfig:
+    """A reference ``ModelConfig`` as this package's: every field kept,
+    ``attention_impl="pallas"`` (the TPU kernels) becomes ``"cuda"``."""
+    if type(ref_cfg).__name__ != "ModelConfig" or not \
+            dataclasses.is_dataclass(ref_cfg):
+        raise TypeError(f"not a ModelConfig: {type(ref_cfg).__name__}")
+    fields = {f.name: getattr(ref_cfg, f.name)
+              for f in dataclasses.fields(ref_cfg)}
+    fields["attention_impl"] = _ATTENTION_IMPL[fields["attention_impl"]]
+    return ModelConfig(**fields)
+
+
+def params_from_reference(np_tree: dict, cfg: ModelConfig,
+                          device: torch.device | str | None = None
+                          ) -> Transformer:
+    """The reference's dense/VLM parameter tree, handed over as float32
+    numpy arrays with the layers stacked on axis 0
+    (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``), as
+    this package's module holding the same numbers in ``cfg``'s dtype on
+    ``device`` (None: the GPU)."""
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"parameters of the {cfg.family} family are not ported yet "
+            "(ROADMAP Queue A item 11)")
+    device = resolve_device(device)
+    dtype = cfg.torch_dtype
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=device, dtype=dtype)
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict) else tensor(v[i])
+                for k, v in tree.items()}
+
+    stacked = np_tree["layers"]
+    n = len(stacked["wq"])
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} layers in the tree, {cfg.n_layers} in cfg")
+    final = {k: tensor(v) for k, v in np_tree["final_norm"].items()}
+    head = np_tree.get("lm_head")
+    return Transformer(tensor(np_tree["embed"]),
+                       [layer(stacked, i) for i in range(n)], final,
+                       None if head is None else tensor(head))

@@ -17,6 +17,7 @@ from .dist_array import DistributedArray, make_array
 from .faults import (
     FaultInjector,
     FaultSpec,
+    InjectedError,
     InjectedFault,
     RecoveryPolicy,
     corrupt_transfer,
@@ -50,7 +51,8 @@ __all__ = [
     "Affine", "Annotation", "AnnotationError", "ArgPlan", "ArrayMeta",
     "BlockDist", "BlockWork", "Chunk", "ColDist", "CommPattern", "Context",
     "CustomDist", "DistributedArray", "Distribution", "EvenWork",
-    "ExecutionPlan", "FaultInjector", "FaultSpec", "InjectedFault",
+    "ExecutionPlan", "FaultInjector", "FaultSpec", "InjectedError",
+    "InjectedFault",
     "KernelDef", "LaunchPlan", "make_array", "MeshWork", "parse", "Planner",
     "RecoveryPolicy", "Region", "ReplicatedDist", "RowDist", "StencilDist",
     "Superblock", "SuperblockInfo", "TaskKind", "TileDist", "TileWork",

@@ -87,6 +87,12 @@ class InjectedFault:
     site: str = ""
 
 
+class InjectedError(RuntimeError):
+    """What a call site raises when its probe fires.  Recovery code that
+    absorbs failures (the serve engine) retries and absorbs this type only,
+    so that a real failure, such as a kernel's CUDA error, propagates."""
+
+
 class FaultInjector:
     """Seeded, deterministic fault source threaded through the runtime.
 
@@ -228,7 +234,8 @@ def decorrelated_jitter(prev: float, base: float, cap: float,
 
 
 __all__ = [
-    "FaultSpec", "FaultInjector", "InjectedFault", "RecoveryPolicy",
+    "FaultSpec", "FaultInjector", "InjectedError", "InjectedFault",
+    "RecoveryPolicy",
     "decorrelated_jitter", "fail_task", "timeout_transfer",
     "corrupt_transfer", "spurious_oom", "kill_worker", "fail_launch",
     "fail_step", "fail_request",

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the paper's benchmarks.
+"""Hand-written Hopper kernels for the paper's benchmarks and the LM path.
 
 Each subpackage follows the kernel/ops/ref triple:
 
@@ -9,12 +9,15 @@ Each subpackage follows the kernel/ops/ref triple:
   plain version for a CPU tensor or on ``use_ref=True``,
 * ``ref.py``    — the plain PyTorch version of the same function.
 
-Ported so far (eight kernels): kmeans, stencil2d (HotSpot), coclustering,
-gemm, black_scholes, spmv_ell, md5, nbody.
+Ported so far (ten kernels): kmeans, stencil2d (HotSpot), coclustering,
+gemm, black_scholes, spmv_ell, md5, nbody, and the serving path's
+flash_attention (prefill) and decode_attention (decode).
 """
 
 from .black_scholes import black_scholes, black_scholes_ref
 from .coclustering import cluster_sums, cluster_sums_ref
+from .decode_attention import decode_attention, decode_attention_ref
+from .flash_attention import attention_ref, flash_attention
 from .gemm import gemm, gemm_ref
 from .kmeans import (
     kmeans_assign_reduce,
@@ -28,8 +31,9 @@ from .spmv_ell import spmv_ell, spmv_ell_ref
 from .stencil2d import hotspot_step, hotspot_step_ref
 
 __all__ = [
-    "black_scholes", "black_scholes_ref", "cluster_sums", "cluster_sums_ref",
-    "gemm", "gemm_ref", "hotspot_step", "hotspot_step_ref",
+    "attention_ref", "black_scholes", "black_scholes_ref", "cluster_sums",
+    "cluster_sums_ref", "decode_attention", "decode_attention_ref",
+    "flash_attention", "gemm", "gemm_ref", "hotspot_step", "hotspot_step_ref",
     "kmeans_assign_reduce", "kmeans_assign_reduce_ref", "kmeans_iteration",
     "kmeans_iteration_ref", "md5_search", "md5_search_ref", "md5_u32x2",
     "nbody_forces", "nbody_forces_ref", "nbody_step", "nbody_step_ref",

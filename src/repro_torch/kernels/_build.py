@@ -131,13 +131,20 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+_bound: dict[str, "ctypes._CFuncPtr"] = {}
+
+
 def bind(name: str, argtypes: list) -> "ctypes._CFuncPtr":
     """One C launcher with its argument types set (pointers and the stream
-    as ``c_void_p``, or ctypes would cut them to 32 bits).  Every launcher
-    returns ``cudaGetLastError()`` as an int."""
-    fn = getattr(load(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    as ``c_void_p``, or ctypes would cut them to 32 bits), bound once per
+    process: a decode step calls each launcher once a layer.  Every
+    launcher returns ``cudaGetLastError()`` as an int."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
     return fn
 
 

@@ -1,0 +1,39 @@
+"""Plain PyTorch version of single-token decode attention against a KV
+cache, the oracle the kernel is held against."""
+
+from __future__ import annotations
+
+import torch
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # (B, HQ, D) one new token per sequence
+    k: torch.Tensor,  # (B, HKV, T, D)
+    v: torch.Tensor,  # (B, HKV, T, D)
+    *,
+    kv_len: torch.Tensor | int | None = None,  # valid cache length per row
+    scale: float | None = None,
+    with_lse: bool = False,
+):
+    b, hq, d = q.shape
+    _, hkv, t, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    kk = torch.repeat_interleave(k, group, dim=1)
+    vv = torch.repeat_interleave(v, group, dim=1)
+    logits = torch.einsum("bhd,bhtd->bht", q, kk).float() * scale
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=q.device)
+        if kv_len.ndim == 0:
+            kv_len = kv_len.expand(b)
+        mask = (torch.arange(t, device=q.device)[None, None, :]
+                < kv_len[:, None, None])
+        logits = logits.masked_fill(~mask, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bht,bhtd->bhd", (p / l).to(q.dtype), vv)
+    if with_lse:
+        lse = (m + torch.log(l)).squeeze(-1)  # (B, HQ)
+        return out, lse
+    return out

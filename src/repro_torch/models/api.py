@@ -1,0 +1,170 @@
+"""Family-dispatched model API used by the serving driver.
+
+Every family implements ``init_params``, ``train_loss``, ``prefill`` and
+``decode_step`` and exposes logical-axis trees for params and decode state.
+Ported so far: the dense and VLM families (``transformer``).  The MoE,
+RWKV, hybrid and encoder-decoder families raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kvcache, transformer
+from .config import ModelConfig
+
+_TRANSFORMER_FAMILIES = ("dense", "vlm")
+
+#: where each family that is not ported yet stands in ROADMAP.md
+_PENDING = {
+    "moe": "ROADMAP Queue A item 11 (models/moe.py, with its two "
+           "custom_vjp pairs as autograd Functions)",
+    "rwkv": "ROADMAP Queue A item 11 with Queue B item 12 (models/rwkv.py "
+            "and the wkv6 kernel)",
+    "hybrid": "ROADMAP Queue A item 11 with Queue B item 13 "
+              "(models/rglru.py and the rg_lru kernel)",
+    "encdec": "ROADMAP Queue A item 11 (models/encdec.py)",
+}
+
+
+def _family(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not have yet."""
+    if cfg.family in _TRANSFORMER_FAMILIES:
+        return
+    if cfg.family in _PENDING:
+        raise NotImplementedError(
+            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
+            + _PENDING[cfg.family])
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device: torch.device | str | None = None):
+    """Random parameters on ``device`` (None: the GPU)."""
+    _family(cfg)
+    return transformer.init_params(generator, cfg, device)
+
+
+def params_logical_axes(cfg: ModelConfig) -> dict:
+    _family(cfg)
+    return transformer.params_logical_axes(cfg)
+
+
+def param_count(params: torch.nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def train_loss(params, batch: dict, cfg: ModelConfig,
+               rules=None) -> torch.Tensor:
+    _family(cfg)
+    return transformer.train_loss(params, batch, cfg, rules)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device: torch.device | str | None = None) -> dict:
+    """An empty KV cache on ``device`` (None: the GPU)."""
+    _family(cfg)
+    return kvcache.init_cache(cfg, batch, max_len, device=device)
+
+
+def state_logical_axes(cfg: ModelConfig) -> dict:
+    _family(cfg)
+    return kvcache.cache_logical_axes(cfg)
+
+
+@torch.no_grad()
+def prefill(params, batch: dict, cfg: ModelConfig, state: dict, rules=None):
+    """Process the prompt; returns (last-token logits, updated state)."""
+    _family(cfg)
+    logits, cache = transformer.forward(
+        params, batch["tokens"], cfg, rules, mode="prefill", cache=state,
+        extra_embeds=batch.get("patch_embeds"),
+    )
+    return logits[:, -1:, :], cache
+
+
+@torch.no_grad()
+def decode_step(params, token: torch.Tensor, cfg: ModelConfig, state: dict,
+                rules=None):
+    """One new token (B, 1) against the cache; returns (logits (B, 1, V),
+    state)."""
+    _family(cfg)
+    return transformer.forward(params, token, cfg, rules, mode="decode",
+                               cache=state)
+
+
+# ---------------------------------------------------------------------------
+# Model FLOPs (for roofline: 6·N·D dense / 6·N_active·D MoE)
+# ---------------------------------------------------------------------------
+
+
+def model_flops_for(cfg: ModelConfig, kind: str, batch: int,
+                    seq: int) -> float:
+    """MODEL_FLOPS for one step of a (kind x shape) cell.  Enc-dec charges
+    the encoder per frame and the decoder per token."""
+    mult = {"train": 6.0, "prefill": 2.0, "decode": 2.0}[kind]
+    if cfg.family == "encdec":
+        d = cfg.d_model
+        gates = 3 if cfg.activation in ("swiglu", "geglu") else 2
+        enc_p = cfg.n_enc_layers * (4 * d * d + gates * d * cfg.d_ff)
+        dec_p = cfg.n_layers * (8 * d * d + gates * d * cfg.d_ff) \
+            + cfg.vocab * d
+        if kind == "train" or kind == "prefill":
+            enc_tokens = batch * cfg.enc_frames
+            dec_tokens = batch * seq
+        else:  # decode: one token, cross-attn reads cached enc KV
+            enc_tokens = 0
+            dec_tokens = batch
+        return mult * (enc_p * enc_tokens + dec_p * dec_tokens)
+    tokens = batch * seq if kind != "decode" else batch
+    return mult * active_param_estimate(cfg) * tokens
+
+
+def _rglru_n_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(attention groups, trailing recurrent blocks) of the hybrid pattern
+    (rec, rec, attn): the reference's ``rglru.n_groups``."""
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.n_layers - g * cfg.attn_every
+
+
+def active_param_estimate(cfg: ModelConfig) -> float:
+    """Parameter count from config (active params for MoE)."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    embed = V * d * (1 if cfg.tie_embeddings else 2)
+    attn = L * (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d)
+    gates = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    if cfg.family == "moe":
+        mlp = L * (cfg.top_k * gates * d * cfg.d_ff + d * cfg.n_experts)
+    elif cfg.family == "rwkv":
+        attn = L * (6 * d * d)  # r,k,v,g,o + lora
+        mlp = L * (2 * d * cfg.d_ff + d * d)
+    elif cfg.family == "hybrid":
+        g, tail = _rglru_n_groups(cfg)
+        rec = (2 * g + tail) * (2 * d * d + 2 * d * d + d * d)
+        att = g * (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d)
+        return embed + rec + att + L * gates * d * cfg.d_ff
+    else:
+        mlp = L * gates * d * cfg.d_ff
+    total = embed + attn + mlp
+    if cfg.family == "encdec":
+        total += cfg.n_enc_layers * (
+            4 * d * d + (3 if cfg.activation != "gelu" else 2) * d * cfg.d_ff
+        )
+        total += L * 4 * d * d  # cross-attention
+    return total

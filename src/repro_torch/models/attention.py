@@ -1,0 +1,168 @@
+"""Attention implementations for the model zoo.
+
+Three interchangeable implementations selected by ``cfg.attention_impl``:
+
+* ``cuda``  — the hand-written flash-attention kernel
+  (:mod:`repro_torch.kernels.flash_attention`), the production hot path;
+  on a CPU tensor its wrapper takes the plain version;
+* ``xla``   — the reference's scan-over-kv-blocks online-softmax
+  recurrence, as a Python loop of eager PyTorch (the name is the
+  reference's);
+* ``naive`` — materialized-logits oracle.
+
+Decode-side attention (one token against the cache) has the ``cuda`` kernel
+and the plain path, both able to emit the log-sum-exp for combining
+sequence-split partials.  Combining partials across ranks
+(``combine_decode_partials``) needs collectives and waits for ROADMAP
+Queue A item 10.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import decode_attention as cuda_decode
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+NEG_INF = -1e30
+
+
+def xla_flash_attention(
+    q: torch.Tensor,  # (B, HQ, S, D)
+    k: torch.Tensor,  # (B, HKV, T, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Online-softmax attention over kv blocks of ``block_k`` (the
+    reference's ``lax.scan`` body, run as a loop)."""
+    b, hq, s, d = q.shape
+    _, hkv, t, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    block_k = min(block_k, t)
+    if t % block_k:
+        pad = block_k - t % block_k
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        t = t + pad
+    nblk = t // block_k
+
+    qf = q.float() * scale
+    q_pos = q_offset + torch.arange(s, device=q.device)
+    m = torch.full((b, hq, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, s, d), dtype=torch.float32, device=q.device)
+    for ki in range(nblk):
+        sl = slice(ki * block_k, (ki + 1) * block_k)
+        k_rep = torch.repeat_interleave(k[:, :, sl], group, dim=1).float()
+        v_rep = torch.repeat_interleave(v[:, :, sl], group, dim=1).float()
+        s_ij = torch.einsum("bhsd,bhtd->bhst", qf, k_rep)
+        k_pos = ki * block_k + torch.arange(block_k, device=q.device)
+        mask = torch.ones((s, block_k), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s_ij = torch.where(mask[None, None], s_ij,
+                           torch.tensor(NEG_INF, device=q.device))
+        m_cur = torch.maximum(m, s_ij.amax(dim=-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s_ij - m_cur[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhst,bhtd->bhsd", p,
+                                                    v_rep)
+        m = m_cur
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def multihead_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    impl: str = "cuda",
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    if impl == "cuda":
+        return flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            q_offset=q_offset,
+        )
+    if impl == "xla":
+        return xla_flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            q_offset=q_offset,
+        )
+    return attention_ref(
+        q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset
+    )
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, HQ, D)
+    k_cache: torch.Tensor,  # (B, HKV, T, D)
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,  # (B,) valid lengths
+    *,
+    impl: str = "cuda",
+    scale: float | None = None,
+    with_lse: bool = False,
+) -> Any:
+    if impl == "cuda":
+        return cuda_decode(
+            q, k_cache, v_cache, kv_len=kv_len, scale=scale, with_lse=with_lse
+        )
+    return decode_attention_ref(
+        q, k_cache, v_cache, kv_len=kv_len, scale=scale, with_lse=with_lse
+    )
+
+
+def decode_attention_quant(
+    q: torch.Tensor,  # (B, HQ, D)
+    k_q: torch.Tensor,  # (B, HKV, T, D) int8
+    k_s: torch.Tensor,  # (B, HKV, T) f32 per-token scales
+    v_q: torch.Tensor,  # (B, HKV, T, D) int8
+    v_s: torch.Tensor,  # (B, HKV, T) f32
+    kv_len: torch.Tensor,  # (B,)
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Decode attention directly on the int8 cache, eager.  Quantization is
+    per-token symmetric, so the scales factor out of both dots:
+
+        logits[t] = k_s[t] * (q . k_q[t])
+        out       = sum_t (p[t] * v_s[t]) * v_q[t]
+
+    Products of the int8 values (exact in the query's type) are summed in
+    float32, as the reference's ``preferred_element_type`` does.
+    """
+    b, hq, d = q.shape
+    _, hkv, t, _ = k_q.shape
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, group, d)
+
+    raw = torch.einsum("bkgd,bktd->bkgt", qg.float(),
+                       k_q.to(q.dtype).float())
+    logits = raw * k_s[:, :, None, :] * scale  # (B, KV, G, T)
+    mask = (torch.arange(t, device=q.device)[None, None, None, :]
+            < kv_len[:, None, None, None])
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    pv = (p * v_s[:, :, None, :]).to(q.dtype)  # fold value scales in
+    out = torch.einsum("bkgt,bktd->bkgd", pv.float(),
+                       v_q.to(q.dtype).float())
+    return out.reshape(b, hq, d).to(q.dtype)

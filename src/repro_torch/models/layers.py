@@ -1,0 +1,192 @@
+"""Shared layer primitives: norms, RoPE, MLP variants, losses, init.
+
+Weights keep the reference's layout: a projection is ``x @ W`` with ``W`` of
+shape (in, out).  Initialisers take a ``torch.Generator`` where the
+reference takes a JAX key, and make the numbers on the generator's device.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Mapping, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.dist.sharding import constrain
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def normal_init(generator: torch.Generator, shape: Sequence[int],
+                scale: float, dtype: torch.dtype,
+                device: torch.device | str | None = None) -> torch.Tensor:
+    """Standard normal in float32 times ``scale``, cast to ``dtype``."""
+    x = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                    device=device if device is not None else generator.device)
+    return x.mul_(scale).to(dtype)
+
+
+def fan_in_init(generator: torch.Generator, shape: Sequence[int],
+                dtype: torch.dtype,
+                device: torch.device | str | None = None) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return normal_init(generator, shape, 1.0 / math.sqrt(fan_in), dtype,
+                       device)
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in float32, cast back)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with a zero-initialised scale: multiplies by ``1 + scale``."""
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dtype)
+
+
+def apply_norm(x: torch.Tensor, params: Mapping[str, torch.Tensor],
+               kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"])
+    return layer_norm(x, params["scale"], params["bias"])
+
+
+def norm_init(d: int, kind: str, dtype: torch.dtype,
+              device: torch.device | str | None = None) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotates the two halves of the head dimension)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    return _rope_freqs(head_dim, float(theta), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """Made once per (head_dim, theta, device): a tensor made from a Python
+    number on the GPU is a blocking copy, which would stall every layer."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32),
+                            exponent)
+    return freqs.to(device)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                heads: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the rotation angles for ``positions`` (..., S), each
+    over the whole head dimension and float32: ``cos`` repeated over both
+    halves, ``sin`` negated on the first half, so that
+    ``x * cos + rotate_half(x) * sin`` is the reference's
+    ``[x1 cos - x2 sin, x2 cos + x1 sin]`` bit for bit.  With ``heads``
+    they broadcast over a head axis before the last.  A forward pass makes
+    them once for all its layers."""
+    freqs = rope_freqs(head_dim, theta, positions.device)  # (d/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, d/2)
+    if heads:
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
+
+
+def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of the head dimension by ``rope_tables``;
+    computed in float32 and cast back."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    return (xf * cos + torch.cat([x2, x1], dim=-1) * sin).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., S, D); positions: (..., S)."""
+    heads = x.ndim == positions.ndim + 2  # head axis present
+    return apply_rope_tables(x, *rope_tables(positions, x.shape[-1], theta,
+                                             heads))
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+             activation: str, dtype: torch.dtype,
+             device: torch.device | str | None = None) -> dict:
+    p = {
+        "w_up": fan_in_init(generator, (d_model, d_ff), dtype, device),
+        "w_down": fan_in_init(generator, (d_ff, d_model), dtype, device),
+    }
+    if activation in ("swiglu", "geglu"):
+        p["w_gate"] = fan_in_init(generator, (d_model, d_ff), dtype, device)
+    return p
+
+
+def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+              activation: str, rules=None) -> torch.Tensor:
+    up = x @ params["w_up"]
+    if activation == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * up
+    elif activation == "geglu":
+        h = F.gelu(x @ params["w_gate"], approximate="tanh") * up
+    else:  # gelu
+        h = F.gelu(up, approximate="tanh")
+    h = constrain(h, rules, ("batch", "seq", "d_ff"))
+    return h @ params["w_down"]
+
+
+def mlp_logical_axes(activation: str) -> dict:
+    p = {"w_up": ("d_model", "d_ff"), "w_down": ("d_ff", "d_model")}
+    if activation in ("swiglu", "geglu"):
+        p["w_gate"] = ("d_model", "d_ff")
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V), labels (...) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss.mean()
+
+
+def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token prediction: logits[:, :-1] predict tokens[:, 1:]."""
+    return softmax_xent(logits[:, :-1, :], tokens[:, 1:])

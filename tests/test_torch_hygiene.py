@@ -19,6 +19,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.black_scholes.kernel import black_scholes_cuda
 from repro_torch.kernels.coclustering.kernel import cluster_sums_cuda
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.gemm.kernel import gemm_cuda
 from repro_torch.kernels.kmeans.kernel import kmeans_cuda
 from repro_torch.kernels.md5.kernel import md5_search_cuda
@@ -33,7 +35,10 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.kernels", "repro_torch.kernels.md5", "repro_torch.obs",
            "repro_torch.convert",
            "repro_torch.core.streaming", "repro_torch.examples.quickstart",
-           "repro_torch.examples.streaming_kmeans", "chip_smoke"]
+           "repro_torch.examples.streaming_kmeans", "repro_torch.models",
+           "repro_torch.serve.engine", "repro_torch.launch.serve",
+           "repro_torch.configs", "repro_torch.examples.serve_lm",
+           "chip_smoke"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -57,7 +62,8 @@ def test_import_pulls_in_neither_jax_nor_reference(module):
 
 def _port_sources():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) \
-        + sorted(PORT.rglob("*.cuh")) + [ROOT / "chip_smoke.py"]
+        + sorted(PORT.rglob("*.cuh")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 30
     return files
 
@@ -104,7 +110,7 @@ def test_stride_grid_covers_the_items_up_to_eight_blocks_an_sm(monkeypatch):
 
 #: the ported kernels' subpackages
 PORTED = ("kmeans", "stencil2d", "coclustering", "gemm", "black_scholes",
-          "spmv_ell", "md5", "nbody")
+          "spmv_ell", "md5", "nbody", "flash_attention", "decode_attention")
 
 
 def test_kernels_call_no_library_in_place_of_a_kernel():
@@ -112,9 +118,11 @@ def test_kernels_call_no_library_in_place_of_a_kernel():
     would stand in for a hand-written kernel."""
     stand_ins = re.compile(
         r"torch\.matmul|\bindex_add_?\b|scatter_add|bincount|conv2d|"
-        r"torch\.compile|torch\.sparse|torch\.special|cublas|cudnn|@")
+        r"torch\.compile|torch\.sparse|torch\.special|cublas|cudnn|@|"
+        r"scaled_dot_product_attention")
     for bad in ("torch.sparse.mm(a, x)", "torch.sparse_csr_tensor(",
-                "torch.special.ndtr(d)"):
+                "torch.special.ndtr(d)",
+                "F.scaled_dot_product_attention(q, k, v)"):
         assert stand_ins.search(bad), bad
     for sub in PORTED:
         for name in ("kernel.py", "ops.py"):
@@ -128,6 +136,14 @@ def test_kernels_call_no_library_in_place_of_a_kernel():
         assert not re.search(r"cublas|cudnn|cutlass/gemm/device", code), cu.name
 
 
+def test_the_port_never_calls_the_library_attention():
+    """PyTorch's fused attention stands nowhere in the port (chip_smoke.py
+    may time it beside the kernels as a yardstick, and nothing else)."""
+    hits = [str(p.relative_to(ROOT)) for p in sorted(PORT.rglob("*.py"))
+            if "scaled_dot_product_attention" in p.read_text()]
+    assert hits == []
+
+
 @pytest.fixture
 def no_build(monkeypatch):
     """Any attempt to build, load or bind the CUDA library fails the test."""
@@ -137,7 +153,8 @@ def no_build(monkeypatch):
     for name in ("build", "load", "bind", "find_nvcc"):
         monkeypatch.setattr(_build, name, refuse)
     counters = (kmeans_cuda, hotspot_cuda, cluster_sums_cuda, gemm_cuda,
-                black_scholes_cuda, spmv_ell_cuda, md5_search_cuda, nbody_cuda)
+                black_scholes_cuda, spmv_ell_cuda, md5_search_cuda, nbody_cuda,
+                flash_attention_cuda, decode_attention_cuda)
     before = [w.launches for w in counters]
     yield
     assert [w.launches for w in counters] == before
@@ -162,11 +179,19 @@ def _inputs():
         "md5": (TK.md5_search, TK.md5_search_ref, (300, (1, 2, 3, 4)),
                 {"device": "cpu"}),
         "nbody": (TK.nbody_forces, TK.nbody_forces_ref, (f32(70, 4),), {}),
+        "flash_attention": (TK.flash_attention, TK.attention_ref,
+                            (f32(1, 4, 20, 16), f32(1, 2, 20, 16),
+                             f32(1, 2, 20, 16)), {}),
+        "decode_attention": (TK.decode_attention, TK.decode_attention_ref,
+                             (f32(2, 4, 16), f32(2, 2, 30, 16),
+                              f32(2, 2, 30, 16)),
+                             {"kv_len": torch.tensor([7, 30],
+                                                     dtype=torch.int32)}),
     }
 
 
 NAMES = ["kmeans", "hotspot", "cluster_sums", "gemm", "black_scholes",
-         "spmv_ell", "md5", "nbody"]
+         "spmv_ell", "md5", "nbody", "flash_attention", "decode_attention"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -187,11 +212,12 @@ def test_cpu_tensor_takes_plain_version_without_the_build(name, no_build):
     ("kmeans", kmeans_cuda), ("hotspot", hotspot_cuda),
     ("cluster_sums", cluster_sums_cuda), ("gemm", gemm_cuda),
     ("black_scholes", black_scholes_cuda), ("spmv_ell", spmv_ell_cuda),
-    ("nbody", nbody_cuda)])
+    ("nbody", nbody_cuda), ("flash_attention", flash_attention_cuda),
+    ("decode_attention", decode_attention_cuda)])
 def test_cuda_wrapper_refuses_a_cpu_tensor(name, wrapper, no_build):
-    _, _, args, _ = _inputs()[name]
+    _, _, args, kw = _inputs()[name]
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        wrapper(*args)
+        wrapper(*args, *kw.values())
 
 
 def test_md5_wrapper_refuses_the_cpu(no_build):
@@ -221,6 +247,41 @@ def test_context_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_serving_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, cfg, slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_serving("phi3-mini-3.8b", requests=1, max_new=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(torch.Generator().manual_seed(0), cfg)
+    assert ServeEngine(params, cfg, slots=1, max_len=8,
+                       device="cpu").device == torch.device("cpu")
+
+
+def test_cpu_serving_path_never_touches_the_build(no_build):
+    """The model's default attention_impl is "cuda": on CPU tensors every
+    layer's prefill and decode take the plain versions, without a build."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+
+    cfg = get_smoke_config("gemma-2b")
+    assert cfg.attention_impl == "cuda"
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    state = api.init_decode_state(cfg, 2, 16, "cpu")
+    toks = torch.zeros((2, 5), dtype=torch.int32)
+    logits, state = api.prefill(params, {"tokens": toks}, cfg, state)
+    logits, state = api.decode_step(params, toks[:, :1], cfg, state)
+    assert torch.isfinite(logits).all()
+
+
 def test_missing_compiler_raises_with_a_reason(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
@@ -232,8 +293,9 @@ def test_missing_compiler_raises_with_a_reason(monkeypatch, tmp_path):
 def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
     assert [p.name for p in srcs] == [
-        "black_scholes.cu", "cluster_sums.cu", "gemm.cu", "hotspot.cu",
-        "kmeans.cu", "md5.cu", "nbody.cu", "spmv_ell.cu"]
+        "black_scholes.cu", "cluster_sums.cu", "decode_attention.cu",
+        "flash_attention.cu", "gemm.cu", "hotspot.cu", "kmeans.cu", "md5.cu",
+        "nbody.cu", "spmv_ell.cu"]
     assert _build.build_dir() == ROOT / "build" / "repro_torch"
     d1 = _build._digest(srcs)
     assert d1 == _build._digest(srcs) and len(d1) == 64
