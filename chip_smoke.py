@@ -7,16 +7,19 @@ builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, and drives the port's paths —
 annotated-kernel launches through ``Context.launch`` (the 1-D stencil,
 HotSpot, K-Means, co-clustering sums, GEMM, and the paper's section 4.2
-benchmarks Black-Scholes, SpMV, MD5 and N-Body) and host-memory streaming
-through ``stream_kmeans``, at sizes a user of the paper's benchmarks would
-call real; then LM serving through ``ServeEngine`` with phi3-mini-3.8b at
-full width in bf16 (random weights from ``--seed``), whose prefills and
-decode steps run the flash- and decode-attention kernels.  Phases (each
-prints one JSON line with the seconds it took): ``env``, ``build``,
-``kernels``, ``launch``, ``stream``, ``serve``.  Any exception or any
-comparison outside its tolerance ends the run with a non-zero exit code.
-The last three lines of the output are the kernel table, the card's name
-and power limit, and the verdict.
+benchmarks Black-Scholes, SpMV, MD5, N-Body and the correlator) and
+host-memory streaming through ``stream_kmeans``, at sizes a user of the
+paper's benchmarks would call real; then LM serving through
+``ServeEngine`` at full width and depth in bf16 (random weights from
+``--seed``) with one model of each family the port serves: phi3-mini-3.8b
+(the flash- and decode-attention kernels), rwkv6-3b (the WKV6 kernel) and
+recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
+local attention).  Phases (each prints one JSON line with the seconds it
+took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
+``serve`` once for each model.  Any exception or any comparison outside
+its tolerance ends the run with a non-zero exit code.  The last three
+lines of the output are the kernel table, the card's name and power limit,
+and the verdict.
 
 It needs a CUDA device and fails without one.  ``--rehearse`` runs the same
 control flow at toy sizes on the CPU with the plain versions, to find wrong
@@ -64,6 +67,8 @@ from repro_torch.kernels import (  # noqa: E402
     black_scholes_ref,
     cluster_sums,
     cluster_sums_ref,
+    correlate,
+    correlate_ref,
     decode_attention,
     decode_attention_ref,
     flash_attention,
@@ -78,8 +83,11 @@ from repro_torch.kernels import (  # noqa: E402
     md5_u32x2,
     nbody_forces,
     nbody_forces_ref,
+    rg_lru,
     spmv_ell,
     spmv_ell_ref,
+    wkv6,
+    wkv6_ref,
 )
 from repro_torch.kernels.black_scholes.kernel import (  # noqa: E402
     black_scholes_cuda,
@@ -93,6 +101,7 @@ from repro_torch.kernels.common import (  # noqa: E402
 from repro_torch.kernels.coclustering.kernel import (  # noqa: E402
     cluster_sums_cuda,
 )
+from repro_torch.kernels.correlator.kernel import correlate_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_cuda,
 )
@@ -105,11 +114,15 @@ from repro_torch.kernels.md5.kernel import md5_search_cuda  # noqa: E402
 from repro_torch.kernels.md5.ref import KEY_XOR, word_index  # noqa: E402
 from repro_torch.kernels.nbody.kernel import nbody_cuda  # noqa: E402
 from repro_torch.kernels.nbody.ref import SOFTENING2  # noqa: E402
+from repro_torch.kernels.rg_lru.kernel import rg_lru_cuda  # noqa: E402
+from repro_torch.kernels.rg_lru.ref import rg_lru_scan  # noqa: E402
+from repro_torch.kernels.rwkv6.kernel import wkv6_cuda  # noqa: E402
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell_cuda  # noqa: E402
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import rglru as model_rglru  # noqa: E402
+from repro_torch.models import rwkv as model_rwkv  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Request,
@@ -130,6 +143,9 @@ WRAPPERS = {
     "nbody": nbody_cuda,
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
+    "correlate": correlate_cuda,
+    "wkv6": wkv6_cuda,
+    "rg_lru": rg_lru_cuda,
 }
 
 
@@ -158,14 +174,24 @@ class Sizes:
     flash_gemma: tuple = (1, 8, 1, 1000, 256)
     decode: tuple = (8, 32, 32, 2184, 96)
     decode_gemma: tuple = (8, 8, 1, 2184, 256)
+    # the correlator: (C, T, A) channels, samples, antennas (1.61 GB f32)
+    corr: tuple = (1024, 768, 256)
+    # the recurrent scans at the serving path's shapes: rwkv6-3b's prefill
+    # of 2048 tokens and 8-slot decode step, (B, H, T, K = V); and
+    # recurrentgemma-2b's, (B, T, D)
+    wkv: tuple = (1, 40, 2048, 64)
+    wkv_decode: tuple = (8, 40, 1, 64)
+    lru: tuple = (1, 2048, 2560)
+    lru_decode: tuple = (8, 1, 2560)
     # the LM serving path
-    serve_smoke: bool = False  # phi3-mini-3.8b's full config, not its smoke
+    serve_smoke: bool = False  # the full configs, not their smoke ones
     serve_requests: int = 24
+    serve_requests_recurrent: int = 24  # rwkv6-3b's and recurrentgemma-2b's
     serve_slots: int = 8
     serve_prompt: tuple = (128, 2048)  # prompt lengths, heavy-tailed
     serve_new: tuple = (32, 128)  # max_new_tokens, uniform
     serve_check_len: int = 2048  # prompt of the prefill check
-    serve_f32_layers: int = 2  # depth of the f32 check at full width
+    serve_check_len_window: int = 2600  # the hybrid's: past its window
     profile_steps: int = 3
     reps: int = 5
 
@@ -178,14 +204,16 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             md5_n=1 << 13, nbody_n=1000, nbody_slab=256,
             flash=(1, 4, 4, 64, 32), flash_gemma=(1, 4, 1, 40, 64),
             decode=(3, 4, 4, 70, 32), decode_gemma=(3, 4, 1, 70, 64),
-            serve_smoke=True, serve_requests=6, serve_slots=3,
-            serve_prompt=(4, 24), serve_new=(2, 6), serve_check_len=24,
-            profile_steps=1, reps=1)
+            corr=(16, 40, 12), wkv=(1, 4, 40, 16), wkv_decode=(3, 4, 1, 16),
+            lru=(1, 40, 64), lru_decode=(3, 1, 64),
+            serve_smoke=True, serve_requests=6, serve_requests_recurrent=6,
+            serve_slots=3, serve_prompt=(4, 24), serve_new=(2, 6),
+            serve_check_len=24, serve_check_len_window=24, profile_steps=1,
+            reps=1)
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
 CS_R, CS_C = 8, 6  # co-clustering example: 8 row and 6 column clusters
 RISKFREE = 0.02  # Black-Scholes' default rate, for put-call parity
-SERVE_ARCH = "phi3-mini-3.8b"
 #: the MD5 target sits this far below n, so that every block of keys runs
 MD5_PLANT_BELOW_N = 4099
 MD5_NO_MATCH = (1, 2, 3, 4)  # a digest no key of the runs has
@@ -738,6 +766,246 @@ def sdpa_decode_setup(q, k, v, kv_len):
     return q[:, :, None], k, v, mask[:, None, None, :]
 
 
+def close_share(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                atol: float) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` (above 1 is
+    outside the tolerance), in float64, ``CHECK_SLAB`` elements at a
+    time."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    worst = 0.0
+    for lo in range(0, got.numel(), CHECK_SLAB):
+        g = got[lo:lo + CHECK_SLAB].double()
+        w = want[lo:lo + CHECK_SLAB].double()
+        share = (g - w).abs() / (atol + rtol * w.abs())
+        worst = max(worst, float(torch.nan_to_num(share, nan=float("inf"))
+                                 .max()))
+    return worst
+
+
+def require_caught(kind: str, rows: list[dict]) -> list[dict]:
+    """Each planted fault must use more than its whole limit."""
+    for row in rows:
+        require(row["limit_share"] > 1, f"planted fault {kind}/{row['fault']}"
+                " passes the limit:", row)
+    return rows
+
+
+#: The correlator against its plain version: the reference sweep's rtol and
+#: atol (f32 sums of 4 T products in another order).
+CORR_TOL = 1e-4
+
+
+def corr_inputs(c, t, a, gen, device, dtype=torch.float32):
+    """Samples (C, T, A, 2) in ``dtype``: re and im normal with std 0.5
+    (the reference sweep's)."""
+    return ((0.5 * torch.randn((c, t, a, 2), generator=gen, device=device)
+             ).to(dtype),)
+
+
+def corr_check(name, got, want, samples):
+    """Against the plain version, and Hermitian: V[i,j] = conj(V[j,i]).
+    bf16 visibilities (summed in f32, rounded once) against the f32 plain
+    version of the same samples within the bf16 limit, the rms over a row
+    of V."""
+    if got.dtype == torch.bfloat16:
+        c, a = got.shape[:2]
+        want32 = correlate_ref(samples.float())
+        gap = bf16_check(name, got.reshape(c, a, 2 * a),
+                         want32.reshape(c, a, 2 * a))
+        return gap["max_abs_err"], 0.0
+    err = check_close(name, got, want, rtol=CORR_TOL, atol=CORR_TOL)
+    check_close(f"{name}/hermitian re", got[..., 0],
+                got[..., 0].transpose(1, 2), rtol=CORR_TOL, atol=CORR_TOL)
+    check_close(f"{name}/hermitian im", got[..., 1],
+                -got[..., 1].transpose(1, 2), rtol=CORR_TOL, atol=CORR_TOL)
+    return err
+
+
+def corr_main_check(name, got, want, samples):
+    """``corr_check``, then planted faults that must fail its tolerance: one
+    time tile (16 samples, the kernel's stage) dropped, and the imaginary
+    part's sign flipped (V^T in place of V)."""
+    abs_err, rel_err = corr_check(name, got, want, samples)
+    t = samples.shape[1]
+    t0 = (t // 2) // 16 * 16
+    dropped = samples.clone()
+    dropped[:, t0:t0 + 16] = 0
+    faults = {"time_tile_dropped": correlate_ref(dropped),
+              "im_sign_flipped": torch.stack([want[..., 0], -want[..., 1]],
+                                             dim=-1)}
+    del dropped
+    rows = [{"fault": label, "limit_share": close_share(out, want, CORR_TOL,
+                                                        CORR_TOL)}
+            for label, out in faults.items()]
+    return abs_err, rel_err, {"planted_faults": require_caught("correlate",
+                                                               rows)}
+
+
+def corr_setup(samples):
+    """The library call's argument: the samples as complex (C, T, A)."""
+    return (torch.view_as_complex(samples),)
+
+
+def corr_work(samples):
+    """Samples read and visibilities written once; 8 flops a pair and
+    sample (four real multiply-adds) over the pairs i <= j only, A (A + 1)
+    / 2 of them: V is Hermitian, so the other half is a copy with the
+    imaginary part negated.  At the f32 peak."""
+    c, t, a, _ = samples.shape
+    return bound((samples.numel() + 2 * c * a * a) * samples.element_size(),
+                 8.0 * a * (a + 1) / 2 * t * c, H100_SXM_FP32_FLOPS)
+
+
+#: The scans in f32 against their plain versions: the reference sweeps'
+#: rtol and atol (another order of rounding over T steps).
+SCAN_TOL = 1e-4
+
+
+def wkv_inputs(b, h, t, dk, dv, dtype, gen, device):
+    """(r, k, v, w, u, s0): r, k, v normal with std 0.5; decays
+    exp(-exp(N(0, 1))), spread over (0, 1); bonus u normal with std 0.5 (the
+    size of a trained model's, not the init's 0.02); a random initial state.
+    r, k, v, w in ``dtype``; u and s0 f32."""
+    def normal(*shape, std=0.5):
+        return std * torch.randn(shape, generator=gen, device=device)
+    r, k, v = normal(b, h, t, dk), normal(b, h, t, dk), normal(b, h, t, dv)
+    w = torch.exp(-torch.exp(normal(b, h, t, dk, std=1.0)))
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w.to(dtype), normal(h, dk),
+            normal(b, h, dk, dv))
+
+
+def lru_inputs(b, t, d, dtype, gen, device, sweep=False):
+    """(log_a, gx, h0): log_a = -exp(U(-7, 1)), decays from 0.07 (a chain
+    that forgets at once) to 0.999 (one that keeps a value for thousands of
+    steps); gx and h0 normal.  ``sweep``: the reference sweep's
+    -|N(0, 0.1)|.  log_a and gx in ``dtype``; h0 f32."""
+    if sweep:
+        la = -(0.1 * torch.randn((b, t, d), generator=gen, device=device)
+               ).abs()
+    else:
+        la = -torch.exp(8.0 * torch.rand((b, t, d), generator=gen,
+                                         device=device) - 7.0)
+    gx = torch.randn((b, t, d), generator=gen, device=device)
+    return (la.to(dtype), gx.to(dtype),
+            torch.randn((b, d), generator=gen, device=device))
+
+
+def lru_plain(la, gx, h0):
+    """The public function's plain route: every h in gx's dtype, the final
+    h in f32."""
+    return rg_lru(la, gx, h0, return_state=True, use_ref=True)
+
+
+def scan_check(plain32):
+    """A check of a scan's (output, final state) against its plain version:
+    in f32 within ``SCAN_TOL``; in bf16 within the bf16 limit of the f32
+    plain version of the same (bf16-valued) inputs (``plain32``), with the
+    gap to the plain version in bf16 reported beside it.  The kernels keep
+    the state in f32 and round each output once, so the limit that holds an
+    attention output holds these."""
+    def check(name, got, want, *inputs):
+        (out, state), (want_out, want_state) = got, want
+        if out.dtype == torch.float32:
+            e1 = check_close(name, out, want_out, rtol=SCAN_TOL, atol=SCAN_TOL)
+            e2 = check_close(f"{name}/state", state, want_state,
+                             rtol=SCAN_TOL, atol=SCAN_TOL)
+            return max(e1[0], e2[0]), max(e1[1], e2[1])
+        # The plain version in bf16 rounds where the kernel does not (the
+        # WKV6 read, as the reference's wkv6_ref): its gap is reported, the
+        # f32 plain version's is required.
+        vs16 = bf16_gap(out, want_out)
+        want32 = plain32(*as_f32(inputs))
+        gap = bf16_check(name, out, want32[0])
+        gap_state = bf16_check(f"{name}/state", state, want32[1])
+        return gap["max_abs_err"], 0.0, {
+            "bf16_limit_share": gap["limit_share"],
+            "bf16_state_limit_share": gap_state["limit_share"],
+            "bf16_plain_limit_share": vs16["limit_share"],
+            "bf16_plain_max_abs_err": vs16["max_abs_err"]}
+    return check
+
+
+def scan_faults(kind: str, faults: dict, want32) -> list[dict]:
+    """Outputs of wrong scans, made by the f32 plain computation and
+    rounded to bf16 like a kernel's output, held to the bf16 limit: each
+    must fail it."""
+    rows = [{"fault": label, **bf16_gap(out.to(torch.bfloat16), want32)}
+            for label, out in faults.items()]
+    return require_caught(kind, rows)
+
+
+wkv_check = scan_check(lambda *a: wkv6_ref(*a, return_state=True))
+lru_check = scan_check(lru_plain)
+
+
+def wkv_main_check(name, got, want, *inputs):
+    """``wkv_check``, then planted faults: the bonus u dropped; one step's
+    decay skipped (w = 1 at the middle step); the state zeroed in the
+    middle of the sequence."""
+    abs_err, rel_err, extra = wkv_check(name, got, want, *inputs)
+    r, k, v, w, u, s0 = as_f32(inputs)
+    want32 = wkv6_ref(r, k, v, w, u, s0)
+    mid = r.shape[2] // 2
+    w_skip = w.clone()
+    w_skip[:, :, mid] = 1.0
+    halves = [wkv6_ref(r[:, :, sl], k[:, :, sl], v[:, :, sl], w[:, :, sl], u,
+                       s) for sl, s in ((slice(0, mid), s0),
+                                        (slice(mid, None),
+                                         torch.zeros_like(s0)))]
+    extra["planted_faults"] = scan_faults("wkv6", {
+        "bonus_dropped": wkv6_ref(r, k, v, w, torch.zeros_like(u), s0),
+        "decay_skipped_once": wkv6_ref(r, k, v, w_skip, u, s0),
+        "state_zeroed_mid_sequence": torch.cat(halves, dim=2),
+    }, want32)
+    return abs_err, rel_err, extra
+
+
+#: the time step at which the planted fault resets the RG-LRU state: the
+#: reference's block_t, the boundary of its first chunk
+LRU_RESET_AT = 256
+
+
+def lru_main_check(name, got, want, *inputs):
+    """``lru_check``, then planted faults: h0 ignored; beta taken as 1
+    (h = a h + gx); the state reset at a chunk boundary."""
+    abs_err, rel_err, extra = lru_check(name, got, want, *inputs)
+    la, gx, h0 = as_f32(inputs)
+    want32 = rg_lru_scan(la, gx, h0)
+    a = torch.exp(la)
+    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
+    c = min(LRU_RESET_AT, la.shape[1] // 2)
+    extra["planted_faults"] = scan_faults("rg_lru", {
+        "h0_ignored": rg_lru_scan(la, gx, None),
+        "beta_one": rg_lru_scan(la, gx / beta, h0),
+        "reset_at_chunk_boundary": torch.cat(
+            [rg_lru_scan(la[:, :c], gx[:, :c], h0),
+             rg_lru_scan(la[:, c:], gx[:, c:], None)], dim=1),
+    }, want32)
+    return abs_err, rel_err, extra
+
+
+def wkv_work(r, k, v, w, u, s0):
+    """r, k, w, v read and the output written once, u, and the state read
+    and written once; the fewest flops a step and head: 5 K V (the outer
+    product k v^T, the dot of r with S, the decayed update w S + k v^T) and
+    3 K + 2 V for the bonus term, which factors as (sum_k r u k) v.  At the
+    f32 peak (the state is f32)."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    return bound((3 * r.numel() + 2 * v.numel()) * r.element_size()
+                 + 4.0 * (u.numel() + 2 * s0.numel()),
+                 (5.0 * dk * dv + 3 * dk + 2 * dv) * t * b * h,
+                 H100_SXM_FP32_FLOPS)
+
+
+def lru_work(la, gx, h0):
+    """log_a and gx read and h written once, h0 read and the final h
+    written; 8 operations an element (exp, a^2, 1 - a^2, max, sqrt,
+    beta gx, a h, the sum), at the f32 peak."""
+    return bound(3.0 * gx.numel() * gx.element_size() + 8.0 * h0.numel(),
+                 8.0 * gx.numel(), H100_SXM_FP32_FLOPS)
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -1115,13 +1383,84 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             shape=lambda q, k, v, n: [q.shape[0], q.shape[1], k.shape[1],
                                       k.shape[2], q.shape[2]],
         ),
+        # The paper's correlator at (C, T, A) = (1024, 768, 256) f32, the
+        # size of the launch phase; ragged T and A, and the sweep's shapes.
+        dict(
+            name="correlate", wrapper="correlate",
+            source="src/repro_torch/csrc/correlator.cu",
+            replaces="src/repro/kernels/correlator/kernel.py:62",
+            main=lambda: corr_inputs(*sizes.corr, gen, device),
+            ragged=lambda: [corr_inputs(3, 77, 37, gen, device),
+                            corr_inputs(2, 513, 64, gen, device),
+                            corr_inputs(4, 100, 16, gen, device),
+                            corr_inputs(3, 77, 37, gen, device, bf16)],
+            fn=lambda x: correlate(x),
+            plain=lambda x: correlate_ref(x),
+            library=lambda x: torch.matmul(x.mT, x.conj()),
+            library_setup=corr_setup,
+            check=corr_check,
+            main_check=corr_main_check,
+            work=corr_work,
+            shape=lambda x: list(x.shape[:3]),
+        ),
+        # rwkv6-3b's prefill of 2048 tokens, bf16, and its 8-slot decode
+        # step beside it; ragged T, K and V in f32 and bf16.
+        dict(
+            name="wkv6", wrapper="wkv6",
+            source="src/repro_torch/csrc/wkv6.cu",
+            replaces="src/repro/kernels/rwkv6/kernel.py:75",
+            main=lambda: wkv_inputs(*sizes.wkv, sizes.wkv[-1], bf16, gen,
+                                    device),
+            also={"decode": lambda: wkv_inputs(*sizes.wkv_decode,
+                                               sizes.wkv_decode[-1], bf16,
+                                               gen, device)},
+            also_check=wkv_check,
+            ragged=lambda: [wkv_inputs(2, 3, 45, 16, 8, f32, gen, device),
+                            wkv_inputs(1, 4, 70, 64, 64, f32, gen, device),
+                            wkv_inputs(2, 2, 33, 20, 50, bf16, gen, device)],
+            fn=lambda r, k, v, w, u, s0: wkv6(r, k, v, w, u, s0,
+                                              return_state=True),
+            plain=lambda r, k, v, w, u, s0: wkv6_ref(r, k, v, w, u, s0,
+                                                     return_state=True),
+            library=None,
+            check=wkv_check,
+            main_check=wkv_main_check,
+            work=wkv_work,
+            queued=KERNEL_HOST_S,
+            shape=lambda r, k, v, w, u, s0: [*r.shape, v.shape[-1]],
+        ),
+        # recurrentgemma-2b's prefill of 2048 tokens, bf16, and its 8-slot
+        # decode step beside it; the sweep's ragged T and D.
+        dict(
+            name="rg_lru", wrapper="rg_lru",
+            source="src/repro_torch/csrc/rg_lru.cu",
+            replaces="src/repro/kernels/rg_lru/kernel.py:69",
+            main=lambda: lru_inputs(*sizes.lru, bf16, gen, device),
+            also={"decode": lambda: lru_inputs(*sizes.lru_decode, bf16, gen,
+                                               device)},
+            also_check=lru_check,
+            ragged=lambda: [lru_inputs(2, 50, 100, f32, gen, device,
+                                       sweep=True),
+                            lru_inputs(2, 96, 256, f32, gen, device),
+                            lru_inputs(3, 37, 70, bf16, gen, device)],
+            fn=lambda la, gx, h0: rg_lru(la, gx, h0, return_state=True),
+            plain=lru_plain,
+            library=None,
+            check=lru_check,
+            main_check=lru_main_check,
+            work=lru_work,
+            queued=KERNEL_HOST_S,
+            shape=lambda la, gx, h0: list(gx.shape),
+        ),
     ]
 
 
-def measure(case: dict, inputs, sizes: Sizes, device: torch.device) -> dict:
+def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
+            check=None) -> dict:
     """One shape of a kernel: its result held against the plain version
-    (``main_check``, else ``check``), then the kernel, the plain version
-    and the library call timed, and the bound of the work."""
+    (``check``, else ``main_check``, else ``check`` of the case), then the
+    kernel, the plain version and the library call timed, and the bound of
+    the work."""
     got = case["fn"](*inputs)
     sync(device)
     plain_reps = case.get("plain_reps", sizes.reps)
@@ -1135,7 +1474,8 @@ def measure(case: dict, inputs, sizes: Sizes, device: torch.device) -> dict:
         want = kept.pop()
     else:
         want = case["plain"](*inputs)
-    abs_err, rel_err, *extra = case.get("main_check", case["check"])(
+    check = check or case.get("main_check", case["check"])
+    abs_err, rel_err, *extra = check(
         f"{case['name']}/{list(case['shape'](*inputs))}", got, want, *inputs)
     first = want[0] if isinstance(want, tuple) else want
     require(float(first.abs().max()) > 0, case["name"], "compared all zeros")
@@ -1195,7 +1535,8 @@ def phase_kernels(sizes: Sizes, device: torch.device,
                "ragged_shape": ragged_shape,
                "ragged_max_abs_err": ragged_err}
         for label, make in case.get("also", {}).items():
-            row[label] = measure(case, make(), sizes, device)
+            row[label] = measure(case, make(), sizes, device,
+                                 case.get("also_check"))
         if case.get("plain_reps", sizes.reps) != sizes.reps:
             row["plain_runs"] = case["plain_reps"]
         if case.get("queued"):
@@ -1522,6 +1863,30 @@ def phase_launch(sizes: Sizes, device: torch.device,
         "max_abs_err": err[0], "seconds": time.perf_counter() - t1}
     del posm, res
 
+    # (j) the correlator: channels distributed, each superblock correlates
+    # its own (the paper distributes channels across GPUs).
+    corr_def = KernelDef.define(
+        "correlate", lambda v, info: {"vis": correlate(v["samples"])},
+        "global c => read samples[c,:,:,:], write vis[c,:,:,:]")
+    c, t, a = sizes.corr
+    t1 = time.perf_counter()
+    (samples,) = corr_inputs(c, t, a, gen, device)
+    since = correlate_cuda.launches
+    res = ctx.launch(
+        corr_def, grid=(c,), work_dist=BlockWork(max(1, c // 8)),
+        args={"samples": ctx.array(samples, dist=RowDist(8), name="samples"),
+              "vis": ctx.zeros((c, a, a, 2), dist=RowDist(8), name="vis")})
+    ctx.synchronize()
+    comm = comm_of_last()
+    require(comm == {"samples": "local", "vis": "local"}, comm)
+    err = corr_check("launch/correlate", res["vis"].value,
+                     correlate_ref(samples), samples)
+    out["correlate"] = {
+        "shape": [c, t, a], "comm": comm,
+        "kernel_launches": launched("correlate", since, 1),
+        "max_abs_err": err[0], "seconds": time.perf_counter() - t1}
+    del samples, res
+
     out["launch_records"] = len(ctx.records)
     out["launch_count_metric"] = ctx.registry.snapshot()
     out["seconds"] = time.perf_counter() - t0
@@ -1632,20 +1997,40 @@ def phase_stream(sizes: Sizes, device: torch.device, seed: int) -> dict:
 
 
 #: Tolerance of the serving path's bf16 logits, kernels against plain
-#: versions, as a share of the largest logit: bf16 keeps 8 bits, each of
-#: the 32 layers rounds its attention output (and the plain path also its
-#: logits and probabilities) at other places than the kernels do, and these
-#: differences of ~2^-8 of a layer's output add up through the residual
-#: stream; 5e-2 of the largest logit is some ten times that estimate.  It
-#: checks the path as a whole, not the kernels: those are held, layer by
-#: layer, to the bf16 limit of the kernels phase (``layer_gaps``).
+#: versions, as a share of the largest logit: bf16 keeps 8 bits, each layer
+#: rounds its kernels' outputs (and the plain path also its attention
+#: logits and probabilities, or its scans' reads) at other places than the
+#: kernels do, and these differences of ~2^-8 of a layer's output add up
+#: through the residual stream; 5e-2 of the largest logit is some ten times
+#: that estimate.  It checks the path as a whole, not the kernels: those
+#: are held, call by call, to the bf16 limit of the kernels phase
+#: (``layer_gaps``).
 BF16_LOGIT_TOL = 5e-2
 #: f32 at full width: the reference's test_prefill_decode_matches_full_forward.
 F32_LOGIT_TOL = 2e-3
 
+#: one model of each family the port serves, in the order the runs go
+SERVE_ARCHS = ("phi3-mini-3.8b", "rwkv6-3b", "recurrentgemma-2b")
+#: depth of the f32 check at full width: two layers, three for the hybrid,
+#: whose two would be two recurrent blocks and no attention block, and six
+#: for rwkv6-3b, the most at which its two f32 paths still agree (its
+#: logits after each block, tools/depth_divergence.py: 3.6e-5 of the
+#: largest logit after block 6, 6e-4 after block 8 and 18 % after 32)
+F32_LAYERS = {"dense": 2, "rwkv": 6, "hybrid": 3}
+#: With random weights rwkv6-3b amplifies rounding through depth, and the
+#: reference's own two WKV paths do so too (tests/test_torch_recurrent.py,
+#: test_rwkv_amplifies_rounding_through_depth): in bf16 its kernel and
+#: plain paths' logits part by 1.6 % of the largest logit after one block,
+#: 4.4 % after two and 62 % after 32 (tools/depth_divergence.py).  So its
+#: full-depth bf16 logits are reported, each WKV6 call at full depth is
+#: held to the bf16 limit, and its bf16 logits, the prefill then decode
+#: among them, are gated at this depth
+RWKV_LOGIT_LAYERS = 1
 
-def serve_traffic(sizes: Sizes, vocab: int, seed: int) -> list[Request]:
-    """Requests from ``seed``: prompt lengths heavy-tailed over
+
+def serve_traffic(sizes: Sizes, vocab: int, seed: int,
+                  n: int) -> list[Request]:
+    """``n`` requests from ``seed``: prompt lengths heavy-tailed over
     ``serve_prompt`` (the shortest times 1 + Lomax(1.5): median about 1.6x
     the shortest, some at the longest), the first request at the longest;
     ``max_new_tokens`` uniform over ``serve_new``; greedy, except every
@@ -1653,7 +2038,7 @@ def serve_traffic(sizes: Sizes, vocab: int, seed: int) -> list[Request]:
     rng = np.random.default_rng(seed)
     lo, hi = sizes.serve_prompt
     reqs = []
-    for rid in range(sizes.serve_requests):
+    for rid in range(n):
         plen = hi if rid == 0 else int(min(hi, lo * (1.0 + rng.pareto(1.5))))
         reqs.append(Request(
             rid=rid, prompt=rng.integers(0, vocab, plen).astype(np.int32),
@@ -1664,10 +2049,13 @@ def serve_traffic(sizes: Sizes, vocab: int, seed: int) -> list[Request]:
 
 
 @contextlib.contextmanager
-def recorded(module, name: str):
+def recorded(module, name: str, calls: list | None = None):
     """Every call of ``module.name`` inside the block, as (arguments,
-    keyword arguments, result), in the list it yields."""
-    fn, calls = getattr(module, name), []
+    keyword arguments, result), in the list it yields: ``calls`` where
+    given (so that several functions record into one list in the order of
+    their calls), else a new one."""
+    fn = getattr(module, name)
+    calls = [] if calls is None else calls
 
     def spy(*args, **kw):
         result = fn(*args, **kw)
@@ -1681,79 +2069,164 @@ def recorded(module, name: str):
         setattr(module, name, fn)
 
 
-def layer_gaps(what: str, calls, n_layers: int) -> dict:
-    """Each attention-kernel call of a model pass (one a layer) held
-    against the plain version on f32 copies of its own inputs: bf16 within
-    the bf16 limit of the kernels phase, f32 within the reference sweep's
-    2e-4 (lse 1e-4).  Returns the worst over the layers."""
-    require(len(calls) == n_layers, what, len(calls), "attention calls for",
-            n_layers, "layers")
-    plain = attention_ref if what == "prefill" else decode_attention_ref
+@dataclasses.dataclass(frozen=True)
+class Spy:
+    """A kernel's calls in a model pass, held call by call against its
+    plain version: ``module.name`` is what the model calls, ``plain`` is
+    called on f32 copies of the same arguments, ``calls`` is how many a pass
+    makes.  A second result is an lse (held to ``BF16_LSE_ATOL`` in bf16)
+    or a final state (held to the bf16 limit); ``tol`` is the f32 tolerance
+    of the output and of the second result."""
+    module: object
+    name: str
+    plain: object
+    calls: int
+    second: str = "lse"
+    tol: tuple = ATTN_TOL[torch.float32]
+
+
+def serve_spec(cfg, sizes: Sizes) -> dict:
+    """What a family's serving run checks and counts: the kernel calls of
+    a prefill and of a decode step, the depth at which the bf16 logits are
+    gated (None: the full depth), the check prompt's length, the kernels a
+    decode step (and, for the dense family, a prefill) is profiled for, and
+    the launches an engine run of ``prefills`` and ``steps`` makes."""
+    if cfg.family == "rwkv":
+        wkv = Spy(model_rwkv, "wkv6", wkv6_ref, cfg.n_layers, "state",
+                  (SCAN_TOL, SCAN_TOL))
+        return {"prefill": [wkv], "decode": [wkv],
+                "logit_layers": RWKV_LOGIT_LAYERS,
+                "check_len": sizes.serve_check_len,
+                "profile": {"decode_step": ("wkv6_kernel",)},
+                "expect": lambda prefills, steps: {
+                    "wkv6": cfg.n_layers * (prefills + steps)}}
+    if cfg.family == "hybrid":
+        groups, tail = model_rglru.n_groups(cfg)
+        rec = 2 * groups + tail
+        lru = Spy(model_rglru, "rg_lru", lambda *a, **kw: rg_lru(
+            *a, use_ref=True, **kw), rec, "state", (SCAN_TOL, SCAN_TOL))
+        return {"prefill": [lru, Spy(model_attention, "flash_attention",
+                                     attention_ref, groups)],
+                "decode": [lru], "logit_layers": None,
+                "check_len": sizes.serve_check_len_window,
+                "profile": {"decode_step": ("rg_lru_kernel",)},
+                "expect": lambda prefills, steps: {
+                    "rg_lru": rec * (prefills + steps),
+                    "flash_attention": groups * prefills}}
+    return {"prefill": [Spy(model_attention, "flash_attention", attention_ref,
+                            cfg.n_layers)],
+            "decode": [Spy(model_attention, "cuda_decode",
+                           decode_attention_ref, cfg.n_layers)],
+            "logit_layers": None, "check_len": sizes.serve_check_len,
+            "profile": {"decode_step": ("decode_attention_kernel",
+                                        "decode_combine_kernel"),
+                        "prefill": ("flash_attention_kernel",)},
+            "expect": lambda prefills, steps: {
+                "flash_attention": cfg.n_layers * prefills,
+                "decode_attention": cfg.n_layers * steps}}
+
+
+def layer_gaps(what: str, calls, spy: Spy) -> dict:
+    """Each call of ``spy``'s kernel in a model pass held against the plain
+    version on f32 copies of its own inputs: bf16 within the bf16 limit of
+    the kernels phase, f32 within ``spy.tol``.  Returns the worst over the
+    calls."""
+    require(len(calls) == spy.calls, what, len(calls), spy.name,
+            "calls, expected", spy.calls)
     worst = {"calls": len(calls), "max_abs_err": 0.0}
     for i, (args, kw, got) in enumerate(calls):
-        want = plain(*as_f32(args), **kw)
-        out, lse = got if isinstance(got, tuple) else (got, None)
-        want_out, want_lse = want if isinstance(want, tuple) else (want, None)
-        name = f"serve/{what} layer {i}"
+        want = spy.plain(*as_f32(args), **kw)
+        out, second = got if isinstance(got, tuple) else (got, None)
+        want_out, want_second = want if isinstance(want, tuple) \
+            else (want, None)
+        name = f"serve/{what} {spy.name} call {i}"
         if out.dtype == torch.bfloat16:
-            gap = bf16_check(name, out, want_out, lse, want_lse)
+            if spy.second == "state":
+                gap = bf16_check(name, out, want_out)
+                share = max(gap["limit_share"], bf16_check(
+                    f"{name}/state", second, want_second)["limit_share"])
+            else:
+                gap = bf16_check(name, out, want_out, second, want_second)
+                share = max(gap["limit_share"],
+                            gap.get("lse_limit_share", 0.0))
             err = gap["max_abs_err"]
-            worst["limit_share"] = max(worst.get("limit_share", 0.0),
-                                       gap["limit_share"],
-                                       gap.get("lse_limit_share", 0.0))
+            worst["limit_share"] = max(worst.get("limit_share", 0.0), share)
         else:
-            tol, lse_tol = ATTN_TOL[out.dtype]
+            tol, tol2 = spy.tol
             err = check_close(name, out, want_out, rtol=tol, atol=tol)[0]
-            if lse is not None:
-                check_close(f"{name}/lse", lse, want_lse, rtol=lse_tol,
-                            atol=lse_tol)
+            if second is not None:
+                check_close(f"{name}/{spy.second}", second, want_second,
+                            rtol=tol2, atol=tol2)
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
     return worst
 
 
 def logits_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
     """Largest difference over the largest logit, in float64, and the share
-    of positions whose top token agrees."""
-    g, w = got.double(), want.double()
-    require(torch.isfinite(g).all(), "logits have non-finite values")
-    return {"max_abs_diff": float((g - w).abs().max()),
-            "max_abs_logit": float(w.abs().max()),
-            "rel_to_max": float((g - w).abs().max() / w.abs().max()),
-            "argmax_agree": float((g.argmax(-1) == w.argmax(-1))
-                                  .double().mean())}
+    of positions whose top token agrees; a slab of positions at a time (a
+    hybrid's 2600 positions over 256,000 tokens are 2.7 GB in f32)."""
+    vocab = want.shape[-1]
+    g2, w2 = got.reshape(-1, vocab), want.reshape(-1, vocab)
+    rows = max(1, CHECK_SLAB // 4 // vocab)
+    diff = logit = 0.0
+    agree = 0
+    for lo in range(0, w2.shape[0], rows):
+        g, w = g2[lo:lo + rows].double(), w2[lo:lo + rows].double()
+        require(torch.isfinite(g).all(), "logits have non-finite values")
+        diff = max(diff, float((g - w).abs().max()))
+        logit = max(logit, float(w.abs().max()))
+        agree += int((g.argmax(-1) == w.argmax(-1)).sum())
+    return {"max_abs_diff": diff, "max_abs_logit": logit,
+            "rel_to_max": diff / logit, "argmax_agree": agree / w2.shape[0]}
+
+
+@contextlib.contextmanager
+def spying(spies: list[Spy]):
+    """``recorded`` for each of ``spies``; yields their lists of calls."""
+    with contextlib.ExitStack() as stack:
+        yield [stack.enter_context(recorded(spy.module, spy.name))
+               for spy in spies]
 
 
 @torch.no_grad()
-def serve_check(params, cfg, sizes: Sizes, device, gen, max_len) -> dict:
-    """One prefill of ``serve_check_len`` tokens and one decode step of all
-    slots (their prompts spread over [1, serve_check_len]) with the kernels
-    (attention_impl "cuda"): every layer's kernel call against the plain
-    version on f32 copies of its own inputs (``layer_gaps``), and the logits
-    against the plain path ("naive": the materialized prefill and
-    ``decode_attention_ref``) on the same weights and the same cache, within
+def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
+                gate_logits: bool = True) -> dict:
+    """With the kernels (attention_impl "cuda") against the plain path
+    ("naive": the materialized attention and the scans' plain versions) on
+    the same weights and the same state: (a) one prefill of the check
+    prompt and one decode step of all slots, their prompts spread over
+    [1, the check prompt] and each prefilled and spliced in as the engine
+    does; every kernel call against its plain version on f32 copies of its
+    own inputs (``layer_gaps``), and the logits; (b) a prefill of all but
+    the last three tokens of the check prompt and three decode steps,
+    against (a)'s prefill logits of those positions.  Logits within
     ``BF16_LOGIT_TOL`` of the largest logit in bf16 and ``F32_LOGIT_TOL``
-    element-wise in f32."""
+    element-wise in f32; with ``gate_logits`` False (a model too deep for
+    its logits to judge the kernels, ``RWKV_LOGIT_LAYERS``) the bf16
+    logits are reported, and every kernel call is still held."""
     plain = cfg.scaled(attention_impl="naive")
-    n, slots = sizes.serve_check_len, sizes.serve_slots
+    spec = serve_spec(cfg, sizes)
+    f32 = cfg.torch_dtype == torch.float32
+    n, slots = spec["check_len"], sizes.serve_slots
+    max_len = max(max_len, n + 1)
     toks = torch.randint(0, cfg.vocab, (1, n), generator=gen, device=device,
                          dtype=torch.int32)
     out = {"prefill_tokens": n}
     logits = []
     for c in (cfg, plain):
-        cache = model_api.init_decode_state(c, 1, max_len, device)
-        with recorded(model_attention, "flash_attention") as calls:
-            logits.append(transformer.forward(params, toks, c, mode="prefill",
-                                              cache=cache)[0])
+        state = model_api.init_decode_state(c, 1, max_len, device)
+        with spying(spec["prefill"]) as calls:
+            logits.append(model_api.forward(params, toks, c, mode="prefill",
+                                            state=state)[0])
         if c is cfg:
-            out["prefill_layers"] = layer_gaps("prefill", calls, cfg.n_layers)
-        del calls
+            for spy, got in zip(spec["prefill"], calls):
+                out[f"prefill_{spy.name}"] = layer_gaps("prefill", got, spy)
+        del calls, state
     out["prefill"] = logits_gap(*logits)
     lengths = np.linspace(1, n, slots).astype(int)
     prompts = [torch.randint(0, cfg.vocab, (int(m),), generator=gen,
                              device=device, dtype=torch.int32)
                for m in lengths]
-    # A cache of one slot a prompt, each filled by its own prefill and
-    # spliced in as the engine does.
     state = model_api.init_decode_state(cfg, slots, max_len, device)
     for i, p in enumerate(prompts):
         one = model_api.init_decode_state(cfg, 1, max_len, device)
@@ -1762,23 +2235,34 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len) -> dict:
             i)
     step = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
                          device=device, dtype=torch.int32)
-    # Each call writes its own k/v at ``pos`` before reading the cache, so
-    # both read the same prefix.
-    with recorded(model_attention, "cuda_decode") as calls:
+    # A dense model's call writes its own k/v at ``pos`` before reading the
+    # cache, and a hybrid's its own ring slot; the recurrent state is not
+    # written: both calls read the same prefix.
+    with spying(spec["decode"]) as calls:
         dec = [model_api.decode_step(params, step, cfg, state)[0]]
-    out["decode_layers"] = layer_gaps("decode", calls, cfg.n_layers)
+    for spy, got in zip(spec["decode"], calls):
+        out[f"decode_{spy.name}"] = layer_gaps("decode", got, spy)
     del calls
     dec.append(model_api.decode_step(params, step, plain, state)[0])
     out["decode"] = dict(logits_gap(*dec), kv_len=(lengths + 1).tolist())
-    if cfg.torch_dtype == torch.float32:
-        check_close("serve/f32 prefill", logits[0], logits[1],
-                    rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL)
-        check_close("serve/f32 decode", dec[0], dec[1], rtol=F32_LOGIT_TOL,
-                    atol=F32_LOGIT_TOL)
-    else:
-        for what in ("prefill", "decode"):
+    one = model_api.init_decode_state(cfg, 1, max_len, device)
+    _, one = model_api.prefill(params, {"tokens": toks[:, :n - 3]}, cfg, one)
+    stepped = []
+    for i in range(n - 3, n):
+        lg, one = model_api.decode_step(params, toks[:, i:i + 1], cfg, one)
+        stepped.append(lg[:, -1])
+    stepped, full = torch.stack(stepped, dim=1), logits[0][:, n - 3:]
+    out["prefill_then_decode"] = logits_gap(stepped, full)
+    if f32:
+        for what, got, want in (("prefill", *logits), ("decode", *dec),
+                                ("prefill then decode", stepped, full)):
+            check_close(f"serve/f32 {what}", got, want, rtol=F32_LOGIT_TOL,
+                        atol=F32_LOGIT_TOL)
+    elif gate_logits:
+        for what in ("prefill", "decode", "prefill_then_decode"):
             require(out[what]["rel_to_max"] <= BF16_LOGIT_TOL, "serve/bf16",
                     what, out[what])
+    out["logits_gated"] = f32 or gate_logits
     out["state"] = state  # for the profile, dropped before printing
     out["step"] = step
     return out
@@ -1811,21 +2295,22 @@ def device_breakdown(prof, calls: int, top: int = 8) -> dict:
 @torch.no_grad()
 def serve_profile(params, cfg, sizes: Sizes, device, state, step,
                   toks) -> dict:
-    """The attention kernels' share of a decode step of all slots and of a
-    prefill: CUDA-event times of the step (the host's issue time
-    included), the device time of all kernels and of the attention kernels
-    from ``torch.profiler`` over the same calls, the largest kernels, and
-    where a call waits for the device."""
+    """The ported kernels' share of a decode step of all slots (and, for
+    the dense family, of a prefill): CUDA-event times of the step (the
+    host's issue time included), the device time of all kernels and of the
+    ported ones from ``torch.profiler`` over the same calls, the largest
+    kernels, and where a call waits for the device."""
     n = sizes.profile_steps
-    decode = lambda: model_api.decode_step(params, step, cfg, state)  # noqa
-    prefill = lambda: model_api.prefill(  # noqa: E731
-        params, {"tokens": toks}, cfg,
-        model_api.init_decode_state(cfg, 1, toks.shape[1], device))
+    calls = {
+        "decode_step": lambda: model_api.decode_step(params, step, cfg,
+                                                     state),
+        "prefill": lambda: model_api.prefill(
+            params, {"tokens": toks}, cfg,
+            model_api.init_decode_state(cfg, 1, toks.shape[1], device)),
+    }
     out = {}
-    for what, fn, kernels in (
-            ("decode_step", decode, ("decode_attention_kernel",
-                                     "decode_combine_kernel")),
-            ("prefill", prefill, ("flash_attention_kernel",))):
+    for what, kernels in serve_spec(cfg, sizes)["profile"].items():
+        fn = calls[what]
         out[f"{what}_ms"] = time_ms(fn, device, n)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1833,13 +2318,14 @@ def serve_profile(params, cfg, sizes: Sizes, device, state, step,
                 fn()
             sync(device)
         out[f"{what}_kernels"] = device_breakdown(prof, n)
-        attn_ms = kernel_device_ms(prof, *kernels)
-        if attn_ms is not None:
-            attn_ms /= n
-            out[f"{what}_attention_ms"] = attn_ms
-            out[f"{what}_attention_share"] = attn_ms / out[f"{what}_ms"]
-            out[f"{what}_attention_device_share"] = \
-                attn_ms / out[f"{what}_kernels"]["device_ms"]
+        ported_ms = kernel_device_ms(prof, *kernels)
+        if ported_ms is not None:
+            ported_ms /= n
+            out[f"{what}_ported"] = list(kernels)
+            out[f"{what}_ported_ms"] = ported_ms
+            out[f"{what}_ported_share"] = ported_ms / out[f"{what}_ms"]
+            out[f"{what}_ported_device_share"] = \
+                ported_ms / out[f"{what}_kernels"]["device_ms"]
         out[f"{what}_syncs"] = sync_points(fn)
     return out
 
@@ -1873,32 +2359,42 @@ def pct(values, q) -> float:
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
-def phase_serve(sizes: Sizes, device: torch.device, seed: int) -> dict:
-    """LM serving at phi3-mini-3.8b's full width in bf16: the bf16 check at
-    full depth and the f32 check at two layers, the attention kernels'
-    share of a step, then ``ServeEngine`` over the seeded traffic with
-    every launch counter set to 0 just before and read just after."""
+def phase_serve(sizes: Sizes, device: torch.device, seed: int,
+                arch: str) -> dict:
+    """LM serving with ``arch`` at full width and depth in bf16: the bf16
+    check at full depth, the f32 check at ``F32_LAYERS`` and, for a family
+    whose full-depth logits are not gated, the bf16 check at its
+    ``logit_layers`` (``serve_check``), the ported kernels' share of a step,
+    then ``ServeEngine`` over the
+    seeded traffic with every launch counter set to 0 just before and read
+    just after."""
     t0 = time.perf_counter()
     on_card = device.type == "cuda"
-    cfg = get_smoke_config(SERVE_ARCH) if sizes.serve_smoke \
-        else get_config(SERVE_ARCH)
+    cfg = get_smoke_config(arch) if sizes.serve_smoke else get_config(arch)
     require(cfg.attention_impl == "cuda", cfg.attention_impl)
+    spec = serve_spec(cfg, sizes)
     max_len = sizes.serve_prompt[1] + sizes.serve_new[1] + 8
     gen = torch.Generator(device=device).manual_seed(seed)
     t1 = time.perf_counter()
     params = model_api.init_params(gen, cfg, device)
     sync(device)
-    out = {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
-           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+    out = {"phase": "serve", "arch": cfg.name, "family": cfg.family,
+           "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           **({"wkv_head_dim": cfg.wkv_head_dim} if cfg.family == "rwkv"
+              else {}),
+           **({"window": cfg.window, "groups_and_tail":
+               model_rglru.n_groups(cfg)} if cfg.family == "hybrid" else {}),
            "params": model_api.param_count(params),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
            "init_seconds": time.perf_counter() - t1}
 
     t1 = time.perf_counter()
-    check = serve_check(params, cfg, sizes, device, gen, max_len)
+    check = serve_check(params, cfg, sizes, device, gen, max_len,
+                        gate_logits=spec["logit_layers"] is None)
     state, step = check.pop("state"), check.pop("step")
     out["check"] = dict(check, seconds=time.perf_counter() - t1)
     if on_card:
@@ -1910,20 +2406,26 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int) -> dict:
         out["profile"]["seconds"] = time.perf_counter() - t1
     del state, step
 
-    t1 = time.perf_counter()
-    cfg32 = cfg.scaled(n_layers=sizes.serve_f32_layers, dtype="float32")
-    params32 = model_api.init_params(gen, cfg32, device)
-    check32 = serve_check(params32, cfg32, sizes, device, gen, max_len)
-    for key in ("state", "step"):
-        check32.pop(key)
-    out["check_f32"] = dict(check32, n_layers=cfg32.n_layers,
-                            seconds=time.perf_counter() - t1)
-    del params32
-    if on_card:
-        torch.cuda.empty_cache()
+    cuts = {"check_f32": cfg.scaled(n_layers=F32_LAYERS[cfg.family],
+                                    dtype="float32")}
+    if spec["logit_layers"] is not None:
+        cuts["check_bf16_cut"] = cfg.scaled(n_layers=spec["logit_layers"])
+    for key, cut in cuts.items():
+        t1 = time.perf_counter()
+        cut_params = model_api.init_params(gen, cut, device)
+        checked = serve_check(cut_params, cut, sizes, device, gen, max_len)
+        for drop in ("state", "step"):
+            checked.pop(drop)
+        out[key] = dict(checked, n_layers=cut.n_layers,
+                        seconds=time.perf_counter() - t1)
+        del cut_params
+        if on_card:
+            torch.cuda.empty_cache()
 
     t1 = time.perf_counter()
-    reqs = serve_traffic(sizes, cfg.vocab, seed)
+    reqs = serve_traffic(sizes, cfg.vocab, seed,
+                         sizes.serve_requests if cfg.family == "dense"
+                         else sizes.serve_requests_recurrent)
     tracer = Tracer(clock=time.perf_counter)
     engine = ServeEngine(params, cfg, slots=sizes.serve_slots,
                          max_len=max_len, seed=seed, tracer=tracer,
@@ -1955,8 +2457,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int) -> dict:
             for e in prefills]
     n_steps = engine.stats["steps"]
     require(len(prefills) == len(reqs) and len(steps) == n_steps)
-    expect = {"flash_attention": cfg.n_layers * len(prefills),
-              "decode_attention": cfg.n_layers * n_steps}
+    expect = spec["expect"](len(prefills), n_steps)
     if on_card:
         for name, n in counts.items():
             require(n == expect.get(name, 0), name, "launched", n,
@@ -1972,8 +2473,8 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int) -> dict:
         "ttft_ms": {"p50": pct(ttft, 50), "p90": pct(ttft, 90),
                     "max": max(ttft)},
         "decode_step_ms": {"p50": pct(steps, 50), "p90": pct(steps, 90)},
-        "prefill_ms_by_len": sorted(
-            (e["args"]["prompt_len"], e["dur"] * 1e3) for e in prefills),
+        "prefill_ms_by_len": [[n, ms] for n, ms in sorted(
+            (e["args"]["prompt_len"], e["dur"] * 1e3) for e in prefills)],
         "engine_seconds": wall,
         "tokens_per_s": tokens / wall,
         "decode_tokens_per_s": engine.stats["decode_tokens"] / wall,
@@ -1981,7 +2482,6 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int) -> dict:
     })
     if on_card:
         out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
-    out["prefill_ms_by_len"] = [[n, ms] for n, ms in out["prefill_ms_by_len"]]
     del engine, params
     if on_card:
         torch.cuda.empty_cache()
@@ -2020,9 +2520,10 @@ def main(argv=None) -> int:
     launch = phase_launch(sizes, device, gen)
     stream = phase_stream(sizes, device, args.seed)
     counts = {name: w.launches for name, w in WRAPPERS.items()}
-    # The serving path zeroes and reads the counts around its engine run.
-    serve = phase_serve(sizes, device, args.seed)
-    served = serve["kernel_launches"]
+    # Each serving run zeroes and reads the counts around its engine run.
+    served = {arch: phase_serve(sizes, device, args.seed, arch)[
+        "kernel_launches"] for arch in SERVE_ARCHS}
+    dense, rwkv, hybrid = (served[arch] for arch in SERVE_ARCHS)
 
     per_row = {
         "kmeans": counts["kmeans"], "hotspot": counts["hotspot"],
@@ -2031,9 +2532,11 @@ def main(argv=None) -> int:
         "gemm_bf16": launch["gemm_bf16"]["kernel_launches"],
         "black_scholes": counts["black_scholes"],
         "spmv_ell": counts["spmv_ell"], "md5": counts["md5"],
-        "nbody": counts["nbody"],
-        "flash_attention": served["flash_attention"],
-        "decode_attention": served["decode_attention"],
+        "nbody": counts["nbody"], "correlate": counts["correlate"],
+        "flash_attention": dense["flash_attention"]
+        + hybrid["flash_attention"],
+        "decode_attention": dense["decode_attention"],
+        "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
     for row in rows:

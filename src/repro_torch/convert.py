@@ -26,7 +26,10 @@ from .core.dist_array import DistributedArray
 from .core.distributions import Distribution
 from .core.superblock import WorkDistribution
 from .device import resolve_device
+from .models import rglru, rwkv
 from .models.config import ModelConfig
+from .models.rglru import Griffin
+from .models.rwkv import RWKV
 from .models.transformer import Transformer
 
 
@@ -86,33 +89,60 @@ def config_from_reference(ref_cfg: Any) -> ModelConfig:
 
 def params_from_reference(np_tree: dict, cfg: ModelConfig,
                           device: torch.device | str | None = None
-                          ) -> Transformer:
-    """The reference's dense/VLM parameter tree, handed over as float32
-    numpy arrays with the layers stacked on axis 0
+                          ) -> Transformer | RWKV | Griffin:
+    """The reference's parameter tree, handed over as float32 numpy arrays
     (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``), as
-    this package's module holding the same numbers in ``cfg``'s dtype on
-    ``device`` (None: the GPU)."""
-    if cfg.family not in ("dense", "vlm"):
+    this package's module holding the same numbers on ``device`` (None: the
+    GPU), in ``cfg``'s dtype except for the leaves the reference creates in
+    f32 whatever the config says (RWKV's ``bonus``, the hybrid's
+    ``log_lambda``).  Dense, VLM and RWKV trees have their layers stacked on
+    axis 0; the hybrid's has its (rec, rec, attn) groups stacked and its
+    tail as a list of blocks."""
+    if cfg.family not in ("dense", "vlm", "rwkv", "hybrid"):
         raise NotImplementedError(
             f"parameters of the {cfg.family} family are not ported yet "
             "(ROADMAP Queue A item 11)")
     device = resolve_device(device)
-    dtype = cfg.torch_dtype
+    keep_f32 = {"rwkv": rwkv.FLOAT32_PARAMS,
+                "hybrid": rglru.FLOAT32_PARAMS}.get(cfg.family, ())
 
-    def tensor(a):
+    def tensor(a, name=None):
+        dtype = torch.float32 if name in keep_f32 else cfg.torch_dtype
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)
 
-    def layer(tree, i):
-        return {k: layer(v, i) if isinstance(v, dict) else tensor(v[i])
+    def whole(tree):
+        return {k: whole(v) if isinstance(v, dict) else tensor(v, k)
                 for k, v in tree.items()}
 
+    def entry(tree, i):  # entry i of a tree stacked on axis 0
+        return {k: entry(v, i) if isinstance(v, dict) else tensor(v[i], k)
+                for k, v in tree.items()}
+
+    def count(stacked, want, what):
+        leaf = stacked
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        n = len(leaf)
+        if n != want:
+            raise ValueError(f"{n} {what} in the tree, {want} in cfg")
+        return n
+
+    embed, final = tensor(np_tree["embed"]), whole(np_tree["final_norm"])
+    if cfg.family == "hybrid":
+        g, tail = rglru.n_groups(cfg)
+        groups = np_tree["groups"]
+        count(groups["rec1"], g, "groups")
+        if len(np_tree["tail"]) != tail:
+            raise ValueError(f"{len(np_tree['tail'])} tail blocks in the "
+                             f"tree, {tail} in cfg")
+        return Griffin(embed, [entry(groups, i) for i in range(g)],
+                       [whole(t) for t in np_tree["tail"]], final)
     stacked = np_tree["layers"]
-    n = len(stacked["wq"])
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} layers in the tree, {cfg.n_layers} in cfg")
-    final = {k: tensor(v) for k, v in np_tree["final_norm"].items()}
+    n = count(stacked, cfg.n_layers, "layers")
+    layers = [entry(stacked, i) for i in range(n)]
+    if cfg.family == "rwkv":
+        return RWKV(embed, layers, final, tensor(np_tree["lm_head"]))
     head = np_tree.get("lm_head")
-    return Transformer(tensor(np_tree["embed"]),
-                       [layer(stacked, i) for i in range(n)], final,
+    return Transformer(embed, layers, final,
                        None if head is None else tensor(head))

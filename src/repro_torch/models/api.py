@@ -2,36 +2,38 @@
 
 Every family implements ``init_params``, ``train_loss``, ``prefill`` and
 ``decode_step`` and exposes logical-axis trees for params and decode state.
-Ported so far: the dense and VLM families (``transformer``).  The MoE,
-RWKV, hybrid and encoder-decoder families raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+Ported so far: the dense and VLM families (``transformer``), RWKV-6
+(``rwkv``) and the RecurrentGemma hybrid (``rglru``).  The MoE and
+encoder-decoder families raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import kvcache, transformer
+from . import kvcache, rglru, rwkv, transformer
 from .config import ModelConfig
 
 _TRANSFORMER_FAMILIES = ("dense", "vlm")
+#: the other ported families, by the module that holds each
+_RECURRENT = {"rwkv": rwkv, "hybrid": rglru}
 
 #: where each family that is not ported yet stands in ROADMAP.md
 _PENDING = {
     "moe": "ROADMAP Queue A item 11 (models/moe.py, with its two "
            "custom_vjp pairs as autograd Functions)",
-    "rwkv": "ROADMAP Queue A item 11 with Queue B item 12 (models/rwkv.py "
-            "and the wkv6 kernel)",
-    "hybrid": "ROADMAP Queue A item 11 with Queue B item 13 "
-              "(models/rglru.py and the rg_lru kernel)",
     "encdec": "ROADMAP Queue A item 11 (models/encdec.py)",
 }
 
 
-def _family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not have yet."""
+def _family(cfg: ModelConfig):
+    """The module of ``cfg``'s family; raise for a family the port does not
+    have yet."""
     if cfg.family in _TRANSFORMER_FAMILIES:
-        return
+        return transformer
+    if cfg.family in _RECURRENT:
+        return _RECURRENT[cfg.family]
     if cfg.family in _PENDING:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet: "
@@ -47,13 +49,11 @@ def _family(cfg: ModelConfig) -> None:
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device: torch.device | str | None = None):
     """Random parameters on ``device`` (None: the GPU)."""
-    _family(cfg)
-    return transformer.init_params(generator, cfg, device)
+    return _family(cfg).init_params(generator, cfg, device)
 
 
 def params_logical_axes(cfg: ModelConfig) -> dict:
-    _family(cfg)
-    return transformer.params_logical_axes(cfg)
+    return _family(cfg).params_logical_axes(cfg)
 
 
 def param_count(params: torch.nn.Module) -> int:
@@ -67,8 +67,7 @@ def param_count(params: torch.nn.Module) -> int:
 
 def train_loss(params, batch: dict, cfg: ModelConfig,
                rules=None) -> torch.Tensor:
-    _family(cfg)
-    return transformer.train_loss(params, batch, cfg, rules)
+    return _family(cfg).train_loss(params, batch, cfg, rules)
 
 
 # ---------------------------------------------------------------------------
@@ -78,35 +77,49 @@ def train_loss(params, batch: dict, cfg: ModelConfig,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: torch.device | str | None = None) -> dict:
-    """An empty KV cache on ``device`` (None: the GPU)."""
-    _family(cfg)
-    return kvcache.init_cache(cfg, batch, max_len, device=device)
+    """An empty KV cache, or recurrent state, on ``device`` (None: the
+    GPU)."""
+    mod = _family(cfg)
+    if mod is transformer:
+        return kvcache.init_cache(cfg, batch, max_len, device=device)
+    return mod.init_state(cfg, batch, device)
 
 
 def state_logical_axes(cfg: ModelConfig) -> dict:
-    _family(cfg)
-    return kvcache.cache_logical_axes(cfg)
+    mod = _family(cfg)
+    if mod is transformer:
+        return kvcache.cache_logical_axes(cfg)
+    return mod.state_logical_axes(cfg)
 
 
 @torch.no_grad()
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, rules=None,
+            mode: str = "train", state: dict | None = None,
+            extra_embeds: torch.Tensor | None = None):
+    """The family's forward pass: logits of every position ((B, 1, V) in
+    decode mode) and the new state (a dense model's KV cache is its
+    state)."""
+    mod = _family(cfg)
+    if mod is transformer:
+        return transformer.forward(params, tokens, cfg, rules, mode=mode,
+                                   cache=state, extra_embeds=extra_embeds)
+    return mod.forward(params, tokens, cfg, rules, mode=mode, state=state,
+                       extra_embeds=extra_embeds)
+
+
 def prefill(params, batch: dict, cfg: ModelConfig, state: dict, rules=None):
     """Process the prompt; returns (last-token logits, updated state)."""
-    _family(cfg)
-    logits, cache = transformer.forward(
-        params, batch["tokens"], cfg, rules, mode="prefill", cache=state,
-        extra_embeds=batch.get("patch_embeds"),
-    )
-    return logits[:, -1:, :], cache
+    _family(cfg)  # a family not ported raises before the batch is read
+    logits, state = forward(params, batch["tokens"], cfg, rules, "prefill",
+                            state, batch.get("patch_embeds"))
+    return logits[:, -1:, :], state
 
 
-@torch.no_grad()
 def decode_step(params, token: torch.Tensor, cfg: ModelConfig, state: dict,
                 rules=None):
     """One new token (B, 1) against the cache; returns (logits (B, 1, V),
     state)."""
-    _family(cfg)
-    return transformer.forward(params, token, cfg, rules, mode="decode",
-                               cache=state)
+    return forward(params, token, cfg, rules, "decode", state)
 
 
 # ---------------------------------------------------------------------------
@@ -136,13 +149,6 @@ def model_flops_for(cfg: ModelConfig, kind: str, batch: int,
     return mult * active_param_estimate(cfg) * tokens
 
 
-def _rglru_n_groups(cfg: ModelConfig) -> tuple[int, int]:
-    """(attention groups, trailing recurrent blocks) of the hybrid pattern
-    (rec, rec, attn): the reference's ``rglru.n_groups``."""
-    g = cfg.n_layers // cfg.attn_every
-    return g, cfg.n_layers - g * cfg.attn_every
-
-
 def active_param_estimate(cfg: ModelConfig) -> float:
     """Parameter count from config (active params for MoE)."""
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
@@ -155,7 +161,7 @@ def active_param_estimate(cfg: ModelConfig) -> float:
         attn = L * (6 * d * d)  # r,k,v,g,o + lora
         mlp = L * (2 * d * cfg.d_ff + d * d)
     elif cfg.family == "hybrid":
-        g, tail = _rglru_n_groups(cfg)
+        g, tail = rglru.n_groups(cfg)
         rec = (2 * g + tail) * (2 * d * d + 2 * d * d + d * d)
         att = g * (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d)
         return embed + rec + att + L * gates * d * cfg.d_ff

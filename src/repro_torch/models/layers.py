@@ -14,11 +14,23 @@ from typing import Mapping, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import constrain
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+
+
+def init_device(generator: torch.Generator,
+                device: torch.device | str | None) -> torch.device:
+    """The device parameters are made on (None: the GPU); ``generator``
+    must live there."""
+    device = resolve_device(device)
+    if torch.device(generator.device).type != device.type:
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"parameters go to {device}")
+    return device
 
 
 def normal_init(generator: torch.Generator, shape: Sequence[int],

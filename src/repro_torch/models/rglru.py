@@ -1,0 +1,445 @@
+"""RecurrentGemma / Griffin hybrid (arXiv:2402.19427).
+
+Block pattern 1:2 — every third residual block is local (windowed) MQA
+attention, the others are recurrent blocks: linear-in → (GeLU gate branch ×
+causal conv1d → RG-LRU branch) → linear-out.  Decode state is O(window) for
+the attention blocks (ring-buffer KV) and O(1) for the recurrent blocks
+(conv tail + LRU state).
+
+Layers come in groups of 3 (rec, rec, attn), the reference's scan unit; the
+``n_layers % 3`` leftover recurrent blocks are the tail.  The parameters are
+an ``nn.Module`` in the reference's (in, out) layout, the forward pass a
+Python loop over the groups.  With ``attention_impl="cuda"`` the recurrence
+is the hand-written RG-LRU kernel and a prefill's local attention the
+flash-attention kernel (on CPU tensors their wrappers take the plain
+versions).  A decode step's attention over the ring buffer is eager torch,
+as the reference's is plain ``einsum``.  Decode writes the new token's k, v
+and position into the ring buffer in place (as ``kvcache.update_layer``
+does); the recurrent state comes back in new tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import constrain
+from repro_torch.kernels.rg_lru import rg_lru, rg_lru_ref
+
+from .attention import multihead_attention
+from .config import ModelConfig
+from .layers import (
+    apply_rope,
+    causal_lm_loss,
+    fan_in_init,
+    init_device,
+    mlp_apply,
+    mlp_init,
+    mlp_logical_axes,
+    norm_init,
+    normal_init,
+    rms_norm,
+)
+from .transformer import DecoderLayer, _params
+
+LRU_C = 8.0
+#: parameters the reference creates in f32 whatever ``cfg.dtype`` is
+FLOAT32_PARAMS = ("log_lambda",)
+
+
+class Group(nn.Module):
+    """One (rec, rec, attn) group: ``rec1``, ``rec2``, ``attn``."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name in ("rec1", "rec2", "attn"):
+            setattr(self, name, DecoderLayer(tensors[name]))
+
+
+class Griffin(nn.Module):
+    """``embed`` (vocab, d_model, tied as the output head), ``groups``,
+    ``tail`` (recurrent blocks) and ``final_norm``."""
+
+    def __init__(self, embed: torch.Tensor, groups: list[dict],
+                 tail: list[dict], final_norm: dict):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.groups = nn.ModuleList(Group(g) for g in groups)
+        self.tail = nn.ModuleList(DecoderLayer(t) for t in tail)
+        self.final_norm = _params(final_norm)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _init_rec_block(generator: torch.Generator, cfg: ModelConfig,
+                    device: torch.device) -> dict:
+    dt = cfg.torch_dtype
+    d, w = cfg.d_model, cfg.d_model  # lru width = d_model
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dt, device=device)
+
+    return {
+        "norm": norm_init(d, "rmsnorm", dt, device),
+        "w_in": fan_in_init(generator, (d, 2 * w), dt, device),
+        "conv_w": normal_init(generator, (cfg.conv_width, w), 0.1, dt, device),
+        "conv_b": zeros(w),
+        "gate_a": fan_in_init(generator, (w, w), dt, device),
+        "b_a": zeros(w),
+        "gate_x": fan_in_init(generator, (w, w), dt, device),
+        "b_x": zeros(w),
+        "log_lambda": normal_init(generator, (w,), 0.5, torch.float32, device),
+        "w_out": fan_in_init(generator, (w, d), dt, device),
+        "mlp_norm": norm_init(d, "rmsnorm", dt, device),
+        "mlp": mlp_init(generator, d, cfg.d_ff, cfg.activation, dt, device),
+    }
+
+
+def _init_attn_block(generator: torch.Generator, cfg: ModelConfig,
+                     device: torch.device) -> dict:
+    dt = cfg.torch_dtype
+    d = cfg.d_model
+    return {
+        "norm": norm_init(d, "rmsnorm", dt, device),
+        "wq": fan_in_init(generator, (d, cfg.q_dim), dt, device),
+        "wk": fan_in_init(generator, (d, cfg.kv_dim), dt, device),
+        "wv": fan_in_init(generator, (d, cfg.kv_dim), dt, device),
+        "wo": fan_in_init(generator, (cfg.q_dim, d), dt, device),
+        "mlp_norm": norm_init(d, "rmsnorm", dt, device),
+        "mlp": mlp_init(generator, d, cfg.d_ff, cfg.activation, dt, device),
+    }
+
+
+def _rec_axes(cfg: ModelConfig) -> dict:
+    return {
+        "norm": {"scale": ("d_model",)},
+        "w_in": ("d_model", "d_ff"),
+        "conv_w": (None, "d_ff"),
+        "conv_b": ("d_ff",),
+        "gate_a": ("d_model", "d_ff"),
+        "b_a": ("d_ff",),
+        "gate_x": ("d_model", "d_ff"),
+        "b_x": ("d_ff",),
+        "log_lambda": ("d_ff",),
+        "w_out": ("d_ff", "d_model"),
+        "mlp_norm": {"scale": ("d_model",)},
+        "mlp": mlp_logical_axes(cfg.activation),
+    }
+
+
+def _attn_axes(cfg: ModelConfig) -> dict:
+    return {
+        "norm": {"scale": ("d_model",)},
+        "wq": ("d_model", "heads"),
+        "wk": ("d_model", "heads"),
+        "wv": ("d_model", "heads"),
+        "wo": ("heads", "d_model"),
+        "mlp_norm": {"scale": ("d_model",)},
+        "mlp": mlp_logical_axes(cfg.activation),
+    }
+
+
+def n_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(number of (rec, rec, attn) groups, leftover recurrent blocks)."""
+    period = cfg.attn_every
+    return cfg.n_layers // period, cfg.n_layers % period
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device: torch.device | str | None = None) -> Griffin:
+    """Random parameters made on ``device`` (None: the GPU) from
+    ``generator``, which must live on that device.  Tied embeddings."""
+    device = init_device(generator, device)
+    dt = cfg.torch_dtype
+    g, tail = n_groups(cfg)
+    embed = normal_init(generator, (cfg.vocab, cfg.d_model), 0.02, dt, device)
+    groups = [{"rec1": _init_rec_block(generator, cfg, device),
+               "rec2": _init_rec_block(generator, cfg, device),
+               "attn": _init_attn_block(generator, cfg, device)}
+              for _ in range(g)]
+    tails = [_init_rec_block(generator, cfg, device) for _ in range(tail)]
+    return Griffin(embed, groups, tails,
+                   norm_init(cfg.d_model, "rmsnorm", dt, device))
+
+
+def params_logical_axes(cfg: ModelConfig) -> dict:
+    def stack(ax):
+        if isinstance(ax, dict):
+            return {k: stack(v) for k, v in ax.items()}
+        return ("layers",) + ax
+
+    _, tail = n_groups(cfg)
+    return {
+        "embed": ("vocab", "d_model"),
+        "groups": stack({"rec1": _rec_axes(cfg), "rec2": _rec_axes(cfg),
+                         "attn": _attn_axes(cfg)}),
+        "tail": [_rec_axes(cfg) for _ in range(tail)],
+        "final_norm": {"scale": ("d_model",)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Decode state
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: ModelConfig, batch: int,
+               device: torch.device | str | None = None) -> dict:
+    """Zeros, and -1 (empty) slot positions, on ``device`` (None: the
+    GPU)."""
+    device = resolve_device(device)
+    g, tail = n_groups(cfg)
+    w = cfg.d_model
+    cw = cfg.conv_width - 1
+    win = cfg.window or 2048
+
+    def rec_state(lead):
+        return {
+            "conv": torch.zeros(lead + (batch, cw, w), dtype=cfg.torch_dtype,
+                                device=device),
+            "h": torch.zeros(lead + (batch, w), dtype=torch.float32,
+                             device=device),
+        }
+
+    kv = (g, batch, cfg.n_kv_heads, win, cfg.head_dim)
+    return {
+        "rec1": rec_state((g,)),
+        "rec2": rec_state((g,)),
+        "attn_k": torch.zeros(kv, dtype=cfg.torch_dtype, device=device),
+        "attn_v": torch.zeros(kv, dtype=cfg.torch_dtype, device=device),
+        "slot_pos": torch.full((g, batch, win), -1, dtype=torch.int32,
+                               device=device),
+        "tail": [rec_state(()) for _ in range(tail)],
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def state_logical_axes(cfg: ModelConfig) -> dict:
+    _, tail = n_groups(cfg)
+    rec = {"conv": ("layers", "batch", None, "d_ff"),
+           "h": ("layers", "batch", "d_ff")}
+    rec_tail = {"conv": ("batch", None, "d_ff"), "h": ("batch", "d_ff")}
+    return {
+        "rec1": dict(rec), "rec2": dict(rec),
+        "attn_k": ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+        "attn_v": ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+        "slot_pos": ("layers", "batch", "kv_seq"),
+        "tail": [dict(rec_tail) for _ in range(tail)],
+        "pos": ("batch",),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: torch.Tensor | None):
+    """Depthwise causal conv along seq.  x (B,S,W); w (cw, W).  ``tail`` is
+    the previous cw-1 inputs for decode; returns (y, new_tail)."""
+    cw = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    ext = torch.cat([tail.to(x.dtype), x], dim=1)  # (B, S+cw-1, W)
+    s = x.shape[1]
+    y = sum(ext[:, i:i + s, :] * w[i][None, None, :] for i in range(cw)) + b
+    return y, ext[:, -(cw - 1):, :]
+
+
+def _rec_block(lp, x: torch.Tensor, cfg: ModelConfig, st: dict | None,
+               rules):
+    """Recurrent residual block; ``st`` = {conv, h} or None (fresh state).
+    Always returns (x, new_state) — callers in train mode discard it."""
+    xn = rms_norm(x, lp.norm["scale"])
+    z, y = (xn @ lp.w_in).chunk(2, dim=-1)
+    z = constrain(z, rules, ("batch", "seq", "d_ff"))
+    z, new_conv = _causal_conv(z, lp.conv_w, lp.conv_b,
+                               st["conv"] if st is not None else None)
+    r = torch.sigmoid(z @ lp.gate_a + lp.b_a).float()
+    i = torch.sigmoid(z @ lp.gate_x + lp.b_x)
+    log_a = -LRU_C * F.softplus(lp.log_lambda) * r  # (B,S,W) ≤ 0
+    gx = i * z
+    core = rg_lru if cfg.attention_impl == "cuda" else rg_lru_ref
+    h, h_final = core(log_a.to(gx.dtype), gx,
+                      st["h"] if st is not None else None, return_state=True)
+    x = x + (h * F.gelu(y, approximate="tanh")) @ lp.w_out
+    xn = rms_norm(x, lp.mlp_norm["scale"])
+    x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)
+    return x, {"conv": new_conv, "h": h_final}
+
+
+def _qkv(lp, xn: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """q (B, S, HQ, D) and k, v (B, S, HKV, D), q and k rotated."""
+    b, s, _ = xn.shape
+    q = (xn @ lp.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (xn @ lp.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (xn @ lp.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_block_train(lp, x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor, rules, want_cache=False):
+    b, s, _ = x.shape
+    win = cfg.window or 2048
+    q, k, v = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg, positions)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = multihead_attention(q, k, v, impl=cfg.attention_impl, causal=True,
+                              window=cfg.window)
+    x = x + out.transpose(1, 2).reshape(b, s, cfg.q_dim) @ lp.wo
+    xn = rms_norm(x, lp.mlp_norm["scale"])
+    x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)
+    if not want_cache:
+        return x, None
+    # The ring-buffer cache from the last `win` positions (prefill).
+    w_eff = min(win, s)
+    slots = torch.arange(s - w_eff, s, device=x.device) % win
+    k_cache = torch.zeros((b, cfg.n_kv_heads, win, cfg.head_dim),
+                          dtype=x.dtype, device=x.device)
+    v_cache = torch.zeros_like(k_cache)
+    k_cache[:, :, slots, :] = k[:, :, s - w_eff:, :]
+    v_cache[:, :, slots, :] = v[:, :, s - w_eff:, :]
+    slot_pos = torch.full((b, win), -1, dtype=torch.int32, device=x.device)
+    slot_pos[:, slots] = positions[:, s - w_eff:].to(torch.int32)
+    return x, {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
+
+
+def _attn_block_decode(lp, x: torch.Tensor, cfg: ModelConfig,
+                       pos: torch.Tensor, st: dict, rules):
+    """One-token local attention against the ring-buffer window cache.
+
+    The cache holds the last ``window`` tokens; the new entry overwrites
+    slot ``pos % window`` in place, and ``slot_pos`` records each slot's
+    absolute position (−1 = empty) for masking.
+    """
+    b = x.shape[0]  # one token a row
+    win = cfg.window or 2048
+    q, k, v = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    slot = (pos % win).long()  # (B,) per-row ring slot
+    k_cache, v_cache, slot_pos = st["k"], st["v"], st["slot_pos"]
+    k_cache[rows, :, slot, :] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, :, slot, :] = v[:, 0].to(v_cache.dtype)
+    slot_pos[rows, slot] = pos.to(slot_pos.dtype)
+
+    group = cfg.n_heads // cfg.n_kv_heads
+    kk = torch.repeat_interleave(k_cache, group, dim=1)
+    vv = torch.repeat_interleave(v_cache, group, dim=1)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    logits = torch.einsum("bhd,bhtd->bht", q[:, 0], kk).float() * scale
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bht,bhtd->bhd", p.to(x.dtype), vv)
+    x = x + out.reshape(b, 1, cfg.q_dim) @ lp.wo
+    xn = rms_norm(x, lp.mlp_norm["scale"])
+    x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)
+    return x, {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _stack_rec(states: list[dict]) -> dict:
+    return {name: torch.stack([st[name] for st in states])
+            for name in ("conv", "h")}
+
+
+def forward(
+    params: Griffin,
+    tokens: torch.Tensor,  # (B, S) int — or (B, S, D) pre-embedded
+    cfg: ModelConfig,
+    rules=None,
+    mode: str = "train",  # train | prefill | decode
+    state: dict | None = None,
+    extra_embeds=None,
+):
+    """Logits (B, S, vocab), or (B, 1, vocab) in decode mode, and the new
+    state (a prefill makes a fresh one; None in train mode)."""
+    x = params.embed[tokens.long()] if tokens.ndim == 2 else tokens
+    # The scale rounded to x's type first, as the reference's
+    # jnp.asarray(sqrt(d), x.dtype) (a Python float: no copy to the device).
+    x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    b, s, _ = x.shape
+    steps = torch.arange(s, device=x.device, dtype=torch.int32)
+    if mode == "decode":
+        positions = state["pos"][:, None] + steps[None, :]
+    else:
+        positions = steps[None, :].expand(b, s)
+
+    new_state = None
+    if state is not None and mode == "decode":
+        rec1, rec2 = [], []
+        for gi, gp in enumerate(params.groups):
+            x, n1 = _rec_block(gp.rec1, x, cfg,
+                               {n: t[gi] for n, t in state["rec1"].items()},
+                               rules)
+            x, n2 = _rec_block(gp.rec2, x, cfg,
+                               {n: t[gi] for n, t in state["rec2"].items()},
+                               rules)
+            x, _ = _attn_block_decode(
+                gp.attn, x, cfg, state["pos"],
+                {"k": state["attn_k"][gi], "v": state["attn_v"][gi],
+                 "slot_pos": state["slot_pos"][gi]}, rules)
+            rec1.append(n1)
+            rec2.append(n2)
+        new_state = dict(state)
+        if rec1:
+            new_state["rec1"], new_state["rec2"] = (_stack_rec(rec1),
+                                                    _stack_rec(rec2))
+        tail_states = []
+        for lp, st in zip(params.tail, state["tail"]):
+            x, nst = _rec_block(lp, x, cfg, st, rules)
+            tail_states.append(nst)
+        new_state["tail"] = tail_states
+        new_state["pos"] = state["pos"] + s
+    else:
+        want = mode == "prefill"
+        rec1, rec2, caches = [], [], []
+        for gp in params.groups:
+            x, n1 = _rec_block(gp.rec1, x, cfg, None, rules)
+            x, n2 = _rec_block(gp.rec2, x, cfg, None, rules)
+            x, cache = _attn_block_train(gp.attn, x, cfg, positions, rules,
+                                         want_cache=want)
+            rec1.append(n1)
+            rec2.append(n2)
+            caches.append(cache)
+        tail_states = []
+        for lp in params.tail:
+            x, nst = _rec_block(lp, x, cfg, None, rules)
+            tail_states.append(nst)
+        if want:
+            new_state = init_state(cfg, b, x.device) if not caches else {
+                "rec1": _stack_rec(rec1), "rec2": _stack_rec(rec2),
+                "attn_k": torch.stack([c["k"] for c in caches]),
+                "attn_v": torch.stack([c["v"] for c in caches]),
+                "slot_pos": torch.stack([c["slot_pos"] for c in caches]),
+            }
+            new_state["tail"] = tail_states
+            new_state["pos"] = torch.full((b,), s, dtype=torch.int32,
+                                          device=x.device)
+
+    x = rms_norm(x, params.final_norm["scale"])
+    if mode == "decode":
+        x = x[:, -1:, :]
+    logits = x @ params.embed.T  # tied
+    logits = constrain(logits, rules, ("batch", "seq", "vocab"))
+    return logits, new_state
+
+
+def train_loss(params: Griffin, batch: dict, cfg: ModelConfig,
+               rules=None) -> torch.Tensor:
+    """The forward loss (no backward kernel: the port serves)."""
+    logits, _ = forward(params, batch["tokens"], cfg, rules, mode="train")
+    return causal_lm_loss(logits, batch["tokens"])

@@ -17,7 +17,6 @@ import math
 import torch
 import torch.nn as nn
 
-from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import constrain
 
 from . import kvcache
@@ -32,6 +31,7 @@ from .layers import (
     apply_rope_tables,
     causal_lm_loss,
     fan_in_init,
+    init_device,
     mlp_apply,
     mlp_init,
     mlp_logical_axes,
@@ -123,10 +123,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device: torch.device | str | None = None) -> Transformer:
     """Random parameters made on ``device`` (None: the GPU) from
     ``generator``, which must live on that device."""
-    device = resolve_device(device)
-    if torch.device(generator.device).type != device.type:
-        raise ValueError(f"the generator is on {generator.device}, the "
-                         f"parameters go to {device}")
+    device = init_device(generator, device)
     dt = cfg.torch_dtype
     embed = normal_init(generator, (cfg.vocab, cfg.d_model), 0.02, dt, device)
     layers = [init_layer(generator, cfg, device) for _ in range(cfg.n_layers)]

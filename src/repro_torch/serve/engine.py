@@ -3,9 +3,12 @@
 A fixed decode batch of ``slots``; finished or empty slots are refilled
 from the queue by running a prefill for the incoming prompt and splicing
 its cache into the slot.  Prefill and decode are eager calls of the model
-API (the reference compiles each with ``jax.jit``); on the GPU they reach
-the hand-written flash-attention kernel once a layer per prefill and the
-decode-attention kernel once a layer per decode step.
+API (the reference compiles each with ``jax.jit``); on the GPU a dense
+model's reach the hand-written flash-attention kernel once a layer per
+prefill and the decode-attention kernel once a layer per decode step, an
+RWKV-6 model's the WKV6 kernel once a layer in both, and the hybrid's the
+RG-LRU kernel once a recurrent block in both and the flash-attention kernel
+once an attention block per prefill.
 
 Sampling: greedy or temperature, on the host from float32 logits, with
 ``np.random.default_rng(seed)``: deterministic per (seed, request order).
@@ -263,21 +266,29 @@ def _host_logits(logits: torch.Tensor) -> np.ndarray:
 def _splice_state(state: Any, single: Any, slot: int) -> Any:
     """Copy a batch-1 prefill state into batch slot ``slot``, in place.
 
-    A leaf's batch axis is the first one where the state is larger than the
-    batch-1 source (the cache's axis 1 behind the layer axis; ``pos``'s axis
-    0).  Where no axis differs (a one-slot engine), the whole leaf is the
-    slot and is copied: the reference returns the old leaf there, dropping
-    the prefill's cache (ROADMAP Queue C).
+    Walks dicts and lists leaf by leaf, as the reference's ``jax.tree.map``
+    does (the hybrid family's state nests them).  A leaf's batch axis is the
+    first one where the state is larger than the batch-1 source (the
+    cache's axis 1 behind the layer axis; ``pos``'s axis 0).  Where no axis
+    differs (a one-slot engine), the whole leaf is the slot and is copied:
+    the reference returns the old leaf there, dropping the prefill's cache
+    (ROADMAP Queue C).
     """
-    for name, dst in state.items():
-        src = single[name]
-        if dst.ndim == 0:
-            continue
-        for ax in range(dst.ndim):
-            if src.shape[ax] == 1 and dst.shape[ax] != src.shape[ax]:
-                dst.narrow(ax, slot, 1).copy_(src.to(dst.dtype))
-                break
-        else:
-            if dst.shape == src.shape:
-                dst.copy_(src.to(dst.dtype))
+    if isinstance(state, dict):
+        for name, dst in state.items():
+            _splice_state(dst, single[name], slot)
+        return state
+    if isinstance(state, list):
+        for dst, src in zip(state, single, strict=True):
+            _splice_state(dst, src, slot)
+        return state
+    dst, src = state, single
+    if dst.ndim == 0:
+        return state
+    for ax in range(dst.ndim):
+        if src.shape[ax] == 1 and dst.shape[ax] != src.shape[ax]:
+            dst.narrow(ax, slot, 1).copy_(src.to(dst.dtype))
+            return state
+    if dst.shape == src.shape:
+        dst.copy_(src.to(dst.dtype))
     return state

@@ -19,12 +19,15 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.black_scholes.kernel import black_scholes_cuda
 from repro_torch.kernels.coclustering.kernel import cluster_sums_cuda
+from repro_torch.kernels.correlator.kernel import correlate_cuda
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.gemm.kernel import gemm_cuda
 from repro_torch.kernels.kmeans.kernel import kmeans_cuda
 from repro_torch.kernels.md5.kernel import md5_search_cuda
 from repro_torch.kernels.nbody.kernel import nbody_cuda
+from repro_torch.kernels.rg_lru.kernel import rg_lru_cuda
+from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell_cuda
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda
 
@@ -38,7 +41,9 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.examples.streaming_kmeans", "repro_torch.models",
            "repro_torch.serve.engine", "repro_torch.launch.serve",
            "repro_torch.configs", "repro_torch.examples.serve_lm",
-           "chip_smoke"]
+           "repro_torch.kernels.correlator", "repro_torch.kernels.rwkv6",
+           "repro_torch.kernels.rg_lru", "repro_torch.models.rwkv",
+           "repro_torch.models.rglru", "chip_smoke"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -110,7 +115,8 @@ def test_stride_grid_covers_the_items_up_to_eight_blocks_an_sm(monkeypatch):
 
 #: the ported kernels' subpackages
 PORTED = ("kmeans", "stencil2d", "coclustering", "gemm", "black_scholes",
-          "spmv_ell", "md5", "nbody", "flash_attention", "decode_attention")
+          "spmv_ell", "md5", "nbody", "flash_attention", "decode_attention",
+          "correlator", "rwkv6", "rg_lru")
 
 
 def test_kernels_call_no_library_in_place_of_a_kernel():
@@ -154,7 +160,8 @@ def no_build(monkeypatch):
         monkeypatch.setattr(_build, name, refuse)
     counters = (kmeans_cuda, hotspot_cuda, cluster_sums_cuda, gemm_cuda,
                 black_scholes_cuda, spmv_ell_cuda, md5_search_cuda, nbody_cuda,
-                flash_attention_cuda, decode_attention_cuda)
+                flash_attention_cuda, decode_attention_cuda, correlate_cuda,
+                wkv6_cuda, rg_lru_cuda)
     before = [w.launches for w in counters]
     yield
     assert [w.launches for w in counters] == before
@@ -187,11 +194,19 @@ def _inputs():
                               f32(2, 2, 30, 16)),
                              {"kv_len": torch.tensor([7, 30],
                                                      dtype=torch.int32)}),
+        "correlate": (TK.correlate, TK.correlate_ref, (f32(3, 20, 5, 2),),
+                      {}),
+        "wkv6": (TK.wkv6, TK.wkv6_ref,
+                 (f32(2, 3, 9, 8), f32(2, 3, 9, 8), f32(2, 3, 9, 4),
+                  f32(2, 3, 9, 8), f32(3, 8), f32(2, 3, 8, 4)), {}),
+        "rg_lru": (TK.rg_lru, TK.rg_lru_ref,
+                   (-f32(2, 9, 20), f32(2, 9, 20), f32(2, 20)), {}),
     }
 
 
 NAMES = ["kmeans", "hotspot", "cluster_sums", "gemm", "black_scholes",
-         "spmv_ell", "md5", "nbody", "flash_attention", "decode_attention"]
+         "spmv_ell", "md5", "nbody", "flash_attention", "decode_attention",
+         "correlate", "wkv6", "rg_lru"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -213,7 +228,9 @@ def test_cpu_tensor_takes_plain_version_without_the_build(name, no_build):
     ("cluster_sums", cluster_sums_cuda), ("gemm", gemm_cuda),
     ("black_scholes", black_scholes_cuda), ("spmv_ell", spmv_ell_cuda),
     ("nbody", nbody_cuda), ("flash_attention", flash_attention_cuda),
-    ("decode_attention", decode_attention_cuda)])
+    ("decode_attention", decode_attention_cuda),
+    ("correlate", correlate_cuda), ("wkv6", wkv6_cuda),
+    ("rg_lru", rg_lru_cuda)])
 def test_cuda_wrapper_refuses_a_cpu_tensor(name, wrapper, no_build):
     _, _, args, kw = _inputs()[name]
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -282,6 +299,23 @@ def test_cpu_serving_path_never_touches_the_build(no_build):
     assert torch.isfinite(logits).all()
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_cpu_recurrent_serving_path_never_touches_the_build(arch, no_build):
+    """The recurrent families' scans (and the hybrid's prefill attention)
+    take the plain versions on CPU tensors, without a build."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+
+    cfg = get_smoke_config(arch)
+    assert cfg.attention_impl == "cuda"
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    state = api.init_decode_state(cfg, 2, 16, "cpu")
+    toks = torch.zeros((2, 5), dtype=torch.int32)
+    logits, state = api.prefill(params, {"tokens": toks}, cfg, state)
+    logits, state = api.decode_step(params, toks[:, :1], cfg, state)
+    assert torch.isfinite(logits).all()
+
+
 def test_missing_compiler_raises_with_a_reason(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
@@ -293,9 +327,10 @@ def test_missing_compiler_raises_with_a_reason(monkeypatch, tmp_path):
 def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
     assert [p.name for p in srcs] == [
-        "black_scholes.cu", "cluster_sums.cu", "decode_attention.cu",
-        "flash_attention.cu", "gemm.cu", "hotspot.cu", "kmeans.cu", "md5.cu",
-        "nbody.cu", "spmv_ell.cu"]
+        "black_scholes.cu", "cluster_sums.cu", "correlator.cu",
+        "decode_attention.cu", "flash_attention.cu", "gemm.cu", "hotspot.cu",
+        "kmeans.cu", "md5.cu", "nbody.cu", "rg_lru.cu", "spmv_ell.cu",
+        "wkv6.cu"]
     assert _build.build_dir() == ROOT / "build" / "repro_torch"
     d1 = _build._digest(srcs)
     assert d1 == _build._digest(srcs) and len(d1) == 64

@@ -35,8 +35,7 @@ from repro_torch.models import transformer as t_tf
 
 DENSE = ["phi3-mini-3.8b", "gemma-2b", "stablelm-3b", "qwen1.5-32b",
          "internvl2-26b"]
-OTHERS = ["granite-moe-1b-a400m", "granite-moe-3b-a800m", "rwkv6-3b",
-          "whisper-medium", "recurrentgemma-2b"]
+OTHERS = ["granite-moe-1b-a400m", "granite-moe-3b-a800m", "whisper-medium"]
 
 
 def _np(x):

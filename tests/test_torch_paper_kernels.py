@@ -1,5 +1,6 @@
-"""The paper's section 4.2 benchmarks (Black-Scholes, SpMV-ELL, MD5, N-Body):
-the port's public functions and launches against the reference's.
+"""The paper's section 4.2 benchmarks (Black-Scholes, SpMV-ELL, MD5, N-Body,
+Correlator): the port's public functions and launches against the
+reference's.
 
 The reference ``ops`` run as the reference's own tests run them on a CPU
 (Pallas interpret mode); the port runs on CPU tensors, where each wrapper
@@ -338,6 +339,65 @@ def test_nbody_ref_slabs_and_rows(monkeypatch):
     assert TK.nbody_forces_ref(posm, rows=(5, 5)).shape == (0, 3)
 
 
+# -- Correlator ---------------------------------------------------------------
+
+
+def _samples(seed, c, t, a):
+    """The reference sweep's samples: normal with std 0.5."""
+    return (np.random.RandomState(seed).randn(c, t, a, 2) * 0.5).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("c,t,a", [(4, 100, 16), (2, 64, 8), (1, 200, 32)])
+def test_correlator_sweep(c, t, a):
+    s = _samples(9500 + t, c, t, a)
+    want = RK.correlate(jnp.asarray(s), block_t=32)
+    got = TK.correlate(torch.from_numpy(s), block_t=32)
+    assert got.shape == (c, a, a, 2) and got.dtype == torch.float32
+    # order of a sum of 4 t products
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+
+
+def test_correlator_hermitian():
+    v = _np(TK.correlate(torch.from_numpy(_samples(9501, 2, 64, 8))))
+    # V[i,j] = conj(V[j,i])
+    np.testing.assert_allclose(v[..., 0], v[..., 0].transpose(0, 2, 1),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(v[..., 1], -v[..., 1].transpose(0, 2, 1),
+                               rtol=1e-4, atol=1e-4)
+    # the diagonal is the real power of each antenna
+    np.testing.assert_allclose(np.diagonal(v[..., 1], axis1=1, axis2=2), 0.0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("t,block_t", [(77, 32), (33, 512)])
+def test_correlator_ragged_time(t, block_t):
+    """T not a multiple of the time block: the reference pads with zeros,
+    the port's kernel masks; the plain version takes all of T."""
+    s = _samples(9502, 3, t, 12)
+    want = RK.correlate(jnp.asarray(s), block_t=block_t)
+    got = TK.correlate(torch.from_numpy(s), block_t=block_t)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    assert torch.equal(TK.correlate(torch.from_numpy(s), use_ref=True), got)
+
+
+def test_correlator_bf16_samples_sum_in_f32_like_the_reference():
+    """bf16 samples give bf16 visibilities, as the reference's do; both lie
+    within 2^-8 (2 |want| + 8 rms) of the f32 sums of the same bf16 values,
+    the limit the GPU kernel is held to in bf16."""
+    s = torch.from_numpy(_samples(9503, 2, 77, 12)).to(torch.bfloat16)
+    want = _np(TK.correlate(s.float()))
+    got = TK.correlate(s)
+    assert got.shape == (2, 12, 12, 2) and got.dtype == torch.bfloat16
+    ref = RK.correlate(jnp.asarray(s.float().numpy(), jnp.bfloat16),
+                       block_t=32)
+    assert ref.dtype == jnp.bfloat16
+    rms = np.sqrt(np.mean(want ** 2))
+    limit = 2.0 ** -8 * (2 * np.abs(want) + 8 * rms)
+    for out in (_np(got.float()), np.asarray(ref, np.float32)):
+        assert (np.abs(out - want) <= limit).all()
+
+
 # -- the four benchmarks through Context.launch -------------------------------
 
 ANNOTATIONS = {
@@ -347,6 +407,7 @@ ANNOTATIONS = {
                 "write y[i]",
     "md5": "global i => reduce(min) found[:]",
     "nbody": "global i => read posm[:,:], write acc[i,:]",
+    "correlate": "global c => read samples[c,:,:,:], write vis[c,:,:,:]",
 }
 
 
@@ -366,6 +427,8 @@ def _launch(mod, kern, name, arrays, grid, work, comm, scalars=None):
         ).reshape(1)},
         "nbody": lambda v, i: {"acc": kern.nbody_forces(
             v["posm"], block_i=128, block_j=128)},
+        "correlate": lambda v, i: {"vis": kern.correlate(v["samples"],
+                                                         block_t=32)},
     }
     kdef = mod.KernelDef.define(name, bodies[name], ANNOTATIONS[name],
                                 scalars=tuple(scalars or ()))
@@ -445,3 +508,15 @@ def test_nbody_through_launch():
          "acc": (((n, 3), 0.0, "float32"), ("RowDist", 8))},
         (n,), ("BlockWork", n // 8), {"posm": "replicated", "acc": "local"})
     np.testing.assert_allclose(got["acc"], want["acc"], rtol=5e-4, atol=5e-4)
+
+
+def test_correlator_through_launch():
+    """Channels distributed, each superblock correlates its own."""
+    c, t, a = 16, 40, 8
+    s = _samples(9003, c, t, a)
+    want, got = _both(
+        "correlate",
+        {"samples": (s, ("RowDist", 8)),
+         "vis": (((c, a, a, 2), 0.0, "float32"), ("RowDist", 8))},
+        (c,), ("BlockWork", c // 8), {"samples": "local", "vis": "local"})
+    np.testing.assert_allclose(got["vis"], want["vis"], rtol=1e-4, atol=1e-4)

@@ -22,6 +22,7 @@ from repro.models import api as r_api
 from repro.obs.metrics import MetricsRegistry as RRegistry
 from repro.serve.engine import Request as RRequest
 from repro.serve.engine import ServeEngine as REngine
+from repro.serve.engine import _splice_state as r_splice_state
 from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.core import faults as t_faults
 from repro_torch.launch.serve import run_serving
@@ -265,6 +266,57 @@ def test_run_serving_on_the_cpu_returns_the_reference_keys():
 
 
 def test_engine_rejects_a_family_that_is_not_ported():
-    cfg = dataclasses.replace(config_from_reference(r_smoke("rwkv6-3b")))
+    cfg = dataclasses.replace(config_from_reference(
+        r_smoke("granite-moe-1b-a400m")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(None, cfg, slots=1, max_len=8, device="cpu")
+
+
+@pytest.mark.parametrize("arch,slots", [("rwkv6-3b", 2),
+                                        ("recurrentgemma-2b", 3)])
+def test_recurrent_families_serve_like_the_reference_engine(arch, slots):
+    """Greedy tokens, statuses and ``stats`` equal the reference engine's;
+    five requests on fewer slots reuse a slot, and the hybrid's prompts
+    (up to 19 tokens, plus decode steps) run past its window of 16."""
+    rcfg, rparams, tcfg, tparams = _both(arch, 0)
+    rng = np.random.default_rng(7)
+    prompts = [(rng.integers(0, rcfg.vocab, 9 + 2 * i).astype(np.int32),
+                {"max_new_tokens": 3 + i}) for i in range(5)]
+    engines = [REngine(rparams, rcfg, slots=slots, max_len=64),
+               ServeEngine(tparams, tcfg, slots=slots, max_len=64,
+                           device="cpu")]
+    r_done, t_done = _serve(engines, prompts)
+    _same(r_done, t_done)
+    assert all(r.status == "ok" for r in t_done.values())
+    assert engines[1].stats == engines[0].stats
+    assert engines[1].stats["steps"] > 0
+
+
+def _flat(tree):
+    return jax.tree_util.tree_flatten_with_path(tree)[0]
+
+
+def test_splice_walks_the_hybrid_state_like_the_reference():
+    """The hybrid's state nests dicts (``rec1``, ``rec2``) and a list of
+    dicts (``tail``): a batch-1 prefill spliced into slot 1 of three gives
+    the reference's ``_splice_state``, leaf for leaf, written in place."""
+    rcfg, rparams, tcfg, tparams = _both("recurrentgemma-2b", 0)
+    toks = np.random.default_rng(8).integers(0, rcfg.vocab, (1, 20)) \
+        .astype(np.int32)
+    r_one = r_api.prefill(rparams, {"tokens": jax.numpy.asarray(toks)}, rcfg,
+                          r_api.init_decode_state(rcfg, 1, 32))[1]
+    t_one = t_api.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tcfg,
+                          t_api.init_decode_state(tcfg, 1, 32, "cpu"))[1]
+    want = r_splice_state(r_api.init_decode_state(rcfg, 3, 32), r_one, 1)
+    state = t_api.init_decode_state(tcfg, 3, 32, "cpu")
+    tail_h = state["tail"][0]["h"]
+    got = _splice_state(state, t_one, 1)
+    assert got is state and got["tail"][0]["h"] is tail_h
+    assert float(tail_h[1].abs().max()) > 0 and float(tail_h[0].abs().max()) == 0
+    w_leaves, g_leaves = _flat(want), jax.tree.leaves(got)
+    assert len(g_leaves) == len(w_leaves) == 12
+    for (path, w), g in zip(w_leaves, g_leaves):
+        assert tuple(g.shape) == w.shape, jax.tree_util.keystr(path)
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=1e-4, atol=1e-4,
+                                   err_msg=jax.tree_util.keystr(path))
