@@ -16,8 +16,13 @@ paper's benchmarks would call real; then LM serving through
 recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
 local attention).  Phases (each prints one JSON line with the seconds it
 took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
-``serve`` once for each model.  Any exception or any comparison outside
-its tolerance ends the run with a non-zero exit code.  The last three
+``serve`` once for each model.  GEMM and flash attention have two routes
+(``"wgmma"``: the tensor cores fed by TMA; ``"fma"``: the CUDA cores): the
+run requires the tensor cores' route for the bf16 main-path calls and
+``HGMMA`` instructions in that route's kernels only, no register spills in
+them, and times their first version (``"fma"``) beside them.  Any
+exception or any comparison outside its tolerance ends the run with a
+non-zero exit code.  The last three
 lines of the output are the kernel table, the card's name and power limit,
 and the verdict.
 
@@ -147,6 +152,20 @@ WRAPPERS = {
     "wkv6": wkv6_cuda,
     "rg_lru": rg_lru_cuda,
 }
+
+
+def zero_counts() -> None:
+    """Every wrapper's launch count, and its counts by route, to 0."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+        for route in getattr(wrapper, "routes", {}):
+            wrapper.routes[route] = 0
+
+
+def route_counts() -> dict:
+    """The launches of each two-route wrapper by route."""
+    return {name: dict(w.routes) for name, w in WRAPPERS.items()
+            if hasattr(w, "routes")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -569,6 +588,10 @@ def decode_work(q, k, v, kv_len):
 #: plain version also rounds its logits and probabilities to bf16 where the
 #: kernels keep f32), lse alike.
 ATTN_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+#: GEMM against its plain version: f32 1e-4 (true f32 products, another
+#: order of summation); bf16 2e-2 (the result is rounded to bf16); a bf16
+#: result is also held to the bf16 limit below.
+GEMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: bf16's unit roundoff (8 significant bits)
 BF16_U = 2.0 ** -8
 #: A bf16 kernel is also held against the f32 plain version of the same
@@ -756,6 +779,45 @@ def decode_main_check(name, got, want, *inputs):
         "decode", inputs,
         decode_attention_ref(q, k, v, kv_len=n, with_lse=True))
     return abs_err, rel_err, extra
+
+
+def gemm_check(name, got, want, a, b):
+    """Against the plain version in the inputs' type (f32 1e-4: the order
+    of summation; bf16 2e-2: the result's own rounding); in bf16 also
+    against the f32 product of the same inputs within the bf16 limit
+    (``bf16_check``, rms over a row of C)."""
+    tol = GEMM_TOL[got.dtype]
+    err = check_close(name, got, want, rtol=tol, atol=tol)
+    if got.dtype != torch.bfloat16:
+        return err
+    gap = bf16_check(name, got, gemm_ref(a, b, out_dtype=torch.float32))
+    return gap["max_abs_err"], err[1], {
+        "bf16_limit_share": gap["limit_share"],
+        "bf16_plain_max_abs_err": err[0]}
+
+
+def gemm_faults(a, b) -> list[dict]:
+    """A product with one 64-deep K stage dropped (the one past the middle
+    of K, as a ring slot the consumers skipped would drop it), rounded to
+    bf16 like the kernel's output: it must fail the bf16 limit."""
+    k = a.shape[1]
+    k0 = (k // 2) // 64 * 64
+    kk = slice(k0, min(k0 + 64, k))
+    want32 = gemm_ref(a, b, out_dtype=torch.float32)
+    dropped = want32 - gemm_ref(a[:, kk].contiguous(), b[kk].contiguous(),
+                                out_dtype=torch.float32)
+    gap = bf16_gap(dropped.to(torch.bfloat16), want32)
+    require(gap["limit_share"] > 1, "planted fault k_stage_dropped passes "
+            "the bf16 limit:", gap)
+    return [{"fault": "k_stage_dropped", "k": [k0, kk.stop], **gap}]
+
+
+def gemm_main_check(name, got, want, a, b):
+    abs_err, rel_err, *extra = gemm_check(name, got, want, a, b)
+    if got.dtype != torch.bfloat16:
+        return abs_err, rel_err
+    extra[0]["planted_faults"] = gemm_faults(a, b)
+    return abs_err, rel_err, extra[0]
 
 
 def sdpa_decode_setup(q, k, v, kv_len):
@@ -1070,7 +1132,53 @@ def sass_instructions(lib) -> dict:
         text=True).stdout)
 
 
-def phase_build(device: torch.device) -> None:
+#: the kernels of each route of the two-route wrappers, by the prefix of
+#: their names in the SASS: route "wgmma" must hold HGMMA instructions (the
+#: tensor cores) in every instance, route "fma" none
+ROUTE_KERNELS = {
+    "gemm_bf16": {"wgmma": "gemm_wgmma_kernel", "fma": "gemm_kernel"},
+    "flash_attention": {"wgmma": "flash_wgmma_kernel",
+                        "fma": "flash_attention_kernel"},
+}
+
+
+def hgmma_counts(sass: dict) -> dict:
+    """HGMMA instructions in each instance of the two-route kernels (a
+    static count), required in route "wgmma" and absent from route "fma"."""
+    out = {}
+    for row, routes in ROUTE_KERNELS.items():
+        out[row] = {}
+        for route, prefix in routes.items():
+            found = {fn: ops.get("HGMMA", 0) for fn, ops in sass.items()
+                     if fn.split("#")[0] == prefix}
+            require(found, row, "no kernel named", prefix, "in the SASS")
+            for fn, n in found.items():
+                require((n > 0) == (route == "wgmma"), row, fn, "holds", n,
+                        "HGMMA instructions; route", route)
+            out[row][route] = found
+    return out
+
+
+def ptxas_spills(log: str) -> dict:
+    """Spill stores and loads in bytes of each kernel of route "wgmma", from
+    ptxas' report in the build log (its entry line, then its usage)."""
+    spills, name = {}, None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            name = demangled_name(entry.group(1))
+            name = name if "wgmma" in name else None
+            if name:
+                name += f"#{sum(k.split('#')[0] == name for k in spills)}"
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+        if found and name:
+            spills[name] = int(found.group(1)) + int(found.group(2))
+    return spills
+
+
+def phase_build(device: torch.device) -> dict:
     t0 = time.perf_counter()
     info = {"phase": "build"}
     if device.type == "cuda":
@@ -1078,14 +1186,22 @@ def phase_build(device: torch.device) -> None:
         info["nvcc_seconds"] = _build.build_seconds
         info["sources"] = [p.name for p in _build.sources()]
         info["sass"] = sass_instructions(_build.build())
+        info["hgmma"] = hgmma_counts(info["sass"])
         # Registers, shared memory and spills of each kernel, from ptxas.
-        usage = [ln.strip() for ln in _build.build_log().splitlines()
+        log = _build.build_log()
+        usage = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print("\n".join(usage), file=sys.stderr)
+        info["wgmma_spill_bytes"] = ptxas_spills(log)
+        require(len(info["wgmma_spill_bytes"]) == 5, "ptxas reported",
+                info["wgmma_spill_bytes"], "for the five wgmma instances")
+        require(not any(info["wgmma_spill_bytes"].values()),
+                "a tensor-core kernel spills:", info["wgmma_spill_bytes"])
     else:
         info["skipped"] = "rehearsal on the CPU: nothing to build"
     info["seconds"] = time.perf_counter() - t0
     emit(info)
+    return info
 
 
 def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
@@ -1155,22 +1271,28 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
     f32, bf16 = torch.float32, torch.bfloat16
 
 
-    def gemm_case(name, dtype, tol, rate):
+    def gemm_case(name, dtype, rate, route):
         return dict(
             name=name, wrapper="gemm", source="src/repro_torch/csrc/gemm.cu",
             replaces="src/repro/kernels/gemm/kernel.py:66",
             main=lambda: gemm_inputs(g, g, g, dtype, gen, device),
-            ragged=lambda: gemm_inputs(100, 60, 130, dtype, gen, device),
+            main_route=route,
+            # K = 60: 120-byte rows, which TMA refuses (route "fma" in bf16
+            # too); (200, 136, 264): aligned, ragged in all three axes
+            ragged=lambda: [gemm_inputs(100, 60, 130, dtype, gen, device),
+                            gemm_inputs(200, 136, 264, dtype, gen, device)],
             fn=lambda a, b: gemm(a, b),
             plain=lambda a, b: gemm_ref(a, b),
             library=lambda a, b: torch.matmul(a, b),
-            check=lambda nm, got, want, *inp: check_close(
-                nm, got, want, rtol=tol, atol=tol),
+            check=gemm_check,
+            main_check=gemm_main_check,
             work=lambda a, b: bound(
                 (a.numel() + b.numel() + a.shape[0] * b.shape[1])
                 * a.element_size(),
                 2.0 * a.shape[0] * a.shape[1] * b.shape[1], rate),
             shape=lambda a, b: [a.shape[0], a.shape[1], b.shape[1]],
+            **({"first": lambda a, b: gemm_cuda(a, b, route="fma")}
+               if route == "wgmma" else {}),
         )
 
     return [
@@ -1227,10 +1349,10 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                 float(z.numel()), H100_SXM_FP32_FLOPS),
             shape=lambda z, ra, ca: list(z.shape),
         ),
-        # f32: true f32 products; 1e-4 covers the order of summation.
-        gemm_case("gemm", torch.float32, 1e-4, H100_SXM_FP32_FLOPS),
-        # bf16: the result is rounded to bf16 (8 bits of mantissa): 2e-2.
-        gemm_case("gemm_bf16", torch.bfloat16, 2e-2, H100_SXM_BF16_FLOPS),
+        # f32: true f32 products on the CUDA cores; bf16: the tensor cores,
+        # its first version (route "fma") timed beside it (GEMM_TOL).
+        gemm_case("gemm", torch.float32, H100_SXM_FP32_FLOPS, "fma"),
+        gemm_case("gemm_bf16", torch.bfloat16, H100_SXM_BF16_FLOPS, "wgmma"),
         dict(
             name="black_scholes", wrapper="black_scholes",
             source="src/repro_torch/csrc/black_scholes.cu",
@@ -1329,8 +1451,11 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:110",
             main=lambda: flash_inputs(sizes.flash, bf16, gen, device),
+            main_route="wgmma",
             also={"gemma": lambda: flash_inputs(sizes.flash_gemma, bf16,
                                                 gen, device)},
+            # f32 (route "fma") and bf16 (route "wgmma": the TMA boxes'
+            # zero fill at ragged S and T, D = 96 and 256, the masks)
             ragged=lambda: [
                 flash_inputs((1, 8, 2, 256, 64), f32, gen, device),  # GQA
                 flash_inputs((1, 4, 1, 128, 32), f32, gen, device,
@@ -1340,7 +1465,14 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                              q_offset=60),  # q_offset > 0, S < T, ragged T
                 flash_inputs((1, 4, 4, 128, 64), bf16, gen, device),
                 flash_inputs((1, 8, 1, 130, 256), f32, gen, device),  # MQA
+                flash_inputs((1, 8, 2, 100, 96), bf16, gen, device),
+                flash_inputs((1, 10, 1, 300, 256), bf16, gen, device,
+                             window=64),
+                flash_inputs((1, 4, 2, 40, 96), bf16, gen, device, t=100,
+                             q_offset=60),
             ],
+            first=lambda q, k, v, kw: flash_attention_cuda(
+                q, k, v, route="fma", **kw),
             fn=lambda q, k, v, kw: flash_attention(q, k, v, **kw),
             plain=lambda q, k, v, kw: attention_ref(q, k, v, **kw),
             library=lambda q, k, v, kw: F.scaled_dot_product_attention(
@@ -1455,13 +1587,29 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
     ]
 
 
+def routed(wrapper, fn, device):
+    """``fn()`` and the route its one launch took, by the wrapper's
+    ``routes`` counts (None for a one-route wrapper or on the CPU)."""
+    before = dict(getattr(wrapper, "routes", {}))
+    out = fn()
+    taken = [r for r, n in getattr(wrapper, "routes", {}).items()
+             if n != before[r]]
+    require(len(taken) <= 1, "one call took routes", taken)
+    return out, (taken[0] if taken and device.type == "cuda" else None)
+
+
 def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
             check=None) -> dict:
     """One shape of a kernel: its result held against the plain version
     (``check``, else ``main_check``, else ``check`` of the case), then the
     kernel, the plain version and the library call timed, and the bound of
-    the work."""
-    got = case["fn"](*inputs)
+    the work, and for a two-route kernel the route it took and its first
+    version's time on the same inputs."""
+    wrapper = WRAPPERS[case["wrapper"]]
+    got, route = routed(wrapper, lambda: case["fn"](*inputs), device)
+    if case.get("main_route") and device.type == "cuda":
+        require(route == case["main_route"], case["name"], "took route",
+                route, "not", case["main_route"])
     sync(device)
     plain_reps = case.get("plain_reps", sizes.reps)
     plain_ms = None
@@ -1491,8 +1639,14 @@ def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
         library_ms = time_ms(lambda: case["library"](*lib_inputs),
                              device, sizes.reps, queued=queued)
         del lib_inputs
+    first = {}
+    if case.get("first") and device.type == "cuda":
+        first = {"first_version_route": "fma", "first_version_ms": time_ms(
+            lambda: case["first"](*inputs), device, sizes.reps,
+            queued=queued)}
     return {
         "max_abs_err": abs_err, "max_rel_err": rel_err,
+        **({"kernel_route": route} if route else {}), **first,
         "ms": time_ms(lambda: case["fn"](*inputs), device, sizes.reps,
                       queued=queued),
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1502,10 +1656,11 @@ def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
 
 
 def phase_kernels(sizes: Sizes, device: torch.device,
-                  gen: torch.Generator) -> list[dict]:
+                  gen: torch.Generator, build: dict) -> list[dict]:
     """Each kernel against its plain version on the card, at ragged shapes,
     then at the main-path shape (and at the shapes in ``also``), where it is
-    also timed."""
+    also timed.  A two-route kernel's ragged cases must take route "fma"
+    at least once, and its row carries the HGMMA counts of ``build``."""
     t0 = time.perf_counter()
     # The plain versions multiply in true f32, like the kernels.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1517,23 +1672,31 @@ def phase_kernels(sizes: Sizes, device: torch.device,
         raggeds = case["ragged"]()
         if not isinstance(raggeds, list):
             raggeds = [raggeds]
-        ragged_err = 0.0
+        ragged_err, ragged_routes = 0.0, []
         for inputs in raggeds:
             before = wrapper.launches
-            got = case["fn"](*inputs)
+            got, route = routed(wrapper, lambda: case["fn"](*inputs), device)
             sync(device)
             if device.type == "cuda" and wrapper.launches != before + 1:
                 raise AssertionError(f"{name}: the wrapper did not launch")
+            ragged_routes.append(route)
             ragged_err = max(ragged_err, case["check"](
                 f"{name}/ragged", got, case["plain"](*inputs), *inputs)[0])
         ragged_shape = case["shape"](*raggeds[0])
         del raggeds, inputs, got
+        if case.get("main_route") and device.type == "cuda":
+            require("fma" in ragged_routes, name, "ragged cases took only",
+                    ragged_routes)
 
         row = {"name": name, "route": "cuda", "source": case["source"],
                "replaces": case["replaces"], "launches": None,
                **measure(case, case["main"](), sizes, device),
                "ragged_shape": ragged_shape,
-               "ragged_max_abs_err": ragged_err}
+               "ragged_max_abs_err": ragged_err,
+               **({"ragged_routes": ragged_routes}
+                  if any(ragged_routes) else {}),
+               **({"hgmma": build["hgmma"][name]}
+                  if name in build.get("hgmma", {}) else {})}
         for label, make in case.get("also", {}).items():
             row[label] = measure(case, make(), sizes, device,
                                  case.get("also_check"))
@@ -1726,11 +1889,12 @@ def phase_launch(sizes: Sizes, device: torch.device,
         "gemm", lambda v, info: {"C": gemm(v["A"], v["B"])},
         "global [i, j] => read A[i,:], read B[:,j], write C[i,j]")
     g = sizes.gemm
-    for tag, dtype, tol in (("gemm", torch.float32, 1e-4),
-                            ("gemm_bf16", torch.bfloat16, 2e-2)):
+    for tag, dtype, route in (("gemm", torch.float32, "fma"),
+                              ("gemm_bf16", torch.bfloat16, "wgmma")):
         t1 = time.perf_counter()
         a, b = gemm_inputs(g, g, g, dtype, gen, device)
         since = gemm_cuda.launches
+        routes = dict(gemm_cuda.routes)
         res = ctx.launch(
             gemm_def, grid=(g, g),
             args={"A": ctx.array(a, dist=RowDist(), name="A"),
@@ -1738,11 +1902,15 @@ def phase_launch(sizes: Sizes, device: torch.device,
                   "C": ctx.zeros((g, g), dtype=dtype, dist=RowDist(),
                                  name="C")})
         ctx.synchronize()
-        err = check_close(f"launch/{tag}", res["C"].value, gemm_ref(a, b),
-                          rtol=tol, atol=tol)
+        err = gemm_check(f"launch/{tag}", res["C"].value, gemm_ref(a, b), a,
+                         b)
+        taken = gemm_cuda.routes[route] - routes[route]
+        require(taken == 1 or not on_card, tag, "took route", route, taken,
+                "times:", gemm_cuda.routes, "before", routes)
         out[tag] = {"shape": [g, g, g], "dtype": str(dtype),
                     "kernel_launches": launched("gemm", since, 1),
-                    "max_abs_err": err[0],
+                    "kernel_route": route, "max_abs_err": err[0],
+                    **(err[2] if len(err) > 2 else {}),
                     "seconds": time.perf_counter() - t1}
         del a, b, res
 
@@ -2109,7 +2277,9 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                                      attention_ref, groups)],
                 "decode": [lru], "logit_layers": None,
                 "check_len": sizes.serve_check_len_window,
-                "profile": {"decode_step": ("rg_lru_kernel",)},
+                "profile": {"decode_step": ("rg_lru_kernel",),
+                            "prefill": ("flash_wgmma_kernel",
+                                        "rg_lru_kernel")},
                 "expect": lambda prefills, steps: {
                     "rg_lru": rec * (prefills + steps),
                     "flash_attention": groups * prefills}}
@@ -2120,7 +2290,7 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
             "logit_layers": None, "check_len": sizes.serve_check_len,
             "profile": {"decode_step": ("decode_attention_kernel",
                                         "decode_combine_kernel"),
-                        "prefill": ("flash_attention_kernel",)},
+                        "prefill": ("flash_wgmma_kernel",)},
             "expect": lambda prefills, steps: {
                 "flash_attention": cfg.n_layers * prefills,
                 "decode_attention": cfg.n_layers * steps}}
@@ -2322,6 +2492,8 @@ def serve_profile(params, cfg, sizes: Sizes, device, state, step,
         if ported_ms is not None:
             ported_ms /= n
             out[f"{what}_ported"] = list(kernels)
+            out[f"{what}_ported_ms_by_kernel"] = {
+                k: (kernel_device_ms(prof, k) or 0.0) / n for k in kernels}
             out[f"{what}_ported_ms"] = ported_ms
             out[f"{what}_ported_share"] = ported_ms / out[f"{what}_ms"]
             out[f"{what}_ported_device_share"] = \
@@ -2393,9 +2565,15 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
            "init_seconds": time.perf_counter() - t1}
 
     t1 = time.perf_counter()
+    flash_routes = dict(flash_attention_cuda.routes)
     check = serve_check(params, cfg, sizes, device, gen, max_len,
                         gate_logits=spec["logit_layers"] is None)
     state, step = check.pop("state"), check.pop("step")
+    # Every bf16 flash-attention call of the check took the tensor cores.
+    check["flash_routes"] = {r: n - flash_routes[r] for r, n in
+                             flash_attention_cuda.routes.items()}
+    require(check["flash_routes"]["fma"] == 0, "bf16 flash attention took "
+            "route fma:", check["flash_routes"])
     out["check"] = dict(check, seconds=time.perf_counter() - t1)
     if on_card:
         toks = torch.randint(0, cfg.vocab, (1, sizes.serve_check_len),
@@ -2432,8 +2610,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
                          device=device)
     out["engine_setup_seconds"] = time.perf_counter() - t1
     # The serving path: every count set to 0 just before, read just after.
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    zero_counts()
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     submitted = {}
@@ -2445,6 +2622,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
     sync(device)
     wall = time.perf_counter() - t1
     counts = {name: w.launches for name, w in WRAPPERS.items()}
+    routes = route_counts()
 
     require(len(done) == len(reqs), "completed", len(done), "of", len(reqs))
     bad = [(r.rid, r.status, len(r.output), r.max_new_tokens) for r in done
@@ -2462,6 +2640,9 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         for name, n in counts.items():
             require(n == expect.get(name, 0), name, "launched", n,
                     "times in the engine run, expected", expect.get(name, 0))
+        require(routes["flash_attention"]["wgmma"]
+                == counts["flash_attention"], "flash attention routes in "
+                "the engine run:", routes["flash_attention"])
     tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
     out.update({
         "slots": sizes.serve_slots, "max_len": max_len,
@@ -2479,6 +2660,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         "tokens_per_s": tokens / wall,
         "decode_tokens_per_s": engine.stats["decode_tokens"] / wall,
         "kernel_launches": counts, "expected_launches": expect,
+        "kernel_routes": routes,
     })
     if on_card:
         out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -2510,16 +2692,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     env = phase_env(device)
-    phase_build(device)
-    rows = phase_kernels(sizes, device, gen)
+    build = phase_build(device)
+    rows = phase_kernels(sizes, device, gen, build)
 
     # The launch and streaming path: every count set to 0 just before, read
     # just after.
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    zero_counts()
     launch = phase_launch(sizes, device, gen)
     stream = phase_stream(sizes, device, args.seed)
     counts = {name: w.launches for name, w in WRAPPERS.items()}
+    routes = route_counts()
     # Each serving run zeroes and reads the counts around its engine run.
     served = {arch: phase_serve(sizes, device, args.seed, arch)[
         "kernel_launches"] for arch in SERVE_ARCHS}
@@ -2545,7 +2727,7 @@ def main(argv=None) -> int:
             raise AssertionError(
                 f"{row['name']}: the main path never launched this kernel")
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
-          "main_path_launches": counts,
+          "main_path_launches": counts, "main_path_routes": routes,
           "stream_launches": stream.get("kernel_launches"),
           "serve_launches": served})
 

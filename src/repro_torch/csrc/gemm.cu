@@ -1,28 +1,50 @@
-// C = A @ B with an f32 accumulator, for Hopper (sm_90a).
+// C = A @ B with an f32 accumulator, for Hopper (sm_90a), by two routes.
 //
 // Replaces the TPU kernel `_gemm_kernel` / `gemm_pallas` in
 // src/repro/kernels/gemm/kernel.py, which revisits one accumulator tile over
 // a sequential K grid axis and feeds a matrix unit with aligned blocks.
 //
-// On an H100 a large product is bound by operations: 2*m*n*k of them.  This
-// first version is the classic shared-memory-tiled kernel: a block of 256
-// threads owns a 128 x 128 tile of C and loops over K in steps of 16 inside
-// the block (blocks run in no order, so nothing carries over between them);
-// each thread keeps an 8 x 8 accumulator in registers, split into four 4 x 4
-// quadrants so that shared-memory reads are 16-byte wide and free of bank
-// conflicts.  A is stored transposed in shared memory.  f32 inputs are
-// multiplied in true f32 on the CUDA cores (fused multiply-add), never in
-// TF32; bf16 inputs are widened to f32 on the way into shared memory and
-// accumulate in f32 the same way.  The result is cast to the output type at
-// the end.  Ragged m, n and k are masked: out-of-range elements load as 0 and
-// are not stored.  Loads are 16 bytes per request where the row length
-// allows (a multiple of 8 elements) and element-wise otherwise.
+// On an H100 a large product is bound by operations: 2*m*n*k of them, at
+// 989 TFLOP/s for bf16 inputs on the tensor cores and 67 TFLOP/s for f32 on
+// the CUDA cores.  The wrapper (kernels/gemm/kernel.py, `gemm_route`) picks
+// the route before the launch from dtype, shape and alignment alone:
 //
-// The tensor cores (wgmma fed by TMA) are the way to the card's full rate
-// and are left to a later version.
+// "wgmma" -- bf16 inputs whose rows TMA can describe (K and N multiples of
+// 8, so rows are whole 16-byte units, and 16-byte-aligned bases), out bf16
+// or f32.  One block of 384 threads per 128 x 256 tile of C, the tiles
+// walked in groups of 16 row tiles so that a wave of blocks shares its A
+// and B tiles in L2.  Warpgroup 0 is the producer: it gives up its
+// registers (setmaxnreg) and one thread keeps a ring of 4 stages of 64 K
+// values in flight with TMA (16 KB of A, 32 KB of B a stage, 128-byte
+// swizzle, one mbarrier "full" and one "empty" a stage).  Warpgroups 1 and
+// 2 are the consumers: each issues m64n256k16 on its 64 rows, 4 a stage,
+// with the 64 x 256 f32 accumulator in registers (128 a thread; ptxas holds
+// every thread of a 384-thread block to 168 registers whatever setmaxnreg
+// moves at run time, and the consumers fit in them without spilling).  B
+// is read as it lies, (k, n) row-major, through wgmma's transpose-B
+// immediate: no transposed copy.  TMA fills what lies past M, N or K with
+// zeros, which masks a ragged K; the epilogue casts to the out type once and
+// masks its stores past M and N.  The tensor cores sum a k16 step's products
+// in their own order before adding them to the f32 accumulator, so results
+// differ from cuBLAS's in the last bits of f32 before the cast.
+//
+// "fma" -- everything else: f32 inputs, and bf16 inputs TMA cannot describe
+// (such as a K of 60, whose 120-byte rows it refuses).  The classic
+// shared-memory-tiled kernel: a block of 256 threads owns a 128 x 128 tile
+// of C and loops over K in steps of 16; each thread keeps an 8 x 8
+// accumulator in registers, split into four 4 x 4 quadrants so that
+// shared-memory reads are 16-byte wide and free of bank conflicts.  A is
+// stored transposed in shared memory.  f32 inputs are multiplied in true f32
+// on the CUDA cores (fused multiply-add), never in TF32, bit-equal to cuBLAS
+// at 8192^3; bf16 inputs are widened to f32 on the way into shared memory.
+// Ragged m, n and k are masked: out-of-range elements load as 0 and are not
+// stored.  Loads are 16 bytes per request where the row length allows (a
+// multiple of 8 elements) and element-wise otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -162,6 +184,145 @@ cudaError_t launch(const void* a, const void* b, void* c, int M, int N, int K,
   return cudaGetLastError();
 }
 
+
+// --- route "wgmma" ----------------------------------------------------------
+
+namespace tc {
+
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4, GROUP_M = 16;
+constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int PANEL = 64;      // bf16 values in a 128-byte swizzled row
+constexpr int A_STAGE = BM * BK * 2;   // 16 KB
+constexpr int B_PANEL = BK * PANEL * 2;  // 8 KB: 64 k rows x 64 n values
+constexpr int B_STAGE = BK * BN * 2;   // 32 KB: 4 panels
+constexpr int SMEM_BYTES =
+    STAGES * (A_STAGE + B_STAGE) + 2 * STAGES * 8 + 1024;
+
+__device__ inline void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ inline void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+template <typename TOut>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  TOut* __restrict__ C, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* sa = smem;                     // STAGES x (BM rows x 128 B)
+  uint8_t* sb = smem + STAGES * A_STAGE;  // STAGES x 4 panels x (BK x 128 B)
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * B_STAGE);
+  uint64_t* empty = full + STAGES;
+
+  // Tile of this block, in groups of GROUP_M row tiles.
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int pid = blockIdx.x;
+  const int in_group = GROUP_M * tiles_n;
+  const int first_m = (pid / in_group) * GROUP_M;
+  const int group_m = min(tiles_m - first_m, GROUP_M);
+  const int m0 = (first_m + (pid % in_group) % group_m) * BM;
+  const int n0 = ((pid % in_group) / group_m) * BN;
+  const int kblocks = (K + BK - 1) / BK;
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);  // every consumer thread
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int kb = 0; kb < kblocks; ++kb) {
+        const int s = kb % STAGES;
+        hopper::mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], A_STAGE + B_STAGE);
+        hopper::tma_load_2d(sa + s * A_STAGE, &map_a, &full[s], kb * BK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / PANEL; ++j)
+          hopper::tma_load_2d(sb + s * B_STAGE + j * B_PANEL, &map_b,
+                              &full[s], n0 + j * PANEL, kb * BK);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int c = wg - 1;  // rows 64 c .. 64 c + 63 of the tile
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int s = kb % STAGES;
+      hopper::mbar_wait(&full[s], (kb / STAGES) & 1);
+      const uint8_t* a = sa + s * A_STAGE + c * 64 * 128;
+      const uint8_t* b = sb + s * B_STAGE;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_ss256<1>(acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
+                               hopper::desc_sw128(b + kk * 16 * 128, B_PANEL,
+                                                  1024),
+                               1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: cast once, masked stores of column pairs.
+    const int w = tid / 32, l = tid % 32;
+    const int row = m0 + c * 64 + w * 16 + l / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * (l % 4);
+      if (col >= N) continue;
+      if (row < M)
+        store2(C + static_cast<long long>(row) * N + col, acc[4 * j],
+               acc[4 * j + 1]);
+      if (row + 8 < M)
+        store2(C + static_cast<long long>(row + 8) * N + col, acc[4 * j + 2],
+               acc[4 * j + 3]);
+    }
+  }
+}
+
+template <typename TOut>
+int launch(const void* a, const void* b, void* c, int M, int N, int K,
+           cudaStream_t stream) {
+  alignas(64) CUtensorMap map_a, map_b;
+  const uint64_t dims_a[2] = {static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(M)};
+  const uint64_t strides_a[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t box_a[2] = {BK, BM};
+  int err = hopper::encode_tensor_map(&map_a, a, 2, dims_a, strides_a, box_a);
+  if (err != 0) return err;
+  const uint64_t dims_b[2] = {static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(K)};
+  const uint64_t strides_b[1] = {static_cast<uint64_t>(N) * 2};
+  const uint32_t box_b[2] = {PANEL, BK};
+  err = hopper::encode_tensor_map(&map_b, b, 2, dims_b, strides_b, box_b);
+  if (err != 0) return err;
+  auto kernel = gemm_wgmma_kernel<TOut>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  kernel<<<blocks, kThreads, SMEM_BYTES, stream>>>(
+      map_a, map_b, static_cast<TOut*>(c), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // a (m, k), b (k, n), c (m, n), dense row-major.  Type codes: 0 = float32,
@@ -181,4 +342,17 @@ extern "C" int gemm_rowmajor(const void* a, const void* b, void* c, int m,
   else if (in_type == 1 && out_type == 1)
     e = launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, m, n, k, s);
   return static_cast<int>(e);
+}
+
+// Route "wgmma": a (m, k) and b (k, n) bf16, dense row-major, 16-byte
+// aligned, k and n multiples of 8 (the wrapper's `gemm_route` checks all of
+// it); c (m, n) of out_type 0 = float32 or 1 = bfloat16.  Returns
+// cudaGetLastError(), or the negated CUresult of a tensor map that could
+// not be encoded.
+extern "C" int gemm_bf16_wgmma(const void* a, const void* b, void* c, int m,
+                               int n, int k, int out_type, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_type == 0) return tc::launch<float>(a, b, c, m, n, k, s);
+  if (out_type == 1) return tc::launch<__nv_bfloat16>(a, b, c, m, n, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -149,5 +149,10 @@ def bind(name: str, argtypes: list) -> "ctypes._CFuncPtr":
 
 
 def check(err: int, what: str) -> None:
+    """Raise on a launcher's nonzero return: a ``cudaError_t``, or the
+    negated ``CUresult`` of a TMA tensor map the driver would not encode."""
+    if err < 0:
+        raise RuntimeError(f"{what}: the driver refused a TMA tensor map "
+                           f"(CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")

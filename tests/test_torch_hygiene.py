@@ -78,6 +78,11 @@ FORBIDDEN = re.compile(
     r"from\s+repro(\.|\s))", re.MULTILINE)
 
 
+def test_source_scan_covers_the_shared_hopper_header():
+    """The tensor-core kernels' shared header is scanned like the kernels."""
+    assert PORT / "csrc" / "hopper.cuh" in _port_sources()
+
+
 def test_source_scan_finds_no_forbidden_import():
     hits = [(str(p.relative_to(ROOT)), m.group(0).strip())
             for p in _port_sources()
@@ -136,10 +141,14 @@ def test_kernels_call_no_library_in_place_of_a_kernel():
             code = "\n".join(ln.split("#")[0] for ln in text.splitlines())
             code = re.sub(r'""".*?"""', "", code, flags=re.DOTALL)
             assert not stand_ins.search(code), (sub, name)
-    for cu in (PORT / "csrc").glob("*.cu"):
+    sources = sorted((PORT / "csrc").glob("*.cu")) \
+        + sorted((PORT / "csrc").glob("*.cuh"))
+    assert PORT / "csrc" / "hopper.cuh" in sources
+    for cu in sources:
         code = "\n".join(ln for ln in cu.read_text().splitlines()
                          if not ln.lstrip().startswith("//")).lower()
-        assert not re.search(r"cublas|cudnn|cutlass/gemm/device", code), cu.name
+        assert not re.search(r"cublas|cudnn|cutlass/gemm/device|"
+                             r"cutlass/gemm/kernel|collective", code), cu.name
 
 
 def test_the_port_never_calls_the_library_attention():
