@@ -16,11 +16,15 @@ paper's benchmarks would call real; then LM serving through
 recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
 local attention).  Phases (each prints one JSON line with the seconds it
 took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
-``serve`` once for each model.  GEMM and flash attention have two routes
-(``"wgmma"``: the tensor cores fed by TMA; ``"fma"``: the CUDA cores): the
-run requires the tensor cores' route for the bf16 main-path calls and
-``HGMMA`` instructions in that route's kernels only, no register spills in
-them, and times their first version (``"fma"``) beside them.  Any
+``serve`` once for each model.  GEMM, flash attention and decode attention
+have more than one route (``"wgmma"``: the tensor cores fed by TMA;
+``"mma"``: decode attention's query heads on the tensor cores by
+``mma.sync``, fed by ``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA
+cores with its loads one stage ahead; ``"fma"``: the first kernels, on the CUDA
+cores): the run requires the redesigned route for the main-path calls, the
+tensor cores' instructions (``HGMMA``, ``HMMA``) in those routes' kernels
+only, no register spills in them, and times their first version
+(``"fma"``) beside them.  Any
 exception or any comparison outside its tolerance ends the run with a
 non-zero exit code.  The last three
 lines of the output are the kernel table, the card's name and power limit,
@@ -193,6 +197,9 @@ class Sizes:
     flash_gemma: tuple = (1, 8, 1, 1000, 256)
     decode: tuple = (8, 32, 32, 2184, 96)
     decode_gemma: tuple = (8, 8, 1, 2184, 256)
+    # recurrentgemma-2b's ring-buffer decode: 8 slots, 10 query heads on
+    # one kv head of 256, a window of 2048
+    decode_rgemma: tuple = (8, 10, 1, 2048, 256)
     # the correlator: (C, T, A) channels, samples, antennas (1.61 GB f32)
     corr: tuple = (1024, 768, 256)
     # the recurrent scans at the serving path's shapes: rwkv6-3b's prefill
@@ -223,6 +230,7 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             md5_n=1 << 13, nbody_n=1000, nbody_slab=256,
             flash=(1, 4, 4, 64, 32), flash_gemma=(1, 4, 1, 40, 64),
             decode=(3, 4, 4, 70, 32), decode_gemma=(3, 4, 1, 70, 64),
+            decode_rgemma=(3, 5, 1, 70, 64),
             corr=(16, 40, 12), wkv=(1, 4, 40, 16), wkv_decode=(3, 4, 1, 16),
             lru=(1, 40, 64), lru_decode=(3, 1, 64),
             serve_smoke=True, serve_requests=6, serve_requests_recurrent=6,
@@ -783,11 +791,22 @@ def decode_main_check(name, got, want, *inputs):
 
 def gemm_check(name, got, want, a, b):
     """Against the plain version in the inputs' type (f32 1e-4: the order
-    of summation; bf16 2e-2: the result's own rounding); in bf16 also
-    against the f32 product of the same inputs within the bf16 limit
-    (``bf16_check``, rms over a row of C)."""
+    of summation; bf16 2e-2: the result's own rounding); in f32 also
+    against a float64 product within the reference sweep's 1e-4
+    (``tests/test_kernels.py``), the plain version's error (cuBLAS in true
+    f32) reported beside it; in bf16 also against the f32 product of the
+    same inputs within the bf16 limit (``bf16_check``, rms over a row of
+    C)."""
     tol = GEMM_TOL[got.dtype]
     err = check_close(name, got, want, rtol=tol, atol=tol)
+    if got.dtype == torch.float32:
+        want64 = a.double() @ b.double()
+        err64 = check_close(f"{name}/float64", got, want64, rtol=tol,
+                            atol=tol)
+        plain64 = float((want.double() - want64).abs().max())
+        return err[0], err[1], {"f64_max_abs_err": err64[0],
+                                "f64_max_rel_err": err64[1],
+                                "plain_f64_max_abs_err": plain64}
     if got.dtype != torch.bfloat16:
         return err
     gap = bf16_check(name, got, gemm_ref(a, b, out_dtype=torch.float32))
@@ -815,7 +834,7 @@ def gemm_faults(a, b) -> list[dict]:
 def gemm_main_check(name, got, want, a, b):
     abs_err, rel_err, *extra = gemm_check(name, got, want, a, b)
     if got.dtype != torch.bfloat16:
-        return abs_err, rel_err
+        return abs_err, rel_err, *extra
     extra[0]["planted_faults"] = gemm_faults(a, b)
     return abs_err, rel_err, extra[0]
 
@@ -1132,42 +1151,59 @@ def sass_instructions(lib) -> dict:
         text=True).stdout)
 
 
-#: the kernels of each route of the two-route wrappers, by the prefix of
-#: their names in the SASS: route "wgmma" must hold HGMMA instructions (the
-#: tensor cores) in every instance, route "fma" none
+#: the kernels of each route of the multi-route wrappers, by the prefix of
+#: their names in the SASS, and the tensor-core instruction every instance
+#: must hold: HGMMA (wgmma) or HMMA (mma.sync); None: neither (the CUDA
+#: cores, so route "pipe" is true f32)
 ROUTE_KERNELS = {
-    "gemm_bf16": {"wgmma": "gemm_wgmma_kernel", "fma": "gemm_kernel"},
-    "flash_attention": {"wgmma": "flash_wgmma_kernel",
-                        "fma": "flash_attention_kernel"},
+    "gemm_bf16": {"wgmma": ("gemm_wgmma_kernel", "HGMMA"),
+                  "fma": ("gemm_kernel", None)},
+    "gemm": {"pipe": ("gemm_pipe_kernel", None),
+             "fma": ("gemm_kernel", None)},
+    "flash_attention": {"wgmma": ("flash_wgmma_kernel", "HGMMA"),
+                        "fma": ("flash_attention_kernel", None)},
+    "decode_attention": {"mma": ("decode_mma_kernel", "HMMA"),
+                         "fma": ("decode_attention_kernel", None)},
 }
+TENSOR_CORE_OPS = ("HGMMA", "HMMA")
+#: instances of the redesigned routes' kernels, whose spills ptxas reports:
+#: GEMM wgmma 2 (bf16 and f32 out) and pipe 1, flash attention wgmma 3,
+#: decode attention mma 6 (group and head-dim classes)
+REDESIGNED_INSTANCES = 12
 
 
-def hgmma_counts(sass: dict) -> dict:
-    """HGMMA instructions in each instance of the two-route kernels (a
-    static count), required in route "wgmma" and absent from route "fma"."""
+def tensor_core_counts(sass: dict) -> dict:
+    """Tensor-core instructions (HGMMA, HMMA) in each instance of the
+    multi-route kernels (a static count): the route's own instruction in
+    every instance of a tensor-core route, neither in a CUDA-core one."""
     out = {}
     for row, routes in ROUTE_KERNELS.items():
         out[row] = {}
-        for route, prefix in routes.items():
-            found = {fn: ops.get("HGMMA", 0) for fn, ops in sass.items()
+        for route, (prefix, op) in routes.items():
+            found = {fn: {o: ops.get(o, 0) for o in TENSOR_CORE_OPS}
+                     for fn, ops in sass.items()
                      if fn.split("#")[0] == prefix}
             require(found, row, "no kernel named", prefix, "in the SASS")
             for fn, n in found.items():
-                require((n > 0) == (route == "wgmma"), row, fn, "holds", n,
-                        "HGMMA instructions; route", route)
+                ok = n[op] > 0 if op else not any(n.values())
+                require(ok, row, fn, "holds", n, "tensor-core instructions; "
+                        "route", route, "needs", op or "none")
             out[row][route] = found
     return out
 
 
 def ptxas_spills(log: str) -> dict:
-    """Spill stores and loads in bytes of each kernel of route "wgmma", from
-    ptxas' report in the build log (its entry line, then its usage)."""
+    """Spill stores and loads in bytes of each kernel of the redesigned
+    routes (every route but "fma"), from ptxas' report in the build log
+    (its entry line, then its usage)."""
+    names = {prefix for routes in ROUTE_KERNELS.values()
+             for route, (prefix, _) in routes.items() if route != "fma"}
     spills, name = {}, None
     for ln in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
             name = demangled_name(entry.group(1))
-            name = name if "wgmma" in name else None
+            name = name if name in names else None
             if name:
                 name += f"#{sum(k.split('#')[0] == name for k in spills)}"
             continue
@@ -1186,17 +1222,18 @@ def phase_build(device: torch.device) -> dict:
         info["nvcc_seconds"] = _build.build_seconds
         info["sources"] = [p.name for p in _build.sources()]
         info["sass"] = sass_instructions(_build.build())
-        info["hgmma"] = hgmma_counts(info["sass"])
+        info["tensor_cores"] = tensor_core_counts(info["sass"])
         # Registers, shared memory and spills of each kernel, from ptxas.
         log = _build.build_log()
         usage = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print("\n".join(usage), file=sys.stderr)
-        info["wgmma_spill_bytes"] = ptxas_spills(log)
-        require(len(info["wgmma_spill_bytes"]) == 5, "ptxas reported",
-                info["wgmma_spill_bytes"], "for the five wgmma instances")
-        require(not any(info["wgmma_spill_bytes"].values()),
-                "a tensor-core kernel spills:", info["wgmma_spill_bytes"])
+        info["spill_bytes"] = ptxas_spills(log)
+        require(len(info["spill_bytes"]) == REDESIGNED_INSTANCES,
+                "ptxas reported", info["spill_bytes"], "for the",
+                REDESIGNED_INSTANCES, "instances of the redesigned routes")
+        require(not any(info["spill_bytes"].values()),
+                "a redesigned kernel spills:", info["spill_bytes"])
     else:
         info["skipped"] = "rehearsal on the CPU: nothing to build"
     info["seconds"] = time.perf_counter() - t0
@@ -1279,8 +1316,11 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             main_route=route,
             # K = 60: 120-byte rows, which TMA refuses (route "fma" in bf16
             # too); (200, 136, 264): aligned, ragged in all three axes
+            # (bf16 by "wgmma", f32 by "fma": K not whole 16-deep stages);
+            # (200, 144, 260): f32 by "pipe", ragged in M and N
             ragged=lambda: [gemm_inputs(100, 60, 130, dtype, gen, device),
-                            gemm_inputs(200, 136, 264, dtype, gen, device)],
+                            gemm_inputs(200, 136, 264, dtype, gen, device),
+                            gemm_inputs(200, 144, 260, dtype, gen, device)],
             fn=lambda a, b: gemm(a, b),
             plain=lambda a, b: gemm_ref(a, b),
             library=lambda a, b: torch.matmul(a, b),
@@ -1291,8 +1331,7 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                 * a.element_size(),
                 2.0 * a.shape[0] * a.shape[1] * b.shape[1], rate),
             shape=lambda a, b: [a.shape[0], a.shape[1], b.shape[1]],
-            **({"first": lambda a, b: gemm_cuda(a, b, route="fma")}
-               if route == "wgmma" else {}),
+            first=lambda a, b: gemm_cuda(a, b, route="fma"),
         )
 
     return [
@@ -1349,9 +1388,10 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                 float(z.numel()), H100_SXM_FP32_FLOPS),
             shape=lambda z, ra, ca: list(z.shape),
         ),
-        # f32: true f32 products on the CUDA cores; bf16: the tensor cores,
-        # its first version (route "fma") timed beside it (GEMM_TOL).
-        gemm_case("gemm", torch.float32, H100_SXM_FP32_FLOPS, "fma"),
+        # f32: true f32 products on the CUDA cores, loads a stage ahead;
+        # bf16: the tensor cores; each with its first version (route "fma")
+        # timed beside it (GEMM_TOL).
+        gemm_case("gemm", torch.float32, H100_SXM_FP32_FLOPS, "pipe"),
         gemm_case("gemm_bf16", torch.bfloat16, H100_SXM_BF16_FLOPS, "wgmma"),
         dict(
             name="black_scholes", wrapper="black_scholes",
@@ -1484,15 +1524,23 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             shape=lambda q, k, v, kw: [q.shape[0], q.shape[1], k.shape[1],
                                        q.shape[2], k.shape[2], q.shape[3]],
         ),
-        # The serving path's decode step: 8 slots, kv_len over [1, T];
-        # gemma-2b's MQA beside it, as for flash attention.
+        # The serving paths' decode steps: phi3-mini's (8 slots, kv_len
+        # over [1, T]) and recurrentgemma-2b's ring buffer (10 query heads
+        # on one kv head of 256); gemma-2b's MQA beside them, as for flash
+        # attention.  bf16 takes the tensor cores (route "mma"), its first
+        # version (route "fma") timed beside it.
         dict(
             name="decode_attention", wrapper="decode_attention",
             source="src/repro_torch/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention/kernel.py:94",
             main=lambda: decode_inputs(sizes.decode, bf16, gen, device),
+            main_route="mma",
             also={"gemma": lambda: decode_inputs(sizes.decode_gemma, bf16,
-                                                 gen, device)},
+                                                 gen, device),
+                  "recurrentgemma": lambda: decode_inputs(
+                      sizes.decode_rgemma, bf16, gen, device)},
+            # f32 (route "fma") and bf16 (route "mma": T ragged, G = 10 and
+            # 32 query heads a kv head, rows at kv_len 1 and T)
             ragged=lambda: [
                 decode_inputs((2, 8, 2, 512, 64), f32, gen, device),
                 decode_inputs((1, 4, 4, 300, 32), f32, gen, device,
@@ -1500,7 +1548,11 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                 decode_inputs((2, 4, 1, 256, 64), f32, gen, device),
                 decode_inputs((8, 32, 32, 300, 96), bf16, gen, device),
                 decode_inputs((2, 8, 1, 300, 256), f32, gen, device),
+                decode_inputs((3, 10, 1, 300, 256), bf16, gen, device),
+                decode_inputs((2, 32, 1, 200, 128), bf16, gen, device),
             ],
+            first=lambda q, k, v, n: decode_attention_cuda(
+                q, k, v, n, route="fma"),
             fn=lambda q, k, v, n: decode_attention(q, k, v, kv_len=n,
                                                    with_lse=True),
             plain=lambda q, k, v, n: decode_attention_ref(
@@ -1695,8 +1747,8 @@ def phase_kernels(sizes: Sizes, device: torch.device,
                "ragged_max_abs_err": ragged_err,
                **({"ragged_routes": ragged_routes}
                   if any(ragged_routes) else {}),
-               **({"hgmma": build["hgmma"][name]}
-                  if name in build.get("hgmma", {}) else {})}
+               **({"tensor_cores": build["tensor_cores"][name]}
+                  if name in build.get("tensor_cores", {}) else {})}
         for label, make in case.get("also", {}).items():
             row[label] = measure(case, make(), sizes, device,
                                  case.get("also_check"))
@@ -1889,7 +1941,7 @@ def phase_launch(sizes: Sizes, device: torch.device,
         "gemm", lambda v, info: {"C": gemm(v["A"], v["B"])},
         "global [i, j] => read A[i,:], read B[:,j], write C[i,j]")
     g = sizes.gemm
-    for tag, dtype, route in (("gemm", torch.float32, "fma"),
+    for tag, dtype, route in (("gemm", torch.float32, "pipe"),
                               ("gemm_bf16", torch.bfloat16, "wgmma")):
         t1 = time.perf_counter()
         a, b = gemm_inputs(g, g, g, dtype, gen, device)
@@ -2275,21 +2327,26 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
             *a, use_ref=True, **kw), rec, "state", (SCAN_TOL, SCAN_TOL))
         return {"prefill": [lru, Spy(model_attention, "flash_attention",
                                      attention_ref, groups)],
-                "decode": [lru], "logit_layers": None,
+                "decode": [lru, Spy(model_attention, "cuda_decode",
+                                    decode_attention_ref, groups)],
+                "logit_layers": None,
                 "check_len": sizes.serve_check_len_window,
-                "profile": {"decode_step": ("rg_lru_kernel",),
+                "profile": {"decode_step": ("rg_lru_kernel",
+                                            "decode_mma_kernel",
+                                            "decode_mma_combine_kernel"),
                             "prefill": ("flash_wgmma_kernel",
                                         "rg_lru_kernel")},
                 "expect": lambda prefills, steps: {
                     "rg_lru": rec * (prefills + steps),
-                    "flash_attention": groups * prefills}}
+                    "flash_attention": groups * prefills,
+                    "decode_attention": groups * steps}}
     return {"prefill": [Spy(model_attention, "flash_attention", attention_ref,
                             cfg.n_layers)],
             "decode": [Spy(model_attention, "cuda_decode",
                            decode_attention_ref, cfg.n_layers)],
             "logit_layers": None, "check_len": sizes.serve_check_len,
-            "profile": {"decode_step": ("decode_attention_kernel",
-                                        "decode_combine_kernel"),
+            "profile": {"decode_step": ("decode_mma_kernel",
+                                        "decode_mma_combine_kernel"),
                         "prefill": ("flash_wgmma_kernel",)},
             "expect": lambda prefills, steps: {
                 "flash_attention": cfg.n_layers * prefills,
@@ -2565,15 +2622,17 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
            "init_seconds": time.perf_counter() - t1}
 
     t1 = time.perf_counter()
-    flash_routes = dict(flash_attention_cuda.routes)
+    routes_before = route_counts()
     check = serve_check(params, cfg, sizes, device, gen, max_len,
                         gate_logits=spec["logit_layers"] is None)
     state, step = check.pop("state"), check.pop("step")
-    # Every bf16 flash-attention call of the check took the tensor cores.
-    check["flash_routes"] = {r: n - flash_routes[r] for r, n in
-                             flash_attention_cuda.routes.items()}
-    require(check["flash_routes"]["fma"] == 0, "bf16 flash attention took "
-            "route fma:", check["flash_routes"])
+    # Every bf16 attention call of the check took the tensor cores.
+    for name in ("flash_attention", "decode_attention"):
+        check[f"{name}_routes"] = {
+            r: n - routes_before[name][r]
+            for r, n in WRAPPERS[name].routes.items()}
+        require(check[f"{name}_routes"]["fma"] == 0, "bf16", name,
+                "took route fma:", check[f"{name}_routes"])
     out["check"] = dict(check, seconds=time.perf_counter() - t1)
     if on_card:
         toks = torch.randint(0, cfg.vocab, (1, sizes.serve_check_len),
@@ -2643,6 +2702,9 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         require(routes["flash_attention"]["wgmma"]
                 == counts["flash_attention"], "flash attention routes in "
                 "the engine run:", routes["flash_attention"])
+        require(routes["decode_attention"]["mma"]
+                == counts["decode_attention"], "decode attention routes in "
+                "the engine run:", routes["decode_attention"])
     tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
     out.update({
         "slots": sizes.serve_slots, "max_len": max_len,
@@ -2717,7 +2779,8 @@ def main(argv=None) -> int:
         "nbody": counts["nbody"], "correlate": counts["correlate"],
         "flash_attention": dense["flash_attention"]
         + hybrid["flash_attention"],
-        "decode_attention": dense["decode_attention"],
+        "decode_attention": dense["decode_attention"]
+        + hybrid["decode_attention"],
         "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])

@@ -138,7 +138,8 @@ def stream_kmeans(
     centroids: torch.Tensor,  # (k, f)
     *,
     chunk_rows: int = 1 << 20,
-    use_kernel: bool = True,
+    use_pallas: bool | None = None,
+    use_kernel: bool | None = None,
     device: torch.device | str | None = None,
     stats: dict | None = None,
 ) -> torch.Tensor:
@@ -148,7 +149,9 @@ def stream_kmeans(
     The ragged last chunk is handed over as its valid rows only (the CUDA
     kernel masks rows, and so does the plain version by construction), so
     no padded row is ever counted and nothing is subtracted afterwards.
-    ``use_kernel=False`` takes the plain version on any device.
+    ``use_pallas=False`` (the reference's name) or ``use_kernel=False``
+    takes the plain version on any device; both default to the kernel, and
+    naming both with different values raises.
 
     The accumulator is f32: counts are exact only below 2**24 points per
     cluster."""
@@ -157,8 +160,13 @@ def stream_kmeans(
         kmeans_assign_reduce_ref,
     )
 
+    if (use_pallas is not None and use_kernel is not None
+            and bool(use_pallas) != bool(use_kernel)):
+        raise ValueError(f"use_pallas={use_pallas} and use_kernel="
+                         f"{use_kernel} disagree")
+    use = next((u for u in (use_kernel, use_pallas) if u is not None), True)
     dev = resolve_device(device)
-    assign = kmeans_assign_reduce if use_kernel else kmeans_assign_reduce_ref
+    assign = kmeans_assign_reduce if use else kmeans_assign_reduce_ref
     centroids = centroids.to(dev)
     k, f = centroids.shape
 

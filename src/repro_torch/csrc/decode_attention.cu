@@ -1,6 +1,6 @@
 // Single-token (decode) attention against a KV cache for Hopper (sm_90a):
 // one query token per (batch, query head), masked at kv_len[b], with the
-// output and the log-sum-exp m + log l of every head.
+// output and the log-sum-exp m + log l of every head, by two routes.
 //
 // Replaces the TPU kernel `_decode_kernel` / `decode_attention_pallas` in
 // src/repro/kernels/decode_attention/kernel.py, which runs one program per
@@ -12,30 +12,59 @@
 // On an H100 decode attention is bound by bytes: the cache's K and V up to
 // kv_len are read once, against about 4 * D flops a key and query head.  So
 // the design is about reading the cache at full rate and no further than
-// kv_len.  A block of 128 threads takes one (batch, kv head) and all `group`
-// query heads of it, as the TPU kernel does, and streams the cache in tiles
-// of 64 keys through shared memory with 16-byte loads (12 of them in flight
-// a thread for D = 96 in bf16), stopping at kv_len[b]: keys beyond it add
-// exactly 0 in the reference, so they are not read.  A block takes its tiles
-// one after another (load, sync, compute), and batch x kv heads can be too
-// few blocks for 132 SMs (8 for gemma's MQA at 8 slots) while the rows'
-// lengths differ, so the keys are also split over `splits` blocks of whole
-// tiles (flash-decode; the wrapper aims at 16 blocks an SM, which on an H100
-// took phi3-mini's decode shape from 0.176 ms in one split to 0.059 ms):
-// each block keeps its own running max m, sum l and f32 accumulator, and a
-// second small kernel combines the splits by their m and l.  With one split
-// the first kernel writes the result itself.
-// In a tile, two threads take a key and dot it with the group's queries
-// (f32 products of widened values, summed in f32, then scaled; -1e30 past
-// kv_len as in the reference); one warp a head takes the tile's max and sum
-// by shuffles; for bf16 inputs p is rounded to bf16 before P.V, as the
-// reference does; the threads then own (head, column) outputs of P.V.  The
-// output is acc / max(l, 1e-30) in q's type and lse = m + log(max(l, 1e-30))
-// in f32.  A row with kv_len 0 gives zeros (the reference gives no useful
-// number there either).
+// kv_len, and about latency: at 8 slots the whole cache of an MQA model is a
+// few MB, microseconds at the memory's rate.  The wrapper
+// (kernels/decode_attention/kernel.py, `decode_route`) picks the route
+// before the launch from dtype, shape and alignment alone.  Both routes
+// split the keys over `splits` blocks of whole tiles (flash-decode), since
+// batch x kv heads can be too few blocks for 132 SMs (8 for gemma's MQA at
+// 8 slots) while the rows' lengths differ: each block keeps its own running
+// max m, sum l and f32 accumulator, and a second small kernel combines the
+// splits by their m and l.  With one split the first kernel writes the
+// result itself.  A row with kv_len 0 gives zeros (the reference gives no
+// useful number there either) and lse = -1e30.  Keys past kv_len add exactly
+// 0 in the reference, so neither route reads them.
+//
+// "mma" -- bf16, D a multiple of 16, the group's heads padded to 16, 32 or
+// 64 rows times D at most 4096.  A block of 4 warps takes one (batch, kv
+// head, split) and the group's query heads on the tensor cores: the
+// queries, padded with zero rows, are the A operand of mma.sync m16n8k16
+// (bf16 in, f32 sums), each warp takes 16 keys of a 64-key tile, S = Q K^T
+// over the k16 steps of D and P V over its 16 keys.  The cache streams
+// through a ring of 2 (D > 128) or 3 tiles of K and V in shared memory,
+// filled by 16-byte cp.async copies (keys past the split's end or kv_len
+// zero-filled, not read), so the next tiles are in flight while a tile is
+// computed; one __syncthreads() a tile.  Each warp keeps its own online
+// softmax in base 2 on the accumulator fragments (row max and sum by quad
+// shuffles), rounds p to bf16 as the A operand of P V, which is the
+// rounding the reference makes, and sums l from the unrounded p.  At the
+// end the four warps' (m, l, acc) are combined through shared memory, each
+// warp's weight exp(m_w - M) taken once a row.  A second kernel combines
+// the splits, one block a query head, each split's weight taken once a row
+// too.  (Combining them in the last block of a (batch, kv head) to finish,
+// found by an atomic ticket, was slower at the MQA shapes, where one block
+// did the work of 8-10 rows, and no faster at phi3-mini's.)
+//
+// "fma" -- everything else (f32, and bf16 the tensor cores' route does not
+// take), the first version.  A block of 128 threads takes one (batch, kv
+// head, split) and all `group` query heads of it, as the TPU kernel does,
+// and streams the cache in tiles of 64 keys through shared memory with
+// 16-byte loads (12 of them in flight a thread for D = 96 in bf16),
+// stopping at kv_len[b]; it takes its tiles one after another (load, sync,
+// compute).  In a tile, two threads take a key and dot it with the group's
+// queries (f32 products of widened values, summed in f32, then scaled;
+// -1e30 past kv_len as in the reference); one warp a head takes the tile's
+// max and sum by shuffles; for bf16 inputs p is rounded to bf16 before P.V,
+// as the reference does; the threads then own (head, column) outputs of
+// P.V.
+//
+// Both routes write the output as acc / max(l, 1e-30) in q's type and lse =
+// m + log(max(l, 1e-30)) in f32.  Build without --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -287,6 +316,384 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --- route "mma" ------------------------------------------------------------
+
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int BT = 16 * kWarps;  // keys a tile: 16 a warp
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Bytes of one row of a tile in shared memory: D bf16 values and 16 bytes
+// of padding, so that the 8 rows one ldmatrix reads start in 8 different
+// groups of 4 banks (2 D + 16 is 16 times an odd number for D % 16 == 0).
+__host__ __device__ inline int row_bytes(int D) { return 2 * D + 16; }
+
+// Shared memory of a block: the queries (16 MT padded rows), then the ring
+// of STAGES x (K tile, V tile); after the loop the ring holds the four
+// warps' m, l, weights and accumulators.
+template <int MT, int STAGES>
+inline size_t smem_bytes(int D) {
+  const size_t rows = 16 * MT, rb = row_bytes(D);
+  const size_t ring = STAGES * 2 * BT * rb;
+  const size_t warps = sizeof(float) * (kWarps * rows * (3 + D) + 2 * rows);
+  return rows * rb + (ring > warps ? ring : warps);
+}
+
+// A value reduced over the block (max, or sum in a fixed order) and handed
+// to every thread; `red` holds one float a warp of shared memory.
+template <bool MAX>
+__device__ float block_reduce(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = MAX ? fmaxf(v, o) : v + o;
+  }
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < static_cast<int>(blockDim.x / 32); ++w)
+    v = MAX ? fmaxf(v, red[w]) : v + red[w];
+  __syncthreads();  // red is free again
+  return v;
+}
+
+// Splits of row b that hold keys: the split s covers keys from
+// s * tiles_per_split * BT, so those below kv_len[b].
+__device__ inline int live_splits(int end, int tiles_per_split, int splits) {
+  const int keys = tiles_per_split * BT;
+  return min(splits, (end + keys - 1) / keys);
+}
+
+template <int MT, int DMAX, int STAGES>
+__global__ void __launch_bounds__(kThreads)
+decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const int* __restrict__ kv_len,
+                  bf16* __restrict__ out, float* __restrict__ lse,
+                  float* __restrict__ part_acc, float* __restrict__ part_m,
+                  float* __restrict__ part_l, int HKV, int G, int T_len,
+                  int D, int tiles_per_split, float scale_log2) {
+  constexpr int ROWS = 16 * MT;
+  constexpr int NT = DMAX / 8;  // n8 tiles of the output, at most
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int HQ = HKV * G;
+  const int rb = row_bytes(D);
+  const int chunks = D / 8;  // 16-byte chunks a row
+  const int stage_bytes = 2 * BT * rb;
+
+  extern __shared__ float4 smem4[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(smem4);
+  uint8_t* ring = Qs + ROWS * rb;
+
+  const long long head0 = static_cast<long long>(b) * HQ + hk * G;
+  const long long kv0 = (static_cast<long long>(b) * HKV + hk) * T_len * D;
+  const bf16* kb = k + kv0;
+  const bf16* vb = v + kv0;
+  const int end = min(max(kv_len[b], 0), T_len);
+  const int t_begin = split * tiles_per_split * BT;
+  const int t_stop = min(end, t_begin + tiles_per_split * BT);
+  const int n_tiles = t_stop > t_begin ? (t_stop - t_begin + BT - 1) / BT : 0;
+
+  if (n_tiles > 0) {
+    // The queries, rows past the group zero-filled: part of the first group.
+    for (int idx = tid; idx < ROWS * chunks; idx += kThreads) {
+      const int r = idx / chunks, c = idx % chunks;
+      hopper::cp_async16(Qs + r * rb + c * 16,
+                         q + (head0 + min(r, G - 1)) * D + c * 8, r < G);
+    }
+    auto load_tile = [&](int i) {
+      const int t0 = t_begin + i * BT;
+      uint8_t* ks = ring + (i % STAGES) * stage_bytes;
+      uint8_t* vs = ks + BT * rb;
+      for (int idx = tid; idx < BT * chunks; idx += kThreads) {
+        const int r = idx / chunks, c = idx % chunks;
+        const bool ok = t0 + r < t_stop;
+        const long long off =
+            static_cast<long long>(ok ? t0 + r : t_begin) * D + c * 8;
+        hopper::cp_async16(ks + r * rb + c * 16, kb + off, ok);
+        hopper::cp_async16(vs + r * rb + c * 16, vb + off, ok);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < n_tiles) load_tile(i);
+      hopper::cp_async_commit();
+    }
+
+    float acc[MT][NT][4];
+    float m_run[MT][2], l_run[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_run[mt][h] = kNegInf;
+        l_run[mt][h] = 0.f;
+      }
+    }
+
+    for (int i = 0; i < n_tiles; ++i) {
+      hopper::cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile i is in; every warp is done with tile i - 1
+      if (i + STAGES - 1 < n_tiles) load_tile(i + STAGES - 1);
+      hopper::cp_async_commit();
+
+      const int key0 = t_begin + i * BT + warp * 16;
+      if (key0 >= t_stop) continue;  // no key of this warp in the tile
+      const uint8_t* ks = ring + (i % STAGES) * stage_bytes + warp * 16 * rb;
+      const uint8_t* vs = ks + BT * rb;
+
+      // S = Q K^T for the warp's 16 keys (two n8 tiles), k16 steps over D.
+      float s[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < DMAX / 16; ++kd) {
+        if (kd * 16 >= D) break;
+        uint32_t kf[4];
+        hopper::ldmatrix_x4(kf, ks + ((lane & 7) + ((lane >> 4) << 3)) * rb
+                                    + (kd * 16 + ((lane >> 3) & 1) * 8) * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t qf[4];
+          hopper::ldmatrix_x4(qf, Qs + (mt * 16 + (lane & 15)) * rb
+                                      + (kd * 16 + (lane >> 4) * 8) * 2);
+          hopper::mma_bf16_16816(s[mt][0], qf, kf[0], kf[1]);
+          hopper::mma_bf16_16816(s[mt][1], qf, kf[2], kf[3]);
+        }
+      }
+
+      // Online softmax in base 2, rows l/4 (h = 0) and l/4 + 8 (h = 1) of
+      // each m16 tile; the quad's four lanes hold a row's 16 scores.
+      uint32_t pf[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + n * 8 + 2 * (lane & 3) + (e & 1);
+            s[mt][n][e] = key < t_stop ? s[mt][n][e] * scale_log2 : kNegInf;
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = fmaxf(fmaxf(s[mt][0][2 * h], s[mt][0][2 * h + 1]),
+                           fmaxf(s[mt][1][2 * h], s[mt][1][2 * h + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m_run[mt][h], mx);
+          const float alpha = exp2f(m_run[mt][h] - m_new);
+          m_run[mt][h] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e) {
+              s[mt][n][e] = exp2f(s[mt][n][e] - m_new);
+              sum += s[mt][n][e];
+            }
+          l_run[mt][h] = l_run[mt][h] * alpha + sum;  // this lane's part
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            acc[mt][j][2 * h] *= alpha;
+            acc[mt][j][2 * h + 1] *= alpha;
+          }
+        }
+        pf[mt][0] = hopper::pack_bf16(s[mt][0][0], s[mt][0][1]);
+        pf[mt][1] = hopper::pack_bf16(s[mt][0][2], s[mt][0][3]);
+        pf[mt][2] = hopper::pack_bf16(s[mt][1][0], s[mt][1][1]);
+        pf[mt][3] = hopper::pack_bf16(s[mt][1][2], s[mt][1][3]);
+      }
+
+      // acc += P V: the warp's 16 keys are the k16 step, V read as it lies
+      // (keys along k) through ldmatrix's transpose, 16 columns a load.
+#pragma unroll
+      for (int j = 0; j < DMAX / 16; ++j) {
+        if (j * 16 >= D) break;
+        uint32_t vf[4];
+        hopper::ldmatrix_x4_trans(
+            vf, vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * rb
+                    + (j * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          hopper::mma_bf16_16816(acc[mt][2 * j], pf[mt], vf[0], vf[1]);
+          hopper::mma_bf16_16816(acc[mt][2 * j + 1], pf[mt], vf[2], vf[3]);
+        }
+      }
+    }
+
+    // The four warps' (m, l, acc) into shared memory (the ring is free once
+    // every copy has landed and every warp is past its last tile).
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l_run[mt][h] += __shfl_xor_sync(0xffffffffu, l_run[mt][h], 1);
+        l_run[mt][h] += __shfl_xor_sync(0xffffffffu, l_run[mt][h], 2);
+      }
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    float* wm = reinterpret_cast<float*>(ring);  // (kWarps, ROWS)
+    float* wl = wm + kWarps * ROWS;
+    float* wt = wl + kWarps * ROWS;  // each warp's weight exp2(m_w - M)
+    float* ML = wt + kWarps * ROWS;  // M, then the combined l, a row
+    float* Os = ML + 2 * ROWS;       // (kWarps, ROWS, D)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + lane / 4 + 8 * h;
+        if ((lane & 3) == 0) {
+          wm[warp * ROWS + row] = m_run[mt][h];
+          wl[warp * ROWS + row] = l_run[mt][h];
+        }
+        if (row < G) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int col = j * 8 + 2 * (lane & 3);
+            if (j * 8 < D)
+              *reinterpret_cast<float2*>(Os + (warp * ROWS + row) * D + col) =
+                  make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+          }
+        }
+      }
+    __syncthreads();
+    for (int g = tid; g < G; g += kThreads) {
+      float M = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * ROWS + g]);
+      float L = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float wgt = exp2f(wm[w * ROWS + g] - M);
+        wt[w * ROWS + g] = wgt;
+        L = fmaf(wl[w * ROWS + g], wgt, L);
+      }
+      ML[g] = M;
+      ML[ROWS + g] = L;
+      if (splits == 1) {
+        lse[head0 + g] = M * kLn2 + logf(fmaxf(L, 1e-30f));
+      } else {
+        part_m[(head0 + g) * splits + split] = M;
+        part_l[(head0 + g) * splits + split] = L;
+      }
+    }
+    __syncthreads();
+    for (int o = tid; o < G * D; o += kThreads) {
+      const int g = o / D, d = o % D;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        sum = fmaf(Os[(w * ROWS + g) * D + d], wt[w * ROWS + g], sum);
+      if (splits == 1)
+        out[head0 * D + o] = __float2bfloat16(sum / fmaxf(ML[ROWS + g], 1e-30f));
+      else
+        part_acc[((head0 + g) * splits + split) * D + d] = sum;
+    }
+  } else if (splits == 1) {
+    // kv_len 0: zeros, as the first kernel gives.
+    for (int o = tid; o < G * D; o += kThreads)
+      out[head0 * D + o] = __float2bfloat16(0.f);
+    for (int g = tid; g < G; g += kThreads)
+      lse[head0 + g] = kNegInf + logf(1e-30f);
+  }
+}
+
+// One block a (batch, query head) row: the splits that hold keys, each
+// weighted by exp2(m_s - M) taken once (the threads over the splits), then
+// the weighted sums divided by the weighted sum of l (the threads over the
+// columns).  The work is a few dependent reads from L2, so the reads that
+// do not wait on kv_len are issued with it.  `ws` holds splits + 4 floats
+// of shared memory.
+__global__ void __launch_bounds__(kThreads)
+decode_mma_combine_kernel(const float* __restrict__ part_acc,
+                          const float* __restrict__ part_m,
+                          const float* __restrict__ part_l,
+                          const int* __restrict__ kv_len,
+                          bf16* __restrict__ out, float* __restrict__ lse,
+                          int HQ, int T_len, int splits, int tiles_per_split,
+                          int D) {
+  extern __shared__ float ws[];
+  float* red = ws + splits;
+  const long long row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* pm = part_m + row * splits;
+  const float* pl = part_l + row * splits;
+  // Every split's m and l (those past the live ones are never used).
+  float m_s = kNegInf, l_s = 0.f;
+  if (tid < splits) {
+    m_s = pm[tid];
+    l_s = pl[tid];
+  }
+  const int end = min(max(kv_len[row / HQ], 0), T_len);
+  const int n_s = live_splits(end, tiles_per_split, splits);
+  float M = kNegInf;
+  for (int s = tid; s < n_s; s += kThreads)
+    M = fmaxf(M, s == tid ? m_s : pm[s]);
+  M = block_reduce<true>(M, red);
+  float L = 0.f;
+  for (int s = tid; s < n_s; s += kThreads) {
+    ws[s] = exp2f((s == tid ? m_s : pm[s]) - M);
+    L = fmaf(s == tid ? l_s : pl[s], ws[s], L);
+  }
+  L = block_reduce<false>(L, red);  // its barrier also publishes ws
+  if (tid == 0)
+    lse[row] = (M == kNegInf ? kNegInf : M * kLn2) + logf(fmaxf(L, 1e-30f));
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  for (int d = tid; d < D; d += kThreads) {
+    const float* pa = part_acc + row * splits * D + d;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int s = 0; s < n_s; ++s) acc = fmaf(pa[s * D], ws[s], acc);
+    out[row * D + d] = __float2bfloat16(acc * inv);
+  }
+}
+
+template <int MT, int DMAX, int STAGES>
+int launch(const void* q, const void* k, const void* v, const void* kv_len,
+           void* out, void* lse, void* part_acc, void* part_m, void* part_l,
+           int B, int HKV, int G, int T_len, int D, int splits,
+           int tiles_per_split, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<MT, STAGES>(D);
+  auto kernel = decode_mma_kernel<MT, DMAX, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  kernel<<<dim3(splits, HKV, B), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(kv_len),
+      static_cast<bf16*>(out), static_cast<float*>(lse),
+      static_cast<float*>(part_acc), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), HKV, G, T_len, D, tiles_per_split,
+      scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  decode_mma_combine_kernel<<<B * HKV * G, kThreads,
+                              sizeof(float) * (splits + 4), stream>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
+      static_cast<const float*>(part_l), static_cast<const int*>(kv_len),
+      static_cast<bf16*>(out), static_cast<float*>(lse), HKV * G, T_len,
+      splits, tiles_per_split, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mma
+
 }  // namespace
 
 // q (B, HKV * G, D), k and v (B, HKV, T, D), out like q: dense, 16-byte
@@ -311,4 +718,40 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   return launch<__nv_bfloat16>(q, k, v, kv_len, out, lse, part_acc, part_m,
                                part_l, B, HKV, G, T_len, D, splits,
                                tiles_per_split, scale, st);
+}
+
+// Route "mma": q (B, HKV * G, D), k and v (B, HKV, T, D), out like q: bf16,
+// dense, 16-byte aligned; D a multiple of 16, G <= 64, and the group padded
+// to 16, 32 or 64 rows times D at most 4096 (the wrapper's `decode_route`
+// checks all of it); kv_len (B,) int32; lse (B, HKV * G) f32.  With
+// splits > 1, part_acc, part_m and part_l are scratch as for
+// decode_attention_fwd (m in base 2 here).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape no instance takes.
+extern "C" int decode_attention_mma(const void* q, const void* k,
+                                    const void* v, const void* kv_len,
+                                    void* out, void* lse, void* part_acc,
+                                    void* part_m, void* part_l, int B,
+                                    int HKV, int G, int T_len, int D,
+                                    int splits, int tiles_per_split,
+                                    float scale, void* stream) {
+  using Launch = int (*)(const void*, const void*, const void*, const void*,
+                         void*, void*, void*, void*, void*, int, int, int,
+                         int, int, int, int, float, cudaStream_t);
+  // One instance a group of up to 16, 32 or 64 rows and a head dim class,
+  // the accumulator (rows x DMAX f32 over 128 threads) at most 128
+  // registers a thread; a ring of 2 tiles at D > 128, else 3.
+  const int mt = (G + 15) / 16;
+  Launch fn = nullptr;
+  if (D > 0 && D % 16 == 0 && G > 0) {
+    if (mt == 1 && D <= 64) fn = &mma::launch<1, 64, 3>;
+    else if (mt == 1 && D <= 128) fn = &mma::launch<1, 128, 3>;
+    else if (mt == 1 && D <= 256) fn = &mma::launch<1, 256, 2>;
+    else if (mt == 2 && D <= 64) fn = &mma::launch<2, 64, 3>;
+    else if (mt == 2 && D <= 128) fn = &mma::launch<2, 128, 3>;
+    else if (mt <= 4 && D <= 64) fn = &mma::launch<4, 64, 3>;
+  }
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, kv_len, out, lse, part_acc, part_m, part_l, B, HKV, G,
+            T_len, D, splits, tiles_per_split, scale,
+            static_cast<cudaStream_t>(stream));
 }

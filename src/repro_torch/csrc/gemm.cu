@@ -1,4 +1,4 @@
-// C = A @ B with an f32 accumulator, for Hopper (sm_90a), by two routes.
+// C = A @ B with an f32 accumulator, for Hopper (sm_90a), by three routes.
 //
 // Replaces the TPU kernel `_gemm_kernel` / `gemm_pallas` in
 // src/repro/kernels/gemm/kernel.py, which revisits one accumulator tile over
@@ -28,8 +28,29 @@
 // in their own order before adding them to the f32 accumulator, so results
 // differ from cuBLAS's in the last bits of f32 before the cast.
 //
-// "fma" -- everything else: f32 inputs, and bf16 inputs TMA cannot describe
-// (such as a K of 60, whose 120-byte rows it refuses).  The classic
+// "pipe" -- f32 inputs with K a multiple of 16 and N of 4 (rows of whole
+// 16-byte units, 16-byte-aligned bases), out f32: true f32 on the
+// CUDA cores, each output one chain of fused multiply-adds in ascending k,
+// no split of K, so the sums are those of route "fma" (and of cuBLAS in f32
+// at 8192^3).  The first kernel's tiles, thread layout and tile order
+// (below), with the loads taken off the critical path: two buffers of 16 K
+// values in shared memory and one __syncthreads() a stage, not two; the
+// next stage's A and B are read from device memory into registers (16-byte
+// loads, A transposed as it is stored) while the current stage is
+// computed, then stored into the buffer the previous stage freed; and in
+// the inner loop the operands of the next k step are read from shared
+// memory while the products of this one run.  Rows past M and columns past
+// N are read clamped and never stored.  Layouts measured slower than this
+// one on an H100 and not kept: a 2-4-stage ring filled by cp.async (A kept
+// (m, k) and read 4 k at a time, or A through registers and only B by
+// cp.async), 128 x 256 tiles with 8 x 16 sums a thread, 32- or 8-deep
+// stages, tiles walked in groups of 16 row tiles as route "wgmma" does, and
+// zeroing k past a K that is not a multiple of 16; an instance with bf16
+// out spilled 16 bytes, so bf16 out takes route "fma".
+//
+// "fma" -- everything else: f32 inputs "pipe" does not take (such as
+// K = 136 or N = 130), and bf16 inputs TMA cannot describe (such as a
+// K of 60, whose 120-byte rows it refuses); the first version.  The classic
 // shared-memory-tiled kernel: a block of 256 threads owns a 128 x 128 tile
 // of C and loops over K in steps of 16; each thread keeps an 8 x 8
 // accumulator in registers, split into four 4 x 4 quadrants so that
@@ -323,6 +344,147 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
 
 }  // namespace tc
 
+// --- route "pipe" -----------------------------------------------------------
+
+namespace pipe {
+
+constexpr int BM = 128, BN = 128, BK = 16, kThreads = 256;
+constexpr int A_LD = BM + 4;        // A^T rows (k, m): the first kernel's pad
+constexpr int A_STAGE = BK * A_LD;  // floats
+constexpr int B_STAGE = BK * BN;    // floats
+constexpr int SMEM_BYTES = 2 * (A_STAGE + B_STAGE) * 4;
+
+__global__ void __launch_bounds__(kThreads, 2)
+gemm_pipe_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                 float* __restrict__ C, int M, int N, int K) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);  // 2 x (BK, A_LD): A^T
+  float* Bs = As + 2 * A_STAGE;                 // 2 x (BK, BN)
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  // A stage: 8 consecutive k of one row a thread (threads of a warp on 32
+  // rows), stored transposed; B stage: 4 consecutive n of two k rows 8
+  // apart (a warp on 128 consecutive n).  Rows past M read the last row and
+  // columns past N the last four (what they give is never stored); K is a
+  // multiple of 16, so every stage is whole, and N of 4, so a 16-byte unit
+  // never straddles the edge: the loads need no test.  (A test that zeroes
+  // k past K in a short last stage, even one taken once after the loop,
+  // made ptxas compile the whole kernel slower than route "fma" on an
+  // H100.)
+  const int a_row = tid % BM, a_col = (tid / BM) * 8;
+  const int b_row = tid / 32, b_col = (tid % 32) * 4;
+  const float* a_src =
+      A + static_cast<long long>(min(m0 + a_row, M - 1)) * K + a_col;
+  const float* b_src =
+      B + static_cast<long long>(b_row) * N + min(n0 + b_col, N - 4);
+  float4 a_next[2], b_next[2];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      a_next[j] = *reinterpret_cast<const float4*>(a_src + k0 + 4 * j);
+      b_next[j] = *reinterpret_cast<const float4*>(
+          b_src + static_cast<long long>(k0 + 8 * j) * N);
+    }
+  };
+  auto store = [&](int buf) {
+    float* as = As + buf * A_STAGE + a_col * A_LD + a_row;
+    float* bs = Bs + buf * B_STAGE + b_row * BN + b_col;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      as[(4 * j) * A_LD] = a_next[j].x;
+      as[(4 * j + 1) * A_LD] = a_next[j].y;
+      as[(4 * j + 2) * A_LD] = a_next[j].z;
+      as[(4 * j + 3) * A_LD] = a_next[j].w;
+      *reinterpret_cast<float4*>(bs + 8 * j * BN) = b_next[j];
+    }
+  };
+
+  // Thread (tx, ty) owns rows 4 ty + {0..3} and 64 + 4 ty + {0..3}, and
+  // columns 4 tx + {0..3} and 64 + 4 tx + {0..3}: 8 x 8 sums, each one
+  // chain of fmaf in ascending k.  The operands of k step kk + 1 are read
+  // from shared memory while the products of step kk run.
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto compute = [&](int buf) {
+    const float* as = As + buf * A_STAGE;
+    const float* bs = Bs + buf * B_STAGE;
+    float4 f[2][4];
+    auto fetch = [&](float4 (&g)[4], int kk) {
+      g[0] = *reinterpret_cast<const float4*>(as + kk * A_LD + ty * 4);
+      g[1] = *reinterpret_cast<const float4*>(as + kk * A_LD + BM / 2 +
+                                               ty * 4);
+      g[2] = *reinterpret_cast<const float4*>(bs + kk * BN + tx * 4);
+      g[3] = *reinterpret_cast<const float4*>(bs + kk * BN + BN / 2 +
+                                              tx * 4);
+    };
+    fetch(f[0], 0);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      if (kk + 1 < BK) fetch(f[(kk + 1) & 1], kk + 1);
+      const float4* g = f[kk & 1];
+      const float ar[8] = {g[0].x, g[0].y, g[0].z, g[0].w,
+                           g[1].x, g[1].y, g[1].z, g[1].w};
+      const float br[8] = {g[2].x, g[2].y, g[2].z, g[2].w,
+                           g[3].x, g[3].y, g[3].z, g[3].w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+  };
+
+  const int kblocks = K / BK;
+  load(0);
+  store(0);
+  // Not unrolled: two copies of the 1024 products of a stage would not fit
+  // the instruction cache.
+#pragma unroll 1
+  for (int kb = 0; kb < kblocks; ++kb) {
+    __syncthreads();  // stage kb is stored; every thread is done with kb - 1
+    const bool more = kb + 1 < kblocks;
+    if (more) load((kb + 1) * BK);  // in flight during stage kb
+    compute(kb & 1);
+    if (more) store((kb + 1) & 1);  // into the buffer of stage kb - 1
+  }
+
+  // Epilogue: four columns at a time (N is a multiple of 4).
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? 0 : BM / 2) + ty * 4 + (i % 4);
+    if (row >= M) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = n0 + q * (BN / 2) + tx * 4;
+      if (col < N)
+        *reinterpret_cast<float4*>(C + static_cast<long long>(row) * N +
+                                   col) =
+            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                        acc[i][4 * q + 3]);
+    }
+  }
+}
+
+int launch(const void* a, const void* b, void* c, int M, int N, int K,
+           cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_pipe_kernel<<<grid, kThreads, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(c), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pipe
+
 }  // namespace
 
 // a (m, k), b (k, n), c (m, n), dense row-major.  Type codes: 0 = float32,
@@ -355,4 +517,14 @@ extern "C" int gemm_bf16_wgmma(const void* a, const void* b, void* c, int m,
   if (out_type == 0) return tc::launch<float>(a, b, c, m, n, k, s);
   if (out_type == 1) return tc::launch<__nv_bfloat16>(a, b, c, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Route "pipe": a (m, k) and b (k, n) float32, dense row-major, 16-byte
+// aligned, k a multiple of 16 and n of 4 (the wrapper's `gemm_route` checks
+// all of it); c (m, n) float32 (out_type 0; any other is refused).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another out_type.
+extern "C" int gemm_f32_pipe(const void* a, const void* b, void* c, int m,
+                             int n, int k, int out_type, void* stream) {
+  if (out_type != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return pipe::launch(a, b, c, m, n, k, static_cast<cudaStream_t>(stream));
 }

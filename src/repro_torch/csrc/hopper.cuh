@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (csrc/gemm.cu and csrc/flash_attention.cu): mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors, the wgmma products those kernels issue,
-// setmaxnreg, and the host helper that encodes a TMA tensor map.
+// setmaxnreg, and the host helper that encodes a TMA tensor map; and the
+// pieces of decode attention's route "mma" (csrc/decode_attention.cu):
+// cp.async copies, ldmatrix and the warp-wide mma.sync m16n8k16 product.
 //
 // Written from the PTX of the instructions themselves; nothing here is a
 // ready-made GEMM.  Every tile these helpers see lies in shared memory in
@@ -270,6 +272,72 @@ __device__ inline void wgmma_ss256(float (&d)[128], uint64_t desc_a,
 __device__ inline uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16-byte copies from global to shared memory that complete in the
+// background, in commit groups, so that a ring of tiles is in flight while
+// the threads compute on the tile that has arrived
+// ---------------------------------------------------------------------------
+
+// Copies 16 bytes; with `valid` false it reads nothing and writes 16 zero
+// bytes (src-size 0), so that rows past an edge need no branch.  `src`
+// must be 16-byte aligned and, even when not valid, a global address.
+__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's commit groups are still in flight
+// (a __syncthreads() after it makes every thread's copies visible).
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync: a warp's 16 x 8 x 16 product of bf16 values into f32
+// ---------------------------------------------------------------------------
+//
+// Fragments, lane l of the warp: A (16 x 16, row-major) a[0] = row l/4,
+// columns 2 (l%4) + {0,1}; a[1] = row l/4 + 8, the same columns; a[2] and
+// a[3] the same rows, columns + 8.  B (16 x 8, k x n) b[0] = rows 2 (l%4) +
+// {0,1}, column l/4; b[1] = rows + 8.  C and D (16 x 8) d[0..1] = row l/4,
+// columns 2 (l%4) + {0,1}; d[2..3] = row l/4 + 8.  So the D fragments of
+// two n8 tiles side by side, rounded to bf16 in pairs, are the A fragment
+// of a k16 step: P of attention goes from the scores to P V in registers.
+
+// Four 8 x 8 matrices of 16-bit values from shared memory: lanes 8i .. 8i+7
+// give the addresses of matrix i's rows (16 bytes each, 16-byte aligned);
+// r[i] is matrix i as a fragment (lane l: row l/4, columns 2 (l%4) + {0,1}).
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(smem)));
+}
+// The same, each matrix transposed (lane l: rows 2 (l%4) + {0,1}, column
+// l/4): a B fragment from rows that run along k (V as it lies).
+__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(smem)));
+}
+
+// d += a b, f32 accumulate (m16n8k16, A row-major, B column-major).
+__device__ inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

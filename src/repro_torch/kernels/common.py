@@ -70,19 +70,15 @@ def stride_grid(items: int, device: torch.device) -> int:
                       STRIDE_BLOCKS_PER_SM * sm_count(device.index)))
 
 
-#: the routes of the two-route kernels (GEMM, flash attention): the tensor
-#: cores fed by TMA, and the CUDA cores
-ROUTES = ("wgmma", "fma")
-
-
-def resolve_route(route: str | None, chosen: str, what: str) -> str:
+def resolve_route(route: str | None, chosen: str, routes: tuple,
+                  what: str) -> str:
     """The route a launch takes: ``chosen`` (the kernel's route function's
-    pick) unless the caller names one; ``"fma"`` may always be named (to
-    time the first kernel on the same inputs), ``"wgmma"`` only where it
-    was chosen."""
+    pick) unless the caller names one of the wrapper's ``routes``.  The
+    last of them, the first kernel (``"fma"``), may always be named (to time
+    it on the same inputs); any other only where it was chosen."""
     if route is None:
         return chosen
-    if route not in ROUTES or (route == "wgmma" and chosen != "wgmma"):
+    if route not in routes or (route != routes[-1] and route != chosen):
         raise ValueError(f"{what}: route {route!r} does not take these "
                          f"inputs (the route function gives {chosen!r})")
     return route

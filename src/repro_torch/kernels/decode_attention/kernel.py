@@ -1,4 +1,5 @@
-"""Launches the decode-attention CUDA kernel (``csrc/decode_attention.cu``)."""
+"""Launches the decode-attention CUDA kernels
+(``csrc/decode_attention.cu``) by one of two routes."""
 
 from __future__ import annotations
 
@@ -7,32 +8,74 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import cdiv, check_cuda_tensor, sm_count
+from ..common import cdiv, check_cuda_tensor, resolve_route, sm_count
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: keys per tile of the kernel (its ``BT``)
+#: the routes: the group's query heads on the tensor cores (mma.sync) fed by
+#: a cp.async ring, and the first kernel (CUDA cores)
+ROUTES = ("mma", "fma")
+#: keys per tile of both kernels (their ``BT``)
 TILE = 64
-#: the kernel's limits: query heads a block takes, and their outputs
+#: the kernels' limits: query heads a block takes, and their outputs (for
+#: route "mma", the group padded to 16, 32 or 64 rows)
 MAX_GROUP = 64
 MAX_GROUP_X_DIM = 4096
-#: blocks to aim for on each SM when the cache is split over blocks: a
-#: block works through its tiles one after another (load, sync, compute),
-#: so more and shorter splits keep more loads in flight on each SM.  On an
-#: H100 (``tools/decode_splits.py``) phi3-mini's decode shape (256 blocks
-#: unsplit) took 0.176 ms in one split, 0.062 in 5 (8 an SM), 0.059 in 9
-#: (16 an SM) and 0.067 in 35; gemma-2b's (8 blocks) 0.80 ms in one split
-#: and 0.054 in 35.
-BLOCKS_PER_SM = 16
+#: blocks to aim for on each SM when the cache is split over blocks, by
+#: route.  "fma": a block works through its tiles one after another (load,
+#: sync, compute), so more and shorter splits keep more loads in flight on
+#: each SM.  On an H100 (``tools/decode_splits.py``) phi3-mini's decode
+#: shape (256 blocks unsplit) took 0.176 ms in one split, 0.062 in 5 (8 an
+#: SM), 0.059 in 9 (16 an SM) and 0.067 in 35; gemma-2b's (8 blocks) 0.80 ms
+#: in one split and 0.054 in 35.  "mma" keeps two or three tiles in flight a
+#: block, so it aims at 2 blocks an SM and splits into at least
+#: ``MMA_TILES_PER_SPLIT[0]`` and at most ``[1]`` tiles: on an H100
+#: (``tools/decode_splits.py``, kv_len over [1, T], two draws, NVIDIA H100
+#: 80GB HBM3 at 700 W) phi3-mini's shape took 0.059-0.064 ms in one split,
+#: 0.053-0.062 in 2, 0.049-0.055 in 5 (7 tiles), 0.048-0.056 in 9 and
+#: 0.072-0.085 in 35; gemma-2b's 0.097 in one, 0.022 in 9, 0.020 in 18 (2
+#: tiles) and 0.023-0.028 in 35; recurrentgemma-2b's 0.090 in one, 0.0195 in
+#: 16 (2 tiles) and 0.022-0.028 in 32 (1 tile).
+BLOCKS_PER_SM = {"fma": 16, "mma": 2}
+MMA_TILES_PER_SPLIT = (2, 7)
 
 
-def split_plan(batch: int, kv_heads: int, t: int,
-               device: torch.device) -> tuple[int, int]:
-    """(splits, tiles a split): enough blocks for ``BLOCKS_PER_SM`` on each
-    SM, in whole tiles, no split empty for a full-length row."""
+def _mma_rows(group: int) -> int:
+    """Rows route "mma" pads a group of query heads to (one, two or four
+    m16 tiles)."""
+    return 16 if group <= 16 else 32 if group <= 32 else 64
+
+
+def decode_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a call takes, from dtype, shape and alignment alone.
+
+    ``"mma"`` (the group's query heads on the tensor cores, padded to 16,
+    32 or 64 rows) for bf16 inputs with a head dim that is a multiple of
+    16, at most 64 query heads a kv head, the padded rows times the head
+    dim at most 4096, and 16-byte-aligned bases.  ``"fma"`` (the first
+    kernel) for everything else: f32 inputs, which are held at 2e-4 (bf16
+    operands cannot meet that), and bf16 shapes such as D = 40."""
+    d, hq, hkv = q.shape[-1], q.shape[1], k.shape[1]
+    group = hq // hkv if hkv and hq % hkv == 0 else 0
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16 and d > 0
+            and d % 16 == 0 and 0 < group <= MAX_GROUP
+            and _mma_rows(group) * d <= MAX_GROUP_X_DIM
+            and all(x.data_ptr() % 16 == 0 for x in (q, k, v))):
+        return "mma"
+    return "fma"
+
+
+def split_plan(batch: int, kv_heads: int, t: int, device: torch.device,
+               route: str = "fma") -> tuple[int, int]:
+    """(splits, tiles a split): enough blocks for the route's
+    ``BLOCKS_PER_SM`` on each SM, in whole tiles, no split empty for a
+    full-length row; for route "mma" also within ``MMA_TILES_PER_SPLIT``
+    tiles a split (fewer where the cache has fewer)."""
     tiles = cdiv(t, TILE)
-    want = cdiv(BLOCKS_PER_SM * sm_count(device.index), batch * kv_heads)
-    splits = max(1, min(tiles, want))
-    per_split = cdiv(tiles, splits)
+    want = cdiv(BLOCKS_PER_SM[route] * sm_count(device.index),
+                batch * kv_heads)
+    fewest, most = MMA_TILES_PER_SPLIT if route == "mma" else (1, tiles)
+    splits = max(1, min(tiles, max(want, cdiv(tiles, most))))
+    per_split = max(cdiv(tiles, splits), min(fewest, tiles))
     return cdiv(tiles, per_split), per_split
 
 
@@ -43,9 +86,14 @@ def decode_attention_cuda(
     kv_len: torch.Tensor,  # (B,) int32 on q's device
     *,
     scale: float | None = None,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out (B, HQ, D) in q's dtype, lse (B, HQ) f32) into new tensors.
-    Keys at and past ``kv_len[b]`` are neither read nor counted."""
+    Keys at and past ``kv_len[b]`` are neither read nor counted.
+    ``route`` None takes ``decode_route``'s choice; ``"fma"`` forces the
+    first kernel on inputs the tensor cores could take (to time the two on
+    the same inputs).  A failed launch raises; no route is tried after
+    another fails."""
     check_cuda_tensor("q", q, tuple(_TYPE_CODES), 3)
     check_cuda_tensor("k", k, (q.dtype,), 4, device=q.device)
     check_cuda_tensor("v", v, (q.dtype,), 4, device=q.device)
@@ -73,6 +121,8 @@ def decode_attention_cuda(
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    route = resolve_route(route, decode_route(q, k, v), ROUTES,
+                          "decode attention")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
@@ -80,7 +130,7 @@ def decode_attention_cuda(
         out.zero_()
         lse.fill_(-1e30)
         return out, lse
-    splits, per_split = split_plan(b, hkv, t, q.device)
+    splits, per_split = split_plan(b, hkv, t, q.device, route)
     parts = (None, None, None)
     if splits > 1:
         # One scratch allocation: each split's accumulator (b*hq, splits,
@@ -90,22 +140,28 @@ def decode_attention_cuda(
                               device=q.device)
         acc = scratch.data_ptr()
         parts = (acc, acc + 4 * rows * d, acc + 4 * rows * (d + 1))
-    fn = _build.bind("decode_attention_fwd", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ])
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), *parts]
+    argtypes = [ctypes.c_void_p] * 9
+    sizes = [b, hkv, group, t, d, splits, per_split]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), *parts, b, hkv, group, t, d,
-                 splits, per_split, float(scale), _TYPE_CODES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+        if route == "mma":
+            fn = _build.bind("decode_attention_mma", argtypes + [
+                ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+            err = fn(*args, *sizes, float(scale), stream)
+        else:
+            fn = _build.bind("decode_attention_fwd", argtypes + [
+                ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p])
+            err = fn(*args, *sizes, float(scale), _TYPE_CODES[q.dtype],
+                     stream)
     decode_attention_cuda.launches += 1
-    _build.check(err, "decode_attention_fwd")
+    decode_attention_cuda.routes[route] += 1
+    _build.check(err, f"decode attention ({route})")
     return out, lse
 
 
-#: launches of the CUDA kernel in this process
+#: launches of the CUDA kernels in this process, and by route
 decode_attention_cuda.launches = 0
+decode_attention_cuda.routes = dict.fromkeys(ROUTES, 0)

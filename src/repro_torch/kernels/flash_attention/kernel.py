@@ -8,9 +8,11 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import ROUTES, check_cuda_tensor, resolve_route
+from ..common import check_cuda_tensor, resolve_route
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the routes: the tensor cores fed by TMA, and the first kernel (CUDA cores)
+ROUTES = ("wgmma", "fma")
 #: head dims the kernels take: up to 256, a multiple of 8 (16-byte rows)
 MAX_HEAD_DIM = 256
 
@@ -69,7 +71,8 @@ def flash_attention_cuda(
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    route = resolve_route(route, flash_route(q, k, v), "flash attention")
+    route = resolve_route(route, flash_route(q, k, v), ROUTES,
+                          "flash attention")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     if out.numel() == 0:

@@ -1,4 +1,4 @@
-"""Launches the GEMM CUDA kernels (``csrc/gemm.cu``) by one of two routes."""
+"""Launches the GEMM CUDA kernels (``csrc/gemm.cu``) by one of three routes."""
 
 from __future__ import annotations
 
@@ -7,24 +7,38 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import ROUTES, check_cuda_tensor, resolve_route
+from ..common import check_cuda_tensor, resolve_route
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the routes: bf16 on the tensor cores fed by TMA, f32 on the CUDA cores
+#: with its loads one stage ahead, and the first kernel (CUDA cores)
+ROUTES = ("wgmma", "pipe", "fma")
+#: the C entries of the routes after the first kernel's (one signature)
+_ENTRIES = {"wgmma": "gemm_bf16_wgmma", "pipe": "gemm_f32_pipe"}
 
 
-def gemm_route(a: torch.Tensor, b: torch.Tensor) -> str:
+def gemm_route(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: torch.dtype | None = None) -> str:
     """The kernel a product takes, from dtype, shape and alignment alone.
 
     ``"wgmma"`` (tensor cores fed by TMA) for bf16 inputs that TMA can
     describe: a row stride of whole 16-byte units (K and N multiples of 8)
-    and 16-byte-aligned bases, with K at least 1.  ``"fma"`` (f32 on the
-    CUDA cores) for everything else: all f32 inputs, and bf16 shapes such
-    as K = 60, whose 120-byte rows TMA refuses."""
+    and 16-byte-aligned bases, with K at least 1.  ``"pipe"`` (true f32 on
+    the CUDA cores, its loads one stage ahead) for f32 inputs with K a
+    positive multiple of 16 (whole stages) and N of 4 (rows of whole
+    16-byte units), 16-byte-aligned bases and an f32 result (``out_dtype``
+    None: the inputs').  ``"fma"`` (the first kernel) for everything else,
+    such as chip_smoke's ragged K = 60 in bf16, or K = 136, N = 130 or a
+    bf16 result in f32."""
     k, n = b.shape
-    if (a.dtype == b.dtype == torch.bfloat16 and k > 0 and k % 8 == 0
-            and n % 8 == 0 and a.data_ptr() % 16 == 0
-            and b.data_ptr() % 16 == 0):
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    if not aligned or k == 0 or a.dtype != b.dtype:
+        return "fma"
+    if a.dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
         return "wgmma"
+    if (a.dtype == torch.float32 and k % 16 == 0 and n % 4 == 0
+            and out_dtype in (None, torch.float32)):
+        return "pipe"
     return "fma"
 
 
@@ -37,9 +51,9 @@ def gemm_cuda(
 ) -> torch.Tensor:
     """``a @ b`` accumulated in f32, as ``out_dtype`` (default: a's).
 
-    ``route`` None takes ``gemm_route``'s choice; ``"fma"`` forces the CUDA
-    cores' kernel on inputs the tensor cores could take (to time the two on
-    the same inputs).  A failed launch raises; no route is tried after
+    ``route`` None takes ``gemm_route``'s choice; ``"fma"`` forces the first
+    kernel on inputs another route could take (to time the two on the same
+    inputs).  A failed launch raises; no route is tried after
     another fails."""
     check_cuda_tensor("a", a, tuple(_TYPE_CODES), 2)
     check_cuda_tensor("b", b, (a.dtype,), 2, device=a.device)
@@ -51,14 +65,14 @@ def gemm_cuda(
     out_dtype = out_dtype or a.dtype
     if out_dtype not in _TYPE_CODES:
         raise TypeError(f"out_dtype {out_dtype} not in {tuple(_TYPE_CODES)}")
-    route = resolve_route(route, gemm_route(a, b), "gemm")
+    route = resolve_route(route, gemm_route(a, b, out_dtype), ROUTES, "gemm")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        if route == "wgmma":
-            fn = _build.bind("gemm_bf16_wgmma", [
+        if route in _ENTRIES:
+            fn = _build.bind(_ENTRIES[route], [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p,

@@ -10,12 +10,13 @@ Layers come in groups of 3 (rec, rec, attn), the reference's scan unit; the
 ``n_layers % 3`` leftover recurrent blocks are the tail.  The parameters are
 an ``nn.Module`` in the reference's (in, out) layout, the forward pass a
 Python loop over the groups.  With ``attention_impl="cuda"`` the recurrence
-is the hand-written RG-LRU kernel and a prefill's local attention the
-flash-attention kernel (on CPU tensors their wrappers take the plain
-versions).  A decode step's attention over the ring buffer is eager torch,
-as the reference's is plain ``einsum``.  Decode writes the new token's k, v
-and position into the ring buffer in place (as ``kvcache.update_layer``
-does); the recurrent state comes back in new tensors.
+is the hand-written RG-LRU kernel, a prefill's local attention the
+flash-attention kernel and a decode step's attention over the ring buffer
+the decode-attention kernel (on CPU tensors their wrappers take the plain
+versions); otherwise a decode step's attention is eager torch, as the
+reference's is plain ``einsum``.  Decode writes the new token's k, v and
+position into the ring buffer in place (as ``kvcache.update_layer`` does);
+the recurrent state comes back in new tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import constrain
 from repro_torch.kernels.rg_lru import rg_lru, rg_lru_ref
 
-from .attention import multihead_attention
+from .attention import decode_attention, multihead_attention
 from .config import ModelConfig
 from .layers import (
     apply_rope,
@@ -331,15 +332,25 @@ def _attn_block_decode(lp, x: torch.Tensor, cfg: ModelConfig,
     v_cache[rows, :, slot, :] = v[:, 0].to(v_cache.dtype)
     slot_pos[rows, slot] = pos.to(slot_pos.dtype)
 
-    group = cfg.n_heads // cfg.n_kv_heads
-    kk = torch.repeat_interleave(k_cache, group, dim=1)
-    vv = torch.repeat_interleave(v_cache, group, dim=1)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    logits = torch.einsum("bhd,bhtd->bht", q[:, 0], kk).float() * scale
-    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-    logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bht,bhtd->bhd", p.to(x.dtype), vv)
+    if cfg.attention_impl == "cuda":
+        # The ring fills its slots in order and a slot's cache comes whole
+        # from its own prefill, so the valid slots (0 <= slot_pos <= pos)
+        # are always the first min(pos + 1, window): the kernel takes the
+        # cache as it lies, its kv heads shared by the group, and reads no
+        # slot past them.
+        kv_len = torch.clamp(pos + 1, max=win).to(torch.int32)
+        out = decode_attention(q[:, 0], k_cache, v_cache, kv_len,
+                               impl="cuda", scale=scale)
+    else:
+        group = cfg.n_heads // cfg.n_kv_heads
+        kk = torch.repeat_interleave(k_cache, group, dim=1)
+        vv = torch.repeat_interleave(v_cache, group, dim=1)
+        logits = torch.einsum("bhd,bhtd->bht", q[:, 0], kk).float() * scale
+        valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+        logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bht,bhtd->bhd", p.to(x.dtype), vv)
     x = x + out.reshape(b, 1, cfg.q_dim) @ lp.wo
     xn = rms_norm(x, lp.mlp_norm["scale"])
     x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)

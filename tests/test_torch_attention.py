@@ -212,6 +212,29 @@ def test_decode_split_plan_aims_at_sixteen_blocks_an_sm(monkeypatch, batch,
     assert (splits - 1) * per_split < -(-t // dk.TILE) <= splits * per_split
 
 
+@pytest.mark.parametrize("batch,kv_heads,t,plan", [
+    (8, 32, 2184, (5, 7)),    # phi3-mini's decode: 256 blocks, 7 tiles a split
+    (8, 1, 2184, (18, 2)),    # gemma-2b's MQA: 2 tiles a split
+    (8, 1, 2048, (16, 2)),    # recurrentgemma-2b's ring: 2 tiles, not 1
+    (64, 64, 2184, (5, 7)),   # enough blocks, still at most 7 tiles a split
+    (8, 32, 300, (2, 3)),     # a short cache: 2 splits for 2 blocks an SM
+    (1, 1, 10, (1, 1)),       # one tile
+])
+def test_decode_split_plan_of_the_tensor_core_route(monkeypatch, batch,
+                                                    kv_heads, t, plan):
+    """Route "mma" keeps two or three tiles in flight a block: it aims at 2
+    blocks an SM with 2 to 7 tiles a split (the counts measured best on an
+    H100, ``tools/decode_splits.py``; pure host arithmetic here)."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    monkeypatch.setattr(dk, "sm_count", lambda index: 132)
+    splits, per_split = dk.split_plan(batch, kv_heads, t,
+                                      torch.device("cuda", 0), "mma")
+    assert (splits, per_split) == plan
+    tiles = -(-t // dk.TILE)
+    assert (splits - 1) * per_split < tiles <= splits * per_split
+    assert per_split <= 7 and (per_split >= 2 or tiles < 2)
+
+
 # -- models/attention.py ------------------------------------------------------------
 
 

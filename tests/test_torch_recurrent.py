@@ -31,8 +31,10 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.kernels import rg_lru, rg_lru_ref, wkv6, wkv6_ref
 from repro_torch.models import api as t_api
+from repro_torch.models import attention as t_attention
 from repro_torch.models import rglru as t_rglru
 from repro_torch.models import rwkv as t_rwkv
+from repro_torch.serve.engine import Request, ServeEngine, _splice_state
 
 ARCHS = ["rwkv6-3b", "recurrentgemma-2b"]
 R_MODULE = {"rwkv6-3b": r_rwkv, "recurrentgemma-2b": r_rglru}
@@ -351,6 +353,138 @@ def test_decode_state_is_returned_new_and_the_ring_written_in_place():
     assert new["attn_k"] is ring
     assert new["slot_pos"][:, :, 18 % 16].tolist() == [[18, 18], [18, 18]]
     assert new["pos"].tolist() == [19, 19]
+
+
+def _kernel_calls(monkeypatch) -> list:
+    """The kv_len of every call of the decode-attention wrapper that the
+    models' ``attention_impl="cuda"`` path makes (on CPU tensors it takes
+    the plain version)."""
+    calls, wrapped = [], t_attention.cuda_decode
+
+    def spy(q, k, v, *, kv_len, **kw):
+        calls.append(kv_len.clone())
+        return wrapped(q, k, v, kv_len=kv_len, **kw)
+
+    monkeypatch.setattr(t_attention, "cuda_decode", spy)
+    return calls
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_hybrid_decode_past_the_wrap_matches_the_reference(impl,
+                                                           monkeypatch):
+    """A prompt of 10 tokens, then 24 decode steps, past the window of 16
+    at the 7th step and again at the 23rd: the port's logits at every step
+    and its state at the end within the reference's 1e-4 (the reference's
+    decode is eager einsum over the ring either way).  With "cuda" (the
+    reference's "pallas") the port's ring-buffer attention is the
+    decode-attention wrapper on the cache as it lies, one call an attention
+    block a step with kv_len = min(pos + 1, window); with "xla", eager."""
+    rcfg, rparams, tcfg, tparams = _pair("recurrentgemma-2b", impl)
+    calls = _kernel_calls(monkeypatch)
+    rng = np.random.RandomState(304)
+    b, s, steps = 2, 10, 24
+    rt, tt = _tokens(rng, rcfg, b, s)
+    rstate = r_api.init_decode_state(rcfg, b, s + steps)
+    tstate = t_api.init_decode_state(tcfg, b, s + steps, "cpu")
+    rlog, rstate = r_api.prefill(rparams, {"tokens": rt}, rcfg, rstate)
+    tlog, tstate = t_api.prefill(tparams, {"tokens": tt}, tcfg, tstate)
+    np.testing.assert_allclose(_np(tlog), _np(rlog), rtol=1e-4, atol=1e-4)
+    for step in range(steps):
+        rtok, ttok = _tokens(rng, rcfg, b, 1)
+        rlog, rstate = r_api.decode_step(rparams, rtok, rcfg, rstate)
+        tlog, tstate = t_api.decode_step(tparams, ttok, tcfg, tstate)
+        np.testing.assert_allclose(_np(tlog), _np(rlog), rtol=1e-4,
+                                   atol=1e-4, err_msg=f"decode step {step}")
+    for name in ("attn_k", "attn_v", "slot_pos", "pos"):
+        np.testing.assert_allclose(_np(tstate[name]), _np(rstate[name]),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+    groups = t_rglru.n_groups(tcfg)[0]
+    if impl == "xla":
+        assert calls == []
+        return
+    win = tcfg.window
+    assert len(calls) == groups * steps
+    for step in range(steps):
+        want = [min(s + step + 1, win)] * b
+        for call in calls[step * groups:(step + 1) * groups]:
+            assert call.dtype == torch.int32 and call.tolist() == want
+
+
+def _assert_ring_prefix(state: dict, window: int) -> None:
+    """In every attention block and row, the slots holding a position the
+    row has seen (0 <= slot_pos < pos) are exactly the first
+    min(pos, window)."""
+    slot_pos, pos = state["slot_pos"], state["pos"]
+    for g in range(slot_pos.shape[0]):
+        for r, n in enumerate(pos.tolist()):
+            seen = (slot_pos[g, r] >= 0) & (slot_pos[g, r] < n)
+            assert seen.tolist() == [i < min(n, window)
+                                     for i in range(window)], (g, r, n)
+
+
+def test_ring_buffer_valid_slots_are_a_prefix(monkeypatch):
+    """The claim the kernel path rests on: the ring fills its slots in
+    order and a slot's cache comes whole from its own prefill, so after a
+    prefill and after every decode step the valid slots are a prefix, and
+    each decode-attention call's kv_len is its length.  Rows prefilled
+    alone (5 and 20 tokens, the second past the window) and spliced in as
+    the engine does, and an empty row, through 24 steps past the wrap."""
+    cfg = get_smoke_config("recurrentgemma-2b")
+    win = cfg.window
+    params = t_api.init_params(torch.Generator().manual_seed(5), cfg, "cpu")
+    calls = _kernel_calls(monkeypatch)
+    _, toks = _tokens(np.random.RandomState(305), cfg, 1, 20)
+    state = t_api.init_decode_state(cfg, 3, 64, "cpu")
+    for slot, n in ((0, 5), (2, 20)):  # slot 1 stays empty
+        one = t_api.init_decode_state(cfg, 1, 64, "cpu")
+        _, one = t_api.prefill(params, {"tokens": toks[:, :n]}, cfg, one)
+        _assert_ring_prefix(one, win)
+        state = _splice_state(state, one, slot)
+    _assert_ring_prefix(state, win)
+    assert state["pos"].tolist() == [5, 0, 20]
+    for step in range(24):
+        before = state["pos"].clone()
+        tok = toks[:, step % 20].repeat(3)[:, None]
+        _, state = t_api.decode_step(params, tok, cfg, state)
+        _assert_ring_prefix(state, win)
+        want = torch.clamp(before + 1, max=win).tolist()
+        assert [c.tolist() for c in calls] == [want] * len(calls)
+        calls.clear()
+
+
+def test_ring_buffer_prefix_holds_through_engine_refills(monkeypatch):
+    """The same claim through ``ServeEngine``: two slots, four requests, so
+    that finished slots are refilled by a splice mid-run; rows run past
+    the window (prompt 20; 5 + 14 and 3 + 20 tokens)."""
+    cfg = get_smoke_config("recurrentgemma-2b")
+    win = cfg.window
+    params = t_api.init_params(torch.Generator().manual_seed(6), cfg, "cpu")
+    calls = _kernel_calls(monkeypatch)
+    engine = ServeEngine(params, cfg, slots=2, max_len=64, seed=0,
+                         device="cpu")
+    rng = np.random.RandomState(306)
+    for rid, (plen, new) in enumerate(((5, 14), (20, 4), (3, 20), (12, 6))):
+        engine.submit(Request(
+            rid=rid, prompt=rng.randint(0, cfg.vocab, plen).astype(np.int32),
+            max_new_tokens=new))
+    refills, held = 0, [False, False]
+    for _ in range(100):
+        occupied = list(engine.slot_req)
+        engine._fill_slots()
+        for s, (was, now) in enumerate(zip(occupied, engine.slot_req)):
+            refills += held[s] and was is None and now is not None
+            held[s] = held[s] or now is not None
+        _assert_ring_prefix(engine.state, win)
+        if all(r is None for r in engine.slot_req):
+            break
+        before = engine.state["pos"].clone()
+        engine._decode_once()
+        _assert_ring_prefix(engine.state, win)
+        want = torch.clamp(before + 1, max=win).tolist()
+        assert [c.tolist() for c in calls] == [want] * len(calls)
+        calls.clear()
+    assert len(engine.completed) == 4 and refills == 2
+    assert all(r.status == "ok" for r in engine.completed)
 
 
 #: per dtype: the shallow and the full depth, the most the reference's two

@@ -1,10 +1,14 @@
-"""The two-route kernels' route functions, on the CPU.
+"""The multi-route kernels' route functions, on the CPU.
 
-``gemm_route`` and ``flash_route`` pick a kernel before the launch from
-dtype, shape and alignment alone: ``"wgmma"`` (tensor cores fed by TMA)
-where TMA can describe the operands, ``"fma"`` (the CUDA cores) for the
-rest.  They read only shapes, dtypes and addresses, so CPU tensors stand
-in for CUDA ones here; the kernels themselves run on the GPU in
+``gemm_route``, ``flash_route`` and ``decode_route`` pick a kernel before
+the launch from dtype, shape and alignment alone: ``"wgmma"`` (tensor
+cores fed by TMA) where TMA can describe bf16 operands, ``"pipe"`` (f32 on
+the CUDA cores, its loads a stage ahead) for f32 GEMM operands of 16-byte
+rows, ``"mma"`` (``mma.sync`` tensor cores) for bf16 decode attention
+whose group fits the kernel, and ``"fma"`` (the first kernels) for the
+rest.
+They read only shapes, dtypes and addresses, so CPU tensors stand in for
+CUDA ones here; the kernels themselves run on the GPU in
 ``chip_smoke.py``, which also requires each main-path call to have taken
 the route these functions give.
 """
@@ -20,6 +24,8 @@ from repro_torch.kernels import _build, common
 gemm_kernel = importlib.import_module("repro_torch.kernels.gemm.kernel")
 flash_kernel = importlib.import_module(
     "repro_torch.kernels.flash_attention.kernel")
+decode_kernel = importlib.import_module(
+    "repro_torch.kernels.decode_attention.kernel")
 
 bf16, f32 = torch.bfloat16, torch.float32
 
@@ -37,18 +43,55 @@ def test_gemm_bf16_with_aligned_rows_takes_the_tensor_cores(m, k, n):
     assert gemm_kernel.gemm_route(a, b) == "wgmma"
 
 
-@pytest.mark.parametrize("what,a,b", [
-    ("f32", _mat(128, 64, f32), _mat(64, 256, f32)),
-    ("f32 ragged", _mat(100, 60, f32), _mat(60, 130, f32)),
-    ("k not a multiple of 8", _mat(100, 60, bf16), _mat(60, 128, bf16)),
-    ("n not a multiple of 8", _mat(128, 64, bf16), _mat(64, 130, bf16)),
-    ("chip_smoke's ragged case", _mat(100, 60, bf16), _mat(60, 130, bf16)),
-    ("a one element in", _mat(64, 64, bf16, offset=1), _mat(64, 64, bf16)),
-    ("b one element in", _mat(64, 64, bf16), _mat(64, 64, bf16, offset=1)),
-    ("no k", _mat(64, 0, bf16), _mat(0, 64, bf16)),
+@pytest.mark.parametrize("what,a,b,want", [
+    # f32 with whole 16-deep stages and 16-byte rows takes the pipelined
+    # route ("pipe"); other f32 keeps the first kernel
+    ("f32", _mat(128, 64, f32), _mat(64, 256, f32), "pipe"),
+    ("f32 ragged", _mat(100, 60, f32), _mat(60, 130, f32), "fma"),
+    ("k not a multiple of 8", _mat(100, 60, bf16), _mat(60, 128, bf16),
+     "fma"),
+    ("n not a multiple of 8", _mat(128, 64, bf16), _mat(64, 130, bf16),
+     "fma"),
+    ("chip_smoke's ragged case", _mat(100, 60, bf16), _mat(60, 130, bf16),
+     "fma"),
+    ("a one element in", _mat(64, 64, bf16, offset=1), _mat(64, 64, bf16),
+     "fma"),
+    ("b one element in", _mat(64, 64, bf16), _mat(64, 64, bf16, offset=1),
+     "fma"),
+    ("no k", _mat(64, 0, bf16), _mat(0, 64, bf16), "fma"),
 ])
-def test_gemm_route_sends_what_tma_cannot_describe_to_fma(what, a, b):
-    assert gemm_kernel.gemm_route(a, b) == "fma", what
+def test_gemm_route_sends_what_tma_cannot_describe_to_fma(what, a, b, want):
+    assert gemm_kernel.gemm_route(a, b) == want, what
+
+
+@pytest.mark.parametrize("what,a,b,want", [
+    ("8192^3", _mat(8192, 8192, f32), _mat(8192, 8192, f32), "pipe"),
+    ("aligned ragged", _mat(200, 144, f32), _mat(144, 260, f32), "pipe"),
+    ("k = 16, n = 4", _mat(3, 16, f32), _mat(16, 4, f32), "pipe"),
+    ("k = 136: a short last stage", _mat(200, 136, f32),
+     _mat(136, 264, f32), "fma"),
+    ("n = 130", _mat(100, 64, f32), _mat(64, 130, f32), "fma"),
+    ("k = 6", _mat(8, 6, f32), _mat(6, 8, f32), "fma"),
+    ("a one element in", _mat(64, 64, f32, offset=1), _mat(64, 64, f32),
+     "fma"),
+    ("b two elements in", _mat(64, 64, f32), _mat(64, 64, f32, offset=2),
+     "fma"),
+    ("a four elements in", _mat(64, 64, f32, offset=4), _mat(64, 64, f32),
+     "pipe"),
+    ("no k", _mat(64, 0, f32), _mat(0, 64, f32), "fma"),
+])
+def test_gemm_f32_with_whole_stages_takes_the_pipelined_route(what, a, b,
+                                                              want):
+    assert gemm_kernel.gemm_route(a, b) == want, what
+
+
+@pytest.mark.parametrize("out_dtype,want", [(None, "pipe"), (f32, "pipe"),
+                                            (bf16, "fma")])
+def test_gemm_f32_pipelined_route_writes_f32_only(out_dtype, want):
+    """Route "pipe" has an f32 result only (its bf16-out instance spilled),
+    so an f32 product rounded to bf16 keeps the first kernel."""
+    a, b = _mat(256, 64, f32), _mat(64, 128, f32)
+    assert gemm_kernel.gemm_route(a, b, out_dtype) == want
 
 
 def _qkv(d, dtype, s=100, t=100, hq=4, hkv=2, offset=0):
@@ -76,28 +119,84 @@ def test_flash_route_sends_the_rest_to_fma(what, qkv):
     assert flash_kernel.flash_route(*qkv) == "fma", what
 
 
-@pytest.mark.parametrize("kernel,fn", [(gemm_kernel, "gemm_cuda"),
-                                       (flash_kernel, "flash_attention_cuda")])
-def test_two_route_wrappers_count_launches_by_route(kernel, fn):
+def _decode(b, hq, hkv, t, d, dtype, offset=0):
+    """q (b, hq, d) ``offset`` elements into its buffer, k and v (b, hkv,
+    t, d)."""
+    q = torch.zeros(offset + b * hq * d, dtype=dtype)[offset:]
+    k = torch.zeros(b * hkv * t * d, dtype=dtype)
+    return (q.view(b, hq, d), k.view(b, hkv, t, d),
+            k.clone().view(b, hkv, t, d))
+
+
+@pytest.mark.parametrize("what,shape", [
+    ("phi3-mini's decode", (8, 32, 32, 2184, 96)),
+    ("gemma-2b's MQA", (8, 8, 1, 2184, 256)),
+    ("recurrentgemma-2b's ring buffer", (8, 10, 1, 2048, 256)),
+    ("ragged T, group 10", (3, 10, 1, 300, 256)),
+    ("group 32 of 128", (2, 32, 1, 100, 128)),
+    ("group 64 of 64", (1, 64, 1, 70, 64)),
+    ("group 40 padded to 64 rows", (1, 40, 1, 70, 64)),
+    ("D = 16", (2, 4, 2, 50, 16)),
+])
+def test_decode_bf16_takes_the_tensor_cores(what, shape):
+    assert decode_kernel.decode_route(*_decode(*shape, bf16)) == "mma", what
+
+
+@pytest.mark.parametrize("what,args", [
+    ("f32", _decode(8, 32, 32, 300, 96, f32)),
+    ("f32 MQA", _decode(2, 8, 1, 300, 256, f32)),
+    ("D = 40", _decode(2, 4, 2, 64, 40, bf16)),
+    ("group 20 of 256: 32 rows x 256 > 4096", _decode(1, 20, 1, 64, 256,
+                                                      bf16)),
+    ("group 40 of 96: 64 rows x 96 > 4096", _decode(1, 40, 1, 64, 96, bf16)),
+    ("group 65", _decode(1, 65, 1, 64, 16, bf16)),
+    ("heads not a multiple of kv heads", _decode(1, 6, 4, 64, 64, bf16)),
+    ("q one element in", _decode(2, 4, 2, 64, 64, bf16, offset=1)),
+])
+def test_decode_route_sends_the_rest_to_fma(what, args):
+    assert decode_kernel.decode_route(*args) == "fma", what
+
+
+@pytest.mark.parametrize("kernel,fn,routes", [
+    (gemm_kernel, "gemm_cuda", ("wgmma", "pipe", "fma")),
+    (flash_kernel, "flash_attention_cuda", ("wgmma", "fma")),
+    (decode_kernel, "decode_attention_cuda", ("mma", "fma")),
+])
+def test_two_route_wrappers_count_launches_by_route(kernel, fn, routes):
+    """Each multi-route wrapper has its own routes, the first kernel
+    (``"fma"``) last, and counts its launches by route."""
     wrapper = getattr(kernel, fn)
-    assert kernel.ROUTES == ("wgmma", "fma")
+    assert kernel.ROUTES == routes
     assert set(wrapper.routes) == set(kernel.ROUTES)
     assert all(isinstance(n, int) for n in wrapper.routes.values())
 
 
-@pytest.mark.parametrize("route,chosen,want", [
-    (None, "wgmma", "wgmma"), (None, "fma", "fma"), ("fma", "wgmma", "fma"),
-    ("fma", "fma", "fma"), ("wgmma", "wgmma", "wgmma"),
-    ("wgmma", "fma", ValueError), ("mma", "wgmma", ValueError),
+GEMM_ROUTES = ("wgmma", "pipe", "fma")
+
+
+@pytest.mark.parametrize("route,chosen,routes,want", [
+    (None, "wgmma", GEMM_ROUTES, "wgmma"), (None, "fma", GEMM_ROUTES, "fma"),
+    ("fma", "wgmma", GEMM_ROUTES, "fma"), ("fma", "fma", GEMM_ROUTES, "fma"),
+    ("wgmma", "wgmma", GEMM_ROUTES, "wgmma"),
+    ("wgmma", "fma", GEMM_ROUTES, ValueError),
+    ("mma", "wgmma", GEMM_ROUTES, ValueError),
+    ("pipe", "pipe", GEMM_ROUTES, "pipe"), ("fma", "pipe", GEMM_ROUTES, "fma"),
+    ("pipe", "wgmma", GEMM_ROUTES, ValueError),
+    ("pipe", "fma", GEMM_ROUTES, ValueError),
+    ("mma", "mma", ("mma", "fma"), "mma"), ("fma", "mma", ("mma", "fma"), "fma"),
+    ("mma", "fma", ("mma", "fma"), ValueError),
+    ("wgmma", "mma", ("mma", "fma"), ValueError),
 ])
-def test_a_named_route_is_taken_only_where_it_can_run(route, chosen, want):
+def test_a_named_route_is_taken_only_where_it_can_run(route, chosen, routes,
+                                                      want):
     """The first kernel can always be named (to time it on the same
-    inputs); the tensor cores only where the route function chose them."""
+    inputs); another route only where the route function chose it, and
+    only among the wrapper's own routes."""
     if want is ValueError:
         with pytest.raises(ValueError, match="does not take these inputs"):
-            common.resolve_route(route, chosen, "gemm")
+            common.resolve_route(route, chosen, routes, "gemm")
     else:
-        assert common.resolve_route(route, chosen, "gemm") == want
+        assert common.resolve_route(route, chosen, routes, "gemm") == want
 
 
 @pytest.mark.parametrize("err,match", [

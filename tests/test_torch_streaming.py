@@ -138,3 +138,32 @@ def test_stream_kmeans_pad_rows_are_never_counted():
     got = t_stream.stream_kmeans(pts, cen, chunk_rows=256, device="cpu")
     np.testing.assert_allclose(got[0].numpy(), near.mean(axis=0), rtol=1e-5)
     np.testing.assert_allclose(got[1].numpy(), far.mean(axis=0), rtol=1e-5)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_stream_kmeans_takes_the_reference_keyword(use_pallas):
+    """A call written against the reference, ``use_pallas=`` by name, runs
+    in the port with the same meaning and gives the reference's centroids
+    (rtol/atol 2e-4 as above)."""
+    rng = np.random.RandomState(5)
+    pts = rng.rand(5_000, 4).astype(np.float32)
+    cen = rng.rand(6, 4).astype(np.float32)
+    want = r_stream.stream_kmeans(pts, jnp.asarray(cen), chunk_rows=1024,
+                                  use_pallas=use_pallas)
+    got = t_stream.stream_kmeans(pts, torch.from_numpy(cen), chunk_rows=1024,
+                                 use_pallas=use_pallas, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    same = t_stream.stream_kmeans(pts, torch.from_numpy(cen), chunk_rows=1024,
+                                  use_kernel=use_pallas, device="cpu")
+    assert torch.equal(got, same)
+
+
+def test_stream_kmeans_refuses_two_keywords_that_disagree():
+    pts = np.ones((8, 2), np.float32)
+    with pytest.raises(ValueError, match="disagree"):
+        t_stream.stream_kmeans(pts, torch.ones(1, 2), use_pallas=False,
+                               use_kernel=True, device="cpu")
+    agreed = t_stream.stream_kmeans(pts, torch.ones(1, 2), use_pallas=False,
+                                    use_kernel=False, device="cpu")
+    assert torch.equal(agreed, torch.ones(1, 2))

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Decode attention with the cache split over blocks, or not, on one GPU.
 
-    python3 tools/decode_splits.py [--seed 0] [--steps 10]
+    python3 tools/decode_splits.py [--route mma] [--seed 0] [--steps 10]
 
-Times the decode-attention kernel (``src/repro_torch/csrc/decode_attention.cu``)
-at the serving path's shape (phi3-mini-3.8b: 8 slots x 32 kv heads of 96,
-T = 2184, kv_len over [1, T], ``--draws`` draws) and at gemma-2b's MQA
-shape (8 slots x 1 kv head of 256), with the wrapper's own split plan and
-with the split forced to each of several counts; each result is held
-against the f32 plain version at ``chip_smoke.py``'s bf16 limit.  Then a decode step of
-phi3-mini-3.8b at full width and depth in bf16 (random weights from
-``--seed``, a cache of random keys and values) with the plan and with one
-split, in the order plan, one, one, plan: its time by CUDA events (the
-host's issue included) and its device time by ``torch.profiler``; and the
-wrapper's host time a call with the plan and with one split.  Prints
-``chip_smoke.py``'s env line, then one JSON line of results.  Needs one CUDA
-device; inputs, timers and limits are ``chip_smoke.py``'s.
+Times the decode-attention kernel of ``--route`` (``"mma"``, the tensor
+cores, or ``"fma"``, the first kernel; ``src/repro_torch/csrc/
+decode_attention.cu``) at the serving paths' shapes (phi3-mini-3.8b: 8
+slots x 32 kv heads of 96, T = 2184; recurrentgemma-2b's ring buffer: 8
+slots x 10 query heads on 1 kv head of 256, T = 2048; kv_len over [1, T],
+``--draws`` draws) and at gemma-2b's MQA shape (8 slots x 1 kv head of
+256, T = 2184), with the wrapper's own split plan and with the split
+forced to each of several counts; each result is held against the f32
+plain version at ``chip_smoke.py``'s bf16 limit.  Then a decode step of phi3-mini-3.8b at full width and depth in
+bf16 (random weights from ``--seed``, a cache of random keys and values)
+with the plan and with one split, in the order plan, one, one, plan: its
+time by CUDA events (the host's issue included) and its device time by
+``torch.profiler``; and the wrapper's host time a call with the plan and
+with one split.  Prints ``chip_smoke.py``'s env line, then one JSON line
+of results.  Needs one CUDA device; inputs, timers and limits are
+``chip_smoke.py``'s.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import decode_attention, decode_attention_ref  # noqa: E402
+from repro_torch.kernels import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.common import cdiv  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dk  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
@@ -49,7 +52,7 @@ def forced_splits(n: int | None):
     """The wrapper's split plan replaced by ``n`` splits (None: its own)."""
     plan = dk.split_plan
     if n is not None:
-        def fixed(batch, kv_heads, t, device):
+        def fixed(batch, kv_heads, t, device, route="fma"):
             per = cdiv(cdiv(t, dk.TILE), n)
             return cdiv(cdiv(t, dk.TILE), per), per
         dk.split_plan = fixed
@@ -73,32 +76,35 @@ def host_us(fn, device, calls: int = 200) -> float:
     return spent / calls * 1e6
 
 
-def kernel_times(shape, gen, device, reps: int) -> dict:
-    """One draw of the inputs (kv_len over [1, T]) at ``shape``."""
+def kernel_times(shape, gen, device, reps: int, route: str) -> dict:
+    """One draw of the inputs (kv_len over [1, T]) at ``shape``: each split
+    count in turns, up and down."""
     q, k, v, n = smoke.decode_inputs(shape, torch.bfloat16, gen, device)
     want = decode_attention_ref(*smoke.as_f32((q, k, v)), kv_len=n,
                                 with_lse=True)
-    out = {"shape": list(shape), "kv_len": n.tolist(),
-           "plan": list(dk.split_plan(shape[0], shape[2], shape[3], device)),
+    out = {"shape": list(shape), "kv_len": n.tolist(), "route": route,
+           "plan": list(dk.split_plan(shape[0], shape[2], shape[3], device,
+                                      route)),
            "bound_ms": smoke.decode_work(q, k, v, n)[0], "ms": {}}
+
+    def call():
+        return dk.decode_attention_cuda(q, k, v, n, route=route)
+
     for order in (list(SPLITS) + [None], [None] + list(SPLITS)[::-1]):
         for s in order:
             with forced_splits(s):
-                got = decode_attention(q, k, v, kv_len=n, with_lse=True)
+                got = call()
                 smoke.bf16_check(f"splits={s}", got[0], want[0], got[1],
                                  want[1])
-                ms = smoke.time_ms(
-                    lambda: decode_attention(q, k, v, kv_len=n,
-                                             with_lse=True),
-                    device, reps, queued=smoke.KERNEL_HOST_S)
+                ms = smoke.time_ms(call, device, reps,
+                                   queued=smoke.KERNEL_HOST_S)
             out["ms"].setdefault("plan" if s is None else str(s), []) \
                 .append(ms)
     # The wrapper's host work a call: the plan (scratch, two launches)
     # against one split (one launch).
     for s in (None, 1, 1, None):
         with forced_splits(s):
-            us = host_us(lambda: decode_attention(q, k, v, kv_len=n,
-                                                  with_lse=True), device)
+            us = host_us(call, device)
         out.setdefault("host_us", {}).setdefault(
             "plan" if s is None else str(s), []).append(us)
     return out
@@ -157,6 +163,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--draws", type=int, default=4,
                     help="draws of kv_len at each shape")
+    ap.add_argument("--route", choices=dk.ROUTES, default="mma")
+    ap.add_argument("--no-step", action="store_true",
+                    help="time the kernel alone, not a decode step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_splits: no CUDA device", file=sys.stderr)
@@ -167,11 +176,14 @@ def main() -> int:
     res = {"card": smoke.phase_env(device)["card"],
            "sm_count": torch.cuda.get_device_properties(0)
            .multi_processor_count,
-           "phi3": [kernel_times(smoke.FULL.decode, gen, device, args.reps)
-                    for _ in range(args.draws)],
-           "gemma": [kernel_times(smoke.FULL.decode_gemma, gen, device,
-                                  args.reps) for _ in range(args.draws)]}
-    res["step"] = step_times(gen, device, args.steps)
+           **{name: [kernel_times(shape, gen, device, args.reps,
+                                  args.route) for _ in range(args.draws)]
+              for name, shape in (
+                  ("phi3", smoke.FULL.decode),
+                  ("gemma", smoke.FULL.decode_gemma),
+                  ("recurrentgemma", smoke.FULL.decode_rgemma))}}
+    if not args.no_step:
+        res["step"] = step_times(gen, device, args.steps)
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps(res), flush=True)
     return 0

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""One model's decode step on one GPU, for comparing two trees in one call.
+
+    python3 tools/decode_step_ab.py --root DIR [--arch recurrentgemma-2b]
+
+Imports ``chip_smoke.py`` and ``repro_torch`` from the checkout at
+``--root`` (this tree, or a ``git archive`` of another commit unpacked
+where ``.gitignore`` lists it), builds its kernels, and times a decode step
+of all 8 slots of ``--arch`` at full width and depth in bf16 (random
+weights from ``--seed``): a cache of random keys and values filled, as a
+prefill leaves it, to lengths spread over [100, 2600] (past a hybrid's
+window of 2048).  Prints one JSON line: the step by CUDA events (the host's
+issue included, median of ``--steps``), its device time and largest
+kernels by ``torch.profiler``, and the decode-attention kernel's launches
+a step.  Run it for two roots in turns (A, B, B, A) in one call: only
+there are the two comparable.  Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+import torch
+
+
+def fill_state(state: dict, cfg, lens: torch.Tensor, gen) -> None:
+    """Random keys and values for the first ``lens[r]`` positions of each
+    row, and the positions, where a prefill of that length leaves them."""
+    slots = lens.shape[0]
+    if cfg.family == "hybrid":
+        win = cfg.window or 2048
+        for name in ("attn_k", "attn_v"):
+            state[name].normal_(0.0, 0.5, generator=gen)
+        for r in range(slots):
+            n = int(lens[r])
+            first = max(0, n - win)
+            pos = torch.arange(first, n, dtype=torch.int32,
+                               device=lens.device)
+            state["slot_pos"][:, r, pos % win] = pos
+    else:
+        for name in ("k", "v"):
+            for layer in state[name]:
+                layer.normal_(0.0, 0.5, generator=gen)
+    state["pos"].copy_(lens)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path[:0] = [os.path.join(root, "src"), root]
+    import chip_smoke as smoke
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda,
+    )
+    from repro_torch.models import api as model_api
+
+    if not torch.cuda.is_available():
+        print("decode_step_ab: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    cfg = get_config(args.arch)
+    slots, max_len = 8, 2600 + 8
+    params = model_api.init_params(gen, cfg, device)
+    state = model_api.init_decode_state(cfg, slots, max_len, device)
+    lens = torch.linspace(100, 2600, slots, device=device).round().int()
+    fill_state(state, cfg, lens, gen)
+    tok = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                        device=device, dtype=torch.int32)
+
+    @torch.no_grad()
+    def step():
+        return model_api.decode_step(params, tok, cfg, state)
+
+    step()
+    smoke.sync(device)
+    before = decode_attention_cuda.launches
+    step()
+    launches = decode_attention_cuda.launches - before
+    wall = [smoke.time_ms(step, device, 1, warmup=False)
+            for _ in range(args.steps)]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        smoke.sync(device)
+    print(json.dumps({
+        "root": args.root, "arch": cfg.name, "kv_len": lens.tolist(),
+        "step_ms_median": statistics.median(wall), "step_ms": wall,
+        "decode_attention_launches_a_step": launches,
+        **smoke.device_breakdown(prof, 3, top=12)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
