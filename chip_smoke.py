@@ -16,11 +16,13 @@ paper's benchmarks would call real; then LM serving through
 recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
 local attention).  Phases (each prints one JSON line with the seconds it
 took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
-``serve`` once for each model.  GEMM, flash attention and decode attention
-have more than one route (``"wgmma"``: the tensor cores fed by TMA;
-``"mma"``: decode attention's query heads on the tensor cores by
+``serve`` once for each model.  GEMM, flash attention, decode attention,
+the correlator and WKV6 have more than one route (``"wgmma"``: the tensor
+cores fed by TMA; ``"mma"``: decode attention's query heads on the tensor cores by
 ``mma.sync``, fed by ``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA
-cores with its loads one stage ahead; ``"fma"``: the first kernels, on the CUDA
+cores with its loads one stage ahead; ``"tri"``: the correlator's tiles
+with i <= j, the rest mirrored; ``"chunk"``: WKV6 as a scan over chunks of
+time; ``"fma"``: the first kernels, on the CUDA
 cores): the run requires the redesigned route for the main-path calls, the
 tensor cores' instructions (``HGMMA``, ``HMMA``) in those routes' kernels
 only, no register spills in them, and times their first version
@@ -110,7 +112,11 @@ from repro_torch.kernels.common import (  # noqa: E402
 from repro_torch.kernels.coclustering.kernel import (  # noqa: E402
     cluster_sums_cuda,
 )
-from repro_torch.kernels.correlator.kernel import correlate_cuda  # noqa: E402
+from repro_torch.kernels.correlator.kernel import (  # noqa: E402
+    TILE as CORR_TILE,
+    correlate_cuda,
+    correlate_route,
+)
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_cuda,
 )
@@ -125,7 +131,16 @@ from repro_torch.kernels.nbody.kernel import nbody_cuda  # noqa: E402
 from repro_torch.kernels.nbody.ref import SOFTENING2  # noqa: E402
 from repro_torch.kernels.rg_lru.kernel import rg_lru_cuda  # noqa: E402
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan  # noqa: E402
-from repro_torch.kernels.rwkv6.kernel import wkv6_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6.kernel import (  # noqa: E402
+    CHUNK_LEN,
+    wkv6_cuda,
+    wkv6_route,
+)
+from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
+    wkv6_chunk_carry,
+    wkv6_chunk_outputs,
+    wkv6_chunk_updates,
+)
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell_cuda  # noqa: E402
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
@@ -231,7 +246,7 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             flash=(1, 4, 4, 64, 32), flash_gemma=(1, 4, 1, 40, 64),
             decode=(3, 4, 4, 70, 32), decode_gemma=(3, 4, 1, 70, 64),
             decode_rgemma=(3, 5, 1, 70, 64),
-            corr=(16, 40, 12), wkv=(1, 4, 40, 16), wkv_decode=(3, 4, 1, 16),
+            corr=(4, 40, 70), wkv=(1, 4, 140, 16), wkv_decode=(3, 4, 1, 16),
             lru=(1, 40, 64), lru_decode=(3, 1, 64),
             serve_smoke=True, serve_requests=6, serve_requests_recurrent=6,
             serve_slots=3, serve_prompt=(4, 24), serve_new=(2, 6),
@@ -883,11 +898,31 @@ def corr_inputs(c, t, a, gen, device, dtype=torch.float32):
              ).to(dtype),)
 
 
+def mirrored_tiles(a: int, device) -> torch.Tensor:
+    """(A, A) mask of the pairs (i, j) whose 64-antenna tile row lies past
+    its tile column: the tiles route "tri" writes as conjugate transposes."""
+    tile = torch.arange(a, device=device) // CORR_TILE
+    return tile[:, None] > tile[None, :]
+
+
+def corr_mirror_misses(got: torch.Tensor) -> int:
+    """Pairs of the mirrored tiles that are not bit-exactly conj(V[j, i])."""
+    lower = mirrored_tiles(got.shape[1], got.device)
+    conj_t = torch.stack([got[..., 0].transpose(1, 2),
+                          -got[..., 1].transpose(1, 2)], dim=-1)
+    return int((got != conj_t)[:, lower].sum())
+
+
 def corr_check(name, got, want, samples):
     """Against the plain version, and Hermitian: V[i,j] = conj(V[j,i]).
     bf16 visibilities (summed in f32, rounded once) against the f32 plain
     version of the same samples within the bf16 limit, the rms over a row
-    of V."""
+    of V.  A result of route "tri" is also Hermitian bit for bit off the
+    diagonal tiles."""
+    if got.is_cuda and correlate_route(samples) == "tri":
+        misses = corr_mirror_misses(got)
+        require(misses == 0, name, misses, "mirrored pairs are not the "
+                "conjugates of their transposes")
     if got.dtype == torch.bfloat16:
         c, a = got.shape[:2]
         want32 = correlate_ref(samples.float())
@@ -904,17 +939,26 @@ def corr_check(name, got, want, samples):
 
 def corr_main_check(name, got, want, samples):
     """``corr_check``, then planted faults that must fail its tolerance: one
-    time tile (16 samples, the kernel's stage) dropped, and the imaginary
-    part's sign flipped (V^T in place of V)."""
+    time tile (16 samples, the kernel's stage) dropped; the imaginary
+    part's sign flipped (V^T in place of V); route "tri"'s mirrored tiles
+    left at zero, and mirrored without the conjugation."""
     abs_err, rel_err = corr_check(name, got, want, samples)
     t = samples.shape[1]
     t0 = (t // 2) // 16 * 16
     dropped = samples.clone()
     dropped[:, t0:t0 + 16] = 0
+    lower = mirrored_tiles(samples.shape[2], samples.device)
+    require(bool(lower.any()), name, "has no mirrored tiles")
+    unmirrored = want.clone()
+    unmirrored[:, lower] = 0
+    unconjugated = want.clone()
+    unconjugated[:, lower, 1] = -unconjugated[:, lower, 1]
     faults = {"time_tile_dropped": correlate_ref(dropped),
               "im_sign_flipped": torch.stack([want[..., 0], -want[..., 1]],
-                                             dim=-1)}
-    del dropped
+                                             dim=-1),
+              "mirror_left_zero": unmirrored,
+              "mirror_not_conjugated": unconjugated}
+    del dropped, unmirrored, unconjugated
     rows = [{"fault": label, "limit_share": close_share(out, want, CORR_TOL,
                                                         CORR_TOL)}
             for label, out in faults.items()]
@@ -953,6 +997,16 @@ def wkv_inputs(b, h, t, dk, dv, dtype, gen, device):
     w = torch.exp(-torch.exp(normal(b, h, t, dk, std=1.0)))
     return (r.to(dtype), k.to(dtype), v.to(dtype), w.to(dtype), normal(h, dk),
             normal(b, h, dk, dv))
+
+
+def wkv_exact_decays(inputs):
+    """``inputs`` with decays of exactly 0 at every 37th step (a reset) and
+    exactly 1 at every 41st (no decay)."""
+    r, k, v, w, u, s0 = inputs
+    w = w.clone()
+    w[:, :, ::37] = 0.0
+    w[:, :, 5::41] = 1.0
+    return r, k, v, w, u, s0
 
 
 def lru_inputs(b, t, d, dtype, gen, device, sweep=False):
@@ -1019,10 +1073,20 @@ wkv_check = scan_check(lambda *a: wkv6_ref(*a, return_state=True))
 lru_check = scan_check(lru_plain)
 
 
+def wkv_carry_fault(r, k, v, w, u, s0):
+    """Route "chunk"'s three passes in plain PyTorch with one carried state
+    not decayed across its chunk (P_c taken as 1 for the middle chunk)."""
+    ds, decays = wkv6_chunk_updates(k, v, w, CHUNK_LEN)
+    decays[:, :, decays.shape[2] // 2] = 1.0
+    starts, _ = wkv6_chunk_carry(ds, decays, s0)
+    return wkv6_chunk_outputs(r, k, v, w, u, starts, CHUNK_LEN)
+
+
 def wkv_main_check(name, got, want, *inputs):
     """``wkv_check``, then planted faults: the bonus u dropped; one step's
     decay skipped (w = 1 at the middle step); the state zeroed in the
-    middle of the sequence."""
+    middle of the sequence; route "chunk"'s carried state not decayed
+    across the middle chunk."""
     abs_err, rel_err, extra = wkv_check(name, got, want, *inputs)
     r, k, v, w, u, s0 = as_f32(inputs)
     want32 = wkv6_ref(r, k, v, w, u, s0)
@@ -1037,6 +1101,7 @@ def wkv_main_check(name, got, want, *inputs):
         "bonus_dropped": wkv6_ref(r, k, v, w, torch.zeros_like(u), s0),
         "decay_skipped_once": wkv6_ref(r, k, v, w_skip, u, s0),
         "state_zeroed_mid_sequence": torch.cat(halves, dim=2),
+        "carry_not_decayed": wkv_carry_fault(r, k, v, w, u, s0),
     }, want32)
     return abs_err, rel_err, extra
 
@@ -1151,25 +1216,33 @@ def sass_instructions(lib) -> dict:
         text=True).stdout)
 
 
-#: the kernels of each route of the multi-route wrappers, by the prefix of
-#: their names in the SASS, and the tensor-core instruction every instance
-#: must hold: HGMMA (wgmma) or HMMA (mma.sync); None: neither (the CUDA
-#: cores, so route "pipe" is true f32)
+#: the kernels of each route of the multi-route wrappers, by their names in
+#: the SASS (a route of several launches names each), and the tensor-core
+#: instruction every instance must hold: HGMMA (wgmma) or HMMA (mma.sync);
+#: None: neither (the CUDA cores, so routes "pipe", "tri" and "chunk" are
+#: true f32)
 ROUTE_KERNELS = {
-    "gemm_bf16": {"wgmma": ("gemm_wgmma_kernel", "HGMMA"),
-                  "fma": ("gemm_kernel", None)},
-    "gemm": {"pipe": ("gemm_pipe_kernel", None),
-             "fma": ("gemm_kernel", None)},
-    "flash_attention": {"wgmma": ("flash_wgmma_kernel", "HGMMA"),
-                        "fma": ("flash_attention_kernel", None)},
-    "decode_attention": {"mma": ("decode_mma_kernel", "HMMA"),
-                         "fma": ("decode_attention_kernel", None)},
+    "gemm_bf16": {"wgmma": (("gemm_wgmma_kernel",), "HGMMA"),
+                  "fma": (("gemm_kernel",), None)},
+    "gemm": {"pipe": (("gemm_pipe_kernel",), None),
+             "fma": (("gemm_kernel",), None)},
+    "flash_attention": {"wgmma": (("flash_wgmma_kernel",), "HGMMA"),
+                        "fma": (("flash_attention_kernel",), None)},
+    "decode_attention": {"mma": (("decode_mma_kernel",), "HMMA"),
+                         "fma": (("decode_attention_kernel",), None)},
+    "correlate": {"tri": (("correlate_tri_kernel",), None),
+                  "fma": (("correlate_kernel",), None)},
+    "wkv6": {"chunk": (("wkv6_deltas_kernel", "wkv6_carry_kernel",
+                        "wkv6_outputs_kernel"), None),
+             "fma": (("wkv6_kernel",), None)},
 }
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: instances of the redesigned routes' kernels, whose spills ptxas reports:
 #: GEMM wgmma 2 (bf16 and f32 out) and pipe 1, flash attention wgmma 3,
-#: decode attention mma 6 (group and head-dim classes)
-REDESIGNED_INSTANCES = 12
+#: decode attention mma 6 (group and head-dim classes), correlator tri 2
+#: (f32 and bf16 samples), wkv6 chunk 5 (its first and last passes for f32
+#: and bf16, the carry once)
+REDESIGNED_INSTANCES = 19
 
 
 def tensor_core_counts(sass: dict) -> dict:
@@ -1179,11 +1252,14 @@ def tensor_core_counts(sass: dict) -> dict:
     out = {}
     for row, routes in ROUTE_KERNELS.items():
         out[row] = {}
-        for route, (prefix, op) in routes.items():
-            found = {fn: {o: ops.get(o, 0) for o in TENSOR_CORE_OPS}
-                     for fn, ops in sass.items()
-                     if fn.split("#")[0] == prefix}
-            require(found, row, "no kernel named", prefix, "in the SASS")
+        for route, (names, op) in routes.items():
+            found = {}
+            for name in names:
+                these = {fn: {o: ops.get(o, 0) for o in TENSOR_CORE_OPS}
+                         for fn, ops in sass.items()
+                         if fn.split("#")[0] == name}
+                require(these, row, "no kernel named", name, "in the SASS")
+                found.update(these)
             for fn, n in found.items():
                 ok = n[op] > 0 if op else not any(n.values())
                 require(ok, row, fn, "holds", n, "tensor-core instructions; "
@@ -1192,26 +1268,35 @@ def tensor_core_counts(sass: dict) -> dict:
     return out
 
 
-def ptxas_spills(log: str) -> dict:
-    """Spill stores and loads in bytes of each kernel of the redesigned
-    routes (every route but "fma"), from ptxas' report in the build log
-    (its entry line, then its usage)."""
-    names = {prefix for routes in ROUTE_KERNELS.values()
-             for route, (prefix, _) in routes.items() if route != "fma"}
-    spills, name = {}, None
+#: the kernels of the redesigned routes (every route but "fma")
+REDESIGNED_KERNELS = {name for routes in ROUTE_KERNELS.values()
+                      for route, (kernels, _) in routes.items()
+                      if route != "fma" for name in kernels}
+
+
+def ptxas_usage(log: str, names=REDESIGNED_KERNELS) -> dict:
+    """``{kernel#i: {"spill_bytes": n, "registers": n}}`` for each instance
+    of the kernels ``names``, from ptxas' report in the build log (its
+    entry line, then its spill stores and loads, then its registers)."""
+    usage, name = {}, None
     for ln in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
             name = demangled_name(entry.group(1))
             name = name if name in names else None
             if name:
-                name += f"#{sum(k.split('#')[0] == name for k in spills)}"
+                name += f"#{sum(k.split('#')[0] == name for k in usage)}"
+                usage[name] = {}
             continue
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          ln)
-        if found and name:
-            spills[name] = int(found.group(1)) + int(found.group(2))
-    return spills
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        if name and spills:
+            usage[name]["spill_bytes"] = (int(spills.group(1))
+                                          + int(spills.group(2)))
+        if name and regs:
+            usage[name]["registers"] = int(regs.group(1))
+    return usage
 
 
 def phase_build(device: torch.device) -> dict:
@@ -1225,11 +1310,15 @@ def phase_build(device: torch.device) -> dict:
         info["tensor_cores"] = tensor_core_counts(info["sass"])
         # Registers, shared memory and spills of each kernel, from ptxas.
         log = _build.build_log()
-        usage = [ln.strip() for ln in log.splitlines()
+        lines = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        print("\n".join(usage), file=sys.stderr)
-        info["spill_bytes"] = ptxas_spills(log)
-        require(len(info["spill_bytes"]) == REDESIGNED_INSTANCES,
+        print("\n".join(lines), file=sys.stderr)
+        usage = ptxas_usage(log)
+        info["spill_bytes"] = {k: u.get("spill_bytes") for k, u in
+                               usage.items()}
+        info["registers"] = {k: u.get("registers") for k, u in usage.items()}
+        require(len(info["spill_bytes"]) == REDESIGNED_INSTANCES
+                and None not in info["spill_bytes"].values(),
                 "ptxas reported", info["spill_bytes"], "for the",
                 REDESIGNED_INSTANCES, "instances of the redesigned routes")
         require(not any(info["spill_bytes"].values()),
@@ -1568,16 +1657,26 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                                       k.shape[2], q.shape[2]],
         ),
         # The paper's correlator at (C, T, A) = (1024, 768, 256) f32, the
-        # size of the launch phase; ragged T and A, and the sweep's shapes.
+        # size of the launch phase, by route "tri" (the tiles with i <= j,
+        # the rest mirrored), its first version (route "fma") timed beside
+        # it; ragged T and A, and the sweep's shapes: A <= 64 by "fma", A =
+        # 200 (rows 16-byte aligned) and 65 (a last tile of one antenna,
+        # rows not aligned) by "tri", in f32 and bf16.
         dict(
             name="correlate", wrapper="correlate",
             source="src/repro_torch/csrc/correlator.cu",
             replaces="src/repro/kernels/correlator/kernel.py:62",
             main=lambda: corr_inputs(*sizes.corr, gen, device),
+            main_route="tri",
             ragged=lambda: [corr_inputs(3, 77, 37, gen, device),
                             corr_inputs(2, 513, 64, gen, device),
                             corr_inputs(4, 100, 16, gen, device),
-                            corr_inputs(3, 77, 37, gen, device, bf16)],
+                            corr_inputs(3, 77, 37, gen, device, bf16),
+                            corr_inputs(3, 77, 200, gen, device),
+                            corr_inputs(3, 77, 200, gen, device, bf16),
+                            corr_inputs(2, 33, 65, gen, device),
+                            corr_inputs(2, 33, 65, gen, device, bf16)],
+            first=lambda x: correlate_cuda(x, route="fma"),
             fn=lambda x: correlate(x),
             plain=lambda x: correlate_ref(x),
             library=lambda x: torch.matmul(x.mT, x.conj()),
@@ -1587,21 +1686,36 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             work=corr_work,
             shape=lambda x: list(x.shape[:3]),
         ),
-        # rwkv6-3b's prefill of 2048 tokens, bf16, and its 8-slot decode
-        # step beside it; ragged T, K and V in f32 and bf16.
+        # rwkv6-3b's prefill of 2048 tokens, bf16, by route "chunk" (its
+        # first version, route "fma", timed beside it), and its 8-slot
+        # decode step beside it by "fma"; ragged T, K and V in f32 and
+        # bf16: T under two chunks by "fma"; by "chunk" T not a multiple
+        # of the chunk (300, 161), V = 50, K = 20 (staged a channel at a
+        # time) and decays of exactly 0 and 1.
         dict(
             name="wkv6", wrapper="wkv6",
             source="src/repro_torch/csrc/wkv6.cu",
             replaces="src/repro/kernels/rwkv6/kernel.py:75",
             main=lambda: wkv_inputs(*sizes.wkv, sizes.wkv[-1], bf16, gen,
                                     device),
+            main_route="chunk",
             also={"decode": lambda: wkv_inputs(*sizes.wkv_decode,
                                                sizes.wkv_decode[-1], bf16,
                                                gen, device)},
+            also_route={"decode": "fma"},
             also_check=wkv_check,
             ragged=lambda: [wkv_inputs(2, 3, 45, 16, 8, f32, gen, device),
                             wkv_inputs(1, 4, 70, 64, 64, f32, gen, device),
-                            wkv_inputs(2, 2, 33, 20, 50, bf16, gen, device)],
+                            wkv_inputs(2, 2, 33, 20, 50, bf16, gen, device),
+                            wkv_inputs(1, 4, 300, 64, 64, f32, gen, device),
+                            wkv_inputs(1, 4, 300, 64, 64, bf16, gen, device),
+                            wkv_inputs(2, 3, 161, 64, 50, f32, gen, device),
+                            wkv_inputs(2, 3, 161, 64, 50, bf16, gen, device),
+                            wkv_inputs(2, 2, 200, 20, 50, f32, gen, device),
+                            wkv_exact_decays(wkv_inputs(1, 4, 300, 64, 64,
+                                                        f32, gen, device))],
+            first=lambda r, k, v, w, u, s0: wkv6_cuda(r, k, v, w, u, s0,
+                                                      route="fma"),
             fn=lambda r, k, v, w, u, s0: wkv6(r, k, v, w, u, s0,
                                               return_state=True),
             plain=lambda r, k, v, w, u, s0: wkv6_ref(r, k, v, w, u, s0,
@@ -1651,17 +1765,19 @@ def routed(wrapper, fn, device):
 
 
 def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
-            check=None) -> dict:
+            check=None, route_wanted=None) -> dict:
     """One shape of a kernel: its result held against the plain version
     (``check``, else ``main_check``, else ``check`` of the case), then the
     kernel, the plain version and the library call timed, and the bound of
-    the work, and for a two-route kernel the route it took and its first
-    version's time on the same inputs."""
+    the work, and for a two-route kernel the route it took (which must be
+    ``route_wanted``, else the case's ``main_route``) and, where that is
+    not the first version, the first version's time on the same inputs."""
     wrapper = WRAPPERS[case["wrapper"]]
     got, route = routed(wrapper, lambda: case["fn"](*inputs), device)
-    if case.get("main_route") and device.type == "cuda":
-        require(route == case["main_route"], case["name"], "took route",
-                route, "not", case["main_route"])
+    route_wanted = route_wanted or case.get("main_route")
+    if route_wanted and device.type == "cuda":
+        require(route == route_wanted, case["name"], "took route",
+                route, "not", route_wanted)
     sync(device)
     plain_reps = case.get("plain_reps", sizes.reps)
     plain_ms = None
@@ -1692,7 +1808,7 @@ def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
                              device, sizes.reps, queued=queued)
         del lib_inputs
     first = {}
-    if case.get("first") and device.type == "cuda":
+    if case.get("first") and route_wanted != "fma" and device.type == "cuda":
         first = {"first_version_route": "fma", "first_version_ms": time_ms(
             lambda: case["first"](*inputs), device, sizes.reps,
             queued=queued)}
@@ -1737,8 +1853,8 @@ def phase_kernels(sizes: Sizes, device: torch.device,
         ragged_shape = case["shape"](*raggeds[0])
         del raggeds, inputs, got
         if case.get("main_route") and device.type == "cuda":
-            require("fma" in ragged_routes, name, "ragged cases took only",
-                    ragged_routes)
+            require({"fma", case["main_route"]} <= set(ragged_routes), name,
+                    "ragged cases took only", ragged_routes)
 
         row = {"name": name, "route": "cuda", "source": case["source"],
                "replaces": case["replaces"], "launches": None,
@@ -1751,7 +1867,8 @@ def phase_kernels(sizes: Sizes, device: torch.device,
                   if name in build.get("tensor_cores", {}) else {})}
         for label, make in case.get("also", {}).items():
             row[label] = measure(case, make(), sizes, device,
-                                 case.get("also_check"))
+                                 case.get("also_check"),
+                                 case.get("also_route", {}).get(label))
         if case.get("plain_reps", sizes.reps) != sizes.reps:
             row["plain_runs"] = case["plain_reps"]
         if case.get("queued"):
@@ -2092,6 +2209,7 @@ def phase_launch(sizes: Sizes, device: torch.device,
     t1 = time.perf_counter()
     (samples,) = corr_inputs(c, t, a, gen, device)
     since = correlate_cuda.launches
+    tri_since = correlate_cuda.routes["tri"]
     res = ctx.launch(
         corr_def, grid=(c,), work_dist=BlockWork(max(1, c // 8)),
         args={"samples": ctx.array(samples, dist=RowDist(8), name="samples"),
@@ -2101,9 +2219,14 @@ def phase_launch(sizes: Sizes, device: torch.device,
     require(comm == {"samples": "local", "vis": "local"}, comm)
     err = corr_check("launch/correlate", res["vis"].value,
                      correlate_ref(samples), samples)
+    launches = launched("correlate", since, 1)
+    tri = correlate_cuda.routes["tri"] - tri_since
+    if on_card:
+        require(tri == launches, "launch/correlate: route tri took", tri,
+                "of", launches, "launches")
     out["correlate"] = {
         "shape": [c, t, a], "comm": comm,
-        "kernel_launches": launched("correlate", since, 1),
+        "kernel_launches": launches, "route_tri_launches": tri,
         "max_abs_err": err[0], "seconds": time.perf_counter() - t1}
     del samples, res
 
@@ -2309,17 +2432,32 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
     """What a family's serving run checks and counts: the kernel calls of
     a prefill and of a decode step, the depth at which the bf16 logits are
     gated (None: the full depth), the check prompt's length, the kernels a
-    decode step (and, for the dense family, a prefill) is profiled for, and
-    the launches an engine run of ``prefills`` and ``steps`` makes."""
+    decode step and a prefill are profiled for, the launches an engine run
+    of ``prefills`` and ``steps`` makes and, for a kernel whose route
+    depends on the prompt, its launches by route (``expect_routes``, from
+    the prompt lengths and the steps)."""
     if cfg.family == "rwkv":
         wkv = Spy(model_rwkv, "wkv6", wkv6_ref, cfg.n_layers, "state",
                   (SCAN_TOL, SCAN_TOL))
+
+        def wkv_routes(prompt_lens, steps):
+            # each prefill by the route its length gives, each decode step
+            # (T = 1) by "fma"
+            chunked = sum(wkv6_route(torch.empty((1, 1, n, 1), device="meta"),
+                                     None) == "chunk" for n in prompt_lens)
+            return {"wkv6": {
+                "chunk": cfg.n_layers * chunked,
+                "fma": cfg.n_layers * (len(prompt_lens) - chunked + steps)}}
         return {"prefill": [wkv], "decode": [wkv],
                 "logit_layers": RWKV_LOGIT_LAYERS,
                 "check_len": sizes.serve_check_len,
-                "profile": {"decode_step": ("wkv6_kernel",)},
+                "profile": {"decode_step": ("wkv6_kernel",),
+                            "prefill": ("wkv6_deltas_kernel",
+                                        "wkv6_carry_kernel",
+                                        "wkv6_outputs_kernel")},
                 "expect": lambda prefills, steps: {
-                    "wkv6": cfg.n_layers * (prefills + steps)}}
+                    "wkv6": cfg.n_layers * (prefills + steps)},
+                "expect_routes": wkv_routes}
     if cfg.family == "hybrid":
         groups, tail = model_rglru.n_groups(cfg)
         rec = 2 * groups + tail
@@ -2522,8 +2660,8 @@ def device_breakdown(prof, calls: int, top: int = 8) -> dict:
 @torch.no_grad()
 def serve_profile(params, cfg, sizes: Sizes, device, state, step,
                   toks) -> dict:
-    """The ported kernels' share of a decode step of all slots (and, for
-    the dense family, of a prefill): CUDA-event times of the step (the
+    """The ported kernels' share of a decode step of all slots and of a
+    prefill of the check prompt: CUDA-event times of the step (the
     host's issue time included), the device time of all kernels and of the
     ported ones from ``torch.profiler`` over the same calls, the largest
     kernels, and where a call waits for the device."""
@@ -2705,6 +2843,13 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         require(routes["decode_attention"]["mma"]
                 == counts["decode_attention"], "decode attention routes in "
                 "the engine run:", routes["decode_attention"])
+    prompt_lens = [e["args"]["prompt_len"] for e in prefills]
+    expect_routes = spec.get("expect_routes", lambda *a: {})(prompt_lens,
+                                                             n_steps)
+    if on_card:
+        for name, want in expect_routes.items():
+            require(routes[name] == want, name, "routes in the engine run",
+                    routes[name], "expected", want)
     tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
     out.update({
         "slots": sizes.serve_slots, "max_len": max_len,
@@ -2722,7 +2867,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         "tokens_per_s": tokens / wall,
         "decode_tokens_per_s": engine.stats["decode_tokens"] / wall,
         "kernel_launches": counts, "expected_launches": expect,
-        "kernel_routes": routes,
+        "kernel_routes": routes, "expected_routes": expect_routes,
     })
     if on_card:
         out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)

@@ -1,4 +1,4 @@
 from .ops import wkv6
-from .ref import wkv6_ref
+from .ref import wkv6_chunked_ref, wkv6_ref
 
-__all__ = ["wkv6", "wkv6_ref"]
+__all__ = ["wkv6", "wkv6_chunked_ref", "wkv6_ref"]

@@ -23,10 +23,15 @@ def wkv6(
     """The WKV6 recurrence over r, k, w (B, H, T, K) and v (B, H, T, V) with
     bonus u (H, K) from ``initial_state`` (B, H, K, V) (zeros if None):
     out (B, H, T, V) in r's dtype and, with ``return_state``, the final
-    state in f32.  On a CUDA tensor this launches the hand-written kernel,
-    which masks ragged T itself, so nothing is padded; a CPU tensor (or
-    ``use_ref=True``) takes the plain version.  ``block_t`` is accepted for
-    the reference's signature; the kernel has its own chunk."""
+    state in f32.  On a CUDA tensor this launches the hand-written kernels,
+    which mask ragged T themselves, so nothing is padded: route ``"chunk"``
+    (a scan over chunks of ``kernel.CHUNK_LEN`` steps: the chunks' own
+    updates, then the states carried across them, then the outputs) for T
+    of two chunks or more, a prefill; route ``"fma"`` (one block walks all
+    T steps) for the rest, a decode step among them (``wkv6_route``).  A CPU
+    tensor (or ``use_ref=True``) takes the plain version.  ``block_t`` is
+    accepted for the reference's signature; the kernels have their own
+    chunks."""
     del block_t
     if use_ref or r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, initial_state,

@@ -30,6 +30,11 @@ from repro.models import rwkv as r_rwkv
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.kernels import rg_lru, rg_lru_ref, wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6.ref import (
+    wkv6_chunk_carry,
+    wkv6_chunk_updates,
+    wkv6_chunked_ref,
+)
 from repro_torch.models import api as t_api
 from repro_torch.models import attention as t_attention
 from repro_torch.models import rglru as t_rglru
@@ -109,6 +114,89 @@ def test_wkv6_given_state_and_ragged_time():
     np.testing.assert_allclose(_np(s_got), _np(s_want), rtol=1e-4, atol=1e-4)
     again = wkv6(*rt[:5], initial_state=rt[5], use_ref=True)
     assert torch.equal(again, wkv6_ref(*rt[:5], rt[5]))
+
+
+# The chunked scan of the CUDA kernels' route "chunk", written out in plain
+# PyTorch (``wkv6_chunked_ref``), against the serial plain version and the
+# reference's Pallas kernel (interpret mode) at the reference sweep's 1e-4.
+
+
+def _exact_decays(w):
+    """Decays of exactly 0 (a reset), exactly 1 (no decay) and subnormal
+    (about 1e-40) at steps spread over time."""
+    w = w.copy()
+    w[:, :, ::7] = 0.0
+    w[:, :, 3::11] = 1.0
+    w[:, :, 5::13] = np.float32(1e-40)
+    return w
+
+
+@pytest.mark.parametrize("chunk_len", [1, 7, 16, 64])
+@pytest.mark.parametrize("exact", [False, True])
+def test_wkv6_chunked_ref_matches_with_ragged_time_and_a_given_state(
+        chunk_len, exact):
+    """T = 45, not a multiple of the chunk, from a given s0; with
+    ``exact``, decays holding exact 0s, exact 1s and subnormals."""
+    b, h, t, dk, dv = 2, 3, 45, 16, 8
+    r, k, v, w, u = _wkv_inputs(105, b, h, t, dk, dv)
+    if exact:
+        w = _exact_decays(w)
+        assert (w == 0).any() and (w == 1).any()
+        assert ((w > 0) & (w < np.finfo(np.float32).tiny)).any()
+    s0 = _normal(np.random.RandomState(106), b, h, dk, dv, scale=0.5)
+    (rr, rt) = _both(r, k, v, w, u, s0)
+    got, s_got = wkv6_chunked_ref(*rt[:5], rt[5], chunk_len=chunk_len,
+                                  return_state=True)
+    want, s_want = wkv6_ref(*rt[:5], rt[5], return_state=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(s_got), _np(s_want), rtol=1e-4, atol=1e-4)
+    ref, s_ref = RK.wkv6(*rr[:5], initial_state=rr[5], block_t=16,
+                         return_state=True)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(s_got), _np(s_ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk_len", [4, 16])
+def test_wkv6_chunked_ref_state_chaining(chunk_len):
+    """[0:T] at once == [0:T/2] then [T/2:T] from the carried state, with
+    chunks that straddle neither half's end (T/2 = 20 is no multiple of 16)
+    and the reference's own chaining alike."""
+    (rr, rt) = _both(*_wkv_inputs(107, 1, 2, 40, 8, 8))
+    r, k, v, w, u = rt
+    full, s_full = wkv6_chunked_ref(r, k, v, w, u, chunk_len=chunk_len,
+                                    return_state=True)
+    h1, s1 = wkv6_chunked_ref(r[:, :, :20], k[:, :, :20], v[:, :, :20],
+                              w[:, :, :20], u, chunk_len=chunk_len,
+                              return_state=True)
+    h2, s2 = wkv6_chunked_ref(r[:, :, 20:], k[:, :, 20:], v[:, :, 20:],
+                              w[:, :, 20:], u, s1, chunk_len=chunk_len,
+                              return_state=True)
+    np.testing.assert_allclose(_np(torch.cat([h1, h2], dim=2)), _np(full),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(s2), _np(s_full), rtol=1e-5, atol=1e-5)
+    want = RK.wkv6(*rr, block_t=8)
+    np.testing.assert_allclose(_np(full), _np(want), rtol=1e-4, atol=1e-4)
+
+
+def test_wkv6_chunk_passes_carry_a_zero_decay_as_a_reset():
+    """A chunk holding an exact 0 decay in every channel has P_c = 0, so
+    the state after it is that chunk's own update alone, whatever came
+    before: the carry resets as the serial recurrence does."""
+    r, k, v, w, u = _wkv_inputs(108, 1, 2, 32, 8, 8)
+    w[:, :, 10] = 0.0  # inside the second chunk of 8
+    _, (r, k, v, w, u) = _both(r, k, v, w, u)
+    ds, decays = wkv6_chunk_updates(k, v, w, 8)
+    assert torch.equal(decays[:, :, 1], torch.zeros_like(decays[:, :, 1]))
+    assert (decays[:, :, 0] > 0).all()
+    s0 = torch.full((1, 2, 8, 8), 3.0)
+    starts, _ = wkv6_chunk_carry(ds, decays, s0)
+    assert torch.equal(starts[:, :, 0], s0)
+    assert torch.equal(starts[:, :, 2], ds[:, :, 1])
+    want = wkv6_ref(r[:, :, 16:], k[:, :, 16:], v[:, :, 16:], w[:, :, 16:],
+                    u, starts[:, :, 2])
+    got = wkv6_chunked_ref(r, k, v, w, u, s0, chunk_len=8)
+    np.testing.assert_allclose(_np(got[:, :, 16:]), _np(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_wkv6_ref_rounds_like_the_reference_ref_in_bf16():

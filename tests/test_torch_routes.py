@@ -1,12 +1,15 @@
 """The multi-route kernels' route functions, on the CPU.
 
-``gemm_route``, ``flash_route`` and ``decode_route`` pick a kernel before
-the launch from dtype, shape and alignment alone: ``"wgmma"`` (tensor
-cores fed by TMA) where TMA can describe bf16 operands, ``"pipe"`` (f32 on
-the CUDA cores, its loads a stage ahead) for f32 GEMM operands of 16-byte
-rows, ``"mma"`` (``mma.sync`` tensor cores) for bf16 decode attention
-whose group fits the kernel, and ``"fma"`` (the first kernels) for the
-rest.
+``gemm_route``, ``flash_route``, ``decode_route``, ``correlate_route`` and
+``wkv6_route`` pick a kernel before the launch from dtype, shape and
+alignment alone: ``"wgmma"`` (tensor cores fed by TMA) where TMA can
+describe bf16 operands, ``"pipe"`` (f32 on the CUDA cores, its loads a
+stage ahead) for f32 GEMM operands of 16-byte rows, ``"mma"``
+(``mma.sync`` tensor cores) for bf16 decode attention whose group fits the
+kernel, ``"tri"`` (the correlator's tiles with i <= j, the rest mirrored)
+for more than one tile of antennas, ``"chunk"`` (WKV6 as a scan over
+chunks of time) for T of two chunks or more, and ``"fma"`` (the first
+kernels) for the rest.
 They read only shapes, dtypes and addresses, so CPU tensors stand in for
 CUDA ones here; the kernels themselves run on the GPU in
 ``chip_smoke.py``, which also requires each main-path call to have taken
@@ -26,6 +29,8 @@ flash_kernel = importlib.import_module(
     "repro_torch.kernels.flash_attention.kernel")
 decode_kernel = importlib.import_module(
     "repro_torch.kernels.decode_attention.kernel")
+corr_kernel = importlib.import_module("repro_torch.kernels.correlator.kernel")
+wkv_kernel = importlib.import_module("repro_torch.kernels.rwkv6.kernel")
 
 bf16, f32 = torch.bfloat16, torch.float32
 
@@ -157,10 +162,76 @@ def test_decode_route_sends_the_rest_to_fma(what, args):
     assert decode_kernel.decode_route(*args) == "fma", what
 
 
+def _samples(c, t, a, dtype):
+    return torch.zeros((c, t, a, 2), dtype=dtype)
+
+
+@pytest.mark.parametrize("what,shape", [
+    ("the paper's size", (1024, 768, 256)),
+    ("A = 200: a ragged last tile", (3, 77, 200)),
+    ("A = 65: a last tile of one antenna", (2, 33, 65)),
+    ("A = 128: two whole tiles", (2, 100, 128)),
+    ("one channel, A = 129", (1, 40, 129)),
+])
+@pytest.mark.parametrize("dtype", [f32, bf16])
+def test_correlator_with_more_than_one_tile_takes_the_triangle(what, shape,
+                                                               dtype):
+    assert corr_kernel.correlate_route(_samples(*shape, dtype)) == "tri", what
+
+
+@pytest.mark.parametrize("what,samples", [
+    ("A = 64: one tile", _samples(2, 513, 64, f32)),
+    ("A = 37", _samples(3, 77, 37, f32)),
+    ("A = 37, bf16", _samples(3, 77, 37, bf16)),
+    ("A = 16", _samples(4, 100, 16, f32)),
+    ("A = 1", _samples(2, 10, 1, bf16)),
+    ("f16 samples: no kernel takes them", _samples(2, 10, 200, torch.float16)),
+])
+def test_correlator_route_sends_one_tile_to_fma(what, samples):
+    assert corr_kernel.correlate_route(samples) == "fma", what
+
+
+@pytest.mark.parametrize("a,pairs", [(1, 1), (64, 1), (65, 3), (128, 3),
+                                     (129, 6), (200, 10), (256, 10),
+                                     (1024, 136)])
+def test_correlator_grid_is_the_tiles_on_and_above_the_diagonal(a, pairs):
+    """Route "tri" launches n (n + 1) / 2 blocks a channel, n = ceil(A /
+    64): at the paper's A = 256, 10 of the 16 tiles."""
+    n = -(-a // corr_kernel.TILE)
+    assert corr_kernel.tile_pairs(a) == pairs == n * (n + 1) // 2
+
+
+def _wkv(b, h, t, dk, dv=None, dtype=bf16):
+    """r (b, h, t, dk) and v (b, h, t, dv) stand-ins."""
+    return (torch.zeros((b, h, t, dk), dtype=dtype),
+            torch.zeros((b, h, t, dv or dk), dtype=dtype))
+
+
+@pytest.mark.parametrize("what,shape,want", [
+    ("rwkv6-3b's prefill", (1, 40, 2048, 64), "chunk"),
+    ("the engine's shortest prompt, 128", (1, 40, 128, 64), "chunk"),
+    ("T = 300, ragged", (1, 4, 300, 64), "chunk"),
+    ("T = 161, V = 50", (2, 3, 161, 64, 50), "chunk"),
+    ("K = 20", (2, 2, 200, 20, 50), "chunk"),
+    ("rwkv6-3b's decode step", (8, 40, 1, 64), "fma"),
+    ("T = 127: under two chunks", (1, 40, 127, 64), "fma"),
+    ("T = 70", (1, 4, 70, 64), "fma"),
+    ("T = 33", (2, 2, 33, 20, 50), "fma"),
+])
+@pytest.mark.parametrize("dtype", [f32, bf16])
+def test_wkv6_takes_the_chunked_scan_from_two_chunks_on(what, shape, want,
+                                                        dtype):
+    r, v = _wkv(*shape, dtype=dtype)
+    assert 2 * wkv_kernel.CHUNK_LEN == 128
+    assert wkv_kernel.wkv6_route(r, v) == want, what
+
+
 @pytest.mark.parametrize("kernel,fn,routes", [
     (gemm_kernel, "gemm_cuda", ("wgmma", "pipe", "fma")),
     (flash_kernel, "flash_attention_cuda", ("wgmma", "fma")),
     (decode_kernel, "decode_attention_cuda", ("mma", "fma")),
+    (corr_kernel, "correlate_cuda", ("tri", "fma")),
+    (wkv_kernel, "wkv6_cuda", ("chunk", "fma")),
 ])
 def test_two_route_wrappers_count_launches_by_route(kernel, fn, routes):
     """Each multi-route wrapper has its own routes, the first kernel
@@ -186,6 +257,14 @@ GEMM_ROUTES = ("wgmma", "pipe", "fma")
     ("mma", "mma", ("mma", "fma"), "mma"), ("fma", "mma", ("mma", "fma"), "fma"),
     ("mma", "fma", ("mma", "fma"), ValueError),
     ("wgmma", "mma", ("mma", "fma"), ValueError),
+    (None, "tri", ("tri", "fma"), "tri"), ("fma", "tri", ("tri", "fma"), "fma"),
+    ("tri", "fma", ("tri", "fma"), ValueError),
+    ("chunk", "tri", ("tri", "fma"), ValueError),
+    (None, "chunk", ("chunk", "fma"), "chunk"),
+    ("fma", "chunk", ("chunk", "fma"), "fma"),
+    ("chunk", "chunk", ("chunk", "fma"), "chunk"),
+    ("chunk", "fma", ("chunk", "fma"), ValueError),
+    ("tri", "chunk", ("chunk", "fma"), ValueError),
 ])
 def test_a_named_route_is_taken_only_where_it_can_run(route, chosen, routes,
                                                       want):

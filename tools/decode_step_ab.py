@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""One model's decode step on one GPU, for comparing two trees in one call.
+"""One model's decode step (or prefill) on one GPU, for comparing two trees
+in one call.
 
     python3 tools/decode_step_ab.py --root DIR [--arch recurrentgemma-2b]
+        [--prefill N]
 
 Imports ``chip_smoke.py`` and ``repro_torch`` from the checkout at
 ``--root`` (this tree, or a ``git archive`` of another commit unpacked
@@ -11,9 +13,11 @@ weights from ``--seed``): a cache of random keys and values filled, as a
 prefill leaves it, to lengths spread over [100, 2600] (past a hybrid's
 window of 2048).  Prints one JSON line: the step by CUDA events (the host's
 issue included, median of ``--steps``), its device time and largest
-kernels by ``torch.profiler``, and the decode-attention kernel's launches
-a step.  Run it for two roots in turns (A, B, B, A) in one call: only
-there are the two comparable.  Needs one CUDA device.
+kernels by ``torch.profiler``, and the hand-written kernels' launches a
+step.  ``--prefill N`` times a batch-1 prefill of N random tokens instead
+(a fresh state each call), as the serving engine runs one.  Run it for two
+roots in turns (A, B, B, A) in one call: only there are the two
+comparable.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -54,14 +58,13 @@ def main() -> int:
     ap.add_argument("--arch", default="recurrentgemma-2b")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--prefill", type=int, default=0,
+                    help="time a prefill of this many tokens instead")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path[:0] = [os.path.join(root, "src"), root]
     import chip_smoke as smoke
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda,
-    )
     from repro_torch.models import api as model_api
 
     if not torch.cuda.is_available():
@@ -70,23 +73,38 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     cfg = get_config(args.arch)
-    slots, max_len = 8, 2600 + 8
     params = model_api.init_params(gen, cfg, device)
-    state = model_api.init_decode_state(cfg, slots, max_len, device)
-    lens = torch.linspace(100, 2600, slots, device=device).round().int()
-    fill_state(state, cfg, lens, gen)
-    tok = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
-                        device=device, dtype=torch.int32)
+    if args.prefill:
+        n = args.prefill
+        toks = torch.randint(0, cfg.vocab, (1, n), generator=gen,
+                             device=device, dtype=torch.int32)
+        what = {"prefill_tokens": n}
 
-    @torch.no_grad()
-    def step():
-        return model_api.decode_step(params, tok, cfg, state)
+        @torch.no_grad()
+        def step():
+            return model_api.prefill(
+                params, {"tokens": toks}, cfg,
+                model_api.init_decode_state(cfg, 1, n, device))
+    else:
+        slots, max_len = 8, 2600 + 8
+        state = model_api.init_decode_state(cfg, slots, max_len, device)
+        lens = torch.linspace(100, 2600, slots, device=device).round().int()
+        fill_state(state, cfg, lens, gen)
+        tok = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                            device=device, dtype=torch.int32)
+        what = {"kv_len": lens.tolist()}
+
+        @torch.no_grad()
+        def step():
+            return model_api.decode_step(params, tok, cfg, state)
 
     step()
     smoke.sync(device)
-    before = decode_attention_cuda.launches
+    before = {name: w.launches for name, w in smoke.WRAPPERS.items()}
     step()
-    launches = decode_attention_cuda.launches - before
+    launches = {name: w.launches - before[name]
+                for name, w in smoke.WRAPPERS.items()
+                if w.launches != before[name]}
     wall = [smoke.time_ms(step, device, 1, warmup=False)
             for _ in range(args.steps)]
     with torch.profiler.profile(
@@ -95,9 +113,9 @@ def main() -> int:
             step()
         smoke.sync(device)
     print(json.dumps({
-        "root": args.root, "arch": cfg.name, "kv_len": lens.tolist(),
+        "root": args.root, "arch": cfg.name, **what,
         "step_ms_median": statistics.median(wall), "step_ms": wall,
-        "decode_attention_launches_a_step": launches,
+        "kernel_launches_a_step": launches,
         **smoke.device_breakdown(prof, 3, top=12)}), flush=True)
     return 0
 
