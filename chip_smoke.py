@@ -17,15 +17,17 @@ recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
 local attention).  Phases (each prints one JSON line with the seconds it
 took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
 ``serve`` once for each model.  GEMM, flash attention, decode attention,
-the correlator and WKV6 have more than one route (``"wgmma"``: the tensor
-cores fed by TMA; ``"mma"``: decode attention's query heads on the tensor cores by
-``mma.sync``, fed by ``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA
-cores with its loads one stage ahead; ``"tri"``: the correlator's tiles
-with i <= j, the rest mirrored; ``"chunk"``: WKV6 as a scan over chunks of
-time; ``"fma"``: the first kernels, on the CUDA
-cores): the run requires the redesigned route for the main-path calls, the
-tensor cores' instructions (``HGMMA``, ``HMMA``) in those routes' kernels
-only, no register spills in them, and times their first version
+the correlator, WKV6, RG-LRU and K-Means have more than one route
+(``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode attention's
+query heads on the tensor cores by ``mma.sync``, fed by ``cp.async``;
+``"pipe"``: the f32 GEMM on the CUDA cores with its loads one stage ahead;
+``"tri"``: the correlator's tiles with i <= j, the rest mirrored;
+``"chunk"``: WKV6 and RG-LRU as scans over chunks of time; ``"private"``:
+K-Means with several points a thread and accumulators private to a
+thread; ``"fma"``: the first kernels, on the CUDA cores): the run
+requires the redesigned route for the main-path calls, the tensor cores'
+instructions (``HGMMA``, ``HMMA``) in those routes' kernels only, no
+register spills in them, and times their first version
 (``"fma"``) beside them.  Any
 exception or any comparison outside its tolerance ends the run with a
 non-zero exit code.  The last three
@@ -129,8 +131,17 @@ from repro_torch.kernels.md5.kernel import md5_search_cuda  # noqa: E402
 from repro_torch.kernels.md5.ref import KEY_XOR, word_index  # noqa: E402
 from repro_torch.kernels.nbody.kernel import nbody_cuda  # noqa: E402
 from repro_torch.kernels.nbody.ref import SOFTENING2  # noqa: E402
-from repro_torch.kernels.rg_lru.kernel import rg_lru_cuda  # noqa: E402
-from repro_torch.kernels.rg_lru.ref import rg_lru_scan  # noqa: E402
+from repro_torch.kernels.rg_lru.kernel import (  # noqa: E402
+    CHUNK_LEN as LRU_CHUNK_LEN,
+    rg_lru_cuda,
+    rg_lru_route,
+)
+from repro_torch.kernels.rg_lru.ref import (  # noqa: E402
+    rg_lru_chunk_carry,
+    rg_lru_chunk_local,
+    rg_lru_chunk_outputs,
+    rg_lru_scan,
+)
 from repro_torch.kernels.rwkv6.kernel import (  # noqa: E402
     CHUNK_LEN,
     wkv6_cuda,
@@ -247,7 +258,7 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             decode=(3, 4, 4, 70, 32), decode_gemma=(3, 4, 1, 70, 64),
             decode_rgemma=(3, 5, 1, 70, 64),
             corr=(4, 40, 70), wkv=(1, 4, 140, 16), wkv_decode=(3, 4, 1, 16),
-            lru=(1, 40, 64), lru_decode=(3, 1, 64),
+            lru=(1, 160, 64), lru_decode=(3, 1, 64),
             serve_smoke=True, serve_requests=6, serve_requests_recurrent=6,
             serve_slots=3, serve_prompt=(4, 24), serve_new=(2, 6),
             serve_check_len=24, serve_check_len_window=24, profile_steps=1,
@@ -388,6 +399,32 @@ def start_centroids(centers: torch.Tensor,
                     gen: torch.Generator) -> torch.Tensor:
     jitter = torch.rand(centers.shape, generator=gen, device=centers.device)
     return centers + 0.4 * (jitter - 0.5)
+
+
+def kmeans_inputs(n, k, f, gen, device):
+    """(points, centroids): around the lattice centres at the paper's
+    (k, f) = (KM_K, KM_F); at any other (k, f) around centres 4 apart on
+    the diagonal.  Either way the clusters are separated, so that the
+    counts compare exactly."""
+    if (k, f) == (KM_K, KM_F):
+        centers = lattice_centers(gen, device)
+    else:
+        centers = 4.0 * torch.arange(k, device=device, dtype=torch.float32
+                                     )[:, None].repeat(1, f)
+    return clustered_points(n, centers, gen), start_centroids(centers, gen)
+
+
+def kmeans_check(name, got, want, points):
+    """Counts exactly equal (integers; separated clusters), summing to n;
+    sums within rtol 1e-4 atol 1e-3 (another order of summation)."""
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"{name}: counts differ: "
+                             f"{(got[1] - want[1]).abs().max()}")
+    # Summed in float64: exact for integer counts, where an f32 sum of
+    # exact counts of 2^26 points misses n about half the time.
+    require(float(got[1].double().sum()) == float(points.shape[0]), name,
+            "counts do not sum to n")
+    return check_close(name, got[0], want[0], rtol=1e-4, atol=1e-3)
 
 
 def hotspot_inputs(shape, gen, device):
@@ -1025,6 +1062,17 @@ def lru_inputs(b, t, d, dtype, gen, device, sweep=False):
             torch.randn((b, d), generator=gen, device=device))
 
 
+def lru_exact_decays(inputs):
+    """``inputs`` with log_a of exactly 0 (a = 1, beta = 0: h carried
+    unchanged) at every 37th step and -50 (a = 2e-22: a chunk's decay
+    product underflows to 0, the carry resets) at every 41st."""
+    la, gx, h0 = inputs
+    la = la.clone()
+    la[:, ::37] = 0.0
+    la[:, 5::41] = -50.0
+    return la, gx, h0
+
+
 def lru_plain(la, gx, h0):
     """The public function's plain route: every h in gx's dtype, the final
     h in f32."""
@@ -1107,13 +1155,24 @@ def wkv_main_check(name, got, want, *inputs):
 
 
 #: the time step at which the planted fault resets the RG-LRU state: the
-#: reference's block_t, the boundary of its first chunk
+#: reference's block_t, the boundary of its first chunk, and a boundary of
+#: route "chunk"'s chunks
 LRU_RESET_AT = 256
+
+
+def lru_carry_fault(la, gx, h0):
+    """Route "chunk"'s three passes in plain PyTorch with one carried h not
+    decayed across its chunk (A_c taken as 1 for the middle chunk)."""
+    hloc, decays = rg_lru_chunk_local(la, gx, LRU_CHUNK_LEN)
+    decays[:, decays.shape[1] // 2] = 1.0
+    starts, _ = rg_lru_chunk_carry(hloc, decays, h0)
+    return rg_lru_chunk_outputs(la, gx, starts, LRU_CHUNK_LEN)
 
 
 def lru_main_check(name, got, want, *inputs):
     """``lru_check``, then planted faults: h0 ignored; beta taken as 1
-    (h = a h + gx); the state reset at a chunk boundary."""
+    (h = a h + gx); the state reset at a chunk boundary; route "chunk"'s
+    carried h not decayed across the middle chunk."""
     abs_err, rel_err, extra = lru_check(name, got, want, *inputs)
     la, gx, h0 = as_f32(inputs)
     want32 = rg_lru_scan(la, gx, h0)
@@ -1126,6 +1185,7 @@ def lru_main_check(name, got, want, *inputs):
         "reset_at_chunk_boundary": torch.cat(
             [rg_lru_scan(la[:, :c], gx[:, :c], h0),
              rg_lru_scan(la[:, c:], gx[:, c:], None)], dim=1),
+        "carry_not_decayed": lru_carry_fault(la, gx, h0),
     }, want32)
     return abs_err, rel_err, extra
 
@@ -1235,14 +1295,20 @@ ROUTE_KERNELS = {
     "wkv6": {"chunk": (("wkv6_deltas_kernel", "wkv6_carry_kernel",
                         "wkv6_outputs_kernel"), None),
              "fma": (("wkv6_kernel",), None)},
+    "rg_lru": {"chunk": (("rg_lru_local_kernel", "rg_lru_outputs_kernel"),
+                         None),
+               "fma": (("rg_lru_kernel",), None)},
+    "kmeans": {"private": (("kmeans_private_kernel",), None),
+               "fma": (("kmeans_kernel",), None)},
 }
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: instances of the redesigned routes' kernels, whose spills ptxas reports:
 #: GEMM wgmma 2 (bf16 and f32 out) and pipe 1, flash attention wgmma 3,
 #: decode attention mma 6 (group and head-dim classes), correlator tri 2
 #: (f32 and bf16 samples), wkv6 chunk 5 (its first and last passes for f32
-#: and bf16, the carry once)
-REDESIGNED_INSTANCES = 19
+#: and bf16, the carry once), rg_lru chunk 4 (both passes for f32 and
+#: bf16), kmeans private 4 (one for each f of 2, 4, 8, 16)
+REDESIGNED_INSTANCES = 27
 
 
 def tensor_core_counts(sass: dict) -> dict:
@@ -1338,23 +1404,7 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
     g = sizes.gemm
 
     def kmeans_make(n, k, f):
-        if (k, f) == (KM_K, KM_F):
-            centers = lattice_centers(gen, device)
-            return (clustered_points(n, centers, gen),
-                    start_centroids(centers, gen))
-        # The ragged case keeps the sweep's shape (n=1000, k=7, f=4) with
-        # separated clusters, so that the counts compare exactly.
-        centers = 4.0 * torch.arange(k, device=device, dtype=torch.float32
-                                     )[:, None].repeat(1, f)
-        return clustered_points(n, centers, gen), start_centroids(centers, gen)
-
-    def kmeans_check(name, got, want, points):
-        if not torch.equal(got[1], want[1]):
-            raise AssertionError(f"{name}: counts differ: "
-                                 f"{(got[1] - want[1]).abs().max()}")
-        require(float(got[1].sum()) == float(points.shape[0]), name,
-                "counts do not sum to n")
-        return check_close(name, got[0], want[0], rtol=1e-4, atol=1e-3)
+        return kmeans_inputs(n, k, f, gen, device)
 
     def csums_check(name, got, want, z):
         err = check_close(name, got, want, rtol=1e-4, atol=1e-3)
@@ -1424,12 +1474,28 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
         )
 
     return [
+        # The launch phase's K-Means at (n, f, k) = (2^26, 4, 40) and the
+        # stream phase's chunk of 2^22 rows, by route "private" (its first
+        # version, route "fma", timed beside it); ragged, (n, k, f): the
+        # sweep's (1000, 7, 4) and each other specialised f by "private";
+        # by "fma" f = 3 and k (f + 1) past what a thread's accumulators
+        # hold ((1000, 50, 4), (2000, 20, 16), (2000, 400, 16)).
         dict(
             name="kmeans", wrapper="kmeans",
             source="src/repro_torch/csrc/kmeans.cu",
             replaces="src/repro/kernels/kmeans/kernel.py:57",
             main=lambda: kmeans_make(sizes.kmeans_n, KM_K, KM_F),
-            ragged=lambda: kmeans_make(1000, 7, 4),
+            main_route="private",
+            also={"stream_chunk": lambda: kmeans_make(
+                sizes.stream_chunk_rows, KM_K, KM_F)},
+            ragged=lambda: [kmeans_make(1000, 7, 4), kmeans_make(1000, 7, 3),
+                            kmeans_make(5001, 9, 2), kmeans_make(3000, 5, 8),
+                            kmeans_make(2000, 6, 16),
+                            kmeans_make(1000, 50, 4),
+                            kmeans_make(2000, 20, 16),
+                            kmeans_make(2000, 400, 16)],
+            first=lambda p, c: tuple(x.sum(dim=0) for x in kmeans_cuda(
+                p, c, route="fma")),
             fn=lambda p, c: kmeans_assign_reduce(p, c),
             plain=lambda p, c: kmeans_assign_reduce_ref(p, c),
             library=None,
@@ -1727,20 +1793,37 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             queued=KERNEL_HOST_S,
             shape=lambda r, k, v, w, u, s0: [*r.shape, v.shape[-1]],
         ),
-        # recurrentgemma-2b's prefill of 2048 tokens, bf16, and its 8-slot
-        # decode step beside it; the sweep's ragged T and D.
+        # recurrentgemma-2b's prefill of 2048 tokens, bf16, by route "chunk"
+        # (its first version, route "fma", timed beside it), and its 8-slot
+        # decode step beside it by "fma"; ragged T and D in f32 and bf16:
+        # T under three chunks (the sweep's, and 161 at full width) by
+        # "fma"; by "chunk" T not a multiple of the chunk (300, 4170),
+        # D = 100, log_a of exactly 0 (a = 1) and -50 (a underflows in a
+        # chunk's product), and T = 4170 (over 64 chunks of 64: 64 chunks
+        # of 66 instead).
         dict(
             name="rg_lru", wrapper="rg_lru",
             source="src/repro_torch/csrc/rg_lru.cu",
             replaces="src/repro/kernels/rg_lru/kernel.py:69",
             main=lambda: lru_inputs(*sizes.lru, bf16, gen, device),
+            main_route="chunk",
             also={"decode": lambda: lru_inputs(*sizes.lru_decode, bf16, gen,
                                                device)},
+            also_route={"decode": "fma"},
             also_check=lru_check,
             ragged=lambda: [lru_inputs(2, 50, 100, f32, gen, device,
                                        sweep=True),
                             lru_inputs(2, 96, 256, f32, gen, device),
-                            lru_inputs(3, 37, 70, bf16, gen, device)],
+                            lru_inputs(3, 37, 70, bf16, gen, device),
+                            lru_inputs(2, 300, 100, f32, gen, device),
+                            lru_inputs(2, 300, 100, bf16, gen, device),
+                            lru_inputs(3, 161, 2560, bf16, gen, device),
+                            lru_exact_decays(lru_inputs(2, 300, 100, f32,
+                                                        gen, device)),
+                            lru_exact_decays(lru_inputs(2, 300, 100, bf16,
+                                                        gen, device)),
+                            lru_inputs(1, 4170, 100, f32, gen, device)],
+            first=lambda la, gx, h0: rg_lru_cuda(la, gx, h0, route="fma"),
             fn=lambda la, gx, h0: rg_lru(la, gx, h0, return_state=True),
             plain=lru_plain,
             library=None,
@@ -1990,6 +2073,7 @@ def phase_launch(sizes: Sizes, device: torch.device,
         return float(d2.min(dim=1).values.sum())
 
     since = kmeans_cuda.launches
+    private_since = kmeans_cuda.routes["private"]
     cen, prev, trace = cen0, inertia(cen0), []
     for _ in range(sizes.kmeans_iters):
         res = ctx.launch(
@@ -1998,7 +2082,8 @@ def phase_launch(sizes: Sizes, device: torch.device,
                   "centroids": ctx.array(cen, name="centroids"),
                   "sums": sums, "counts": counts})
         cnt = res["counts"].value
-        require(float(cnt.sum()) == float(n), "counts must sum to n")
+        require(float(cnt.double().sum()) == float(n),
+                "counts must sum to n")
         cen = res["sums"].value / cnt.clamp(min=1.0)[:, None]
         cur = inertia(cen)
         require(cur <= prev * 1.001, "inertia rose", prev, cur)
@@ -2008,6 +2093,10 @@ def phase_launch(sizes: Sizes, device: torch.device,
     comm = {k: v.value for k, v in ctx.records[-1].comm.items()}
     require(comm["sums"] == "reduce" and comm["counts"] == "reduce", comm)
     n_launched = launched("kmeans", since, sizes.kmeans_iters)
+    by_private = kmeans_cuda.routes["private"] - private_since
+    if on_card:
+        require(by_private == n_launched, "kmeans took route private",
+                by_private, "of", n_launched, "times")
     want = cen0
     for _ in range(sizes.kmeans_iters):
         s, c = kmeans_assign_reduce_ref(pts, want)
@@ -2016,7 +2105,8 @@ def phase_launch(sizes: Sizes, device: torch.device,
     err = check_close("launch/kmeans", cen, want, rtol=1e-4, atol=1e-3)
     out["kmeans"] = {
         "n": n, "f": KM_F, "k": KM_K, "iterations": sizes.kmeans_iters,
-        "kernel_launches": n_launched, "inertia_on_sample": trace,
+        "kernel_launches": n_launched, "by_route_private": by_private,
+        "inertia_on_sample": trace,
         "max_abs_err": err[0], "seconds": time.perf_counter() - t1}
     del pts, points, sample, res, want, s, c, cnt, cen
 
@@ -2284,6 +2374,7 @@ def phase_stream(sizes: Sizes, device: torch.device, seed: int) -> dict:
     chunk_bytes = sizes.stream_chunk_rows * KM_F * 4
 
     since = kmeans_cuda.launches
+    private_since = kmeans_cuda.routes["private"]
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -2319,7 +2410,11 @@ def phase_stream(sizes: Sizes, device: torch.device, seed: int) -> dict:
         launched = kmeans_cuda.launches - since
         require(launched == sizes.stream_iters * n_chunks,
                 f"{launched} kernel launches for {n_chunks} chunks")
+        by_private = kmeans_cuda.routes["private"] - private_since
+        require(by_private == launched, "kmeans took route private",
+                by_private, "of", launched, "times")
         out["kernel_launches"] = launched
+        out["by_route_private"] = by_private
 
     # The same iterations with the plain version, chunk by chunk.
     cen, worst = cen0, 0.0
@@ -2463,6 +2558,15 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
         rec = 2 * groups + tail
         lru = Spy(model_rglru, "rg_lru", lambda *a, **kw: rg_lru(
             *a, use_ref=True, **kw), rec, "state", (SCAN_TOL, SCAN_TOL))
+
+        def lru_routes(prompt_lens, steps):
+            # each prefill by the route its length gives, each decode step
+            # (T = 1) by "fma"
+            chunked = sum(rg_lru_route(torch.empty((1, n, 1), device="meta"))
+                          == "chunk" for n in prompt_lens)
+            return {"rg_lru": {
+                "chunk": rec * chunked,
+                "fma": rec * (len(prompt_lens) - chunked + steps)}}
         return {"prefill": [lru, Spy(model_attention, "flash_attention",
                                      attention_ref, groups)],
                 "decode": [lru, Spy(model_attention, "cuda_decode",
@@ -2473,11 +2577,13 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                                             "decode_mma_kernel",
                                             "decode_mma_combine_kernel"),
                             "prefill": ("flash_wgmma_kernel",
-                                        "rg_lru_kernel")},
+                                        "rg_lru_local_kernel",
+                                        "rg_lru_outputs_kernel")},
                 "expect": lambda prefills, steps: {
                     "rg_lru": rec * (prefills + steps),
                     "flash_attention": groups * prefills,
-                    "decode_attention": groups * steps}}
+                    "decode_attention": groups * steps},
+                "expect_routes": lru_routes}
     return {"prefill": [Spy(model_attention, "flash_attention", attention_ref,
                             cfg.n_layers)],
             "decode": [Spy(model_attention, "cuda_decode",
@@ -2910,9 +3016,11 @@ def main(argv=None) -> int:
     counts = {name: w.launches for name, w in WRAPPERS.items()}
     routes = route_counts()
     # Each serving run zeroes and reads the counts around its engine run.
-    served = {arch: phase_serve(sizes, device, args.seed, arch)[
-        "kernel_launches"] for arch in SERVE_ARCHS}
+    serves = {arch: phase_serve(sizes, device, args.seed, arch)
+              for arch in SERVE_ARCHS}
+    served = {arch: out["kernel_launches"] for arch, out in serves.items()}
     dense, rwkv, hybrid = (served[arch] for arch in SERVE_ARCHS)
+    hybrid_routes = serves[SERVE_ARCHS[2]]["kernel_routes"]["rg_lru"]
 
     per_row = {
         "kmeans": counts["kmeans"], "hotspot": counts["hotspot"],
@@ -2929,8 +3037,17 @@ def main(argv=None) -> int:
         "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
+    # The two kernels launched at more than one shape, split by shape.
+    by_shape = {
+        "kmeans": {"launch phase": launch["kmeans"]["kernel_launches"],
+                   "stream phase": stream.get("kernel_launches")},
+        "rg_lru": {"prefills (route chunk)": hybrid_routes["chunk"],
+                   "prefills and decode steps (route fma)":
+                   hybrid_routes["fma"]}}
     for row in rows:
         row["launches"] = per_row[row["name"]]
+        if row["name"] in by_shape:
+            row["launches_by_shape"] = by_shape[row["name"]]
         if device.type == "cuda" and row["launches"] < 1:
             raise AssertionError(
                 f"{row['name']}: the main path never launched this kernel")

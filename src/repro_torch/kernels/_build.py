@@ -60,24 +60,30 @@ def find_nvcc() -> str:
     )
 
 
-def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(srcs: list[Path], flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()
 
 
-def build() -> Path:
-    """Compile the sources if the library is missing or stale; return its
-    path.  The compiler's output is kept in ``build.log`` beside it."""
+def build(srcs: list[Path] | None = None, defines: tuple[str, ...] = (),
+          out: Path | None = None) -> Path:
+    """Compile the sources (every one under ``csrc/`` by default, each with
+    ``-D`` of ``defines``) into ``out`` (``build_dir()`` by default) if the
+    library there is missing or stale; return its path.  The compiler's
+    output is kept in ``build.log`` beside it.  The package's library is
+    the default; a probe builds variants of a source into a directory of
+    its own."""
     global build_seconds
-    srcs = sources()
+    srcs = sources() if srcs is None else srcs
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    out = build_dir()
+    out = build_dir() if out is None else out
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     lib_path, stamp = out / "libkernels.so", out / "libkernels.hash"
-    digest = _digest(srcs)
+    digest = _digest(srcs, flags)
     if (lib_path.exists() and stamp.exists()
             and stamp.read_text() == digest):
         return lib_path
@@ -91,7 +97,7 @@ def build() -> Path:
     procs = []
     for src in srcs:
         obj = out / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, *include, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *flags, *include, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
@@ -118,8 +124,8 @@ def build() -> Path:
     return lib_path
 
 
-def build_log() -> str:
-    path = build_dir() / "build.log"
+def build_log(out: Path | None = None) -> str:
+    path = (build_dir() if out is None else out) / "build.log"
     return path.read_text() if path.exists() else ""
 
 

@@ -1,4 +1,4 @@
-"""Public wrapper for the RG-LRU kernel."""
+"""Public wrapper for the RG-LRU kernels."""
 
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ def rg_lru(
 ):
     """Every h (B, T, D) in gx's dtype and, with ``return_state``, the final
     h in f32 (as the reference's kernel returns it), from ``h0`` (zeros if
-    None).  On a CUDA tensor this launches the hand-written kernel, which
-    masks ragged T and D itself, so nothing is padded; a CPU tensor (or
+    None).  On a CUDA tensor this launches the hand-written kernels (by the
+    route ``rg_lru_route`` gives: the chunked scan for long T), which
+    mask ragged T and D themselves, so nothing is padded; a CPU tensor (or
     ``use_ref=True``) takes the plain version.  ``block_t`` and ``block_d``
     are accepted for the reference's signature; the kernel has its own
     blocks."""

@@ -114,10 +114,22 @@ def test_kmeans_sweep(n, k, f):
     assert float(c_got.sum()) == pytest.approx(n)
 
 
-def test_kmeans_separated_clusters_counts_exact():
-    rng = np.random.RandomState(11)
-    k, f, n = 12, 4, 3000
-    centers = (np.arange(k)[:, None] * 5.0 + np.zeros((1, f))).astype(np.float32)
+@pytest.mark.parametrize("n,k,f,spacing,seed", [
+    (3000, 12, 4, 5.0, 11), (5001, 9, 2, 4.0, 16), (3000, 5, 8, 4.0, 22),
+    (2000, 6, 16, 4.0, 30), (1000, 50, 4, 4.0, 18), (2000, 20, 16, 4.0, 30),
+], ids=["plain-f4-k12", "plain-f2-k9", "plain-f8-k5", "plain-f16-k6",
+        "plain-f4-k50", "plain-f16-k20"])
+def test_kmeans_separated_clusters_counts_exact(n, k, f, spacing, seed):
+    """Separated clusters, through the plain version (the tensors lie on the
+    CPU): counts exact against the reference and the true labels, sums
+    within rtol 1e-4.  ``chip_smoke.py`` holds both routes to the plain
+    version at the same shapes on the card: each feature count route
+    ``"private"`` is compiled for, and k (f + 1) past what its accumulators
+    hold (k = 50 at f = 4, k = 20 at f = 16), which route ``"fma"``
+    takes."""
+    rng = np.random.RandomState(seed)
+    centers = (spacing * np.arange(k)[:, None] + np.zeros((1, f))).astype(
+        np.float32)
     which = rng.randint(0, k, n)
     pts = (centers[which] + rng.uniform(-0.5, 0.5, (n, f))).astype(np.float32)
     cen = (centers + rng.uniform(-0.2, 0.2, (k, f))).astype(np.float32)

@@ -30,6 +30,12 @@ from repro.models import rwkv as r_rwkv
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.kernels import rg_lru, rg_lru_ref, wkv6, wkv6_ref
+from repro_torch.kernels.rg_lru.ref import (
+    rg_lru_chunk_carry,
+    rg_lru_chunk_local,
+    rg_lru_chunked_ref,
+    rg_lru_scan,
+)
 from repro_torch.kernels.rwkv6.ref import (
     wkv6_chunk_carry,
     wkv6_chunk_updates,
@@ -275,6 +281,102 @@ def test_rg_lru_final_state_is_f32_like_the_reference_kernel():
     assert torch.equal(h_got.to(torch.bfloat16), h_tref)
     # the outputs in bf16: one rounding of the same f32 values
     np.testing.assert_allclose(_np(out), _np(out_ref), rtol=0, atol=0)
+
+
+# The chunked scan of the CUDA kernels' route "chunk", written out in plain
+# PyTorch (``rg_lru_chunked_ref``), against the serial plain version and the
+# reference's Pallas kernel (interpret mode) at the reference sweep's 1e-4.
+
+
+def _lru_exact_decays(la):
+    """log_a of exactly 0 (a = 1, beta = 0: h carried unchanged) and -50
+    (a = 2e-22: a chunk's decay product underflows to 0) at steps spread
+    over time."""
+    la = la.copy()
+    la[:, ::9] = 0.0
+    la[:, 4::11] = -50.0
+    return la
+
+
+@pytest.mark.parametrize("chunk_len", [1, 7, 64])
+@pytest.mark.parametrize("exact", [False, True])
+def test_rg_lru_chunked_ref_matches_with_ragged_time_and_a_given_h0(
+        chunk_len, exact):
+    """T = 150, not a multiple of the chunk, D = 100, from a given h0; with
+    ``exact``, log_a holding exact 0s and -50s."""
+    la, gx, h0 = _lru_inputs(210, 2, 150, 100)
+    if exact:
+        la = _lru_exact_decays(la)
+        assert (la == 0).any() and (np.exp(la) < 1e-20).any()
+    (rr, rt) = _both(la, gx, h0)
+    got, h_got = rg_lru_chunked_ref(*rt, chunk_len=chunk_len,
+                                    return_state=True)
+    want = rg_lru_scan(*rt)
+    assert got.dtype == torch.float32 and h_got.shape == (2, 100)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(h_got), _np(want[:, -1]), rtol=1e-4,
+                               atol=1e-4)
+    ref, h_ref = RK.rg_lru(*rr, block_t=32, block_d=64, return_state=True)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(h_got), _np(h_ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk_len", [4, 16])
+def test_rg_lru_chunked_ref_state_chaining(chunk_len):
+    """[0:T] at once == [0:T/2] then [T/2:T] from the carried h, with
+    chunks that straddle the halves' end (T/2 = 20 is no multiple of 16),
+    and the reference alike."""
+    la, gx, h0 = _lru_inputs(211, 2, 40, 24)
+    (rr, rt) = _both(la, gx, h0)
+    la, gx, h0 = rt
+    full, h_full = rg_lru_chunked_ref(la, gx, h0, chunk_len=chunk_len,
+                                      return_state=True)
+    h1, s1 = rg_lru_chunked_ref(la[:, :20], gx[:, :20], h0,
+                                chunk_len=chunk_len, return_state=True)
+    h2, s2 = rg_lru_chunked_ref(la[:, 20:], gx[:, 20:], s1,
+                                chunk_len=chunk_len, return_state=True)
+    np.testing.assert_allclose(_np(torch.cat([h1, h2], dim=1)), _np(full),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(s2), _np(h_full), rtol=1e-5, atol=1e-5)
+    want = RK.rg_lru(*rr, block_t=8, block_d=128)
+    np.testing.assert_allclose(_np(full), _np(want), rtol=1e-4, atol=1e-4)
+
+
+def test_rg_lru_chunk_passes_carry_an_underflowed_decay_as_a_reset():
+    """A chunk whose decays multiply to exactly 0 (log_a = -110 once: a
+    underflows to 0 in f32) has A_c = 0, so the h after it is that chunk's
+    own scan alone, whatever came before: the carry resets as the serial
+    recurrence does."""
+    la, gx, _ = _lru_inputs(212, 1, 32, 16)
+    la[:, 10] = -110.0  # inside the second chunk of 8
+    _, (la, gx) = _both(la, gx)
+    hloc, decays = rg_lru_chunk_local(la, gx, 8)
+    assert torch.equal(decays[:, 1], torch.zeros_like(decays[:, 1]))
+    assert (decays[:, 0] > 0).all()
+    h0 = torch.full((1, 16), 3.0)
+    starts, _ = rg_lru_chunk_carry(hloc, decays, h0)
+    assert torch.equal(starts[:, 0], h0)
+    assert torch.equal(starts[:, 2], hloc[:, 1])
+    got = rg_lru_chunked_ref(la, gx, h0, chunk_len=8)
+    want = rg_lru_scan(la[:, 16:], gx[:, 16:], starts[:, 2])
+    np.testing.assert_allclose(_np(got[:, 16:]), _np(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rg_lru_chunked_ref_rounds_to_gx_dtype_and_keeps_f32_state():
+    """In bf16, every h comes back in gx's dtype and the final h in f32, as
+    the public ``rg_lru`` returns them; the h before rounding is the f32
+    chunked scan's."""
+    la, gx, h0 = _lru_inputs(213, 2, 40, 48)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (la, gx)]
+    out, h_final = rg_lru_chunked_ref(*tb, torch.from_numpy(h0),
+                                      chunk_len=8, return_state=True)
+    want, h_want = rg_lru(*tb, torch.from_numpy(h0), return_state=True)
+    assert out.dtype == torch.bfloat16 and h_final.dtype == torch.float32
+    np.testing.assert_allclose(_np(h_final), _np(h_want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=0,
+                               atol=2.0 ** -8 * float(np.abs(_np(want)).max()))
 
 
 # -- models ---------------------------------------------------------------------

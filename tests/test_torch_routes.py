@@ -1,15 +1,18 @@
 """The multi-route kernels' route functions, on the CPU.
 
-``gemm_route``, ``flash_route``, ``decode_route``, ``correlate_route`` and
-``wkv6_route`` pick a kernel before the launch from dtype, shape and
-alignment alone: ``"wgmma"`` (tensor cores fed by TMA) where TMA can
+``gemm_route``, ``flash_route``, ``decode_route``, ``correlate_route``,
+``wkv6_route``, ``rg_lru_route`` and ``kmeans_route`` pick a kernel before
+the launch from dtype, shape and alignment alone: ``"wgmma"`` (tensor cores fed by TMA) where TMA can
 describe bf16 operands, ``"pipe"`` (f32 on the CUDA cores, its loads a
 stage ahead) for f32 GEMM operands of 16-byte rows, ``"mma"``
 (``mma.sync`` tensor cores) for bf16 decode attention whose group fits the
 kernel, ``"tri"`` (the correlator's tiles with i <= j, the rest mirrored)
-for more than one tile of antennas, ``"chunk"`` (WKV6 as a scan over
-chunks of time) for T of two chunks or more, and ``"fma"`` (the first
-kernels) for the rest.
+for more than one tile of antennas, ``"chunk"`` (WKV6 and RG-LRU as scans
+over chunks of time) for T of two chunks or more (three for RG-LRU),
+``"private"`` (K-Means with several points a thread and accumulators
+private to a thread or a warp) for the feature counts it is compiled for
+where its accumulators fit, and ``"fma"`` (the first kernels) for the
+rest.
 They read only shapes, dtypes and addresses, so CPU tensors stand in for
 CUDA ones here; the kernels themselves run on the GPU in
 ``chip_smoke.py``, which also requires each main-path call to have taken
@@ -31,6 +34,8 @@ decode_kernel = importlib.import_module(
     "repro_torch.kernels.decode_attention.kernel")
 corr_kernel = importlib.import_module("repro_torch.kernels.correlator.kernel")
 wkv_kernel = importlib.import_module("repro_torch.kernels.rwkv6.kernel")
+lru_kernel = importlib.import_module("repro_torch.kernels.rg_lru.kernel")
+km_kernel = importlib.import_module("repro_torch.kernels.kmeans.kernel")
 
 bf16, f32 = torch.bfloat16, torch.float32
 
@@ -226,12 +231,97 @@ def test_wkv6_takes_the_chunked_scan_from_two_chunks_on(what, shape, want,
     assert wkv_kernel.wkv6_route(r, v) == want, what
 
 
+@pytest.mark.parametrize("what,t,want", [
+    ("recurrentgemma-2b's decode step", 1, "fma"),
+    ("T = 2L - 1", 127, "fma"),
+    ("T = 2L: the first kernel still faster there", 128, "fma"),
+    ("T = 3L - 1", 191, "fma"),
+    ("T = 3L", 192, "chunk"),
+    ("recurrentgemma-2b's prefill", 2048, "chunk"),
+    ("the window check's prompt, 2600", 2600, "chunk"),
+])
+@pytest.mark.parametrize("dtype", [f32, bf16])
+def test_rg_lru_takes_the_chunked_scan_from_three_chunks_on(what, t, want,
+                                                            dtype):
+    gx = torch.zeros((1, t, 4), dtype=dtype)
+    assert lru_kernel.CHUNK_LEN == 64 and lru_kernel.MIN_CHUNKS == 3
+    assert lru_kernel.MAX_CHUNKS == 64
+    assert lru_kernel.rg_lru_route(gx) == want, what
+    # a sweep's chunk length moves the threshold with it
+    assert lru_kernel.rg_lru_route(gx, chunk_len=t) == "fma"
+    assert lru_kernel.rg_lru_route(gx, chunk_len=max(1, t // 3)) == (
+        "chunk" if t >= 3 else "fma")
+
+
+@pytest.mark.parametrize("t,steps", [
+    (192, 64), (2048, 64), (2600, 64), (4096, 64), (4097, 65), (4170, 66),
+    (100_000, 1563)])
+def test_rg_lru_chunks_grow_past_64_chunks(t, steps):
+    """Route "chunk" folds the carry of every chunk before it into each
+    chunk's outputs pass, so it splits T into at most 64 chunks: of
+    ``CHUNK_LEN`` steps up to T = 4096, longer past it."""
+    assert lru_kernel.chunk_steps(t) == steps
+    assert -(-t // steps) <= lru_kernel.MAX_CHUNKS
+    # a sweep's shorter chunks grow alike
+    assert lru_kernel.chunk_steps(t, 16) == max(16, -(-t // 64))
+
+
+@pytest.mark.parametrize("what,k,f,want", [
+    ("the paper's k = 40, f = 4", 40, 4, "private"),
+    ("f = 2", 9, 2, "private"),
+    ("f = 8", 5, 8, "private"),
+    ("f = 16", 6, 16, "private"),
+    ("k = 45, f = 4: the most a thread's accumulators hold", 45, 4,
+     "private"),
+    ("k = 46, f = 4: past them", 46, 4, "fma"),
+    ("k = 75, f = 2: the most at f = 2", 75, 2, "private"),
+    ("k = 76, f = 2", 76, 2, "fma"),
+    ("k = 13, f = 16: the most at f = 16", 13, 16, "private"),
+    ("k = 20, f = 16", 20, 16, "fma"),
+    ("k = 400, f = 16, chip_smoke's case", 400, 16, "fma"),
+    ("f = 3: not compiled for", 7, 3, "fma"),
+    ("f = 1", 7, 1, "fma"),
+    ("f = 32", 4, 32, "fma"),
+])
+def test_kmeans_takes_private_accumulators_where_they_fit(what, k, f, want):
+    points, centroids = _mat(100, f, f32), _mat(k, f, f32)
+    assert km_kernel.kmeans_route(points, centroids) == want, what
+    if f in km_kernel.PRIVATE_FEATURES:
+        fits = (km_kernel.private_shared_bytes(k, f)
+                <= common.H100_MAX_SHARED_BYTES)
+        assert fits == (want == "private"), what
+
+
+@pytest.mark.parametrize("f,offset,want", [
+    (4, 0, "private"), (4, 1, "fma"), (4, 2, "fma"), (8, 2, "fma"),
+    (16, 0, "private"), (2, 2, "private"), (2, 1, "fma"),
+])
+def test_kmeans_private_route_needs_aligned_points(f, offset, want):
+    """Its vector loads take 16 bytes a point (8 for f = 2)."""
+    points = _mat(100, f, f32, offset=offset)
+    assert km_kernel.kmeans_route(points, _mat(7, f, f32)) == want
+
+
+def test_kmeans_private_shared_memory_is_centroids_and_accumulators():
+    """k f centroid words, |c|^2 padded to 4 words, then k (f + 1) words a
+    thread (256 a block), as the source lays them out; the route's points
+    a thread: 64 point floats in registers at most."""
+    assert km_kernel.private_shared_bytes(40, 4) == (
+        (160 + 40 + 256 * 200) * 4) == 205_600
+    assert km_kernel.private_shared_bytes(7, 2) == (
+        (14 + 8 + 256 * 21) * 4) == 21_592
+    assert [km_kernel.points_per_thread(f)
+            for f in (2, 4, 8, 16)] == [16, 16, 8, 4]
+
+
 @pytest.mark.parametrize("kernel,fn,routes", [
     (gemm_kernel, "gemm_cuda", ("wgmma", "pipe", "fma")),
     (flash_kernel, "flash_attention_cuda", ("wgmma", "fma")),
     (decode_kernel, "decode_attention_cuda", ("mma", "fma")),
     (corr_kernel, "correlate_cuda", ("tri", "fma")),
     (wkv_kernel, "wkv6_cuda", ("chunk", "fma")),
+    (lru_kernel, "rg_lru_cuda", ("chunk", "fma")),
+    (km_kernel, "kmeans_cuda", ("private", "fma")),
 ])
 def test_two_route_wrappers_count_launches_by_route(kernel, fn, routes):
     """Each multi-route wrapper has its own routes, the first kernel
@@ -265,6 +355,11 @@ GEMM_ROUTES = ("wgmma", "pipe", "fma")
     ("chunk", "chunk", ("chunk", "fma"), "chunk"),
     ("chunk", "fma", ("chunk", "fma"), ValueError),
     ("tri", "chunk", ("chunk", "fma"), ValueError),
+    (None, "private", ("private", "fma"), "private"),
+    ("fma", "private", ("private", "fma"), "fma"),
+    ("private", "private", ("private", "fma"), "private"),
+    ("private", "fma", ("private", "fma"), ValueError),
+    ("chunk", "private", ("private", "fma"), ValueError),
 ])
 def test_a_named_route_is_taken_only_where_it_can_run(route, chosen, routes,
                                                       want):
