@@ -17,14 +17,17 @@ recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
 local attention).  Phases (each prints one JSON line with the seconds it
 took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
 ``serve`` once for each model.  GEMM, flash attention, decode attention,
-the correlator, WKV6, RG-LRU and K-Means have more than one route
-(``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode attention's
-query heads on the tensor cores by ``mma.sync``, fed by ``cp.async``;
-``"pipe"``: the f32 GEMM on the CUDA cores with its loads one stage ahead;
-``"tri"``: the correlator's tiles with i <= j, the rest mirrored;
-``"chunk"``: WKV6 and RG-LRU as scans over chunks of time; ``"private"``:
-K-Means with several points a thread and accumulators private to a
-thread; ``"fma"``: the first kernels, on the CUDA cores): the run
+the correlator, WKV6, RG-LRU, K-Means, SpMV and MD5 have more than one
+route (``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode
+attention's query heads on the tensor cores by ``mma.sync``, fed by
+``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA cores with its loads
+one stage ahead; ``"tri"``: the correlator's tiles with i <= j, the rest
+mirrored; ``"chunk"``: WKV6 and RG-LRU as scans over chunks of time;
+``"private"``: K-Means with several points a thread and accumulators
+private to a thread; ``"bin"``: SpMV's entries binned by column slice so
+that its gathers hit L2; ``"unwind"``: MD5 with the target's last eight
+rounds undone on the host; ``"fma"``: the first kernels, on the CUDA
+cores): the run
 requires the redesigned route for the main-path calls, the tensor cores'
 instructions (``HGMMA``, ``HMMA``) in those routes' kernels only, no
 register spills in them, and times their first version
@@ -109,6 +112,7 @@ from repro_torch.kernels.common import (  # noqa: E402
     H100_SXM_BF16_FLOPS,
     H100_SXM_FP32_FLOPS,
     H100_SXM_HBM_BYTES_PER_S,
+    H100_SXM_INT32_ALU_OPS,
     H100_SXM_INT32_OPS,
 )
 from repro_torch.kernels.coclustering.kernel import (  # noqa: E402
@@ -127,8 +131,20 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 )
 from repro_torch.kernels.gemm.kernel import gemm_cuda  # noqa: E402
 from repro_torch.kernels.kmeans.kernel import kmeans_cuda  # noqa: E402
-from repro_torch.kernels.md5.kernel import md5_search_cuda  # noqa: E402
-from repro_torch.kernels.md5.ref import KEY_XOR, word_index  # noqa: E402
+from repro_torch.kernels.md5.kernel import (  # noqa: E402
+    md5_search_cuda,
+    md5_unwound_search_cuda,
+)
+from repro_torch.kernels.md5.ref import (  # noqa: E402
+    KEY_XOR,
+    UNWIND_TEST_ROUNDS,
+    md5_final_state,
+    md5_message,
+    md5_unround,
+    md5_unwind,
+    md5_word1_target,
+    word_index,
+)
 from repro_torch.kernels.nbody.kernel import nbody_cuda  # noqa: E402
 from repro_torch.kernels.nbody.ref import SOFTENING2  # noqa: E402
 from repro_torch.kernels.rg_lru.kernel import (  # noqa: E402
@@ -153,6 +169,11 @@ from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
     wkv6_chunk_updates,
 )
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell_cuda  # noqa: E402
+from repro_torch.kernels.spmv_ell.ref import (  # noqa: E402
+    bin_entries,
+    bin_layout,
+    gather_bins,
+)
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
@@ -213,6 +234,9 @@ class Sizes:
     # the paper's section 4.2 benchmarks (BS and SpMV also section 4.3)
     bs_n: int = 1 << 29  # options: 10 GiB of inputs and outputs
     spmv: tuple = (1 << 25, 16)  # rows = len(x), max_nnz
+    # a shape SpMV's route "bin" takes, ragged in rows and n: rows,
+    # max_nnz, n
+    spmv_bin_ragged: tuple = (3 * (1 << 20) + 37, 8, (1 << 24) + 5)
     md5_n: int = 1 << 30  # keys
     nbody_n: int = 1 << 17  # bodies
     nbody_slab: int = 1024  # targets held against the float64 version
@@ -253,6 +277,7 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             kmeans_n=1 << 12, kmeans_iters=2, csums=(192, 320), gemm=96,
             stream_n=(1 << 13) + 100, stream_chunk_rows=1 << 11,
             stream_iters=2, bs_n=(1 << 12) + 3, spmv=((1 << 10) + 8, 16),
+            spmv_bin_ragged=((1 << 12) + 37, 8, (1 << 12) + 5),
             md5_n=1 << 13, nbody_n=1000, nbody_slab=256,
             flash=(1, 4, 4, 64, 32), flash_gemma=(1, 4, 1, 40, 64),
             decode=(3, 4, 4, 70, 32), decode_gemma=(3, 4, 1, 70, 64),
@@ -481,6 +506,79 @@ def spmv_ragged_inputs(nnz, gen, device):
     return data, cols, x
 
 
+def spmv_bin_inputs(shape, gen, device, nan_under_zeros=False):
+    """(rows, max_nnz, n) with columns out of range (-1 reads x[n-1]; n,
+    n + 5 and -n - 3 read 0) and, with ``nan_under_zeros``, NaN in x at
+    the columns of five zero entries (so y is NaN in their rows, as the
+    reference's 0 * NaN gives)."""
+    rows, nnz, n = shape
+    data, cols, x = spmv_inputs(rows, nnz, n, gen, device)
+    cols[::7, 0] = -1
+    cols[1::7, 3 % nnz] = n
+    cols[2::7, 5 % nnz] = n + 5
+    cols[3::7, 7 % nnz] = -n - 3
+    if nan_under_zeros:
+        zero = (data == 0).nonzero()[:5]
+        x[cols[zero[:, 0], zero[:, 1]] % n] = float("nan")
+    return data, cols, x
+
+
+#: SpMV against its plain version: the reference sweep's rtol and atol
+#: (another order of a sum of max_nnz terms), NaN exactly where the plain
+#: version has NaN
+SPMV_TOL = (1e-5, 1e-6)
+
+
+def spmv_limit_share(got, want) -> float:
+    """``close_share`` at ``SPMV_TOL`` off the rows where ``want`` is NaN,
+    and inf where the NaN rows differ."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    return close_share(got[~nan], want[~nan], *SPMV_TOL) if (~nan).any() \
+        else 0.0
+
+
+def spmv_check(name, got, want, *inputs):
+    """y within ``SPMV_TOL`` of the plain version, NaN in the same rows."""
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan), name, "NaN in other rows "
+            "than the plain version's")
+    rtol, atol = SPMV_TOL
+    return check_close(name, got[~nan], want[~nan], rtol=rtol, atol=atol)
+
+
+def spmv_bin_faults(shape, gen, device) -> list[dict]:
+    """Route "bin" on a ragged shape with NaN in x under zero entries,
+    held to the plain version (``spmv_check``), and two planted faults
+    built from its plain passes that must fail that check: one tile's
+    entries dropped (the middle slice of the middle count block), and the
+    zero entries skipped though x holds NaN (the finite flag ignored)."""
+    data, cols, x = spmv_bin_inputs(shape, gen, device, nan_under_zeros=True)
+    want = spmv_ell_ref(data, cols, x)
+    require(bool(torch.isnan(want).any()), "no NaN row to hold")
+    got = spmv_ell(data, cols, x)
+    sync(device)
+    spmv_check("spmv_ell/bin faults' input", got, want)
+    rows, nnz = data.shape
+    lay = bin_layout(rows, nnz, x.shape[0])
+    tiles = {"slices": lay["slices"], "block_row_bits": lay["block_row_bits"]}
+    offsets, packed, values = bin_entries(data, cols, x)
+    seg = lay["count_blocks"] // 2 * lay["slices"] + lay["slices"] // 2
+    dropped = values.clone()
+    dropped[int(offsets[seg]):int(offsets[seg + 1])] = 0.0
+    finite = torch.nan_to_num(x, nan=0.0)
+    faults = {
+        "tile_dropped": gather_bins(offsets, packed, dropped, x, rows,
+                                    **tiles),
+        "finite_flag_ignored": gather_bins(*bin_entries(data, cols, finite),
+                                           x, rows, **tiles),
+    }
+    return require_caught("spmv_ell", [
+        {"fault": label, "limit_share": spmv_limit_share(out, want)}
+        for label, out in faults.items()])
+
+
 def ell_to_csr(data, cols, x):
     """The same matrix as a CSR tensor (every ELL entry kept, zeros too),
     for the library's SpMV; built outside the timed region."""
@@ -499,18 +597,94 @@ def md5_digest(key: int) -> tuple[int, int, int, int]:
     return tuple(int(v[0]) for v in md5_u32x2(w0, w0 ^ KEY_XOR))
 
 
-def md5_int_ops_per_key() -> int:
-    """The fewest 32-bit integer instructions one key needs, counted from
-    ``md5_u32x2`` with every constant folded.  A round is the 3-input logic
-    function (one LOP3), ``a + f + (K + m[g])`` (one IADD3, as K + m[g]
-    folds to a constant; two where m[g] is a key word) and
-    ``b + rotl(sum, s)`` (one LEA.HI, a funnel shift and add in one): 3.
-    Round 0 works on constants until it adds w0: 2.  Rounds 1-3 add to a
-    constant ``a``, so a key word costs them nothing more.  Then the second
-    message word (one xor) and four compares, with the final adds folded
-    into the target.  The build phase's SASS counts show the same forms."""
-    key_word_rounds = sum(word_index(i) in (0, 1) for i in range(4, 64))
-    return 2 + 63 * 3 + key_word_rounds + 1 + 4
+def md5_int_ops_per_key() -> dict:
+    """The fewest 32-bit integer instructions one key of the search needs,
+    counted from the rounds with every constant folded, the target's last
+    eight rounds undone once a search (route "unwind"): rounds 1-52 and
+    the test of b after round 52, by the pipes that can run them.  A round
+    is the 3-input logic function (one LOP3), ``a + f + (K + m[g])`` (one
+    IADD3, as K + m[g] folds to a constant; two where m[g] is a key word)
+    and ``b + rotl(sum, s)``.  Round 1 works on constants until it adds w0:
+    its rotate-add and one add.  Rounds 2-4 add to a constant ``a``, so a
+    key word costs them nothing more.  Then the second message word (one
+    LOP3, the xor) and the test, ``b + w1 == T`` (an add and an ISETP).
+
+    ``alu_only``: the LOP3s, the xor and the ISETP, which only the ALU pipe
+    runs.  ``rotate_adds``: one a round, each one ALU instruction (LEA.HI,
+    a funnel shift and add) or two on the FMA pipe (IMAD.HI and IMAD, as
+    ``md5.cu``'s ``kRotateOnFma`` form writes it).  ``adds``: the rest,
+    each one instruction on either pipe (IADD3, or IMAD by a 1).
+    ``total``: all of them with every rotate-add as one instruction."""
+    rounds = UNWIND_TEST_ROUNDS
+    key_word_rounds = sum(word_index(i) in (0, 1) for i in range(4, rounds))
+    total = 2 + (rounds - 1) * 3 + key_word_rounds + 1 + 2
+    alu_only = (rounds - 1) + 1 + 1  # LOP3s, the xor, the ISETP
+    return {"total": total, "alu_only": alu_only, "rotate_adds": rounds,
+            "adds": total - alu_only - rounds}
+
+
+def md5_seconds_per_key(ops: dict) -> tuple[float, float]:
+    """(seconds, rotate-adds on the FMA pipe) of one key at the least time
+    over where its instructions run: r of its rotate-adds as two FMA-pipe
+    instructions each, the rest on the ALU pipe with the ALU-only ones, and
+    the adds on either.  Each pipe runs 64 lanes an SM
+    (``H100_SXM_INT32_ALU_OPS``; IMAD.HI taken at that rate too, though it
+    may issue slower), the two together the issue ceiling
+    (``H100_SXM_INT32_OPS``, twice that).  With the adds split to even the
+    pipes, the time is the largest of the issue time, the ALU pipe's with
+    no adds and the FMA pipe's with none: lines in r, least at r = 0, at
+    every rotate-add moved, or where two of them cross."""
+    issue, pipe = H100_SXM_INT32_OPS, H100_SXM_INT32_ALU_OPS
+    alu = ops["alu_only"] + ops["rotate_adds"]
+
+    def seconds(r: float) -> float:
+        return max((ops["total"] + r) / issue, (alu - r) / pipe,
+                   2 * r / pipe)
+
+    crossings = [0.0, ops["rotate_adds"],
+                 (issue * alu - pipe * ops["total"]) / (issue + pipe),
+                 alu / 3]
+    r = min((min(max(c, 0.0), ops["rotate_adds"]) for c in crossings),
+            key=seconds)
+    return seconds(r), r
+
+
+def md5_work(n, *_):
+    """The search's least time: its instructions, where they run best
+    (``md5_seconds_per_key``), for n keys; 16 bytes of target read, one int
+    written."""
+    per_key, _ = md5_seconds_per_key(md5_int_ops_per_key())
+    # as issue-ceiling instructions, so ``bound`` takes it at that rate
+    return bound(20.0, float(n) * per_key * H100_SXM_INT32_OPS,
+                 H100_SXM_INT32_OPS)
+
+
+#: MD5's planted faults: where the key is planted, the unwound round given
+#: a wrong message word (round 63 reads m[2] = 0x80), and the word it gets
+MD5_WRONG_WORD = (62, 0)
+
+
+def md5_faults(n: int, target, expect: int, device) -> list[dict]:
+    """Route "unwind"'s launch handed values a fault would give: the
+    target unwound with one round's message word wrong, and the test after
+    round 52 made against round 53's value (b after round 53, the unwound
+    a) in place of T.  Each must miss the key planted at ``expect``."""
+    state = md5_unwind(target)
+    wrong = md5_final_state(target)
+    constant = md5_message(None, None)
+    for i in range(63, 55, -1):
+        word = MD5_WRONG_WORD[1] if i == MD5_WRONG_WORD[0] \
+            else constant[word_index(i)]
+        wrong = md5_unround(wrong, i, word)
+    rows = []
+    for label, st, word1 in (
+            ("unwound_round_wrong_word", wrong, md5_word1_target(wrong)),
+            ("test_at_round_53", state, state[0])):
+        found = int(md5_unwound_search_cuda(n, st, word1, device)[0])
+        require(found != expect, "planted fault md5/" + label,
+                "still found the key", expect)
+        rows.append({"fault": label, "found": found, "missed": True})
+    return rows
 
 
 def nbody_inputs(n, gen, device):
@@ -1300,6 +1474,11 @@ ROUTE_KERNELS = {
                "fma": (("rg_lru_kernel",), None)},
     "kmeans": {"private": (("kmeans_private_kernel",), None),
                "fma": (("kmeans_kernel",), None)},
+    "spmv_ell": {"bin": (("spmv_finite_kernel", "spmv_bin_scatter_kernel",
+                          "spmv_bin_gather_kernel"), None),
+                 "fma": (("spmv_ell_kernel",), None)},
+    "md5": {"unwind": (("md5_unwind_kernel",), None),
+            "fma": (("md5_search_kernel",), None)},
 }
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: instances of the redesigned routes' kernels, whose spills ptxas reports:
@@ -1307,8 +1486,10 @@ TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: decode attention mma 6 (group and head-dim classes), correlator tri 2
 #: (f32 and bf16 samples), wkv6 chunk 5 (its first and last passes for f32
 #: and bf16, the carry once), rg_lru chunk 4 (both passes for f32 and
-#: bf16), kmeans private 4 (one for each f of 2, 4, 8, 16)
-REDESIGNED_INSTANCES = 27
+#: bf16), kmeans private 4 (one for each f of 2, 4, 8, 16), spmv_ell bin 3
+#: (the finite pass, which route "fma" runs too, scatter, gather), md5
+#: unwind 1
+REDESIGNED_INSTANCES = 31
 
 
 def tensor_core_counts(sass: dict) -> dict:
@@ -1413,18 +1594,21 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             raise AssertionError(f"{name}: mass {mass} != {total}")
         return err
 
-    def md5_check(name, got, want, n, target, expect):
+    def md5_check(name, got, want, n, target, expect, route):
         require(int(got) == int(want) == expect, name, "found", int(got),
                 "plain", int(want), "expected", expect)
         return 0.0, 0.0
 
-    def md5_main_check(name, got, want, n, target, expect):
-        """Kernel and plain version over all n keys, and the kernel once
-        more with no key matching."""
-        md5_check(name, got, want, n, target, expect)
+    def md5_main_check(name, got, want, n, target, expect, route):
+        """Kernel and plain version over all n keys, the kernel once more
+        with no key matching, and the planted faults of route "unwind"
+        (``md5_faults``), each of which must miss the key."""
+        md5_check(name, got, want, n, target, expect, route)
         none = int(md5_search(n, MD5_NO_MATCH, device=device))
         require(none == n, name, "no-match search gave", none, "not", n)
-        return 0.0, 0.0
+        faults = md5_faults(n, target, expect, device) \
+            if device.type == "cuda" else []
+        return 0.0, 0.0, {"planted_faults": faults}
 
     def nbody_main_check(name, got, want, posm):
         """Every target against the f32 plain version within
@@ -1569,24 +1753,35 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                                        H100_SXM_FP32_FLOPS),
             shape=lambda s, k, t: [s.numel()],
         ),
+        # The launch phase's SpMV, (2^25, 16) with x of 2^25 columns (128
+        # MiB, past L2), by route "bin" (its first version, route "fma",
+        # timed beside it); ragged: 300 rows by "fma" (16 entries a row:
+        # 16-byte loads, 4 lanes a row; 13: single loads, 16 lanes), and
+        # a ragged shape by "bin" with columns out of range, without and
+        # with NaN in x under zero entries.
         dict(
             name="spmv_ell", wrapper="spmv_ell",
             source="src/repro_torch/csrc/spmv_ell.cu",
             replaces="src/repro/kernels/spmv_ell/kernel.py:43",
             main=lambda: spmv_inputs(sizes.spmv[0], sizes.spmv[1],
                                      sizes.spmv[0], gen, device),
-            # 16 entries a row (16-byte loads, 4 lanes a row) and 13 (single
-            # loads, 16 lanes a row)
+            main_route="bin",
             ragged=lambda: [spmv_ragged_inputs(16, gen, device),
-                            spmv_ragged_inputs(13, gen, device)],
+                            spmv_ragged_inputs(13, gen, device),
+                            spmv_bin_inputs(sizes.spmv_bin_ragged, gen,
+                                            device),
+                            spmv_bin_inputs(sizes.spmv_bin_ragged, gen,
+                                            device, nan_under_zeros=True)],
+            first=lambda d, c, x: spmv_ell_cuda(d, c, x, route="fma"),
             fn=lambda d, c, x: spmv_ell(d, c, x),
             plain=lambda d, c, x: spmv_ell_ref(d, c, x),
             library=lambda csr, x: torch.mv(csr, x),
             library_setup=ell_to_csr,
-            # rtol 1e-5 atol 1e-6: the reference sweep's (order of a sum
-            # of 16 terms).
-            check=lambda nm, got, want, *inp: check_close(
-                nm, got, want, rtol=1e-5, atol=1e-6),
+            check=spmv_check,
+            main_check=lambda nm, got, want, *inp: (
+                *spmv_check(nm, got, want),
+                {"planted_faults": spmv_bin_faults(sizes.spmv_bin_ragged,
+                                                   gen, device)}),
             # data, cols and y once, x once; the random gather reads a
             # 32-byte sector per entry, so the real traffic is larger.
             work=lambda d, c, x: bound(
@@ -1594,28 +1789,39 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                 2.0 * d.numel(), H100_SXM_FP32_FLOPS),
             shape=lambda d, c, x: [d.shape[0], d.shape[1], x.numel()],
         ),
+        # The launch phase's two searches of 2^30 keys, by route "unwind"
+        # (its first version, route "fma", timed beside it); ragged: n =
+        # 2048 with the key at 0, at 1500 and nowhere, by "unwind" and by
+        # "fma".  An input is (n, target, expected index, route named).
         dict(
             name="md5", wrapper="md5",
             source="src/repro_torch/csrc/md5.cu",
             replaces="src/repro/kernels/md5/kernel.py:52",
             main=lambda: (sizes.md5_n,
                           md5_digest(sizes.md5_n - MD5_PLANT_BELOW_N),
-                          sizes.md5_n - MD5_PLANT_BELOW_N),
-            ragged=lambda: [(2048, md5_digest(0), 0),
-                            (2048, md5_digest(1500), 1500),
-                            (2048, MD5_NO_MATCH, 2048)],
-            fn=lambda n, t, e: md5_search(n, t, device=device),
-            plain=lambda n, t, e: md5_search_ref(n, t, device=device),
+                          sizes.md5_n - MD5_PLANT_BELOW_N, None),
+            main_route="unwind",
+            ragged=lambda: [(2048, md5_digest(0), 0, None),
+                            (2048, md5_digest(1500), 1500, None),
+                            (2048, MD5_NO_MATCH, 2048, None),
+                            (2048, md5_digest(1500), 1500, "fma"),
+                            (2048, MD5_NO_MATCH, 2048, "fma")],
+            first=lambda n, t, e, r: md5_search_cuda(n, t, device,
+                                                     route="fma"),
+            fn=lambda n, t, e, r: (
+                md5_search(n, t, device=device)
+                if r is None or device.type != "cuda"
+                else md5_search_cuda(n, t, device, route=r)[0]),
+            plain=lambda n, t, e, r: md5_search_ref(n, t, device=device),
             plain_reps=1,
             library=None,
             # exact: an index
             check=md5_check,
             main_check=md5_main_check,
-            # every key is hashed (no early exit), at the issue ceiling;
-            # 16 bytes of target read, one int written
-            work=lambda n, t, e: bound(20.0, float(n) * md5_int_ops_per_key(),
-                                       H100_SXM_INT32_OPS),
-            shape=lambda n, t, e: [n],
+            # every key runs rounds 1-52 (no early exit), 16 bytes of
+            # target read, one int written
+            work=lambda n, t, e, r: md5_work(n),
+            shape=lambda n, t, e, r: [n],
         ),
         dict(
             name="nbody", wrapper="nbody",
@@ -2221,6 +2427,7 @@ def phase_launch(sizes: Sizes, device: torch.device,
     t1 = time.perf_counter()
     data, cols, x = spmv_inputs(rows, nnz, rows, gen, device)
     since = spmv_ell_cuda.launches
+    bin_since = spmv_ell_cuda.routes["bin"]
     res = ctx.launch(
         spmv_def, grid=(rows,), work_dist=BlockWork(rows // 8),
         args={"data": ctx.array(data, dist=RowDist(8), name="data"),
@@ -2233,9 +2440,13 @@ def phase_launch(sizes: Sizes, device: torch.device,
                      "y": "local"}, comm)
     err = check_close("launch/spmv_ell", res["y"].value,
                       spmv_ell_ref(data, cols, x), rtol=1e-5, atol=1e-6)
+    by_bin = spmv_ell_cuda.routes["bin"] - bin_since
+    if on_card:
+        require(by_bin == 1, "spmv_ell took route bin", by_bin, "times, not 1")
     out["spmv_ell"] = {
         "rows": rows, "max_nnz": nnz, "n": rows, "comm": comm,
         "kernel_launches": launched("spmv_ell", since, 1),
+        "by_route_bin": by_bin,
         "max_abs_err": err[0], "seconds": time.perf_counter() - t1}
     del data, cols, x, res
 
@@ -2251,6 +2462,7 @@ def phase_launch(sizes: Sizes, device: torch.device,
     n = sizes.md5_n
     t1 = time.perf_counter()
     since = md5_search_cuda.launches
+    unwind_since = md5_search_cuda.routes["unwind"]
     answers = []
     for target, expect in ((md5_digest(n - MD5_PLANT_BELOW_N),
                             n - MD5_PLANT_BELOW_N), (MD5_NO_MATCH, n)):
@@ -2263,8 +2475,13 @@ def phase_launch(sizes: Sizes, device: torch.device,
         require(answers[-1] == expect, "launch/md5", answers[-1], expect)
     comm = comm_of_last()
     require(comm == {"found": "reduce"}, comm)
+    by_unwind = md5_search_cuda.routes["unwind"] - unwind_since
+    if on_card:
+        require(by_unwind == 2, "md5 took route unwind", by_unwind,
+                "times, not 2")
     out["md5"] = {"n": n, "answers": answers, "comm": comm,
                   "kernel_launches": launched("md5", since, 2),
+                  "by_route_unwind": by_unwind,
                   "seconds": time.perf_counter() - t1}
 
     # (i) N-Body: all bodies replicated, accelerations by rows.

@@ -43,10 +43,18 @@ H100_SXM_BF16_FLOPS = 989e12  # tensor cores
 #: 32-bit integer instructions a second: the issue ceiling, one warp
 #: instruction per clock on each of an SM's 4 schedulers, 132 SMs x 128
 #: lanes x 1.98 GHz boost clock ~= 33.5e12 (derived, not a published peak).
-#: The 64 INT32 lanes of an SM are no ceiling: the compiler issues adds,
-#: shifts and moves as IMAD on the FMA pipe too, so the mix runs on both,
-#: but no mix issues faster than this.  A 3-input op (LOP3, IADD3) is one.
+#: No mix issues faster than this.  A 3-input op (LOP3, IADD3) is one.
 H100_SXM_INT32_OPS = 132 * 128 * 1.98e9
+#: The ALU pipe's share of it: 16 lanes a scheduler, 64 an SM, 16.7e12 a
+#: second.  LOP3, IADD3, LEA, SHF and ISETP issue only there; IMAD issues
+#: on the FMA pipe, at the same 64 lanes an SM.  The compiler does not spread a mix of adds over both:
+#: MD5's first kernel is 201 ALU opcodes to 5 IMAD in its SASS and runs at
+#: this rate (13.0-13.1 ms on an H100 80GB HBM3 at 700 W, 12.97 for its
+#: 202 instructions a key), and
+#: writing half of each round's adds as IMAD raised the rate of the two
+#: pipes together to about 92 lanes a clock, not 128
+#: (``tools/cuda_core_probe.py --kernels md5``).
+H100_SXM_INT32_ALU_OPS = 132 * 64 * 1.98e9
 #: Shared memory one block can use on an H100 (opt-in above 48 KiB).
 H100_MAX_SHARED_BYTES = 232_448
 

@@ -65,39 +65,97 @@ def word_index(i: int) -> int:
     return (7 * i) % 16
 
 
-def _rotl(x: torch.Tensor, s: int) -> torch.Tensor:
+def _rotl(x, s: int):
     x = x & MASK
     return ((x << s) | (x >> (32 - s))) & MASK
 
 
+def _f(i: int, b, c, d):
+    """Round ``i``'s logic function (F, G, H, I) of ints or int64 tensors
+    holding uint32 values; ``~`` is masked back to 32 bits."""
+    if i < 16:
+        return (b & c) | (~b & MASK & d)
+    if i < 32:
+        return (d & b) | (~d & MASK & c)
+    if i < 48:
+        return b ^ c ^ d
+    return c ^ (b | (~d & MASK))
+
+
+def md5_rounds(state: tuple, m: list, first: int, last: int) -> tuple:
+    """The state (a, b, c, d) after rounds ``first`` .. ``last - 1``
+    (0-based) from ``state``, on ints or int64 tensors holding uint32
+    values; ``m`` the 16 message words.  A round: a = b + rotl(a + f(b, c,
+    d) + K + m[word], s), then the registers turn to (d, a, b, c)."""
+    a, b, c, d = state
+    for i in range(first, last):
+        add = a + _f(i, b, c, d) + _K[i] + m[word_index(i)]
+        a, b, c, d = d, (b + _rotl(add, _S[i])) & MASK, b, c
+    return a, b, c, d
+
+
+def md5_message(w0, w1) -> list:
+    """The 16 words of the padded block of the 8-byte message [w0, w1]:
+    w0, w1, the 0x80 padding word, zeros, bit length (64) in words 14-15."""
+    return [w0, w1, 0x80] + [0] * 11 + [64, 0]
+
+
 def md5_u32x2(w0: torch.Tensor, w1: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """MD5 digest (a, b, c, d, int64 tensors holding uint32 values) of the
-    8-byte message [w0, w1].
-
-    Message block: w0, w1, 0x80 padding word, zeros, bit length (64) in
-    words 14-15.
-    """
+    8-byte message [w0, w1]."""
     w0 = w0.to(torch.int64) & MASK
     w1 = w1.to(torch.int64) & MASK
-    m = [w0, w1, 0x80] + [0] * 11 + [64, 0]
-    a, b, c, d = (torch.full_like(w0, v) for v in _INIT)
+    state = tuple(torch.full_like(w0, v) for v in _INIT)
+    state = md5_rounds(state, md5_message(w0, w1), 0, 64)
+    return tuple((v + init) & MASK for v, init in zip(state, _INIT))
 
-    for i in range(64):
-        if i < 16:
-            f = (b & c) | (~b & d)
-        elif i < 32:
-            f = (d & b) | (~d & c)
-        elif i < 48:
-            f = b ^ c ^ d
-        else:
-            f = c ^ (b | ~d)
-        tmp = d
-        d = c
-        c = b
-        add = a + f + _K[i] + m[word_index(i)]
-        b = (b + _rotl(add, _S[i])) & MASK
-        a = tmp
-    return tuple((v + init) & MASK for v, init in zip((a, b, c, d), _INIT))
+
+#: rounds that route "unwind" runs for every key (then it tests b), and
+#: through which it runs the keys that pass; the rest add only constant
+#: message words and are undone from the target
+UNWIND_TEST_ROUNDS = 52
+UNWIND_ROUNDS = 56
+
+
+def md5_unround(state: tuple, i: int, word: int) -> tuple:
+    """The state before round ``i`` (0-based) from the state after it, the
+    round's message word being ``word``: b = c', c = d', d = a', and a =
+    rotr(b' - b, s) - f(b, c, d) - K - word (ints holding uint32 values)."""
+    a2, b2, c2, d2 = state
+    b, c, d = c2, d2, a2
+    x = (b2 - b) & MASK
+    s = _S[i]
+    add = ((x >> s) | (x << (32 - s))) & MASK
+    return (add - _f(i, b, c, d) - _K[i] - word) & MASK, b, c, d
+
+
+def md5_final_state(target) -> tuple[int, int, int, int]:
+    """The state after round 64 whose digest is ``target``: the initial
+    state subtracted."""
+    return tuple((int(t) - init) & MASK for t, init in zip(target, _INIT))
+
+
+def md5_unwind(target) -> tuple[int, int, int, int]:
+    """The state (a, b, c, d) after round 56 of the search's message whose
+    digest is ``target``: the initial state subtracted, then rounds 64 to
+    57 undone, whose message words (m[9], m[2] = 0x80, m[11], m[4], m[13],
+    m[6], m[15], m[8]) are the same for every key.  Route "unwind" compares
+    each key's state with it."""
+    state = md5_final_state(target)
+    constant = md5_message(None, None)
+    for i in range(63, UNWIND_ROUNDS - 1, -1):
+        word = constant[word_index(i)]
+        assert word is not None, "rounds 57-64 read no key word"
+        state = md5_unround(state, i, word)
+    return state
+
+
+def md5_word1_target(state56: tuple) -> int:
+    """T, which b after round 52 plus the key's second word w1 must equal
+    for the state after round 56 to be ``state56``: round 56 adds m[1] = w1
+    to b after round 52 and nothing else unknown (``md5_unround`` with
+    word 0 gives b52 + w1 in its a)."""
+    return md5_unround(state56, UNWIND_ROUNDS - 1, 0)[0]
 
 
 def md5_search_ref(
@@ -125,3 +183,39 @@ def md5_search_ref(
             best = int(found)
             break
     return torch.tensor(best, dtype=torch.int32, device=device)
+
+
+def md5_search_unwound_ref(
+    n: int,
+    target: tuple[int, int, int, int],
+    *,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """Route "unwind" in plain PyTorch: the smallest key in [0, n) whose
+    digest is ``target`` (else n), as a 0-d int32 tensor.  The target is
+    unwound to the state after round 56 (``md5_unwind``) and its T
+    (``md5_word1_target``); each key runs rounds 1-52 and is kept only
+    where b + w1 == T; a kept key runs rounds 53-56 and must give the
+    unwound state.  Keys are hashed ``SLAB_KEYS`` at a time."""
+    device = resolve_device(device)
+    state56 = md5_unwind(target)
+    word1 = md5_word1_target(state56)
+    for lo in range(0, n, SLAB_KEYS):
+        idx = torch.arange(lo, min(n, lo + SLAB_KEYS), dtype=torch.int64,
+                           device=device)
+        m = md5_message(idx, idx ^ KEY_XOR)
+        state = tuple(torch.full_like(idx, v) for v in _INIT)
+        state = md5_rounds(state, m, 0, UNWIND_TEST_ROUNDS)
+        kept = ((state[1] + m[1]) & MASK) == word1
+        if not bool(kept.any()):
+            continue
+        keys = idx[kept]
+        state = md5_rounds(tuple(v[kept] for v in state),
+                           md5_message(keys, keys ^ KEY_XOR),
+                           UNWIND_TEST_ROUNDS, UNWIND_ROUNDS)
+        hit = torch.ones_like(keys, dtype=torch.bool)
+        for v, want in zip(state, state56):
+            hit &= v == want
+        if bool(hit.any()):  # the first slab with a hit holds the smallest
+            return keys[hit].min().to(torch.int32)
+    return torch.tensor(n, dtype=torch.int32, device=device)

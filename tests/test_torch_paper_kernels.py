@@ -29,7 +29,9 @@ from repro.kernels.md5.ref import md5_u32x2 as r_md5_u32x2
 from repro.kernels.nbody.ops import nbody_step as r_nbody_step
 from repro_torch.kernels.md5 import ref as t_md5_ref
 from repro_torch.kernels.nbody import ref as t_nbody_ref
+from repro_torch.kernels.spmv_ell import ref as t_spmv_ref
 from repro_torch.kernels.spmv_ell.kernel import lanes_per_row
+from repro_torch.kernels.spmv_ell.ref import block_row_bits
 
 from _torch_parity import launch_plan_rows
 
@@ -173,6 +175,141 @@ def test_spmv_lanes_per_row(nnz, vec, lanes):
     assert lanes_per_row(nnz, vec) == lanes
 
 
+#: route "bin"'s tiles for the plain version's tests, (slice_bits,
+#: block_row_bits): the package's (one tile at these sizes), and small ones
+#: that cut the sweep's shapes into several slices and count blocks,
+#: ragged at every edge
+BIN_TILES = [{}, {"slice_bits": 6, "block_row_bits": 4},
+             {"slice_bits": 3, "block_row_bits": 1},
+             {"slice_bits": 8, "block_row_bits": 5}]
+
+
+@pytest.mark.parametrize("tiles", BIN_TILES)
+@pytest.mark.parametrize("n,maxnnz", [(512, 8), (300, 16), (1024, 4)])
+def test_spmv_binned_ref_matches_the_reference_sweep(n, maxnnz, tiles):
+    """Route "bin"'s plain version (the entries binned into tiles, the
+    zeros skipped where x is finite) against the reference kernel."""
+    data, cols, x = _spmv_inputs(np.random.RandomState(6000 + n), n, maxnnz, n)
+    want = RK.spmv_ell(jnp.asarray(data), jnp.asarray(cols), jnp.asarray(x),
+                       block=128)
+    got = t_spmv_ref.spmv_ell_binned_ref(
+        torch.from_numpy(data), torch.from_numpy(cols), torch.from_numpy(x),
+        **tiles)
+    # another order of a sum of max_nnz terms
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+
+
+def _spmv_with_faults(seed, n=300, nnz=16):
+    """The sweep's (300, 16) matrix with columns out of range (-1, -n, n,
+    n + 5), NaN in x under two zero entries, inf in x under one, and data
+    inf and NaN at out-of-range columns."""
+    rng = np.random.RandomState(seed)
+    data, cols, x = _spmv_inputs(rng, n, nnz, n)
+    cols[::7, 0] = -1
+    cols[1::7, 3] = -n
+    cols[2::7, 5] = n
+    cols[3::7, 9] = n + 5
+    zeros = np.argwhere(data == 0)
+    x[cols[zeros[0][0], zeros[0][1]] % n] = np.nan
+    x[cols[zeros[9][0], zeros[9][1]] % n] = np.nan
+    x[cols[zeros[20][0], zeros[20][1]] % n] = np.inf
+    data[4, 5], cols[4, 5] = np.inf, n + 1
+    data[11, 7], cols[11, 7] = np.nan, -n - 2
+    return data, cols, x
+
+
+@pytest.mark.parametrize("tiles", BIN_TILES)
+def test_spmv_binned_ref_keeps_nan_and_inf_where_the_reference_has_them(
+        tiles):
+    """0 * NaN and 0 * inf are NaN: where x holds one, route "bin" bins
+    every entry; an out-of-range column reads 0, so inf or NaN data there
+    gives NaN.  NaN exactly where the reference kernel has it, the rest
+    within the sweep's tolerance."""
+    data, cols, x = _spmv_with_faults(6002)
+    want = _np(RK.spmv_ell(jnp.asarray(data), jnp.asarray(cols),
+                           jnp.asarray(x), block=128))
+    got = _np(t_spmv_ref.spmv_ell_binned_ref(
+        torch.from_numpy(data), torch.from_numpy(cols), torch.from_numpy(x),
+        **tiles))
+    assert np.isnan(want).sum() > 10
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-5, atol=1e-6)
+    # and route "fma"'s plain version, which gathers every entry
+    plain = _np(TK.spmv_ell_ref(*map(torch.from_numpy, (data, cols, x))))
+    np.testing.assert_array_equal(np.isnan(plain), np.isnan(want))
+
+
+@pytest.mark.parametrize("tiles", BIN_TILES[1:])
+def test_spmv_binned_ref_with_out_of_range_columns(tiles):
+    """-1, -n, n and n + 5 mixed into the sweep's (300, 16) matrix, x
+    finite: the fill mode's zeros are skipped, and y is the reference
+    kernel's."""
+    n = 300
+    data, cols, x = _spmv_inputs(np.random.RandomState(6001), n, 16, n)
+    cols[::7, 0] = -1
+    cols[1::7, 3] = -n
+    cols[2::7, 5] = n
+    cols[3::7, 9] = n + 5
+    want = RK.spmv_ell(jnp.asarray(data), jnp.asarray(cols), jnp.asarray(x),
+                       block=128)
+    got = t_spmv_ref.spmv_ell_binned_ref(
+        torch.from_numpy(data), torch.from_numpy(cols), torch.from_numpy(x),
+        **tiles)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("finite", [True, False])
+def test_spmv_bins_are_the_kept_entries_segment_by_segment(finite):
+    """``bin_entries``: one offset per segment (count block, then slice)
+    and one more; each segment's entries decode to rows of its count block
+    and columns of its slice; where x is finite only the nonzero entries
+    with a column in range are kept, where it is not every entry with a
+    column in range is."""
+    tiles = {"slice_bits": 6, "block_row_bits": 4}
+    data, cols, x = _spmv_inputs(np.random.RandomState(6003), 300, 8, 300)
+    cols[::5, 1] = 300  # out of range, finite data: never kept
+    if not finite:
+        x[7] = np.nan
+    offsets, packed, values = t_spmv_ref.bin_entries(
+        *map(torch.from_numpy, (data, cols, x)), **tiles)
+    slices, count_blocks = 5, 19  # ceil(300 / 64), ceil(300 / 16)
+    assert offsets.shape == (slices * count_blocks + 1,)
+    assert int(offsets[0]) == 0
+    assert bool((offsets[1:] >= offsets[:-1]).all())
+    in_range = cols < 300
+    kept = in_range & (data != 0) if finite else in_range
+    assert int(offsets[-1]) == packed.numel() == int(kept.sum())
+    np.testing.assert_array_equal(np.sort(_np(values)), np.sort(data[kept]))
+    found = []
+    for seg in range(slices * count_blocks):
+        lo, hi = int(offsets[seg]), int(offsets[seg + 1])
+        words = _np(packed[lo:hi])
+        assert ((words >> 6) < 16).all()  # a row of the count block
+        block, slice_ = divmod(seg, slices)
+        found += zip(block * 16 + (words >> 6), slice_ * 64 + (words & 63),
+                     _np(values[lo:hi]))
+    rows, js = np.nonzero(kept)
+    want = zip(rows, cols[rows, js], data[rows, js])
+    assert sorted(found) == sorted(want)
+
+
+@pytest.mark.parametrize("nnz,bits", [(4, 10), (8, 9), (12, 8), (16, 8),
+                                      (64, 6), (4096, 0)])
+def test_spmv_count_blocks_hold_at_most_block_entries(nnz, bits):
+    """A count block stages its entries in shared memory: as many rows as
+    keep them within ``BLOCK_ENTRIES`` (4096)."""
+    assert block_row_bits(nnz) == bits
+    assert (nnz << bits) <= 4096 < (nnz << (bits + 1))
+
+
+def test_spmv_binned_ref_refuses_an_empty_x():
+    with pytest.raises(ValueError, match="at least one column"):
+        t_spmv_ref.bin_entries(torch.zeros((2, 4)),
+                               torch.zeros((2, 4), dtype=torch.int32),
+                               torch.zeros((0,)))
+
+
 # -- MD5 ----------------------------------------------------------------------
 
 
@@ -236,14 +373,97 @@ def test_md5_search_ref_slabs_agree(monkeypatch):
             == expect
 
 
+def _md5_listing():
+    """The rounds written out in ``csrc/md5.cu``, read as text: each part
+    of the listing by its macro's name, as (function, a, b, c, d, word,
+    constant, shift) strings."""
+    text = (CSRC / "md5.cu").read_text()
+    parts = {}
+    for name, body in re.findall(
+            r"#define (MD5_ROUNDS_\w+)\(STEP\)((?:\s*\\\n\s*STEP\(.*?\))+)",
+            text):
+        parts[name] = re.findall(
+            r"STEP\(MD5_([FGHI]), ([abcd]), ([abcd]), ([abcd]), ([abcd]), "
+            r"(\d+), (0x[0-9a-f]+)u, (\d+)\)", body)
+    return text, parts
+
+
+def _function_body(text, signature):
+    start = text.index(signature)
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_md5_unwind_gives_the_state_after_round_56():
+    """For random keys: the reference's digest unwound through rounds 64-57
+    is the state the port's plain steps reach after round 56, and b after
+    round 52 plus the second word is the unwound T; hashlib agrees with
+    the digest."""
+    rng = np.random.RandomState(7001)
+    keys = rng.randint(0, 2**32, 64, dtype=np.uint64).astype(np.int64)
+    w0 = keys
+    w1 = keys ^ t_md5_ref.KEY_XOR
+    digest = r_md5_u32x2(jnp.asarray(w0.astype(np.uint32)),
+                         jnp.asarray(w1.astype(np.uint32)))
+    m = t_md5_ref.md5_message(torch.from_numpy(w0), torch.from_numpy(w1))
+    init = tuple(torch.full((64,), v, dtype=torch.int64)
+                 for v in t_md5_ref._INIT)
+    state52 = t_md5_ref.md5_rounds(init, m, 0, 52)
+    state56 = t_md5_ref.md5_rounds(state52, m, 52, 56)
+    for i in range(64):
+        target = tuple(int(np.asarray(v)[i]) for v in digest)
+        assert struct.pack("<IIII", *target) == hashlib.md5(
+            struct.pack("<II", int(w0[i]), int(w1[i]))).digest()
+        unwound = t_md5_ref.md5_unwind(target)
+        assert unwound == tuple(int(v[i]) for v in state56)
+        assert t_md5_ref.md5_word1_target(unwound) == (
+            int(state52[1][i]) + int(w1[i])) & 0xFFFFFFFF
+
+
+def test_md5_unround_inverts_every_round():
+    rng = np.random.RandomState(7002)
+    for i in range(64):
+        state = tuple(int(v) for v in rng.randint(0, 2**32, 4,
+                                                    dtype=np.uint64))
+        word = int(rng.randint(0, 2**32, dtype=np.uint64))
+        m = [word] * 16
+        after = t_md5_ref.md5_rounds(state, m, i, i + 1)
+        assert t_md5_ref.md5_unround(after, i, word) == state
+
+
+@pytest.mark.parametrize("target_key", [0, 77, 511, 1500, None])
+def test_md5_unwound_search_matches_the_reference(target_key):
+    """Route "unwind"'s plain version finds the reference kernel's index."""
+    n = 2048
+    target = _digest(target_key) if target_key is not None else (1, 2, 3, 4)
+    want = int(RK.md5_search(n, target, block=512))
+    assert want == (target_key if target_key is not None else n)
+    got = t_md5_ref.md5_search_unwound_ref(n, target, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == ()
+    assert int(got) == want
+
+
+def test_md5_unwound_search_slabs_agree(monkeypatch):
+    monkeypatch.setattr(t_md5_ref, "SLAB_KEYS", 100)
+    for key in (0, 99, 100, 650):
+        assert int(t_md5_ref.md5_search_unwound_ref(700, _digest(key),
+                                                    device="cpu")) == key
+    assert int(t_md5_ref.md5_search_unwound_ref(700, (1, 2, 3, 4),
+                                                device="cpu")) == 700
+
+
 def test_md5_cuda_rounds_are_rfc_1321():
     """The 64 rounds written out in ``csrc/md5.cu``, read as text: their
     functions, message words, constants, shifts and register order are the
-    reference's, and run in Python they give hashlib's digests."""
-    text = (CSRC / "md5.cu").read_text()
-    steps = re.findall(
-        r"MD5_STEP\(MD5_([FGHI]), ([abcd]), ([abcd]), ([abcd]), ([abcd]), "
-        r"m\[(\d+)\], (0x[0-9a-f]+)u, (\d+)\);", text)
+    reference's, and run in Python they give hashlib's digests.  Route
+    "fma" runs all three parts of the listing; route "unwind" runs rounds
+    1-52 for every key and 53-56 for a key that passes its test, and
+    leaves 57-64, which read only constant words, to ``md5_unwind``: a
+    key that passes runs rounds 1-56 again in ``md5_state56``."""
+    text, parts = _md5_listing()
+    assert list(parts) == ["MD5_ROUNDS_1_TO_52", "MD5_ROUNDS_53_TO_56",
+                           "MD5_ROUNDS_57_TO_64"]
+    assert [len(p) for p in parts.values()] == [52, 4, 8]
+    steps = [st for p in parts.values() for st in p]
     assert len(steps) == 64
     order = ["abcd", "dabc", "cdab", "bcda"]
     for i, (fn, *regs, word, k, s) in enumerate(steps):
@@ -252,6 +472,23 @@ def test_md5_cuda_rounds_are_rfc_1321():
         assert int(word) == t_md5_ref.word_index(i)
         assert int(k, 16) == t_md5_ref._K[i]
         assert int(s) == t_md5_ref._S[i]
+    # the last eight rounds read no key word (words 0 and 1)
+    assert all(int(st[5]) > 1 for st in parts["MD5_ROUNDS_57_TO_64"])
+
+    fma = _function_body(text, "uint4 md5_u32x2(")
+    assert re.findall(r"(MD5_ROUNDS_\w+)\((\w+)\)", fma) == [
+        ("MD5_ROUNDS_1_TO_52", "MD5_STEP"),
+        ("MD5_ROUNDS_53_TO_56", "MD5_STEP"),
+        ("MD5_ROUNDS_57_TO_64", "MD5_STEP")]
+    unwind = _function_body(text, "md5_unwind_kernel(")
+    assert re.findall(r"(MD5_ROUNDS_\w+)\((\w+)\)", unwind) == [
+        ("MD5_ROUNDS_1_TO_52", "MD5_UNWIND_STEP")]
+    assert "b[j] + m[j][1] == word1_target" in unwind
+    assert "md5_state56(key)" in unwind
+    state56 = _function_body(text, "uint4 md5_state56(")
+    assert re.findall(r"(MD5_ROUNDS_\w+)\((\w+)\)", state56) == [
+        ("MD5_ROUNDS_1_TO_52", "MD5_STEP"),
+        ("MD5_ROUNDS_53_TO_56", "MD5_STEP")]
 
     funcs = {
         "F": lambda b, c, d: (b & c) | (~b & d),
@@ -264,14 +501,20 @@ def test_md5_cuda_rounds_are_rfc_1321():
         w0, w1 = key, key ^ t_md5_ref.KEY_XOR
         m = [w0, w1, 0x80] + [0] * 11 + [64, 0]
         reg = dict(zip("abcd", t_md5_ref._INIT))
-        for fn, ra, rb, rc, rd, word, k, s in steps:
+        digest = hashlib.md5(struct.pack("<II", w0, w1)).digest()
+        for i, (fn, ra, rb, rc, rd, word, k, s) in enumerate(steps):
+            if i == 52:  # route "unwind"'s test after round 52
+                assert (reg["b"] + w1) & mask == t_md5_ref.md5_word1_target(
+                    t_md5_ref.md5_unwind(struct.unpack("<IIII", digest)))
+            if i == 56:  # the state route "unwind" compares
+                assert (reg["a"], reg["b"], reg["c"], reg["d"]) == \
+                    t_md5_ref.md5_unwind(struct.unpack("<IIII", digest))
             x = (reg[ra] + funcs[fn](reg[rb], reg[rc], reg[rd]) + int(k, 16)
                  + m[int(word)]) & mask
             rot = ((x << int(s)) | (x >> (32 - int(s)))) & mask
             reg[ra] = (reg[rb] + rot) & mask
-        digest = [(reg[r] + i) & mask for r, i in zip("abcd", t_md5_ref._INIT)]
-        assert struct.pack("<IIII", *digest) \
-            == hashlib.md5(struct.pack("<II", w0, w1)).digest()
+        out = [(reg[r] + i) & mask for r, i in zip("abcd", t_md5_ref._INIT)]
+        assert struct.pack("<IIII", *out) == digest
 
 
 # -- N-Body -------------------------------------------------------------------

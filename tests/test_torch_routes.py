@@ -1,7 +1,8 @@
 """The multi-route kernels' route functions, on the CPU.
 
 ``gemm_route``, ``flash_route``, ``decode_route``, ``correlate_route``,
-``wkv6_route``, ``rg_lru_route`` and ``kmeans_route`` pick a kernel before
+``wkv6_route``, ``rg_lru_route``, ``kmeans_route``, ``spmv_route`` and
+``md5_route`` pick a kernel before
 the launch from dtype, shape and alignment alone: ``"wgmma"`` (tensor cores fed by TMA) where TMA can
 describe bf16 operands, ``"pipe"`` (f32 on the CUDA cores, its loads a
 stage ahead) for f32 GEMM operands of 16-byte rows, ``"mma"``
@@ -11,8 +12,10 @@ for more than one tile of antennas, ``"chunk"`` (WKV6 and RG-LRU as scans
 over chunks of time) for T of two chunks or more (three for RG-LRU),
 ``"private"`` (K-Means with several points a thread and accumulators
 private to a thread or a warp) for the feature counts it is compiled for
-where its accumulators fit, and ``"fma"`` (the first kernels) for the
-rest.
+where its accumulators fit, ``"bin"`` (SpMV's entries binned by column
+slice before the gather) for an x past L2 with rows enough to fill the
+card, ``"unwind"`` (MD5 with the target's last eight rounds undone) for
+every search, and ``"fma"`` (the first kernels) for the rest.
 They read only shapes, dtypes and addresses, so CPU tensors stand in for
 CUDA ones here; the kernels themselves run on the GPU in
 ``chip_smoke.py``, which also requires each main-path call to have taken
@@ -21,6 +24,7 @@ the route these functions give.
 
 import importlib
 import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -36,6 +40,10 @@ corr_kernel = importlib.import_module("repro_torch.kernels.correlator.kernel")
 wkv_kernel = importlib.import_module("repro_torch.kernels.rwkv6.kernel")
 lru_kernel = importlib.import_module("repro_torch.kernels.rg_lru.kernel")
 km_kernel = importlib.import_module("repro_torch.kernels.kmeans.kernel")
+spmv_kernel = importlib.import_module("repro_torch.kernels.spmv_ell.kernel")
+ROOT = Path(__file__).resolve().parent.parent
+spmv_ref = importlib.import_module("repro_torch.kernels.spmv_ell.ref")
+md5_kernel = importlib.import_module("repro_torch.kernels.md5.kernel")
 
 bf16, f32 = torch.bfloat16, torch.float32
 
@@ -314,6 +322,66 @@ def test_kmeans_private_shared_memory_is_centroids_and_accumulators():
             for f in (2, 4, 8, 16)] == [16, 16, 8, 4]
 
 
+def _ell(rows, nnz, n, offset=0):
+    """data, cols and x of an ELL matrix, as views of one element each
+    (the route reads only shapes and addresses); ``offset`` elements into
+    the buffers of data and cols."""
+    data = torch.zeros(1 + offset)[offset:].expand(rows, nnz)
+    cols = torch.zeros(1 + offset, dtype=torch.int32)[offset:].expand(rows,
+                                                                      nnz)
+    return data, cols, torch.zeros(1).expand(n)
+
+
+@pytest.mark.parametrize("what,shape,offset,want", [
+    ("the main path's (2^25, 16), n = 2^25", (1 << 25, 16, 1 << 25), 0,
+     "bin"),
+    ("n = 2^24: x of 64 MiB, past L2", (1 << 25, 16, 1 << 24), 0, "bin"),
+    ("n = 2^24 - 1", (1 << 25, 16, (1 << 24) - 1), 0, "fma"),
+    ("n = 2^23: x fits L2 beside the stream", (1 << 25, 16, 1 << 23), 0,
+     "fma"),
+    ("chip_smoke's ragged bin shape", (3 * (1 << 20) + 37, 8, (1 << 24) + 5),
+     0, "bin"),
+    ("rows = 2^20 - 1: too few count blocks", ((1 << 20) - 1, 16, 1 << 25),
+     0, "fma"),
+    ("max_nnz 13: no 16-byte loads", (1 << 21, 13, 1 << 25), 0, "fma"),
+    ("data 4 bytes off 16", (1 << 21, 16, 1 << 25), 1, "fma"),
+    ("2^31 entries", (1 << 27, 16, 1 << 25), 0, "fma"),
+    ("max_nnz 8192: past a count block", (1 << 21, 8192, 1 << 25), 0,
+     "fma"),
+    ("chip_smoke's ragged 300 rows", (300, 16, 300), 0, "fma"),
+])
+def test_spmv_bins_where_x_is_past_l2(what, shape, offset, want):
+    assert spmv_kernel.spmv_route(*_ell(*shape, offset=offset)) == want, what
+
+
+def test_spmv_bin_layout_is_count_blocks_by_slices():
+    """2^22 columns a slice, at most 4096 entries a count block: the main
+    path's (2^25, 16) with n = 2^25 is 131,072 count blocks of 256 rows x
+    8 slices; a ragged n and rows round up."""
+    assert spmv_kernel.bin_layout(1 << 25, 16, 1 << 25) == {
+        "slices": 8, "block_row_bits": 8, "count_blocks": 131072,
+        "segments": 1048576}
+    assert spmv_kernel.bin_layout(3 * (1 << 20) + 37, 8, (1 << 24) + 5) == {
+        "slices": 5, "block_row_bits": 9, "count_blocks": 6145,
+        "segments": 30725}
+
+
+def test_spmv_bin_limits_are_the_sources():
+    """The bin layout's limits (``kernels/spmv_ell/ref.py``) are the ones
+    ``csrc/spmv_ell.cu`` stages and checks: its ``kBlockEntries`` and
+    ``kMaxSlices``."""
+    source = (ROOT / "src" / "repro_torch" / "csrc" / "spmv_ell.cu").read_text()
+    limits = dict(re.findall(r"constexpr int (k\w+) = (\d+);", source))
+    assert int(limits["kBlockEntries"]) == spmv_ref.BLOCK_ENTRIES
+    assert int(limits["kMaxSlices"]) == spmv_ref.MAX_SLICES
+    assert spmv_kernel.SLICE_BITS == spmv_ref.SLICE_BITS
+
+
+@pytest.mark.parametrize("n", [1, 2048, 1 << 30, 2**31 - 1])
+def test_md5_unwinds_every_search(n):
+    assert md5_kernel.md5_route(n) == "unwind"
+
+
 @pytest.mark.parametrize("kernel,fn,routes", [
     (gemm_kernel, "gemm_cuda", ("wgmma", "pipe", "fma")),
     (flash_kernel, "flash_attention_cuda", ("wgmma", "fma")),
@@ -322,6 +390,8 @@ def test_kmeans_private_shared_memory_is_centroids_and_accumulators():
     (wkv_kernel, "wkv6_cuda", ("chunk", "fma")),
     (lru_kernel, "rg_lru_cuda", ("chunk", "fma")),
     (km_kernel, "kmeans_cuda", ("private", "fma")),
+    (spmv_kernel, "spmv_ell_cuda", ("bin", "fma")),
+    (md5_kernel, "md5_search_cuda", ("unwind", "fma")),
 ])
 def test_two_route_wrappers_count_launches_by_route(kernel, fn, routes):
     """Each multi-route wrapper has its own routes, the first kernel
@@ -360,6 +430,12 @@ GEMM_ROUTES = ("wgmma", "pipe", "fma")
     ("private", "private", ("private", "fma"), "private"),
     ("private", "fma", ("private", "fma"), ValueError),
     ("chunk", "private", ("private", "fma"), ValueError),
+    (None, "bin", ("bin", "fma"), "bin"),
+    ("fma", "bin", ("bin", "fma"), "fma"),
+    ("bin", "fma", ("bin", "fma"), ValueError),
+    ("unwind", "unwind", ("unwind", "fma"), "unwind"),
+    ("fma", "unwind", ("unwind", "fma"), "fma"),
+    ("bin", "unwind", ("unwind", "fma"), ValueError),
 ])
 def test_a_named_route_is_taken_only_where_it_can_run(route, chosen, routes,
                                                       want):

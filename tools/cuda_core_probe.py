@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """The redesigned CUDA-core routes alone: the correlator's ``"tri"``,
-WKV6's and RG-LRU's ``"chunk"`` and K-Means' ``"private"``, built, checked,
-timed, with the chunk lengths and K-Means' points a thread swept.
+WKV6's and RG-LRU's ``"chunk"``, K-Means' ``"private"``, SpMV's ``"bin"``
+and MD5's ``"unwind"``, built, checked, timed, with the chunk lengths,
+K-Means' points a thread, SpMV's slices and n and MD5's forms swept.
 
     PYTHONPATH=src python3 tools/cuda_core_probe.py [--no-time] [--reps 5]
-        [--kernels correlate,wkv6,rg_lru,kmeans] [--lengths 16,32,64,128,256]
+        [--kernels correlate,wkv6,rg_lru,kmeans,spmv,md5]
+        [--lengths 16,32,64,128,256]
         [--lru-lengths 32,64,128,256] [--points 1,2,4,8]
 
 Needs one GPU.  Builds ``src/repro_torch/csrc`` and prints what ``ptxas``
@@ -53,6 +55,29 @@ accumulation cut (the distance loop alone), and each variant of route
 ``"private"``, with and without its accumulation.  The SASS lines of the
 K-Means kernels' shared atomics are printed.
 
+SpMV (``--kernels spmv``): both routes and route ``"fma"``'s ablations,
+built from ``csrc/spmv_ell.cu`` again with ``SPMV_PROBE`` into
+``build/repro_torch/spmv_probe/``, held against the plain version (rtol
+1e-5, atol 1e-6, NaN in the same rows) at (2^25, 16) with n = 2^25, at
+each slice size of route ``"bin"``, and on a ragged shape route ``"bin"``
+takes with columns out of range and NaN in x under zero entries.  Timed
+in turns: (a) the first kernel gathering every entry, (b) the same with
+every column taken mod 2^22 (x's reads in 16 MiB of L2), (c) the gather
+skipped where data == 0, (d) the gather replaced by a constant, route
+``"fma"`` (the finite pass and (c)) and route ``"bin"``; route ``"bin"``
+at each slice size and by pass (``torch.profiler``); both routes over the
+rows from 2^12 to 2^25 at n = 2^25 and over n from 2^20 to 2^25 (where
+route ``"bin"`` starts to pay, for ``BIN_MIN_ROWS`` and ``BIN_MIN_N``).
+
+MD5 (``--kernels md5``): the SASS pipe mix (ALU opcodes against IMAD
+forms) of route ``"fma"``, route ``"unwind"`` and route ``"unwind"``'s
+forms, built from ``csrc/md5.cu`` with ``MD5_PROBE`` into
+``build/repro_torch/md5_probe/`` (adds on the ALU or the FMA pipe, the
+rotate-add as IMAD.HI + IMAD; one, two or four keys a thread); each finds
+the planted keys (n = 2^30 with the key 4099 below n, n = 2048 with keys
+0 and 1500, and none); all timed in turns at n = 2^30 beside the time the
+first kernel's 202 instructions a key take on the ALU pipe alone.
+
 One JSON line per step; then the card's name and power limit; exit 1 if a
 case failed.
 """
@@ -60,6 +85,7 @@ case failed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -74,6 +100,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
+    FULL,
     KERNEL_HOST_S,
     SCAN_TOL,
     TENSOR_CORE_OPS,
@@ -89,10 +116,16 @@ from chip_smoke import (  # noqa: E402
     lru_inputs,
     lru_plain,
     lru_work,
+    md5_digest,
+    md5_int_ops_per_key,
+    md5_work,
     mirrored_tiles,
     ptxas_usage,
     require,
     sass_instructions,
+    spmv_bin_inputs,
+    spmv_check,
+    spmv_inputs,
     time_ms,
     wkv_check,
     wkv_exact_decays,
@@ -105,10 +138,22 @@ from repro_torch.kernels import (  # noqa: E402
     kmeans_assign_reduce_ref,
     wkv6_ref,
 )
-from repro_torch.kernels.common import cdiv, sm_count  # noqa: E402
+from repro_torch.kernels.common import (  # noqa: E402
+    H100_SXM_INT32_ALU_OPS,
+    cdiv,
+    sm_count,
+    stride_grid,
+)
 from repro_torch.kernels.correlator.kernel import (  # noqa: E402
     correlate_cuda,
 )
+from repro_torch.kernels.md5.kernel import md5_search_cuda  # noqa: E402
+from repro_torch.kernels.md5.ref import (  # noqa: E402
+    md5_unwind,
+    md5_word1_target,
+)
+from repro_torch.kernels.spmv_ell import kernel as spmv_kernel  # noqa: E402
+from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref  # noqa: E402
 from repro_torch.kernels.kmeans.kernel import (  # noqa: E402
     BLOCKS_PER_SM as KM_FMA_BLOCKS_PER_SM,
     THREADS as KM_THREADS,
@@ -131,6 +176,9 @@ KERNELS = ("correlate_tri_kernel", "wkv6_deltas_kernel", "wkv6_carry_kernel",
            "wkv6_outputs_kernel")
 LRU_KERNELS = ("rg_lru_local_kernel", "rg_lru_outputs_kernel")
 KM_KERNELS = ("kmeans_private_kernel", "kmeans_kernel")
+SPMV_KERNELS = ("spmv_ell_kernel", "spmv_finite_kernel",
+                "spmv_bin_scatter_kernel", "spmv_bin_gather_kernel")
+MD5_KERNELS = ("md5_search_kernel", "md5_unwind_kernel")
 F32, BF16 = torch.float32, torch.bfloat16
 #: (C, T, A, dtype) of the correlator's checks
 CORR_CASES = [(1024, 768, 256, F32), (1024, 768, 256, BF16),
@@ -151,9 +199,33 @@ LRU_CASES = [(1, 2048, 2560, BF16, False), (1, 2048, 2560, F32, False),
 #: (n, k, f) of K-Means' checks; the first two are timed
 KM_CASES = [(1 << 26, 40, 4), (1 << 22, 40, 4), (1000, 7, 4), (5001, 9, 2),
             (3000, 5, 8), (2000, 6, 16), (100_003, 40, 4)]
-#: where the probe builds ``kmeans.cu`` with its variants
+#: where the probe builds ``kmeans.cu``, ``spmv_ell.cu`` and ``md5.cu``
+#: with their variants (the package's library holds none of them)
 KM_PROBE_DIR = _build.build_dir() / "kmeans_probe"
-_km_lib: ctypes.CDLL | None = None
+SPMV_PROBE_DIR = _build.build_dir() / "spmv_probe"
+MD5_PROBE_DIR = _build.build_dir() / "md5_probe"
+_probe_libs: dict[str, tuple] = {}
+#: route "fma"'s forms in the probe's build of ``spmv_ell.cu``
+#: (``Mode`` in the source)
+SPMV_MODES = {"skip zeros": 0, "gather all": 1, "constant": 2}
+#: route "unwind"'s forms in the probe's build of ``md5.cu``: (its rounds'
+#: ``UnwindMode`` in the source, keys a thread)
+MD5_MODES = {f"{label}, {keys} key{'s' * (keys > 1)} a thread": (mode, keys)
+             for label, mode, keys_swept in (
+                 ("adds on alu", 0, (1, 2, 4)), ("adds on fma", 1, (1, 2, 4)),
+                 ("rotate on fma", 2, (1, 2)))
+             for keys in keys_swept}
+#: SpMV's main shape: rows, max_nnz, n
+SPMV_MAIN = (1 << 25, 16, 1 << 25)
+#: route "bin"'s slices swept (log2 of their columns), the package's first
+SPMV_TILES = [spmv_kernel.SLICE_BITS, 21, 23, 24]
+#: SpMV's n swept for route "bin"'s threshold (rows and max_nnz of the
+#: main shape), and its rows (max_nnz and n of the main shape)
+SPMV_NS = [1 << b for b in range(20, 26)]
+SPMV_ROWS = [1 << b for b in range(12, 26)]
+#: the ALU pipe's opcodes in the MD5 kernels' SASS (the rest of their
+#: integer work is IMAD, on the FMA pipe)
+ALU_OPS = ("LOP3", "IADD3", "LEA", "SHF", "ISETP", "PRMT")
 
 
 def emit(obj: dict) -> None:
@@ -231,16 +303,30 @@ def check_lru(shape, exact, lengths, gen, device) -> dict:
     return out
 
 
-def km_probe(name, argtypes):
-    """A launcher of the probe's build of ``kmeans.cu``."""
-    global _km_lib
-    if _km_lib is None:
-        _km_lib = ctypes.CDLL(str(_build.build(
-            [_build.CSRC_DIR / "kmeans.cu"], ("KMEANS_PROBE",),
-            KM_PROBE_DIR)))
-    fn = getattr(_km_lib, name)
+def probe_lib(src: str, define: str, out) -> ctypes.CDLL:
+    """The probe's build of ``csrc/<src>`` with ``-D<define>`` into
+    ``out``, built and loaded once a process."""
+    return probe_build(src, define, out)[1]
+
+
+def probe_build(src: str, define: str, out) -> tuple:
+    """(path, loaded library) of ``probe_lib``'s build."""
+    if src not in _probe_libs:
+        path = _build.build([_build.CSRC_DIR / src], (define,), out)
+        _probe_libs[src] = (path, ctypes.CDLL(str(path)))
+    return _probe_libs[src]
+
+
+def probe_fn(lib: ctypes.CDLL, name: str, argtypes):
+    fn = getattr(lib, name)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
+
+
+def km_probe(name, argtypes):
+    """A launcher of the probe's build of ``kmeans.cu``."""
+    return probe_fn(probe_lib("kmeans.cu", "KMEANS_PROBE", KM_PROBE_DIR),
+                    name, argtypes)
 
 
 def km_first_ablation(points, centroids, accum):
@@ -320,6 +406,241 @@ def atomics_in_sass(lib, names) -> dict:
     return out
 
 
+def spmv_ablation(data, cols, x, mode: int, nonfinite) -> torch.Tensor:
+    """Route "fma"'s kernel in one of ``SPMV_MODES`` (the probe's build),
+    with the finite flag ``nonfinite`` given, not computed."""
+    rows, nnz = data.shape
+    vec = (nnz % 4 == 0 and data.data_ptr() % 16 == 0
+           and cols.data_ptr() % 16 == 0)
+    y = torch.empty((rows,), dtype=F32, device=data.device)
+    fn = probe_fn(probe_lib("spmv_ell.cu", "SPMV_PROBE", SPMV_PROBE_DIR),
+                  "spmv_ell_probe_f32", [ctypes.c_void_p] * 4 + [
+                      ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    err = fn(data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+             rows, nnz, x.shape[0], spmv_kernel.lanes_per_row(nnz, vec),
+             int(vec), nonfinite.data_ptr(), mode,
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"spmv_ell probe mode {mode}")
+    return y
+
+
+@contextlib.contextmanager
+def patched(module, **values):
+    """The module's constants set to ``values`` for the block (the probe
+    sweeps a route's sizes and thresholds this way)."""
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def spmv_by_tiles(data, cols, x, slice_bits) -> torch.Tensor:
+    """Route "bin" with slices of 2^slice_bits columns."""
+    with patched(spmv_kernel, SLICE_BITS=slice_bits):
+        return spmv_kernel.spmv_ell_cuda(data, cols, x, route="bin")
+
+
+def spmv_close(name, got, want) -> float:
+    return spmv_check(name, got, want)[0]
+
+
+def check_spmv(gen, device) -> dict:
+    """Both routes and every ablation against the plain version at the
+    main shape, each tile size of the sweep, and the ragged shape with NaN
+    planted in x under zero entries."""
+    data, cols, x = spmv_inputs(*SPMV_MAIN, gen, device)
+    want = spmv_ell_ref(data, cols, x)
+    flag = torch.zeros((1,), dtype=torch.int32, device=device)
+    out = {}
+    before = spmv_kernel.spmv_ell_cuda.routes["bin"]
+    out["bin"] = spmv_close("spmv bin", spmv_kernel.spmv_ell_cuda(
+        data, cols, x), want)
+    require(spmv_kernel.spmv_ell_cuda.routes["bin"] == before + 1,
+            "the main shape did not take route bin")
+    out["fma"] = spmv_close("spmv fma", spmv_kernel.spmv_ell_cuda(
+        data, cols, x, route="fma"), want)
+    for label in ("skip zeros", "gather all"):
+        out[label] = spmv_close(f"spmv {label}", spmv_ablation(
+            data, cols, x, SPMV_MODES[label], flag), want)
+    out["constant"] = spmv_close("spmv constant", spmv_ablation(
+        data, cols, x, SPMV_MODES["constant"], flag),
+        (data * (cols & 1).float()).sum(dim=1))
+    modded = cols % (1 << 22)
+    out["columns mod 2^22"] = spmv_close("spmv cols mod 2^22", spmv_ablation(
+        data, modded, x, SPMV_MODES["gather all"], flag),
+        spmv_ell_ref(data, modded, x))
+    del modded
+    for tiles in SPMV_TILES[1:]:
+        out[f"bin slice 2^{tiles}"] = spmv_close(
+            f"spmv bin {tiles}", spmv_by_tiles(data, cols, x, tiles), want)
+    del data, cols, x, want
+    torch.cuda.empty_cache()
+    data, cols, x = spmv_bin_inputs(FULL.spmv_bin_ragged, gen, device,
+                                    nan_under_zeros=True)
+    want = spmv_ell_ref(data, cols, x)
+    require(bool(torch.isnan(want).any()), "no NaN planted")
+    before = spmv_kernel.spmv_ell_cuda.routes["bin"]
+    out["ragged bin, NaN under zeros"] = spmv_close(
+        "spmv ragged bin", spmv_kernel.spmv_ell_cuda(data, cols, x), want)
+    require(spmv_kernel.spmv_ell_cuda.routes["bin"] == before + 1,
+            "the ragged shape did not take route bin")
+    out["ragged fma, NaN under zeros"] = spmv_close(
+        "spmv ragged fma", spmv_kernel.spmv_ell_cuda(data, cols, x,
+                                                      route="fma"), want)
+    return out
+
+
+def time_spmv(reps, gen, device):
+    """The ablations and both routes at the main shape in turns, each
+    route "bin" tile size, route "bin"'s passes by ``torch.profiler``, and
+    both routes over n (rows and max_nnz of the main shape)."""
+    data, cols, x = spmv_inputs(*SPMV_MAIN, gen, device)
+    flag = torch.zeros((1,), dtype=torch.int32, device=device)
+    modded = cols % (1 << 22)
+    runs = {
+        "(a) first kernel, every entry gathered": lambda: spmv_ablation(
+            data, cols, x, SPMV_MODES["gather all"], flag),
+        "(b) columns mod 2^22 (x's reads in 16 MiB of L2)":
+            lambda: spmv_ablation(data, modded, x,
+                                  SPMV_MODES["gather all"], flag),
+        "(c) gather skipped where data == 0": lambda: spmv_ablation(
+            data, cols, x, SPMV_MODES["skip zeros"], flag),
+        "(d) gather replaced by a constant": lambda: spmv_ablation(
+            data, cols, x, SPMV_MODES["constant"], flag),
+        "route fma (finite pass + (c))": lambda: spmv_kernel.spmv_ell_cuda(
+            data, cols, x, route="fma"),
+        "route bin": lambda: spmv_kernel.spmv_ell_cuda(data, cols, x),
+    }
+    rounds = [{k: time_ms(fn, device, reps) for k, fn in runs.items()}
+              for _ in range(2)]
+    tiles = {f"slice 2^{t}": time_ms(
+        lambda t=t: spmv_by_tiles(data, cols, x, t), device, reps)
+        for t in SPMV_TILES}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            spmv_kernel.spmv_ell_cuda(data, cols, x)
+        torch.cuda.synchronize()
+    passes = {k: (kernel_device_ms(prof, k) or 0.0) / reps
+              for k in ("spmv_finite_kernel", "spmv_bin_scatter_kernel",
+                        "spmv_bin_gather_kernel")}
+    del modded
+    by_n, by_rows = {}, {}
+    with patched(spmv_kernel, BIN_MIN_N=1, BIN_MIN_ROWS=1):
+        # route bin at every n and every row count of the sweeps
+        for rows in SPMV_ROWS:
+            by_rows[rows] = {route: time_ms(
+                lambda r=route: spmv_kernel.spmv_ell_cuda(
+                    data[:rows], cols[:rows], x, route=r),
+                device, reps) for route in ("fma", "bin")}
+        del x
+        for n in SPMV_NS:
+            xn = torch.rand((n,), generator=gen, device=device)
+            cn = torch.randint(0, n, cols.shape, generator=gen, device=device,
+                               dtype=torch.int32)
+            by_n[n] = {route: time_ms(
+                lambda r=route: spmv_kernel.spmv_ell_cuda(data, cn, xn,
+                                                          route=r),
+                device, reps) for route in ("fma", "bin")}
+            del xn, cn
+    emit({"step": "time", "kernel": "spmv_ell", "shape": list(SPMV_MAIN),
+          "ms": rounds, "bin_by_tiles": tiles, "bin_pass_device_ms": passes,
+          "by_rows": by_rows, "by_n": by_n,
+          "bin_device_bytes": data.numel() * 8})
+
+
+def md5_probe_search(n, target, form: tuple, device) -> torch.Tensor:
+    """Route "unwind" in one of ``MD5_MODES``' forms (the probe's build of
+    md5.cu)."""
+    state = md5_unwind(target)
+    found = torch.full((1,), n, dtype=torch.int32, device=device)
+    fn = probe_fn(probe_lib("md5.cu", "MD5_PROBE", MD5_PROBE_DIR),
+                  "md5_unwind_probe_u32", [ctypes.c_uint32] * 6 + [
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    err = fn(n, *state, md5_word1_target(state), found.data_ptr(),
+             stride_grid(n, found.device), *form,
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"md5 unwind probe {form}")
+    return found
+
+
+def sass_pipe_mix(lib, names) -> dict:
+    """Each instance of the kernels ``names``: its opcodes with their
+    modifiers (a static count), the ALU pipe's (``ALU_OPS``) and the IMAD
+    forms (the FMA pipe's) summed."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    out, ops = {}, None
+    for ln in text.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            fn = head.group(1)
+            name = next((nm for nm in names if nm in fn), None)
+            ops = None
+            if name:
+                key = f"{name}#{sum(k.startswith(name) for k in out)}"
+                ops = out.setdefault(key, {})
+            continue
+        inst = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)", ln)
+        if inst and ops is not None:
+            ops[inst.group(1)] = ops.get(inst.group(1), 0) + 1
+    return {fn: {"alu": sum(v for o, v in o_.items()
+                            if o.split(".")[0] in ALU_OPS),
+                 "imad": sum(v for o, v in o_.items()
+                             if o.split(".")[0] == "IMAD"),
+                 "total": sum(o_.values()), "opcodes": dict(sorted(
+                     o_.items()))}
+            for fn, o_ in out.items()}
+
+
+def check_md5(device) -> dict:
+    """Route "fma", route "unwind" and each form of its rounds find the
+    planted keys: n = 2^30 with the key 4099 below n, n = 2048 with keys 0
+    and 1500, and no match."""
+    big = 1 << 30
+    cases = [(big, md5_digest(big - 4099), big - 4099),
+             (2048, md5_digest(0), 0), (2048, md5_digest(1500), 1500),
+             (2048, (1, 2, 3, 4), 2048)]
+    out = {}
+    for n, target, expect in cases:
+        got = {"fma": int(md5_search_cuda(n, target, device, route="fma")),
+               "unwind": int(md5_search_cuda(n, target, device))}
+        for label, form in MD5_MODES.items():
+            got[label] = int(md5_probe_search(n, target, form, device))
+        require(set(got.values()) == {expect}, "md5", n, expect, got)
+        out[f"n={n} key={expect}"] = got
+    return out
+
+
+def time_md5(reps, device):
+    """Both routes and every form of route "unwind" at n = 2^30 in turns,
+    beside the time the first kernel's 202 instructions a key take on the
+    ALU pipe alone (64 lanes a clock on each SM)."""
+    n = 1 << 30
+    target = md5_digest(n - 4099)
+    runs = {"fma": lambda: md5_search_cuda(n, target, device, route="fma"),
+            "unwind": lambda: md5_search_cuda(n, target, device)}
+    for label, form in MD5_MODES.items():
+        runs[f"unwind, {label}"] = (
+            lambda f=form: md5_probe_search(n, target, f, device))
+    rounds = [{k: time_ms(fn, device, reps) for k, fn in runs.items()}
+              for _ in range(2)]
+    emit({"step": "time", "kernel": "md5", "n": n, "ms": rounds,
+          "first_kernel_on_alu_pipe_ms": 202 * n / H100_SXM_INT32_ALU_OPS
+          * 1e3,
+          "bound_instructions_a_key": md5_int_ops_per_key(),
+          "bound_ms": md5_work(n)[0]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-time", action="store_true")
@@ -330,7 +651,8 @@ def main(argv=None) -> int:
                     help="RG-LRU chunk lengths to check and time")
     ap.add_argument("--points", default="1,2,4,8,16",
                     help="K-Means points a thread of route private's variants")
-    ap.add_argument("--kernels", default="correlate,wkv6,rg_lru,kmeans",
+    ap.add_argument("--kernels",
+                    default="correlate,wkv6,rg_lru,kmeans,spmv,md5",
                     help="which kernels to check and time")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -366,6 +688,18 @@ def main(argv=None) -> int:
               "ptxas": ptxas_usage(_build.build_log(KM_PROBE_DIR),
                                    KM_KERNELS),
               "kmeans_atomics": atomics_in_sass(km_lib, KM_KERNELS)})
+    if "spmv" in which:
+        spmv_lib = probe_build("spmv_ell.cu", "SPMV_PROBE", SPMV_PROBE_DIR)[0]
+        emit({"step": "build spmv probe", "ptxas": ptxas_usage(
+            _build.build_log(SPMV_PROBE_DIR), SPMV_KERNELS),
+            "sass": sass_pipe_mix(spmv_lib, SPMV_KERNELS),
+            "atomics": atomics_in_sass(spmv_lib, SPMV_KERNELS)})
+    if "md5" in which:
+        md5_lib = probe_build("md5.cu", "MD5_PROBE", MD5_PROBE_DIR)[0]
+        emit({"step": "build md5 probe", "ptxas": ptxas_usage(
+            _build.build_log(MD5_PROBE_DIR), MD5_KERNELS),
+            "package_sass": sass_pipe_mix(lib, MD5_KERNELS),
+            "probe_sass": sass_pipe_mix(md5_lib, MD5_KERNELS)})
 
     failed = []
 
@@ -403,6 +737,10 @@ def main(argv=None) -> int:
     for n, k, f in KM_CASES if "kmeans" in which else []:
         run_check(f"kmeans {[n, f, k]}",
                   lambda: check_kmeans(n, k, f, points_swept, gen, device))
+    if "spmv" in which:
+        run_check("spmv", lambda: check_spmv(gen, device))
+    if "md5" in which:
+        run_check("md5", lambda: check_md5(device))
 
     if failed:
         emit({"step": "verdict", "failed": failed})
@@ -416,6 +754,10 @@ def main(argv=None) -> int:
             time_lru(reps, lru_lengths, gen, device)
         if "kmeans" in which:
             time_kmeans(reps, points_swept, gen, device)
+        if "spmv" in which:
+            time_spmv(reps, gen, device)
+        if "md5" in which:
+            time_md5(reps, device)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
