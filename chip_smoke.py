@@ -9,7 +9,9 @@ annotated-kernel launches through ``Context.launch`` (the 1-D stencil,
 HotSpot, K-Means, co-clustering sums, GEMM, and the paper's section 4.2
 benchmarks Black-Scholes, SpMV, MD5, N-Body and the correlator) and
 host-memory streaming through ``stream_kmeans``, at sizes a user of the
-paper's benchmarks would call real; then LM serving through
+paper's benchmarks would call real (the launch phase's mesh pass runs five
+of those applications again over 4 workers of one ``Context`` on the one
+card, each held against 1 worker); then LM serving through
 ``ServeEngine`` at full width and depth in bf16 (random weights from
 ``--seed``) with one model of each family the port serves: phi3-mini-3.8b
 (the flash- and decode-attention kernels), rwkv6-3b (the WKV6 kernel) and
@@ -17,8 +19,8 @@ recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
 local attention).  Phases (each prints one JSON line with the seconds it
 took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
 ``serve`` once for each model.  GEMM, flash attention, decode attention,
-the correlator, WKV6, RG-LRU, K-Means, SpMV and MD5 have more than one
-route (``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode
+the correlator, WKV6, RG-LRU, K-Means, SpMV, MD5 and N-Body have more
+than one route (``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode
 attention's query heads on the tensor cores by ``mma.sync``, fed by
 ``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA cores with its loads
 one stage ahead; ``"tri"``: the correlator's tiles with i <= j, the rest
@@ -26,8 +28,9 @@ mirrored; ``"chunk"``: WKV6 and RG-LRU as scans over chunks of time;
 ``"private"``: K-Means with several points a thread and accumulators
 private to a thread; ``"bin"``: SpMV's entries binned by column slice so
 that its gathers hit L2; ``"unwind"``: MD5 with the target's last eight
-rounds undone on the host; ``"fma"``: the first kernels, on the CUDA
-cores): the run
+rounds undone on the host; ``"tile"``: N-Body with two targets a thread
+over slices of the sources and an unguarded rsqrt; ``"fma"``: the first
+kernels, on the CUDA cores): the run
 requires the redesigned route for the main-path calls, the tensor cores'
 instructions (``HGMMA``, ``HMMA``) in those routes' kernels only, no
 register spills in them, and times their first version
@@ -145,8 +148,15 @@ from repro_torch.kernels.md5.ref import (  # noqa: E402
     md5_word1_target,
     word_index,
 )
-from repro_torch.kernels.nbody.kernel import nbody_cuda  # noqa: E402
-from repro_torch.kernels.nbody.ref import SOFTENING2  # noqa: E402
+from repro_torch.kernels.nbody.kernel import (  # noqa: E402
+    TILE as NBODY_TILE,
+    TILE_SLICES as NBODY_TILE_SLICES,
+    nbody_cuda,
+)
+from repro_torch.kernels.nbody.ref import (  # noqa: E402
+    SOFTENING2,
+    nbody_slices,
+)
 from repro_torch.kernels.rg_lru.kernel import (  # noqa: E402
     CHUNK_LEN as LRU_CHUNK_LEN,
     rg_lru_cuda,
@@ -687,18 +697,35 @@ def md5_faults(n: int, target, expect: int, device) -> list[dict]:
     return rows
 
 
-def nbody_inputs(n, gen, device):
+def nbody_inputs(n, gen, device, softening2=SOFTENING2, zero_every=0):
     """Positions uniform in the unit cube, masses uniform in [0.5, 1.5)
-    (the reference sweep's bodies)."""
+    (the reference sweep's bodies), every ``zero_every``-th body of zero
+    mass; and eps^2."""
     posm = torch.rand((n, 4), generator=gen, device=device)
     posm[:, 3] += 0.5
-    return (posm,)
+    if zero_every:
+        posm[::zero_every, 3] = 0.0
+    return posm, softening2
 
 
 #: flops one N-Body pair needs: 3 subtractions, |d|^2 + eps^2 (3 multiply-
 #: adds, 6 flops), rsqrt (1), m / dist^3 (3 multiplies), 3 multiply-adds
 #: into the sum (6)
 NBODY_FLOPS_PER_PAIR = 19
+#: issue slots an ordered pair needs at least: 3 FADD, 3 FFMA (|d|^2, eps^2
+#: folded), 3 FMUL (m r^3), 3 FFMA (the sums), 1 MUFU.RSQ; at the issue
+#: ceiling, the least time of any route that evaluates each ordered pair
+NBODY_ORDERED_SLOTS = 13
+#: N-Body's ragged case by route "tile": a last source tile of 37 bodies,
+#: every 7th body of zero mass
+NBODY_RAGGED_TILE = 4133
+
+
+def nbody_ordered_floor_ms(n: int) -> float:
+    """``NBODY_ORDERED_SLOTS`` a pair over n^2 ordered pairs at the issue
+    ceiling (``H100_SXM_INT32_OPS``: one warp instruction a clock on each
+    scheduler, whatever its type)."""
+    return NBODY_ORDERED_SLOTS * float(n) ** 2 / H100_SXM_INT32_OPS * 1e3
 
 
 def bs_check(name, got, want, price, strike, years):
@@ -720,24 +747,24 @@ def bs_check(name, got, want, price, strike, years):
     return max(err_c[0], err_p[0]), max(err_c[1], err_p[1])
 
 
-def nbody_term_scale(posm, lo, hi):
+def nbody_term_scale(posm, lo, hi, softening2=SOFTENING2):
     """``sum_j |term_ij|`` for targets [lo, hi), per axis, in posm's type:
     the size of the sum that an N-Body error is held against."""
     pos, mass = posm[:, :3], posm[:, 3]
     d = pos[None, :, :] - pos[lo:hi, None, :]
-    dist2 = (d * d).sum(dim=-1) + SOFTENING2
+    dist2 = (d * d).sum(dim=-1) + softening2
     return torch.einsum("ij,ijk->ik",
                         mass[None, :] * torch.rsqrt(dist2) / dist2, d.abs())
 
 
-def nbody_slab_check(name, got, plain, posm, lo, hi):
+def nbody_slab_check(name, got, plain, posm, lo, hi, softening2=SOFTENING2):
     """Accelerations of targets [lo, hi) against the plain version in
     float64, per target and axis within ``1e-4 * sum_j |term_ij|``: a sum
     of n f32 terms cannot be held to an absolute 5e-4 at n = 2**17.  The
     kernel's rows (``got``) and the f32 plain version's (``plain``) both."""
     p64 = posm.double()
-    want = nbody_forces_ref(p64, rows=(lo, hi))
-    scale = nbody_term_scale(p64, lo, hi)
+    want = nbody_forces_ref(p64, softening2, rows=(lo, hi))
+    scale = nbody_term_scale(p64, lo, hi, softening2)
     worst = (0.0, 0.0)
     for label, a in (("kernel", got), ("plain f32", plain)):
         err = (a.double() - want).abs()
@@ -749,6 +776,54 @@ def nbody_slab_check(name, got, plain, posm, lo, hi):
             worst = (float(err.max()),
                      float((err / want.abs().clamp_min(1e-300)).max()))
     return worst
+
+
+def nbody_check(name, got, want, posm, softening2, slab=1024):
+    """Every target against float64 within ``1e-4 * sum_j |term_ij|``
+    (``nbody_slab_check``, kernel and f32 plain version, ``slab`` targets
+    at a time), except for eps^2 = 0: there every self term is 0 * inf, so
+    the kernel must give NaN exactly where the plain version does
+    (everywhere)."""
+    if softening2 == 0:
+        same = torch.equal(torch.isnan(got), torch.isnan(want))
+        require(same, name, "NaN pattern differs from the plain version's")
+        return 0.0, 0.0
+    worst = (0.0, 0.0)
+    for lo in range(0, posm.shape[0], slab):
+        hi = min(posm.shape[0], lo + slab)
+        err = nbody_slab_check(name, got[lo:hi], want[lo:hi], posm, lo, hi,
+                               softening2)
+        worst = tuple(map(max, worst, err))
+    return worst
+
+
+def nbody_faults(posm, softening2=SOFTENING2) -> dict:
+    """Route "tile"'s sums with a planted fault, from the plain version's
+    pieces: one slice's partial dropped, and the last ragged source tile
+    skipped (the sources past the last whole tile)."""
+    n = posm.shape[0]
+    slices = nbody_slices(n, NBODY_TILE_SLICES, NBODY_TILE)
+    parts = [nbody_forces_ref(posm, softening2, cols=c) for c in slices]
+    whole = n - n % NBODY_TILE
+    require(whole < n and len(slices) > 1, "no ragged tile or one slice")
+    cut = [nbody_forces_ref(posm, softening2, cols=(lo, min(hi, whole)))
+           for lo, hi in slices]
+    return {"slice_partial_dropped": sum(parts[:1] + parts[2:]),
+            "ragged_tile_skipped": sum(cut)}
+
+
+def nbody_fault_rows(posm, softening2=SOFTENING2) -> list[dict]:
+    """Each of ``nbody_faults`` must fail ``nbody_check``'s limit."""
+    rows = []
+    for label, bad in nbody_faults(posm, softening2).items():
+        try:
+            nbody_check(f"planted fault nbody/{label}", bad, bad, posm,
+                        softening2)
+        except AssertionError as e:
+            rows.append({"fault": label, "caught": str(e)[:200]})
+            continue
+        raise AssertionError(f"planted fault nbody/{label} passed the check")
+    return rows
 
 
 def attn_tensors(b, hq, hkv, s, t, d, dtype, gen, device):
@@ -1441,13 +1516,61 @@ def sass_opcode_counts(text: str) -> dict:
             for fn, o in counts.items()}
 
 
-def sass_instructions(lib) -> dict:
-    """Opcode counts of each kernel in the built library, by the
-    ``cuobjdump`` beside ``nvcc``."""
+def sass_text(lib) -> str:
+    """``cuobjdump -sass`` of the built library, by the ``cuobjdump`` beside
+    ``nvcc``."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    return sass_opcode_counts(subprocess.run(
-        [cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
-        text=True).stdout)
+    return subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def sass_instructions(lib) -> dict:
+    """Opcode counts of each kernel in the built library."""
+    return sass_opcode_counts(sass_text(lib))
+
+
+#: opcodes that issue on the FP32 pipe
+FP32_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK")
+
+
+def loop_slots(text: str, name: str) -> dict:
+    """``{mangled name: counts}`` for each instance of kernel ``name`` in
+    ``cuobjdump -sass`` output: the instructions of its innermost loop that
+    holds a ``MUFU`` (the smallest range from a backward branch's target to
+    the branch), by kind, and issue slots a pair, taking one ``MUFU`` (the
+    rsqrt) to a pair."""
+    bodies, lines = {}, None
+    for ln in text.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            lines = (bodies.setdefault(head.group(1), [])
+                     if demangled_name(head.group(1)) == name else None)
+            continue
+        inst = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z]\w*)(.*)", ln)
+        if inst and lines is not None:
+            target = re.search(r"0x([0-9a-f]+)", inst.group(3)) \
+                if inst.group(2) == "BRA" else None
+            lines.append((int(inst.group(1), 16), inst.group(2),
+                          int(target.group(1), 16) if target else None))
+    out = {}
+    for fn, insts in bodies.items():
+        loops = [[op for a, op, _ in insts if tgt <= a <= addr]
+                 for addr, op, tgt in insts
+                 if tgt is not None and tgt <= addr]
+        loops = [ops for ops in loops if "MUFU" in ops]
+        require(loops, name, "has no loop with a MUFU in its SASS")
+        ops = min(loops, key=len)
+        pairs = ops.count("MUFU")
+        fp32 = sum(op in FP32_OPS for op in ops)
+        lds = ops.count("LDS")
+        out[fn] = {"pairs": pairs, "slots": len(ops), "fp32": fp32,
+                   "mufu": pairs, "lds": lds,
+                   "other": len(ops) - fp32 - pairs - lds,
+                   "fsetp": ops.count("FSETP"),
+                   "slots_per_pair": len(ops) / pairs,
+                   "fp32_per_pair": fp32 / pairs, "lds_per_pair": lds / pairs}
+    return out
 
 
 #: the kernels of each route of the multi-route wrappers, by their names in
@@ -1479,6 +1602,8 @@ ROUTE_KERNELS = {
                  "fma": (("spmv_ell_kernel",), None)},
     "md5": {"unwind": (("md5_unwind_kernel",), None),
             "fma": (("md5_search_kernel",), None)},
+    "nbody": {"tile": (("nbody_tile_kernel", "nbody_combine_kernel"), None),
+              "fma": (("nbody_kernel",), None)},
 }
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: instances of the redesigned routes' kernels, whose spills ptxas reports:
@@ -1488,8 +1613,8 @@ TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: and bf16, the carry once), rg_lru chunk 4 (both passes for f32 and
 #: bf16), kmeans private 4 (one for each f of 2, 4, 8, 16), spmv_ell bin 3
 #: (the finite pass, which route "fma" runs too, scatter, gather), md5
-#: unwind 1
-REDESIGNED_INSTANCES = 31
+#: unwind 1, nbody tile 2 (the sums and the slices' combine)
+REDESIGNED_INSTANCES = 33
 
 
 def tensor_core_counts(sass: dict) -> dict:
@@ -1553,8 +1678,18 @@ def phase_build(device: torch.device) -> dict:
         _build.load()
         info["nvcc_seconds"] = _build.build_seconds
         info["sources"] = [p.name for p in _build.sources()]
-        info["sass"] = sass_instructions(_build.build())
+        text = sass_text(_build.build())
+        info["sass"] = sass_opcode_counts(text)
         info["tensor_cores"] = tensor_core_counts(info["sass"])
+        # N-Body's issue slots a pair in each route's inner loop; route
+        # "tile"'s rsqrt must be MUFU.RSQ with no test around it.
+        slots = {route: loop_slots(text, kernels[0])
+                 for route, (kernels, _) in ROUTE_KERNELS["nbody"].items()}
+        require(all(len(v) == 1 for v in slots.values()), slots)
+        info["nbody_slots_per_pair"] = {r: next(iter(v.values()))
+                                        for r, v in slots.items()}
+        require(info["nbody_slots_per_pair"]["tile"]["fsetp"] == 0,
+                "route tile's rsqrt is guarded:", slots)
         # Registers, shared memory and spills of each kernel, from ptxas.
         log = _build.build_log()
         lines = [ln.strip() for ln in log.splitlines()
@@ -1610,11 +1745,13 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             if device.type == "cuda" else []
         return 0.0, 0.0, {"planted_faults": faults}
 
-    def nbody_main_check(name, got, want, posm):
+    def nbody_main_check(name, got, want, posm, softening2):
         """Every target against the f32 plain version within
         ``2e-4 * sum_j |term_ij|`` (two f32 sums of n terms, each held to
         1e-4 of it below), then a slab of targets, kernel and plain
-        version both, against float64."""
+        version both, against float64; then route "tile"'s planted faults
+        (``nbody_fault_rows``) at its ragged shape, each of which must fail
+        that limit."""
         n, s = posm.shape[0], sizes.nbody_slab
         for lo in range(0, n, s):
             hi = min(n, lo + s)
@@ -1625,8 +1762,12 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                     f"{name}: targets {lo}:{hi} off the f32 plain version "
                     f"by {float((err / limit).max()):.3e} of the limit")
         lo = (n - s) // 2
-        return nbody_slab_check(name, got[lo:lo + s], want[lo:lo + s], posm,
-                                lo, lo + s)
+        err = nbody_slab_check(name, got[lo:lo + s], want[lo:lo + s], posm,
+                               lo, lo + s)
+        faults = nbody_fault_rows(nbody_inputs(
+            NBODY_RAGGED_TILE, gen, device, zero_every=7)[0])
+        return (*err, {"planted_faults": faults,
+                       "ordered_floor_ms": nbody_ordered_floor_ms(n)})
 
     f32, bf16 = torch.float32, torch.bfloat16
 
@@ -1823,25 +1964,35 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             work=lambda n, t, e, r: md5_work(n),
             shape=lambda n, t, e, r: [n],
         ),
+        # The launch phase's 2^17 bodies by route "tile" (its first
+        # version, route "fma", timed beside it); ragged: n = 300 by "fma",
+        # a last source tile of 37 bodies with every 7th mass zero by
+        # "tile", and eps^2 = 0 by "fma" (NaN wherever the plain version
+        # has it).  An input is (posm, eps^2).
         dict(
             name="nbody", wrapper="nbody",
             source="src/repro_torch/csrc/nbody.cu",
             replaces="src/repro/kernels/nbody/kernel.py:64",
             main=lambda: nbody_inputs(sizes.nbody_n, gen, device),
-            ragged=lambda: nbody_inputs(300, gen, device),
-            fn=lambda p: nbody_forces(p),
-            plain=lambda p: nbody_forces_ref(p),
+            main_route="tile",
+            ragged=lambda: [nbody_inputs(300, gen, device),
+                            nbody_inputs(NBODY_RAGGED_TILE, gen, device,
+                                         zero_every=7),
+                            nbody_inputs(300, gen, device, softening2=0.0)],
+            first=lambda p, e: nbody_cuda(p, softening2=e, route="fma"),
+            fn=lambda p, e: nbody_forces(p, softening2=e),
+            plain=lambda p, e: nbody_forces_ref(p, e),
             plain_reps=1,
             library=None,
-            # rtol 5e-4 atol 5e-4: the reference sweep's, at n = 300; the
-            # main shape is held to float64 (nbody_slab_check).
-            check=lambda nm, got, want, *inp: check_close(
-                nm, got, want, rtol=5e-4, atol=5e-4),
+            # 1e-4 of sum |term| against float64 (nbody_check; the main
+            # shape by nbody_main_check).
+            check=nbody_check,
             main_check=nbody_main_check,
-            work=lambda p: bound(p.shape[0] * 28.0,
-                                 float(p.shape[0]) ** 2 * NBODY_FLOPS_PER_PAIR,
-                                 H100_SXM_FP32_FLOPS),
-            shape=lambda p: [p.shape[0]],
+            work=lambda p, e: bound(
+                p.shape[0] * 28.0,
+                float(p.shape[0]) ** 2 * NBODY_FLOPS_PER_PAIR,
+                H100_SXM_FP32_FLOPS),
+            shape=lambda p, e: [p.shape[0]],
         ),
         # The serving path's prefill at phi3-mini's width, causal, bf16;
         # gemma-2b's MQA (8 query heads on one kv head of 256 dims) held
@@ -2171,6 +2322,56 @@ def phase_kernels(sizes: Sizes, device: torch.device,
     return rows
 
 
+#: workers of the launch phase's mesh pass, all on the one GPU
+MESH_WORKERS = 4
+
+
+def halo_stencil_body(views, info):
+    """The 1-D stencil on a view with a cell of each neighbour on either
+    side (zeros at the two end shards); the whole array (one worker) gets
+    the same zeros.  Sums in the launch phase's order: (left + x) + right."""
+    x = views["input"]
+    if x.shape[0] == info.grid[0]:
+        zero = torch.zeros((1,), dtype=x.dtype, device=x.device)
+        x = torch.cat([zero, x, zero])
+    return {"output": (x[:-2] + x[1:-1] + x[2:]) / 3.0}
+
+
+def halo_hotspot_body(views, info):
+    """One HotSpot step on a worker's slab: the halo row at either end of
+    the grid (zeros) is dropped so that the kernel's own clamp applies
+    there, the neighbours' rows are kept for the stencil and their outputs
+    dropped; power (LOCAL) is padded to the slab.  On one worker the slab
+    is the whole grid."""
+    slab, power = views["temp"], views["power"]
+    if slab.shape[0] == info.grid[0]:
+        return {"out": hotspot_step(slab, power)}
+    top = info.thread_offset[0] == 0
+    bottom = info.thread_offset[0] + info.local_shape[0] == info.grid[0]
+    slab = slab[int(top): slab.shape[0] - int(bottom)]
+    pad = power.new_zeros((1, power.shape[1]))
+    power = torch.cat([pad] * (not top) + [power] + [pad] * (not bottom))
+    out = hotspot_step(slab.contiguous(), power)
+    return {"out": out[int(not top): out.shape[0] - int(not bottom)]}
+
+
+def kmeans_body(views, info):
+    sums, counts = kmeans_assign_reduce(views["points"], views["centroids"])
+    return {"sums": sums, "counts": counts}
+
+
+def md5_prefix_body(views, info):
+    """MD5 on a worker: the kernel searches from key 0, so the worker
+    searches up to the end of its range, and its own no-match (the end)
+    becomes the grid's n; the smallest over the workers is the smallest
+    overall.  On one worker, the whole grid."""
+    n = info.grid[0]
+    end = info.thread_offset[0] + info.local_shape[0]
+    found = md5_search(end, info.scalars["target"],
+                       device=views["found"].device).reshape(1)
+    return {"found": torch.where(found == end, n, found)}
+
+
 def phase_launch(sizes: Sizes, device: torch.device,
                  gen: torch.Generator) -> dict:
     """The annotated-kernel launch path: every body calls the port's public
@@ -2188,14 +2389,8 @@ def phase_launch(sizes: Sizes, device: torch.device,
         return n
 
     # (a) the quickstart 1-D stencil, ten launches with buffer swap.
-    def stencil_body(views, info):
-        x = views["input"]
-        zero = torch.zeros((1,), dtype=x.dtype, device=x.device)
-        return {"output": (torch.cat([zero, x[:-1]]) + x
-                           + torch.cat([x[1:], zero])) / 3.0}
-
     stencil = KernelDef.define(
-        "stencil", stencil_body,
+        "stencil", halo_stencil_body,
         "global i => read input[i-1:i+1], write output[i]")
     n = sizes.stencil_n
     t1 = time.perf_counter()
@@ -2225,8 +2420,7 @@ def phase_launch(sizes: Sizes, device: torch.device,
 
     # (b) HotSpot with a one-cell halo in both axes.
     hotspot = KernelDef.define(
-        "hotspot",
-        lambda v, info: {"out": hotspot_step(v["temp"], v["power"])},
+        "hotspot", halo_hotspot_body,
         "global [i, j] => read temp[i-1:i+1, j-1:j+1], read power[i,j], "
         "write out[i,j]")
     rows, cols = sizes.hotspot
@@ -2256,10 +2450,6 @@ def phase_launch(sizes: Sizes, device: torch.device,
     del temp0, power0, temp, power, nxt, want, res
 
     # (c) K-Means with reduce(+) on sums and counts.
-    def kmeans_body(v, info):
-        sums, counts = kmeans_assign_reduce(v["points"], v["centroids"])
-        return {"sums": sums, "counts": counts}
-
     kmeans = KernelDef.define(
         "kmeans", kmeans_body,
         "global i => read points[i,:], read centroids[:,:], "
@@ -2453,12 +2643,9 @@ def phase_launch(sizes: Sizes, device: torch.device,
     # (h) MD5: reduce(min) over the matching keys, once with the target
     # planted near the end and once with no key matching.  On one device
     # the body searches the whole grid.
-    md5_def = KernelDef.define(
-        "md5",
-        lambda v, info: {"found": md5_search(
-            info.grid[0], info.scalars["target"],
-            device=v["found"].device).reshape(1)},
-        "global i => reduce(min) found[:]", scalars=("target",))
+    md5_def = KernelDef.define("md5", md5_prefix_body,
+                               "global i => reduce(min) found[:]",
+                               scalars=("target",))
     n = sizes.md5_n
     t1 = time.perf_counter()
     since = md5_search_cuda.launches
@@ -2490,8 +2677,9 @@ def phase_launch(sizes: Sizes, device: torch.device,
         "global i => read posm[:,:], write acc[i,:]")
     n, s = sizes.nbody_n, sizes.nbody_slab
     t1 = time.perf_counter()
-    (posm,) = nbody_inputs(n, gen, device)
+    posm, _ = nbody_inputs(n, gen, device)
     since = nbody_cuda.launches
+    tile_since = nbody_cuda.routes["tile"]
     res = ctx.launch(
         nbody_def, grid=(n,), work_dist=BlockWork(n // 8),
         args={"posm": ctx.array(posm, name="posm"),
@@ -2501,9 +2689,13 @@ def phase_launch(sizes: Sizes, device: torch.device,
     require(comm == {"posm": "replicated", "acc": "local"}, comm)
     err = nbody_slab_check("launch/nbody", res["acc"].value[:s],
                            nbody_forces_ref(posm, rows=(0, s)), posm, 0, s)
+    by_tile = nbody_cuda.routes["tile"] - tile_since
+    if on_card:
+        require(by_tile == 1, "nbody took route tile", by_tile, "times")
     out["nbody"] = {
         "n": n, "checked_targets": s, "comm": comm,
         "kernel_launches": launched("nbody", since, 1),
+        "by_route_tile": by_tile,
         "max_abs_err": err[0], "seconds": time.perf_counter() - t1}
     del posm, res
 
@@ -2539,8 +2731,186 @@ def phase_launch(sizes: Sizes, device: torch.device,
 
     out["launch_records"] = len(ctx.records)
     out["launch_count_metric"] = ctx.registry.snapshot()
+    # The mesh pass: five of the applications over MESH_WORKERS workers.
+    out["mesh"] = mesh_pass(sizes, device, gen)
     out["seconds"] = time.perf_counter() - t0
     emit(out)
+    return out
+
+
+def mesh_pass(sizes: Sizes, device: torch.device,
+              gen: torch.Generator) -> dict:
+    """The launch phase's applications over ``MESH_WORKERS`` workers on the
+    one device (``Context(num_workers=...)``), each held against the same
+    application over one worker on the same inputs in this run: the
+    stencil and HotSpot (HALO) bit-equal, K-Means (REDUCE +) with equal
+    counts and sums within rtol 1e-4 atol 1e-3, the f32 GEMM (B by GATHER)
+    bit-equal, MD5 (REDUCE min) the same index and n with no match.  Each
+    wrapper's counter must rise ``MESH_WORKERS`` times per launch (each
+    worker's body calls it), by the route the one-worker run takes; the
+    seconds of both runs (synchronized) are what the split costs on one
+    card in halo copies, gathers and launches."""
+    on_card = device.type == "cuda"
+    w = MESH_WORKERS
+    ctxs = {1: Context(device=device),
+            w: Context(device=device, num_workers=w)}
+    out = {"workers": w}
+
+    def both(tag, inputs, run, compare, wrapper=None, route=None,
+             launches=0):
+        results, seconds, counts = {}, {}, {}
+        for k, ctx in ctxs.items():
+            wr = WRAPPERS.get(wrapper)
+            before = (wr.launches, dict(getattr(wr, "routes", {}))) \
+                if wr else (0, {})
+            sync(device)
+            t1 = time.perf_counter()
+            results[k] = run(ctx, *inputs)
+            ctx.synchronize()
+            seconds[k] = time.perf_counter() - t1
+            if wr and on_card:
+                n = wr.launches - before[0]
+                require(n == k * launches, f"mesh/{tag}:", n, "launches of",
+                        wrapper, "over", k, "workers, not", k * launches)
+                if route:
+                    by = wr.routes[route] - before[1][route]
+                    require(by == n, f"mesh/{tag}:", by, "of", n,
+                            "launches by route", route)
+                counts[k] = n
+        detail = compare(f"mesh/{tag}", results[1], results[w])
+        rec = ctxs[w].records[-1]
+        out[tag] = {"comm": {a: p.value for a, p in rec.comm.items()},
+                    "in_specs": rec.in_specs, "out_specs": rec.out_specs,
+                    "seconds_1_worker": seconds[1],
+                    f"seconds_{w}_workers": seconds[w],
+                    **({"kernel_launches": counts} if counts else {}),
+                    **detail}
+
+    def equal(name, one, many):
+        require(torch.equal(one, many), name, "differs from one worker by",
+                float((one.double() - many.double()).abs().max()))
+        return {"bit_equal": True}
+
+    # the stencil, ten launches with buffer swap
+    stencil = KernelDef.define(
+        "stencil", halo_stencil_body,
+        "global i => read input[i-1:i+1], write output[i]")
+    n = sizes.stencil_n
+
+    def run_stencil(ctx, x0):
+        dist = StencilDist(n // w, 1)
+        a = ctx.array(x0, dist=dist, name="input")
+        b = ctx.zeros((n,), dist=dist, name="output")
+        for _ in range(10):
+            res = ctx.launch(stencil, grid=(n,), work_dist=BlockWork(n // w),
+                             args={"input": a, "output": b})
+            a, b = res["output"], a
+        return a.value
+
+    both("stencil", (torch.rand((n,), generator=gen, device=device),),
+         run_stencil, equal)
+
+    # HotSpot, the launch phase's steps
+    hotspot = KernelDef.define(
+        "hotspot", halo_hotspot_body,
+        "global [i, j] => read temp[i-1:i+1, j-1:j+1], read power[i,j], "
+        "write out[i,j]")
+    rows, cols = sizes.hotspot
+    steps = sizes.hotspot_steps
+
+    def run_hotspot(ctx, temp0, power0):
+        slab = rows // w
+        temp = ctx.array(temp0, dist=StencilDist(slab, 1), name="temp")
+        power = ctx.array(power0, dist=BlockDist(slab), name="power")
+        nxt = ctx.zeros((rows, cols), dist=StencilDist(slab, 1), name="out")
+        for _ in range(steps):
+            res = ctx.launch(hotspot, grid=(rows, cols),
+                             work_dist=BlockWork(slab),
+                             args={"temp": temp, "power": power, "out": nxt})
+            temp, nxt = res["out"], temp
+        return temp.value
+
+    both("hotspot", hotspot_inputs((rows, cols), gen, device), run_hotspot,
+         equal, "hotspot", None, steps)
+
+    # K-Means, the launch phase's iterations, reduce(+)
+    kmeans = KernelDef.define(
+        "kmeans", kmeans_body,
+        "global i => read points[i,:], read centroids[:,:], "
+        "reduce(+) sums[:,:], reduce(+) counts[:]")
+    n = sizes.kmeans_n
+
+    def run_kmeans(ctx, pts, cen):
+        points = ctx.array(pts, dist=RowDist(w), name="points")
+        sums = ctx.zeros((KM_K, KM_F), dist=ReplicatedDist(), name="sums")
+        counts = ctx.zeros((KM_K,), dist=ReplicatedDist(), name="counts")
+        trace = []
+        for _ in range(sizes.kmeans_iters):
+            res = ctx.launch(
+                kmeans, grid=(n,), work_dist=BlockWork(n // w),
+                args={"points": points,
+                      "centroids": ctx.array(cen, name="centroids"),
+                      "sums": sums, "counts": counts})
+            cnt, tot = res["counts"].value, res["sums"].value
+            trace.append((cnt, tot))
+            cen = tot / cnt.clamp(min=1.0)[:, None]
+        return trace
+
+    def kmeans_close(name, one, many):
+        err = 0.0
+        for it, ((c1, s1), (cw, sw)) in enumerate(zip(one, many)):
+            require(torch.equal(c1, cw), name, "counts differ at iteration",
+                    it)
+            err = max(err, check_close(f"{name}/sums/{it}", sw, s1,
+                                       rtol=1e-4, atol=1e-3)[0])
+        return {"counts_equal": True, "sums_max_abs_err": err}
+
+    centers = lattice_centers(gen, device)
+    both("kmeans", (clustered_points(n, centers, gen),
+                    start_centroids(centers, gen)), run_kmeans, kmeans_close,
+         "kmeans", "private", sizes.kmeans_iters)
+
+    # the f32 GEMM, B gathered
+    gemm_def = KernelDef.define(
+        "gemm", lambda v, info: {"C": gemm(v["A"], v["B"])},
+        "global [i, j] => read A[i,:], read B[:,j], write C[i,j]")
+    g = sizes.gemm
+
+    def run_gemm(ctx, a, b):
+        return ctx.launch(
+            gemm_def, grid=(g, g),
+            args={"A": ctx.array(a, dist=RowDist(), name="A"),
+                  "B": ctx.array(b, dist=RowDist(), name="B"),
+                  "C": ctx.zeros((g, g), dist=RowDist(), name="C")}
+        )["C"].value
+
+    both("gemm", gemm_inputs(g, g, g, torch.float32, gen, device), run_gemm,
+         equal, "gemm", "pipe" if on_card else None, 1)
+
+    # MD5, reduce(min): the planted key, then no match
+    md5_def = KernelDef.define("md5", md5_prefix_body,
+                               "global i => reduce(min) found[:]",
+                               scalars=("target",))
+    n = sizes.md5_n
+    targets = ((md5_digest(n - MD5_PLANT_BELOW_N), n - MD5_PLANT_BELOW_N),
+               (MD5_NO_MATCH, n))
+
+    def run_md5(ctx):
+        return [int(ctx.launch(
+            md5_def, grid=(n,), work_dist=BlockWork(n // w),
+            scalars={"target": t},
+            args={"found": ctx.full((1,), n, dtype=torch.int32,
+                                    name="found")})["found"].value[0])
+            for t, _ in targets]
+
+    def md5_same(name, one, many):
+        want = [e for _, e in targets]
+        require(one == many == want, name, "found", many, "one worker",
+                one, "expected", want)
+        return {"answers": many}
+
+    both("md5", (), run_md5, md5_same, "md5", "unwind" if on_card else None,
+         len(targets))
     return out
 
 
@@ -3239,10 +3609,12 @@ def main(argv=None) -> int:
     dense, rwkv, hybrid = (served[arch] for arch in SERVE_ARCHS)
     hybrid_routes = serves[SERVE_ARCHS[2]]["kernel_routes"]["rg_lru"]
 
+    mesh = launch["mesh"]
+    mesh_gemm = sum(mesh["gemm"].get("kernel_launches", {}).values())
     per_row = {
         "kmeans": counts["kmeans"], "hotspot": counts["hotspot"],
         "cluster_sums": counts["cluster_sums"],
-        "gemm": launch["gemm"]["kernel_launches"],
+        "gemm": launch["gemm"]["kernel_launches"] + mesh_gemm,
         "gemm_bf16": launch["gemm_bf16"]["kernel_launches"],
         "black_scholes": counts["black_scholes"],
         "spmv_ell": counts["spmv_ell"], "md5": counts["md5"],
@@ -3257,6 +3629,8 @@ def main(argv=None) -> int:
     # The two kernels launched at more than one shape, split by shape.
     by_shape = {
         "kmeans": {"launch phase": launch["kmeans"]["kernel_launches"],
+                   "mesh pass":
+                   mesh["kmeans"].get("kernel_launches"),
                    "stream phase": stream.get("kernel_launches")},
         "rg_lru": {"prefills (route chunk)": hybrid_routes["chunk"],
                    "prefills and decode steps (route fma)":

@@ -10,6 +10,8 @@ Public API (mirrors the paper's host-code surface, Fig. 9):
 * work distributions — :class:`BlockWork`, :class:`EvenWork`,
   :class:`TileWork`, :class:`MeshWork`
 * :func:`~repro_torch.core.annotations.parse` — the data-annotation DSL
+* :class:`~repro_torch.core.mesh.Mesh`, :func:`make_mesh` — workers with
+  named axes, and :func:`collective_reduce`, the combine across them
 """
 
 from .annotations import Annotation, AnnotationError, parse
@@ -42,9 +44,11 @@ from .distributions import (
     TileDist,
 )
 from .launch import Context, KernelDef, SuperblockInfo
+from .mesh import Mesh, make_mesh
 from .ndrange import Affine, Region
 from .plan_ir import ArgPlan, CommPattern, ExecutionPlan, LaunchPlan, TaskKind
 from .planner import ArrayMeta, Planner, Topology
+from .reductions import collective_reduce
 from .superblock import BlockWork, EvenWork, MeshWork, Superblock, TileWork
 
 __all__ = [
@@ -53,10 +57,12 @@ __all__ = [
     "CustomDist", "DistributedArray", "Distribution", "EvenWork",
     "ExecutionPlan", "FaultInjector", "FaultSpec", "InjectedError",
     "InjectedFault",
-    "KernelDef", "LaunchPlan", "make_array", "MeshWork", "parse", "Planner",
+    "KernelDef", "LaunchPlan", "make_array", "make_mesh", "Mesh", "MeshWork",
+    "parse", "Planner",
     "RecoveryPolicy", "Region", "ReplicatedDist", "RowDist", "StencilDist",
     "Superblock", "SuperblockInfo", "TaskKind", "TileDist", "TileWork",
-    "Topology", "corrupt_transfer", "decorrelated_jitter", "fail_launch",
+    "Topology", "collective_reduce", "corrupt_transfer",
+    "decorrelated_jitter", "fail_launch",
     "fail_request", "fail_step", "fail_task", "kill_worker", "spurious_oom",
     "timeout_transfer",
 ]

@@ -2,9 +2,8 @@
 
 Lightning allocates temporary memory for block-level partials and then
 performs a multi-level reduction: superblock → device → node → global.
-This module holds the per-op combining functions used by the single-device
-launch path; the cross-worker collective arrives with multi-worker
-execution.
+This module holds the per-op combining functions (single-device path) and
+the combine across a mesh's workers (``collective_reduce``).
 """
 
 from __future__ import annotations
@@ -46,3 +45,25 @@ def reduce_stack(op: str, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     for p in parts[1:]:
         out = fn(out, p)
     return out
+
+
+def collective_reduce(op: str, partials: Sequence[torch.Tensor],
+                      axis_names=()) -> torch.Tensor:
+    """Combine the workers' partials (by flat worker index) over the mesh
+    axes ``axis_names``, on the first partial's device.  ``+``, ``min`` and
+    ``max`` fold them in worker order; ``*`` is the product of the gathered
+    partials, as the reference takes it (``all_gather`` then ``prod``: the
+    TPU has no product collective); any other op raises.  With no axes,
+    nothing is combined: the first worker's partial, as the reference's
+    replicated output takes worker 0's."""
+    if isinstance(axis_names, str):
+        axis_names = (axis_names,)
+    if op not in REDUCE_FNS:
+        raise ValueError(f"unsupported reduce op {op!r}")
+    first = partials[0]
+    if not tuple(axis_names):
+        return first
+    parts = [p.to(first.device) for p in partials]
+    if op == "*":
+        return torch.prod(torch.stack(parts), dim=0, dtype=first.dtype)
+    return reduce_stack(op, parts)

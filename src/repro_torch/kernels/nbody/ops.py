@@ -17,10 +17,13 @@ def nbody_forces(
     use_ref: bool = False,
 ) -> torch.Tensor:
     """Accelerations (n, 3).  On a CUDA tensor this launches the
-    hand-written kernel, which fills its last source tile with zero-mass
-    bodies in shared memory, so nothing is padded; a CPU tensor (or
+    hand-written kernels, which fill their last source tile with zero-mass
+    bodies in shared memory, so nothing is padded: route ``"tile"`` (two
+    targets a thread over eight slices of the sources, an unguarded rsqrt)
+    where eps^2 is a normal float and n is 512 or more, route ``"fma"``
+    (one target a thread) for the rest (``nbody_route``).  A CPU tensor (or
     ``use_ref=True``) takes the plain version.  ``block_i`` and ``block_j``
-    are accepted for the reference's signature; the kernel has its own
+    are accepted for the reference's signature; the kernels have their own
     tile."""
     del block_i, block_j
     if use_ref or posm.device.type == "cpu":

@@ -23,25 +23,54 @@ def nbody_forces_ref(
     softening2: float = SOFTENING2,
     *,
     rows: tuple[int, int] | None = None,
+    cols: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Accelerations (n, 3), or those of the targets ``rows = (lo, hi)``
-    only.  Targets are taken in slabs so that the (targets, n, 3)
+    only, from every source or from the sources ``cols = (lo, hi)`` only.
+    Targets are taken in slabs so that the (targets, sources, 3)
     intermediate stays at ``SLAB_ELEMENTS``."""
-    pos = posm[:, :3]
-    mass = posm[:, 3]
     n = posm.shape[0]
     lo, hi = rows if rows is not None else (0, n)
-    slab = max(1, SLAB_ELEMENTS // max(1, 3 * n))
+    src = posm[slice(*cols)] if cols is not None else posm
+    pos, mass = src[:, :3], src[:, 3]
+    slab = max(1, SLAB_ELEMENTS // max(1, 3 * src.shape[0]))
     out = []
     for a in range(lo, hi, slab):
         b = min(hi, a + slab)
-        d = pos[None, :, :] - pos[a:b, None, :]  # (i, j, 3): p_j - p_i
+        d = pos[None, :, :] - posm[a:b, None, :3]  # (i, j, 3): p_j - p_i
         dist2 = torch.sum(d * d, dim=-1) + softening2
         inv_d3 = torch.rsqrt(dist2) / dist2  # 1 / dist^3
         out.append(torch.einsum("ij,ijk->ik", mass[None, :] * inv_d3, d))
     if not out:
         return posm.new_zeros((0, 3))
     return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def nbody_slices(n: int, slices: int, tile: int) -> list[tuple[int, int]]:
+    """The source ranges of route "tile": at most ``slices`` of them, each
+    a whole number of ``tile`` sources but the last, in order."""
+    length = -(-max(1, -(-n // slices)) // tile) * tile
+    return [(lo, min(n, lo + length)) for lo in range(0, n, length)]
+
+
+def nbody_sliced_ref(
+    posm: torch.Tensor,
+    softening2: float = SOFTENING2,
+    *,
+    slices: int,
+    tile: int,
+) -> torch.Tensor:
+    """Accelerations (n, 3) summed as route "tile" sums them: each slice of
+    sources (``nbody_slices``) on its own, then the slices' partials added
+    in slice order."""
+    parts = [nbody_forces_ref(posm, softening2, cols=c)
+             for c in nbody_slices(posm.shape[0], slices, tile)]
+    if not parts:
+        return posm.new_zeros((0, 3))
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
 
 
 def nbody_step_ref(

@@ -37,7 +37,8 @@ PORT = ROOT / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.kernels", "repro_torch.kernels.md5", "repro_torch.obs",
            "repro_torch.convert",
-           "repro_torch.core.streaming", "repro_torch.examples.quickstart",
+           "repro_torch.core.streaming", "repro_torch.core.mesh",
+           "repro_torch.examples.quickstart",
            "repro_torch.examples.streaming_kmeans", "repro_torch.models",
            "repro_torch.serve.engine", "repro_torch.launch.serve",
            "repro_torch.configs", "repro_torch.examples.serve_lm",
@@ -386,3 +387,42 @@ def test_chip_smoke_counts_sass_opcodes_per_kernel(monkeypatch):
     }
     assert smoke.demangled_name("_Z11gemm_kernelPKfS0_Pfiii") == "gemm_kernel"
     assert smoke.demangled_name("main") == "main"
+
+
+def test_chip_smoke_counts_slots_a_pair_in_the_innermost_rsqrt_loop(
+        monkeypatch):
+    """``loop_slots`` finds the smallest loop (a backward branch's target
+    to the branch) that holds a MUFU and counts its issue slots a pair;
+    the outer loop, with the tile load and the barrier, is not it."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    smoke = importlib.import_module("chip_smoke")
+    name = "_ZN12_GLOBAL__N_117nbody_tile_kernelILi2ELb0EEEvPK6float4Pfifi"
+    text = "\n".join([
+        f"\t\tFunction : {name}",
+        "        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;",
+        "        /*0010*/                   STS.128 [R0], R4 ;",
+        "        /*0020*/                   LDS.128 R8, [R1] ;",
+        "        /*0030*/                   FADD R12, R8, -R20 ;",
+        "        /*0040*/                   FADD R13, R8, -R21 ;",
+        "        /*0050*/                   FFMA R14, R12, R12, R22 ;",
+        "        /*0060*/                   MUFU.RSQ R15, R14 ;",
+        "        /*0070*/                   MUFU.RSQ R16, R14 ;",
+        "        /*0080*/                   FMUL R17, R15, R15 ;",
+        "        /*0090*/                   IADD3 R1, R1, 0x10, RZ ;",
+        "        /*00a0*/              @P0 BRA 0x20;",
+        "        /*00b0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+        "        /*00c0*/              @P1 BRA 0x0;",
+        "        /*00d0*/                   EXIT ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_112md5_kernelEv",
+        "        /*0000*/                   MUFU.RSQ R1, R1 ;",
+        "        /*0010*/              @P1 BRA 0x0;",
+    ])
+    got = smoke.loop_slots(text, "nbody_tile_kernel")
+    assert list(got) == [name]
+    assert got[name] == {
+        "pairs": 2, "slots": 9, "fp32": 4, "mufu": 2, "lds": 1, "other": 2,
+        "fsetp": 0, "slots_per_pair": 4.5, "fp32_per_pair": 2.0,
+        "lds_per_pair": 0.5}
+    with pytest.raises(AssertionError, match="no loop with a MUFU"):
+        smoke.loop_slots(text.replace("MUFU.RSQ", "FMUL"),
+                         "nbody_tile_kernel")

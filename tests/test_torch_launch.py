@@ -221,8 +221,27 @@ def test_context_factories_and_array_metadata():
 
 
 def test_more_than_one_worker_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        T.Context(device="cpu", num_workers=4)
+    """ROADMAP Queue A item 7 (execution over several workers) is done:
+    four workers run a launch, each once, and the context records four
+    devices."""
+    ctx = T.Context(device="cpu", num_workers=4)
+    assert ctx.num_devices == 4 and ctx.topology.num_devices == 4
+    assert ctx.mesh.shape == {"data": 4} and ctx.mesh_axes == ("data",)
+    calls = []
+
+    def body(v, info):
+        calls.append(info.device_index)
+        return {"y": v["x"] * 2.0}
+
+    k = T.KernelDef.define("double", body, "global i => read x[i], write y[i]")
+    x = ctx.array(np.arange(64, dtype=np.float32), dist=T.BlockDist(16),
+                  name="x")
+    out = ctx.launch(k, grid=(64,), work_dist=T.BlockWork(16),
+                     args={"x": x, "y": ctx.zeros((64,), dist=T.BlockDist(16),
+                                                  name="y")})
+    np.testing.assert_array_equal(out["y"].to_numpy(), np.arange(64) * 2.0)
+    assert calls == [0, 1, 2, 3]
+    assert ctx.records[-1].out_specs == {"y": ("data",)}
 
 
 @pytest.mark.parametrize("op", ["+", "*", "min", "max"])

@@ -582,6 +582,75 @@ def test_nbody_ref_slabs_and_rows(monkeypatch):
     assert TK.nbody_forces_ref(posm, rows=(5, 5)).shape == (0, 3)
 
 
+def _term_scale(posm, softening2=t_nbody_ref.SOFTENING2):
+    """sum_j |term_ij| per target and axis, in float64: the size an N-Body
+    sum is held against (``chip_smoke.nbody_slab_check``)."""
+    p = posm.astype(np.float64)
+    d = p[None, :, :3] - p[:, None, :3]
+    dist2 = (d * d).sum(-1) + softening2
+    return np.einsum("ij,ijk->ik", p[None, :, 3] / dist2 ** 1.5, np.abs(d))
+
+
+def _nbody_sliced_inputs(n):
+    """The sweep's bodies with every 7th mass zero."""
+    posm = _bodies(np.random.RandomState(8100 + n), n)
+    posm[::7, 3] = 0.0
+    return posm
+
+
+@pytest.mark.parametrize("slices,tile", [(4, 256), (3, 64), (2, 128),
+                                         (5, 32)])
+@pytest.mark.parametrize("n", [300, 1000])
+def test_nbody_sliced_ref_matches_the_reference(n, slices, tile):
+    """Route "tile"'s order of summation (each slice of sources, then the
+    slices in order) against the reference's Pallas kernel, within 1e-4 of
+    sum |term|: ragged last slices and tiles, zero masses."""
+    posm = _nbody_sliced_inputs(n)
+    ranges = t_nbody_ref.nbody_slices(n, slices, tile)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(hi - lo == ranges[0][1] - ranges[0][0] for lo, hi in
+               ranges[:-1]) and (ranges[0][1] % tile == 0)
+    assert [hi for _, hi in ranges[:-1]] == [lo for lo, _ in ranges[1:]]
+    want = _np(RK.nbody_forces(jnp.asarray(posm), block_i=100,
+                               block_j=100))
+    got = _np(t_nbody_ref.nbody_sliced_ref(torch.from_numpy(posm),
+                                           slices=slices, tile=tile))
+    assert np.all(np.abs(got - want) <= 1e-4 * _term_scale(posm))
+    # a slice's partial is the plain version over its sources
+    lo, hi = ranges[-1]
+    part = _np(TK.nbody_forces_ref(torch.from_numpy(posm), cols=(lo, hi)))
+    alone = _np(TK.nbody_forces_ref(torch.from_numpy(posm[lo:hi])))
+    np.testing.assert_allclose(part[lo:hi], alone, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [300, 1000])
+def test_nbody_planted_faults_fail_the_limit(n, monkeypatch):
+    """``chip_smoke.nbody_faults``: a slice's partial dropped, and the last
+    ragged source tile skipped; each is off the reference by more than
+    1e-4 of sum |term|, the limit route "tile" is held to."""
+    monkeypatch.syspath_prepend(str(CSRC.parents[2]))
+    import chip_smoke
+
+    posm = _nbody_sliced_inputs(n)
+    want = _np(RK.nbody_forces(jnp.asarray(posm), block_i=100, block_j=100))
+    scale = _term_scale(posm)
+    faults = chip_smoke.nbody_faults(torch.from_numpy(posm))
+    assert set(faults) == {"slice_partial_dropped", "ragged_tile_skipped"}
+    for label, bad in faults.items():
+        assert np.any(np.abs(_np(bad) - want) > 1e-4 * scale), label
+    rows = chip_smoke.nbody_fault_rows(torch.from_numpy(posm))
+    assert [r["fault"] for r in rows] == list(faults)
+
+
+def test_nbody_eps_zero_is_nan_everywhere_as_in_the_reference():
+    """eps^2 = 0: every target's self term is 0 * inf, NaN in the reference
+    and in the plain version alike (route "fma" keeps it so)."""
+    posm = _bodies(np.random.RandomState(8004), 64)
+    want = _np(RK.nbody_forces(jnp.asarray(posm), softening2=0.0))
+    got = _np(TK.nbody_forces(torch.from_numpy(posm), softening2=0.0))
+    assert np.isnan(want).all() and np.isnan(got).all()
+
+
 # -- Correlator ---------------------------------------------------------------
 
 

@@ -44,6 +44,7 @@ spmv_kernel = importlib.import_module("repro_torch.kernels.spmv_ell.kernel")
 ROOT = Path(__file__).resolve().parent.parent
 spmv_ref = importlib.import_module("repro_torch.kernels.spmv_ell.ref")
 md5_kernel = importlib.import_module("repro_torch.kernels.md5.kernel")
+nbody_kernel = importlib.import_module("repro_torch.kernels.nbody.kernel")
 
 bf16, f32 = torch.bfloat16, torch.float32
 
@@ -521,3 +522,46 @@ def test_header_edits_rebuild_the_library(tmp_path, monkeypatch):
     before = _build._digest(srcs)
     (tmp_path / "hopper.cuh").write_text(HEADER.read_text() + "\n// edit\n")
     assert _build._digest(srcs) != before
+
+
+@pytest.mark.parametrize("what,n,eps2,route", [
+    ("the main path's 2^17 bodies", 1 << 17, 1e-3, "tile"),
+    ("chip_smoke's ragged tile", 4133, 1e-3, "tile"),
+    ("at the size threshold", 512, 1e-3, "tile"),
+    ("below it", 511, 1e-3, "fma"),
+    ("chip_smoke's n = 300", 300, 1e-3, "fma"),
+    ("eps^2 = 0: NaN self terms, kept as in the reference", 1 << 17, 0.0,
+     "fma"),
+    ("a subnormal eps^2", 1 << 17, 1e-39, "fma"),
+    ("eps^2 = FLT_MIN", 1 << 17, nbody_kernel.FLT_MIN, "tile"),
+    ("just below FLT_MIN as a float32", 1 << 17, 1.1754942e-38, "fma"),
+    ("a negative eps^2", 1 << 17, -1e-3, "fma"),
+])
+def test_nbody_route(what, n, eps2, route):
+    """Route "tile"'s unguarded rsqrt is exact only where every |d|^2 +
+    eps^2 is a normal float: eps^2 >= FLT_MIN (as the kernel's float32)."""
+    posm = torch.zeros((n, 4))
+    assert nbody_kernel.nbody_route(posm, eps2) == route, what
+
+
+def test_nbody_route_names_and_counts():
+    assert nbody_kernel.ROUTES[-1] == "fma"
+    assert set(nbody_kernel.nbody_cuda.routes) == set(nbody_kernel.ROUTES)
+    with pytest.raises(ValueError, match="does not take these inputs"):
+        common.resolve_route("tile", "fma", nbody_kernel.ROUTES, "nbody")
+    assert common.resolve_route("fma", "tile", nbody_kernel.ROUTES,
+                                "nbody") == "fma"
+
+
+def test_nbody_tile_constants_are_the_sources():
+    """kernel.py's tile, targets a thread and fold are ``csrc/nbody.cu``'s
+    kThreads, kTileTargets and kTileFold (the wrapper cuts the slices in
+    whole tiles, and the probe times the package's instance by them)."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "nbody.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr \w+ {name} = (\w+);", src).group(1)
+
+    assert int(const("kThreads")) == nbody_kernel.TILE
+    assert int(const("kTileTargets")) == nbody_kernel.TILE_TARGETS
+    assert (const("kTileFold") == "true") == nbody_kernel.TILE_FOLD

@@ -5,7 +5,7 @@ and MD5's ``"unwind"``, built, checked, timed, with the chunk lengths,
 K-Means' points a thread, SpMV's slices and n and MD5's forms swept.
 
     PYTHONPATH=src python3 tools/cuda_core_probe.py [--no-time] [--reps 5]
-        [--kernels correlate,wkv6,rg_lru,kmeans,spmv,md5]
+        [--kernels correlate,wkv6,rg_lru,kmeans,spmv,md5,nbody]
         [--lengths 16,32,64,128,256]
         [--lru-lengths 32,64,128,256] [--points 1,2,4,8]
 
@@ -78,6 +78,21 @@ the planted keys (n = 2^30 with the key 4099 below n, n = 2048 with keys
 0 and 1500, and none); all timed in turns at n = 2^30 beside the time the
 first kernel's 202 instructions a key take on the ALU pipe alone.
 
+N-Body (``--kernels nbody``): route ``"tile"`` (several targets a thread,
+the sources in slices, ``rsqrt.approx.ftz``), built from ``csrc/nbody.cu``
+again with ``NBODY_PROBE`` into ``build/repro_torch/nbody_probe/`` at 1, 2,
+4 and 8 targets a thread, eps^2 folded into |d|^2's first multiply-add or
+not, each at 1, 2, 4 and 8 slices; every variant and both routes held
+against the f32 plain version within ``2e-4 * sum |term|`` at n = 2^17,
+4133 (a ragged last tile, every 7th mass zero) and 1000, route ``"tile"``
+also against float64, and each variant's bit-equality with route
+``"fma"`` reported.  Each instance's issue slots a pair in its inner loop
+(``chip_smoke.loop_slots``: FP32-pipe instructions, MUFU, LDS).  Timed in
+turns at n = 2^17: (a) route ``"fma"``, (b) the ftz rsqrt alone (one
+target, one slice), (c) four targets and four slices, (d) (c) with eps^2
+folded, every variant, route ``"tile"``; then both routes over n (for
+``TILE_MIN_N``).
+
 One JSON line per step; then the card's name and power limit; exit 1 if a
 case failed.
 """
@@ -116,10 +131,18 @@ from chip_smoke import (  # noqa: E402
     lru_inputs,
     lru_plain,
     lru_work,
+    NBODY_FLOPS_PER_PAIR,
+    NBODY_RAGGED_TILE,
+    loop_slots,
     md5_digest,
     md5_int_ops_per_key,
     md5_work,
     mirrored_tiles,
+    nbody_inputs,
+    nbody_ordered_floor_ms,
+    nbody_slab_check,
+    nbody_term_scale,
+    sass_text,
     ptxas_usage,
     require,
     sass_instructions,
@@ -139,6 +162,7 @@ from repro_torch.kernels import (  # noqa: E402
     wkv6_ref,
 )
 from repro_torch.kernels.common import (  # noqa: E402
+    H100_SXM_FP32_FLOPS,
     H100_SXM_INT32_ALU_OPS,
     cdiv,
     sm_count,
@@ -151,6 +175,12 @@ from repro_torch.kernels.md5.kernel import md5_search_cuda  # noqa: E402
 from repro_torch.kernels.md5.ref import (  # noqa: E402
     md5_unwind,
     md5_word1_target,
+)
+from repro_torch.kernels.nbody import kernel as nbody_kernel  # noqa: E402
+from repro_torch.kernels.nbody.kernel import nbody_cuda  # noqa: E402
+from repro_torch.kernels.nbody.ref import (  # noqa: E402
+    nbody_forces_ref,
+    nbody_slices,
 )
 from repro_torch.kernels.spmv_ell import kernel as spmv_kernel  # noqa: E402
 from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref  # noqa: E402
@@ -179,6 +209,7 @@ KM_KERNELS = ("kmeans_private_kernel", "kmeans_kernel")
 SPMV_KERNELS = ("spmv_ell_kernel", "spmv_finite_kernel",
                 "spmv_bin_scatter_kernel", "spmv_bin_gather_kernel")
 MD5_KERNELS = ("md5_search_kernel", "md5_unwind_kernel")
+NBODY_KERNELS = ("nbody_kernel", "nbody_tile_kernel", "nbody_combine_kernel")
 F32, BF16 = torch.float32, torch.bfloat16
 #: (C, T, A, dtype) of the correlator's checks
 CORR_CASES = [(1024, 768, 256, F32), (1024, 768, 256, BF16),
@@ -204,6 +235,7 @@ KM_CASES = [(1 << 26, 40, 4), (1 << 22, 40, 4), (1000, 7, 4), (5001, 9, 2),
 KM_PROBE_DIR = _build.build_dir() / "kmeans_probe"
 SPMV_PROBE_DIR = _build.build_dir() / "spmv_probe"
 MD5_PROBE_DIR = _build.build_dir() / "md5_probe"
+NBODY_PROBE_DIR = _build.build_dir() / "nbody_probe"
 _probe_libs: dict[str, tuple] = {}
 #: route "fma"'s forms in the probe's build of ``spmv_ell.cu``
 #: (``Mode`` in the source)
@@ -223,6 +255,17 @@ SPMV_TILES = [spmv_kernel.SLICE_BITS, 21, 23, 24]
 #: main shape), and its rows (max_nnz and n of the main shape)
 SPMV_NS = [1 << b for b in range(20, 26)]
 SPMV_ROWS = [1 << b for b in range(12, 26)]
+#: route "tile"'s variants in the probe's build of ``nbody.cu``: (targets a
+#: thread, slices of the sources, eps^2 folded)
+NBODY_VARIANTS = [(r, s, f) for f in (False, True) for r in (1, 2, 4, 8)
+                  for s in (1, 2, 4, 8)]
+#: the variants the predictions name: (b) the ftz rsqrt alone, (c) four
+#: targets a thread over four slices, (d) (c) with eps^2 folded
+NBODY_NAMED = {"(b) ftz rsqrt": (1, 1, False), "(c) R=4 S=4": (4, 4, False),
+               "(d) R=4 S=4 folded": (4, 4, True)}
+#: bodies of N-Body's checks (the first is timed) and of the n sweep
+NBODY_CASES = [1 << 17, NBODY_RAGGED_TILE, 1000]
+NBODY_NS = [1 << b for b in range(8, 16)]
 #: the ALU pipe's opcodes in the MD5 kernels' SASS (the rest of their
 #: integer work is IMAD, on the FMA pipe)
 ALU_OPS = ("LOP3", "IADD3", "LEA", "SHF", "ISETP", "PRMT")
@@ -641,6 +684,104 @@ def time_md5(reps, device):
           "bound_ms": md5_work(n)[0]})
 
 
+def nbody_variant(posm, variant: tuple) -> torch.Tensor:
+    """Route "tile" at ``(targets, slices, folded)`` (the probe's build of
+    nbody.cu), eps^2 the default."""
+    targets, slices, fold = variant
+    n = posm.shape[0]
+    ranges = nbody_slices(n, slices, nbody_kernel.TILE)
+    acc = torch.empty((n, 3), dtype=torch.float32, device=posm.device)
+    partial = (torch.empty((len(ranges), n, 3), dtype=torch.float32,
+                           device=posm.device) if len(ranges) > 1 else acc)
+    fn = probe_fn(probe_lib("nbody.cu", "NBODY_PROBE", NBODY_PROBE_DIR),
+                  "nbody_tile_probe_f32", [
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    err = fn(posm.data_ptr(), acc.data_ptr(), partial.data_ptr(), n,
+             nbody_kernel.SOFTENING2, len(ranges),
+             ranges[0][1] - ranges[0][0], targets, int(fold),
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"nbody tile probe {variant}")
+    return acc
+
+
+def nbody_instance_slots(text: str) -> dict:
+    """``loop_slots`` of each N-Body instance, keyed by route "tile"'s
+    template arguments (``R=4 folded`` ...) or the kernel's name."""
+    out = {}
+    for name in NBODY_KERNELS[:2]:
+        for fn, slots in loop_slots(text, name).items():
+            args = re.search(r"ILi(\d+)ELb([01])E", fn)
+            key = (f"R={args.group(1)}" + " folded" * (args.group(2) == "1")
+                   if args else name)
+            out[key] = slots
+    return out
+
+
+def check_nbody(n, gen, device) -> dict:
+    """Both routes and every variant against the f32 plain version within
+    ``2e-4 * sum |term|`` (every target), route "tile" also against float64
+    within 1e-4 on a slab of 1024 targets; which variants equal route
+    "fma" bit for bit."""
+    posm, _ = nbody_inputs(n, gen, device,
+                           zero_every=7 if n == NBODY_RAGGED_TILE else 0)
+    want = nbody_forces_ref(posm)
+    scale = torch.cat([nbody_term_scale(posm, lo, min(n, lo + 1024))
+                       for lo in range(0, n, 1024)])
+    fma = nbody_cuda(posm, route="fma")
+    runs = {"fma": fma, **{str(v): nbody_variant(posm, v)
+                           for v in NBODY_VARIANTS}}
+    if n >= nbody_kernel.TILE_MIN_N:
+        runs["tile"] = nbody_cuda(posm)
+    worst, equal = {}, {}
+    for label, got in runs.items():
+        share = float(((got - want).abs() / scale).max()) / 2e-4
+        require(torch.isfinite(got).all() and share <= 1, "nbody", n, label,
+                "off by", share, "of the limit")
+        worst[label] = share
+        equal[label] = torch.equal(got, fma)
+    out = {"limit_share": worst, "bit_equal_to_fma": equal}
+    if "tile" in runs:
+        lo = max(0, n // 2 - 512)
+        hi = min(n, lo + 1024)
+        out["tile_vs_float64"] = nbody_slab_check(
+            f"nbody {n} tile", runs["tile"][lo:hi], want[lo:hi], posm, lo,
+            hi)
+    return out
+
+
+def time_nbody(reps, gen, device):
+    """At n = 2^17, in turns: route "fma", the named variants, every
+    variant, route "tile"; then both routes over ``NBODY_NS``."""
+    n = 1 << 17
+    posm, _ = nbody_inputs(n, gen, device)
+    runs = {"(a) fma": lambda: nbody_cuda(posm, route="fma")}
+    for label, v in NBODY_NAMED.items():
+        runs[label] = lambda v=v: nbody_variant(posm, v)
+    for v in NBODY_VARIANTS:
+        runs[f"R={v[0]} S={v[1]}" + " folded" * v[2]] = (
+            lambda v=v: nbody_variant(posm, v))
+    runs["route tile"] = lambda: nbody_cuda(posm)
+    rounds = [{k: time_ms(fn, device, reps) for k, fn in runs.items()}
+              for _ in range(2)]
+    by_n = {}
+    for m in NBODY_NS:
+        p, _ = nbody_inputs(m, gen, device)
+        by_n[m] = {"fma": time_ms(lambda: nbody_cuda(p, route="fma"), device,
+                                  reps, queued=KERNEL_HOST_S),
+                   "tile": time_ms(lambda: nbody_variant(
+                       p, (nbody_kernel.TILE_TARGETS, nbody_kernel.TILE_SLICES,
+                           nbody_kernel.TILE_FOLD)), device, reps,
+                       queued=KERNEL_HOST_S)}
+    emit({"step": "time", "kernel": "nbody", "n": n, "ms": rounds,
+          "by_n": by_n,
+          "bound_ms": NBODY_FLOPS_PER_PAIR * float(n) ** 2
+          / H100_SXM_FP32_FLOPS * 1e3,
+          "ordered_floor_ms": nbody_ordered_floor_ms(n)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-time", action="store_true")
@@ -652,7 +793,7 @@ def main(argv=None) -> int:
     ap.add_argument("--points", default="1,2,4,8,16",
                     help="K-Means points a thread of route private's variants")
     ap.add_argument("--kernels",
-                    default="correlate,wkv6,rg_lru,kmeans,spmv,md5",
+                    default="correlate,wkv6,rg_lru,kmeans,spmv,md5,nbody",
                     help="which kernels to check and time")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -694,6 +835,14 @@ def main(argv=None) -> int:
             _build.build_log(SPMV_PROBE_DIR), SPMV_KERNELS),
             "sass": sass_pipe_mix(spmv_lib, SPMV_KERNELS),
             "atomics": atomics_in_sass(spmv_lib, SPMV_KERNELS)})
+    if "nbody" in which:
+        nbody_lib = probe_build("nbody.cu", "NBODY_PROBE",
+                                NBODY_PROBE_DIR)[0]
+        emit({"step": "build nbody probe", "ptxas": ptxas_usage(
+            _build.build_log(NBODY_PROBE_DIR), NBODY_KERNELS),
+            "package_slots_per_pair": nbody_instance_slots(sass_text(lib)),
+            "probe_slots_per_pair": nbody_instance_slots(
+                sass_text(nbody_lib))})
     if "md5" in which:
         md5_lib = probe_build("md5.cu", "MD5_PROBE", MD5_PROBE_DIR)[0]
         emit({"step": "build md5 probe", "ptxas": ptxas_usage(
@@ -741,6 +890,8 @@ def main(argv=None) -> int:
         run_check("spmv", lambda: check_spmv(gen, device))
     if "md5" in which:
         run_check("md5", lambda: check_md5(device))
+    for n in NBODY_CASES if "nbody" in which else []:
+        run_check(f"nbody {n}", lambda: check_nbody(n, gen, device))
 
     if failed:
         emit({"step": "verdict", "failed": failed})
@@ -758,6 +909,8 @@ def main(argv=None) -> int:
             time_spmv(reps, gen, device)
         if "md5" in which:
             time_md5(reps, device)
+        if "nbody" in which:
+            time_nbody(reps, gen, device)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
