@@ -17,19 +17,24 @@ card, each held against 1 worker); then LM serving through
 (the flash- and decode-attention kernels), rwkv6-3b (the WKV6 kernel) and
 recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
 local attention).  Phases (each prints one JSON line with the seconds it
-took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, and
-``serve`` once for each model.  GEMM, flash attention, decode attention,
-the correlator, WKV6, RG-LRU, K-Means, SpMV, MD5 and N-Body have more
-than one route (``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode
-attention's query heads on the tensor cores by ``mma.sync``, fed by
-``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA cores with its loads
-one stage ahead; ``"tri"``: the correlator's tiles with i <= j, the rest
-mirrored; ``"chunk"``: WKV6 and RG-LRU as scans over chunks of time;
-``"private"``: K-Means with several points a thread and accumulators
-private to a thread; ``"bin"``: SpMV's entries binned by column slice so
-that its gathers hit L2; ``"unwind"``: MD5 with the target's last eight
-rounds undone on the host; ``"tile"``: N-Body with two targets a thread
-over slices of the sources and an unguarded rsqrt; ``"fma"``: the first
+took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, ``sim``,
+and ``serve`` once for each model.  The ``sim`` phase measures the card's
+copy rates, its FP32 rate (the f32 GEMM) and its memory beside the
+simulator's ``HardwareModel()`` constants, which they must match within
+``SIM_RATE_RANGE``, and sets the port's ``Simulator``'s prediction for the
+stream phase's workload beside what that phase measured.  GEMM, flash
+attention, decode attention, the correlator, WKV6, RG-LRU, K-Means, SpMV,
+MD5 and N-Body have more than one route (``"wgmma"``: the tensor cores fed
+by TMA; ``"mma"``: decode attention's query heads on the tensor cores by
+``mma.sync``, fed by ``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA
+cores with its loads one stage ahead; ``"tri"``: the correlator's tiles
+with i <= j, the rest mirrored; ``"chunk"``: WKV6 and RG-LRU as scans over
+chunks of time; ``"private"``: K-Means with several points a thread and
+accumulators private to a thread; ``"bin"``: SpMV's entries binned by
+column slice so that its gathers hit L2; ``"unwind"``: MD5 with the
+target's last eight rounds undone on the host; ``"tile"``: N-Body with two
+targets a thread over slices of the sources and an unguarded rsqrt;
+``"fma"``: the first
 kernels, on the CUDA cores): the run
 requires the redesigned route for the main-path calls, the tensor cores'
 instructions (``HGMMA``, ``HMMA``) in those routes' kernels only, no
@@ -69,13 +74,19 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.core import (  # noqa: E402
+    ArrayMeta,
     BlockDist,
     BlockWork,
     Context,
+    HardwareModel,
     KernelDef,
+    Planner,
     ReplicatedDist,
     RowDist,
+    Simulator,
     StencilDist,
+    Topology,
+    parse,
 )
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.streaming import stream_kmeans  # noqa: E402
@@ -189,6 +200,10 @@ from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import rglru as model_rglru  # noqa: E402
 from repro_torch.models import rwkv as model_rwkv  # noqa: E402
+from repro_torch.obs import (  # noqa: E402
+    analyze,
+    validate_chrome_trace,
+)
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Request,
@@ -3021,6 +3036,173 @@ def phase_stream(sizes: Sizes, device: torch.device, seed: int) -> dict:
     return out
 
 
+#: bytes of the host link's copies (pinned, each way) and of the device's
+#: own copy (read and written: twice this many bytes move)
+SIM_COPY_BYTES = 1 << 30
+SIM_D2D_BYTES = 2 << 30
+#: a measured rate lies within these shares of its ``HardwareModel()``
+#: constant, or the constant is not this card's peak
+SIM_RATE_RANGE = (0.5, 1.05)
+#: prefetch windows the simulator runs the stream phase's plan with
+SIM_WINDOWS = (0, 2)
+#: ``benchmarks/paper_fig10_chunksize.py:run_one``'s K-Means record: 16
+#: bytes (4 f32 features), ~3000 flops (40 clusters x 4 features x the
+#: distance math), 16 bytes of device-memory traffic
+SIM_RECORD_BYTES, SIM_FLOPS_PER_RECORD = 16, 3000.0
+SIM_KMEANS = ("global i => read points[i], read centroids[:], "
+              "reduce(+) sums[i]")
+
+
+def copy_rates(sizes: Sizes, device: torch.device) -> dict:
+    """Bytes a second of pinned host->device and device->host copies of
+    ``SIM_COPY_BYTES``, and of a device-to-device copy of ``SIM_D2D_BYTES``
+    counting the bytes read and the bytes written (CUDA events, median of
+    ``sizes.reps`` after a warm-up; None in a rehearsal)."""
+    on_card = device.type == "cuda"
+    scale = 1 if on_card else 1 << 10  # a rehearsal copies 1 MiB
+    nbytes, d2d_bytes = SIM_COPY_BYTES // scale, SIM_D2D_BYTES // scale
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=on_card)
+    host.fill_(1)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True), device,
+                  sizes.reps)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True), device,
+                  sizes.reps)
+    del host, dev
+    src = torch.ones(d2d_bytes, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    d2d = time_ms(lambda: dst.copy_(src), device, sizes.reps)
+    del src, dst
+
+    def rate(moved, ms):
+        return None if ms is None else moved / (ms / 1e3)
+
+    return {"h2d": rate(nbytes, h2d), "d2h": rate(nbytes, d2h),
+            "d2d": rate(2 * d2d_bytes, d2d), "h2d_ms": h2d, "d2h_ms": d2h,
+            "d2d_ms": d2d, "copy_bytes": nbytes, "d2d_bytes": d2d_bytes}
+
+
+def stream_plan(n: int, chunk_rows: int):
+    """The stream phase's K-Means as one planned launch, built as
+    ``benchmarks/paper_fig10_chunksize.py:run_one`` builds its plan: one
+    worker, ``chunk_rows`` records a block."""
+    planner = Planner(Topology(1))
+    arrays = {
+        "points": ArrayMeta("points", (n,), SIM_RECORD_BYTES,
+                            BlockDist(chunk_rows)),
+        "centroids": ArrayMeta("centroids", (KM_K,), SIM_RECORD_BYTES,
+                               ReplicatedDist()),
+        "sums": ArrayMeta("sums", (KM_K,), SIM_RECORD_BYTES,
+                          ReplicatedDist()),
+    }
+    return planner.plan_launch("kmeans", parse(SIM_KMEANS), (n,),
+                               BlockWork(chunk_rows), arrays).plan
+
+
+def simulate_stream(n: int, chunk_rows: int, window: int) -> dict:
+    """The simulator's prediction for one streamed K-Means iteration on
+    ``HardwareModel()``, traced; the trace's export must validate."""
+    tracer = Tracer()
+    sim = Simulator(HardwareModel(), 1, flops_per_thread=SIM_FLOPS_PER_RECORD,
+                    bytes_per_thread=float(SIM_RECORD_BYTES), tracer=tracer,
+                    prefetch_window=window)
+    res = sim.run(stream_plan(n, chunk_rows))
+    errors = validate_chrome_trace(json.loads(tracer.to_json()))
+    require(not errors, "the simulation's trace is not a valid Chrome "
+            "trace:", errors[:3])
+    device0 = analyze(tracer).devices[0]
+    transfer = device0.busy["transfer"]
+    return {"prefetch_window": window, "seconds_per_iteration": res.makespan,
+            "h2d_bytes": res.stats["h2d_bytes"],
+            "busy_s": dict(res.busy),
+            "overlap_fraction": device0.overlap_fraction,
+            # the stream phase's measure: copy time under a kernel
+            "copy_hidden_share": device0.overlap / transfer if transfer
+            else 0.0,
+            "exposed_transfer_s": device0.exposed_transfer,
+            "tasks": res.task_count, "stats": res.stats}
+
+
+def phase_sim(sizes: Sizes, device: torch.device, rows: list[dict],
+              stream: dict) -> dict:
+    """The simulator's hardware model against the card, and its prediction
+    against the stream phase.  The card's copy rates, its FP32 rate (the
+    f32 GEMM's route "pipe" at the kernels phase's shape and time) and its
+    memory are set beside ``HardwareModel()``'s constants; a measured rate
+    outside ``SIM_RATE_RANGE`` of its constant fails the run.  Then the
+    port's ``Simulator`` runs the stream phase's own workload (its n after
+    any halving, its chunk rows) with each of ``SIM_WINDOWS``, beside the
+    seconds and the hidden copy share the stream phase measured; that
+    agreement is reported, not gated.  Two runs of one simulation must give
+    equal stats and makespan."""
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    hw = HardwareModel()
+    copies = copy_rates(sizes, device)
+    gemm_row = next(r for r in rows if r["name"] == "gemm")
+    m, k, n_cols = gemm_row["shape"]
+    fp32 = (2.0 * m * k * n_cols / (gemm_row["ms"] / 1e3)
+            if on_card else None)
+    measured = {
+        "flops": (fp32, hw.flops, "FP32 of the f32 GEMM, route "
+                  f"{gemm_row.get('kernel_route')}, {m}x{k}x{n_cols}"),
+        "hbm_bw": (copies["d2d"], hw.hbm_bw, "device-to-device copy, bytes "
+                   "read and written"),
+        "host_link_bw (h2d)": (copies["h2d"], hw.host_link_bw,
+                               "pinned host->device copy"),
+        "host_link_bw (d2h)": (copies["d2h"], hw.host_link_bw,
+                               "pinned device->host copy"),
+    }
+    rates = []
+    for name, (value, constant, how) in measured.items():
+        ratio = None if value is None else value / constant
+        rates.append({"name": name, "measured": value, "constant": constant,
+                      "ratio": ratio, "how": how, "gated": True})
+        if on_card:
+            require(SIM_RATE_RANGE[0] <= ratio <= SIM_RATE_RANGE[1], name,
+                    f"measured {value:.4g} is {ratio:.3f} of the constant "
+                    f"{constant:.4g}, outside {SIM_RATE_RANGE}")
+    capacity = (torch.cuda.get_device_properties(device).total_memory
+                if on_card else None)
+    rates.append({"name": "device_capacity", "measured": capacity,
+                  "constant": hw.device_capacity,
+                  "ratio": None if capacity is None
+                  else capacity / hw.device_capacity,
+                  "how": "total_memory", "gated": False})
+    rates.append({"name": "ici_bw", "measured": None, "constant": hw.ici_bw,
+                  "ratio": None, "how": "NVLink 4, data sheet: one card "
+                  "cannot measure it", "gated": False})
+
+    n, chunk_rows = stream["n"], stream["chunk_rows"]
+    predicted = [simulate_stream(n, chunk_rows, w) for w in SIM_WINDOWS]
+    again = simulate_stream(n, chunk_rows, SIM_WINDOWS[-1])
+    require(again["stats"] == predicted[-1]["stats"]
+            and again["seconds_per_iteration"]
+            == predicted[-1]["seconds_per_iteration"],
+            "two runs of one simulation differ")
+    iters = stream["iterations"]
+    measured_stream = {
+        "seconds_per_iteration": [it["seconds"] for it in iters],
+        "copy_ms": [it.get("copy_ms") for it in iters],
+        "compute_ms": [it.get("compute_ms") for it in iters],
+        "copy_hidden_share": [it.get("copy_hidden_share") for it in iters],
+    }
+    best = min(it["seconds"] for it in iters)
+    out = {"phase": "sim", "rates": rates, "copies": copies,
+           "workload": {"n": n, "chunk_rows": chunk_rows,
+                        "record_bytes": SIM_RECORD_BYTES,
+                        "flops_per_record": SIM_FLOPS_PER_RECORD,
+                        "halved": stream["halved"]},
+           "predicted": [{k: v for k, v in p.items() if k != "stats"}
+                         for p in predicted],
+           "measured_stream": measured_stream,
+           "measured_over_predicted": [
+               best / p["seconds_per_iteration"] for p in predicted]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 #: Tolerance of the serving path's bf16 logits, kernels against plain
 #: versions, as a share of the largest logit: bf16 keeps 8 bits, each layer
 #: rounds its kernels' outputs (and the plain path also its attention
@@ -3602,6 +3784,7 @@ def main(argv=None) -> int:
     stream = phase_stream(sizes, device, args.seed)
     counts = {name: w.launches for name, w in WRAPPERS.items()}
     routes = route_counts()
+    phase_sim(sizes, device, rows, stream)
     # Each serving run zeroes and reads the counts around its engine run.
     serves = {arch: phase_serve(sizes, device, args.seed, arch)
               for arch in SERVE_ARCHS}

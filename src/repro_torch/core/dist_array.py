@@ -18,6 +18,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 from .distributions import Distribution, ReplicatedDist
 from .mesh import Mesh, check_divisible, shard_of
 from .ndrange import Region
@@ -125,16 +127,22 @@ def make_array(
     name: str,
     value: torch.Tensor | np.ndarray,
     dist: Distribution,
-    device: torch.device | str = "cuda",
     mesh: Mesh | None = None,
     mesh_axes: Sequence[str] = (),
+    *,
+    device: torch.device | str | None = None,
 ) -> DistributedArray:
     """Place ``value`` on ``device`` and attach ``dist`` to it (and the
-    mesh, whose workers take their pieces of it at each launch).  A numpy
-    array is copied, never aliased: launches are functional updates, and
-    the caller's buffer stays the caller's.  On a mesh of more than one
+    mesh, whose workers take their pieces of it at each launch).  The
+    reference's parameters keep its order; ``device`` (keyword-only) None
+    means the mesh's first worker's device, or the GPU without a mesh.  A
+    numpy array is copied, never aliased: launches are functional updates,
+    and the caller's buffer stays the caller's.  On a mesh of more than one
     worker, a sharded axis that does not split evenly raises, as the
     reference's placement does."""
+    if device is None:
+        device = (mesh.devices.flat[0] if mesh is not None
+                  else resolve_device(None))
     if isinstance(value, np.ndarray):
         if torch.device(device).type == "cpu" or not value.flags.writeable:
             value = np.array(value)

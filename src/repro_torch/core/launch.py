@@ -113,20 +113,22 @@ class Context:
 
     def __init__(
         self,
-        device: torch.device | str | None = None,
         mesh: Mesh | None = None,
         mesh_axes: Sequence[str] | None = None,
-        num_workers: int = 1,
         devices_per_node: int = 4,
         fault_injector: FaultInjector | None = None,
         recovery: RecoveryPolicy | None = None,
         tracer=None,
         registry: MetricsRegistry | None = None,
         plan_cache: bool = True,
+        *,
+        device: torch.device | str | None = None,
+        num_workers: int = 1,
     ):
-        """``device`` holds the global arrays (None: the GPU, or the mesh's
-        first worker's device).  ``mesh``/``mesh_axes`` are the reference's
-        keywords; ``num_workers=k`` is shorthand for a 1-D mesh
+        """The reference's parameters, in its order (``Context(mesh)``
+        works as there); the port's own two are keyword-only.  ``device``
+        holds the global arrays (None: the GPU, or the mesh's first
+        worker's device); ``num_workers=k`` is shorthand for a 1-D mesh
         ``("data",)`` of k workers, all on ``device``."""
         if num_workers < 1:
             raise ValueError(f"num_workers must be at least 1, got "

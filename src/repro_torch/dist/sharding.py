@@ -13,11 +13,11 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 
-def constrain(x, rules: Any, axes: Sequence[str | None]):
+def constrain(x, rules: Any, logical_axes: Sequence[str | None]):
     """``x`` itself when there are no rules; rules raise until the
     multi-rank layer is ported."""
     if rules is None:
         return x
     raise NotImplementedError(
         "sharding rules need several ranks: ROADMAP Queue A item 10 "
-        f"(asked to constrain {tuple(axes)})")
+        f"(asked to constrain {tuple(logical_axes)})")

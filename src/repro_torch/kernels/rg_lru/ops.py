@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 
 from .kernel import rg_lru_cuda
-from .ref import rg_lru_scan
+# rg_lru_ref is re-exported: the reference's ops module offers it too
+from .ref import rg_lru_ref, rg_lru_scan  # noqa: F401
 
 
 def rg_lru(

@@ -127,6 +127,13 @@ def decode_step(params, token: torch.Tensor, cfg: ModelConfig, state: dict,
 # ---------------------------------------------------------------------------
 
 
+def model_flops_per_token(cfg: ModelConfig,
+                          n_params: int | None = None) -> float:
+    """6 x (active) params: the standard training-FLOPs estimate."""
+    n = n_params if n_params is not None else active_param_estimate(cfg)
+    return 6.0 * n
+
+
 def model_flops_for(cfg: ModelConfig, kind: str, batch: int,
                     seq: int) -> float:
     """MODEL_FLOPS for one step of a (kind x shape) cell.  Enc-dec charges

@@ -81,6 +81,15 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "rwkv"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence handling (SSM / hybrid-local-attention)."""
+        return self.family in ("rwkv", "hybrid")
+
     def scaled(self, **kw) -> "ModelConfig":
         """A reduced copy for smoke tests (same family/topology)."""
         return dataclasses.replace(self, **kw)

@@ -44,7 +44,10 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.configs", "repro_torch.examples.serve_lm",
            "repro_torch.kernels.correlator", "repro_torch.kernels.rwkv6",
            "repro_torch.kernels.rg_lru", "repro_torch.models.rwkv",
-           "repro_torch.models.rglru", "chip_smoke"]
+           "repro_torch.models.rglru", "repro_torch.core.memory",
+           "repro_torch.core.scheduler", "repro_torch.obs.overlap",
+           "repro_torch.obs.validate", "repro_torch.dist",
+           "repro_torch.dist.fault", "chip_smoke"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -82,6 +85,14 @@ FORBIDDEN = re.compile(
 def test_source_scan_covers_the_shared_hopper_header():
     """The tensor-core kernels' shared header is scanned like the kernels."""
     assert PORT / "csrc" / "hopper.cuh" in _port_sources()
+
+
+def test_source_scan_covers_the_runtime_model():
+    """The memory manager, simulator, overlap analyzer, trace validator and
+    fault layer are scanned like the rest of the port."""
+    for rel in ("core/memory.py", "core/scheduler.py", "obs/overlap.py",
+                "obs/validate.py", "dist/fault.py"):
+        assert PORT / rel in _port_sources(), rel
 
 
 def test_source_scan_finds_no_forbidden_import():
