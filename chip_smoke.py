@@ -14,9 +14,13 @@ of those applications again over 4 workers of one ``Context`` on the one
 card, each held against 1 worker); then LM serving through
 ``ServeEngine`` at full width and depth in bf16 (random weights from
 ``--seed``) with one model of each family the port serves: phi3-mini-3.8b
-(the flash- and decode-attention kernels), rwkv6-3b (the WKV6 kernel) and
+(the flash- and decode-attention kernels), rwkv6-3b (the WKV6 kernel),
 recurrentgemma-2b (the RG-LRU kernel, and flash attention in a prefill's
-local attention).  Phases (each prints one JSON line with the seconds it
+local attention), granite-moe-3b-a800m (flash and decode attention at a
+GQA group of 3, beside top-8 routing over 40 experts; its plain passes
+replay the kernel passes' expert choices) and whisper-medium (flash
+attention non-causal over 1500 encoder frames and in the decoder, decode
+attention against the self- and cross-attention caches).  Phases (each prints one JSON line with the seconds it
 took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, ``sim``,
 and ``serve`` once for each model.  The ``sim`` phase measures the card's
 copy rates, its FP32 rate (the f32 GEMM) and its memory beside the
@@ -198,6 +202,7 @@ from repro_torch.kernels.spmv_ell.ref import (  # noqa: E402
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
+from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import rglru as model_rglru  # noqa: E402
 from repro_torch.models import rwkv as model_rwkv  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
@@ -275,6 +280,17 @@ class Sizes:
     # recurrentgemma-2b's ring-buffer decode: 8 slots, 10 query heads on
     # one kv head of 256, a window of 2048
     decode_rgemma: tuple = (8, 10, 1, 2048, 256)
+    # granite-moe-3b's prefill of 2048 tokens and 8-slot decode (24 query
+    # heads on 8 kv heads of 64: a group of 3); whisper-medium's encoder
+    # (1500 frames, non-causal), its decoder's cross-attention of a
+    # 320-token prompt against the 1500 frames (non-causal), and its
+    # decode step's cross-attention (8 slots, kv_len 1500); 16 heads of 64
+    flash_granite: tuple = (1, 24, 8, 2048, 64)
+    flash_whisper_encoder: tuple = (1, 16, 16, 1500, 64)
+    flash_whisper_cross: tuple = (1, 16, 16, 320, 64)
+    whisper_frames: int = 1500
+    decode_granite: tuple = (8, 24, 8, 2184, 64)
+    decode_whisper_cross: tuple = (8, 16, 16, 1500, 64)
     # the correlator: (C, T, A) channels, samples, antennas (1.61 GB f32)
     corr: tuple = (1024, 768, 256)
     # the recurrent scans at the serving path's shapes: rwkv6-3b's prefill
@@ -293,6 +309,11 @@ class Sizes:
     serve_new: tuple = (32, 128)  # max_new_tokens, uniform
     serve_check_len: int = 2048  # prompt of the prefill check
     serve_check_len_window: int = 2600  # the hybrid's: past its window
+    # whisper-medium's traffic, inside its decoder's published context of
+    # 448 tokens: prompts heavy-tailed over 16-320 tokens, the check prompt
+    # at the longest
+    serve_prompt_whisper: tuple = (16, 320)
+    serve_max_len_whisper: int = 448
     profile_steps: int = 3
     reps: int = 5
 
@@ -307,11 +328,18 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             flash=(1, 4, 4, 64, 32), flash_gemma=(1, 4, 1, 40, 64),
             decode=(3, 4, 4, 70, 32), decode_gemma=(3, 4, 1, 70, 64),
             decode_rgemma=(3, 5, 1, 70, 64),
+            flash_granite=(1, 6, 2, 64, 32),
+            flash_whisper_encoder=(1, 4, 4, 60, 32),
+            flash_whisper_cross=(1, 4, 4, 20, 32), whisper_frames=60,
+            decode_granite=(3, 6, 2, 70, 32),
+            decode_whisper_cross=(3, 4, 4, 60, 32),
             corr=(4, 40, 70), wkv=(1, 4, 140, 16), wkv_decode=(3, 4, 1, 16),
             lru=(1, 160, 64), lru_decode=(3, 1, 64),
             serve_smoke=True, serve_requests=6, serve_requests_recurrent=6,
             serve_slots=3, serve_prompt=(4, 24), serve_new=(2, 6),
-            serve_check_len=24, serve_check_len_window=24, profile_steps=1,
+            serve_check_len=24, serve_check_len_window=24,
+            serve_prompt_whisper=(4, 20), serve_max_len_whisper=30,
+            profile_steps=1,
             reps=1)
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
@@ -2012,7 +2040,10 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
         # The serving path's prefill at phi3-mini's width, causal, bf16;
         # gemma-2b's MQA (8 query heads on one kv head of 256 dims) held
         # and timed beside it (not a shape of the serving path: no
-        # launches of its own); ragged and f32 cases of the reference sweep.
+        # launches of its own), and the serving shapes of granite-moe-3b
+        # (causal, a group of 3) and whisper-medium (its encoder and its
+        # decoder's cross-attention, non-causal, T = 1500 a multiple of no
+        # tile); ragged and f32 cases of the reference sweep.
         dict(
             name="flash_attention", wrapper="flash_attention",
             source="src/repro_torch/csrc/flash_attention.cu",
@@ -2020,7 +2051,19 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             main=lambda: flash_inputs(sizes.flash, bf16, gen, device),
             main_route="wgmma",
             also={"gemma": lambda: flash_inputs(sizes.flash_gemma, bf16,
-                                                gen, device)},
+                                                gen, device),
+                  "granite": lambda: flash_inputs(sizes.flash_granite, bf16,
+                                                  gen, device),
+                  "whisper_encoder": lambda: flash_inputs(
+                      sizes.flash_whisper_encoder, bf16, gen, device,
+                      causal=False),
+                  "whisper_cross": lambda: flash_inputs(
+                      sizes.flash_whisper_cross, bf16, gen, device,
+                      t=sizes.whisper_frames, causal=False)},
+            # the planted faults are causal with S = T: the non-causal
+            # shapes are held to the bf16 limit alone
+            also_check={"whisper_encoder": flash_check,
+                        "whisper_cross": flash_check},
             # f32 (route "fma") and bf16 (route "wgmma": the TMA boxes'
             # zero fill at ragged S and T, D = 96 and 256, the masks)
             ragged=lambda: [
@@ -2037,13 +2080,18 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                              window=64),
                 flash_inputs((1, 4, 2, 40, 96), bf16, gen, device, t=100,
                              q_offset=60),
+                # non-causal, S < T, T a multiple of no tile, a group of 3
+                flash_inputs((1, 6, 2, 50, 32), f32, gen, device, t=130,
+                             causal=False),
+                flash_inputs((1, 6, 2, 100, 64), bf16, gen, device, t=300,
+                             causal=False),
             ],
             first=lambda q, k, v, kw: flash_attention_cuda(
                 q, k, v, route="fma", **kw),
             fn=lambda q, k, v, kw: flash_attention(q, k, v, **kw),
             plain=lambda q, k, v, kw: attention_ref(q, k, v, **kw),
             library=lambda q, k, v, kw: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True),
+                q, k, v, is_causal=kw.get("causal", True), enable_gqa=True),
             check=flash_check,
             main_check=flash_main_check,
             work=flash_work,
@@ -2052,8 +2100,10 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                                        q.shape[2], k.shape[2], q.shape[3]],
         ),
         # The serving paths' decode steps: phi3-mini's (8 slots, kv_len
-        # over [1, T]) and recurrentgemma-2b's ring buffer (10 query heads
-        # on one kv head of 256); gemma-2b's MQA beside them, as for flash
+        # over [1, T]), recurrentgemma-2b's ring buffer (10 query heads
+        # on one kv head of 256), granite-moe-3b's (a group of 3, kv_len
+        # over [1, T]) and whisper-medium's cross-attention (kv_len the
+        # 1500 frames); gemma-2b's MQA beside them, as for flash
         # attention.  bf16 takes the tensor cores (route "mma"), its first
         # version (route "fma") timed beside it.
         dict(
@@ -2065,7 +2115,12 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             also={"gemma": lambda: decode_inputs(sizes.decode_gemma, bf16,
                                                  gen, device),
                   "recurrentgemma": lambda: decode_inputs(
-                      sizes.decode_rgemma, bf16, gen, device)},
+                      sizes.decode_rgemma, bf16, gen, device),
+                  "granite": lambda: decode_inputs(sizes.decode_granite, bf16,
+                                                   gen, device),
+                  "whisper_cross": lambda: decode_inputs(
+                      sizes.decode_whisper_cross, bf16, gen, device,
+                      kv_len=sizes.decode_whisper_cross[3])},
             # f32 (route "fma") and bf16 (route "mma": T ragged, G = 10 and
             # 32 query heads a kv head, rows at kv_len 1 and T)
             ragged=lambda: [
@@ -2321,8 +2376,10 @@ def phase_kernels(sizes: Sizes, device: torch.device,
                **({"tensor_cores": build["tensor_cores"][name]}
                   if name in build.get("tensor_cores", {}) else {})}
         for label, make in case.get("also", {}).items():
-            row[label] = measure(case, make(), sizes, device,
-                                 case.get("also_check"),
+            check = case.get("also_check")
+            if isinstance(check, dict):
+                check = check.get(label)
+            row[label] = measure(case, make(), sizes, device, check,
                                  case.get("also_route", {}).get(label))
         if case.get("plain_reps", sizes.reps) != sizes.reps:
             row["plain_runs"] = case["plain_reps"]
@@ -3217,13 +3274,15 @@ BF16_LOGIT_TOL = 5e-2
 F32_LOGIT_TOL = 2e-3
 
 #: one model of each family the port serves, in the order the runs go
-SERVE_ARCHS = ("phi3-mini-3.8b", "rwkv6-3b", "recurrentgemma-2b")
+SERVE_ARCHS = ("phi3-mini-3.8b", "rwkv6-3b", "recurrentgemma-2b",
+               "granite-moe-3b-a800m", "whisper-medium")
 #: depth of the f32 check at full width: two layers, three for the hybrid,
 #: whose two would be two recurrent blocks and no attention block, and six
 #: for rwkv6-3b, the most at which its two f32 paths still agree (its
 #: logits after each block, tools/depth_divergence.py: 3.6e-5 of the
-#: largest logit after block 6, 6e-4 after block 8 and 18 % after 32)
-F32_LAYERS = {"dense": 2, "rwkv": 6, "hybrid": 3}
+#: largest logit after block 6, 6e-4 after block 8 and 18 % after 32); the
+#: encoder-decoder's cut is two layers on each side
+F32_LAYERS = {"dense": 2, "rwkv": 6, "hybrid": 3, "moe": 2, "encdec": 2}
 #: With random weights rwkv6-3b amplifies rounding through depth, and the
 #: reference's own two WKV paths do so too (tests/test_torch_recurrent.py,
 #: test_rwkv_amplifies_rounding_through_depth): in bf16 its kernel and
@@ -3235,15 +3294,15 @@ F32_LAYERS = {"dense": 2, "rwkv": 6, "hybrid": 3}
 RWKV_LOGIT_LAYERS = 1
 
 
-def serve_traffic(sizes: Sizes, vocab: int, seed: int,
-                  n: int) -> list[Request]:
+def serve_traffic(sizes: Sizes, vocab: int, seed: int, n: int,
+                  prompt: tuple) -> list[Request]:
     """``n`` requests from ``seed``: prompt lengths heavy-tailed over
-    ``serve_prompt`` (the shortest times 1 + Lomax(1.5): median about 1.6x
+    ``prompt`` (the shortest times 1 + Lomax(1.5): median about 1.6x
     the shortest, some at the longest), the first request at the longest;
     ``max_new_tokens`` uniform over ``serve_new``; greedy, except every
     fourth request at temperature 0.8."""
     rng = np.random.default_rng(seed)
-    lo, hi = sizes.serve_prompt
+    lo, hi = prompt
     reqs = []
     for rid in range(n):
         plen = hi if rid == 0 else int(min(hi, lo * (1.0 + rng.pareto(1.5))))
@@ -3353,14 +3412,44 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                     "flash_attention": groups * prefills,
                     "decode_attention": groups * steps},
                 "expect_routes": lru_routes}
+    attention_profile = {"decode_step": ("decode_mma_kernel",
+                                         "decode_mma_combine_kernel"),
+                         "prefill": ("flash_wgmma_kernel",)}
+    if cfg.family == "encdec":
+        # flash attention in each encoder layer and twice in each decoder
+        # layer a prefill (causal self-attention, cross-attention), decode
+        # attention twice in each decoder layer a step
+        flash = cfg.n_enc_layers + 2 * cfg.n_layers
+        return {"prefill": [Spy(model_attention, "flash_attention",
+                                attention_ref, flash)],
+                "decode": [Spy(model_attention, "cuda_decode",
+                               decode_attention_ref, 2 * cfg.n_layers)],
+                "logit_layers": None,
+                "check_len": sizes.serve_prompt_whisper[1],
+                "prompt": sizes.serve_prompt_whisper,
+                "max_len": sizes.serve_max_len_whisper,
+                "profile": attention_profile,
+                "expect": lambda prefills, steps: {
+                    "flash_attention": flash * prefills,
+                    "decode_attention": 2 * cfg.n_layers * steps}}
     return {"prefill": [Spy(model_attention, "flash_attention", attention_ref,
                             cfg.n_layers)],
             "decode": [Spy(model_attention, "cuda_decode",
                            decode_attention_ref, cfg.n_layers)],
             "logit_layers": None, "check_len": sizes.serve_check_len,
-            "profile": {"decode_step": ("decode_mma_kernel",
-                                        "decode_mma_combine_kernel"),
-                        "prefill": ("flash_wgmma_kernel",)},
+            "profile": attention_profile,
+            # the MoE family routes: the plain path replays the kernel
+            # path's expert choices (``routing``).  Routed freely, the two
+            # bf16 paths of granite-moe-3b choose other experts for 2.6 %
+            # of a 2048-token prompt's tokens in its first layer already,
+            # and their logits after that layer part by 33 % of the
+            # largest (tools/depth_divergence.py on an H100), so no depth
+            # exists at which free routing could be gated.  Its prefill
+            # then decode check raises the capacity, as the reference's
+            # test_prefill_decode_matches_full_forward does
+            "replay": cfg.family == "moe",
+            "teacher_forced": (cfg.scaled(capacity_factor=8.0)
+                               if cfg.family == "moe" else cfg),
             "expect": lambda prefills, steps: {
                 "flash_attention": cfg.n_layers * prefills,
                 "decode_attention": cfg.n_layers * steps}}
@@ -3428,6 +3517,61 @@ def spying(spies: list[Spy]):
                for spy in spies]
 
 
+@contextlib.contextmanager
+def routing(replay: list | None = None):
+    """The expert indices of each ``moe._route`` call inside the block, in
+    the list it yields.  With ``replay`` (expert indices shaped like the
+    calls' own, in the order of the calls) each call takes the next of
+    those experts instead of its own top k, with gates from its own
+    probabilities: a plain pass then routes every token as the kernel pass
+    did, so that its logits hold the kernels and not top-k's jumps (a
+    rounding difference in the router's logits can swap an expert, and the
+    logits then part by far more than any tolerance)."""
+    route = model_moe._route
+    queue = iter(replay) if replay is not None else None
+    seen = []
+
+    def spy(lp, x, cfg):
+        probs, gates, idx = route(lp, x, cfg)
+        if queue is not None:
+            idx = next(queue)
+            gates = probs.gather(-1, idx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        seen.append(idx)
+        return probs, gates, idx
+
+    model_moe._route = spy
+    try:
+        yield seen
+    finally:
+        model_moe._route = route
+    require(queue is None or next(queue, None) is None,
+            "routes left to replay")
+
+
+def expert_sets_agree(a: list, b: list) -> float:
+    """The share of (layer, token) whose top-k sets of experts agree
+    between two passes' recorded routes."""
+    require(len(a) == len(b) > 0, len(a), "routing calls against", len(b))
+    same = [(x.sort(-1).values == y.sort(-1).values).all(-1).reshape(-1)
+            for x, y in zip(a, b)]
+    return float(torch.cat(same).double().mean())
+
+
+def serve_frames(cfg, gen, device) -> torch.Tensor | None:
+    """The encoder's input of one request (1, enc_frames, d_model), normal,
+    in the model's dtype; None for a family without an encoder."""
+    if cfg.family != "encdec":
+        return None
+    return torch.randn((1, cfg.enc_frames, cfg.d_model), generator=gen,
+                       device=device).to(cfg.torch_dtype)
+
+
+def prompt_batch(toks: torch.Tensor, frames: torch.Tensor | None) -> dict:
+    return {"tokens": toks} if frames is None else {"tokens": toks,
+                                                    "frames": frames}
+
+
 @torch.no_grad()
 def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
                 gate_logits: bool = True) -> dict:
@@ -3439,30 +3583,51 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
     does; every kernel call against its plain version on f32 copies of its
     own inputs (``layer_gaps``), and the logits; (b) a prefill of all but
     the last three tokens of the check prompt and three decode steps,
-    against (a)'s prefill logits of those positions.  Logits within
-    ``BF16_LOGIT_TOL`` of the largest logit in bf16 and ``F32_LOGIT_TOL``
-    element-wise in f32; with ``gate_logits`` False (a model too deep for
-    its logits to judge the kernels, ``RWKV_LOGIT_LAYERS``) the bf16
-    logits are reported, and every kernel call is still held."""
+    against a prefill's logits of those positions ((a)'s; for the MoE
+    family one at ``capacity_factor`` 8, where no token is dropped).
+    Logits within ``BF16_LOGIT_TOL`` of the largest logit in bf16 and
+    ``F32_LOGIT_TOL`` element-wise in f32; with ``gate_logits`` False (a
+    model too deep for its logits to judge the kernels,
+    ``RWKV_LOGIT_LAYERS``) the bf16 logits are reported, and every kernel
+    call is still held.  For the MoE family the plain pass of (a) and the
+    passes of (b) replay the routes of the kernel pass they are held
+    against (``routing``); a plain pass that routes freely is reported
+    beside it, with the share of (layer, token) whose experts agree."""
     plain = cfg.scaled(attention_impl="naive")
     spec = serve_spec(cfg, sizes)
+    replay = spec.get("replay", False)
     f32 = cfg.torch_dtype == torch.float32
     n, slots = spec["check_len"], sizes.serve_slots
     max_len = max(max_len, n + 1)
     toks = torch.randint(0, cfg.vocab, (1, n), generator=gen, device=device,
                          dtype=torch.int32)
+    frames = serve_frames(cfg, gen, device)
     out = {"prefill_tokens": n}
-    logits = []
-    for c in (cfg, plain):
-        state = model_api.init_decode_state(c, 1, max_len, device)
-        with spying(spec["prefill"]) as calls:
-            logits.append(model_api.forward(params, toks, c, mode="prefill",
-                                            state=state)[0])
-        if c is cfg:
-            for spy, got in zip(spec["prefill"], calls):
-                out[f"prefill_{spy.name}"] = layer_gaps("prefill", got, spy)
-        del calls, state
+
+    def prefill_logits(c, state, replayed=None):
+        with routing(replayed) as routes:
+            got = model_api.forward(params, toks, c, mode="prefill",
+                                    state=state, frames=frames)[0]
+        return got, routes
+
+    state = model_api.init_decode_state(cfg, 1, max_len, device)
+    with spying(spec["prefill"]) as calls:
+        got, kernel_routes = prefill_logits(cfg, state)
+    for spy, seen in zip(spec["prefill"], calls):
+        out[f"prefill_{spy.name}"] = layer_gaps("prefill", seen, spy)
+    del calls, state
+    logits = [got, prefill_logits(
+        plain, model_api.init_decode_state(plain, 1, max_len, device),
+        kernel_routes if replay else None)[0]]
     out["prefill"] = logits_gap(*logits)
+    if replay:
+        free, free_routes = prefill_logits(
+            plain, model_api.init_decode_state(plain, 1, max_len, device))
+        out["prefill_free_routing"] = dict(
+            logits_gap(free, logits[0]),
+            expert_sets_agree=expert_sets_agree(kernel_routes, free_routes))
+        del free
+
     lengths = np.linspace(1, n, slots).astype(int)
     prompts = [torch.randint(0, cfg.vocab, (int(m),), generator=gen,
                              device=device, dtype=torch.int32)
@@ -3470,28 +3635,50 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
     state = model_api.init_decode_state(cfg, slots, max_len, device)
     for i, p in enumerate(prompts):
         one = model_api.init_decode_state(cfg, 1, max_len, device)
-        state = _splice_state(
-            state, model_api.prefill(params, {"tokens": p[None]}, cfg, one)[1],
-            i)
+        state = _splice_state(state, model_api.prefill(
+            params, prompt_batch(p[None], frames), cfg, one)[1], i)
     step = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
                          device=device, dtype=torch.int32)
     # A dense model's call writes its own k/v at ``pos`` before reading the
     # cache, and a hybrid's its own ring slot; the recurrent state is not
     # written: both calls read the same prefix.
-    with spying(spec["decode"]) as calls:
+    with spying(spec["decode"]) as calls, routing() as step_routes:
         dec = [model_api.decode_step(params, step, cfg, state)[0]]
-    for spy, got in zip(spec["decode"], calls):
-        out[f"decode_{spy.name}"] = layer_gaps("decode", got, spy)
+    for spy, seen in zip(spec["decode"], calls):
+        out[f"decode_{spy.name}"] = layer_gaps("decode", seen, spy)
     del calls
-    dec.append(model_api.decode_step(params, step, plain, state)[0])
+    with routing(step_routes if replay else None):
+        dec.append(model_api.decode_step(params, step, plain, state)[0])
     out["decode"] = dict(logits_gap(*dec), kv_len=(lengths + 1).tolist())
-    one = model_api.init_decode_state(cfg, 1, max_len, device)
-    _, one = model_api.prefill(params, {"tokens": toks[:, :n - 3]}, cfg, one)
+    if replay:
+        with routing() as free_routes:
+            free = model_api.decode_step(params, step, plain, state)[0]
+        out["decode_free_routing"] = dict(
+            logits_gap(free, dec[0]),
+            expert_sets_agree=expert_sets_agree(step_routes, free_routes))
+
+    tf = spec.get("teacher_forced", cfg)
+    full, full_routes = logits[0][:, n - 3:], kernel_routes
+    if tf is not cfg:
+        got, full_routes = prefill_logits(
+            tf, model_api.init_decode_state(tf, 1, max_len, device))
+        full = got[:, n - 3:]
+        del got
+
+    def replayed(cols):
+        return [r[:, cols] for r in full_routes] if replay else None
+
+    one = model_api.init_decode_state(tf, 1, max_len, device)
+    with routing(replayed(slice(0, n - 3))):
+        _, one = model_api.prefill(params, prompt_batch(toks[:, :n - 3],
+                                                        frames), tf, one)
     stepped = []
     for i in range(n - 3, n):
-        lg, one = model_api.decode_step(params, toks[:, i:i + 1], cfg, one)
+        with routing(replayed(slice(i, i + 1))):
+            lg, one = model_api.decode_step(params, toks[:, i:i + 1], tf,
+                                            one)
         stepped.append(lg[:, -1])
-    stepped, full = torch.stack(stepped, dim=1), logits[0][:, n - 3:]
+    stepped = torch.stack(stepped, dim=1)
     out["prefill_then_decode"] = logits_gap(stepped, full)
     if f32:
         for what, got, want in (("prefill", *logits), ("decode", *dec),
@@ -3503,6 +3690,7 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
             require(out[what]["rel_to_max"] <= BF16_LOGIT_TOL, "serve/bf16",
                     what, out[what])
     out["logits_gated"] = f32 or gate_logits
+    out["routes_replayed"] = replay
     out["state"] = state  # for the profile, dropped before printing
     out["step"] = step
     return out
@@ -3534,7 +3722,7 @@ def device_breakdown(prof, calls: int, top: int = 8) -> dict:
 
 @torch.no_grad()
 def serve_profile(params, cfg, sizes: Sizes, device, state, step,
-                  toks) -> dict:
+                  toks, frames=None) -> dict:
     """The ported kernels' share of a decode step of all slots and of a
     prefill of the check prompt: CUDA-event times of the step (the
     host's issue time included), the device time of all kernels and of the
@@ -3545,7 +3733,7 @@ def serve_profile(params, cfg, sizes: Sizes, device, state, step,
         "decode_step": lambda: model_api.decode_step(params, step, cfg,
                                                      state),
         "prefill": lambda: model_api.prefill(
-            params, {"tokens": toks}, cfg,
+            params, prompt_batch(toks, frames), cfg,
             model_api.init_decode_state(cfg, 1, toks.shape[1], device)),
     }
     out = {}
@@ -3615,7 +3803,8 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
     cfg = get_smoke_config(arch) if sizes.serve_smoke else get_config(arch)
     require(cfg.attention_impl == "cuda", cfg.attention_impl)
     spec = serve_spec(cfg, sizes)
-    max_len = sizes.serve_prompt[1] + sizes.serve_new[1] + 8
+    prompt = spec.get("prompt", sizes.serve_prompt)
+    max_len = spec.get("max_len", prompt[1] + sizes.serve_new[1] + 8)
     gen = torch.Generator(device=device).manual_seed(seed)
     t1 = time.perf_counter()
     params = model_api.init_params(gen, cfg, device)
@@ -3629,6 +3818,12 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
               else {}),
            **({"window": cfg.window, "groups_and_tail":
                model_rglru.n_groups(cfg)} if cfg.family == "hybrid" else {}),
+           **({"n_experts": cfg.n_experts, "top_k": cfg.top_k,
+               "capacity_factor": cfg.capacity_factor}
+              if cfg.family == "moe" else {}),
+           **({"n_enc_layers": cfg.n_enc_layers,
+               "enc_frames": cfg.enc_frames} if cfg.family == "encdec"
+              else {}),
            "params": model_api.param_count(params),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
@@ -3648,16 +3843,19 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
                 "took route fma:", check[f"{name}_routes"])
     out["check"] = dict(check, seconds=time.perf_counter() - t1)
     if on_card:
-        toks = torch.randint(0, cfg.vocab, (1, sizes.serve_check_len),
+        toks = torch.randint(0, cfg.vocab, (1, spec["check_len"]),
                              generator=gen, device=device, dtype=torch.int32)
         t1 = time.perf_counter()
         out["profile"] = serve_profile(params, cfg, sizes, device, state,
-                                       step, toks)
+                                       step, toks,
+                                       serve_frames(cfg, gen, device))
         out["profile"]["seconds"] = time.perf_counter() - t1
     del state, step
 
-    cuts = {"check_f32": cfg.scaled(n_layers=F32_LAYERS[cfg.family],
-                                    dtype="float32")}
+    depth = F32_LAYERS[cfg.family]
+    cuts = {"check_f32": cfg.scaled(
+        n_layers=depth, dtype="float32",
+        **({"n_enc_layers": depth} if cfg.family == "encdec" else {}))}
     if spec["logit_layers"] is not None:
         cuts["check_bf16_cut"] = cfg.scaled(n_layers=spec["logit_layers"])
     for key, cut in cuts.items():
@@ -3667,6 +3865,8 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         for drop in ("state", "step"):
             checked.pop(drop)
         out[key] = dict(checked, n_layers=cut.n_layers,
+                        **({"n_enc_layers": cut.n_enc_layers}
+                           if cut.family == "encdec" else {}),
                         seconds=time.perf_counter() - t1)
         del cut_params
         if on_card:
@@ -3675,7 +3875,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
     t1 = time.perf_counter()
     reqs = serve_traffic(sizes, cfg.vocab, seed,
                          sizes.serve_requests if cfg.family == "dense"
-                         else sizes.serve_requests_recurrent)
+                         else sizes.serve_requests_recurrent, prompt)
     tracer = Tracer(clock=time.perf_counter)
     engine = ServeEngine(params, cfg, slots=sizes.serve_slots,
                          max_len=max_len, seed=seed, tracer=tracer,
@@ -3789,8 +3989,9 @@ def main(argv=None) -> int:
     serves = {arch: phase_serve(sizes, device, args.seed, arch)
               for arch in SERVE_ARCHS}
     served = {arch: out["kernel_launches"] for arch, out in serves.items()}
-    dense, rwkv, hybrid = (served[arch] for arch in SERVE_ARCHS)
-    hybrid_routes = serves[SERVE_ARCHS[2]]["kernel_routes"]["rg_lru"]
+    rwkv = served["rwkv6-3b"]
+    hybrid = served["recurrentgemma-2b"]
+    hybrid_routes = serves["recurrentgemma-2b"]["kernel_routes"]["rg_lru"]
 
     mesh = launch["mesh"]
     mesh_gemm = sum(mesh["gemm"].get("kernel_launches", {}).values())
@@ -3802,10 +4003,9 @@ def main(argv=None) -> int:
         "black_scholes": counts["black_scholes"],
         "spmv_ell": counts["spmv_ell"], "md5": counts["md5"],
         "nbody": counts["nbody"], "correlate": counts["correlate"],
-        "flash_attention": dense["flash_attention"]
-        + hybrid["flash_attention"],
-        "decode_attention": dense["decode_attention"]
-        + hybrid["decode_attention"],
+        "flash_attention": sum(n["flash_attention"] for n in served.values()),
+        "decode_attention": sum(n["decode_attention"]
+                                for n in served.values()),
         "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
@@ -3817,7 +4017,9 @@ def main(argv=None) -> int:
                    "stream phase": stream.get("kernel_launches")},
         "rg_lru": {"prefills (route chunk)": hybrid_routes["chunk"],
                    "prefills and decode steps (route fma)":
-                   hybrid_routes["fma"]}}
+                   hybrid_routes["fma"]},
+        **{name: {arch: n[name] for arch, n in served.items() if n[name]}
+           for name in ("flash_attention", "decode_attention")}}
     for row in rows:
         row["launches"] = per_row[row["name"]]
         if row["name"] in by_shape:

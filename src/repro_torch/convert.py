@@ -28,6 +28,7 @@ from .core.superblock import WorkDistribution
 from .device import resolve_device
 from .models import rglru, rwkv
 from .models.config import ModelConfig
+from .models.encdec import EncDec
 from .models.rglru import Griffin
 from .models.rwkv import RWKV
 from .models.transformer import Transformer
@@ -89,19 +90,16 @@ def config_from_reference(ref_cfg: Any) -> ModelConfig:
 
 def params_from_reference(np_tree: dict, cfg: ModelConfig,
                           device: torch.device | str | None = None
-                          ) -> Transformer | RWKV | Griffin:
+                          ) -> Transformer | RWKV | Griffin | EncDec:
     """The reference's parameter tree, handed over as float32 numpy arrays
     (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``), as
     this package's module holding the same numbers on ``device`` (None: the
     GPU), in ``cfg``'s dtype except for the leaves the reference creates in
     f32 whatever the config says (RWKV's ``bonus``, the hybrid's
-    ``log_lambda``).  Dense, VLM and RWKV trees have their layers stacked on
-    axis 0; the hybrid's has its (rec, rec, attn) groups stacked and its
-    tail as a list of blocks."""
-    if cfg.family not in ("dense", "vlm", "rwkv", "hybrid"):
-        raise NotImplementedError(
-            f"parameters of the {cfg.family} family are not ported yet "
-            "(ROADMAP Queue A item 11)")
+    ``log_lambda``).  Dense, VLM, MoE and RWKV trees have their layers
+    stacked on axis 0, the encoder-decoder's ``enc_layers`` and
+    ``dec_layers`` likewise; the hybrid's has its (rec, rec, attn) groups
+    stacked and its tail as a list of blocks."""
     device = resolve_device(device)
     keep_f32 = {"rwkv": rwkv.FLOAT32_PARAMS,
                 "hybrid": rglru.FLOAT32_PARAMS}.get(cfg.family, ())
@@ -128,6 +126,16 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig,
             raise ValueError(f"{n} {what} in the tree, {want} in cfg")
         return n
 
+    if cfg.family == "encdec":
+        enc, dec = np_tree["enc_layers"], np_tree["dec_layers"]
+        return EncDec(
+            tensor(np_tree["embed"]), tensor(np_tree["dec_pos"]),
+            [entry(enc, i) for i in range(count(enc, cfg.n_enc_layers,
+                                                "encoder layers"))],
+            whole(np_tree["enc_norm"]),
+            [entry(dec, i) for i in range(count(dec, cfg.n_layers,
+                                                "decoder layers"))],
+            whole(np_tree["dec_norm"]))
     embed, final = tensor(np_tree["embed"]), whole(np_tree["final_norm"])
     if cfg.family == "hybrid":
         g, tail = rglru.n_groups(cfg)

@@ -1,44 +1,32 @@
 """Family-dispatched model API used by the serving driver.
 
 Every family implements ``init_params``, ``train_loss``, ``prefill`` and
-``decode_step`` and exposes logical-axis trees for params and decode state.
-Ported so far: the dense and VLM families (``transformer``), RWKV-6
-(``rwkv``) and the RecurrentGemma hybrid (``rglru``).  The MoE and
-encoder-decoder families raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+``decode_step`` and exposes logical-axis trees for params and decode state:
+the dense and VLM families (``transformer``), the MoE family (``moe``),
+RWKV-6 (``rwkv``), the RecurrentGemma hybrid (``rglru``) and the Whisper
+encoder-decoder (``encdec``), whose prefill also takes the encoder's input
+frames (``batch["frames"]``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import kvcache, rglru, rwkv, transformer
+from . import encdec, kvcache, moe, rglru, rwkv, transformer
 from .config import ModelConfig
 
-_TRANSFORMER_FAMILIES = ("dense", "vlm")
-#: the other ported families, by the module that holds each
-_RECURRENT = {"rwkv": rwkv, "hybrid": rglru}
-
-#: where each family that is not ported yet stands in ROADMAP.md
-_PENDING = {
-    "moe": "ROADMAP Queue A item 11 (models/moe.py, with its two "
-           "custom_vjp pairs as autograd Functions)",
-    "encdec": "ROADMAP Queue A item 11 (models/encdec.py)",
-}
+#: the module of each family
+_FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe,
+             "rwkv": rwkv, "hybrid": rglru, "encdec": encdec}
+#: the families whose decode state is the KV cache of ``kvcache``
+_KV_CACHED = (transformer, moe)
 
 
 def _family(cfg: ModelConfig):
-    """The module of ``cfg``'s family; raise for a family the port does not
-    have yet."""
-    if cfg.family in _TRANSFORMER_FAMILIES:
-        return transformer
-    if cfg.family in _RECURRENT:
-        return _RECURRENT[cfg.family]
-    if cfg.family in _PENDING:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
-            + _PENDING[cfg.family])
-    raise ValueError(f"unknown family {cfg.family!r}")
+    """The module of ``cfg``'s family."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _FAMILIES[cfg.family]
 
 
 # ---------------------------------------------------------------------------
@@ -80,36 +68,60 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """An empty KV cache, or recurrent state, on ``device`` (None: the
     GPU)."""
     mod = _family(cfg)
-    if mod is transformer:
+    if mod in _KV_CACHED:
         return kvcache.init_cache(cfg, batch, max_len, device=device)
+    if mod is encdec:
+        return encdec.init_cache(cfg, batch, max_len, device)
     return mod.init_state(cfg, batch, device)
 
 
 def state_logical_axes(cfg: ModelConfig) -> dict:
     mod = _family(cfg)
-    if mod is transformer:
+    if mod in _KV_CACHED:
         return kvcache.cache_logical_axes(cfg)
+    if mod is encdec:
+        return encdec.cache_logical_axes(cfg)
     return mod.state_logical_axes(cfg)
 
 
 @torch.no_grad()
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, rules=None,
             mode: str = "train", state: dict | None = None,
-            extra_embeds: torch.Tensor | None = None):
+            extra_embeds: torch.Tensor | None = None,
+            frames: torch.Tensor | None = None):
     """The family's forward pass: logits of every position ((B, 1, V) in
-    decode mode) and the new state (a dense model's KV cache is its
-    state)."""
+    decode mode) and the new state (a dense or MoE model's KV cache is its
+    state).  The encoder-decoder family reads ``frames`` (B, F, D), the
+    encoder's input, in train and prefill mode; its prefill here returns
+    the logits of every prompt position, where ``prefill`` keeps the
+    last."""
     mod = _family(cfg)
     if mod is transformer:
         return transformer.forward(params, tokens, cfg, rules, mode=mode,
                                    cache=state, extra_embeds=extra_embeds)
+    if mod is moe:
+        logits, state, _ = moe.forward(params, tokens, cfg, rules, mode=mode,
+                                       cache=state)
+        return logits, state
+    if mod is encdec:
+        if mode == "decode":
+            return encdec.decode_step(params, tokens, cfg, state, rules)
+        if mode == "prefill":
+            x, state = encdec._prefill_hidden(params, tokens, frames, cfg,
+                                              state, rules)
+            return x @ params.embed.T, state
+        enc_out = encdec.encode(params, frames, cfg, rules)
+        return encdec.decode_train(params, tokens, enc_out, cfg, rules), None
     return mod.forward(params, tokens, cfg, rules, mode=mode, state=state,
                        extra_embeds=extra_embeds)
 
 
+@torch.no_grad()
 def prefill(params, batch: dict, cfg: ModelConfig, state: dict, rules=None):
     """Process the prompt; returns (last-token logits, updated state)."""
-    _family(cfg)  # a family not ported raises before the batch is read
+    if _family(cfg) is encdec:
+        return encdec.prefill(params, batch["tokens"], batch["frames"], cfg,
+                              state, rules)
     logits, state = forward(params, batch["tokens"], cfg, rules, "prefill",
                             state, batch.get("patch_embeds"))
     return logits[:, -1:, :], state

@@ -43,12 +43,17 @@ def xla_flash_attention(
     block_k: int = 512,
 ) -> torch.Tensor:
     """Online-softmax attention over kv blocks of ``block_k`` (the
-    reference's ``lax.scan`` body, run as a loop)."""
+    reference's ``lax.scan`` body, run as a loop).  A ragged T is padded
+    to whole blocks with zero keys, which are masked whatever ``causal``
+    says; the reference masks them only through the causal or window mask,
+    so its non-causal ragged result counts them in the softmax (ROADMAP
+    Queue C)."""
     b, hq, s, d = q.shape
     _, hkv, t, _ = k.shape
     group = hq // hkv
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     block_k = min(block_k, t)
+    t_valid = t
     if t % block_k:
         pad = block_k - t % block_k
         k = F.pad(k, (0, 0, 0, pad))
@@ -67,11 +72,11 @@ def xla_flash_attention(
         v_rep = torch.repeat_interleave(v[:, :, sl], group, dim=1).float()
         s_ij = torch.einsum("bhsd,bhtd->bhst", qf, k_rep)
         k_pos = ki * block_k + torch.arange(block_k, device=q.device)
-        mask = torch.ones((s, block_k), dtype=torch.bool, device=q.device)
+        mask = (k_pos < t_valid)[None, :].expand(s, block_k)
         if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
         if window is not None:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
         s_ij = torch.where(mask[None, None], s_ij,
                            torch.tensor(NEG_INF, device=q.device))
         m_cur = torch.maximum(m, s_ij.amax(dim=-1))

@@ -3,12 +3,15 @@
 A fixed decode batch of ``slots``; finished or empty slots are refilled
 from the queue by running a prefill for the incoming prompt and splicing
 its cache into the slot.  Prefill and decode are eager calls of the model
-API (the reference compiles each with ``jax.jit``); on the GPU a dense
-model's reach the hand-written flash-attention kernel once a layer per
+API (the reference compiles each with ``jax.jit``); on the GPU a dense or
+MoE model's reach the hand-written flash-attention kernel once a layer per
 prefill and the decode-attention kernel once a layer per decode step, an
-RWKV-6 model's the WKV6 kernel once a layer in both, and the hybrid's the
+RWKV-6 model's the WKV6 kernel once a layer in both, the hybrid's the
 RG-LRU kernel once a recurrent block in both and the flash-attention kernel
-once an attention block per prefill.
+once an attention block per prefill, and the encoder-decoder's the
+flash-attention kernel once an encoder layer and twice a decoder layer per
+prefill (whose frames are zeros, as the reference's engine makes them)
+and the decode-attention kernel twice a decoder layer per decode step.
 
 Sampling: greedy or temperature, on the host from float32 logits, with
 ``np.random.default_rng(seed)``: deterministic per (seed, request order).
@@ -184,6 +187,10 @@ class ServeEngine:
                                                  self.device)
         batch = {"tokens": torch.as_tensor(
             np.asarray(req.prompt, np.int32)[None, :], device=self.device)}
+        if self.cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (1, self.cfg.enc_frames, self.cfg.d_model),
+                dtype=self.cfg.torch_dtype, device=self.device)
         if self.cfg.family == "vlm":
             batch["patch_embeds"] = torch.zeros(
                 (1, self.cfg.n_patches, self.cfg.d_model),

@@ -107,6 +107,35 @@ def test_flash_attention_non_causal_ragged_t_is_masked():
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
 
 
+def test_xla_attention_masks_the_padded_keys_of_a_non_causal_ragged_t():
+    """``xla_flash_attention`` pads T to whole blocks with zero keys.  The
+    reference masks them only through the causal or window mask, so its
+    non-causal result counts them in the softmax and parts from its own
+    ``attention_ref``; the port masks keys past T whatever ``causal`` says,
+    and its three paths agree with ``attention_ref`` (ROADMAP Queue C)."""
+    rng = np.random.RandomState(105)
+    q, k, v = _qkv(rng, 1, 4, 2, 30, 100, 32)
+    want = RK.attention_ref(*_j(q, k, v), causal=False)
+    diluted = RA.xla_flash_attention(*_j(q, k, v), causal=False, block_k=64)
+    assert np.abs(_np(diluted) - _np(want)).max() > 1e-2
+    got = {
+        "xla": TA.xla_flash_attention(*_t(q, k, v), causal=False, block_k=64),
+        "naive": TA.multihead_attention(*_t(q, k, v), impl="naive",
+                                        causal=False),
+        "cuda": TA.multihead_attention(*_t(q, k, v), impl="cuda",
+                                       causal=False),
+    }
+    for impl, out in got.items():
+        np.testing.assert_allclose(_np(out), _np(want), rtol=2e-4, atol=2e-4,
+                                   err_msg=impl)
+    # a causal ragged T was already right, and stays so
+    np.testing.assert_allclose(
+        _np(TA.xla_flash_attention(*_t(q, k, v), causal=True, q_offset=70,
+                                   block_k=64)),
+        _np(RA.xla_flash_attention(*_j(q, k, v), causal=True, q_offset=70,
+                                   block_k=64)), rtol=2e-4, atol=2e-4)
+
+
 def test_flash_attention_use_ref_and_scale():
     rng = np.random.RandomState(104)
     q, k, v = _t(*_qkv(rng, 1, 2, 2, 16, 16, 16))

@@ -437,3 +437,23 @@ def test_chip_smoke_counts_slots_a_pair_in_the_innermost_rsqrt_loop(
     with pytest.raises(AssertionError, match="no loop with a MUFU"):
         smoke.loop_slots(text.replace("MUFU.RSQ", "FMUL"),
                          "nbody_tile_kernel")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-medium"])
+def test_cpu_serving_of_the_moe_and_whisper_families_never_touches_the_build(
+        no_build, arch):
+    """As above for the MoE family's routed layers and Whisper's encoder,
+    decoder prefill and two decode attentions a layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+
+    cfg = get_smoke_config(arch)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    state = api.init_decode_state(cfg, 2, 16, "cpu")
+    batch = {"tokens": torch.zeros((2, 5), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((2, cfg.enc_frames, cfg.d_model))
+    logits, state = api.prefill(params, batch, cfg, state)
+    logits, state = api.decode_step(params, batch["tokens"][:, :1], cfg,
+                                    state)
+    assert torch.isfinite(logits).all()

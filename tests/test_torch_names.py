@@ -60,11 +60,13 @@ MISSING_OK = {
     ("models.api", "param_shapes"): "a jax.eval_shape; waits for ROADMAP "
                                     "Queue A item 15",
     ("models.attention", "combine_decode_partials"): QUEUED_DIST,
-    **{(m, "remat_policy_of"): "JAX rematerialization; waits for ROADMAP "
-                               "Queue A item 11"
+    **{(m, "remat_policy_of"): "JAX rematerialization, which serving "
+                               "never uses; waits for training, ROADMAP "
+                               "Queue A item 13"
        for m in ("models.layers", "models.rglru", "models.rwkv",
-                 "models.transformer")},
+                 "models.transformer", "models.moe", "models.encdec")},
     ("models.transformer", "apply_rope"): INCIDENTAL,
+    ("models.encdec", "layer_norm"): INCIDENTAL,
     ("models.config", "ModelConfig.jdtype"): "the JAX dtype; the port's is "
                                              "ModelConfig.torch_dtype",
     ("models.config", "ModelConfig.unroll_of"): "the JAX scan's unroll "

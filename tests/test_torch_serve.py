@@ -8,8 +8,6 @@ parity tests), far inside the gaps between the top logits of these
 prompts.
 """
 
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
@@ -265,13 +263,6 @@ def test_run_serving_on_the_cpu_returns_the_reference_keys():
     assert got["tokens_per_s"] > 0
 
 
-def test_engine_rejects_a_family_that_is_not_ported():
-    cfg = dataclasses.replace(config_from_reference(
-        r_smoke("granite-moe-1b-a400m")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(None, cfg, slots=1, max_len=8, device="cpu")
-
-
 @pytest.mark.parametrize("arch,slots", [("rwkv6-3b", 2),
                                         ("recurrentgemma-2b", 3)])
 def test_recurrent_families_serve_like_the_reference_engine(arch, slots):
@@ -290,6 +281,100 @@ def test_recurrent_families_serve_like_the_reference_engine(arch, slots):
     assert all(r.status == "ok" for r in t_done.values())
     assert engines[1].stats == engines[0].stats
     assert engines[1].stats["steps"] > 0
+
+
+@pytest.mark.parametrize("arch,slots", [("granite-moe-1b-a400m", 2),
+                                        ("granite-moe-3b-a800m", 3),
+                                        ("whisper-medium", 1),
+                                        ("whisper-medium", 3)])
+def test_moe_and_whisper_serve_like_the_reference_engine(arch, slots):
+    """Greedy tokens, statuses and ``stats`` equal the reference engine's
+    for the MoE and encoder-decoder families; whisper's prefills get zero
+    frames from both engines, and on several slots its cross-attention
+    caches are spliced into the slot of each refill.  On one slot the
+    port keeps the prefill's cache (ROADMAP Queue C), so there the port's
+    tokens equal a prefill followed by decode steps."""
+    rcfg, rparams, tcfg, tparams = _both(arch, 0)
+    rng = np.random.default_rng(9)
+    prompts = [(rng.integers(0, rcfg.vocab, 7 + 2 * i).astype(np.int32),
+                {"max_new_tokens": 3 + i}) for i in range(5)]
+    engines = [REngine(rparams, rcfg, slots=slots, max_len=48),
+               ServeEngine(tparams, tcfg, slots=slots, max_len=48,
+                           device="cpu")]
+    r_done, t_done = _serve(engines, prompts)
+    assert all(r.status == "ok" for r in t_done.values())
+    assert engines[1].stats == engines[0].stats
+    if slots > 1:
+        _same(r_done, t_done)
+        return
+    frames = torch.zeros((1, tcfg.enc_frames, tcfg.d_model))
+    for rid, (p, kw) in enumerate(prompts):
+        state = t_api.init_decode_state(tcfg, 1, 48, "cpu")
+        logits, state = t_api.prefill(tparams, {
+            "tokens": torch.from_numpy(p[None]), "frames": frames}, tcfg,
+            state)
+        want = [int(logits[0, -1].argmax())]
+        for _ in range(kw["max_new_tokens"] - 1):
+            logits, state = t_api.decode_step(
+                tparams, torch.tensor([[want[-1]]], dtype=torch.int32), tcfg,
+                state)
+            want.append(int(logits[0, -1].argmax()))
+        assert t_done[rid].output == want, rid
+
+
+def test_splice_writes_the_cross_attention_caches_like_the_reference():
+    """A whisper prefill's four caches and ``pos``, spliced into slot 2 of
+    three, give the reference's ``_splice_state`` leaf for leaf, written in
+    place along the batch axis behind the layer axis."""
+    rcfg, rparams, tcfg, tparams = _both("whisper-medium", 0)
+    rng = np.random.default_rng(10)
+    toks = rng.integers(0, rcfg.vocab, (1, 6)).astype(np.int32)
+    frames = rng.standard_normal((1, rcfg.enc_frames, rcfg.d_model)) \
+        .astype(np.float32)
+    r_one = r_api.prefill(rparams, {"tokens": jax.numpy.asarray(toks),
+                                    "frames": jax.numpy.asarray(frames)},
+                          rcfg, r_api.init_decode_state(rcfg, 1, 16))[1]
+    t_one = t_api.prefill(tparams, {"tokens": torch.from_numpy(toks),
+                                    "frames": torch.from_numpy(frames)},
+                          tcfg, t_api.init_decode_state(tcfg, 1, 16, "cpu"))[1]
+    want = r_splice_state(r_api.init_decode_state(rcfg, 3, 16), r_one, 2)
+    state = t_api.init_decode_state(tcfg, 3, 16, "cpu")
+    cross_k = state["cross_k"]
+    got = _splice_state(state, t_one, 2)
+    assert got["cross_k"] is cross_k
+    assert float(cross_k[:, 2].abs().max()) > 0
+    assert float(cross_k[:, :2].abs().max()) == 0
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].float().numpy(),
+                                   np.asarray(w, np.float32), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-medium"])
+def test_run_serving_serves_the_moe_and_whisper_families(arch):
+    kw = dict(smoke=True, requests=3, prompt_len=8, max_new=4, slots=2)
+    want = r_run_serving(arch, **kw)
+    got = run_serving(arch, device="cpu", **kw)
+    for key in ("arch", "completed", "decode_tokens", "prefill_tokens"):
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-medium"])
+def test_serve_driver_and_example_run_the_family_on_the_cpu(arch, capsys):
+    """``python -m repro_torch.launch.serve --smoke --device cpu`` and the
+    ``serve_lm`` example, end to end."""
+    import json
+
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                "3", "--prompt-len", "6", "--max-new", "3", "--slots", "2"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["completed"] == 3 and out["decode_tokens"] == 3 * 2
+    serve_lm.main(["--arch", arch, "--device", "cpu", "--requests", "3"])
+    assert "3/3 requests" in capsys.readouterr().out
 
 
 def _flat(tree):

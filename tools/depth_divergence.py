@@ -19,8 +19,13 @@ through depth shows it as a difference that grows block by block in f32
 too, where the two paths differ only in the order of the kernels' sums; a
 full-depth comparison of its logits then says nothing about the kernels,
 and ``block_logits`` says to what depth such a comparison still holds.
-Prints one JSON line per architecture, then the card's name and power
-limit.
+For an MoE model each path also reports, block by block, the share of
+tokens whose top-k experts agree with the f32 kernel path's
+(``expert_agree``), and a fifth path, the plain bf16 path with the bf16
+kernel path's experts replayed (``chip_smoke.routing``), is held against
+the bf16 kernel path: its logits part by rounding alone, with no expert
+swapped.  Prints one JSON line per architecture, then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -38,10 +43,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import logits_gap, recorded  # noqa: E402
+from chip_smoke import logits_gap, recorded, routing  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.models import rglru, rwkv, transformer  # noqa: E402
+from repro_torch.models import moe, rglru, rwkv, transformer  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
 
 #: where each family's residual stream can be read after a block: the
@@ -49,6 +54,7 @@ from repro_torch.models.layers import apply_norm  # noqa: E402
 BLOCK_ENDS = {
     "dense": ([(transformer, "_layer_fn")], lambda args: True),
     "vlm": ([(transformer, "_layer_fn")], lambda args: True),
+    "moe": ([(moe, "_layer_fn")], lambda args: True),
     # rwkv.forward constrains the residual stream at the end of each layer
     "rwkv": ([(rwkv, "constrain")],
              lambda args: args[2] == ("batch", "seq", "d_model")),
@@ -89,17 +95,22 @@ def divergence(arch: str, tokens: int, seed: int,
     params = api.init_params(gen, cfg, device)
     toks = torch.randint(0, cfg.vocab, (1, tokens), generator=gen,
                          device=device, dtype=torch.int32)
-    runs = {}
-    for label, dtype, impl in (("cuda_bf16", cfg.dtype, "cuda"),
-                               ("naive_bf16", cfg.dtype, "naive"),
-                               ("cuda_f32", "float32", "cuda"),
-                               ("naive_f32", "float32", "naive")):
+    runs, routes = {}, {}
+    paths = [("cuda_bf16", cfg.dtype, "cuda"),
+             ("naive_bf16", cfg.dtype, "naive"),
+             ("cuda_f32", "float32", "cuda"),
+             ("naive_f32", "float32", "naive")]
+    if cfg.family == "moe":
+        paths.insert(2, ("naive_bf16_replayed", cfg.dtype, "naive"))
+    for label, dtype, impl in paths:
         if dtype == "float32":
             params.float()  # in place: the same weights, widened exactly
         c = cfg.scaled(dtype=dtype, attention_impl=impl)
-        with block_outputs(c) as blocks:
+        replay = routes["cuda_bf16"] if label.endswith("replayed") else None
+        with block_outputs(c) as blocks, routing(replay) as seen:
             logits = api.forward(params, toks, c, mode="train")[0].float()
         runs[label] = ([b.float() for b in blocks], logits)
+        routes[label] = seen
         del blocks
     ref_blocks, ref_logits = runs["cuda_f32"]
     out = {"arch": arch, "tokens": tokens, "blocks": len(ref_blocks)}
@@ -108,8 +119,12 @@ def divergence(arch: str, tokens: int, seed: int,
         return [logits_gap(head(params, a, cfg), head(params, b, cfg))
                 for a, b in zip(blocks, against)]
 
+    def expert_agree(a, b):
+        return [float((x.sort(-1).values == y.sort(-1).values).all(-1)
+                      .double().mean()) for x, y in zip(a, b)]
+
     for label, (blocks, logits) in runs.items():
-        if label == "cuda_f32":
+        if label in ("cuda_f32", "naive_bf16_replayed"):
             continue
         out[label] = {
             "block_rel": [float((a - b).norm() / b.norm())
@@ -117,11 +132,21 @@ def divergence(arch: str, tokens: int, seed: int,
             "logits": logits_gap(logits, ref_logits),
             "block_logits": [g["rel_to_max"] for g in
                              block_logits(blocks, ref_blocks)]}
-    bf16, plain16 = runs["cuda_bf16"], runs["naive_bf16"]
-    out["cuda_bf16_vs_naive_bf16"] = dict(
-        logits_gap(bf16[1], plain16[1]),
-        block_logits=[g["rel_to_max"] for g in
-                      block_logits(bf16[0], plain16[0])])
+        if routes[label]:
+            out[label]["expert_agree"] = expert_agree(routes[label],
+                                                      routes["cuda_f32"])
+    bf16 = runs["cuda_bf16"]
+    for label in ("naive_bf16", "naive_bf16_replayed"):
+        if label not in runs:
+            continue
+        plain16 = runs[label]
+        out[f"cuda_bf16_vs_{label}"] = dict(
+            logits_gap(bf16[1], plain16[1]),
+            block_logits=[g["rel_to_max"] for g in
+                          block_logits(bf16[0], plain16[0])])
+        if routes[label]:
+            out[f"cuda_bf16_vs_{label}"]["expert_agree"] = expert_agree(
+                routes["cuda_bf16"], routes[label])
     del params
     return out
 
