@@ -20,9 +20,15 @@ local attention), granite-moe-3b-a800m (flash and decode attention at a
 GQA group of 3, beside top-8 routing over 40 experts; its plain passes
 replay the kernel passes' expert choices) and whisper-medium (flash
 attention non-causal over 1500 encoder frames and in the decoder, decode
-attention against the self- and cross-attention caches).  Phases (each prints one JSON line with the seconds it
-took): ``env``, ``build``, ``kernels``, ``launch``, ``stream``, ``sim``,
-and ``serve`` once for each model.  The ``sim`` phase measures the card's
+attention against the self- and cross-attention caches); then training
+with gemma-2b at full width and depth in bf16 (``attention_impl="xla"``:
+the kernels are forward-only), ten steps of 8 x 512 tokens from the token
+stream with remat, after one step held against the CPU in f32 at two
+layers, two microbatches against one, the kernels' gradient guard, and
+``run_training`` with an injected failure and a bit-exact resume.  Phases
+(each prints one JSON line with the seconds it took): ``env``, ``build``,
+``kernels``, ``launch``, ``stream``, ``sim``, ``serve`` once for each
+model, and ``train``.  The ``sim`` phase measures the card's
 copy rates, its FP32 rate (the f32 GEMM) and its memory beside the
 simulator's ``HardwareModel()`` constants, which they must match within
 ``SIM_RATE_RANGE``, and sets the port's ``Simulator``'s prediction for the
@@ -59,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -66,6 +73,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -92,8 +100,10 @@ from repro_torch.core import (  # noqa: E402
     Topology,
     parse,
 )
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.streaming import stream_kmeans  # noqa: E402
+from repro_torch.data import DataConfig, TokenStream  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
     attention_ref,
@@ -200,20 +210,28 @@ from repro_torch.kernels.spmv_ell.ref import (  # noqa: E402
     gather_bins,
 )
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
+from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import rglru as model_rglru  # noqa: E402
 from repro_torch.models import rwkv as model_rwkv  # noqa: E402
+from repro_torch.models.layers import causal_lm_loss, rms_norm  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
     analyze,
     validate_chrome_trace,
 )
 from repro_torch.obs.trace import Tracer  # noqa: E402
+from repro_torch.optim import AdamWState, adamw_update  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Request,
     ServeEngine,
     _splice_state,
+)
+from repro_torch.train.train_loop import (  # noqa: E402
+    TrainState,
+    init_train_state,
+    make_train_step,
 )
 
 #: the wrappers whose ``launches`` counters prove the path went through the
@@ -315,6 +333,17 @@ class Sizes:
     serve_prompt_whisper: tuple = (16, 320)
     serve_max_len_whisper: int = 448
     profile_steps: int = 3
+    # the training path: gemma-2b at full width and depth (its smoke
+    # config in a rehearsal), a global batch of train_batch x train_seq
+    # tokens from the token stream, train_steps steps; the card-against-CPU
+    # and microbatch checks at full width and train_check_layers layers,
+    # the former on train_check_batch
+    train_smoke: bool = False
+    train_batch: int = 8
+    train_seq: int = 512
+    train_steps: int = 10
+    train_check_layers: int = 2
+    train_check_batch: tuple = (2, 128)
     reps: int = 5
 
 
@@ -340,6 +369,8 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             serve_check_len=24, serve_check_len_window=24,
             serve_prompt_whisper=(4, 20), serve_max_len_whisper=30,
             profile_steps=1,
+            train_smoke=True, train_batch=4, train_seq=16,
+            train_check_batch=(2, 8),
             reps=1)
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
@@ -3953,6 +3984,425 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
     emit(out)
     return out
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma-2b"
+#: the peak device memory above which the train run halves its batch
+TRAIN_PEAK_SHARE = 0.9
+#: the constant rate of the full-depth run, on one batch repeated
+TRAIN_LR = 1e-3
+#: the fall of the loss that run must show over its steps
+TRAIN_LOSS_FALL = 1.0
+#: the step the checks' optimizer state is set to (past the default
+#: schedule's warm-up, so that the rate moves the params) with moments of
+#: scale TRAIN_HISTORY, so that a new master leaf is a smooth function of
+#: its gradient rather than its sign (as after a first step from zero
+#: moments)
+TRAIN_CHECK_STEP = 60
+TRAIN_HISTORY = 1e-3
+#: card against CPU in f32: the loss, the gradient norm, and each new
+#: master and moment leaf (atol + rtol |x|): sums in another order
+TRAIN_F32_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "rtol": 1e-4,
+                 "atol": 1e-6}
+#: two microbatches against one in bf16: the loss
+TRAIN_MICRO_LOSS_RTOL = 2e-3
+#: a bf16 param against its f32 master: half a bf16 unit in the last place
+BF16_HALF_ULP = 2.0 ** -8
+
+
+@torch.no_grad()
+def with_history(state: TrainState, gen: torch.Generator, step: int) -> None:
+    """Moments from ``gen`` (mu of scale ``TRAIN_HISTORY``, nu its square
+    plus 1e-8) and the step, in place."""
+    for name, m in state.opt.master.items():
+        h = torch.randn(m.shape, generator=gen, device=m.device) \
+            * TRAIN_HISTORY
+        state.opt.mu[name].copy_(h)
+        state.opt.nu[name].copy_(h * h + 1e-8)
+    state.opt.step.fill_(step)
+
+
+def state_to(state: TrainState, device) -> TrainState:
+    """A copy of ``state`` on ``device``: a module of the same structure
+    with copies of the parameters, and copies of the optimizer's tensors."""
+    memo = {id(p): torch.nn.Parameter(p.detach().to(device, copy=True),
+                                      requires_grad=p.requires_grad)
+            for p in state.params.parameters()}
+    move = lambda tree: {k: v.to(device, copy=True)  # noqa: E731
+                         for k, v in tree.items()}
+    opt = state.opt
+    return TrainState(copy.deepcopy(state.params, memo), AdamWState(
+        opt.step.to(device, copy=True), move(opt.master), move(opt.mu),
+        move(opt.nu)))
+
+
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor of a train state, in a fixed order."""
+    opt = state.opt
+    return list(state.params.parameters()) + [opt.step] + [
+        t for tree in (opt.master, opt.mu, opt.nu) for t in tree.values()]
+
+
+def train_tokens(cfg, batch: int, seq: int, seed: int, device,
+                 step: int = 0) -> dict:
+    toks = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=seed)
+                       ).batch_at(step)["tokens"]
+    return {"tokens": torch.from_numpy(toks).to(device)}
+
+
+def train_guard(cfg, device) -> dict:
+    """Gate 4: a flash-attention call on card tensors that require a
+    gradient raises before it launches, and the train step refuses the
+    kernels' config."""
+    out = {}
+    if device.type == "cuda":
+        q = torch.randn((1, 8, 64, 256), device=device, dtype=torch.bfloat16,
+                        requires_grad=True)
+        kv = torch.randn((1, 1, 64, 256), device=device, dtype=torch.bfloat16)
+        before = flash_attention_cuda.launches
+        refused = False
+        try:
+            flash_attention(q, kv, kv)
+        except RuntimeError as e:
+            refused = "no backward" in str(e)
+        require(refused and flash_attention_cuda.launches == before,
+                "flash attention took a tensor that requires a gradient")
+        out["flash_refuses_grad"] = True
+    cuda_cfg = dataclasses.replace(cfg, attention_impl="cuda")
+    refused = False
+    try:
+        make_train_step(cuda_cfg)
+    except ValueError as e:
+        refused = "forward-only" in str(e)
+    require(refused, "make_train_step took attention_impl='cuda'")
+    out["train_step_refuses_cuda"] = True
+    return out
+
+
+def train_card_vs_cpu(cfg, sizes: Sizes, device, seed: int) -> dict:
+    """Gate 1: one step of ``make_train_step`` at full width and
+    ``train_check_layers`` layers in f32 (TF32 off) on the card and on the
+    CPU from the same state (made on the card, copied to the CPU)."""
+    t0 = time.perf_counter()
+    c = dataclasses.replace(cfg, n_layers=sizes.train_check_layers,
+                            dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    card = init_train_state(gen, c, device)
+    with_history(card, gen, TRAIN_CHECK_STEP)
+    cpu = state_to(card, "cpu")
+    sync(device)
+    parts = {"init_and_copy": time.perf_counter() - t0}
+    b, s = sizes.train_check_batch
+    batch = train_tokens(c, b, s, seed, "cpu")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        step = make_train_step(c)
+        t1 = time.perf_counter()
+        card, mc = step(card, {k: v.to(device) for k, v in batch.items()})
+        sync(device)
+        parts["card_step"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cpu, mp = step(cpu, batch)
+        parts["cpu_step"] = time.perf_counter() - t1
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    out = {"n_layers": c.n_layers, "dtype": c.dtype, "batch": [b, s],
+           "step": int(card.step)}
+    for key in ("loss", "grad_norm"):
+        got, want = float(mc[key]), float(mp[key])
+        out[key] = {"card": got, "cpu": want,
+                    "rel": abs(got - want) / abs(want)}
+        require(out[key]["rel"] <= TRAIN_F32_TOL[key], "train/f32", key,
+                out[key])
+    # compared on the card: float64 on the CPU takes seconds a leaf
+    t1 = time.perf_counter()
+    worst = {}
+    for tree in ("master", "mu", "nu"):
+        mine, theirs = getattr(card.opt, tree), getattr(cpu.opt, tree)
+        gaps = [check_close(f"train/f32 {tree}/{name}", mine[name],
+                            theirs[name].to(device),
+                            rtol=TRAIN_F32_TOL["rtol"],
+                            atol=TRAIN_F32_TOL["atol"])
+                for name in theirs]
+        worst[tree] = {"max_abs": max(g[0] for g in gaps),
+                       "max_rel": max(g[1] for g in gaps)}
+    parts["compare"] = time.perf_counter() - t1
+    out.update(leaves=len(card.opt.master), gaps=worst,
+               seconds_by_part=parts, seconds=time.perf_counter() - t0)
+    del card, cpu
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_microbatches(cfg, sizes: Sizes, device, seed: int) -> dict:
+    """Gate 3: two microbatches against one on the same batch, at full
+    width and ``train_check_layers`` layers in bf16, ``donate=False``: the
+    loss, and each new bf16 param within half a bf16 ulp of its f32
+    master."""
+    t0 = time.perf_counter()
+    c = dataclasses.replace(cfg, n_layers=sizes.train_check_layers)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    state = init_train_state(gen, c, device)
+    with_history(state, gen, TRAIN_CHECK_STEP)
+    batch = train_tokens(c, sizes.train_batch, sizes.train_seq, seed,
+                         device)
+    results = {m: make_train_step(c, microbatches=m, donate=False)(state,
+                                                                    batch)
+               for m in (1, 2)}
+    require(int(state.step) == TRAIN_CHECK_STEP, "donate=False moved the "
+            "given state")
+    (s1, m1), (s2, m2) = results[1], results[2]
+    loss = {"one": float(m1["loss"]), "two": float(m2["loss"])}
+    loss["rel"] = abs(loss["two"] - loss["one"]) / abs(loss["one"])
+    require(loss["rel"] <= TRAIN_MICRO_LOSS_RTOL, "train/microbatches",
+            loss)
+    for st in (s1, s2):
+        for name, p in st.params.named_parameters():
+            m = st.opt.master[name]
+            require(bool(((p.float() - m).abs()
+                          <= BF16_HALF_ULP * m.abs()).all()),
+                    "train/microbatches", name, "is not its master rounded")
+    gap = max(float((s2.opt.master[k] - s1.opt.master[k]).abs().max())
+              for k in s1.opt.master)
+    out = {"n_layers": c.n_layers, "dtype": c.dtype,
+           "batch": [sizes.train_batch, sizes.train_seq],
+           "microbatches": [1, 2], "loss": loss,
+           "grad_norm": [float(m1["grad_norm"]), float(m2["grad_norm"])],
+           "master_max_abs_gap": gap, "seconds": time.perf_counter() - t0}
+    del state, s1, s2, results
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_run(cfg, batch_size: int, sizes: Sizes, device,
+              seed: int) -> dict:
+    """Gate 2, the training path: gemma-2b at full width and depth, the
+    gradient at step 1 (finite, and non-zero somewhere in every
+    parameter), then ``train_steps`` steps on one batch at the constant
+    rate ``TRAIN_LR`` with every launch count set to 0 just before and read
+    just after (the path launches no kernel: the kernels are
+    forward-only), the time of each step, the peak memory, one step under
+    ``torch.profiler``, and the time of the layers' forward pass that
+    remat runs again."""
+    on_card = device.type == "cuda"
+    seq = sizes.train_seq
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t1 = time.perf_counter()
+    state = init_train_state(gen, cfg, device)
+    sync(device)
+    out = {"batch": [batch_size, seq], "tokens_per_step": batch_size * seq,
+           "params": model_api.param_count(state.params),
+           "init_seconds": time.perf_counter() - t1}
+    batch = train_tokens(cfg, batch_size, seq, seed, device)
+
+    named = dict(state.params.named_parameters())
+    grads = torch.autograd.grad(
+        model_api.train_loss(state.params, batch, cfg), list(named.values()))
+    for (name, _), g in zip(named.items(), grads):
+        require(bool(torch.isfinite(g).all()), "train: gradient of", name,
+                "not finite")
+        require(bool((g != 0).any()), "train: gradient of", name, "is 0")
+    out["grads_checked"] = len(grads)
+    del grads
+
+    step_fn = make_train_step(cfg, lr_schedule=lambda step: TRAIN_LR)
+    zero_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, norms, step_ms = [], [], []
+    for _ in range(sizes.train_steps):
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        sync(device)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    counts = {name: w.launches for name, w in WRAPPERS.items()}
+    require(not any(counts.values()), "the training path launched a "
+            "kernel:", counts)
+    require(all(np.isfinite(losses)), "train: losses", losses)
+    out.update(losses=losses, grad_norms=norms, step_ms=step_ms,
+               kernel_launches=counts)
+    if on_card:
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["total_device_bytes"] = \
+            torch.cuda.get_device_properties(device).total_memory
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            state, _ = step_fn(state, batch)
+            sync(device)
+        out["profile"] = device_breakdown(prof, 1, top=12)
+        # the AdamW update alone, on one step's gradients (after the run:
+        # it moves the state)
+        named = dict(state.params.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(
+            model_api.train_loss(state.params, batch, cfg),
+            list(named.values()))))
+        out["optimizer_ms"] = time_ms(lambda: adamw_update(
+            grads, state.opt, TRAIN_LR, param_dtype=cfg.torch_dtype,
+            out=named), device, 2)
+        del grads, named
+        with torch.no_grad():
+            out["forward_ms"] = time_ms(
+                lambda: model_api.train_loss(state.params, batch, cfg),
+                device, sizes.reps)
+            hidden = torch.randn((batch_size, seq, cfg.d_model),
+                                 generator=gen, device=device,
+                                 dtype=cfg.torch_dtype)
+            out["head_ms"] = time_ms(lambda: causal_lm_loss(
+                rms_norm(hidden, state.params.final_norm["scale"])
+                @ state.params.embed.T, batch["tokens"]), device, sizes.reps)
+        del hidden
+    del state, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_driver(sizes: Sizes, device, seed: int) -> dict:
+    """Gate 5: ``run_training`` at the smoke config with a checkpoint
+    directory and a failure injected (a ``failure`` and a ``resume`` event
+    required), then 10 steps against 5, a save, a restore and 5 more, equal
+    bit for bit under ``torch.use_deterministic_algorithms`` (the
+    embedding's gradient is an index-add, whose default CUDA backward adds
+    with atomics in no fixed order), which needs cuBLAS's workspace fixed
+    by ``CUBLAS_WORKSPACE_CONFIG`` (":4096:8", 32 MiB, PyTorch's own size on
+    Hopper).  PyTorch reads that variable at every cuBLAS call, and with it
+    set a call costs the host more (rwkv6-3b's decode step 44-48 ms against
+    67-75 on one card in one run), so it is set for this check alone."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_training(TRAIN_ARCH, smoke=True, steps=16, batch=2,
+                           seq=32, ckpt_dir=os.path.join(tmp, "run"),
+                           ckpt_every=4, fail_at_step=10, seed=seed,
+                           log_every=100, device=device)
+        kinds = [e["kind"] for e in res["events"]]
+        require("failure" in kinds and "resume" in kinds
+                and res["steps"] == 16, "run_training events", res["events"])
+        out["run_training"] = {"events": [(e["kind"], e["step"])
+                                          for e in res["events"]],
+                               "losses": len(res["losses"]),
+                               "first_loss": res["first_loss"],
+                               "last_loss": res["last_loss"],
+                               "attention_impl": res["attention_impl"]}
+        cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH),
+                                  attention_impl="xla")
+        step_fn = make_train_step(cfg, donate=False)
+
+        def fresh():
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return init_train_state(gen, cfg, device)
+
+        def train(state, lo, hi):
+            for s in range(lo, hi):
+                state, _ = step_fn(state, train_tokens(cfg, 4, 32, seed,
+                                                       device, s))
+            return state
+
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            a = train(fresh(), 0, 10)
+            mgr = CheckpointManager(os.path.join(tmp, "resume"))
+            mgr.save(5, train(fresh(), 0, 5), blocking=True)
+            b, meta = mgr.restore(fresh())
+            b = train(b, meta["step"], 10)
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+            if workspace is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+        leaves, others = state_tensors(a), state_tensors(b)
+        require(len(leaves) == len(others) and all(
+            torch.equal(x.detach(), y.detach())
+            for x, y in zip(leaves, others)), "train: resume not bit-equal")
+        out["resume_bit_equal"] = {"leaves": len(leaves), "steps": 10,
+                                   "saved_at": meta["step"],
+                                   "deterministic_algorithms": True}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_train(sizes: Sizes, device: torch.device, seed: int) -> dict:
+    """The training path with gemma-2b (``attention_impl="xla"``, the path
+    the reference trains through): the guard, the card against the CPU in
+    f32, microbatches, the full-depth run (its batch halved while its peak
+    passes ``TRAIN_PEAK_SHARE`` of the card) and ``run_training`` with a
+    resume."""
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    full = get_smoke_config(TRAIN_ARCH) if sizes.train_smoke \
+        else get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, attention_impl="xla")
+    if sizes.train_smoke:  # walk the full config's remat path
+        cfg = dataclasses.replace(cfg, remat=True)
+    out = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "tie_embeddings": cfg.tie_embeddings, "remat": cfg.remat,
+           "remat_policy": cfg.remat_policy,
+           "attention_impl": cfg.attention_impl}
+    out["guard"] = train_guard(cfg, device)
+    out["card_vs_cpu"] = train_card_vs_cpu(cfg, sizes, device, seed)
+    out["microbatches"] = train_microbatches(cfg, sizes, device, seed)
+
+    batch_size, halved = sizes.train_batch, []
+    while True:
+        t1 = time.perf_counter()
+        run = train_run(cfg, batch_size, sizes, device, seed)
+        run["run_seconds"] = time.perf_counter() - t1
+        if not on_card or batch_size == 1 or run["peak_device_bytes"] \
+                <= TRAIN_PEAK_SHARE * run["total_device_bytes"]:
+            break
+        halved.append({"batch": batch_size,
+                       "peak_device_bytes": run["peak_device_bytes"]})
+        batch_size //= 2
+    losses = run["losses"]
+    require(losses[-1] <= losses[0] - TRAIN_LOSS_FALL, "train: the loss "
+            f"fell by {losses[0] - losses[-1]}, less than "
+            f"{TRAIN_LOSS_FALL}, over one batch repeated", losses)
+    out.update(run)
+    out["batch_halved"] = halved
+    out["first_loss"], out["last_loss"] = losses[0], losses[-1]
+    out["grad_norm"] = run["grad_norms"][0]
+    if on_card:
+        step_s = statistics.median(run["step_ms"][2:]) / 1e3
+        flops = model_api.model_flops_for(cfg, "train", batch_size,
+                                          sizes.train_seq)
+        out.update({
+            "median_step_ms_3_to_10": step_s * 1e3,
+            "tokens_per_s": batch_size * sizes.train_seq / step_s,
+            "model_flops_per_step": flops,
+            "model_tflops": flops / step_s / 1e12,
+            "bf16_peak_share": flops / step_s / H100_SXM_BF16_FLOPS,
+            "peak_share_of_total": run["peak_device_bytes"]
+            / run["total_device_bytes"],
+            # remat runs the layers' forward pass again in the backward:
+            # the full forward's time less the head's (final norm, logits,
+            # loss), a share of the step
+            "recompute_ms_estimate": run["forward_ms"] - run["head_ms"],
+            "recompute_share_estimate": (run["forward_ms"] - run["head_ms"])
+            / (step_s * 1e3),
+            "optimizer_share": run["optimizer_ms"] / (step_s * 1e3)})
+    out["driver"] = train_driver(sizes, device, seed)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3988,6 +4438,8 @@ def main(argv=None) -> int:
     # Each serving run zeroes and reads the counts around its engine run.
     serves = {arch: phase_serve(sizes, device, args.seed, arch)
               for arch in SERVE_ARCHS}
+    # The training path zeroes and reads the counts around its steps.
+    train = phase_train(sizes, device, args.seed)
     served = {arch: out["kernel_launches"] for arch, out in serves.items()}
     rwkv = served["rwkv6-3b"]
     hybrid = served["recurrentgemma-2b"]
@@ -4030,7 +4482,8 @@ def main(argv=None) -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "main_path_launches": counts, "main_path_routes": routes,
           "stream_launches": stream.get("kernel_launches"),
-          "serve_launches": served})
+          "serve_launches": served,
+          "train_launches": train["kernel_launches"]})
 
     if args.rehearse:
         emit({"kernels": rows})

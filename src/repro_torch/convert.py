@@ -1,7 +1,8 @@
 """State carried across from the reference package.
 
 The launch path's state is arrays with distributions, and launch
-descriptions; the serving path's is a model config and its parameters.
+descriptions; the serving path's is a model config and its parameters; the
+training path's is those parameters with the optimizer's state.
 This module turns the reference package's objects, handed over as numpy
 arrays and plain Python values, into this package's, without importing the
 reference: a ``Distribution``, ``WorkDistribution`` or ``ModelConfig``
@@ -32,6 +33,8 @@ from .models.encdec import EncDec
 from .models.rglru import Griffin
 from .models.rwkv import RWKV
 from .models.transformer import Transformer
+from .optim.adamw import AdamWState
+from .train.train_loop import TrainState
 
 
 def _same_named(obj: Any, module, base: type) -> Any:
@@ -154,3 +157,28 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig,
     head = np_tree.get("lm_head")
     return Transformer(embed, layers, final,
                        None if head is None else tensor(head))
+
+
+def train_state_from_reference(np_state: Any, cfg: ModelConfig,
+                               device: torch.device | str | None = None
+                               ) -> TrainState:
+    """The reference's ``TrainState``, handed over with numpy leaves
+    (``jax.tree.map(np.asarray, state)``), as this package's on ``device``
+    (None: the GPU): the params as ``params_from_reference`` makes them,
+    with gradients on, and the f32 master and moments keyed by the params'
+    names, each tree carried through the same name mapping."""
+    device = resolve_device(device)
+    params = params_from_reference(np_state.params, cfg, device)
+    params.requires_grad_(True)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+
+    def named_f32(tree):
+        module = params_from_reference(tree, f32, device)
+        return {name: p.detach() for name, p in module.named_parameters()}
+
+    opt = np_state.opt
+    return TrainState(params=params, opt=AdamWState(
+        step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                          device=device),
+        master=named_f32(opt.master), mu=named_f32(opt.mu),
+        nu=named_f32(opt.nu)))

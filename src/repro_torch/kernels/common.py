@@ -95,9 +95,16 @@ def resolve_route(route: str | None, chosen: str, routes: tuple,
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int,
                       device: torch.device | None = None) -> None:
     """Raise on what a kernel does not take: the kernels read dense
-    row-major buffers of fixed types on one CUDA device."""
+    row-major buffers of fixed types on one CUDA device, and have no
+    backward, so a tensor that autograd would carry a gradient through is
+    refused rather than cut off from its gradient without a word."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: requires a gradient, but the CUDA kernel has no "
+            "backward (train with attention_impl='xla', or call under "
+            "torch.no_grad())")
     if device is not None and t.device != device:
         raise ValueError(
             f"{name}: on {t.device}, but the first argument is on {device}")

@@ -30,17 +30,18 @@ def rg_lru_scan(
     h0: torch.Tensor | None = None,  # (B, D)
 ) -> torch.Tensor:
     """Every h_t (B, T, D) in f32: a = exp(log_a), beta = sqrt(max(1 - a²,
-    0)), h = a h + beta gx, from ``h0`` (zeros if None)."""
+    0)), h = a h + beta gx, from ``h0`` (zeros if None).  Each step makes a
+    new h, so that autograd differentiates the loop (the training path)."""
     b, t, d = gx.shape
     h = (h0.float() if h0 is not None
          else torch.zeros((b, d), dtype=torch.float32, device=gx.device))
-    out = torch.empty((b, t, d), dtype=torch.float32, device=gx.device)
+    hs = []
     for i in range(t):
         a = torch.exp(log_a[:, i].float())
         beta = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
         h = a * h + beta * gx[:, i].float()
-        out[:, i] = h
-    return out
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def rg_lru_ref(

@@ -39,23 +39,25 @@ def wkv6_ref(
 ):
     """The reference's ``lax.scan`` as one loop over time that keeps every
     state (one fused multiply-add a step), then the reads and their dots
-    with r for all steps at once: (B, H, T, K, V) floats of memory."""
+    with r for all steps at once: (B, H, T, K, V) floats of memory.  Each
+    step makes a new state, so that autograd differentiates the loop (the
+    training path)."""
     b, h, t, dk = r.shape
     dv = v.shape[-1]
     s0 = (initial_state if initial_state is not None
           else torch.zeros((b, h, dk, dv), device=r.device))
     kv = (k[..., :, None] * v[..., None, :]).float()  # (B, H, T, K, V)
     decay = w[..., :, None].float()
-    states = torch.empty((b, h, t + 1, dk, dv), dtype=torch.float32,
-                         device=r.device)
-    states[:, :, 0] = s0.float()
+    state = s0.float()
+    states = [state]
     for i in range(t):  # S_{i+1} = w_i S_i + k_i v_i^T
-        torch.addcmul(kv[:, :, i], decay[:, :, i], states[:, :, i],
-                      out=states[:, :, i + 1])
-    read = states[:, :, :t] + u[None, :, None, :, None].float() * kv
+        state = torch.addcmul(kv[:, :, i], decay[:, :, i], state)
+        states.append(state)
+    read = (torch.stack(states[:t], dim=2)
+            + u[None, :, None, :, None].float() * kv)
     out = torch.matmul(r[..., None, :], read.to(r.dtype))[..., 0, :]
     if return_state:
-        return out, states[:, :, t].clone()
+        return out, state
     return out
 
 

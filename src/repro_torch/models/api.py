@@ -1,4 +1,4 @@
-"""Family-dispatched model API used by the serving driver.
+"""Family-dispatched model API used by the serving and training drivers.
 
 Every family implements ``init_params``, ``train_loss``, ``prefill`` and
 ``decode_step`` and exposes logical-axis trees for params and decode state:

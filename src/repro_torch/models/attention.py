@@ -77,8 +77,9 @@ def xla_flash_attention(
             mask = mask & (q_pos[:, None] >= k_pos[None, :])
         if window is not None:
             mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
-        s_ij = torch.where(mask[None, None], s_ij,
-                           torch.tensor(NEG_INF, device=q.device))
+        # masked_fill takes the fill as a number: a tensor made from one on
+        # the GPU is a copy that waits for the device, in every block
+        s_ij = s_ij.masked_fill(~mask[None, None], NEG_INF)
         m_cur = torch.maximum(m, s_ij.amax(dim=-1))
         alpha = torch.exp(m - m_cur)
         p = torch.exp(s_ij - m_cur[..., None])

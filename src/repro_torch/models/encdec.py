@@ -44,8 +44,10 @@ from .layers import (
     mlp_logical_axes,
     norm_init,
     normal_init,
+    remat_call,
     softmax_xent,
 )
+from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
 from .transformer import DecoderLayer, _params
 
 MAX_DECODE_LEN_AXIS = "kv_seq"
@@ -220,16 +222,22 @@ def _sinusoids(frames: int, d: int, device) -> torch.Tensor:
 
 def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig,
            rules=None) -> torch.Tensor:
-    """frames: (B, F, D) precomputed conv-frontend output (stub)."""
+    """frames: (B, F, D) precomputed conv-frontend output (stub).  Each
+    layer runs under remat where ``cfg.remat`` and autograd records, as the
+    reference wraps the encoder's and decoder's layers whatever the mode."""
     x = frames + _sinusoids(frames.shape[1], cfg.d_model,
                             frames.device)[None].to(frames.dtype)
     for lp in params.enc_layers:
-        h = apply_norm(x, lp.norm1, cfg.norm)
-        x = x + _mha(lp.attn, h, h, cfg, causal=False, rules=rules)
-        h = apply_norm(x, lp.norm2, cfg.norm)
-        x = x + mlp_apply(lp.mlp, h, cfg.activation, rules)
-        x = constrain(x, rules, ("batch", "frames", "d_model"))
+        x = remat_call(cfg, "train", _encoder_layer, lp, x, cfg, rules)
     return apply_norm(x, params.enc_norm, cfg.norm)
+
+
+def _encoder_layer(lp, x, cfg, rules):
+    h = apply_norm(x, lp.norm1, cfg.norm)
+    x = x + _mha(lp.attn, h, h, cfg, causal=False, rules=rules)
+    h = apply_norm(x, lp.norm2, cfg.norm)
+    x = x + mlp_apply(lp.mlp, h, cfg.activation, rules)
+    return constrain(x, rules, ("batch", "frames", "d_model"))
 
 
 def _decoder_layer(lp, x, enc_out, cfg, rules):
@@ -250,7 +258,8 @@ def decode_train(params: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor,
     s = tokens.shape[1]
     x = x + params.dec_pos[q_offset:q_offset + s][None]
     for lp in params.dec_layers:
-        x = _decoder_layer(lp, x, enc_out, cfg, rules)
+        x = remat_call(cfg, "train", _decoder_layer, lp, x, enc_out, cfg,
+                       rules)
     x = apply_norm(x, params.dec_norm, cfg.norm)
     return constrain(x @ params.embed.T, rules, ("batch", "seq", "vocab"))
 

@@ -1,4 +1,4 @@
-"""Shared layer primitives: norms, RoPE, MLP variants, losses, init.
+"""Shared layer primitives: norms, RoPE, MLP variants, losses, init, remat.
 
 Weights keep the reference's layout: a projection is ``x @ W`` with ``W`` of
 shape (in, out).  Initialisers take a ``torch.Generator`` where the
@@ -13,6 +13,10 @@ from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import constrain
@@ -202,3 +206,42 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token prediction: logits[:, :-1] predict tokens[:, 1:]."""
     return softmax_xent(logits[:, :-1, :], tokens[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+#: the matrix products whose outputs remat policy "dots" saves (``x @ W``
+#: runs as ``mm``, an einsum over heads as ``bmm``)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def remat_policy_of(cfg):
+    """The ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for
+    ``cfg.remat_policy``, the reference's checkpoint policy:
+
+    * ``nothing`` (None: checkpoint's default) — full remat: minimum memory,
+      recomputes the whole layer;
+    * ``dots`` — save the matmul outputs (``DOT_OPS``), as
+      ``checkpoint_dots``: about 1/3 less recompute for
+      ~(q_dim + 2 kv_dim + 2 d_ff) extra values a token and layer.
+    """
+    if getattr(cfg, "remat_policy", "nothing") == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 list(DOT_OPS))
+    return None
+
+
+def remat_call(cfg, mode: str, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant, with
+    ``remat_policy_of(cfg)``) where the reference wraps a layer in
+    ``jax.checkpoint``: ``cfg.remat`` in train mode, and only while autograd
+    records (a forward under ``torch.no_grad`` has nothing to recompute)."""
+    if not (cfg.remat and mode == "train" and torch.is_grad_enabled()):
+        return fn(*args)
+    context = remat_policy_of(cfg)
+    if context is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context)

@@ -32,7 +32,8 @@ from repro_torch.dist.sharding import constrain
 from . import kvcache, transformer
 from .config import ModelConfig
 from .layers import (apply_norm, causal_lm_loss, fan_in_init, init_device,
-                     norm_init, normal_init, rope_tables)
+                     norm_init, normal_init, remat_call, rope_tables)
+from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
 from .transformer import Transformer
 
 AUX_LOSS_COEF = 0.01
@@ -362,8 +363,8 @@ def forward(
         cache_l = None
         if layer_caches is not None:
             cache_l = {name: buf[i] for name, buf in layer_caches.items()}
-        x, _, layer_aux = _layer_fn(cfg, rules, mode, x, lp, cache_l,
-                                    positions, rope)
+        x, _, layer_aux = remat_call(cfg, mode, _layer_fn, cfg, rules, mode,
+                                     x, lp, cache_l, positions, rope)
         aux = aux + layer_aux
 
     new_cache = None

@@ -43,8 +43,10 @@ from .layers import (
     mlp_logical_axes,
     norm_init,
     normal_init,
+    remat_call,
     rms_norm,
 )
+from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
 from .transformer import DecoderLayer, _params
 
 LRU_C = 8.0
@@ -367,6 +369,18 @@ def _stack_rec(states: list[dict]) -> dict:
             for name in ("conv", "h")}
 
 
+def _group_fn(cfg: ModelConfig, rules, x: torch.Tensor, gp: Group,
+              positions: torch.Tensor, want_cache: bool):
+    """One (rec, rec, attn) group over a whole sequence from fresh state:
+    (x, both recurrent blocks' final states, the attention block's ring
+    cache or None)."""
+    x, n1 = _rec_block(gp.rec1, x, cfg, None, rules)
+    x, n2 = _rec_block(gp.rec2, x, cfg, None, rules)
+    x, cache = _attn_block_train(gp.attn, x, cfg, positions, rules,
+                                 want_cache=want_cache)
+    return x, n1, n2, cache
+
+
 def forward(
     params: Griffin,
     tokens: torch.Tensor,  # (B, S) int — or (B, S, D) pre-embedded
@@ -419,10 +433,8 @@ def forward(
         want = mode == "prefill"
         rec1, rec2, caches = [], [], []
         for gp in params.groups:
-            x, n1 = _rec_block(gp.rec1, x, cfg, None, rules)
-            x, n2 = _rec_block(gp.rec2, x, cfg, None, rules)
-            x, cache = _attn_block_train(gp.attn, x, cfg, positions, rules,
-                                         want_cache=want)
+            x, n1, n2, cache = remat_call(cfg, mode, _group_fn, cfg, rules, x,
+                                          gp, positions, want)
             rec1.append(n1)
             rec2.append(n2)
             caches.append(cache)
@@ -451,6 +463,8 @@ def forward(
 
 def train_loss(params: Griffin, batch: dict, cfg: ModelConfig,
                rules=None) -> torch.Tensor:
-    """The forward loss (no backward kernel: the port serves)."""
+    """The forward loss.  It differentiates through the plain scan and
+    attention (``attention_impl`` "xla"), as the reference trains: the
+    RG-LRU and flash-attention kernels have no backward."""
     logits, _ = forward(params, batch["tokens"], cfg, rules, mode="train")
     return causal_lm_loss(logits, batch["tokens"])

@@ -25,7 +25,8 @@ from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
 
 from .config import ModelConfig
 from .layers import (causal_lm_loss, fan_in_init, init_device, norm_init,
-                     normal_init, rms_norm)
+                     normal_init, remat_call, rms_norm)
+from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
 from .transformer import Transformer
 
 LORA_DIM = 64
@@ -230,6 +231,20 @@ def channel_mix(lp, x: torch.Tensor, shift_prev: torch.Tensor | None, rules):
 # ---------------------------------------------------------------------------
 
 
+def _layer_fn(cfg: ModelConfig, rules, x: torch.Tensor, lp, wkv_s, sh_t,
+              sh_c):
+    """One layer: time mix, then channel mix.  Returns (x, the new WKV
+    state and both token-shift states)."""
+    xn = rms_norm(x, lp.ln1["scale"])
+    tm, new_wkv, new_sh_t = time_mix(lp, xn, cfg, wkv_s, sh_t, rules)
+    x = x + tm
+    xn = rms_norm(x, lp.ln2["scale"])
+    cm, new_sh_c = channel_mix(lp, xn, sh_c, rules)
+    x = x + cm
+    x = constrain(x, rules, ("batch", "seq", "d_model"))
+    return x, new_wkv, new_sh_t, new_sh_c
+
+
 def forward(
     params: RWKV,
     tokens: torch.Tensor,  # (B, S) int — or (B, S, D) pre-embedded
@@ -248,13 +263,8 @@ def forward(
         if state is not None:
             wkv_s = state["wkv"][i]
             sh_t, sh_c = state["shift_t"][i], state["shift_c"][i]
-        xn = rms_norm(x, lp.ln1["scale"])
-        tm, new_wkv, new_sh_t = time_mix(lp, xn, cfg, wkv_s, sh_t, rules)
-        x = x + tm
-        xn = rms_norm(x, lp.ln2["scale"])
-        cm, new_sh_c = channel_mix(lp, xn, sh_c, rules)
-        x = x + cm
-        x = constrain(x, rules, ("batch", "seq", "d_model"))
+        x, new_wkv, new_sh_t, new_sh_c = remat_call(
+            cfg, mode, _layer_fn, cfg, rules, x, lp, wkv_s, sh_t, sh_c)
         if state is not None:
             new["wkv"].append(new_wkv)
             new["shift_t"].append(new_sh_t)
@@ -275,6 +285,8 @@ def forward(
 
 def train_loss(params: RWKV, batch: dict, cfg: ModelConfig,
                rules=None) -> torch.Tensor:
-    """The forward loss (no backward kernel: the port serves)."""
+    """The forward loss.  It differentiates through the plain scan
+    (``attention_impl`` "xla"), as the reference trains: the WKV6 kernel
+    has no backward."""
     logits, _ = forward(params, batch["tokens"], cfg, rules, mode="train")
     return causal_lm_loss(logits, batch["tokens"])

@@ -37,8 +37,10 @@ from .layers import (
     mlp_logical_axes,
     norm_init,
     normal_init,
+    remat_call,
     rope_tables,
 )
+from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -284,8 +286,10 @@ def forward(
     else:
         x = tokens
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        # The scale rounded to x's type first, as the reference's
+        # jnp.asarray(sqrt(d), x.dtype); a Python float, so that no tensor
+        # is copied to the device (a copy that waits for it).
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -305,7 +309,8 @@ def forward(
         cache_l = None
         if layer_caches is not None:
             cache_l = {name: buf[i] for name, buf in layer_caches.items()}
-        x, _ = _layer_fn(cfg, rules, mode, x, lp, cache_l, positions, rope)
+        x, _ = remat_call(cfg, mode, _layer_fn, cfg, rules, mode, x, lp,
+                          cache_l, positions, rope)
 
     new_cache = None
     if cache is not None:

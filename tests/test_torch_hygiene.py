@@ -47,7 +47,10 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.models.rglru", "repro_torch.core.memory",
            "repro_torch.core.scheduler", "repro_torch.obs.overlap",
            "repro_torch.obs.validate", "repro_torch.dist",
-           "repro_torch.dist.fault", "chip_smoke"]
+           "repro_torch.dist.fault", "repro_torch.optim",
+           "repro_torch.train", "repro_torch.data", "repro_torch.ckpt",
+           "repro_torch.launch.train", "repro_torch.examples.train_lm",
+           "chip_smoke"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -256,6 +259,65 @@ def test_cuda_wrapper_refuses_a_cpu_tensor(name, wrapper, no_build):
     _, _, args, kw = _inputs()[name]
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         wrapper(*args, *kw.values())
+
+
+def test_cuda_check_refuses_a_tensor_that_requires_grad(monkeypatch,
+                                                        no_build):
+    """The kernels have no backward: every launcher's check refuses an
+    input that autograd would carry a gradient through (here on CPU
+    tensors taken for CUDA ones), and takes it under ``torch.no_grad`` or
+    detached.  The refusal comes before any build or launch."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    q = torch.zeros((1, 2, 8, 16), requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        common.check_cuda_tensor("q", q, (torch.float32,), 4)
+    with torch.no_grad():
+        common.check_cuda_tensor("q", q, (torch.float32,), 4)
+    common.check_cuda_tensor("q", q.detach(), (torch.float32,), 4)
+    kv = torch.zeros((1, 1, 8, 16))
+    with pytest.raises(RuntimeError, match="q: requires a gradient"):
+        flash_attention_cuda(q, kv, kv)
+    with pytest.raises(RuntimeError, match="k: requires a gradient"):
+        flash_attention_cuda(q.detach(), kv.requires_grad_(), kv)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-3b",
+                                  "recurrentgemma-2b",
+                                  "granite-moe-1b-a400m", "whisper-medium"])
+def test_serving_never_hands_a_kernel_a_tensor_that_requires_grad(
+        monkeypatch, arch):
+    """Serving runs its forward passes under ``torch.no_grad``, so the
+    guard above never fires there, even on parameters that require a
+    gradient (a train state's): every kernel wrapper the models call is
+    spied on, on CPU tensors, for what ``check_cuda_tensor`` would see."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api, attention, rglru, rwkv
+
+    seen = []
+
+    def spy(fn):
+        def call(*args, **kw):
+            tensors = [a for a in list(args) + list(kw.values())
+                       if isinstance(a, torch.Tensor)]
+            seen.append(torch.is_grad_enabled()
+                        and any(t.requires_grad for t in tensors))
+            return fn(*args, **kw)
+        return call
+
+    for module, name in ((attention, "flash_attention"),
+                         (attention, "cuda_decode"), (rwkv, "wkv6"),
+                         (rglru, "rg_lru")):
+        monkeypatch.setattr(module, name, spy(getattr(module, name)))
+    cfg = get_smoke_config(arch)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    params.requires_grad_(True)
+    state = api.init_decode_state(cfg, 2, 16, "cpu")
+    batch = {"tokens": torch.zeros((2, 5), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((2, cfg.enc_frames, cfg.d_model))
+    _, state = api.prefill(params, batch, cfg, state)
+    api.decode_step(params, batch["tokens"][:, :1], cfg, state)
+    assert seen and not any(seen)
 
 
 def test_md5_wrapper_refuses_the_cpu(no_build):
