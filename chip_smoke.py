@@ -25,10 +25,17 @@ with gemma-2b at full width and depth in bf16 (``attention_impl="xla"``:
 the kernels are forward-only), ten steps of 8 x 512 tokens from the token
 stream with remat, after one step held against the CPU in f32 at two
 layers, two microbatches against one, the kernels' gradient guard, and
-``run_training`` with an injected failure and a bit-exact resume.  Phases
-(each prints one JSON line with the seconds it took): ``env``, ``build``,
-``kernels``, ``launch``, ``stream``, ``sim``, ``serve`` once for each
-model, and ``train``.  The ``sim`` phase measures the card's
+``run_training`` with an injected failure and a bit-exact resume; then the
+distribution layer over ranks: 4 processes on the one card under gloo
+(which stages a card tensor through the host) run the collectives against
+one process, flash-decode over a cache split in 4 (the decode-attention
+kernel on each rank's shard, the partials combined over the ranks),
+gemma-2b's data-parallel step at full width and 2 layers (ZeRO-1 against
+one rank in f32; ZeRO-1 and replicated in bf16) and the restore of its
+ZeRO-1 checkpoint onto 2 ranks and 1, and one rank runs the NCCL path.
+Phases (each prints one JSON line with the seconds it took): ``env``,
+``build``, ``kernels``, ``launch``, ``stream``, ``sim``, ``serve`` once
+for each model, ``train`` and ``dist``.  The ``sim`` phase measures the card's
 copy rates, its FP32 rate (the f32 GEMM) and its memory beside the
 simulator's ``HardwareModel()`` constants, which they must match within
 ``SIM_RATE_RANGE``, and sets the port's ``Simulator``'s prediction for the
@@ -67,6 +74,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -100,10 +108,20 @@ from repro_torch.core import (  # noqa: E402
     Topology,
     parse,
 )
-from repro_torch.ckpt import CheckpointManager  # noqa: E402
+from repro_torch.ckpt import (  # noqa: E402
+    CheckpointManager,
+    restore_resharded,
+)
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.streaming import stream_kmeans  # noqa: E402
 from repro_torch.data import DataConfig, TokenStream  # noqa: E402
+from repro_torch.dist import (  # noqa: E402
+    hierarchical_grad_allreduce,
+    ranks,
+    ring_allgather_matmul,
+    ring_allreduce,
+    set_tracer,
+)
 from repro_torch.kernels import (  # noqa: E402
     _build,
     attention_ref,
@@ -210,6 +228,8 @@ from repro_torch.kernels.spmv_ell.ref import (  # noqa: E402
     gather_bins,
 )
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.rules import rules_for  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
@@ -222,7 +242,11 @@ from repro_torch.obs import (  # noqa: E402
     validate_chrome_trace,
 )
 from repro_torch.obs.trace import Tracer  # noqa: E402
-from repro_torch.optim import AdamWState, adamw_update  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    AdamWState,
+    adamw_update,
+    compressed_psum,
+)
 from repro_torch.serve.engine import (  # noqa: E402
     Request,
     ServeEngine,
@@ -231,7 +255,9 @@ from repro_torch.serve.engine import (  # noqa: E402
 from repro_torch.train.train_loop import (  # noqa: E402
     TrainState,
     init_train_state,
+    local_train_state,
     make_train_step,
+    train_state_specs,
 )
 
 #: the wrappers whose ``launches`` counters prove the path went through the
@@ -344,6 +370,18 @@ class Sizes:
     train_steps: int = 10
     train_check_layers: int = 2
     train_check_batch: tuple = (2, 128)
+    # the distribution layer: 4 ranks on the one card (gloo), collectives
+    # of dist_elems f32 a rank (the rotate ring's leading dim one more,
+    # which 4 does not divide), the ring collective matmul's (M, K, N),
+    # flash-decode over 4 shards of dist_decode's cache (phi3-mini's decode
+    # shape), and gemma-2b's data-parallel step at dist_train_layers
+    # layers on train_batch x train_seq tokens, timed over dist_train_steps
+    dist_ranks: int = 4
+    dist_elems: int = 1 << 24
+    dist_matmul: tuple = (4096, 8192, 4096)
+    dist_decode: tuple = (8, 32, 32, 2184, 96)
+    dist_train_layers: int = 2
+    dist_train_steps: int = 3
     reps: int = 5
 
 
@@ -371,6 +409,8 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             profile_steps=1,
             train_smoke=True, train_batch=4, train_seq=16,
             train_check_batch=(2, 8),
+            dist_elems=1 << 10, dist_matmul=(64, 128, 32),
+            dist_decode=(3, 4, 4, 72, 32), dist_train_steps=2,
             reps=1)
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
@@ -4404,6 +4444,611 @@ def phase_train(sizes: Sizes, device: torch.device, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Distribution over ranks
+# ---------------------------------------------------------------------------
+
+#: collectives against one process: f32 sums in another order
+DIST_SUM_TOL = 1e-5
+#: the ring collective matmul against x @ w (atol a share of max |x @ w|)
+DIST_MATMUL_TOL = 1e-4
+#: a rank's partial decode attention against the whole cache's, in bf16
+DIST_DECODE_TOL = ATTN_TOL[torch.bfloat16][0]
+#: the mesh axes of the collective runs, a (2, 2) mesh
+DIST_AXES = ("pod", "data")
+#: seconds the ranks of one spawn may take (the training spawn's f32 check,
+#: bf16 runs and save move about 40 GB through the host under gloo)
+DIST_TIMEOUT_S = 900.0
+
+
+def dist_device(device: torch.device):
+    """What ``ranks.spawn`` is given: None on a card (each rank on
+    ``cuda:rank`` modulo the cards, so all on ``cuda:0`` of one card), the
+    CPU in a rehearsal."""
+    return None if device.type == "cuda" else "cpu"
+
+
+def rank_seconds(fn, device, reps: int):
+    """(result, median host seconds of ``reps`` calls, bytes staged through
+    the host by one call): the ranks call together, so a collective's time
+    includes the wait for the slowest."""
+    times, staged, out = [], None, None
+    for _ in range(max(reps, 1)):
+        sync(device)
+        before = ranks.staged_bytes()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        staged = ranks.staged_bytes() - before if staged is None else staged
+    return out, statistics.median(times), staged
+
+
+def dist_record(name, fn, want, device, reps, *, rtol, atol,
+                payload: int) -> dict:
+    got, seconds, staged = rank_seconds(fn, device, reps)
+    err = check_close(f"dist/{name}", got, want, rtol=rtol, atol=atol)
+    return {"bytes": payload, "seconds": seconds,
+            "gb_per_s": payload / seconds / 1e9, "staged_bytes": staged,
+            "max_abs_err": err[0]}
+
+
+def dist_collectives_rank(device, sizes: Sizes, seed: int) -> dict:
+    """(a) Each collective on this rank's part of inputs every rank makes
+    from ``seed``, held against the one-process computation on all of
+    them, with its bytes, seconds, GB/s and staged bytes; then (b)
+    flash-decode over 4 shards of the cache."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    make_mesh((2, 2), DIST_AXES)
+    n, me = ranks.axis_size(DIST_AXES), ranks.axis_index(DIST_AXES)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    reps = max(sizes.reps // 2, 1)
+    out = {"rank": me, "device": str(device),
+           "backend": torch.distributed.get_backend()}
+    m = sizes.dist_elems
+    xs = torch.randn((n, m), generator=gen, device=device)
+    x = xs[me].contiguous()
+    payload = x.numel() * x.element_size()
+    out["ring_allreduce_two_phase"] = dist_record(
+        "ring_allreduce_two_phase", lambda: ring_allreduce(x, DIST_AXES),
+        xs.sum(0), device, reps, rtol=DIST_SUM_TOL, atol=DIST_SUM_TOL,
+        payload=payload)
+    # a leading dim 4 does not divide: the rotate ring
+    xr = torch.randn((n, m + 1, 1), generator=gen, device=device)
+    mine = xr[me].contiguous()
+    out["ring_allreduce_rotate"] = dist_record(
+        "ring_allreduce_rotate", lambda: ring_allreduce(mine, DIST_AXES),
+        xr.sum(0), device, reps, rtol=DIST_SUM_TOL, atol=DIST_SUM_TOL,
+        payload=mine.numel() * mine.element_size())
+    del xr, mine
+    rows, inner, cols = sizes.dist_matmul
+    a = torch.randn((rows, inner), generator=gen, device=device)
+    w = torch.randn((inner, cols), generator=gen, device=device)
+    k = inner // n
+    a_mine = a[:, me * k:(me + 1) * k].contiguous()
+    w_mine = w[me * k:(me + 1) * k].contiguous()
+    want = a @ w
+    out["ring_allgather_matmul"] = dist_record(
+        "ring_allgather_matmul",
+        lambda: ring_allgather_matmul(a_mine, w_mine, axis_name=DIST_AXES),
+        want, device, reps, rtol=DIST_MATMUL_TOL,
+        atol=DIST_MATMUL_TOL * float(want.abs().max()),
+        payload=rows * cols * 4)
+    del a, w, want, a_mine, w_mine
+    flat, _, _ = rank_seconds(lambda: ranks.psum(x, DIST_AXES), device, 1)
+    out["hierarchical_grad_allreduce"] = dist_record(
+        "hierarchical_grad_allreduce",
+        lambda: hierarchical_grad_allreduce({"g": x}, ("data",),
+                                            ("pod",))["g"],
+        flat, device, reps, rtol=DIST_SUM_TOL, atol=DIST_SUM_TOL,
+        payload=payload)
+    out["psum_flat"] = dist_record(
+        "psum_flat", lambda: ranks.psum(x, DIST_AXES), xs.sum(0), device,
+        reps, rtol=DIST_SUM_TOL, atol=DIST_SUM_TOL, payload=payload)
+    # int8 with the ranks' largest scale: within scale * n of the sum
+    scale = float(xs.abs().max()) / 127
+    out["compressed_psum"] = dist_record(
+        "compressed_psum",
+        lambda: compressed_psum({"g": x}, DIST_AXES)[0]["g"], xs.sum(0),
+        device, reps, rtol=0.0, atol=scale * n * 1.01 + 1e-5,
+        payload=payload)
+    out["compressed_psum"]["limit"] = scale * n * 1.01 + 1e-5
+    del xs, x, flat
+    out["flash_decode"] = dist_decode_rank(device, sizes, seed)
+    return out
+
+
+def dist_decode_rank(device, sizes: Sizes, seed: int) -> dict:
+    """(b) Flash-decode: this rank's shard of phi3-mini's decode cache (a
+    quarter of T along ``"model"``) through the decode-attention kernel
+    with its lse, the four partials joined by ``combine_decode_partials``;
+    the kernel's launches counted around that path alone, then the result
+    held against the kernel on the whole cache and the f32 plain
+    version."""
+    mesh = make_mesh((ranks.axis_size(DIST_AXES),), ("model",))
+    n, me = ranks.axis_size("model"), ranks.axis_index("model")
+    b, hq, hkv, t, d = sizes.dist_decode
+    shard = t // n
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    q, k, v, kv_len = decode_inputs(sizes.dist_decode, torch.bfloat16, gen,
+                                    device)
+    lo = me * shard
+    k_mine = k[:, :, lo:lo + shard].contiguous()
+    v_mine = v[:, :, lo:lo + shard].contiguous()
+    local = (kv_len - lo).clamp(0, shard).to(torch.int32)
+    zero_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    part, lse = decode_attention(q, k_mine, v_mine, kv_len=local,
+                                 with_lse=True)
+    combined = model_attention.combine_decode_partials(part, lse, "model")
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = decode_attention_cuda.launches
+    routes = dict(decode_attention_cuda.routes)
+    if device.type == "cuda":
+        require(launches == 1 and routes["mma"] == 1, "dist/flash_decode: "
+                "one launch by route mma a rank, got", launches, routes)
+    empty = (local == 0).nonzero().flatten().tolist()
+    for row in empty:
+        require(bool((lse[row] == -1e30).all())
+                and not bool(part[row].any()),
+                "dist/flash_decode: row", row, "of rank", me,
+                "holds no key but is not zeros with lse -1e30")
+    whole, whole_lse = decode_attention(q, k, v, kv_len=kv_len,
+                                        with_lse=True)
+    want32 = decode_attention_ref(*as_f32((q, k, v)), kv_len=kv_len,
+                                  with_lse=True)
+    gap = bf16_check("dist/flash_decode", combined, want32[0])
+    gap_whole = bf16_check("dist/flash_decode whole cache", whole,
+                           want32[0])
+    err = check_close("dist/flash_decode against the whole cache",
+                      combined, whole, rtol=DIST_DECODE_TOL,
+                      atol=DIST_DECODE_TOL)
+    one_row = int((kv_len == 1).nonzero()[0])
+    out = {"shape": list(sizes.dist_decode), "shard": shard,
+           "mesh": list(mesh.mesh.shape), "kv_len": kv_len.tolist(),
+           "local_kv_len": local.tolist(), "empty_rows": empty,
+           "row_at_kv_len_1": one_row, "launches": launches,
+           "routes": routes, "bf16_limit_share": gap["limit_share"],
+           "bf16_limit_share_whole_cache": gap_whole["limit_share"],
+           "max_abs_err": gap["max_abs_err"],
+           "max_abs_err_against_whole_cache": err[0],
+           "path_seconds": seconds}
+    out["shard_ms"] = time_ms(lambda: decode_attention(
+        q, k_mine, v_mine, kv_len=local, with_lse=True), device, sizes.reps)
+    _, out["combine_seconds"], out["combine_staged_bytes"] = rank_seconds(
+        lambda: model_attention.combine_decode_partials(part, lse, "model"),
+        device, 3)
+    return out
+
+
+def dist_nccl_rank(device, sizes: Sizes, seed: int) -> dict:
+    """The NCCL path at world size 1 (NCCL refuses two ranks on one card):
+    each primitive and collective on a card tensor, which a world of one
+    returns as it is, and nothing staged."""
+    mesh = make_mesh((1, 1), DIST_AXES)
+    require(torch.distributed.get_backend() == "nccl"
+            and mesh.device_type == "cuda", "dist/nccl: backend",
+            torch.distributed.get_backend(), mesh.device_type)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((sizes.dist_elems,), generator=gen, device=device)
+    before = ranks.staged_bytes()
+    results = {
+        "psum": ranks.psum(x, DIST_AXES), "pmax": ranks.pmax(x, DIST_AXES),
+        "all_gather": ranks.all_gather(x, DIST_AXES)[0],
+        "ppermute": ranks.ppermute(x, DIST_AXES, [(0, 0)]),
+        "ring_allreduce": ring_allreduce(x, DIST_AXES),
+        "hierarchical_grad_allreduce": hierarchical_grad_allreduce(
+            {"g": x}, ("data",), ("pod",))["g"],
+        "combine_decode_partials": model_attention.combine_decode_partials(
+            x.reshape(1, -1, 1), torch.zeros((1, x.numel()), device=device),
+            "data").reshape(-1)}
+    for name, got in results.items():
+        require(torch.equal(got, x), "dist/nccl:", name, "of one rank is "
+                "not its input")
+    q, _ = compressed_psum({"g": x}, DIST_AXES)
+    scale = float(x.abs().max()) / 127
+    check_close("dist/nccl compressed_psum", q["g"], x, rtol=0.0,
+                atol=scale * 1.01 + 1e-5)
+    _, seconds, _ = rank_seconds(lambda: ranks.psum(x, DIST_AXES), device,
+                                 sizes.reps)
+    staged = ranks.staged_bytes() - before
+    require(staged == 0, "dist/nccl staged", staged, "bytes")
+    return {"backend": "nccl", "world": 1, "checked": sorted(results)
+            + ["compressed_psum"], "staged_bytes": staged,
+            "psum_seconds": seconds}
+
+
+def digest(x: torch.Tensor) -> tuple[int, int]:
+    """Two int64 sums over the raw bits of ``x`` (the plain one and one
+    weighted by position), which a change of any bit moves: a check that
+    two copies are equal bit for bit without moving either."""
+    bits = x.detach().contiguous().reshape(-1)
+    bits = bits.view(torch.int16 if bits.element_size() == 2
+                     else torch.int32).to(torch.int64)
+    plain = int(bits.sum())
+    weighted = 0
+    for lo in range(0, bits.numel(), CHECK_SLAB):
+        part = bits[lo:lo + CHECK_SLAB]
+        pos = torch.arange(lo, lo + part.numel(), device=bits.device)
+        weighted += int((part * (pos % 65521 + 1)).sum())
+    return plain, weighted
+
+
+def quarter_digests(x: torch.Tensor, dim: int | None, parts: int) -> list:
+    """The digests of ``parts`` equal slices of ``x`` along ``dim`` (the
+    whole, once, for None)."""
+    if dim is None:
+        return [digest(x)]
+    return [digest(c) for c in x.chunk(parts, dim=dim)]
+
+
+def zero1_dim(spec: tuple) -> int | None:
+    """The array axis a ZeRO-1 spec splits over ``"data"``."""
+    return next((d for d, e in enumerate(spec) if e == "data"
+                 or (isinstance(e, tuple) and "data" in e)), None)
+
+
+def state_digests(state: TrainState, specs, parts: int,
+                  first: int = 0) -> dict:
+    """Digests of a state's leaves: params whole, every optimizer leaf in
+    ``parts`` slices along its ZeRO-1 axis (``first`` the index of this
+    state's first slice, where it holds only some)."""
+    out = {"step": int(state.opt.step)}
+    for name, p in state.params.named_parameters():
+        out[f"params/{name}"] = {0: digest(p)}
+    for tree in ("master", "mu", "nu"):
+        for name, x in getattr(state.opt, tree).items():
+            dim = zero1_dim(specs.opt.master[name])
+            if dim is None:  # whole on every rank
+                out[f"{tree}/{name}"] = {0: digest(x)}
+                continue
+            out[f"{tree}/{name}"] = {
+                first + i: v
+                for i, v in enumerate(quarter_digests(x, dim, parts))}
+    return out
+
+
+def dist_train_config(sizes: Sizes):
+    full = get_smoke_config(TRAIN_ARCH) if sizes.train_smoke \
+        else get_config(TRAIN_ARCH)
+    return dataclasses.replace(full, attention_impl="xla",
+                               n_layers=sizes.dist_train_layers)
+
+
+def dist_state(cfg, device, seed: int, history: bool) -> TrainState:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(gen, cfg, device)
+    if history:
+        with_history(state, gen, TRAIN_CHECK_STEP)
+    return state
+
+
+def free(device) -> None:
+    """Memory no longer referenced back to the card: objects held only in
+    reference cycles collected first, then the allocator's cache."""
+    if device.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dist_f32_rank(cfg, mesh, batch, device, seed: int) -> dict:
+    """(c) In f32: one step on rank 0 alone on the global batch, then the
+    ZeRO-1 step of every rank from the same state, held against it leaf by
+    leaf (each new optimizer leaf gathered whole in turn)."""
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    me = ranks.axis_index("data")
+    out, one = {}, None
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if me == 0:
+            state, m = make_train_step(c32)(dist_state(c32, device, seed,
+                                                       True), batch)
+            one = {"loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   **{tree: {k: v.to("cpu") for k, v in
+                             getattr(state.opt, tree).items()}
+                      for tree in ("master", "mu", "nu")}}
+            del state, m
+            free(device)
+        ranks.barrier()
+        rules = rules_for(c32, mesh, "tp", global_batch=batch["tokens"]
+                          .shape[0])
+        state = local_train_state(dist_state(c32, device, seed, True), c32,
+                                  rules, mesh)
+        free(device)
+        state, m = make_train_step(c32, rules, mesh)(state, batch)
+        specs = train_state_specs(c32, rules)
+        worst = {}
+        for tree in ("master", "mu", "nu"):
+            gaps = []
+            for name, x in getattr(state.opt, tree).items():
+                whole = ranks.spec_gather(x, specs.opt.master[name])
+                if me == 0:
+                    gaps.append(check_close(
+                        f"dist/f32 {tree}/{name}", whole,
+                        one[tree][name].to(device),
+                        rtol=TRAIN_F32_TOL["rtol"],
+                        atol=TRAIN_F32_TOL["atol"]))
+                del whole
+            if me == 0:
+                worst[tree] = {"max_abs": max(g[0] for g in gaps),
+                               "max_rel": max(g[1] for g in gaps)}
+        if me == 0:
+            for key in ("loss", "grad_norm"):
+                got = float(m[key])
+                rel = abs(got - one[key]) / abs(one[key])
+                out[key] = {"ranks": got, "one_rank": one[key], "rel": rel}
+                require(rel <= TRAIN_F32_TOL[key], "dist/f32", key, out[key])
+            out["gaps"] = worst
+        out["local_master_bytes"] = sum(x.numel() * 4 for x in
+                                        state.opt.master.values())
+        del state, m
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    free(device)
+    ranks.barrier()
+    return out
+
+
+def dist_bf16_rank(cfg, mesh, batch, flavor: str, sizes: Sizes, device,
+                   seed: int, directory: str | None) -> dict:
+    """(c) In bf16 under ``flavor``: ``dist_train_steps`` steps after one
+    to warm up, each step's ms, tokens/s, this rank's peak bytes and the
+    gradient all-reduce's share of the step (its spans); under "tp" the
+    state is then saved (every leaf gathered whole, rank 0 writing) and
+    this rank's digests of it kept, for (d)."""
+    tokens = batch["tokens"].numel()
+    rules = rules_for(cfg, mesh, flavor, global_batch=batch["tokens"]
+                      .shape[0])
+    state = local_train_state(dist_state(cfg, device, seed, False), cfg,
+                              rules, mesh)
+    free(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    step = make_train_step(cfg, rules, mesh, lr_schedule=lambda s: TRAIN_LR)
+    tracer = Tracer(clock=time.perf_counter)
+    prev = set_tracer(tracer)
+    losses, step_s, starts = [], [], []
+    staged0 = ranks.staged_bytes()
+    try:
+        for _ in range(1 + sizes.dist_train_steps):
+            sync(device)
+            starts.append(time.perf_counter())
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            sync(device)
+            step_s.append(time.perf_counter() - starts[-1])
+    finally:
+        set_tracer(prev)
+    require(all(np.isfinite(losses)), "dist/train", flavor, losses)
+    timed = step_s[1:]
+    reduce_s = sum(e["dur"] for e in tracer.events
+                   if e["name"] == "collective:hierarchical_grad_allreduce"
+                   and e["ts"] >= starts[1])
+    median = statistics.median(timed)
+    out = {"flavor": flavor, "losses": losses,
+           "step_ms": [x * 1e3 for x in step_s],
+           "median_step_ms": median * 1e3,
+           "tokens_per_s": tokens / median,
+           "allreduce_seconds": reduce_s,
+           "allreduce_share": reduce_s / sum(timed),
+           "staged_bytes_per_step": (ranks.staged_bytes() - staged0)
+           / len(step_s),
+           "local_opt_bytes": sum(x.numel() * 4 for tree in
+                                  (state.opt.master, state.opt.mu,
+                                   state.opt.nu) for x in tree.values())}
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if directory is not None:
+        specs = train_state_specs(cfg, rules)
+        t0 = time.perf_counter()
+        CheckpointManager(directory).save(int(state.step), state,
+                                          specs=specs)
+        out["save_seconds"] = time.perf_counter() - t0
+        me, n = ranks.axis_index("data"), ranks.axis_size("data")
+        out["digests"] = state_digests(state, specs, 1, first=me)
+        out["digests_of"] = {"parts": n, "index": me}
+    del state
+    free(device)
+    ranks.barrier()
+    return out
+
+
+def dist_train_rank(device, sizes: Sizes, seed: int, directory: str) -> dict:
+    """(c) gemma-2b's data-parallel step over a (4, 1) ``("data",
+    "model")`` mesh at full width and ``dist_train_layers`` layers: the f32
+    check, then the bf16 runs under "tp" (ZeRO-1, saved for (d)) and
+    "dp" (replicated)."""
+    cfg = dist_train_config(sizes)
+    mesh = make_mesh((torch.distributed.get_world_size(), 1),
+                     ("data", "model"))
+    batch = train_tokens(cfg, sizes.train_batch, sizes.train_seq, seed,
+                         device)
+    out = {"f32": dist_f32_rank(cfg, mesh, batch, device, seed)}
+    for flavor in ("tp", "dp"):
+        out[flavor] = dist_bf16_rank(cfg, mesh, batch, flavor, sizes,
+                                     device, seed,
+                                     directory if flavor == "tp" else None)
+    return out
+
+
+def dist_restore_rank(device, sizes: Sizes, seed: int,
+                      directory: str) -> dict:
+    """(d) This rank's slices of the saved ZeRO-1 state under the specs of
+    a ``("data", "model")`` mesh of this world's ranks, and their digests
+    in the quarters the four saving ranks held."""
+    cfg = dist_train_config(sizes)
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh((world, 1), ("data", "model"))
+    rules = rules_for(cfg, mesh, "tp")
+    specs = train_state_specs(cfg, rules)
+    template = dist_state(cfg, device, seed, False)
+    state, meta = restore_resharded(CheckpointManager(directory), template,
+                                    specs, mesh)
+    del template
+    me = ranks.axis_index("data")
+    parts = sizes.dist_ranks // world
+    out = {"world": world, "index": me, "step": meta["step"],
+           "digests": state_digests(state, specs, parts, first=me * parts),
+           "local_master_shapes": {k: list(v.shape) for k, v in
+                                   list(state.opt.master.items())[:2]}}
+    del state
+    free(device)
+    return out
+
+
+def merged_digests(parts: list[dict]) -> dict:
+    """The ranks' digests in one table; the steps as a set, and a slice
+    that two ranks hold (a replicated leaf) required equal on both."""
+    out: dict = {}
+    for p in parts:
+        for key, v in p.items():
+            if key == "step":
+                out.setdefault("step", set()).add(v)
+                continue
+            mine = out.setdefault(key, {})
+            for index, d in v.items():
+                require(mine.setdefault(index, d) == d, "dist: ranks hold "
+                        "different copies of", key, index)
+    return out
+
+
+def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
+    """The distribution layer over ranks on the one card: 4 ranks under
+    gloo (NCCL refuses two ranks on one card; gloo stages a card tensor
+    through pinned host memory, which each collective's staged bytes
+    count) for (a) the collectives and (b) flash-decode over a
+    sequence-sharded cache, one rank under NCCL, (c) gemma-2b's
+    data-parallel step and (d) the elastic restore of its ZeRO-1 state
+    onto 2 ranks and 1.  Four ranks sharing one card measure correctness
+    and each collective's cost; they measure no scaling."""
+    t0 = time.perf_counter()
+    free(device)
+    n = sizes.dist_ranks
+    where = dist_device(device)
+    out = {"phase": "dist", "ranks": n, "backend": "gloo",
+           "rank_device": str(device)}
+    if device.type == "cuda":
+        # what this process keeps on the card beside the ranks
+        out["parent_allocated_bytes"] = torch.cuda.memory_allocated(device)
+        out["parent_reserved_bytes"] = torch.cuda.memory_reserved(device)
+    if device.type == "cuda":
+        # the ranks load the library this process built: none builds it
+        _build.load()
+    t1 = time.perf_counter()
+    coll = ranks.spawn(dist_collectives_rank, n, backend="gloo",
+                       device=where, args=(sizes, seed),
+                       timeout=DIST_TIMEOUT_S)
+    out["spawn_and_collectives_seconds"] = time.perf_counter() - t1
+    names = [k for k in coll[0] if isinstance(coll[0][k], dict)
+             and "gb_per_s" in coll[0][k]]
+    out["collectives"] = {name: {
+        "bytes": coll[0][name]["bytes"],
+        "seconds": [c[name]["seconds"] for c in coll],
+        "gb_per_s": [c[name]["gb_per_s"] for c in coll],
+        "staged_bytes": coll[0][name]["staged_bytes"],
+        "max_abs_err": max(c[name]["max_abs_err"] for c in coll)}
+        for name in names}
+    out["collectives"]["compressed_psum"]["limit"] = \
+        coll[0]["compressed_psum"]["limit"]
+    decode = [c["flash_decode"] for c in coll]
+    out["flash_decode"] = {
+        **{k: decode[0][k] for k in ("shape", "shard", "mesh", "kv_len",
+                                     "row_at_kv_len_1", "routes")},
+        "empty_rows_by_rank": [d["empty_rows"] for d in decode],
+        "launches_by_rank": [d["launches"] for d in decode],
+        "bf16_limit_share": max(d["bf16_limit_share"] for d in decode),
+        "bf16_limit_share_whole_cache":
+        decode[0]["bf16_limit_share_whole_cache"],
+        "max_abs_err": max(d["max_abs_err"] for d in decode),
+        "max_abs_err_against_whole_cache":
+        max(d["max_abs_err_against_whole_cache"] for d in decode),
+        "shard_ms_by_rank": [d["shard_ms"] for d in decode],
+        "combine_seconds_by_rank": [d["combine_seconds"] for d in decode],
+        "combine_staged_bytes": decode[0]["combine_staged_bytes"]}
+    require(sum(d["launches"] for d in decode) == n or device.type != "cuda",
+            "dist/flash_decode launches", out["flash_decode"])
+    require(len(out["flash_decode"]["empty_rows_by_rank"][-1]) >= 1,
+            "dist/flash_decode: no rank held an empty row")
+    out["decode_attention_launches"] = sum(d["launches"] for d in decode)
+    if device.type == "cuda":
+        t1 = time.perf_counter()
+        out["nccl"] = ranks.spawn(dist_nccl_rank, 1, backend="nccl",
+                                  device=where, args=(sizes, seed),
+                                  timeout=DIST_TIMEOUT_S)[0]
+        out["nccl"]["spawn_seconds"] = time.perf_counter() - t1
+    else:
+        out["nccl"] = {"skipped": "rehearsal on the CPU: no NCCL"}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = os.path.join(tmp, "ckpt")
+        t1 = time.perf_counter()
+        train = ranks.spawn(dist_train_rank, n, backend="gloo",
+                            device=where, args=(sizes, seed, directory),
+                            timeout=DIST_TIMEOUT_S)
+        out["train_seconds"] = time.perf_counter() - t1
+        cfg = dist_train_config(sizes)
+        out["train"] = {
+            "arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "batch": [sizes.train_batch, sizes.train_seq],
+            "mesh": [n, 1], "f32_check": train[0]["f32"]}
+        for flavor in ("tp", "dp"):
+            runs = [t[flavor] for t in train]
+            out["train"][flavor] = {
+                **{k: runs[0][k] for k in ("losses", "step_ms",
+                                           "median_step_ms", "tokens_per_s",
+                                           "allreduce_share",
+                                           "staged_bytes_per_step",
+                                           "local_opt_bytes")},
+                "allreduce_share_by_rank": [r["allreduce_share"]
+                                            for r in runs],
+                "peak_bytes_by_rank": [r.get("peak_bytes") for r in runs]}
+        tp_losses = out["train"]["tp"]["losses"]
+        require(tp_losses[0] == out["train"]["dp"]["losses"][0],
+                "dist/train: the first step's loss differs between tp and "
+                "dp from one state", tp_losses,
+                out["train"]["dp"]["losses"])
+        out["train"]["tp"]["save_seconds"] = train[0]["tp"]["save_seconds"]
+        saved = merged_digests([t["tp"]["digests"] for t in train])
+        step = saved.pop("step")
+        # (d) onto 2 ranks, then onto 1 (this process, whole leaves)
+        t1 = time.perf_counter()
+        halves = ranks.spawn(dist_restore_rank, 2, backend="gloo",
+                             device=where, args=(sizes, seed, directory),
+                             timeout=DIST_TIMEOUT_S)
+        out["restore_two_seconds"] = time.perf_counter() - t1
+        two = merged_digests([h["digests"] for h in halves])
+        t1 = time.perf_counter()
+        rules = rules_for(cfg, {"data": 1, "model": 1}, "tp")
+        specs = train_state_specs(cfg, rules)
+        template = dist_state(cfg, device, seed, False)
+        whole, meta = restore_resharded(CheckpointManager(directory),
+                                        template, specs, None)
+        del template
+        one = state_digests(whole, train_state_specs(
+            cfg, rules_for(cfg, {"data": n, "model": 1}, "tp")), n)
+        del whole
+        free(device)
+        out["restore_one_seconds"] = time.perf_counter() - t1
+        steps = (step, two.pop("step"), {one.pop("step")},
+                 {meta["step"]})
+        require(all(x == steps[0] for x in steps), "dist/restore: steps",
+                steps)
+        require(saved == two, "dist/restore: onto 2 ranks not bit-equal")
+        require(saved == one, "dist/restore: onto 1 not bit-equal")
+        out["restore"] = {"leaves": len(saved), "step": meta["step"],
+                          "onto": [2, 1], "bit_equal": True,
+                          "local_master_shapes_two":
+                          halves[0]["local_master_shapes"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4440,6 +5085,9 @@ def main(argv=None) -> int:
               for arch in SERVE_ARCHS}
     # The training path zeroes and reads the counts around its steps.
     train = phase_train(sizes, device, args.seed)
+    # Each rank of the distribution phase zeroes and reads its own counts
+    # around its flash-decode path.
+    dist = phase_dist(sizes, device, args.seed)
     served = {arch: out["kernel_launches"] for arch, out in serves.items()}
     rwkv = served["rwkv6-3b"]
     hybrid = served["recurrentgemma-2b"]
@@ -4457,7 +5105,8 @@ def main(argv=None) -> int:
         "nbody": counts["nbody"], "correlate": counts["correlate"],
         "flash_attention": sum(n["flash_attention"] for n in served.values()),
         "decode_attention": sum(n["decode_attention"]
-                                for n in served.values()),
+                                for n in served.values())
+        + dist["decode_attention_launches"],
         "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
@@ -4472,6 +5121,8 @@ def main(argv=None) -> int:
                    hybrid_routes["fma"]},
         **{name: {arch: n[name] for arch, n in served.items() if n[name]}
            for name in ("flash_attention", "decode_attention")}}
+    by_shape["decode_attention"]["dist phase"] = \
+        dist["decode_attention_launches"]
     for row in rows:
         row["launches"] = per_row[row["name"]]
         if row["name"] in by_shape:
@@ -4483,7 +5134,9 @@ def main(argv=None) -> int:
           "main_path_launches": counts, "main_path_routes": routes,
           "stream_launches": stream.get("kernel_launches"),
           "serve_launches": served,
-          "train_launches": train["kernel_launches"]})
+          "train_launches": train["kernel_launches"],
+          "dist_launches": {"decode_attention":
+                            dist["decode_attention_launches"]}})
 
     if args.rehearse:
         emit({"kernels": rows})

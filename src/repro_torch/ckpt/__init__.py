@@ -1,5 +1,6 @@
-"""Checkpointing: async atomic save, retention, restore."""
+"""Checkpointing: async atomic save, retention, restore (also onto
+another mesh of ranks)."""
 
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, restore_resharded
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "restore_resharded"]

@@ -16,9 +16,11 @@
   port's own (``params/layers.0.wq``, ``opt/master/embed``): a module's
   leaves are its named parameters, a dataclass's its fields.
 * **Retention**: keep the last ``keep`` checkpoints, delete older ones.
-
-Restoring onto another mesh (the reference's ``restore_resharded``) waits
-for ROADMAP Queue A item 10.
+* **Sharded states**: ``save(..., specs=...)`` on every rank of a mesh
+  gathers each leaf its spec splits to its logical (whole) array; rank 0
+  writes and the others wait at a barrier, so a checkpoint has the same
+  layout whatever mesh saved it.  ``restore_resharded`` gives each rank its
+  slice of every leaf under the *target* mesh's specs (elastic restore).
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+
+from repro_torch.dist import ranks
 
 
 def _flatten_with_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -87,6 +91,24 @@ def _file(key: str) -> str:
     return key.replace("/", "__") + ".npy"
 
 
+def _flatten_specs(specs: Any, prefix: str = "") -> dict[str, Any]:
+    """Key -> partition spec, keyed as ``_flatten_with_paths`` keys the
+    state: a spec (a tuple) is a leaf."""
+    if isinstance(specs, tuple) or specs is None:
+        return {prefix.rstrip("/"): specs}
+    if dataclasses.is_dataclass(specs) and not isinstance(specs, type):
+        items = [(f.name, getattr(specs, f.name))
+                 for f in dataclasses.fields(specs)]
+    elif isinstance(specs, Mapping):
+        items = list(specs.items())
+    else:
+        items = [(f"[{i}]", v) for i, v in enumerate(specs)]
+    out: dict[str, Any] = {}
+    for k, v in items:
+        out.update(_flatten_specs(v, f"{prefix}{k}/"))
+    return out
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
@@ -98,11 +120,28 @@ class CheckpointManager:
     # -- save ----------------------------------------------------------------
 
     def save(self, step: int, state: Any, metadata: dict | None = None,
-             blocking: bool = False) -> None:
-        """Snapshot to host memory now; write in the background."""
+             blocking: bool = False, specs: Any = None) -> None:
+        """Snapshot to host memory now; write in the background.
+
+        With ``specs`` (a tree of partition specs shaped as ``state``, such
+        as ``train_state_specs``) every rank of the current mesh calls this
+        with its part of a sharded state: each leaf is gathered whole, rank
+        0 writes it and the others wait at a barrier until it is written
+        (such a save is always blocking)."""
         self.wait()  # one in-flight save at a time
-        host_leaves = [(k, _to_host(v))
-                       for k, v in _flatten_with_paths(state)]
+        leaves = _flatten_with_paths(state)
+        if specs is not None:
+            flat = _flatten_specs(specs)
+            leaves = [(k, ranks.spec_gather(v, flat[k])
+                       if isinstance(v, torch.Tensor) else v)
+                      for k, v in leaves]
+            mesh_axes = tuple(ranks.current_mesh().mesh_dim_names)
+            if ranks.axis_index(mesh_axes) != 0:
+                del leaves
+                ranks.barrier()
+                return
+        host_leaves = [(k, _to_host(v)) for k, v in leaves]
+        del leaves
         meta = dict(metadata or {})
         meta["step"] = int(step)
 
@@ -134,8 +173,10 @@ class CheckpointManager:
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
-        if blocking:
+        if blocking or specs is not None:
             self.wait()
+        if specs is not None:
+            ranks.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -243,3 +284,28 @@ class CheckpointManager:
             else:
                 restored[key] = host.to(device=tmpl.device, dtype=tmpl.dtype)
         return _unflatten(template, restored), manifest["meta"]
+
+
+def restore_resharded(
+    manager: CheckpointManager,
+    template: Any,
+    specs: Any,  # a tree of partition specs shaped as the template
+    mesh,
+    step: int | None = None,
+) -> tuple[Any, dict]:
+    """Elastic restore: each rank of ``mesh`` (a ``DeviceMesh``) gets its
+    slice of every leaf under ``specs`` on that mesh, whatever mesh saved
+    the checkpoint (its layout is logical); ``mesh`` None gives whole
+    leaves.  Each leaf goes to the template leaf's device and dtype."""
+    flat = _flatten_specs(specs)
+    devices = {k: t for k, t in _flatten_with_paths(template)}
+
+    def put(key, host):
+        tmpl = devices[key]
+        spec = flat.get(key)
+        if mesh is not None and spec is not None:
+            with ranks.use_mesh(mesh):
+                host = ranks.spec_slice(host, spec)
+        return host.to(device=tmpl.device, dtype=tmpl.dtype, copy=True)
+
+    return manager.restore(template, step=step, put=put)

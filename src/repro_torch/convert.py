@@ -182,3 +182,14 @@ def train_state_from_reference(np_state: Any, cfg: ModelConfig,
                           device=device),
         master=named_f32(opt.master), mu=named_f32(opt.mu),
         nu=named_f32(opt.nu)))
+
+
+def spec_from_reference(spec: Any) -> tuple | None:
+    """The reference's ``PartitionSpec`` (or any sequence of entries) as
+    this package's partition spec, a plain tuple: ``P('data', None)`` is
+    ``('data', None)``, ``P()`` is ``()``, a tuple entry stays a tuple;
+    None passes through."""
+    if spec is None:
+        return None
+    return tuple(tuple(e) if isinstance(e, (list, tuple)) else e
+                 for e in spec)

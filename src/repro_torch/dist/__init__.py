@@ -1,13 +1,39 @@
 """``repro_torch.dist`` — distribution across ranks and fault tolerance.
 
-* :mod:`repro_torch.dist.sharding` — only the one-device ``constrain`` so
-  far (ROADMAP Queue A item 10 holds the logical-axis rules and the
-  collectives).
+* :mod:`repro_torch.dist.sharding` — ``ShardingRules`` map logical array
+  axes (``batch``, ``heads``, ``d_ff``, ...) onto mesh axes of the
+  production ``("pod", "data", "model")`` mesh.  ``dp_rules`` is the
+  paper-faithful baseline (batch superblocks, replicated weights);
+  ``tp_rules`` the Megatron-style placement with a ZeRO-1 optimizer state.
+  ``derive_rules_from_plan`` derives partition specs from a Lightning
+  annotation (point accesses shard, slice and halo accesses replicate).
+* :mod:`repro_torch.dist.ranks` — the named-axis primitives over
+  ``torch.distributed`` ranks on a ``DeviceMesh`` (``psum``, ``pmax``,
+  ``all_gather``, ``ppermute``, ``axis_index``), and ``spawn``, which starts
+  the ranks of one machine.
+* :mod:`repro_torch.dist.collectives` — a ring all-reduce from
+  ``ppermute`` hops, the ring collective matmul, and the pod-then-data
+  hierarchical gradient all-reduce, with spans on a ``dist`` stream.
 * :mod:`repro_torch.dist.fault` — heartbeat liveness tracking, step-time
   straggler quarantine with backup shard assignment, and a
   checkpoint-restart supervisor; pure host-side logic on injected clocks.
 """
 
+from .sharding import (
+    MESH_AXES,
+    ShardingRules,
+    constrain,
+    derive_rules_from_plan,
+    dp_rules,
+    tp_rules,
+    tree_specs,
+)
+from .collectives import (
+    hierarchical_grad_allreduce,
+    ring_allgather_matmul,
+    ring_allreduce,
+    set_tracer,
+)
 from .fault import (
     FaultEvent,
     HeartbeatMonitor,
@@ -15,10 +41,21 @@ from .fault import (
     StragglerMonitor,
     TrainSupervisor,
 )
-from .sharding import constrain
+from .ranks import spawn
 
 __all__ = [
+    "MESH_AXES",
+    "ShardingRules",
     "constrain",
+    "derive_rules_from_plan",
+    "dp_rules",
+    "tp_rules",
+    "tree_specs",
+    "hierarchical_grad_allreduce",
+    "ring_allgather_matmul",
+    "ring_allreduce",
+    "set_tracer",
+    "spawn",
     "FaultEvent",
     "HeartbeatMonitor",
     "HostState",

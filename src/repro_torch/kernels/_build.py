@@ -7,12 +7,14 @@ takes seconds.  The library lands in ``build/repro_torch/`` at the root of a
 checkout, or in ``build/`` beside the package when the package is installed
 elsewhere.  A stamp file holds a hash of the sources and the flags, so an
 edited ``.cu`` rebuilds.  A missing compiler or a failed build raises with
-the compiler's output.
+the compiler's output.  A file lock beside the library makes concurrent
+processes (the ranks of one machine) build it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -76,7 +78,6 @@ def build(srcs: list[Path] | None = None, defines: tuple[str, ...] = (),
     output is kept in ``build.log`` beside it.  The package's library is
     the default; a probe builds variants of a source into a directory of
     its own."""
-    global build_seconds
     srcs = sources() if srcs is None else srcs
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
@@ -87,12 +88,29 @@ def build(srcs: list[Path] | None = None, defines: tuple[str, ...] = (),
     if (lib_path.exists() and stamp.exists()
             and stamp.read_text() == digest):
         return lib_path
-
-    nvcc = find_nvcc()
     out.mkdir(parents=True, exist_ok=True)
+    # One build at a time (several ranks may ask at once): the others wait
+    # for the lock and then find the library up to date.
+    with open(out / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (lib_path.exists() and stamp.exists()
+                and stamp.read_text() == digest):
+            return lib_path
+        return _compile(srcs, flags, _include(), out, lib_path, stamp,
+                        digest)
+
+
+def _include() -> list[str]:
     include = ["-I", str(CSRC_DIR)]
     if CUTLASS_INCLUDE.is_dir():
         include += ["-I", str(CUTLASS_INCLUDE)]
+    return include
+
+
+def _compile(srcs: list[Path], flags: tuple[str, ...], include: list[str],
+             out: Path, lib_path: Path, stamp: Path, digest: str) -> Path:
+    global build_seconds
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
     procs = []
     for src in srcs:

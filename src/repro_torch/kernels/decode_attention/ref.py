@@ -1,9 +1,18 @@
 """Plain PyTorch version of single-token decode attention against a KV
-cache, the oracle the kernel is held against."""
+cache, the oracle the kernel is held against.
+
+A row with no valid key (``kv_len`` 0, as a rank's shard of a
+sequence-split cache can hold past a short row) gives zeros and an lse of
+-1e30, as the CUDA kernel does: a combine of sequence-split partials then
+gives it weight exactly 0.  (The reference's plain version gives NaN
+there and its Pallas kernel the mean of v.)"""
 
 from __future__ import annotations
 
 import torch
+
+#: the lse of a row with no valid key
+EMPTY_LSE = -1e30
 
 
 def decode_attention_ref(
@@ -30,10 +39,14 @@ def decode_attention_ref(
                 < kv_len[:, None, None])
         logits = logits.masked_fill(~mask, float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
+    empty = m == float("-inf")  # no valid key in the row
+    m = m.masked_fill(empty, 0.0)
     p = torch.exp(logits - m)
-    l = p.sum(dim=-1, keepdim=True)
+    # l >= 1 wherever a key is valid (its max gives exp(0)), so the floor
+    # touches only the empty rows, whose p is all 0
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bht,bhtd->bhd", (p / l).to(q.dtype), vv)
     if with_lse:
-        lse = (m + torch.log(l)).squeeze(-1)  # (B, HQ)
-        return out, lse
+        lse = (m + torch.log(l)).masked_fill(empty, EMPTY_LSE).squeeze(-1)
+        return out, lse  # lse (B, HQ)
     return out

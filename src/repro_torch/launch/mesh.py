@@ -1,0 +1,37 @@
+"""Meshes of ranks.
+
+A mesh here is a ``torch.distributed`` ``DeviceMesh`` over the ranks of the
+process group this process has joined (``repro_torch.dist.ranks.spawn``
+starts them): the reference's ``jax.make_mesh`` over devices.  It is built
+on the group's backend: its device type is ``"cuda"`` under NCCL and
+``"cpu"`` under gloo, which stages a card's tensors through the host.  The
+production mesh of 256 or 512 ranks (``make_production_mesh``) waits with
+the dry run, ROADMAP Queue A item 15.
+"""
+
+from __future__ import annotations
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.dist.ranks import mesh_sizes, set_mesh
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` with ``axes`` over the initialized
+    group (its size the product of ``shape``), made the current mesh of
+    :mod:`repro_torch.dist.ranks`.  Every rank calls it."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(repro_torch.dist.ranks.spawn starts one)")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = init_device_mesh(device_type, tuple(int(s) for s in shape),
+                            mesh_dim_names=tuple(axes))
+    set_mesh(mesh)
+    return mesh
+
+
+def data_axes_of(mesh) -> tuple[str, ...]:
+    """Axes used for data parallelism: everything except 'model'.
+    ``mesh`` may be a ``DeviceMesh`` or an {axis: size} mapping."""
+    return tuple(a for a in mesh_sizes(mesh) if a != "model")

@@ -44,6 +44,35 @@ def params_logical_axes(cfg: ModelConfig) -> dict:
     return _family(cfg).params_logical_axes(cfg)
 
 
+def params_logical_axes_by_name(cfg: ModelConfig) -> dict[str, tuple]:
+    """The logical axes of each parameter of the port's module, keyed by
+    its name in ``named_parameters()``: ``params_logical_axes``'s tree with
+    its stacked layers taken apart (an entry a layer, the leading
+    ``"layers"`` axis dropped) and its lists by index."""
+    counts = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+              "dec_layers": cfg.n_layers}
+    if cfg.family == "hybrid":
+        counts["groups"] = rglru.n_groups(cfg)[0]
+    out: dict[str, tuple] = {}
+
+    def walk(tree, prefix: str, stacked: bool) -> None:
+        if isinstance(tree, tuple):
+            out[prefix.rstrip(".")] = tree[1:] if stacked else tree
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}{i}.", stacked)
+        else:
+            for k, v in tree.items():
+                if k in counts and not stacked:
+                    for i in range(counts[k]):
+                        walk(v, f"{prefix}{k}.{i}.", True)
+                else:
+                    walk(v, f"{prefix}{k}.", stacked)
+
+    walk(params_logical_axes(cfg), "", False)
+    return out
+
+
 def param_count(params: torch.nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 

@@ -12,9 +12,10 @@ Three interchangeable implementations selected by ``cfg.attention_impl``:
 
 Decode-side attention (one token against the cache) has the ``cuda`` kernel
 and the plain path, both able to emit the log-sum-exp for combining
-sequence-split partials.  Combining partials across ranks
-(``combine_decode_partials``) needs collectives and waits for ROADMAP
-Queue A item 10.
+sequence-split partials; ``combine_decode_partials`` combines the partials
+of ranks that each hold a shard of the cache's sequence axis (flash-decode
+over a mesh axis).  A rank whose shard holds no valid key of a row has
+zeros and lse -1e30 there, in both paths, which gets weight exactly 0.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import ranks
 from repro_torch.kernels.decode_attention import decode_attention as cuda_decode
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -172,3 +174,19 @@ def decode_attention_quant(
     out = torch.einsum("bkgt,bktd->bkgd", pv.float(),
                        v_q.to(q.dtype).float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def combine_decode_partials(
+    out: torch.Tensor,  # (B, H, D) this rank's partial
+    lse: torch.Tensor,  # (B, H) this rank's log-sum-exp
+    axis_name: str,
+) -> torch.Tensor:
+    """Flash-decode combine across a sequence-sharded cache axis: each
+    rank's partial weighted by the softmax of its lse over the ranks along
+    ``axis_name`` (a pmax, then psums of the weighted f32 partials and of
+    the weights).  Every rank of the axis calls it and gets the result."""
+    m = ranks.pmax(lse, axis_name)
+    w = torch.exp(lse - m)  # (B, H)
+    num = ranks.psum(out.float() * w[..., None], axis_name)
+    den = ranks.psum(w, axis_name)
+    return (num / den[..., None]).to(out.dtype)

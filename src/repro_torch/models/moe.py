@@ -27,7 +27,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import (
+    batch_axes,
+    batch_ranks,
+    constrain,
+    psum_batch,
+)
 
 from . import kvcache, transformer
 from .config import ModelConfig
@@ -258,8 +263,15 @@ def moe_mlp(
 
     probs, gate_vals, expert_idx = _route(lp, x, cfg)  # (B, S, E), (B, S, k)
     onehot = F.one_hot(expert_idx, e).float()  # (B, S, k, E)
-    f = onehot.sum(dim=(1, 2)).mean(dim=0) / s
-    pbar = probs.mean(dim=(0, 1))
+    if batch_axes(rules):
+        # The load statistics are the global batch's, as GSPMD forms them
+        # from a batch split over ranks: sums over every rank's rows.
+        rows = b * batch_ranks(rules)
+        f = psum_batch(onehot.sum(dim=(0, 1, 2)), rules) / rows / s
+        pbar = psum_batch(probs.sum(dim=(0, 1)), rules) / (rows * s)
+    else:
+        f = onehot.sum(dim=(1, 2)).mean(dim=0) / s
+        pbar = probs.mean(dim=(0, 1))
     aux = e * torch.sum(f * pbar)
 
     pos_in_exp = _queue_positions(onehot, 1)  # (B, S, k)

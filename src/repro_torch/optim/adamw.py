@@ -4,7 +4,7 @@ Params are stored in the model dtype (bf16 at scale); the optimizer keeps
 f32 master weights and first and second moments, 12 bytes a parameter
 against the params' 2.  ``zero1_axes`` gives those leaves the logical axes
 that shard them over the data axis as well as the model axis (ROADMAP Queue
-A item 10 holds the rules that map them onto ranks).
+``repro_torch.dist.sharding``'s rules map them onto ranks).
 
 A parameter tree here is an ``nn.Module``, taken as its named parameters
 (``dict(module.named_parameters())``: a tied weight once), or nested dicts
@@ -21,6 +21,12 @@ from typing import Any, Callable, Mapping
 
 import torch
 import torch.nn as nn
+
+
+#: elements of a leaf the update takes at a time: its f32 temporaries
+#: (about five of them) are then 64 MiB each, where gemma-2b's embedding of
+#: 5.2e8 parameters would need 2 GiB each
+UPDATE_CHUNK = 1 << 24
 
 
 @dataclasses.dataclass
@@ -109,6 +115,7 @@ def adamw_update(
     grad_clip: float = 1.0,
     param_dtype: torch.dtype = torch.bfloat16,
     out: Any = None,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[Any, AdamWState, dict]:
     """Returns (new model-dtype params, new state, metrics).
 
@@ -122,10 +129,12 @@ def adamw_update(
     leaf by leaf, the new params into ``out``'s tensors (each cast from the
     master through ``param_dtype``, so that a leaf kept in f32 whatever the
     config holds the reference's rounded value), and the state returned is
-    ``state`` with its step advanced."""
+    ``state`` with its step advanced.  ``grad_norm`` is the norm of the
+    whole gradient where ``grads`` and the state are one rank's slice of
+    theirs (ZeRO-1): the clip then scales every slice alike."""
     grads = _tree(grads)
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     t = step.to(torch.float32)
     mu_hat_scale = 1.0 / (1.0 - b1 ** t)
@@ -138,17 +147,28 @@ def adamw_update(
             _leaves(state.nu), strict=True)):
         if out is None:
             p, m, v = p.clone(), m.clone(), v.clone()
-        g = g.to(torch.float32) * scale
-        m.mul_(b1).add_(g * (1 - b1))
-        v.mul_(b2).add_(g * (1 - b2) * g)
-        del g
-        u = (m * mu_hat_scale) / (v * nu_hat_scale).sqrt_().add_(eps)
-        p.sub_(u.add_(p * weight_decay).mul_(lr))
-        del u
-        if out is None:
-            params.append(p.to(param_dtype))
+            target = torch.empty(p.shape, dtype=param_dtype, device=p.device)
         else:
-            targets[i].copy_(p.to(param_dtype))
+            target = targets[i]
+        for x in (p, m, v, target):
+            if not x.is_contiguous():
+                raise ValueError("AdamW updates its state and params in "
+                                 "place: they must be contiguous")
+        flat = [x.reshape(-1) for x in (g, p, m, v, target)]
+        # A chunk of a leaf at a time, so that the f32 temporaries stay
+        # small beside the leaf; every element's arithmetic is the same.
+        for lo in range(0, p.numel(), UPDATE_CHUNK):
+            gc, pc, mc, vc, tc = (x[lo:lo + UPDATE_CHUNK] for x in flat)
+            gc = gc.to(torch.float32) * scale
+            mc.mul_(b1).add_(gc * (1 - b1))
+            vc.mul_(b2).add_(gc * (1 - b2) * gc)
+            del gc
+            u = (mc * mu_hat_scale) / (vc * nu_hat_scale).sqrt_().add_(eps)
+            pc.sub_(u.add_(pc * weight_decay).mul_(lr))
+            del u
+            tc.copy_(pc.to(param_dtype))
+        if out is None:
+            params.append(target)
         masters.append(p)
         mus.append(m)
         nus.append(v)

@@ -1,5 +1,5 @@
 """Training loop substrate."""
 
-from .train_loop import TrainState, make_train_step
+from .train_loop import TrainState, make_train_step, train_state_specs
 
-__all__ = ["TrainState", "make_train_step"]
+__all__ = ["TrainState", "make_train_step", "train_state_specs"]

@@ -1,12 +1,29 @@
-"""Train-step factory: loss -> gradients -> AdamW, with microbatch gradient
-accumulation and the reference's buffer donation as in-place updates.
+"""Train-step factory: loss -> gradients -> (reduction over ranks) -> AdamW,
+with microbatch gradient accumulation and the reference's buffer donation
+as in-place updates.
 
-The step runs eagerly on one device, through the models' plain attention
-and scans (``attention_impl`` "xla", the reference's default and the path
-it trains through): the hand-written kernels are forward-only, as the
-reference's Pallas kernels are, so ``make_train_step`` refuses a config
-that names them.  Sharded training (the reference's ``rules`` and ``mesh``,
-``train_state_specs``) waits for ROADMAP Queue A item 10.
+The step runs eagerly, through the models' plain attention and scans
+(``attention_impl`` "xla", the reference's default and the path it trains
+through): the hand-written kernels are forward-only, as the reference's
+Pallas kernels are, so ``make_train_step`` refuses a config that names
+them.
+
+Given ``rules`` and a ``mesh`` of ranks (``repro_torch.launch.mesh``), the
+step is data-parallel, the port's counterpart of the reference's GSPMD step
+on the same global batch: each rank takes its rows of the global batch,
+computes its gradients, and the ranks all-reduce them
+(``hierarchical_grad_allreduce``: over the batch axes within a pod, then
+over ``"pod"``) and scale them by one over the ranks.  Two flavors, as the
+reference's:
+
+* ``dp_rules``: every rank keeps the whole optimizer state and updates it;
+* ``tp_rules`` (``zero1``): the f32 master and moments are sharded along
+  each leaf's ``zero1`` axis over the data axes; each rank updates its
+  slice (the clip taken from the norm of the whole gradient, the same on
+  every rank) and the new params are all-gathered.
+
+A ``"model"`` axis of more than one rank needs tensor-parallel layers,
+ROADMAP Queue A item 16, and raises.
 """
 
 from __future__ import annotations
@@ -14,20 +31,26 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import math
 from typing import Any, Callable
 
 import torch
 import torch.nn as nn
 
+from repro_torch.dist import ranks
+from repro_torch.dist.collectives import hierarchical_grad_allreduce
+from repro_torch.dist.sharding import (
+    QUEUED_TP,
+    ShardingRules,
+    batch_axes,
+    batch_ranks,
+    model_ranks,
+    tree_specs,
+)
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init, adamw_update, cosine_with_warmup
-from repro_torch.optim.adamw import AdamWState, zero1_axes
-
-#: what a sharded train step waits for
-QUEUED_DIST = ("sharded training (rules, mesh) waits for the port's "
-               "logical-axis rules and collectives over several ranks, "
-               "ROADMAP Queue A item 10")
+from repro_torch.optim.adamw import AdamWState, global_norm, zero1_axes
 
 
 @dataclasses.dataclass
@@ -60,6 +83,107 @@ def train_state_axes(cfg: ModelConfig, zero1: bool = True) -> TrainState:
     )
 
 
+def train_state_specs(
+    cfg: ModelConfig, rules: ShardingRules, zero1: bool = True
+) -> TrainState:
+    """The partition spec of every leaf of a train state, keyed as the
+    port's state is: ``params`` and the optimizer's ``master``, ``mu`` and
+    ``nu`` by parameter name (``named_parameters()``), ``step`` ``()``.
+    Each is the reference's spec of that leaf with a stacked layer's
+    leading entry taken off."""
+    p_axes = model_api.params_logical_axes_by_name(cfg)
+    o_axes = zero1_axes(p_axes) if zero1 else p_axes
+    params = tree_specs(rules, p_axes)
+    opt = tree_specs(rules, o_axes)
+    return TrainState(
+        params=params,
+        opt=AdamWState(step=(), master=opt, mu=dict(opt), nu=dict(opt)),
+    )
+
+
+class _Layout:
+    """Where a sharded step's batch rows and optimizer slices lie on the
+    mesh, and which ranks its gradients are reduced over."""
+
+    def __init__(self, cfg: ModelConfig, rules: ShardingRules, mesh,
+                 zero1: bool):
+        if model_ranks(mesh) > 1:
+            raise NotImplementedError(QUEUED_TP)
+        rules = rules.with_mesh(mesh)
+        sizes = ranks.mesh_sizes(mesh)
+        self.batch = batch_axes(rules)
+        self.ranks = batch_ranks(rules)
+        seq = rules.spec(("batch", "seq"))[1]
+        if seq is not None and math.prod(
+                sizes[a] for a in
+                ((seq,) if isinstance(seq, str) else seq)) > 1:
+            raise NotImplementedError(
+                "a sequence split over ranks (the rules' 'seq' axis) has "
+                "no counterpart in the port")
+        if cfg.moe_flat_dispatch and self.batch:
+            raise NotImplementedError(
+                "the flat MoE dispatch's capacity counts the global "
+                "batch's tokens, which no rank holds; shard with the "
+                "batched dispatch")
+        # the gradients are reduced over the batch axes of more than one
+        # rank (an axis of one would only copy them)
+        self.reduced = tuple(a for a in self.batch if sizes[a] > 1)
+        self.intra = tuple(a for a in self.reduced if a != "pod")
+        self.inter = ("pod",) if "pod" in self.reduced else ()
+        specs = train_state_specs(cfg, rules, zero1)
+        self.opt_specs = specs.opt.master
+        with ranks.use_mesh(mesh):
+            for name, spec in specs.params.items():
+                if ranks.spec_shards(spec):
+                    raise NotImplementedError(
+                        f"param {name} is split by {spec}: {QUEUED_TP}")
+            self.opt_sharded = any(ranks.spec_shards(s)
+                                   for s in self.opt_specs.values())
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of the global batch."""
+        if not self.batch:
+            return batch
+        idx = ranks.axis_index(self.batch)
+        out = {}
+        for key, x in batch.items():
+            if x.shape[0] % self.ranks:
+                raise ValueError(f"a global batch of {x.shape[0]} rows "
+                                 f"does not split over {self.ranks} ranks")
+            rows = x.shape[0] // self.ranks
+            out[key] = x.narrow(0, idx * rows, rows)
+        return out
+
+    def local_opt(self, opt: AdamWState, named: dict) -> AdamWState:
+        """The optimizer state with each leaf this rank's slice: a leaf of
+        its param's whole shape is sliced (a copy), one of the slice's
+        shape is kept."""
+        def part(tree):
+            out = {}
+            for name, x in tree.items():
+                if x.shape == named[name].shape and \
+                        ranks.spec_shards(self.opt_specs[name]):
+                    x = ranks.spec_slice(x, self.opt_specs[name]).clone(
+                        memory_format=torch.contiguous_format)
+                out[name] = x
+            return out
+        return AdamWState(opt.step, part(opt.master), part(opt.mu),
+                          part(opt.nu))
+
+
+def local_train_state(state: TrainState, cfg: ModelConfig,
+                      rules: ShardingRules, mesh,
+                      zero1: bool = True) -> TrainState:
+    """This rank's part of a whole train state under ``rules`` on ``mesh``
+    (the optimizer's leaves sliced where their specs split them; the
+    params are replicated): what the sharded step keeps, made before the
+    first step so that the whole optimizer state can be freed."""
+    layout = _Layout(cfg, rules, mesh, zero1)
+    with ranks.use_mesh(mesh):
+        named = dict(state.params.named_parameters())
+        return TrainState(state.params, layout.local_opt(state.opt, named))
+
+
 def make_train_step(
     cfg: ModelConfig,
     rules=None,
@@ -82,22 +206,32 @@ def make_train_step(
     loss is the mean of the microbatch losses, as the reference's
     ``lax.scan``.  ``donate=True`` updates the given state's tensors in
     place (the reference donates its buffers); ``donate=False`` leaves it
-    intact and returns a new state.  ``zero1`` names the optimizer state's
-    sharding over ranks, which one device does not use."""
-    if rules is not None or mesh is not None:
-        raise NotImplementedError(QUEUED_DIST)
+    intact and returns a new state.
+
+    With ``rules`` and ``mesh`` (a ``DeviceMesh`` of ranks) every rank
+    calls the step with the same global batch and its own state (a whole
+    state is sliced at the first step, as the reference's ``jit`` reshards
+    an argument; ``local_train_state`` does it beforehand); the loss and
+    the gradient norm it returns are the global batch's, on every rank.
+    ``zero1`` shards the optimizer state where the rules map ``zero1``
+    (``tp_rules``); under ``dp_rules`` it stays whole."""
     if cfg.attention_impl == "cuda":
         raise ValueError(
             "attention_impl 'cuda': the hand-written CUDA kernels are "
             "forward-only, as the reference's Pallas kernels are; train "
             "with attention_impl='xla', the reference's default")
-    del zero1
     lr_schedule = lr_schedule or functools.partial(
         cosine_with_warmup, peak_lr=3e-4, warmup_steps=50, total_steps=1000
     )
+    layout = None
+    if rules is not None and mesh is not None:
+        rules = rules.with_mesh(mesh)
+        layout = _Layout(cfg, rules, mesh, zero1)
+    else:
+        rules = None
 
     def loss_and_grads(params, leaves, batch):
-        loss = model_api.train_loss(params, batch, cfg)
+        loss = model_api.train_loss(params, batch, cfg, rules)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def compute_grads(params, leaves, batch):
@@ -124,13 +258,58 @@ def make_train_step(
         if not donate:
             state = copy.deepcopy(state)
         named = dict(state.params.named_parameters())
-        loss, grads = compute_grads(state.params, list(named.values()), batch)
+        if layout is None:
+            loss, grads = compute_grads(state.params, list(named.values()),
+                                        batch)
+            lr = lr_schedule(state.opt.step)
+            _, opt, metrics = adamw_update(
+                dict(zip(named, grads)), state.opt, lr,
+                weight_decay=weight_decay, grad_clip=grad_clip,
+                param_dtype=cfg.torch_dtype, out=named,
+            )
+            metrics["loss"] = loss
+            return TrainState(params=state.params, opt=opt), metrics
+        with ranks.use_mesh(mesh):
+            return sharded_step(state, named, batch)
+
+    @torch.no_grad()
+    def reduce(loss, grads: dict):
+        """The global batch's loss and gradients on every rank, each leaf
+        all-reduced in turn in place of the rank's own (so that one leaf's
+        two copies exist at a time)."""
+        if layout.ranks == 1:
+            return loss
+        inv = 1.0 / layout.ranks
+        for k in grads:
+            grads[k] = hierarchical_grad_allreduce(
+                grads[k], layout.intra, layout.inter).mul_(inv)
+        return ranks.psum(loss.reshape(1), layout.reduced).reshape(()) * inv
+
+    def sharded_step(state, named, batch):
+        loss, grads = compute_grads(state.params, list(named.values()),
+                                    layout.local_batch(batch))
+        grads = dict(zip(named, grads))
+        loss = reduce(loss, grads)
+        gnorm = global_norm(grads)
         lr = lr_schedule(state.opt.step)
-        _, opt, metrics = adamw_update(
-            dict(zip(named, grads)), state.opt, lr,
-            weight_decay=weight_decay, grad_clip=grad_clip,
-            param_dtype=cfg.torch_dtype, out=named,
-        )
+        opt = layout.local_opt(state.opt, named)
+        kw = dict(weight_decay=weight_decay, grad_clip=grad_clip,
+                  param_dtype=cfg.torch_dtype, grad_norm=gnorm)
+        if not layout.opt_sharded:
+            _, opt, metrics = adamw_update(grads, opt, lr, out=named, **kw)
+        else:
+            specs = layout.opt_specs
+            slices = {k: ranks.spec_slice(g, specs[k])
+                      for k, g in grads.items()}
+            del grads
+            new = {k: torch.empty(s.shape, dtype=named[k].dtype,
+                                  device=s.device)
+                   for k, s in slices.items()}
+            _, opt, metrics = adamw_update(slices, opt, lr, out=new, **kw)
+            del slices
+            with torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(ranks.spec_gather(new.pop(k), specs[k]))
         metrics["loss"] = loss
         return TrainState(params=state.params, opt=opt), metrics
 

@@ -50,7 +50,9 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.dist.fault", "repro_torch.optim",
            "repro_torch.train", "repro_torch.data", "repro_torch.ckpt",
            "repro_torch.launch.train", "repro_torch.examples.train_lm",
-           "chip_smoke"]
+           "repro_torch.dist.sharding", "repro_torch.dist.ranks",
+           "repro_torch.dist.collectives", "repro_torch.launch.mesh",
+           "repro_torch.launch.rules", "chip_smoke"]
 
 
 @pytest.mark.parametrize("module", MODULES)

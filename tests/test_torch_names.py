@@ -31,8 +31,6 @@ from repro_torch.convert import work_from_reference
 
 from _torch_parity import task_rows
 
-QUEUED_DIST = "waits for ROADMAP Queue A item 10 (logical-axis rules and " \
-    "collectives over several ranks)"
 TPU = "a TPU-only constant or helper of the Pallas kernels"
 INCIDENTAL = "imported by the reference module for its own use; public " \
     "where the port defines it"
@@ -44,28 +42,17 @@ MISSING_OK = {
                                   "call itself",
     ("core.launch", "ArrayMeta"): INCIDENTAL,
     ("core.launch", "Region"): INCIDENTAL,
-    **{("dist", n): QUEUED_DIST for n in (
-        "ShardingRules", "derive_rules_from_plan", "dp_rules", "tp_rules",
-        "tree_specs", "hierarchical_grad_allreduce", "ring_allgather_matmul",
-        "ring_allreduce", "set_tracer")},
-    **{("dist.sharding", n): QUEUED_DIST for n in (
-        "MESH_AXES", "ShardingRules", "derive_rules_from_plan", "dp_rules",
-        "tp_rules", "tree_specs")},
     **{("kernels.common", n): TPU for n in (
         "LANE", "MXU", "PEAK_FLOPS_BF16", "PEAK_HBM_BW", "SUBLANE",
         "VMEM_BYTES", "interpret_default", "vmem_fits")},
     ("kernels.decode_attention.kernel", "NEG_INF"): TPU,
     ("kernels.flash_attention.kernel", "NEG_INF"): TPU,
     ("kernels.md5.kernel", "md5_u32x2"): INCIDENTAL,
-    **{(m, "compressed_psum"): QUEUED_DIST
-       for m in ("optim", "optim.compression")},
-    **{(m, "train_state_specs"): QUEUED_DIST
-       for m in ("train", "train.train_loop")},
-    **{(m, "restore_resharded"): QUEUED_DIST
-       for m in ("ckpt", "ckpt.checkpoint")},
     ("models.api", "param_shapes"): "a jax.eval_shape; waits for ROADMAP "
                                     "Queue A item 15",
-    ("models.attention", "combine_decode_partials"): QUEUED_DIST,
+    ("launch.mesh", "make_production_mesh"): "a mesh of 256 or 512 ranks; "
+                                             "waits with the dry run, "
+                                             "ROADMAP Queue A item 15",
     ("models.transformer", "apply_rope"): INCIDENTAL,
     ("models.encdec", "layer_norm"): INCIDENTAL,
     ("models.config", "ModelConfig.jdtype"): "the JAX dtype; the port's is "
@@ -185,7 +172,8 @@ def test_the_comparison_covers_the_port():
                 "optim", "optim.adamw", "optim.schedule",
                 "optim.compression", "train", "train.train_loop", "data",
                 "data.pipeline", "ckpt", "ckpt.checkpoint", "launch.train",
-                "models.layers"):
+                "models.layers", "dist.sharding", "dist.collectives",
+                "launch.mesh", "launch.rules", "models.attention"):
         assert rel in MODULES, rel
 
 

@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 #: the scripts that measure the port, by module name (chip_smoke.py at the
 #: root, the rest in tools/)
 SCRIPTS = ["chip_smoke", "cuda_core_probe", "tensor_core_probe",
-           "decode_step_ab", "decode_splits", "depth_divergence"]
+           "decode_step_ab", "decode_splits", "depth_divergence",
+           "dist_probe"]
 
 
 def global_reads(source: str, filename: str) -> set[str]:

@@ -189,6 +189,33 @@ def test_adamw_in_place_update_equals_the_pure_one():
             jax.tree.leaves(_to(b, lambda x: x))))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_update_by_chunks_is_bit_equal(dtype, monkeypatch):
+    """A leaf updated a chunk at a time (ragged chunks of 7 elements) gives
+    the same bits as the leaf at once, pure and in place."""
+    import repro_torch.optim.adamw as adamw
+
+    rng = np.random.default_rng(2)
+    tdt = getattr(torch, dtype)
+    params = _to(_tree(rng), lambda x: torch.from_numpy(x).to(tdt))
+    grads = _to(_tree(rng, 0.5), torch.from_numpy)
+    want = TO.adamw_update(grads, TO.adamw_init(params), 3e-3,
+                           param_dtype=tdt)
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 7)
+    got = TO.adamw_update(grads, TO.adamw_init(params), 3e-3,
+                          param_dtype=tdt)
+    st = TO.adamw_init(params)
+    target = _to(params, lambda x: x.clone())
+    TO.adamw_update(grads, st, 3e-3, param_dtype=tdt, out=target)
+    for a, b, c in ((got[0], want[0], target), (got[1].master,
+                                                  want[1].master, st.master),
+                    (got[1].nu, want[1].nu, st.nu)):
+        for x, y, z in zip(jax.tree.leaves(_to(a, lambda t: t)),
+                           jax.tree.leaves(_to(b, lambda t: t)),
+                           jax.tree.leaves(_to(c, lambda t: t))):
+            assert torch.equal(x, y) and torch.equal(z, y)
+
+
 def test_adamw_matches_manual_reference_and_reports_the_norm_before_clip():
     """The reference's ``test_matches_manual_reference`` and
     ``test_grad_clip`` on the port."""
@@ -558,10 +585,18 @@ def test_train_step_refuses_the_forward_only_kernels():
     assert cfg.attention_impl == "cuda"
     with pytest.raises(ValueError, match="forward-only"):
         make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(_xla("gemma-2b"), rules=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(_xla("gemma-2b"), mesh=object())
+    # a "model" axis of 2 waits for the tensor-parallel layers; a (4, 1)
+    # mesh builds a data-parallel step
+    from repro_torch.launch.rules import rules_for
+
+    split = {"data": 2, "model": 2}
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        make_train_step(_xla("gemma-2b"),
+                        rules=rules_for(_xla("gemma-2b"), split), mesh=split)
+    mesh = {"data": 4, "model": 1}
+    assert make_train_step(_xla("gemma-2b"),
+                           rules=rules_for(_xla("gemma-2b"), mesh),
+                           mesh=mesh) is not None
     assert t_train.make_train_step(_xla("gemma-2b")) is not None
 
 
