@@ -382,6 +382,26 @@ class Sizes:
     dist_decode: tuple = (8, 32, 32, 2184, 96)
     dist_train_layers: int = 2
     dist_train_steps: int = 3
+    # tensor parallelism over a (1, 4) ("data", "model") mesh of 4 ranks on
+    # the one card: phi3-mini served at full width and depth (8 query and 8
+    # KV heads a rank: a prefill of tp_check_len tokens at tp_flash, the
+    # 8-slot decode at tp_decode) by tp_requests requests of tp_prompt
+    # tokens and tp_new new ones, its f32 logits at tp_f32_layers layers
+    # over tp_f32_steps decode steps against one rank's; gemma-2b trained
+    # at full width and depth, tp_train_steps steps of tp_train_batch
+    # tokens, and its checks at dist_train_layers layers
+    tp_ranks: int = 4
+    tp_flash: tuple = (1, 8, 8, 1024, 96)
+    tp_decode: tuple = (8, 8, 8, 2184, 96)
+    tp_requests: int = 8
+    tp_prompt: tuple = (128, 1024)
+    tp_new: int = 32
+    tp_max_len: int = 2184
+    tp_check_len: int = 1024
+    tp_f32_layers: int = 2
+    tp_f32_steps: int = 4
+    tp_train_batch: tuple = (4, 512)
+    tp_train_steps: int = 3
     reps: int = 5
 
 
@@ -411,6 +431,9 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             train_check_batch=(2, 8),
             dist_elems=1 << 10, dist_matmul=(64, 128, 32),
             dist_decode=(3, 4, 4, 72, 32), dist_train_steps=2,
+            tp_flash=(1, 1, 1, 24, 16), tp_decode=(3, 1, 1, 70, 16),
+            tp_requests=4, tp_prompt=(4, 24), tp_new=3, tp_max_len=40,
+            tp_check_len=24, tp_f32_steps=2, tp_train_batch=(4, 16),
             reps=1)
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
@@ -2130,7 +2153,9 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                       causal=False),
                   "whisper_cross": lambda: flash_inputs(
                       sizes.flash_whisper_cross, bf16, gen, device,
-                      t=sizes.whisper_frames, causal=False)},
+                      t=sizes.whisper_frames, causal=False),
+                  "phi3_tp_rank": lambda: flash_inputs(sizes.tp_flash, bf16,
+                                                       gen, device)},
             # the planted faults are causal with S = T: the non-causal
             # shapes are held to the bf16 limit alone
             also_check={"whisper_encoder": flash_check,
@@ -2191,7 +2216,9 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                                                    gen, device),
                   "whisper_cross": lambda: decode_inputs(
                       sizes.decode_whisper_cross, bf16, gen, device,
-                      kv_len=sizes.decode_whisper_cross[3])},
+                      kv_len=sizes.decode_whisper_cross[3]),
+                  "phi3_tp_rank": lambda: decode_inputs(sizes.tp_decode,
+                                                        bf16, gen, device)},
             # f32 (route "fma") and bf16 (route "mma": T ragged, G = 10 and
             # 32 query heads a kv head, rows at kv_len 1 and T)
             ragged=lambda: [
@@ -5049,6 +5076,583 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism over ranks
+# ---------------------------------------------------------------------------
+
+#: served and trained over a "model" axis of 4 ranks
+TP_SERVE_ARCH = "phi3-mini-3.8b"
+TP_TRAIN_ARCH = TRAIN_ARCH
+#: the first bf16 step's loss over (1, 4) against one card's from the same
+#: state: the row-split products' partial sums added over the ranks in
+#: bf16, in another order than one product's (as two microbatches add
+#: theirs)
+TP_LOSS_RTOL = TRAIN_MICRO_LOSS_RTOL
+#: seconds the ranks of one spawn may take
+TP_TIMEOUT_S = 900.0
+
+
+def tp_config(arch: str, smoke: bool, **kw):
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    return dataclasses.replace(cfg, **kw)
+
+
+def tp_mesh(shape: tuple):
+    return make_mesh(shape, ("data", "model"))
+
+
+def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
+                    gen: torch.Generator) -> dict:
+    """One prefill of ``tp_check_len`` tokens and one decode step on this
+    rank's heads, every flash- and decode-attention call held against its
+    plain version on f32 copies of its inputs within the bf16 limit."""
+    toks = torch.randint(0, cfg.vocab, (1, sizes.tp_check_len),
+                         generator=gen, device=device, dtype=torch.int32)
+    state = model_api.init_decode_state(cfg, 1, sizes.tp_max_len, device,
+                                        rules)
+    out = {"cache_shape": list(state["k"].shape)}
+    with recorded(model_attention, "flash_attention") as calls:
+        logits, state = model_api.prefill(params, {"tokens": toks}, cfg,
+                                          state, rules)
+    q, k = calls[0][0][:2]
+    out["flash_shape"] = [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                          k.shape[2], q.shape[3]]
+    out["prefill"] = layer_gaps("tp prefill", calls, Spy(
+        model_attention, "flash_attention", attention_ref, cfg.n_layers))
+    del calls
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    with recorded(model_attention, "cuda_decode") as calls:
+        logits, state = model_api.decode_step(params, tok, cfg, state, rules)
+    q, k = calls[0][0][:2]
+    out["decode_shape"] = [q.shape[0], q.shape[1], k.shape[1], k.shape[2],
+                           q.shape[2]]
+    out["decode"] = layer_gaps("tp decode", calls, Spy(
+        model_attention, "cuda_decode", decode_attention_ref, cfg.n_layers))
+    out["logits_digest"] = digest(logits)
+    return out
+
+
+def collective_seconds(tracer) -> dict:
+    """The host seconds and calls of each kind of ``collective:*`` span."""
+    out: dict = {}
+    for e in tracer.events:
+        if e.get("ph") == "X" and e["name"].startswith("collective:"):
+            kind = out.setdefault(e["name"].split(":", 1)[1],
+                                  {"seconds": 0.0, "calls": 0})
+            kind["seconds"] += e["dur"]
+            kind["calls"] += 1
+    return out
+
+
+def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
+    """``ServeEngine`` on this rank's slices: ``tp_requests`` requests of
+    ``tp_new`` tokens, every count set to 0 just before, read just after."""
+    reqs = serve_traffic(dataclasses.replace(
+        sizes, serve_new=(sizes.tp_new, sizes.tp_new)), cfg.vocab, seed,
+        sizes.tp_requests, sizes.tp_prompt)
+    tracer = Tracer(clock=time.perf_counter)
+    engine = ServeEngine(params, cfg, slots=sizes.serve_slots,
+                         max_len=sizes.tp_max_len, rules=rules, seed=seed,
+                         tracer=tracer, device=device)
+    ranks.barrier()
+    zero_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    staged0 = ranks.staged_bytes()
+    spans = Tracer(clock=time.perf_counter)
+    prev = set_tracer(spans)
+    submitted = {}
+    t1 = time.perf_counter()
+    try:
+        for r in reqs:
+            submitted[r.rid] = time.perf_counter()
+            engine.submit(r)
+        done = engine.run(max_steps=100_000)
+        sync(device)
+    finally:
+        set_tracer(prev)
+    wall = time.perf_counter() - t1
+    counts = {name: w.launches for name, w in WRAPPERS.items()}
+    routes = route_counts()
+    require(len(done) == len(reqs) and all(
+        r.status == "ok" and len(r.output) == sizes.tp_new for r in done),
+        "tp: requests not ok:", [(r.rid, r.status, len(r.output))
+                                 for r in done])
+    prefills = [e for e in tracer.events if e["name"].startswith("prefill:")]
+    steps = [e["dur"] * 1e3 for e in tracer.events
+             if e["name"] == "decode_step"]
+    ttft = [(e["ts"] + e["dur"] - submitted[e["args"]["rid"]]) * 1e3
+            for e in prefills]
+    n_steps = engine.stats["steps"]
+    expect = {"flash_attention": cfg.n_layers * len(prefills),
+              "decode_attention": cfg.n_layers * n_steps}
+    if device.type == "cuda":
+        for name, n in counts.items():
+            require(n == expect.get(name, 0), "tp:", name, "launched", n,
+                    "times in the engine run, expected", expect.get(name, 0))
+        require(routes["flash_attention"]["wgmma"]
+                == counts["flash_attention"]
+                and routes["decode_attention"]["mma"]
+                == counts["decode_attention"], "tp: attention routes in "
+                "the engine run:", routes)
+    tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
+    out = {"requests": len(reqs), "prefills": len(prefills),
+           "decode_steps": n_steps,
+           "prompt_lengths": sorted(len(r.prompt) for r in reqs),
+           "outputs": {r.rid: list(r.output) for r in done},
+           "ttft_ms": {"p50": pct(ttft, 50), "max": max(ttft)},
+           "decode_step_ms": {"p50": pct(steps, 50), "p90": pct(steps, 90)},
+           "engine_seconds": wall, "tokens_per_s": tokens / wall,
+           "decode_tokens_per_s": engine.stats["decode_tokens"] / wall,
+           "staged_bytes": ranks.staged_bytes() - staged0,
+           "collectives": collective_seconds(spans),
+           "kernel_launches": counts, "expected_launches": expect,
+           "kernel_routes": {k: routes[k] for k in ("flash_attention",
+                                                    "decode_attention")}}
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
+    """(b) ``cfg`` at ``tp_f32_layers`` layers in f32: a prefill and
+    ``tp_f32_steps`` decode steps with the whole model (one rank's path),
+    then with this rank's slices of it over the mesh, the logits within
+    the serve phase's f32 limit."""
+    c32 = cfg.scaled(n_layers=sizes.tp_f32_layers, dtype="float32")
+    rules = rules_of(c32)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    params = model_api.init_params(gen, c32, device)
+    toks = torch.randint(0, c32.vocab, (1, sizes.tp_check_len),
+                         generator=gen, device=device, dtype=torch.int32)
+    steps = torch.randint(0, c32.vocab, (sizes.tp_f32_steps, 1, 1),
+                          generator=gen, device=device, dtype=torch.int32)
+
+    def run(r):
+        state = model_api.init_decode_state(c32, 1, sizes.tp_max_len, device,
+                                            r)
+        logits, state = model_api.prefill(params, {"tokens": toks}, c32,
+                                          state, r)
+        out = [logits]
+        for tok in steps:
+            logits, state = model_api.decode_step(params, tok, c32, state, r)
+            out.append(logits)
+        return out
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = run(None)
+        model_api.local_params(params, c32, rules)
+        split = run(rules)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = [check_close(f"tp/f32 {'prefill' if i == 0 else f'step {i}'}", a,
+                        b, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL)[0]
+            for i, (a, b) in enumerate(zip(split, one))]
+    return {"n_layers": c32.n_layers, "prompt": sizes.tp_check_len,
+            "decode_steps": sizes.tp_f32_steps, "max_abs_err": max(errs),
+            "max_abs_logit": max(float(x.abs().max()) for x in one),
+            "limit": F32_LOGIT_TOL}
+
+
+def tp_serve_rank(device, sizes: Sizes, seed: int) -> dict:
+    """(a) phi3-mini at full width and depth in bf16 on this rank's slices
+    over a (1, 4) mesh: the kernel check, then the engine; (b) the f32
+    check at two layers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = torch.distributed.get_world_size()
+    mesh = tp_mesh((1, n))
+    cfg = tp_config(TP_SERVE_ARCH, sizes.serve_smoke)
+    require(cfg.attention_impl == "cuda", cfg.attention_impl)
+    rules = rules_for(cfg, mesh, "tp")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model_api.init_params(gen, cfg, device, rules)
+    free(device)
+    out = {"rank": ranks.axis_index("model"),
+           "init_seconds": time.perf_counter() - t0,
+           "local_params": model_api.param_count(params),
+           "local_param_bytes": sum(p.numel() * p.element_size()
+                                    for p in params.parameters())}
+    out["check"] = tp_kernel_check(params, cfg, rules, sizes, device, gen)
+    free(device)
+    out["engine"] = tp_engine(params, cfg, rules, sizes, device, seed)
+    del params
+    free(device)
+    out["f32"] = tp_f32_check(cfg, lambda c: rules_for(c, mesh, "tp"),
+                              sizes, device, seed)
+    free(device)
+    return out
+
+
+def in_turn(fn):
+    """``fn()`` on each rank of the current mesh in turn, the others
+    waiting (whole states are built one rank at a time)."""
+    axes = tuple(ranks.current_mesh().mesh_dim_names)
+    out = None
+    for turn in range(ranks.axis_size(axes)):
+        if ranks.axis_index(axes) == turn:
+            out = fn()
+        ranks.barrier()
+    return out
+
+
+def tp_train_full(cfg, sizes: Sizes, device, seed: int) -> dict:
+    """(c) ``cfg`` at full width and depth in bf16 over (1, 4): one card's
+    ``tp_train_steps`` steps (rank 0, the others waiting), then as many
+    steps of every rank from the same state, step 1's loss held against
+    one card's."""
+    n = torch.distributed.get_world_size()
+    mesh = tp_mesh((1, n))
+    batch = train_tokens(cfg, *sizes.tp_train_batch, seed, device)
+    me = ranks.axis_index("model")
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "batch": list(sizes.tp_train_batch), "mesh": [1, n]}
+    if me == 0:
+        state = dist_state(cfg, device, seed, False)
+        step = make_train_step(cfg, lr_schedule=lambda s: TRAIN_LR)
+        one = []
+        for _ in range(sizes.tp_train_steps):
+            state, m = step(state, batch)
+            one.append(float(m["loss"]))
+        out["one_card_losses"] = one
+        del state, m, step
+        free(device)
+    ranks.barrier()
+    rules = rules_for(cfg, mesh, "tp", global_batch=batch["tokens"].shape[0])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(gen, cfg, device, rules)
+    free(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    step = make_train_step(cfg, rules, mesh, lr_schedule=lambda s: TRAIN_LR)
+    tracer = Tracer(clock=time.perf_counter)
+    prev = set_tracer(tracer)
+    losses, step_s, staged = [], [], []
+    try:
+        for _ in range(sizes.tp_train_steps):
+            sync(device)
+            before = ranks.staged_bytes()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            sync(device)
+            step_s.append(time.perf_counter() - t0)
+            staged.append(ranks.staged_bytes() - before)
+    finally:
+        set_tracer(prev)
+    require(all(np.isfinite(losses)), "tp/train losses", losses)
+    collective = collective_seconds(tracer)
+    out.update({"losses": losses, "step_ms": [x * 1e3 for x in step_s],
+                "median_step_ms": statistics.median(step_s[1:] or step_s)
+                * 1e3,
+                "tokens_per_s": batch["tokens"].numel()
+                / statistics.median(step_s[1:] or step_s),
+                "staged_bytes_per_step": staged,
+                "collective_seconds": collective,
+                "collective_share": sum(v["seconds"] for v in
+                                        collective.values()) / sum(step_s),
+                "local_params": model_api.param_count(state.params),
+                "local_opt_bytes": sum(x.numel() * 4 for tree in (
+                    state.opt.master, state.opt.mu, state.opt.nu)
+                    for x in tree.values())})
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if me == 0:
+        one = out["one_card_losses"][0]
+        out["first_loss_rel"] = abs(losses[0] - one) / one
+        require(out["first_loss_rel"] <= TP_LOSS_RTOL, "tp/train: step 1's "
+                "loss over (1,", n, ")", losses[0], "against one card's",
+                one)
+    del state, step
+    free(device)
+    ranks.barrier()
+    return out
+
+
+#: cells a split dimension of a leaf is cut into for its digests: every
+#: mesh the checkpoint goes between splits a dimension in 1, 2 or 4
+TP_CELLS = 4
+
+
+def tp_cell_digests(state: TrainState, specs, canon) -> dict:
+    """Digests of this rank's cells of every leaf: each dimension that
+    ``canon`` (the specs of the finest mesh) splits is cut into
+    ``TP_CELLS`` equal cells of the whole leaf, and a rank digests the
+    cells its slice under ``specs`` on the current mesh holds, keyed by
+    their global indices; ``specs`` None: the state is whole.  Cells
+    compare across meshes without moving a leaf between ranks."""
+    def cells(x, spec, canon_spec):
+        offsets, wholes = [], []
+        for dim, entry in enumerate(canon_spec):
+            count, index = 1, 0
+            axes = () if spec is None or spec[dim] is None else (
+                (spec[dim],) if isinstance(spec[dim], str) else spec[dim])
+            axes = tuple(a for a in axes if ranks.axis_size(a) > 1)
+            if axes:
+                count, index = ranks.axis_size(axes), ranks.axis_index(axes)
+            offsets.append(index * x.shape[dim])
+            wholes.append(x.shape[dim] * count)
+        dims = [d for d, e in enumerate(canon_spec) if e is not None]
+        out = {}
+        for idx in np.ndindex(*[x.shape[d] * TP_CELLS // wholes[d]
+                                for d in dims]):
+            block, key = x, []
+            for d, i in zip(dims, idx):
+                size = wholes[d] // TP_CELLS
+                block = block.narrow(d, i * size, size)
+                key.append(offsets[d] // size + i)
+            out[tuple(key)] = digest(block)
+        return out
+
+    out = {"step": int(state.opt.step)}
+    for name, p in state.params.named_parameters():
+        out[f"params/{name}"] = cells(
+            p.detach(), specs and specs.params[name], canon.params[name])
+    for tree in ("master", "mu", "nu"):
+        for name, x in getattr(state.opt, tree).items():
+            out[f"{tree}/{name}"] = cells(
+                x, specs and specs.opt.master[name], canon.opt.master[name])
+    return out
+
+
+def sliced_state(state: TrainState, cfg, rules, mesh) -> TrainState:
+    """Copies of this rank's slices of every leaf of a whole state under
+    ``rules`` on ``mesh``; ``state`` is left as it is."""
+    specs = train_state_specs(cfg, rules)
+    with ranks.use_mesh(mesh):
+        cut = lambda x, spec: ranks.spec_slice(x.detach(), spec).clone(  # noqa
+            memory_format=torch.contiguous_format)
+        memo = {id(p): torch.nn.Parameter(cut(p, specs.params[name]),
+                                          requires_grad=p.requires_grad)
+                for name, p in state.params.named_parameters()}
+        opt = state.opt
+        tree = lambda t: {k: cut(v, specs.opt.master[k])  # noqa: E731
+                          for k, v in t.items()}
+        return TrainState(copy.deepcopy(state.params, memo), AdamWState(
+            opt.step.clone(), tree(opt.master), tree(opt.mu), tree(opt.nu)))
+
+
+def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
+                    directory: str) -> dict:
+    """(d) At ``dist_train_layers`` layers: the f32 step over (1, 4) leaf
+    by leaf against the one-rank step from the same state (each rank, in
+    turn, takes the one-rank step and keeps its slices of the state before
+    and after it); a bf16 ZeRO-1 step over (2, 2), saved, then restored
+    onto (1, 4) and onto one rank, bit for bit by the digests of each
+    leaf's cells, no leaf moved between ranks for them."""
+    n = torch.distributed.get_world_size()
+    cut = dataclasses.replace(cfg, n_layers=sizes.dist_train_layers)
+    batch = train_tokens(cut, *sizes.tp_train_batch, seed, device)
+    mesh = tp_mesh((1, n))
+    me = ranks.axis_index("model")
+    out = {"n_layers": cut.n_layers}
+    c32 = dataclasses.replace(cut, dtype="float32")
+    rules = rules_for(c32, mesh, "tp", global_batch=batch["tokens"].shape[0])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def one_rank():
+            whole = dist_state(c32, device, seed, True)
+            start = sliced_state(whole, c32, rules, mesh)
+            whole, m = make_train_step(c32)(whole, batch)
+            want = sliced_state(whole, c32, rules, mesh)
+            metrics = {k: float(m[k]) for k in ("loss", "grad_norm")}
+            del whole, m
+            free(device)
+            return start, want, metrics
+        state, want, one = in_turn(one_rank)
+        state, m = make_train_step(c32, rules, mesh)(state, batch)
+        worst = {}
+        for tree in ("params", "master", "mu", "nu"):
+            if tree == "params":
+                got = {k: p.detach() for k, p in
+                       state.params.named_parameters()}
+                ref = {k: p.detach() for k, p in
+                       want.params.named_parameters()}
+            else:
+                got, ref = getattr(state.opt, tree), getattr(want.opt, tree)
+            gaps = [check_close(f"tp/f32 {tree}/{name}", x, ref[name],
+                                rtol=TRAIN_F32_TOL["rtol"],
+                                atol=TRAIN_F32_TOL["atol"])
+                    for name, x in got.items()]
+            worst[tree] = {"max_abs": max(g[0] for g in gaps),
+                           "max_rel": max(g[1] for g in gaps)}
+        for key in ("loss", "grad_norm"):
+            got = float(m[key])
+            rel = abs(got - one[key]) / abs(one[key])
+            out[key] = {"ranks": got, "one_rank": one[key], "rel": rel}
+            require(rel <= TRAIN_F32_TOL[key], "tp/f32", key, out[key])
+        out["f32_gaps"] = worst
+        del state, want, m
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    free(device)
+    ranks.barrier()
+
+    # a ZeRO-1 step over (2, 2), saved
+    mesh = tp_mesh((2, n // 2))
+    rules = rules_for(cut, mesh, "tp", global_batch=batch["tokens"].shape[0])
+    canon = train_state_specs(cut, rules)
+
+    def local():
+        whole = dist_state(cut, device, seed, False)
+        part = local_train_state(whole, cut, rules, mesh)
+        del whole
+        free(device)
+        return part
+    state = in_turn(local)
+    state, m = make_train_step(cut, rules, mesh, lr_schedule=lambda s:
+                               TRAIN_LR)(state, batch)
+    out["zero1_2x2"] = {"loss": float(m["loss"]), "local_master_shapes": {
+        k: list(v.shape) for k, v in list(state.opt.master.items())[:3]}}
+    require(np.isfinite(out["zero1_2x2"]["loss"]), "tp/2x2 loss")
+    t0 = time.perf_counter()
+    CheckpointManager(directory).save(int(state.step), state, specs=canon)
+    out["save_seconds"] = time.perf_counter() - t0
+    out["saved_digests"] = tp_cell_digests(state, canon, canon)
+    template = state
+    del m
+    free(device)
+    # onto (1, 4)
+    mesh = tp_mesh((1, n))
+    specs = train_state_specs(cut, rules_for(cut, mesh, "tp"))
+    t0 = time.perf_counter()
+    restored, meta = restore_resharded(CheckpointManager(directory),
+                                       template, specs, mesh)
+    out["restore_seconds"] = time.perf_counter() - t0
+    out["restored_digests"] = tp_cell_digests(restored, specs, canon)
+    out["restored_step"] = meta["step"]
+    del restored, template, state
+    free(device)
+    ranks.barrier()
+    # onto one rank
+    if me == 0:
+        one_specs = train_state_specs(cut, rules_for(
+            cut, {"data": 1, "model": 1}, "tp"))
+        template = dist_state(cut, device, seed, False)
+        t0 = time.perf_counter()
+        whole, meta = restore_resharded(CheckpointManager(directory),
+                                        template, one_specs, None)
+        out["restore_one_seconds"] = time.perf_counter() - t0
+        del template
+        out["one_digests"] = tp_cell_digests(whole, None, canon)
+        out["one_step"] = meta["step"]
+        del whole
+        free(device)
+    ranks.barrier()
+    return out
+
+
+def tp_train_rank(device, sizes: Sizes, seed: int, directory: str) -> dict:
+    """(c) and (d) on this rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tp_config(TP_TRAIN_ARCH, sizes.train_smoke, attention_impl="xla")
+    return {"rank": torch.distributed.get_rank(),
+            "full": tp_train_full(cfg, sizes, device, seed),
+            "checks": tp_train_checks(cfg, sizes, device, seed, directory)}
+
+
+def phase_tp(sizes: Sizes, device: torch.device, seed: int) -> dict:
+    """Tensor parallelism over a ``"model"`` axis of 4 ranks on the one
+    card under gloo (NCCL refuses two ranks on one card): (a) phi3-mini
+    served at full width and depth in bf16, each rank's flash and decode
+    attention on its 8 heads, (b) its f32 logits at two layers against
+    one rank's, (c) gemma-2b's full-width and full-depth train step, step
+    1's loss against one card's, and (d) at two layers the f32 step leaf
+    by leaf against one rank's, a ZeRO-1 step over (2, 2), its checkpoint
+    restored onto (1, 4) and one rank bit for bit.  Four ranks sharing one
+    card measure correctness and each collective's cost, not scaling."""
+    t0 = time.perf_counter()
+    free(device)
+    n = sizes.tp_ranks
+    where = dist_device(device)
+    out = {"phase": "tp", "ranks": n, "backend": "gloo",
+           "rank_device": str(device)}
+    if device.type == "cuda":
+        _build.load()  # the ranks load the library this process built
+    t1 = time.perf_counter()
+    serve = ranks.spawn(tp_serve_rank, n, backend="gloo", device=where,
+                        args=(sizes, seed), timeout=TP_TIMEOUT_S)
+    out["serve_seconds"] = time.perf_counter() - t1
+    cfg = tp_config(TP_SERVE_ARCH, sizes.serve_smoke)
+    engines = [s["engine"] for s in serve]
+    require(all(e["outputs"] == engines[0]["outputs"] for e in engines),
+            "tp: the ranks' sampled tokens differ")
+    digests = [s["check"]["logits_digest"] for s in serve]
+    require(all(d == digests[0] for d in digests),
+            "tp: the ranks' gathered logits differ")
+    launches = {name: sum(e["kernel_launches"][name] for e in engines)
+                for name in ("flash_attention", "decode_attention")}
+    if device.type == "cuda":
+        for e in engines:
+            require(e["kernel_launches"]["flash_attention"] > 0
+                    and e["kernel_launches"]["decode_attention"] > 0,
+                    "tp: a rank launched no attention kernel", e)
+    first = serve[0]
+    out["serve"] = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "mesh": [1, n],
+        "local_params": first["local_params"],
+        "local_param_bytes": first["local_param_bytes"],
+        "init_seconds": max(s["init_seconds"] for s in serve),
+        "flash_shape": first["check"]["flash_shape"],
+        "decode_shape": first["check"]["decode_shape"],
+        "cache_shape": first["check"]["cache_shape"],
+        "bf16_limit_share": {w: max(s["check"][w].get("limit_share", 0.0)
+                                    for s in serve)
+                             for w in ("prefill", "decode")},
+        "calls_checked_by_rank": [s["check"]["prefill"]["calls"]
+                                  + s["check"]["decode"]["calls"]
+                                  for s in serve],
+        **{k: first["engine"][k] for k in (
+            "requests", "prefills", "decode_steps", "prompt_lengths",
+            "ttft_ms", "decode_step_ms", "engine_seconds", "tokens_per_s",
+            "decode_tokens_per_s", "staged_bytes", "collectives",
+            "expected_launches", "kernel_routes")},
+        "launches_by_rank": [e["kernel_launches"] for e in engines],
+        "decode_step_ms_by_rank": [e["decode_step_ms"]["p50"]
+                                   for e in engines],
+        "peak_bytes_by_rank": [e.get("peak_bytes") for e in engines],
+        "tokens_equal_on_every_rank": True}
+    out["f32"] = {**serve[0]["f32"],
+                  "max_abs_err": max(s["f32"]["max_abs_err"] for s in serve)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        train = ranks.spawn(tp_train_rank, n, backend="gloo", device=where,
+                            args=(sizes, seed, os.path.join(tmp, "ckpt")),
+                            timeout=TP_TIMEOUT_S)
+        out["train_seconds"] = time.perf_counter() - t1
+    full = [t["full"] for t in train]
+    require(all(f["losses"] == full[0]["losses"] for f in full),
+            "tp/train: the ranks' losses differ")
+    out["train"] = {**{k: v for k, v in full[0].items()},
+                    "step_ms_by_rank": [f["median_step_ms"] for f in full],
+                    "peak_bytes_by_rank": [f.get("peak_bytes") for f in full]}
+    checks = [t["checks"] for t in train]
+    saved = merged_digests([c.pop("saved_digests") for c in checks])
+    onto = merged_digests([c.pop("restored_digests") for c in checks])
+    one = merged_digests([checks[0].pop("one_digests")])
+    steps = (saved.pop("step"), onto.pop("step"), one.pop("step"),
+             {c["restored_step"] for c in checks}, {checks[0]["one_step"]})
+    require(all(x == steps[0] and len(x) == 1 for x in steps),
+            "tp/restore: steps", steps)
+    require(saved == onto, "tp/restore onto (1,", n, ") not bit-equal")
+    require(saved == one, "tp/restore onto one rank not bit-equal")
+    out["train_checks"] = {
+        **checks[0], "restore": {
+            "leaves": len(saved), "cells": sum(len(v) for v in
+                                               saved.values()),
+            "step": min(steps[0]), "saved_on": [2, n // 2],
+            "onto": [[1, n], 1], "bit_equal": True},
+        "save_seconds_by_rank": [c["save_seconds"] for c in checks]}
+    out["flash_attention_launches"] = launches["flash_attention"]
+    out["decode_attention_launches"] = launches["decode_attention"]
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5088,6 +5692,9 @@ def main(argv=None) -> int:
     # Each rank of the distribution phase zeroes and reads its own counts
     # around its flash-decode path.
     dist = phase_dist(sizes, device, args.seed)
+    # Each rank of the tensor-parallel phase zeroes and reads its own
+    # counts around its engine run.
+    tp = phase_tp(sizes, device, args.seed)
     served = {arch: out["kernel_launches"] for arch, out in serves.items()}
     rwkv = served["rwkv6-3b"]
     hybrid = served["recurrentgemma-2b"]
@@ -5103,10 +5710,12 @@ def main(argv=None) -> int:
         "black_scholes": counts["black_scholes"],
         "spmv_ell": counts["spmv_ell"], "md5": counts["md5"],
         "nbody": counts["nbody"], "correlate": counts["correlate"],
-        "flash_attention": sum(n["flash_attention"] for n in served.values()),
+        "flash_attention": sum(n["flash_attention"] for n in served.values())
+        + tp["flash_attention_launches"],
         "decode_attention": sum(n["decode_attention"]
                                 for n in served.values())
-        + dist["decode_attention_launches"],
+        + dist["decode_attention_launches"]
+        + tp["decode_attention_launches"],
         "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
@@ -5123,6 +5732,9 @@ def main(argv=None) -> int:
            for name in ("flash_attention", "decode_attention")}}
     by_shape["decode_attention"]["dist phase"] = \
         dist["decode_attention_launches"]
+    for name in ("flash_attention", "decode_attention"):
+        by_shape[name]["tp phase (4 ranks, phi3_tp_rank)"] = \
+            tp[f"{name}_launches"]
     for row in rows:
         row["launches"] = per_row[row["name"]]
         if row["name"] in by_shape:
@@ -5136,7 +5748,9 @@ def main(argv=None) -> int:
           "serve_launches": served,
           "train_launches": train["kernel_launches"],
           "dist_launches": {"decode_attention":
-                            dist["decode_attention_launches"]}})
+                            dist["decode_attention_launches"]},
+          "tp_launches": {name: tp[f"{name}_launches"] for name in
+                          ("flash_attention", "decode_attention")}})
 
     if args.rehearse:
         emit({"kernels": rows})

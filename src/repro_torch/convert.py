@@ -28,6 +28,7 @@ from .core.distributions import Distribution
 from .core.superblock import WorkDistribution
 from .device import resolve_device
 from .models import rglru, rwkv
+from .models.api import local_params
 from .models.config import ModelConfig
 from .models.encdec import EncDec
 from .models.rglru import Griffin
@@ -92,7 +93,8 @@ def config_from_reference(ref_cfg: Any) -> ModelConfig:
 
 
 def params_from_reference(np_tree: dict, cfg: ModelConfig,
-                          device: torch.device | str | None = None
+                          device: torch.device | str | None = None,
+                          rules=None
                           ) -> Transformer | RWKV | Griffin | EncDec:
     """The reference's parameter tree, handed over as float32 numpy arrays
     (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``), as
@@ -102,7 +104,12 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig,
     ``log_lambda``).  Dense, VLM, MoE and RWKV trees have their layers
     stacked on axis 0, the encoder-decoder's ``enc_layers`` and
     ``dec_layers`` likewise; the hybrid's has its (rec, rec, attn) groups
-    stacked and its tail as a list of blocks."""
+    stacked and its tail as a list of blocks.  With ``rules`` on a mesh of
+    ranks, this rank's slice of each leaf they split
+    (``models.api.local_params``)."""
+    if rules is not None:
+        return local_params(params_from_reference(np_tree, cfg, device),
+                            cfg, rules)
     device = resolve_device(device)
     keep_f32 = {"rwkv": rwkv.FLOAT32_PARAMS,
                 "hybrid": rglru.FLOAT32_PARAMS}.get(cfg.family, ())

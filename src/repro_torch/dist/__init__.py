@@ -11,6 +11,11 @@
   ``torch.distributed`` ranks on a ``DeviceMesh`` (``psum``, ``pmax``,
   ``all_gather``, ``ppermute``, ``axis_index``), and ``spawn``, which starts
   the ranks of one machine.
+* :mod:`repro_torch.dist.tensor_parallel` — the Megatron operators over
+  the ``"model"`` axis that the dense and VLM layers run on when the rules
+  split heads, d_ff or vocab over more than one rank: ``copy_to_model``,
+  ``reduce_from_model``, ``gather_from_model``, the vocab-split embedding
+  lookup and cross-entropy.
 * :mod:`repro_torch.dist.collectives` — a ring all-reduce from
   ``ppermute`` hops, the ring collective matmul, and the pod-then-data
   hierarchical gradient all-reduce, with spans on a ``dist`` stream.
@@ -22,11 +27,19 @@
 from .sharding import (
     MESH_AXES,
     ShardingRules,
+    check_tp_family,
     constrain,
     derive_rules_from_plan,
     dp_rules,
     tp_rules,
     tree_specs,
+)
+from .tensor_parallel import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    vocab_parallel_embed,
+    vocab_parallel_xent,
 )
 from .collectives import (
     hierarchical_grad_allreduce,
@@ -46,11 +59,17 @@ from .ranks import spawn
 __all__ = [
     "MESH_AXES",
     "ShardingRules",
+    "check_tp_family",
     "constrain",
     "derive_rules_from_plan",
     "dp_rules",
     "tp_rules",
     "tree_specs",
+    "copy_to_model",
+    "gather_from_model",
+    "reduce_from_model",
+    "vocab_parallel_embed",
+    "vocab_parallel_xent",
     "hierarchical_grad_allreduce",
     "ring_allgather_matmul",
     "ring_allreduce",

@@ -25,10 +25,14 @@ replication, as the planner's gather and halo lowering do.
 
 The mesh a rule table carries is a ``torch.distributed`` ``DeviceMesh`` of
 ranks (``repro_torch.launch.mesh.make_mesh``).  Each rank holds its own part
-of every array already (the train step splits the batch by rank), so a
-constraint has nothing to move while the ``"model"`` axis has one rank; the
-tensor-parallel layers that a larger ``"model"`` axis needs are ROADMAP
-Queue A item 16.
+of every array already: the train step splits the batch by rank, and on a
+``"model"`` axis of more than one rank the tensor-parallel layers
+(:mod:`repro_torch.dist.tensor_parallel`) hold their slice of every split
+weight and activation, with the collectives where GSPMD would put them.  So
+a constraint moves nothing; it checks that a split dimension is the rank's
+share.  Those layers exist for the dense and VLM families (``rules_for``
+records the family in the rules); the other families raise, naming their
+ROADMAP Queue A item.
 """
 
 from __future__ import annotations
@@ -46,22 +50,37 @@ Axes = Any
 # Default mesh-axis names of the production pod mesh.
 MESH_AXES = ("pod", "data", "model")
 
-#: what a "model" axis of more than one rank waits for
-QUEUED_TP = ("a 'model' axis of more than one rank needs tensor-parallel "
-             "layers (the port's counterpart of GSPMD over tp_rules), "
-             "ROADMAP Queue A item 16")
+#: the families whose layers run over a "model" axis of more than one rank
+#: (None: rules not made for a config, as ``tp_rules()`` alone)
+TP_FAMILIES = ("dense", "vlm", None)
+#: the ROADMAP Queue A item each other family's tensor-parallel layers wait
+#: for, in the order they are queued
+QUEUED_TP = {"moe": 20, "rwkv": 21, "hybrid": 22, "encdec": 23}
+
+
+def queued_tp(family: str | None) -> str:
+    """Why ``family`` cannot run over a "model" axis of more than one rank:
+    the ROADMAP Queue A item its tensor-parallel layers wait for."""
+    return (f"a 'model' axis of more than one rank needs tensor-parallel "
+            f"layers for the {family} family (the port's counterpart of "
+            f"GSPMD over tp_rules), ROADMAP Queue A item "
+            f"{QUEUED_TP.get(family, 20)}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
     """Immutable logical-axis -> mesh-axes table (plus an optional mesh).
 
-    The attached ``mesh`` is only used by :func:`constrain` and by the
-    sharded train step: rule tables built without one (as in unit tests)
-    make ``constrain`` a no-op."""
+    The attached ``mesh`` is only used by :func:`constrain`, the
+    tensor-parallel layers and the sharded train step: rule tables built
+    without one (as in unit tests) make ``constrain`` a no-op.  ``family``
+    is the model family the rules were made for (``rules_for`` sets it),
+    which decides whether a "model" axis of more than one rank is
+    supported."""
 
     table: tuple[tuple[str, Axes], ...] = ()
     mesh: Any = None
+    family: str | None = None
 
     # -- constructors -------------------------------------------------------
 
@@ -72,10 +91,13 @@ class ShardingRules:
     def updated(self, **rules: Axes) -> "ShardingRules":
         d = dict(self.table)
         d.update(rules)
-        return ShardingRules(tuple(sorted(d.items())), self.mesh)
+        return dataclasses.replace(self, table=tuple(sorted(d.items())))
 
     def with_mesh(self, mesh: Any) -> "ShardingRules":
-        return ShardingRules(self.table, mesh)
+        return dataclasses.replace(self, mesh=mesh)
+
+    def with_family(self, family: str | None) -> "ShardingRules":
+        return dataclasses.replace(self, family=family)
 
     # -- queries ------------------------------------------------------------
 
@@ -184,17 +206,63 @@ def model_ranks(mesh: Any) -> int:
     return mesh_sizes(mesh).get("model", 1)
 
 
+def _mesh_axes(entry: Axes) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def model_split(rules: ShardingRules | None, logical_axis: str) -> int:
+    """Ranks of the ``"model"`` axis that split ``logical_axis`` under
+    ``rules`` on their mesh (1 where the axis is not split over it, or the
+    rules carry no mesh)."""
+    if rules is None or rules.mesh is None:
+        return 1
+    if "model" not in _mesh_axes(rules.spec((logical_axis,))[0]):
+        return 1
+    return model_ranks(rules.mesh)
+
+
+def check_tp_family(rules: ShardingRules | None) -> None:
+    """Raise where ``rules`` put more than one rank on the ``"model"`` axis
+    for a family that has no tensor-parallel layers yet."""
+    if rules is None or rules.mesh is None or model_ranks(rules.mesh) == 1:
+        return
+    if rules.family not in TP_FAMILIES:
+        raise NotImplementedError(queued_tp(rules.family))
+
+
 def constrain(x, rules: ShardingRules | None,
-              logical_axes: Sequence[str | None]):
-    """``x`` itself when there are no rules or they carry no mesh (as the
-    reference's no-op), and on a mesh whose ``"model"`` axis has one rank:
-    there ``x`` is already this rank's part (the batch was split by rank
-    before the model saw it).  A larger ``"model"`` axis raises."""
+              logical_axes: Sequence[str | None],
+              whole: Sequence[int | None] | None = None):
+    """``x`` itself, always: each rank holds its part of every array
+    already (the batch was split by rank before the model saw it, and the
+    tensor-parallel layers hold their slice), so nothing moves.  On a mesh
+    whose ``"model"`` axis has more than one rank this is a check: the
+    family must have tensor-parallel layers (``check_tp_family``), and
+    where ``whole`` gives the whole array's size of a dimension (None: not
+    checked) that the rules split over ``"model"``, ``x``'s size there must
+    be the rank's share, which catches a layer that forgot to split."""
     if rules is None or rules.mesh is None:
         return x
-    if model_ranks(rules.mesh) > 1:
-        raise NotImplementedError(
-            f"{QUEUED_TP} (asked to constrain {tuple(logical_axes)})")
+    if model_ranks(rules.mesh) == 1:
+        return x
+    check_tp_family(rules)
+    if whole is None:
+        return x
+    sizes = mesh_sizes(rules.mesh)
+    for dim, (entry, size) in enumerate(zip(rules.spec(logical_axes),
+                                            whole)):
+        axes = _mesh_axes(entry)
+        if size is None or "model" not in axes:
+            continue
+        count = 1
+        for a in axes:
+            count *= sizes[a]
+        if x.shape[dim] * count != size:
+            raise ValueError(
+                f"{tuple(logical_axes)}: axis {dim} holds {x.shape[dim]} "
+                f"of {size}, not the share of one of {count} ranks")
     return x
 
 

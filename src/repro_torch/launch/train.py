@@ -100,11 +100,21 @@ def run_training(
         return out
 
     armed = {"fail": fail_at_step is not None}
+    entered = {"first": True}
 
     def run_from(start: int) -> int:
+        """Train from ``start``.  The first entry resumes from the newest
+        checkpoint, if any (a rerun of an earlier run); a restart restores
+        exactly the step the supervisor recorded in its ``resume`` event:
+        a second read of ``latest_step()`` could see an asynchronous save
+        published since, and train from another step than the event
+        says."""
         gen = torch.Generator(device=device).manual_seed(seed)
         state = init_train_state(gen, cfg, device)
-        if ckpt is not None and ckpt.latest_step() is not None:
+        first, entered["first"] = entered["first"], False
+        if ckpt is not None and start > 0:
+            state, meta = ckpt.restore(state, step=start)
+        elif ckpt is not None and first and ckpt.latest_step() is not None:
             state, meta = ckpt.restore(state)
             start = meta["step"]
         step = start

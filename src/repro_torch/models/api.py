@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import ranks
+from repro_torch.dist.sharding import check_tp_family, tree_specs
+
 from . import encdec, kvcache, moe, rglru, rwkv, transformer
 from .config import ModelConfig
 
@@ -35,9 +38,37 @@ def _family(cfg: ModelConfig):
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: torch.device | str | None = None):
-    """Random parameters on ``device`` (None: the GPU)."""
-    return _family(cfg).init_params(generator, cfg, device)
+                device: torch.device | str | None = None, rules=None):
+    """Random parameters on ``device`` (None: the GPU).  With ``rules`` on
+    a mesh of ranks, this rank's part of them: the whole model made from
+    ``generator`` and then sliced by its specs (``local_params``), so that
+    one rank and several start from the same weights."""
+    params = _family(cfg).init_params(generator, cfg, device)
+    return local_params(params, cfg, rules)
+
+
+def local_params(params, cfg: ModelConfig, rules):
+    """``params`` (the whole model) cut, in place, to this rank's slice of
+    each leaf that ``rules`` split over ranks of their mesh (``"model"``:
+    heads, d_ff, vocab; a parameter is never split over the batch axes);
+    ``params`` itself where they split none."""
+    check_tp_family(rules)
+    if rules is None or rules.mesh is None:
+        return params
+    specs = tree_specs(rules, params_logical_axes_by_name(cfg))
+    with ranks.use_mesh(rules.mesh), torch.no_grad():
+        for name, p in params.named_parameters():
+            if ranks.spec_shards(specs[name]):
+                p.data = ranks.spec_slice(p.data, specs[name]).clone(
+                    memory_format=torch.contiguous_format)
+    return params
+
+
+def param_shapes(cfg: ModelConfig) -> torch.nn.Module:
+    """The parameter module on the ``meta`` device: every leaf's shape and
+    dtype, with no memory behind them (the reference's
+    ``jax.eval_shape`` of ``init_params``)."""
+    return _family(cfg).init_params(None, cfg, "meta")
 
 
 def params_logical_axes(cfg: ModelConfig) -> dict:
@@ -93,12 +124,15 @@ def train_loss(params, batch: dict, cfg: ModelConfig,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device: torch.device | str | None = None) -> dict:
+                      device: torch.device | str | None = None,
+                      rules=None) -> dict:
     """An empty KV cache, or recurrent state, on ``device`` (None: the
-    GPU)."""
+    GPU); this rank's KV heads where ``rules`` split them over ranks."""
+    check_tp_family(rules)
     mod = _family(cfg)
     if mod in _KV_CACHED:
-        return kvcache.init_cache(cfg, batch, max_len, device=device)
+        return kvcache.init_cache(cfg, batch, max_len, device=device,
+                                  rules=rules)
     if mod is encdec:
         return encdec.init_cache(cfg, batch, max_len, device)
     return mod.init_state(cfg, batch, device)

@@ -18,6 +18,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import model_split
 
 from .config import ModelConfig
 
@@ -30,11 +31,16 @@ def init_cache(
     max_len: int,
     n_layers: int | None = None,
     device: torch.device | str | None = None,
+    rules=None,
 ) -> Cache:
-    """Zeros; ``device=None`` means the GPU."""
+    """Zeros; ``device=None`` means the GPU.  Where ``rules`` split the KV
+    heads over more than one rank of ``"model"``, the cache holds this
+    rank's heads (and the int8 cache's scales follow them); otherwise, as
+    for gemma's single KV head, the whole cache."""
     device = resolve_device(device)
     L = n_layers if n_layers is not None else cfg.n_layers
-    shape = (L, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    heads = cfg.n_kv_heads // model_split(rules, "kv_heads")
+    shape = (L, batch, heads, max_len, cfg.head_dim)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.kv_quant:
         return {

@@ -19,7 +19,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import constrain, model_split
 
 # ---------------------------------------------------------------------------
 # Init
@@ -29,8 +30,13 @@ from repro_torch.dist.sharding import constrain
 def init_device(generator: torch.Generator,
                 device: torch.device | str | None) -> torch.device:
     """The device parameters are made on (None: the GPU); ``generator``
-    must live there."""
+    must live there.  With no generator, only the ``meta`` device, which
+    takes shapes without numbers (``models.api.param_shapes``)."""
     device = resolve_device(device)
+    if generator is None:
+        if device.type == "meta":
+            return device
+        raise ValueError(f"parameters on {device} need a generator")
     if torch.device(generator.device).type != device.type:
         raise ValueError(f"the generator is on {generator.device}, the "
                          f"parameters go to {device}")
@@ -168,6 +174,13 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
 
 def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
               activation: str, rules=None) -> torch.Tensor:
+    """Where ``rules`` split ``d_ff`` over more than one rank of
+    ``"model"``, ``params`` are this rank's slices: ``w_up`` and ``w_gate``
+    column-split, ``w_down`` row-split and its product summed over the
+    ranks (Megatron); otherwise nothing is split and nothing reduced."""
+    split = model_split(rules, "d_ff") > 1
+    if split:
+        x = tp.copy_to_model(x, rules.mesh)
     up = x @ params["w_up"]
     if activation == "swiglu":
         h = F.silu(x @ params["w_gate"]) * up
@@ -176,7 +189,8 @@ def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     else:  # gelu
         h = F.gelu(up, approximate="tanh")
     h = constrain(h, rules, ("batch", "seq", "d_ff"))
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return tp.reduce_from_model(out, rules.mesh) if split else out
 
 
 def mlp_logical_axes(activation: str) -> dict:
@@ -192,8 +206,14 @@ def mlp_logical_axes(activation: str) -> dict:
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token cross-entropy; logits (..., V), labels (...) int."""
+                 z_loss: float = 0.0, rules=None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V), labels (...) int.  Where
+    ``rules`` split ``vocab`` over more than one rank of ``"model"``, the
+    logits are this rank's slice of the vocab and the vocab-parallel
+    cross-entropy gives every rank the whole loss."""
+    if model_split(rules, "vocab") > 1:
+        return tp.vocab_parallel_xent(logits, labels, z_loss,
+                                      rules.mesh).mean()
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -203,9 +223,11 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     return loss.mean()
 
 
-def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token prediction: logits[:, :-1] predict tokens[:, 1:]."""
-    return softmax_xent(logits[:, :-1, :], tokens[:, 1:])
+def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                   rules=None) -> torch.Tensor:
+    """Next-token prediction: logits[:, :-1] predict tokens[:, 1:]
+    (vocab-split logits under ``rules``, as ``softmax_xent``)."""
+    return softmax_xent(logits[:, :-1, :], tokens[:, 1:], rules=rules)
 
 
 # ---------------------------------------------------------------------------

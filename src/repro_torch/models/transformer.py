@@ -8,6 +8,18 @@ reference's layer-stacked pytree that ``lax.scan`` walks, with the
 reference's weight layout (``x @ W``, W of shape (in, out)), so that
 carrying weights across is a split along the reference's layer axis.  The
 forward pass is a Python loop over the layers, run eagerly.
+
+Over a ``"model"`` axis of more than one rank (``rules`` from ``rules_for``
+on a mesh of ranks) each rank holds its slice of the weights the rules
+split (``models.api.init_params`` and ``local_params`` make it) and runs
+the Megatron layers of :mod:`repro_torch.dist.tensor_parallel`: q, k and v
+column-split by heads and ``wo`` row-split, then summed over the ranks;
+the MLP likewise by d_ff; the embedding and the logits split by vocab.
+Where the rules split ``kv_dim`` but not the KV heads (one KV head, as
+gemma's MQA), the ranks gather k and v whole and each attends its own q
+heads to them.  Prefill and decode logits are gathered over the ranks, so
+that a caller sees the whole vocab; train logits stay split and the loss is
+the vocab-parallel cross-entropy.
 """
 
 from __future__ import annotations
@@ -17,7 +29,9 @@ import math
 import torch
 import torch.nn as nn
 
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist import ranks
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import constrain, model_split
 
 from . import kvcache
 from .attention import (
@@ -161,6 +175,27 @@ def params_logical_axes(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _kv_heads_for(cfg: ModelConfig, hq: int, hkv: int,
+                  mesh) -> tuple[int, int]:
+    """(first, count) of the KV heads of ``k`` and ``v`` that this rank's
+    ``hq`` query heads attend to, where the rank holds ``hkv`` of them:
+    all of them where the rules split the KV heads with the query heads
+    (each rank its own group), else, with the KV heads whole on every rank
+    (one KV head, or a count the "model" axis does not divide), the ones of
+    the rank's contiguous run of query heads."""
+    if hkv * cfg.n_heads == hq * cfg.n_kv_heads:
+        return 0, hkv
+    group = cfg.n_heads // cfg.n_kv_heads
+    with ranks.use_mesh(mesh):
+        lo = ranks.axis_index(tp.MODEL) * hq
+    if hq % group == 0:
+        return lo // group, hq // group
+    if group % hq == 0:
+        return lo // group, 1
+    raise NotImplementedError(
+        f"{hq} query heads a rank straddle the KV heads' groups of {group}")
+
+
 def _attention_block(
     lp: DecoderLayer,
     x: torch.Tensor,  # (B, S, D)
@@ -173,20 +208,37 @@ def _attention_block(
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
 ):
     """``rope``: the forward pass's ``rope_tables`` for ``positions``
-    (made here when not given)."""
+    (made here when not given).  The head counts are the weights' own:
+    this rank's heads where the rules split them."""
     b, s, _ = x.shape
+    split = model_split(rules, "heads") > 1
+    mesh = rules.mesh if split else None
     h = apply_norm(x, lp.attn_norm, cfg.norm)
+    if split:
+        h = tp.copy_to_model(h, mesh)
     q = h @ lp.wq
     k = h @ lp.wk
     v = h @ lp.wv
     if cfg.qkv_bias:
         q, k, v = q + lp.bq, k + lp.bk, v + lp.bv
-    q = constrain(q, rules, ("batch", "seq", "heads"))
-    k = constrain(k, rules, ("batch", "seq", "heads"))
-    v = constrain(v, rules, ("batch", "seq", "heads"))
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = constrain(q, rules, ("batch", "seq", "heads"), (None, None, cfg.q_dim))
+    k = constrain(k, rules, ("batch", "seq", "heads"),
+                  (None, None, cfg.kv_dim))
+    v = constrain(v, rules, ("batch", "seq", "heads"),
+                  (None, None, cfg.kv_dim))
+    d = cfg.head_dim
+    if q.shape[-1] % d:
+        raise NotImplementedError(
+            f"{q.shape[-1]} query columns a rank are not whole heads of {d}")
+    if split and model_split(rules, "kv_heads") == 1:
+        # the axis splits kv_dim but not the KV heads: every rank takes
+        # them whole (before RoPE, which works per head)
+        k = tp.gather_from_model(k, -1, mesh)
+        v = tp.gather_from_model(v, -1, mesh)
+    hq, hkv = q.shape[-1] // d, k.shape[-1] // d
+    q = q.reshape(b, s, hq, d)
+    k = k.reshape(b, s, hkv, d)
+    v = v.reshape(b, s, hkv, d)
     if rope is None:
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope_tables(q, *rope)
@@ -194,6 +246,14 @@ def _attention_block(
     q = q.transpose(1, 2)  # (B, H, S, D)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
+    kv_lo, kv_n = _kv_heads_for(cfg, hq, hkv, mesh)
+    mine = slice(kv_lo, kv_lo + kv_n)
+
+    def project(out):
+        out = constrain(out, rules, ("batch", "seq", "heads"),
+                        (None, None, cfg.q_dim))
+        out = out @ lp.wo
+        return x + (tp.reduce_from_model(out, mesh) if split else out)
 
     new_cache_l = None
     if mode == "decode":
@@ -205,15 +265,14 @@ def _attention_block(
             # both dots, so the cache is read once, in int8.
             out = decode_attention_quant(
                 q[:, :, 0],
-                new_cache_l["k_q"], new_cache_l["k_s"],
-                new_cache_l["v_q"], new_cache_l["v_s"],
+                new_cache_l["k_q"][:, mine], new_cache_l["k_s"][:, mine],
+                new_cache_l["v_q"][:, mine], new_cache_l["v_s"][:, mine],
                 kv_len,
             )
             out = out[:, :, None, :].transpose(1, 2)
-            out = out.reshape(b, s, cfg.q_dim)
-            out = constrain(out, rules, ("batch", "seq", "heads"))
-            return x + out @ lp.wo, new_cache_l
+            return project(out.reshape(b, s, hq * d)), new_cache_l
         k_full, v_full = kvcache.read_layer(cfg, new_cache_l)
+        k_full, v_full = _heads(k_full, mine), _heads(v_full, mine)
         if window is not None:
             out = _windowed_decode(q[:, :, 0], k_full, v_full, kv_len, window)
         else:
@@ -228,12 +287,19 @@ def _attention_block(
                 cfg, cache_l, k, v,
                 torch.zeros((b,), dtype=torch.int32, device=x.device))
         out = multihead_attention(
-            q, k, v,
+            q, _heads(k, mine), _heads(v, mine),
             impl=cfg.attention_impl, causal=True, window=window,
         )
-    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    out = constrain(out, rules, ("batch", "seq", "heads"))
-    return x + out @ lp.wo, new_cache_l
+    out = out.transpose(1, 2).reshape(b, s, hq * d)
+    return project(out), new_cache_l
+
+
+def _heads(x: torch.Tensor, mine: slice) -> torch.Tensor:
+    """KV heads ``mine`` of (B, H, T, D): ``x`` itself where that is all of
+    them, else a contiguous copy."""
+    if mine.start == 0 and mine.stop == x.shape[1]:
+        return x
+    return x[:, mine].contiguous()
 
 
 def _windowed_decode(q, k, v, kv_len, window):
@@ -280,15 +346,22 @@ def forward(
 ) -> tuple[torch.Tensor, kvcache.Cache | None]:
     """Logits (B, S, vocab), or (B, 1, vocab) in decode mode, and the cache.
     The cache's buffers are written in place; the returned dict holds them
-    with ``pos`` advanced by S (a new tensor)."""
+    with ``pos`` advanced by S (a new tensor).  Where ``rules`` split the
+    vocab over more than one rank of ``"model"``, train logits are this
+    rank's slice of the vocab."""
+    vocab_split = model_split(rules, "vocab") > 1
     if tokens.ndim == 2:
-        x = params.embed[tokens.long()]
+        if vocab_split:
+            x = tp.vocab_parallel_embed(params.embed, tokens, rules.mesh)
+        else:
+            x = params.embed[tokens.long()]
     else:
         x = tokens
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         # The scale rounded to x's type first, as the reference's
         # jnp.asarray(sqrt(d), x.dtype); a Python float, so that no tensor
-        # is copied to the device (a copy that waits for it).
+        # is copied to the device (a copy that waits for it).  Under a
+        # vocab split, after the sum over the ranks.
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -322,8 +395,13 @@ def forward(
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     if mode == "decode":
         x = x[:, -1:, :]
+    if vocab_split:
+        x = tp.copy_to_model(x, rules.mesh)
     logits = x @ head
-    logits = constrain(logits, rules, ("batch", "seq", "vocab"))
+    logits = constrain(logits, rules, ("batch", "seq", "vocab"),
+                       (None, None, cfg.vocab))
+    if vocab_split and mode != "train":
+        logits = tp.gather_from_model(logits, -1, rules.mesh)
     return logits, new_cache
 
 
@@ -340,4 +418,4 @@ def train_loss(
     if batch.get("patch_embeds") is not None:
         p = batch["patch_embeds"].shape[1]
         logits = logits[:, p:, :]
-    return causal_lm_loss(logits, batch["tokens"])
+    return causal_lm_loss(logits, batch["tokens"], rules)

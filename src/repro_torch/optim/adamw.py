@@ -22,6 +22,8 @@ from typing import Any, Callable, Mapping
 import torch
 import torch.nn as nn
 
+from repro_torch.dist import ranks
+
 
 #: elements of a leaf the update takes at a time: its f32 temporaries
 #: (about five of them) are then 64 MiB each, where gemma-2b's embedding of
@@ -96,10 +98,23 @@ def adamw_init(params: Any) -> AdamWState:
 
 
 @torch.no_grad()
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(x.float() ** 2)
-                          for x in _leaves(_tree(tree))))
+def global_norm(tree: Any, split: Any = None,
+                axis: str = "model") -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+
+    ``split`` (names of a flat tree's leaves) are each this rank's slice of
+    a leaf split over ``axis``: their squares are summed over the ranks of
+    ``axis`` on the current mesh, and every other leaf, the same on each of
+    those ranks, is counted once."""
+    if not split:
+        return torch.sqrt(sum(torch.sum(x.float() ** 2)
+                              for x in _leaves(_tree(tree))))
+    tree = _tree(tree)
+    sq = lambda names: sum(torch.sum(tree[k].float() ** 2)  # noqa: E731
+                           for k in names)
+    parts = ranks.psum(sq([k for k in tree if k in split]).reshape(1),
+                       axis).reshape(())
+    return torch.sqrt(parts + sq([k for k in tree if k not in split]))
 
 
 @torch.no_grad()

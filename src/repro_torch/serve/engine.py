@@ -27,6 +27,17 @@ stalls on one bad request.  Any other exception, such as a kernel's CUDA
 error, is not retried and propagates to the caller (the reference retries
 and absorbs every exception).
 
+Over ranks: given ``rules`` on a mesh whose ``"model"`` axis has more
+than one rank (the dense and VLM families), every rank runs the same
+engine on its slice of the parameters (``models.api.init_params(...,
+rules)``) and of the KV cache.  The logits come gathered over the ranks,
+so each rank samples from the whole vocab with the same generator, and the
+ranks compare their tokens after every prefill and decode step (an
+all-gather): a rank that took another token would leave the others
+waiting in a collective, so the engine raises on every rank instead.  A
+data axis of more than one rank (a batch of slots split over ranks) is
+ROADMAP Queue A item 24 and raises.
+
 Timing: a decode step's latency (``serve.decode_step_s``) and a request's
 time to first token (``serve.ttft_s``) end when the logits have reached
 the host, so they include the device's work.
@@ -44,6 +55,8 @@ import torch
 from repro_torch.core.faults import (FaultInjector, InjectedError,
                                      RecoveryPolicy)
 from repro_torch.device import resolve_device
+from repro_torch.dist import ranks
+from repro_torch.dist.sharding import model_ranks
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
@@ -81,8 +94,19 @@ class ServeEngine:
         clock: Callable[[], float] | None = None,
         device: torch.device | str | None = None,
     ):
-        """``device=None`` means the GPU; the parameters must be there."""
+        """``device=None`` means the GPU; the parameters must be there.
+        With ``rules`` on a mesh of ranks, every rank of the mesh makes
+        this engine with its own part of the parameters."""
         self.device = resolve_device(device)
+        self._model_ranks = 1
+        if rules is not None and rules.mesh is not None:
+            data = {a: n for a, n in ranks.mesh_sizes(rules.mesh).items()
+                    if a != "model" and n > 1}
+            if data:
+                raise NotImplementedError(
+                    f"an engine over a data axis of more than one rank "
+                    f"({data}): ROADMAP Queue A item 24")
+            self._model_ranks = model_ranks(rules.mesh)
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -107,7 +131,7 @@ class ServeEngine:
         self._prefill = lambda p, batch, st: model_api.prefill(
             p, batch, cfg, st, rules)
         self.state = model_api.init_decode_state(cfg, slots, max_len,
-                                                 self.device)
+                                                 self.device, rules)
         self.slot_req: list[Request | None] = [None] * slots
         self.slot_tokens = np.zeros((slots,), np.int32)
         self.slot_age = np.zeros((slots,), np.int64)  # decode steps in slot
@@ -169,6 +193,7 @@ class ServeEngine:
                     continue
                 self.state = _splice_state(self.state, pstate, s)
                 tok = self._sample(last, req)
+                self._agree([tok])
                 req.output.append(int(tok))
                 # First token out: time-to-first-token for this request.
                 t_submit = self._submit_ts.get(req.rid)
@@ -184,7 +209,7 @@ class ServeEngine:
         """Prefill this prompt alone (batch=1, spliced into the slot),
         retrying injected failures under the recovery policy."""
         pcfg_state = model_api.init_decode_state(self.cfg, 1, self.max_len,
-                                                 self.device)
+                                                 self.device, self.rules)
         batch = {"tokens": torch.as_tensor(
             np.asarray(req.prompt, np.int32)[None, :], device=self.device)}
         if self.cfg.family == "encdec":
@@ -236,11 +261,11 @@ class ServeEngine:
             self.clock() - t0)
         self.state = state
         self.stats["steps"] += 1
-        for s in range(self.slots):
+        sampled = {s: self._sample(rows[s], req)
+                   for s, req in enumerate(self.slot_req) if req is not None}
+        self._agree(list(sampled.values()))
+        for s, tok in sampled.items():
             req = self.slot_req[s]
-            if req is None:
-                continue
-            tok = self._sample(rows[s], req)
             req.output.append(int(tok))
             self.slot_tokens[s] = int(tok)
             self.slot_age[s] += 1
@@ -255,6 +280,18 @@ class ServeEngine:
                 # the slot (and the rest of the queue) hostage.
                 self.stats["timed_out"] += 1
                 self._finish(s, req, "timed_out")
+
+    def _agree(self, tokens: list[int]) -> None:
+        """Every rank of the ``"model"`` axis took ``tokens``, or all of
+        them raise."""
+        if self._model_ranks == 1 or not tokens:
+            return
+        mine = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
+        with ranks.use_mesh(self.rules.mesh):
+            every = ranks.all_gather(mine, "model")
+        if not bool((every == every[0]).all()):
+            raise RuntimeError(f"the ranks sampled different tokens: "
+                               f"{every.tolist()}")
 
     def _sample(self, logits: np.ndarray, req: Request) -> int:
         logits = np.asarray(logits, np.float32)

@@ -22,8 +22,16 @@ reference's:
   slice (the clip taken from the norm of the whole gradient, the same on
   every rank) and the new params are all-gathered.
 
-A ``"model"`` axis of more than one rank needs tensor-parallel layers,
-ROADMAP Queue A item 16, and raises.
+On a ``"model"`` axis of more than one rank (the dense and VLM families;
+the others raise, naming their ROADMAP item) the params are split by
+their specs as well: each rank holds its slice of every leaf the rules
+split over ``"model"`` and runs the tensor-parallel layers
+(:mod:`repro_torch.dist.tensor_parallel`).  The gradients of those leaves
+are the rank's own; a replicated leaf (a norm's scale) gets the same
+gradient on every rank of the axis and is not reduced over it.  The
+gradients are all-reduced over the batch axes only, the clip's norm sums
+the split leaves' squares over ``"model"`` and counts a replicated leaf
+once, and ZeRO-1 slices and gathers a leaf over the data axes only.
 """
 
 from __future__ import annotations
@@ -40,11 +48,10 @@ import torch.nn as nn
 from repro_torch.dist import ranks
 from repro_torch.dist.collectives import hierarchical_grad_allreduce
 from repro_torch.dist.sharding import (
-    QUEUED_TP,
     ShardingRules,
     batch_axes,
     batch_ranks,
-    model_ranks,
+    check_tp_family,
     tree_specs,
 )
 from repro_torch.models import api as model_api
@@ -64,12 +71,15 @@ class TrainState:
 
 
 def init_train_state(generator: torch.Generator, cfg: ModelConfig,
-                     device: torch.device | str | None = None) -> TrainState:
+                     device: torch.device | str | None = None,
+                     rules: ShardingRules | None = None) -> TrainState:
     """Random parameters from ``generator`` on ``device`` (None: the GPU),
     with gradients turned on (the model builders make every parameter with
     ``requires_grad=False``, which serving relies on), and a fresh AdamW
-    state."""
-    params = model_api.init_params(generator, cfg, device)
+    state.  With ``rules`` on a mesh of ranks, the params are this rank's
+    slices (``models.api.init_params``) and the AdamW state is theirs: the
+    whole state never exists on the rank."""
+    params = model_api.init_params(generator, cfg, device, rules)
     params.requires_grad_(True)
     return TrainState(params=params, opt=adamw_init(params))
 
@@ -101,15 +111,26 @@ def train_state_specs(
     )
 
 
+def _drop_axis(spec: tuple, axis: str) -> tuple:
+    """``spec`` with ``axis`` taken out of every entry."""
+    out = []
+    for entry in spec:
+        axes = () if entry is None else \
+            (entry,) if isinstance(entry, str) else tuple(entry)
+        kept = tuple(a for a in axes if a != axis)
+        out.append(kept[0] if len(kept) == 1 else kept or None)
+    return tuple(out)
+
+
 class _Layout:
-    """Where a sharded step's batch rows and optimizer slices lie on the
-    mesh, and which ranks its gradients are reduced over."""
+    """Where a sharded step's batch rows, parameter slices and optimizer
+    slices lie on the mesh, and which ranks its gradients are reduced
+    over."""
 
     def __init__(self, cfg: ModelConfig, rules: ShardingRules, mesh,
                  zero1: bool):
-        if model_ranks(mesh) > 1:
-            raise NotImplementedError(QUEUED_TP)
         rules = rules.with_mesh(mesh)
+        check_tp_family(rules)
         sizes = ranks.mesh_sizes(mesh)
         self.batch = batch_axes(rules)
         self.ranks = batch_ranks(rules)
@@ -131,14 +152,24 @@ class _Layout:
         self.intra = tuple(a for a in self.reduced if a != "pod")
         self.inter = ("pod",) if "pod" in self.reduced else ()
         specs = train_state_specs(cfg, rules, zero1)
+        self.param_specs = specs.params
         self.opt_specs = specs.opt.master
+        # a params-shaped leaf is sliced over the data axes only: its
+        # "model" split is the param's own
+        self.zero_specs = {k: _drop_axis(v, "model")
+                           for k, v in self.opt_specs.items()}
         with ranks.use_mesh(mesh):
             for name, spec in specs.params.items():
-                if ranks.spec_shards(spec):
+                if ranks.spec_shards(_drop_axis(spec, "model")):
                     raise NotImplementedError(
-                        f"param {name} is split by {spec}: {QUEUED_TP}")
+                        f"param {name} is split by {spec} over the batch "
+                        "axes")
+            self.model_split = {k for k, v in specs.params.items()
+                                if ranks.spec_shards(v)}
             self.opt_sharded = any(ranks.spec_shards(s)
-                                   for s in self.opt_specs.values())
+                                   for s in self.zero_specs.values())
+        self.whole = {k: tuple(p.shape) for k, p in
+                      model_api.param_shapes(cfg).named_parameters()}
 
     def local_batch(self, batch: dict) -> dict:
         """This rank's rows of the global batch."""
@@ -154,16 +185,32 @@ class _Layout:
             out[key] = x.narrow(0, idx * rows, rows)
         return out
 
+    @torch.no_grad()
+    def local_params(self, params: nn.Module) -> None:
+        """Cut, in place, each parameter of its whole shape that the rules
+        split over ``"model"`` to this rank's slice."""
+        for name, p in params.named_parameters():
+            if name in self.model_split and \
+                    tuple(p.shape) == self.whole[name]:
+                p.data = ranks.spec_slice(p.data, self.param_specs[name]) \
+                    .clone(memory_format=torch.contiguous_format)
+
     def local_opt(self, opt: AdamWState, named: dict) -> AdamWState:
         """The optimizer state with each leaf this rank's slice: a leaf of
-        its param's whole shape is sliced (a copy), one of the slice's
-        shape is kept."""
+        its param's whole shape is sliced by its spec, one of the rank's
+        param slice's shape over the data axes (each a copy); a leaf of
+        the slice's shape is kept."""
         def part(tree):
             out = {}
             for name, x in tree.items():
-                if x.shape == named[name].shape and \
-                        ranks.spec_shards(self.opt_specs[name]):
-                    x = ranks.spec_slice(x, self.opt_specs[name]).clone(
+                if tuple(x.shape) == self.whole[name]:
+                    spec = self.opt_specs[name]
+                elif x.shape == named[name].shape:
+                    spec = self.zero_specs[name]
+                else:
+                    spec = None
+                if spec is not None and ranks.spec_shards(spec):
+                    x = ranks.spec_slice(x, spec).clone(
                         memory_format=torch.contiguous_format)
                 out[name] = x
             return out
@@ -175,11 +222,13 @@ def local_train_state(state: TrainState, cfg: ModelConfig,
                       rules: ShardingRules, mesh,
                       zero1: bool = True) -> TrainState:
     """This rank's part of a whole train state under ``rules`` on ``mesh``
-    (the optimizer's leaves sliced where their specs split them; the
-    params are replicated): what the sharded step keeps, made before the
-    first step so that the whole optimizer state can be freed."""
+    (the optimizer's leaves sliced where their specs split them, the
+    params where they split over ``"model"``, the latter in place in the
+    given module): what the sharded step keeps, made before the first step
+    so that the whole state can be freed."""
     layout = _Layout(cfg, rules, mesh, zero1)
     with ranks.use_mesh(mesh):
+        layout.local_params(state.params)
         named = dict(state.params.named_parameters())
         return TrainState(state.params, layout.local_opt(state.opt, named))
 
@@ -286,19 +335,23 @@ def make_train_step(
         return ranks.psum(loss.reshape(1), layout.reduced).reshape(()) * inv
 
     def sharded_step(state, named, batch):
+        layout.local_params(state.params)
+        named = dict(state.params.named_parameters())
+        opt = layout.local_opt(state.opt, named)
         loss, grads = compute_grads(state.params, list(named.values()),
                                     layout.local_batch(batch))
         grads = dict(zip(named, grads))
         loss = reduce(loss, grads)
-        gnorm = global_norm(grads)
+        # the whole gradient's norm: the split leaves' squares summed over
+        # "model", each replicated leaf counted once
+        gnorm = global_norm(grads, split=layout.model_split)
         lr = lr_schedule(state.opt.step)
-        opt = layout.local_opt(state.opt, named)
         kw = dict(weight_decay=weight_decay, grad_clip=grad_clip,
                   param_dtype=cfg.torch_dtype, grad_norm=gnorm)
         if not layout.opt_sharded:
             _, opt, metrics = adamw_update(grads, opt, lr, out=named, **kw)
         else:
-            specs = layout.opt_specs
+            specs = layout.zero_specs
             slices = {k: ranks.spec_slice(g, specs[k])
                       for k, g in grads.items()}
             del grads

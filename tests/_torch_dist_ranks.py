@@ -189,3 +189,214 @@ def restore_onto(device, cfg, template, directory: str,
 
 def replace_impl(cfg, impl="xla"):
     return dataclasses.replace(cfg, attention_impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model" (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+
+def whole_tp_state(state, cfg, rules, mesh) -> dict:
+    """Every leaf of a tensor-parallel train state gathered whole (the
+    params over ``"model"``, the optimizer's leaves over every axis their
+    specs split); every rank calls it."""
+    specs = train_state_specs(cfg, rules)
+    with ranks.use_mesh(mesh):
+        out = {"params": {k: ranks.spec_gather(p.detach(), specs.params[k])
+                          for k, p in state.params.named_parameters()}}
+        for tree in ("master", "mu", "nu"):
+            out[tree] = {k: ranks.spec_gather(v, specs.opt.master[k])
+                         for k, v in getattr(state.opt, tree).items()}
+    return out
+
+
+def _tp_train(mesh, cases) -> list:
+    import copy
+
+    out = []
+    for label, cfg, state, batch in cases:
+        rules = rules_for(cfg, mesh, "tp",
+                          global_batch=batch["tokens"].shape[0])
+        step = make_train_step(cfg, rules, mesh)
+        new, metrics = step(copy.deepcopy(state), batch)
+        split = step_split(cfg, rules, mesh)
+        res = {"label": label, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"]), "step": int(new.step),
+               "local_shapes": {k: tuple(p.shape) for k, p in
+                                new.params.named_parameters()},
+               "replicated": {k: p.detach().clone() for k, p in
+                              new.params.named_parameters()
+                              if k not in split}}
+        whole = whole_tp_state(new, cfg, rules, mesh)
+        if dist.get_rank() == 0:
+            res.update(whole)
+        out.append(res)
+    return out
+
+
+def step_split(cfg, rules, mesh) -> set:
+    """The names of the params that ``rules`` split over ranks."""
+    specs = train_state_specs(cfg, rules).params
+    with ranks.use_mesh(mesh):
+        return {k for k, s in specs.items() if ranks.spec_shards(s)}
+
+
+def _tp_serve(mesh, cases) -> list:
+    """Prefill then decode steps teacher-forced on ``decode`` tokens, each
+    rank on its rows of the batch (the data axis splits it), through the
+    port's api with the reference's parameters carried onto the rank; each
+    decode step from this rank's slice of a given cache where the case
+    gives the caches."""
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models import api
+
+    from repro_torch.dist.sharding import tree_specs
+
+    out = []
+    for label, cfg, np_params, tokens, decode, patches, max_len, given \
+            in cases:
+        b = tokens.shape[0]
+        rules = rules_for(cfg, mesh, "tp", global_batch=b)
+        params = params_from_reference(np_params, cfg, "cpu", rules)
+        with ranks.use_mesh(mesh):
+            data = ranks.axis_size("data")
+            rows = slice(ranks.axis_index("data") * (b // data),
+                         (ranks.axis_index("data") + 1) * (b // data))
+        batch = {"tokens": torch.from_numpy(tokens[rows])}
+        if patches is not None:
+            batch["patch_embeds"] = torch.from_numpy(patches[rows])
+        state = api.init_decode_state(cfg, b // data, max_len, "cpu", rules)
+        logits, state = api.prefill(params, batch, cfg, state, rules)
+        got = [logits.float().numpy()]
+        specs = tree_specs(rules, api.state_logical_axes(cfg))
+        wrote = []
+        for i, tok in enumerate(decode):
+            if given is not None:  # this rank's slice of the given cache
+                with ranks.use_mesh(mesh):
+                    state = {k: ranks.spec_slice(torch.from_numpy(v),
+                                                 specs[k]).clone()
+                             for k, v in given[i].items()}
+            logits, state = api.decode_step(
+                params, torch.from_numpy(tok[rows]), cfg, state, rules)
+            got.append(logits.float().numpy())
+            if given is not None:  # the whole cache the ranks wrote
+                with ranks.use_mesh(mesh):
+                    wrote.append({k: ranks.spec_gather(v, specs[k]).numpy()
+                                  for k, v in state.items()})
+        out.append({"label": label, "rows": (rows.start, rows.stop),
+                    "logits": got, "wrote": wrote if given else None,
+                    "cache_shapes": {k: tuple(v.shape)
+                                     for k, v in state.items()}})
+    return out
+
+
+def _tp_engine(mesh, cfg, seed, prompts, max_new) -> list:
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rules = rules_for(cfg, mesh, "tp")
+    params = api.init_params(torch.Generator().manual_seed(seed), cfg,
+                             "cpu", rules)
+    engine = ServeEngine(params, cfg, slots=2, max_len=32, rules=rules,
+                         seed=seed, device="cpu")
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+    done = engine.run()
+    return sorted((r.rid, r.status, list(r.output)) for r in done)
+
+
+def _tp_elastic(state, cfg, directory) -> dict:
+    """A state saved on (2, 2) restored onto (1, 4) and (4, 1): each
+    rank's restored leaves against its slices of the whole state."""
+    mesh = make_mesh((2, 2), ("data", "model"))
+    rules = rules_for(cfg, mesh, "tp")
+    specs = train_state_specs(cfg, rules)
+    import copy
+    local = local_train_state(copy.deepcopy(state), cfg, rules, mesh)
+    saved_shapes = {k: tuple(p.shape)
+                    for k, p in local.params.named_parameters()}
+    CheckpointManager(directory).save(3, local, specs=specs)
+    out = {"saved_shapes": saved_shapes}
+    for shape in ((1, 4), (4, 1)):
+        mesh = make_mesh(shape, ("data", "model"))
+        rules = rules_for(cfg, mesh, "tp")
+        specs = train_state_specs(cfg, rules)
+        got, meta = restore_resharded(CheckpointManager(directory), state,
+                                      specs, mesh)
+        equal, shapes = True, {}
+        with ranks.use_mesh(mesh):
+            for name, p in got.params.named_parameters():
+                want = ranks.spec_slice(
+                    dict(state.params.named_parameters())[name].detach(),
+                    specs.params[name])
+                equal &= p.dtype == want.dtype and torch.equal(p, want)
+                shapes[name] = tuple(p.shape)
+            for tree in ("master", "mu", "nu"):
+                for name, x in getattr(got.opt, tree).items():
+                    want = ranks.spec_slice(getattr(state.opt, tree)[name],
+                                            specs.opt.master[name])
+                    equal &= torch.equal(x, want)
+        out[shape] = {"equal": bool(equal), "step": meta["step"],
+                      "opt_step": int(got.opt.step), "shapes": shapes}
+    return out
+
+
+def _tp_ops(mesh, inputs) -> dict:
+    """The tensor-parallel operators on this rank's slices of ``inputs``,
+    with their gradients, for the one-rank autograd to check."""
+    from repro_torch.dist import tensor_parallel as tp
+
+    with ranks.use_mesh(mesh):
+        m, r = ranks.axis_size("model"), ranks.axis_index("model")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    cols = lambda a: a[..., r * (a.shape[-1] // m):  # noqa: E731
+                       (r + 1) * (a.shape[-1] // m)]
+    out = {}
+    x = t(inputs["x"]).requires_grad_()
+    y = tp.copy_to_model(x, mesh) @ t(cols(inputs["w"]))
+    (y * t(cols(inputs["g"]))).sum().backward()
+    out["copy"] = (_np(y), _np(x.grad))
+
+    xr = t(cols(inputs["x"])).requires_grad_()
+    rows = inputs["w"].shape[0] // m
+    z = tp.reduce_from_model(xr @ t(inputs["w"][r * rows:(r + 1) * rows]),
+                             mesh)
+    (z * t(inputs["g"])).sum().backward()
+    out["reduce"] = (_np(z), _np(xr.grad))
+
+    wk = t(cols(inputs["w"])).requires_grad_()
+    k = tp.gather_from_model(t(inputs["x"]) @ wk, -1, mesh)
+    (k * t(inputs["gk"][r])).sum().backward()
+    out["gather"] = (_np(k), _np(wk.grad))
+
+    for z_loss in (0.0, 1e-3):
+        lg = t(cols(inputs["logits"])).requires_grad_()
+        loss = tp.vocab_parallel_xent(lg, t(inputs["labels"]), z_loss,
+                                      mesh)
+        (loss * t(inputs["w_tok"])).sum().backward()
+        out[f"xent/{z_loss}"] = (_np(loss), _np(lg.grad))
+
+    vl = inputs["table"].shape[0] // m
+    table = t(inputs["table"][r * vl:(r + 1) * vl]).requires_grad_()
+    rows_out = tp.vocab_parallel_embed(table, t(inputs["labels"]), mesh)
+    (rows_out * t(inputs["g_embed"])).sum().backward()
+    out["embed"] = (_np(rows_out), _np(table.grad))
+    out["rank"] = r
+    return out
+
+
+def tp_suite(device, work: dict) -> dict:
+    """Every tensor-parallel case of ``tests/test_torch_tp.py`` on this
+    rank: train steps and prefill/decode on each mesh of ``work["meshes"]``,
+    the engine and the operators on (1, 4), the elastic restore."""
+    out = {"rank": dist.get_rank()}
+    for shape in work["meshes"]:
+        mesh = make_mesh(shape, ("data", "model"))
+        out[("train", shape)] = _tp_train(mesh, work["train"])
+        out[("serve", shape)] = _tp_serve(mesh, work["serve"])
+    mesh = make_mesh((1, 4), ("data", "model"))
+    out["engine"] = _tp_engine(mesh, *work["engine"])
+    out["ops"] = _tp_ops(mesh, work["ops"])
+    out["elastic"] = _tp_elastic(*work["elastic"])
+    return out

@@ -166,7 +166,19 @@ def test_resume_bit_exact(tmp_path):
     _assert_equal(a, b3)
 
 
-def test_supervisor_restart_from_checkpoint_matches_the_reference(tmp_path):
+def test_supervisor_restart_from_checkpoint_matches_the_reference(
+        tmp_path, monkeypatch):
+    """A failure at step 10 with a checkpoint every 4 steps, on both sides.
+
+    The port saves asynchronously and restores exactly the step its
+    supervisor's ``resume`` event names, so that event and the step
+    training resumes from agree whichever checkpoint was durable (8, or 4
+    while 8 is still being written).  The reference keeps the race: its
+    ``run_from`` reads ``latest_step()`` a second time and can train from
+    8 while the event says 4.  Its saves are made blocking here (through
+    ``monkeypatch``), so that its two reads cannot disagree: it resumes
+    from 8."""
+    import repro.ckpt.checkpoint as r_ckpt
     from repro.launch.train import run_training as r_run_training
 
     kw = dict(smoke=True, steps=16, batch=2, seq=32, ckpt_every=4,
@@ -177,15 +189,58 @@ def test_supervisor_restart_from_checkpoint_matches_the_reference(tmp_path):
     kinds = [e["kind"] for e in res["events"]]
     assert "failure" in kinds and "resume" in kinds
     assert res["steps"] >= 16 and res["attention_impl"] == "xla"
+    save = r_ckpt.CheckpointManager.save
+    monkeypatch.setattr(
+        r_ckpt.CheckpointManager, "save",
+        lambda self, step, state, metadata=None, blocking=False:
+        save(self, step, state, metadata, blocking=True))
     ref = r_run_training("gemma-2b", ckpt_dir=str(tmp_path / "ref"), **kw)
     assert kinds == [e["kind"] for e in ref["events"]]
-    # saves are asynchronous: the resume lands on the last durable
-    # checkpoint, 8 or one interval earlier, on either side
-    for r in (res, ref):
-        resume = [e["step"] for e in r["events"] if e["kind"] == "resume"]
-        assert resume in ([8], [4])
-        # ten steps to the failure, then from the resume to the end
-        assert len(r["losses"]) == 10 + 16 - resume[0]
+    # the port's saves are asynchronous: the resume lands on the last
+    # durable checkpoint, 8 or one interval earlier
+    resume = [e["step"] for e in res["events"] if e["kind"] == "resume"]
+    assert resume in ([8], [4])
+    # ten steps to the failure, then from the resume to the end
+    assert len(res["losses"]) == 10 + 16 - resume[0]
+    # the step the port resumed from, as its loss count shows it, is the
+    # one its resume event names
+    assert 10 + 16 - len(res["losses"]) == resume[0]
+    ref_resume = [e["step"] for e in ref["events"] if e["kind"] == "resume"]
+    assert ref_resume == [8]
+    assert len(ref["losses"]) == 10 + 16 - 8
+
+
+def test_restart_restores_the_step_the_supervisor_recorded(tmp_path,
+                                                           monkeypatch):
+    """The race of the asynchronous save, made certain: a checkpoint
+    manager whose ``latest_step()`` answers 4 to the supervisor's two reads
+    (the failure and the resume events) although step 8 is on disk, and 8
+    afterwards.  The port restores step 4, the one its ``resume`` event
+    names, and logs 10 + 16 - 4 losses; a second read of ``latest_step()``
+    would have restored 8."""
+    import repro_torch.launch.train as launch_train
+
+    class Racing(CheckpointManager):
+        held = 2  # the supervisor's reads that see 4
+
+        def save(self, step, state, metadata=None, blocking=False,
+                 specs=None):
+            super().save(step, state, metadata, blocking=True, specs=specs)
+
+        def latest_step(self):
+            step = super().latest_step()
+            if step == 8 and self.held:
+                self.held -= 1
+                return 4
+            return step
+
+    monkeypatch.setattr(launch_train, "CheckpointManager", Racing)
+    res = run_training("gemma-2b", smoke=True, steps=16, batch=2, seq=32,
+                       ckpt_dir=str(tmp_path), ckpt_every=4, fail_at_step=10,
+                       device="cpu")
+    events = [(e["kind"], e["step"]) for e in res["events"]]
+    assert events == [("failure", 4), ("resume", 4), ("complete", 16)]
+    assert len(res["losses"]) == 10 + 16 - 4
 
 
 def test_fault_injector_schedule_through_run_training(tmp_path):

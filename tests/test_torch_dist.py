@@ -192,15 +192,26 @@ def test_train_state_specs_match_the_reference(arch):
 
 
 def test_constrain_is_the_identity_unless_the_model_axis_is_split():
+    """``constrain`` never moves data.  On a model axis of more than one
+    rank it checks that a split dimension is the rank's share, and it
+    raises for a family with no tensor-parallel layers yet."""
     x = torch.ones(4, 4)
     assert TS.constrain(x, None, ("batch", "d_model")) is x
     assert TS.constrain(x, TS.tp_rules(), ("batch", "d_model")) is x
     rules = TS.tp_rules(data=("data",))
     assert TS.constrain(x, rules.with_mesh({"data": 4, "model": 1}),
                         ("batch", "d_model")) is x
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TS.constrain(x, rules.with_mesh({"data": 2, "model": 2}),
-                     ("batch", "d_model"))
+    split = rules.with_mesh({"data": 2, "model": 2})
+    for family in ("dense", "vlm", None):
+        r = split.with_family(family)
+        assert TS.constrain(x, r, ("batch", "d_model")) is x
+        assert TS.constrain(x, r, ("batch", "heads"), (None, 8)) is x
+        with pytest.raises(ValueError, match="share"):
+            # a layer that forgot to split: the whole 4 of 4 columns
+            TS.constrain(x, r, ("batch", "heads"), (None, 4))
+    for family, item in TS.QUEUED_TP.items():
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            TS.constrain(x, split.with_family(family), ("batch", "d_model"))
 
 
 def test_spec_from_reference():

@@ -34,6 +34,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import config_from_reference, \
     train_state_from_reference
 from repro_torch.dist import ranks
+from repro_torch.dist.sharding import QUEUED_TP
 from repro_torch.launch.rules import rules_for
 from repro_torch.train.train_loop import (
     init_train_state,
@@ -212,17 +213,27 @@ def test_zero1_shards_the_optimizer_state_and_dp_keeps_it_whole(train_runs,
             assert torch.equal(tp[tree][name], dp[tree][name]), name
 
 
-def test_the_model_axis_split_and_a_flat_moe_dispatch_raise():
-    cfg = _torch_dist_ranks.replace_impl(get_smoke_config("gemma-2b"))
-    rules = rules_for(cfg, {"data": 2, "model": 2}, "tp")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_train_step(cfg, rules, {"data": 2, "model": 2})
-    moe = dataclasses.replace(_torch_dist_ranks.replace_impl(
-        get_smoke_config("granite-moe-1b-a400m")), moe_flat_dispatch=True)
-    with pytest.raises(NotImplementedError, match="flat MoE dispatch"):
-        make_train_step(moe, rules_for(moe, {"data": 4, "model": 1}, "dp",
-                                       global_batch=8),
-                        {"data": 4, "model": 1})
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-3b",
+                                  "recurrentgemma-2b", "whisper-medium",
+                                  "flat-dispatch"])
+def test_the_model_axis_split_and_a_flat_moe_dispatch_raise(arch):
+    """A model axis of more than one rank raises for the families that
+    have no tensor-parallel layers yet, each naming its ROADMAP item (the
+    dense and VLM families run there, ``tests/test_torch_tp.py``); the
+    flat MoE dispatch raises under a split batch."""
+    if arch == "flat-dispatch":
+        moe = dataclasses.replace(_torch_dist_ranks.replace_impl(
+            get_smoke_config("granite-moe-1b-a400m")), moe_flat_dispatch=True)
+        with pytest.raises(NotImplementedError, match="flat MoE dispatch"):
+            make_train_step(moe, rules_for(moe, {"data": 4, "model": 1},
+                                           "dp", global_batch=8),
+                            {"data": 4, "model": 1})
+        return
+    cfg = _torch_dist_ranks.replace_impl(get_smoke_config(arch))
+    mesh = {"data": 2, "model": 2}
+    item = QUEUED_TP[cfg.family]
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        make_train_step(cfg, rules_for(cfg, mesh, "tp"), mesh)
 
 
 def test_checkpoint_saved_on_four_ranks_restores_onto_two_and_one(tmp_path):

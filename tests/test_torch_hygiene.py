@@ -52,7 +52,8 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.launch.train", "repro_torch.examples.train_lm",
            "repro_torch.dist.sharding", "repro_torch.dist.ranks",
            "repro_torch.dist.collectives", "repro_torch.launch.mesh",
-           "repro_torch.launch.rules", "chip_smoke"]
+           "repro_torch.launch.rules", "repro_torch.dist.tensor_parallel",
+           "chip_smoke"]
 
 
 @pytest.mark.parametrize("module", MODULES)

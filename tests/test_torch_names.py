@@ -48,8 +48,6 @@ MISSING_OK = {
     ("kernels.decode_attention.kernel", "NEG_INF"): TPU,
     ("kernels.flash_attention.kernel", "NEG_INF"): TPU,
     ("kernels.md5.kernel", "md5_u32x2"): INCIDENTAL,
-    ("models.api", "param_shapes"): "a jax.eval_shape; waits for ROADMAP "
-                                    "Queue A item 15",
     ("launch.mesh", "make_production_mesh"): "a mesh of 256 or 512 ranks; "
                                              "waits with the dry run, "
                                              "ROADMAP Queue A item 15",
@@ -294,3 +292,28 @@ def test_constrain_and_rg_lru_ref_names():
     x = object()
     assert constrain(x, None, logical_axes=("batch", None)) is x
     assert rg_lru_ref is ref_fn
+
+
+def test_the_tensor_parallel_names_and_their_module():
+    """``dist.tensor_parallel`` is the port's own module (the reference has
+    GSPMD in its place, so no counterpart is compared): the dist package
+    exports its operators and the family check, and the names the
+    reference's modules gained a counterpart for here take the reference's
+    parameters first (``init_params``, ``init_decode_state``,
+    ``params_from_reference`` append ``rules``)."""
+    import repro_torch.dist as D
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.models import api
+
+    assert "dist.tensor_parallel" not in MODULES
+    names = {"copy_to_model", "reduce_from_model", "gather_from_model",
+             "vocab_parallel_embed", "vocab_parallel_xent"}
+    assert names | {"check_tp_family"} <= set(D.__all__)
+    for name in names:
+        assert getattr(D, name) is getattr(TP, name)
+    for fn in (api.init_params, api.init_decode_state):
+        params = inspect.signature(fn).parameters
+        assert list(params)[-1] == "rules"
+        assert params["rules"].default is None
+    assert "param_shapes" in public(api)
+

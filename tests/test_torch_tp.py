@@ -1,0 +1,689 @@
+"""Tensor parallelism over a ``"model"`` axis for the dense and VLM
+families against the reference's GSPMD, on the CPU.
+
+The reference runs on 4 fake devices in one subprocess
+(``tests/_subproc.run_with_devices``, in a thread), the port on 4 gloo
+ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
+``tests/_torch_dist_ranks.py``, which imports no JAX), both on
+``("data", "model")`` meshes of (2, 2) and (1, 4):
+
+* one train step of the phi3-mini-3.8b and gemma-2b smoke configs from the
+  reference's state at step 60 (moments from numpy) on 8 x 16 tokens,
+  under ``rules_for`` "tp": the loss at rtol 1e-5, the gradient norm at
+  1e-4, every master, moment and gathered param leaf within
+  1e-6 + 1e-4 |x|, against the reference's GSPMD step and the port's
+  one-rank step;
+* a prefill of 2 x 8 tokens and three decode steps (teacher-forced) of the
+  phi3, gemma (MQA: its one KV head gathered whole), qwen (QKV biases, the
+  int8 cache, each decode step from a given cache: ``_int8_states``) and
+  internvl2 (patch embeddings; at (1, 4) half a KV head a
+  rank) smoke configs and phi3's at vocab 250 (which 4 does not divide,
+  so (1, 4) keeps the vocab whole), against the reference's ``prefill``
+  and ``decode_step`` jitted with ``in_shardings`` of the params' and the
+  cache's specs (``tests/test_dryrun_small.py``'s construction, run), at
+  1e-4;
+* the engine on (1, 4): greedy tokens equal to the one-rank engine's, and
+  the same on every rank;
+* a train state saved on (2, 2) restored onto (1, 4), (4, 1) and one rank,
+  bit for bit;
+* the autograd operators (``copy_to_model``, ``reduce_from_model``,
+  ``gather_from_model``, the vocab-split embedding and cross-entropy)
+  against one-rank autograd.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as r_smoke
+from repro.models import api as r_api
+from repro.optim.adamw import AdamWState as RAdamWState
+from repro.train import train_loop as r_train
+from repro_torch.ckpt import CheckpointManager, restore_resharded
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import (
+    config_from_reference,
+    train_state_from_reference,
+)
+from repro_torch.dist import ranks
+from repro_torch.launch.rules import rules_for
+from repro_torch.models import api
+from repro_torch.models.layers import softmax_xent
+from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train.train_loop import (
+    init_train_state,
+    make_train_step,
+    train_state_specs,
+)
+
+from _subproc import run_with_devices
+import _torch_dist_ranks
+
+N = 4
+MESHES = [(2, 2), (1, 4)]
+TRAIN_ARCHS = ["phi3-mini-3.8b", "gemma-2b"]
+BATCH, SEQ = 8, 16
+#: serve cases: label -> (arch, vocab or None)
+SERVE = {"phi3-mini-3.8b": ("phi3-mini-3.8b", None),
+         "gemma-2b": ("gemma-2b", None),
+         "qwen1.5-32b": ("qwen1.5-32b", None),
+         "internvl2-26b": ("internvl2-26b", None),
+         "phi3-vocab-250": ("phi3-mini-3.8b", 250)}
+PROMPT, DECODE_STEPS, MAX_LEN = (2, 8), 3, 32
+RANKS_TIMEOUT = 300
+
+
+def _np(x):
+    return x.detach().to(torch.float32).numpy()
+
+
+def _serve_cfg(label):
+    arch, vocab = SERVE[label]
+    cfg = r_smoke(arch)
+    return cfg if vocab is None else cfg.scaled(vocab=vocab)
+
+
+def _with_history(state, rng, step):
+    hist = lambda a: rng.standard_normal(a.shape).astype(np.float32) * 1e-3
+    mu = jax.tree.map(lambda a: jnp.asarray(hist(a)), state.opt.master)
+    nu = jax.tree.map(lambda a: jnp.asarray(hist(a) ** 2 + 1e-8),
+                      state.opt.master)
+    return r_train.TrainState(state.params, RAdamWState(
+        jnp.asarray(step, jnp.int32), state.opt.master, mu, nu))
+
+
+@functools.lru_cache(maxsize=None)
+def _train_reference(arch):
+    rcfg = r_smoke(arch)
+    rng = np.random.default_rng(3)
+    state = _with_history(r_train.init_train_state(jax.random.key(0), rcfg),
+                          rng, 60)
+    toks = rng.integers(0, rcfg.vocab, (BATCH, SEQ)).astype(np.int32)
+    return rcfg, state, toks
+
+
+def _serve_inputs(label):
+    rcfg = _serve_cfg(label)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, rcfg.vocab, PROMPT).astype(np.int32)
+    decode = rng.integers(0, rcfg.vocab, (DECODE_STEPS, PROMPT[0], 1)) \
+        .astype(np.int32)
+    patches = None
+    if rcfg.family == "vlm":
+        patches = rng.standard_normal(
+            (PROMPT[0], rcfg.n_patches, rcfg.d_model)).astype(np.float32)
+    return rcfg, toks, decode, patches
+
+
+def _int8_states(rcfg, toks, decode):
+    """The cache before each decode step of the reference's one-device
+    chain, for an int8 cache (``kv_quant``), and the one after the last.
+
+    A cache entry is ``round(x / scale)``: an ulp of difference in k or v
+    between two correct runs moves it by a whole level where ``x / scale``
+    lies at a half.  The reference's own GSPMD chain on (2, 2) and (1, 4)
+    parts from its one-device chain by 1.8e-4 in the logits this way on
+    these inputs (one ``v_q`` entry), so two runs that each quantize their
+    own k and v cannot be held at 1e-4.  So the port's ranks decode each
+    step from this given cache and write the new token's entries, and the
+    reference's GSPMD step then attends to exactly the cache the port
+    wrote (``REFERENCE_GIVEN``, its ``kvcache.update_layer`` replaced by
+    the identity in its subprocess): the logits are held at 1e-4, and the
+    entries the port wrote within one level of the reference's own, their
+    scales at 1e-4."""
+    params = r_api.init_params(jax.random.key(1), rcfg)
+    state = r_api.init_decode_state(rcfg, toks.shape[0], MAX_LEN)
+    _, state = r_api.prefill(params, {"tokens": jnp.asarray(toks)}, rcfg,
+                             state)
+    out = []
+    for tok in decode:
+        out.append({k: np.asarray(v) for k, v in state.items()})
+        _, state = r_api.decode_step(params, jnp.asarray(tok), rcfg, state)
+    return out + [{k: np.asarray(v) for k, v in state.items()}]
+
+
+REFERENCE = r"""
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_config
+from repro.dist.sharding import tree_specs
+from repro.launch.rules import rules_for
+from repro.models import api
+from repro.train import train_loop
+
+def serve_cfg(label):
+    arch, vocab = SERVE[label]
+    cfg = get_smoke_config(arch)
+    return cfg if vocab is None else cfg.scaled(vocab=vocab)
+
+for shape in MESHES:
+    mesh = jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    named = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                                   is_leaf=lambda x: isinstance(x, P))
+    tag = "x".join(map(str, shape))
+    for arch in TRAIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        tree = jax.tree.structure(train_loop.init_train_state(
+            jax.random.key(0), cfg))
+        data = np.load(f"{DIR}/{arch}.in.npz")
+        state = jax.tree.unflatten(tree, [jnp.asarray(data[f"arr_{i}"])
+                                          for i in range(tree.num_leaves)])
+        rules = rules_for(cfg, mesh, "tp", global_batch=BATCH)
+        step = train_loop.make_train_step(cfg, rules, mesh, donate=False)
+        new, m = step(state, {"tokens": jnp.asarray(data["tokens"])})
+        np.savez(f"{DIR}/{arch}.{tag}.out.npz",
+                 *[np.asarray(x) for x in jax.tree.leaves(new)],
+                 loss=np.asarray(m["loss"]),
+                 grad_norm=np.asarray(m["grad_norm"]),
+                 lr=np.asarray(m["lr"]))
+    for label in SERVE:
+        cfg = serve_cfg(label)
+        data = np.load(f"{DIR}/{label}.serve.npz")
+        b = data["tokens"].shape[0]
+        rules = rules_for(cfg, mesh, "tp", global_batch=b)
+        p_specs = tree_specs(rules, api.params_logical_axes(cfg))
+        s_specs = tree_specs(rules, api.state_logical_axes(cfg))
+        params = jax.device_put(api.init_params(jax.random.key(1), cfg),
+                                named(p_specs))
+        rows = NamedSharding(mesh, rules.spec(("batch", None)))
+        batch = {"tokens": jnp.asarray(data["tokens"])}
+        b_specs = {"tokens": rows}
+        if "patches" in data:
+            batch["patch_embeds"] = jnp.asarray(data["patches"], cfg.jdtype)
+            b_specs["patch_embeds"] = NamedSharding(
+                mesh, rules.spec(("batch", None, None)))
+        prefill = jax.jit(
+            lambda p, bt, s: api.prefill(p, bt, cfg, s, rules),
+            in_shardings=(named(p_specs), b_specs, named(s_specs)))
+        decode = jax.jit(
+            lambda p, t, s: api.decode_step(p, t, cfg, s, rules),
+            in_shardings=(named(p_specs), rows, named(s_specs)))
+        state = jax.device_put(api.init_decode_state(cfg, b, MAX_LEN),
+                               named(s_specs))
+        logits, state = prefill(params, batch, state)
+        out = [np.asarray(logits, np.float32)]
+        for tok in data["decode"]:
+            if "state0_pos" in data:  # the int8 cache: REFERENCE_GIVEN
+                break
+            state = jax.device_put(state, named(s_specs))
+            logits, state = decode(params, jnp.asarray(tok), state)
+            out.append(np.asarray(logits, np.float32))
+        np.savez(f"{DIR}/{label}.{tag}.serve.out.npz", *out)
+print("REFERENCE-OK")
+"""
+
+
+#: each decode step of an int8-cache case from the cache the port's ranks
+#: wrote (its ``pos`` the given one's): the reference's cache write is the
+#: identity, so that it attends to exactly that cache
+REFERENCE_GIVEN = r"""
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_config
+from repro.dist.sharding import tree_specs
+from repro.launch.rules import rules_for
+from repro.models import api, kvcache
+
+kvcache.update_layer = lambda cfg, cache_l, k, v, pos: dict(cache_l)
+for shape in MESHES:
+    mesh = jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    named = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                                   is_leaf=lambda x: isinstance(x, P))
+    tag = "x".join(map(str, shape))
+    for label in GIVEN:
+        cfg = get_smoke_config(SERVE[label][0])
+        data = np.load(f"{DIR}/{label}.serve.npz")
+        wrote = np.load(f"{DIR}/{label}.{tag}.wrote.npz")
+        rules = rules_for(cfg, mesh, "tp", global_batch=data["tokens"].shape[0])
+        p_specs = tree_specs(rules, api.params_logical_axes(cfg))
+        s_specs = tree_specs(rules, api.state_logical_axes(cfg))
+        params = jax.device_put(api.init_params(jax.random.key(1), cfg),
+                                named(p_specs))
+        rows = NamedSharding(mesh, rules.spec(("batch", None)))
+        decode = jax.jit(
+            lambda p, t, s: api.decode_step(p, t, cfg, s, rules),
+            in_shardings=(named(p_specs), rows, named(s_specs)))
+        out = []
+        for i, tok in enumerate(data["decode"]):
+            state = {k: jnp.asarray(wrote[f"w{i}_{k}"]) for k in s_specs}
+            state["pos"] = jnp.asarray(data[f"state{i}_pos"])
+            logits, _ = decode(params, jnp.asarray(tok),
+                               jax.device_put(state, named(s_specs)))
+            out.append(np.asarray(logits, np.float32))
+        np.savez(f"{DIR}/{label}.{tag}.given.out.npz", *out)
+print("REFERENCE-GIVEN-OK")
+"""
+
+
+def _carried(rstate, tcfg):
+    return train_state_from_reference(jax.tree.map(np.asarray, rstate), tcfg,
+                                      "cpu")
+
+
+def _ops_inputs():
+    rng = np.random.default_rng(11)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return {"x": f(6, 8), "w": f(8, 12), "g": f(6, 12),
+            "gk": f(N, 6, 12), "logits": f(10, 16) * 3.0,
+            "labels": rng.integers(0, 16, 10).astype(np.int64),
+            "w_tok": f(10), "table": f(16, 5), "g_embed": f(10, 5)}
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    """The reference's steps and logits on both meshes (one subprocess, 4
+    fake devices), the port's (4 gloo ranks, one spawn) and the port's
+    one-rank results."""
+    tmp = tmp_path_factory.mktemp("tp")
+    work = {"meshes": MESHES, "train": [], "serve": []}
+    single = {}
+    for arch in TRAIN_ARCHS:
+        rcfg, rstate, toks = _train_reference(arch)
+        np.savez(tmp / f"{arch}.in.npz",
+                 *[np.asarray(x) for x in jax.tree.leaves(rstate)],
+                 tokens=toks)
+        tcfg = config_from_reference(rcfg)
+        tstate = _carried(rstate, tcfg)
+        batch = {"tokens": torch.from_numpy(toks)}
+        work["train"].append((arch, tcfg, tstate, batch))
+        single[arch] = make_train_step(tcfg, donate=False)(tstate, batch)
+    # remat over the ranks: the recompute issues the layer's collectives
+    # again inside the backward pass, in the same order on every rank
+    for policy in ("nothing", "dots"):
+        arch = "phi3-mini-3.8b"
+        rcfg, rstate, toks = _train_reference(arch)
+        tcfg = dataclasses.replace(config_from_reference(rcfg), remat=True,
+                                   remat_policy=policy)
+        work["train"].append((f"{arch}/remat-{policy}", tcfg,
+                              _carried(rstate, tcfg),
+                              {"tokens": torch.from_numpy(toks)}))
+    for label in SERVE:
+        rcfg, toks, decode, patches = _serve_inputs(label)
+        extra = {} if patches is None else {"patches": patches}
+        states = _int8_states(rcfg, toks, decode) if rcfg.kv_quant else None
+        for i, st in enumerate(states or ()):
+            extra.update({f"state{i}_{k}": v for k, v in st.items()})
+        np.savez(tmp / f"{label}.serve.npz", tokens=toks, decode=decode,
+                 **extra)
+        np_params = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                 r_api.init_params(jax.random.key(1), rcfg))
+        work["serve"].append((label, config_from_reference(rcfg), np_params,
+                              toks, decode, patches, MAX_LEN, states))
+    ecfg = get_smoke_config("phi3-mini-3.8b")
+    prompts = [np.random.default_rng(i).integers(0, ecfg.vocab, n)
+               .astype(np.int32) for i, n in enumerate((5, 9, 3, 7))]
+    work["engine"] = (ecfg, 0, prompts, 5)
+    work["ops"] = _ops_inputs()
+    elastic = _elastic_state()
+    work["elastic"] = (elastic[1], elastic[0], str(tmp / "ckpt"))
+    code = (f"MESHES = {MESHES!r}\nTRAIN_ARCHS = {TRAIN_ARCHS!r}\n"
+            f"SERVE = {SERVE!r}\nDIR = {str(tmp)!r}\nBATCH = {BATCH}\n"
+            f"MAX_LEN = {MAX_LEN}\n" + REFERENCE)
+    with _torch_dist_ranks.beside(run_with_devices, code, n_devices=N,
+                                  timeout=400) as out:
+        port = ranks.spawn(_torch_dist_ranks.tp_suite, N, backend="gloo",
+                           device="cpu", init_dir=str(tmp / "rdv"),
+                           args=(work,), timeout=RANKS_TIMEOUT)
+    assert "REFERENCE-OK" in out["result"]
+    given = [label for label in SERVE if _serve_cfg(label).kv_quant]
+    for shape in MESHES:
+        tag = "x".join(map(str, shape))
+        for label in given:
+            wrote = next(r for r in port[0]["serve", shape]
+                         if r["label"] == label)["wrote"]
+            np.savez(tmp / f"{label}.{tag}.wrote.npz",
+                     **{f"w{i}_{k}": v for i, st in enumerate(wrote)
+                        for k, v in st.items()})
+    code = (f"MESHES = {MESHES!r}\nSERVE = {SERVE!r}\nGIVEN = {given!r}\n"
+            f"DIR = {str(tmp)!r}\n" + REFERENCE_GIVEN)
+    assert "REFERENCE-GIVEN-OK" in run_with_devices(code, n_devices=N,
+                                                    timeout=300)
+    ref = {}
+    for shape in MESHES:
+        tag = "x".join(map(str, shape))
+        for arch in TRAIN_ARCHS:
+            rcfg, rstate, _ = _train_reference(arch)
+            tree = jax.tree.structure(rstate)
+            data = np.load(tmp / f"{arch}.{tag}.out.npz")
+            new = jax.tree.unflatten(tree, [data[f"arr_{i}"]
+                                            for i in range(tree.num_leaves)])
+            ref["train", arch, shape] = (
+                _carried(new, config_from_reference(rcfg)),
+                {k: float(data[k]) for k in ("loss", "grad_norm", "lr")})
+        for label in SERVE:
+            data = np.load(tmp / f"{label}.{tag}.serve.out.npz")
+            logits = [data["arr_0"]]
+            if label in given:
+                data = np.load(tmp / f"{label}.{tag}.given.out.npz")
+                logits += [data[f"arr_{i}"] for i in range(DECODE_STEPS)]
+            else:
+                logits += [data[f"arr_{i}"] for i in
+                           range(1, DECODE_STEPS + 1)]
+            ref["serve", label, shape] = logits
+    return ref, port, single, work, str(tmp / "ckpt")
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-6,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_tp_train_step_matches_the_reference_and_one_rank(tp_runs, arch,
+                                                          shape):
+    ref, port, single, _, _ = tp_runs
+    by_rank = [next(r for r in p["train", shape] if r["label"] == arch)
+               for p in port]
+    got = by_rank[0]
+    want_state, want = ref["train", arch, shape]
+    one_state, one = single[arch]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["loss"], float(one["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], float(one["grad_norm"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(got["lr"], want["lr"], rtol=1e-6)
+    assert got["step"] == int(want_state.step) == 61
+    for r in by_rank:  # every rank reports the global batch's numbers
+        assert r["loss"] == got["loss"]
+        assert r["grad_norm"] == got["grad_norm"]
+        # a replicated param (a norm's scale) is the same on every rank
+        for name, p in r["replicated"].items():
+            assert torch.equal(p, got["replicated"][name]), name
+    for tree in ("master", "mu", "nu"):
+        mine = got[tree]
+        theirs = getattr(want_state.opt, tree)
+        one_rank = getattr(one_state.opt, tree)
+        assert list(mine) == list(theirs)
+        for name in theirs:
+            _close(mine[name], theirs[name], f"{arch} {shape} {tree}/{name}")
+            _close(mine[name], one_rank[name], f"{arch} {shape} {tree}/{name}")
+    for name, p in one_state.params.named_parameters():
+        _close(got["params"][name], p, f"{arch} {shape} params/{name}")
+        _close(got["params"][name], dict(
+            want_state.params.named_parameters())[name],
+            f"{arch} {shape} params/{name}")
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_tp_train_step_with_remat_equals_the_step_without(tp_runs, policy,
+                                                          shape):
+    """Remat under tensor parallelism (both of the reference's policies):
+    the loss, the gradient norm and every leaf bit for bit as without it,
+    on every rank."""
+    _, port, _, _, _ = tp_runs
+    for p in port:
+        plain = next(r for r in p["train", shape]
+                     if r["label"] == "phi3-mini-3.8b")
+        remat = next(r for r in p["train", shape]
+                     if r["label"] == f"phi3-mini-3.8b/remat-{policy}")
+        assert remat["loss"] == plain["loss"]
+        assert remat["grad_norm"] == plain["grad_norm"]
+        for tree in ("params", "master", "mu", "nu", "replicated"):
+            for name, x in plain.get(tree, {}).items():
+                assert torch.equal(remat[tree][name], x), (tree, name)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_tp_params_are_each_ranks_slice(tp_runs, arch, shape):
+    """Each rank holds its share of every leaf the rules split over
+    "model" and the whole of the rest."""
+    _, port, single, _, _ = tp_runs
+    one_state, _ = single[arch]
+    cfg = get_smoke_config(arch)
+    rules = rules_for(cfg, {"data": shape[0], "model": shape[1]}, "tp",
+                      global_batch=BATCH)
+    specs = train_state_specs(cfg, rules).params
+    for p in port:
+        local = next(r for r in p["train", shape] if r["label"] == arch)
+        for name, whole in one_state.params.named_parameters():
+            want = list(whole.shape)
+            for dim, entry in enumerate(specs[name]):
+                if entry == "model":
+                    want[dim] //= shape[1]
+            assert list(local["local_shapes"][name]) == want, name
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("label", list(SERVE))
+def test_tp_prefill_and_decode_match_the_reference(tp_runs, label, shape):
+    ref, port, _, work, _ = tp_runs
+    want = ref["serve", label, shape]
+    rcfg = _serve_cfg(label)
+    for p in port:
+        got = next(r for r in p["serve", shape] if r["label"] == label)
+        lo, hi = got["rows"]
+        assert len(got["logits"]) == DECODE_STEPS + 1
+        for i, (g, w) in enumerate(zip(got["logits"], want)):
+            assert g.shape == w[lo:hi].shape == (hi - lo, 1, rcfg.vocab)
+            np.testing.assert_allclose(g, w[lo:hi], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{label} {shape} step {i}")
+        if got["wrote"] is not None:
+            _check_int8_writes(label, got["wrote"], work)
+        # the cache holds this rank's KV heads where the rules split them
+        rules = rules_for(config_from_reference(rcfg),
+                          {"data": shape[0], "model": shape[1]}, "tp",
+                          global_batch=PROMPT[0])
+        split = rules.spec(("kv_heads",))[0] == "model"
+        heads = rcfg.n_kv_heads // (shape[1] if split else 1)
+        cache = got["cache_shapes"]["k_q" if rcfg.kv_quant else "k"]
+        assert cache == (rcfg.n_layers, PROMPT[0] // shape[0], heads,
+                         MAX_LEN, rcfg.head_dim)
+
+
+def _check_int8_writes(label, wrote, work):
+    """The int8 entries and scales the port's ranks wrote for each decode
+    step's token, against the reference's one-device chain's: the entries
+    within one level, the scales at 1e-5."""
+    states = next(c for c in work["serve"] if c[0] == label)[-1]
+    for i, mine in enumerate(wrote):
+        pos = states[i]["pos"]
+        want = states[i + 1]
+        for b, p in enumerate(pos):
+            for key in ("k_q", "v_q"):
+                diff = mine[key][:, b, :, p].astype(np.int32) \
+                    - want[key][:, b, :, p].astype(np.int32)
+                assert np.abs(diff).max() <= 1, (label, i, key)
+            for key in ("k_s", "v_s"):
+                np.testing.assert_allclose(mine[key][:, b, :, p],
+                                           want[key][:, b, :, p], rtol=1e-4)
+
+
+def test_tp_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
+    _, port, _, work, _ = tp_runs
+    cfg, seed, prompts, max_new = work["engine"]
+    params = api.init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
+    engine = ServeEngine(params, cfg, slots=2, max_len=32, seed=seed,
+                         device="cpu")
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+    want = sorted((r.rid, r.status, list(r.output)) for r in engine.run())
+    assert [len(w[2]) for w in want] == [max_new] * len(prompts)
+    for p in port:
+        assert p["engine"] == want
+
+
+def test_tp_engine_refuses_a_data_axis_and_other_families():
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    mesh = {"data": 2, "model": 2}
+    rules = rules_for(cfg, mesh, "tp").with_mesh(mesh)
+    with pytest.raises(NotImplementedError, match="item 24"):
+        ServeEngine(params, cfg, rules=rules, device="cpu")
+    rwkv = get_smoke_config("rwkv6-3b")
+    mesh = {"data": 1, "model": 4}
+    rules = rules_for(rwkv, mesh, "tp").with_mesh(mesh)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        ServeEngine(None, rwkv, rules=rules, device="cpu")
+
+
+def _elastic_state():
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
+                              attention_impl="xla")
+    state = init_train_state(torch.Generator().manual_seed(0), cfg, "cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in state.params.parameters():
+            p.add_(torch.randn(p.shape, generator=g))
+    for name, m in state.opt.master.items():
+        m.add_(torch.randn(m.shape, generator=g))
+        state.opt.mu[name].copy_(torch.randn(m.shape, generator=g))
+        state.opt.nu[name].copy_(torch.rand(m.shape, generator=g))
+    state.opt.step.fill_(3)
+    return cfg, state
+
+
+@pytest.mark.parametrize("onto", [(1, 4), (4, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tp_state_saved_on_2x2_restores_bit_for_bit(tp_runs, onto):
+    """The counterpart of ``tests/test_multidevice.py::
+    test_elastic_reshard_across_meshes``: saved on (2, 2) with the params
+    split over "model" and the optimizer state over both axes, restored
+    onto another mesh, each rank's slices equal to those of the whole
+    state."""
+    _, port, _, work, _ = tp_runs
+    state, cfg = work["elastic"][0], work["elastic"][1]
+    whole = dict(state.params.named_parameters())
+    for p in port:
+        el = p["elastic"]
+        assert el["saved_shapes"]["layers.0.wq"] == (cfg.d_model,
+                                                     cfg.q_dim // 2)
+        got = el[onto]
+        assert got["equal"] and got["step"] == 3 and got["opt_step"] == 3
+        assert got["shapes"]["embed"] == (cfg.vocab // onto[1], cfg.d_model)
+        assert got["shapes"]["layers.0.attn_norm.scale"] == \
+            tuple(whole["layers.0.attn_norm.scale"].shape)
+
+
+def test_tp_state_saved_on_2x2_restores_onto_one_rank(tp_runs):
+    _, _, _, work, directory = tp_runs
+    state, cfg = work["elastic"][0], work["elastic"][1]
+    specs = train_state_specs(cfg, rules_for(cfg, {"data": 1, "model": 1},
+                                             "tp"))
+    template = init_train_state(torch.Generator().manual_seed(5), cfg, "cpu")
+    one, meta = restore_resharded(CheckpointManager(directory), template,
+                                  specs, None)
+    assert meta["step"] == 3
+    for a, b in zip(_leaves(state), _leaves(one)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _leaves(state):
+    opt = state.opt
+    return [p.detach() for p in state.params.parameters()] + [opt.step] + [
+        t for tree in (opt.master, opt.mu, opt.nu) for t in tree.values()]
+
+
+# -- the autograd operators ---------------------------------------------------
+
+
+def _slice_cols(a, r, m=N):
+    n = a.shape[-1] // m
+    return a[..., r * n:(r + 1) * n]
+
+
+def test_copy_and_reduce_from_model_match_one_rank_autograd(tp_runs):
+    _, port, _, work, _ = tp_runs
+    inp = {k: torch.from_numpy(v) for k, v in work["ops"].items()}
+    x = inp["x"].clone().requires_grad_()
+    y = x @ inp["w"]
+    (y * inp["g"]).sum().backward()
+    xr = inp["x"].clone().requires_grad_()
+    z = xr @ inp["w"]
+    (z * inp["g"]).sum().backward()
+    for p in port:
+        r = p["ops"]["rank"]
+        got_y, got_dx = p["ops"]["copy"]
+        np.testing.assert_allclose(got_y, _np(_slice_cols(y, r)), rtol=1e-5,
+                                   atol=1e-5)
+        # the gradient of an input every rank uses: summed over the ranks,
+        # once (psum_grad's psum backward would give it 4 times over)
+        np.testing.assert_allclose(got_dx, _np(x.grad), rtol=1e-5, atol=1e-5)
+        got_z, got_dxr = p["ops"]["reduce"]
+        np.testing.assert_allclose(got_z, _np(z), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got_dxr, _np(_slice_cols(xr.grad, r)),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_gather_from_model_backward_is_a_reduce_scatter(tp_runs):
+    _, port, _, work, _ = tp_runs
+    inp = {k: torch.from_numpy(v) for k, v in work["ops"].items()}
+    w = inp["w"].clone().requires_grad_()
+    k = inp["x"] @ w
+    (k * inp["gk"].sum(0)).sum().backward()
+    for p in port:
+        r = p["ops"]["rank"]
+        got_k, got_dw = p["ops"]["gather"]
+        np.testing.assert_allclose(got_k, _np(k), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got_dw, _np(_slice_cols(w.grad, r)),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("z_loss", [0.0, 1e-3])
+def test_vocab_parallel_xent_matches_one_rank_autograd(tp_runs, z_loss):
+    _, port, _, work, _ = tp_runs
+    inp = {k: torch.from_numpy(v) for k, v in work["ops"].items()}
+    lg = inp["logits"].clone().requires_grad_()
+    lse = torch.logsumexp(lg, -1)
+    loss = lse - lg.gather(-1, inp["labels"][:, None])[:, 0]
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    (loss * inp["w_tok"]).sum().backward()
+    np.testing.assert_allclose(
+        float(softmax_xent(inp["logits"], inp["labels"], z_loss)),
+        float(loss.detach().mean()), rtol=1e-6)
+    for p in port:
+        r = p["ops"]["rank"]
+        got, grad = p["ops"][f"xent/{z_loss}"]
+        np.testing.assert_allclose(got, _np(loss), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(grad, _np(_slice_cols(lg.grad, r)),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_vocab_parallel_embed_matches_a_lookup(tp_runs):
+    _, port, _, work, _ = tp_runs
+    inp = {k: torch.from_numpy(v) for k, v in work["ops"].items()}
+    table = inp["table"].clone().requires_grad_()
+    rows = table[inp["labels"]]
+    (rows * inp["g_embed"]).sum().backward()
+    vl = table.shape[0] // N
+    for p in port:
+        r = p["ops"]["rank"]
+        got, grad = p["ops"]["embed"]
+        assert np.array_equal(got, _np(rows))  # one rank's row plus zeros
+        np.testing.assert_allclose(grad, _np(table.grad[r * vl:(r + 1) * vl]),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_tp_reaches_the_dense_and_vlm_families_and_slices_carried_params():
+    """``make_train_step`` accepts a model axis of more than one rank for
+    the dense and VLM families (the others raise,
+    ``tests/test_torch_dist_train.py``), ``param_shapes`` builds the whole
+    module on the meta device, and reference params carried onto a rank
+    are its slices of them."""
+    for arch in ("gemma-2b", "internvl2-26b"):
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  attention_impl="xla")
+        mesh = {"data": 2, "model": 2}
+        rules = rules_for(cfg, mesh, "tp")
+        assert rules.family == cfg.family
+        make_train_step(cfg, rules, mesh)
+    shapes = api.param_shapes(cfg)
+    assert shapes.embed.shape == (cfg.vocab, cfg.d_model)
+    assert shapes.embed.device.type == "meta"
+    assert [n for n, _ in shapes.named_parameters()] == [
+        n for n, _ in api.init_params(torch.Generator(), cfg,
+                                      "cpu").named_parameters()]

@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""The tensor-parallel phase of ``chip_smoke.py`` alone.
+
+    python3 tools/tp_probe.py [--seed 0] [--rehearse]
+
+Needs one GPU (``--rehearse``: the CPU at toy sizes, measuring nothing).
+Prints the ``env`` and ``build`` phases' lines (the ranks load the library
+the build makes), then the ``tp`` phase's: 4 ranks on the card under gloo
+over a (1, 4) ``("data", "model")`` mesh serve phi3-mini-3.8b at full
+width and depth in bf16 (each rank's flash and decode attention on its 8
+heads, held against the plain version; the engine's sampled tokens equal
+on every rank), hold its f32 logits at two layers against one rank's,
+train gemma-2b at full width and depth (step 1's loss against one
+card's), and at two layers hold the f32 step leaf by leaf against one
+rank's, take a ZeRO-1 step over (2, 2) and restore its checkpoint onto
+(1, 4) and one rank bit for bit; then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import (  # noqa: E402
+    FULL,
+    TOY,
+    phase_build,
+    phase_env,
+    phase_tp,
+)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rehearse", action="store_true")
+    args = ap.parse_args(argv)
+    if args.rehearse:
+        device, sizes = torch.device("cpu"), TOY
+    elif not torch.cuda.is_available():
+        print("tp_probe: no CUDA device: this run needs one GPU",
+              file=sys.stderr)
+        return 1
+    else:
+        device, sizes = torch.device("cuda", 0), FULL
+    env = phase_env(device)
+    phase_build(device)
+    phase_tp(sizes, device, args.seed)
+    if device.type == "cuda":
+        print(env["card"], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
