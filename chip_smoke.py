@@ -32,10 +32,19 @@ one process, flash-decode over a cache split in 4 (the decode-attention
 kernel on each rank's shard, the partials combined over the ranks),
 gemma-2b's data-parallel step at full width and 2 layers (ZeRO-1 against
 one rank in f32; ZeRO-1 and replicated in bf16) and the restore of its
-ZeRO-1 checkpoint onto 2 ranks and 1, and one rank runs the NCCL path.
-Phases (each prints one JSON line with the seconds it took): ``env``,
-``build``, ``kernels``, ``launch``, ``stream``, ``sim``, ``serve`` once
-for each model, ``train`` and ``dist``.  The ``sim`` phase measures the card's
+ZeRO-1 checkpoint onto 2 ranks and 1, and one rank runs the NCCL path;
+then tensor parallelism over a ``"model"`` axis of 4 ranks on the card:
+phi3-mini-3.8b and granite-moe-3b-a800m (its 40 experts 10 a rank) served
+at full width and depth on each rank's heads, gemma-2b and
+granite-moe-1b-a400m trained at full width and depth, with their f32
+checks against one rank and a checkpoint restored across meshes; then the
+dry run on the meta device (every cell of one pod of 256 ranks under
+``tp`` and ``dp``), its bytes and collectives held exactly against what
+the ``tp`` phase measured and its roofline beside the ``train`` phase's
+step.  Phases (each prints one JSON line with the seconds it took):
+``env``, ``build``, ``kernels``, ``launch``, ``stream``, ``sim``,
+``serve`` once for each model, ``train``, ``dist``, ``tp`` and
+``dryrun``.  The ``sim`` phase measures the card's
 copy rates, its FP32 rate (the f32 GEMM) and its memory beside the
 simulator's ``HardwareModel()`` constants, which they must match within
 ``SIM_RATE_RANGE``, and sets the port's ``Simulator``'s prediction for the
@@ -75,6 +84,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -112,7 +122,12 @@ from repro_torch.ckpt import (  # noqa: E402
     CheckpointManager,
     restore_resharded,
 )
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ARCHS,
+    get_config,
+    get_smoke_config,
+)
+from repro_torch.configs.shapes import SHAPE_NAMES, ShapeSpec  # noqa: E402
 from repro_torch.core.streaming import stream_kmeans  # noqa: E402
 from repro_torch.data import DataConfig, TokenStream  # noqa: E402
 from repro_torch.dist import (  # noqa: E402
@@ -228,7 +243,11 @@ from repro_torch.kernels.spmv_ell.ref import (  # noqa: E402
     gather_bins,
 )
 from repro_torch.kernels.stencil2d.kernel import hotspot_cuda  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_mesh,
+    make_production_mesh,
+)
 from repro_torch.launch.rules import rules_for  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
@@ -251,6 +270,9 @@ from repro_torch.serve.engine import (  # noqa: E402
     Request,
     ServeEngine,
     _splice_state,
+)
+from repro_torch.utils.roofline import (  # noqa: E402
+    PEAK_FLOPS as ROOFLINE_PEAK_FLOPS,
 )
 from repro_torch.train.train_loop import (  # noqa: E402
     TrainState,
@@ -402,6 +424,14 @@ class Sizes:
     tp_f32_steps: int = 4
     tp_train_batch: tuple = (4, 512)
     tp_train_steps: int = 3
+    # granite-moe-3b-a800m's rank shapes over the same (1, 4) mesh (6 of
+    # 24 query heads and 2 of 8 KV heads a rank): the check prefill and
+    # the 8-slot decode
+    tp_flash_granite: tuple = (1, 6, 2, 1024, 64)
+    tp_decode_granite: tuple = (8, 6, 2, 2184, 64)
+    # the dry run on the meta device: every cell of one pod under "tp" and
+    # "dp" (dryrun_archs None: every arch), over a process a core
+    dryrun_archs: tuple | None = None
     reps: int = 5
 
 
@@ -434,7 +464,17 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             tp_flash=(1, 1, 1, 24, 16), tp_decode=(3, 1, 1, 70, 16),
             tp_requests=4, tp_prompt=(4, 24), tp_new=3, tp_max_len=40,
             tp_check_len=24, tp_f32_steps=2, tp_train_batch=(4, 16),
+            tp_flash_granite=(1, 1, 1, 24, 12),
+            tp_decode_granite=(3, 1, 1, 70, 12),
+            dryrun_archs=("granite-moe-1b-a400m", "rwkv6-3b"),
             reps=1)
+
+#: the tp phase's served archs, in turn: phi3-mini, then granite-moe-3b-a800m
+#: at full width and depth (10 of 40 experts a rank) by the phi3 traffic
+TP_SERVE_ARCHS = ("phi3-mini-3.8b", "granite-moe-3b-a800m")
+#: the tp phase's trained archs, in turn: gemma-2b, then granite-moe-1b-a400m
+#: at full width and depth (8 of 32 experts a rank) as gemma-2b is
+TP_TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m")
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
 CS_R, CS_C = 8, 6  # co-clustering example: 8 row and 6 column clusters
@@ -2155,7 +2195,9 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                       sizes.flash_whisper_cross, bf16, gen, device,
                       t=sizes.whisper_frames, causal=False),
                   "phi3_tp_rank": lambda: flash_inputs(sizes.tp_flash, bf16,
-                                                       gen, device)},
+                                                       gen, device),
+                  "granite_tp_rank": lambda: flash_inputs(
+                      sizes.tp_flash_granite, bf16, gen, device)},
             # the planted faults are causal with S = T: the non-causal
             # shapes are held to the bf16 limit alone
             also_check={"whisper_encoder": flash_check,
@@ -2218,7 +2260,9 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                       sizes.decode_whisper_cross, bf16, gen, device,
                       kv_len=sizes.decode_whisper_cross[3]),
                   "phi3_tp_rank": lambda: decode_inputs(sizes.tp_decode,
-                                                        bf16, gen, device)},
+                                                        bf16, gen, device),
+                  "granite_tp_rank": lambda: decode_inputs(
+                      sizes.tp_decode_granite, bf16, gen, device)},
             # f32 (route "fma") and bf16 (route "mma": T ragged, G = 10 and
             # 32 query heads a kv head, rows at kv_len 1 and T)
             ragged=lambda: [
@@ -4403,6 +4447,17 @@ def train_driver(sizes: Sizes, device, seed: int) -> dict:
     return out
 
 
+def train_config(sizes: Sizes):
+    """The train phase's config: gemma-2b (its smoke config in a
+    rehearsal, with the full config's remat path), the plain attention."""
+    full = get_smoke_config(TRAIN_ARCH) if sizes.train_smoke \
+        else get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, attention_impl="xla")
+    if sizes.train_smoke:  # walk the full config's remat path
+        cfg = dataclasses.replace(cfg, remat=True)
+    return cfg
+
+
 def phase_train(sizes: Sizes, device: torch.device, seed: int) -> dict:
     """The training path with gemma-2b (``attention_impl="xla"``, the path
     the reference trains through): the guard, the card against the CPU in
@@ -4411,11 +4466,7 @@ def phase_train(sizes: Sizes, device: torch.device, seed: int) -> dict:
     resume."""
     t0 = time.perf_counter()
     on_card = device.type == "cuda"
-    full = get_smoke_config(TRAIN_ARCH) if sizes.train_smoke \
-        else get_config(TRAIN_ARCH)
-    cfg = dataclasses.replace(full, attention_impl="xla")
-    if sizes.train_smoke:  # walk the full config's remat path
-        cfg = dataclasses.replace(cfg, remat=True)
+    cfg = train_config(sizes)
     out = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
@@ -5081,8 +5132,6 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 #: served and trained over a "model" axis of 4 ranks
-TP_SERVE_ARCH = "phi3-mini-3.8b"
-TP_TRAIN_ARCH = TRAIN_ARCH
 #: the first bf16 step's loss over (1, 4) against one card's from the same
 #: state: the row-split products' partial sums added over the ranks in
 #: bf16, in another order than one product's (as two microbatches add
@@ -5133,14 +5182,16 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
 
 
 def collective_seconds(tracer) -> dict:
-    """The host seconds and calls of each kind of ``collective:*`` span."""
+    """The host seconds, calls and bytes (where a span gives them) of each
+    kind of ``collective:*`` span."""
     out: dict = {}
     for e in tracer.events:
         if e.get("ph") == "X" and e["name"].startswith("collective:"):
             kind = out.setdefault(e["name"].split(":", 1)[1],
-                                  {"seconds": 0.0, "calls": 0})
+                                  {"seconds": 0.0, "calls": 0, "bytes": 0})
             kind["seconds"] += e["dur"]
             kind["calls"] += 1
+            kind["bytes"] += int(e["args"].get("bytes", 0))
     return out
 
 
@@ -5198,6 +5249,9 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
     tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
     out = {"requests": len(reqs), "prefills": len(prefills),
            "decode_steps": n_steps,
+           "cache_bytes": sum(x.numel() * x.element_size()
+                              for x in engine.state.values()
+                              if isinstance(x, torch.Tensor)),
            "prompt_lengths": sorted(len(r.prompt) for r in reqs),
            "outputs": {r.rid: list(r.output) for r in done},
            "ttft_ms": {"p50": pct(ttft, 50), "max": max(ttft)},
@@ -5218,7 +5272,8 @@ def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
     """(b) ``cfg`` at ``tp_f32_layers`` layers in f32: a prefill and
     ``tp_f32_steps`` decode steps with the whole model (one rank's path),
     then with this rank's slices of it over the mesh, the logits within
-    the serve phase's f32 limit."""
+    the serve phase's f32 limit; an MoE model's pass over the mesh replays
+    the whole model's expert choices (``routing``)."""
     c32 = cfg.scaled(n_layers=sizes.tp_f32_layers, dtype="float32")
     rules = rules_of(c32)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -5228,23 +5283,25 @@ def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
     steps = torch.randint(0, c32.vocab, (sizes.tp_f32_steps, 1, 1),
                           generator=gen, device=device, dtype=torch.int32)
 
-    def run(r):
+    def run(r, replay=None):
         state = model_api.init_decode_state(c32, 1, sizes.tp_max_len, device,
                                             r)
-        logits, state = model_api.prefill(params, {"tokens": toks}, c32,
-                                          state, r)
-        out = [logits]
-        for tok in steps:
-            logits, state = model_api.decode_step(params, tok, c32, state, r)
-            out.append(logits)
-        return out
+        with routing(replay) as routes:
+            logits, state = model_api.prefill(params, {"tokens": toks}, c32,
+                                              state, r)
+            out = [logits]
+            for tok in steps:
+                logits, state = model_api.decode_step(params, tok, c32, state,
+                                                      r)
+                out.append(logits)
+        return out, routes
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        one = run(None)
+        one, routes = run(None)
         model_api.local_params(params, c32, rules)
-        split = run(rules)
+        split, _ = run(rules, routes or None)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     errs = [check_close(f"tp/f32 {'prefill' if i == 0 else f'step {i}'}", a,
@@ -5252,18 +5309,17 @@ def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
             for i, (a, b) in enumerate(zip(split, one))]
     return {"n_layers": c32.n_layers, "prompt": sizes.tp_check_len,
             "decode_steps": sizes.tp_f32_steps, "max_abs_err": max(errs),
+            "routes_replayed": len(routes),
             "max_abs_logit": max(float(x.abs().max()) for x in one),
             "limit": F32_LOGIT_TOL}
 
 
-def tp_serve_rank(device, sizes: Sizes, seed: int) -> dict:
-    """(a) phi3-mini at full width and depth in bf16 on this rank's slices
+def tp_serve_one(arch: str, mesh, sizes: Sizes, device,
+                 seed: int) -> dict:
+    """(a) ``arch`` at full width and depth in bf16 on this rank's slices
     over a (1, 4) mesh: the kernel check, then the engine; (b) the f32
     check at two layers."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    n = torch.distributed.get_world_size()
-    mesh = tp_mesh((1, n))
-    cfg = tp_config(TP_SERVE_ARCH, sizes.serve_smoke)
+    cfg = tp_config(arch, sizes.serve_smoke)
     require(cfg.attention_impl == "cuda", cfg.attention_impl)
     rules = rules_for(cfg, mesh, "tp")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -5284,6 +5340,15 @@ def tp_serve_rank(device, sizes: Sizes, seed: int) -> dict:
                               sizes, device, seed)
     free(device)
     return out
+
+
+def tp_serve_rank(device, sizes: Sizes, seed: int) -> dict:
+    """(a) and (b) for each of ``TP_SERVE_ARCHS`` in turn (phi3-mini, then
+    granite-moe-3b with its experts split over the ranks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = tp_mesh((1, torch.distributed.get_world_size()))
+    return {arch: tp_serve_one(arch, mesh, sizes, device, seed)
+            for arch in TP_SERVE_ARCHS}
 
 
 def in_turn(fn):
@@ -5456,14 +5521,19 @@ def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
         def one_rank():
             whole = dist_state(c32, device, seed, True)
             start = sliced_state(whole, c32, rules, mesh)
-            whole, m = make_train_step(c32)(whole, batch)
+            with routing() as routes:
+                whole, m = make_train_step(c32)(whole, batch)
             want = sliced_state(whole, c32, rules, mesh)
             metrics = {k: float(m[k]) for k in ("loss", "grad_norm")}
             del whole, m
             free(device)
-            return start, want, metrics
-        state, want, one = in_turn(one_rank)
-        state, m = make_train_step(c32, rules, mesh)(state, batch)
+            return start, want, metrics, routes
+        state, want, one, routes = in_turn(one_rank)
+        # an MoE step over the ranks routes every token as the one-rank
+        # step did: a rounding difference in the router can swap an expert
+        with routing(routes or None):
+            state, m = make_train_step(c32, rules, mesh)(state, batch)
+        out["routes_replayed"] = len(routes)
         worst = {}
         for tree in ("params", "master", "mu", "nu"):
             if tree == "params":
@@ -5546,108 +5616,238 @@ def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
 
 
 def tp_train_rank(device, sizes: Sizes, seed: int, directory: str) -> dict:
-    """(c) and (d) on this rank."""
+    """(c) and (d) on this rank for each of ``TP_TRAIN_ARCHS`` in turn
+    (gemma-2b, then granite-moe-1b with its experts split over the
+    ranks)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = tp_config(TP_TRAIN_ARCH, sizes.train_smoke, attention_impl="xla")
-    return {"rank": torch.distributed.get_rank(),
+    out = {"rank": torch.distributed.get_rank()}
+    for arch in TP_TRAIN_ARCHS:
+        cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
+        out[arch] = {
             "full": tp_train_full(cfg, sizes, device, seed),
-            "checks": tp_train_checks(cfg, sizes, device, seed, directory)}
+            "checks": tp_train_checks(cfg, sizes, device, seed,
+                                      os.path.join(directory, arch))}
+    return out
 
 
-def phase_tp(sizes: Sizes, device: torch.device, seed: int) -> dict:
-    """Tensor parallelism over a ``"model"`` axis of 4 ranks on the one
-    card under gloo (NCCL refuses two ranks on one card): (a) phi3-mini
-    served at full width and depth in bf16, each rank's flash and decode
-    attention on its 8 heads, (b) its f32 logits at two layers against
-    one rank's, (c) gemma-2b's full-width and full-depth train step, step
-    1's loss against one card's, and (d) at two layers the f32 step leaf
-    by leaf against one rank's, a ZeRO-1 step over (2, 2), its checkpoint
-    restored onto (1, 4) and one rank bit for bit.  Four ranks sharing one
-    card measure correctness and each collective's cost, not scaling."""
-    t0 = time.perf_counter()
-    free(device)
-    n = sizes.tp_ranks
-    where = dist_device(device)
-    out = {"phase": "tp", "ranks": n, "backend": "gloo",
-           "rank_device": str(device)}
-    if device.type == "cuda":
-        _build.load()  # the ranks load the library this process built
-    t1 = time.perf_counter()
-    serve = ranks.spawn(tp_serve_rank, n, backend="gloo", device=where,
-                        args=(sizes, seed), timeout=TP_TIMEOUT_S)
-    out["serve_seconds"] = time.perf_counter() - t1
-    cfg = tp_config(TP_SERVE_ARCH, sizes.serve_smoke)
-    engines = [s["engine"] for s in serve]
+def tp_serve_summary(serve: list, arch: str, device) -> dict:
+    """One served arch's results over the ranks, its gates checked."""
+    by_rank = [s[arch] for s in serve]
+    engines = [s["engine"] for s in by_rank]
     require(all(e["outputs"] == engines[0]["outputs"] for e in engines),
-            "tp: the ranks' sampled tokens differ")
-    digests = [s["check"]["logits_digest"] for s in serve]
+            "tp:", arch, "the ranks' sampled tokens differ")
+    digests = [s["check"]["logits_digest"] for s in by_rank]
     require(all(d == digests[0] for d in digests),
-            "tp: the ranks' gathered logits differ")
-    launches = {name: sum(e["kernel_launches"][name] for e in engines)
-                for name in ("flash_attention", "decode_attention")}
+            "tp:", arch, "the ranks' gathered logits differ")
     if device.type == "cuda":
         for e in engines:
             require(e["kernel_launches"]["flash_attention"] > 0
                     and e["kernel_launches"]["decode_attention"] > 0,
-                    "tp: a rank launched no attention kernel", e)
-    first = serve[0]
-    out["serve"] = {
-        "arch": cfg.name, "n_layers": cfg.n_layers, "mesh": [1, n],
+                    "tp:", arch, "a rank launched no attention kernel", e)
+    first = by_rank[0]
+    cfg = tp_config(arch, False)
+    return {
+        "arch": arch, "n_layers": cfg.n_layers,
         "local_params": first["local_params"],
         "local_param_bytes": first["local_param_bytes"],
-        "init_seconds": max(s["init_seconds"] for s in serve),
+        "init_seconds": max(s["init_seconds"] for s in by_rank),
         "flash_shape": first["check"]["flash_shape"],
         "decode_shape": first["check"]["decode_shape"],
         "cache_shape": first["check"]["cache_shape"],
         "bf16_limit_share": {w: max(s["check"][w].get("limit_share", 0.0)
-                                    for s in serve)
+                                    for s in by_rank)
                              for w in ("prefill", "decode")},
         "calls_checked_by_rank": [s["check"]["prefill"]["calls"]
                                   + s["check"]["decode"]["calls"]
-                                  for s in serve],
+                                  for s in by_rank],
         **{k: first["engine"][k] for k in (
             "requests", "prefills", "decode_steps", "prompt_lengths",
             "ttft_ms", "decode_step_ms", "engine_seconds", "tokens_per_s",
             "decode_tokens_per_s", "staged_bytes", "collectives",
-            "expected_launches", "kernel_routes")},
+            "cache_bytes", "expected_launches", "kernel_routes")},
+        "launches": {name: sum(e["kernel_launches"][name] for e in engines)
+                     for name in ("flash_attention", "decode_attention")},
         "launches_by_rank": [e["kernel_launches"] for e in engines],
         "decode_step_ms_by_rank": [e["decode_step_ms"]["p50"]
                                    for e in engines],
         "peak_bytes_by_rank": [e.get("peak_bytes") for e in engines],
-        "tokens_equal_on_every_rank": True}
-    out["f32"] = {**serve[0]["f32"],
-                  "max_abs_err": max(s["f32"]["max_abs_err"] for s in serve)}
-    with tempfile.TemporaryDirectory() as tmp:
-        t1 = time.perf_counter()
-        train = ranks.spawn(tp_train_rank, n, backend="gloo", device=where,
-                            args=(sizes, seed, os.path.join(tmp, "ckpt")),
-                            timeout=TP_TIMEOUT_S)
-        out["train_seconds"] = time.perf_counter() - t1
-    full = [t["full"] for t in train]
+        "tokens_equal_on_every_rank": True,
+        "f32": {**first["f32"],
+                "max_abs_err": max(s["f32"]["max_abs_err"] for s in by_rank)}}
+
+
+def tp_train_summary(train: list, arch: str, n: int) -> dict:
+    """One trained arch's results over the ranks, its gates checked."""
+    full = [t[arch]["full"] for t in train]
     require(all(f["losses"] == full[0]["losses"] for f in full),
-            "tp/train: the ranks' losses differ")
-    out["train"] = {**{k: v for k, v in full[0].items()},
-                    "step_ms_by_rank": [f["median_step_ms"] for f in full],
-                    "peak_bytes_by_rank": [f.get("peak_bytes") for f in full]}
-    checks = [t["checks"] for t in train]
+            "tp/train:", arch, "the ranks' losses differ")
+    out = {**full[0], "step_ms_by_rank": [f["median_step_ms"] for f in full],
+           "peak_bytes_by_rank": [f.get("peak_bytes") for f in full]}
+    checks = [t[arch]["checks"] for t in train]
     saved = merged_digests([c.pop("saved_digests") for c in checks])
     onto = merged_digests([c.pop("restored_digests") for c in checks])
     one = merged_digests([checks[0].pop("one_digests")])
     steps = (saved.pop("step"), onto.pop("step"), one.pop("step"),
              {c["restored_step"] for c in checks}, {checks[0]["one_step"]})
     require(all(x == steps[0] and len(x) == 1 for x in steps),
-            "tp/restore: steps", steps)
-    require(saved == onto, "tp/restore onto (1,", n, ") not bit-equal")
-    require(saved == one, "tp/restore onto one rank not bit-equal")
-    out["train_checks"] = {
+            "tp/restore:", arch, "steps", steps)
+    require(saved == onto, "tp/restore:", arch, "onto (1,", n,
+            ") not bit-equal")
+    require(saved == one, "tp/restore:", arch, "onto one rank not "
+            "bit-equal")
+    out["checks"] = {
         **checks[0], "restore": {
             "leaves": len(saved), "cells": sum(len(v) for v in
                                                saved.values()),
             "step": min(steps[0]), "saved_on": [2, n // 2],
             "onto": [[1, n], 1], "bit_equal": True},
         "save_seconds_by_rank": [c["save_seconds"] for c in checks]}
-    out["flash_attention_launches"] = launches["flash_attention"]
-    out["decode_attention_launches"] = launches["decode_attention"]
+    return out
+
+
+def phase_tp(sizes: Sizes, device: torch.device, seed: int) -> dict:
+    """Tensor parallelism over a ``"model"`` axis of 4 ranks on the one
+    card under gloo (NCCL refuses two ranks on one card): (a) phi3-mini
+    and granite-moe-3b served at full width and depth in bf16, each rank's
+    flash and decode attention on its heads (8 of 32; 6 of 24 on 2 of 8
+    KV heads), granite's experts 10 a rank, (b) their f32 logits at two
+    layers against one rank's, (c) gemma-2b's and granite-moe-1b's
+    full-width and full-depth train steps, step 1's loss against one
+    card's, and (d) at two layers the f32 step leaf by leaf against one
+    rank's (granite's experts chosen as the one-rank step chose them), a
+    ZeRO-1 step over (2, 2), its checkpoint restored onto (1, 4) and one
+    rank bit for bit.  Four ranks sharing one card measure correctness and
+    each collective's cost, not scaling."""
+    t0 = time.perf_counter()
+    free(device)
+    n = sizes.tp_ranks
+    where = dist_device(device)
+    out = {"phase": "tp", "ranks": n, "backend": "gloo",
+           "rank_device": str(device), "mesh": [1, n]}
+    if device.type == "cuda":
+        _build.load()  # the ranks load the library this process built
+    t1 = time.perf_counter()
+    serve = ranks.spawn(tp_serve_rank, n, backend="gloo", device=where,
+                        args=(sizes, seed), timeout=TP_TIMEOUT_S)
+    out["serve_seconds"] = time.perf_counter() - t1
+    out["serve"] = {arch: tp_serve_summary(serve, arch, device)
+                    for arch in TP_SERVE_ARCHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        train = ranks.spawn(tp_train_rank, n, backend="gloo", device=where,
+                            args=(sizes, seed, tmp), timeout=TP_TIMEOUT_S)
+        out["train_seconds"] = time.perf_counter() - t1
+    out["train"] = {arch: tp_train_summary(train, arch, n)
+                    for arch in TP_TRAIN_ARCHS}
+    for name in ("flash_attention", "decode_attention"):
+        out[f"{name}_launches"] = {arch: s["launches"][name]
+                                   for arch, s in out["serve"].items()}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The dry run
+# ---------------------------------------------------------------------------
+
+
+def dry_cell(cfg, seq: int, batch: int, kind: str, mesh: dict) -> dict:
+    """One cell of this run's own shapes on the meta device, under
+    ``tp``."""
+    return dryrun.cell_metrics(cfg, ShapeSpec("chip_smoke", seq, batch, kind),
+                               mesh, "tp")
+
+
+def dry_cells(sizes: Sizes, flavor: str, mesh: dict) -> dict:
+    """Every cell of ``sizes.dryrun_archs`` (None: every arch) x shape over
+    ``mesh`` under ``flavor``, over a process a core: the
+    counts of each status, the seconds, each cell that ran by its dominant
+    term, roofline fraction and bytes a rank, and the cells whose state a
+    rank holds more bytes of than one card has (a finding, not a
+    failure: under ``dp`` every rank holds the whole model)."""
+    cells = [(a, s) for a in (sizes.dryrun_archs or ARCHS)
+             for s in SHAPE_NAMES]
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = dryrun.run_cells(cells, mesh, flavor, tmp)
+        failures = res.pop("failures")
+        require(not failures, "dryrun:", flavor, "cells failed:",
+                [f[0] for f in failures], failures[:1])
+        ran = {}
+        for name in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, name)) as f:
+                art = json.load(f)
+            if art.get("skipped"):
+                continue
+            r, mem = art["roofline"], art["memory"]
+            ran[name[:-len(".json")]] = {
+                "dominant": r["dominant"],
+                "roofline_fraction": r["roofline_fraction"],
+                "bytes_a_rank": mem["total_bytes"], "fits": mem["fits"],
+                "run_s": art["run_s"]}
+    return {**res, "cells_run": ran,
+            "not_fitting": [k for k, c in ran.items() if not c["fits"]]}
+
+
+def phase_dryrun(sizes: Sizes, tp: dict, train: dict) -> dict:
+    """The dry run, host work on the meta device (the card idle): every
+    cell of one pod under ``tp`` and ``dp`` with the PASS, SKIP and QUEUED
+    counts and the seconds; then its exact checks against this run's card:
+    (a) the ``tp`` phase's served cells over (1, 4): the params' bytes a
+    rank that phase measured, and its engine's cache bytes a rank; (b)
+    the ``tp`` phase's train steps: each ``collective:*`` span's calls and
+    bytes as the real steps recorded them; (c) the roofline of the
+    ``train`` phase's gemma-2b cell (one rank) beside its measured step
+    time, as a roofline fraction."""
+    t0 = time.perf_counter()
+    mesh = make_production_mesh()
+    out = {"phase": "dryrun", "device": "meta", "mesh": mesh,
+           "paths": dryrun.PLAIN_PATHS}
+    for flavor in ("tp", "dp"):
+        out[flavor] = dry_cells(sizes, flavor, mesh)
+    n = tp["ranks"]
+    tp_mesh_sizes = {"data": 1, "model": n}
+    out["tp_serve"] = {}
+    for arch, served in tp["serve"].items():
+        cfg = tp_config(arch, sizes.serve_smoke)
+        m = dry_cell(cfg, sizes.tp_max_len, sizes.serve_slots, "decode",
+                     tp_mesh_sizes)
+        got = {"params_bytes": m["memory"]["params_bytes"],
+               "cache_bytes": m["memory"]["cache_bytes"]}
+        want = {"params_bytes": served["local_param_bytes"],
+                "cache_bytes": served["cache_bytes"]}
+        require(got == want, "dryrun:", arch, "a rank's bytes", got,
+                "against the tp phase's", want)
+        out["tp_serve"][arch] = {**got, "equal": True}
+    out["tp_train"] = {}
+    steps = sizes.tp_train_steps
+    for arch, trained in tp["train"].items():
+        cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
+        b, seq = sizes.tp_train_batch
+        m = dry_cell(cfg, seq, b, "train", tp_mesh_sizes)
+        real = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                for k, v in trained["collective_seconds"].items()}
+        want = {k: {"calls": v["calls"] * steps, "bytes": v["bytes"] * steps}
+                for k, v in m["spans"].items()}
+        require(real == want, "dryrun:", arch, "collective spans",
+                want, "against the tp phase's", steps, "steps'", real)
+        out["tp_train"][arch] = {"spans_a_step": m["spans"],
+                                 "collectives_a_step": m["collectives"],
+                                 "equal": True}
+    cfg = train_config(sizes)
+    b, seq = train["batch"]
+    m = dry_cell(cfg, seq, b, "train", {"data": 1, "model": 1})
+    roof = dryrun.cell_roofline(m)
+    out["train_roofline"] = {"arch": cfg.name, "batch": [b, seq], **roof}
+    step_ms = train.get("median_step_ms_3_to_10")
+    if step_ms is not None:
+        step_s = step_ms / 1e3
+        out["train_roofline"].update({
+            "measured_step_s": step_s,
+            "measured_roofline_fraction":
+                m["model_flops"] / ROOFLINE_PEAK_FLOPS / step_s,
+            "bound_over_measured": roof["bound_time_s"] / step_s})
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -5695,6 +5895,9 @@ def main(argv=None) -> int:
     # Each rank of the tensor-parallel phase zeroes and reads its own
     # counts around its engine run.
     tp = phase_tp(sizes, device, args.seed)
+    # The dry run: host work on the meta device, checked against the tp
+    # and train phases' measurements.
+    phase_dryrun(sizes, tp, train)
     served = {arch: out["kernel_launches"] for arch, out in serves.items()}
     rwkv = served["rwkv6-3b"]
     hybrid = served["recurrentgemma-2b"]
@@ -5711,11 +5914,11 @@ def main(argv=None) -> int:
         "spmv_ell": counts["spmv_ell"], "md5": counts["md5"],
         "nbody": counts["nbody"], "correlate": counts["correlate"],
         "flash_attention": sum(n["flash_attention"] for n in served.values())
-        + tp["flash_attention_launches"],
+        + sum(tp["flash_attention_launches"].values()),
         "decode_attention": sum(n["decode_attention"]
                                 for n in served.values())
         + dist["decode_attention_launches"]
-        + tp["decode_attention_launches"],
+        + sum(tp["decode_attention_launches"].values()),
         "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
@@ -5733,8 +5936,9 @@ def main(argv=None) -> int:
     by_shape["decode_attention"]["dist phase"] = \
         dist["decode_attention_launches"]
     for name in ("flash_attention", "decode_attention"):
-        by_shape[name]["tp phase (4 ranks, phi3_tp_rank)"] = \
-            tp[f"{name}_launches"]
+        for arch, count in tp[f"{name}_launches"].items():
+            label = f"{arch.split('-')[0]}_tp_rank"
+            by_shape[name][f"tp phase (4 ranks, {label})"] = count
     for row in rows:
         row["launches"] = per_row[row["name"]]
         if row["name"] in by_shape:

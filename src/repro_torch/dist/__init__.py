@@ -12,10 +12,10 @@
   ``all_gather``, ``ppermute``, ``axis_index``), and ``spawn``, which starts
   the ranks of one machine.
 * :mod:`repro_torch.dist.tensor_parallel` — the Megatron operators over
-  the ``"model"`` axis that the dense and VLM layers run on when the rules
-  split heads, d_ff or vocab over more than one rank: ``copy_to_model``,
-  ``reduce_from_model``, ``gather_from_model``, the vocab-split embedding
-  lookup and cross-entropy.
+  the ``"model"`` axis that the dense, VLM and MoE layers run on when the
+  rules split heads, d_ff, experts or vocab over more than one rank:
+  ``copy_to_model``, ``reduce_from_model``, ``gather_from_model``, the
+  vocab-split embedding lookup and cross-entropy.
 * :mod:`repro_torch.dist.collectives` — a ring all-reduce from
   ``ppermute`` hops, the ring collective matmul, and the pod-then-data
   hierarchical gradient all-reduce, with spans on a ``dist`` stream.

@@ -20,6 +20,13 @@ collective of the port goes through its functions:
 * ``psum_grad``: ``psum`` with a backward (the psum of the gradient), for a
   batch statistic inside a train step's forward pass.
 
+``recording(sizes, coords)`` makes a :class:`RecordingMesh` current: a mesh
+that exists only as ``{axis: size}`` and one rank's coordinates, for the
+dry run (``repro_torch.launch.dryrun``).  Under it those primitives take
+``meta`` tensors, return ``meta`` results of the shapes the real calls
+give, and record each call's operation, axis, operand and output bytes; a
+real tensor under it raises, as does a ``meta`` tensor under a real mesh.
+
 Under gloo a CUDA tensor is copied to pinned host memory and back around
 each operation (gloo's send and receive take a host pointer).  The copies
 are explicit: their bytes are counted by the ``dist.staged_bytes`` counter
@@ -84,10 +91,68 @@ def use_mesh(mesh):
         set_mesh(prev)
 
 
+class RecordingMesh:
+    """A mesh of ranks as sizes alone: ``sizes`` ({axis: ranks}) and this
+    rank's ``coords`` along each axis (0 where not given).  The primitives
+    of this module, under it, record in ``records`` one ``(op, axis,
+    operand bytes, output bytes)`` for each call the real mesh would make
+    (an axis of one rank included): ``psum`` and
+    ``pmax`` an ``"all-reduce"`` an axis, ``all_gather`` an
+    ``"all-gather"`` an axis, ``ppermute`` a ``"collective-permute"``
+    where this rank sends (axis the names joined by ``+``)."""
+
+    device_type = "meta"
+
+    def __init__(self, sizes: dict, coords: dict | None = None):
+        self.sizes = {str(a): int(n) for a, n in sizes.items()}
+        self.coords = {a: 0 for a in self.sizes}
+        self.coords.update(coords or {})
+        self.records: list[tuple[str, str, int, int]] = []
+
+    @property
+    def mesh_dim_names(self) -> tuple[str, ...]:
+        return tuple(self.sizes)
+
+    def get_local_rank(self, axis: str) -> int:
+        return int(self.coords[axis])
+
+    def record(self, op: str, axis: str, x: torch.Tensor,
+               out: torch.Tensor) -> torch.Tensor:
+        """Record one call of ``op`` on ``x`` giving ``out``; returns
+        ``out``."""
+        self.records.append((op, axis, x.numel() * x.element_size(),
+                             out.numel() * out.element_size()))
+        return out
+
+
+@contextlib.contextmanager
+def recording(sizes: dict, coords: dict | None = None):
+    """A :class:`RecordingMesh` of ``sizes`` is the current mesh inside the
+    block; yields it."""
+    with use_mesh(RecordingMesh(sizes, coords)) as mesh:
+        yield mesh
+
+
+def _recorder(x: torch.Tensor) -> RecordingMesh | None:
+    """The current mesh where it records (``x`` must then be a ``meta``
+    tensor), else None (``x`` must then hold data)."""
+    if isinstance(_MESH, RecordingMesh):
+        if x.device.type != "meta":
+            raise RuntimeError(f"a recording mesh takes meta tensors, not "
+                               f"one on {x.device}")
+        return _MESH
+    if x.device.type == "meta":
+        raise RuntimeError("a meta tensor in a collective needs a "
+                           "recording mesh (ranks.recording)")
+    return None
+
+
 def mesh_sizes(mesh) -> dict[str, int]:
     """Axis name -> ranks along it, in the mesh's axis order."""
     if isinstance(mesh, dict):
         return {str(k): int(v) for k, v in mesh.items()}
+    if isinstance(mesh, RecordingMesh):
+        return dict(mesh.sizes)
     return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.mesh.shape)))
 
 
@@ -161,6 +226,10 @@ def staged_bytes() -> float:
 
 
 def _all_reduce(x: torch.Tensor, op, axis: str) -> torch.Tensor:
+    rec = _recorder(x)
+    if rec is not None:
+        return rec.record("all-reduce", axis, x, torch.empty_like(
+            x, memory_format=torch.contiguous_format))
     group = current_mesh().get_group(axis)
     if _staged(x, group):
         host = _to_host(x.contiguous())
@@ -186,6 +255,10 @@ def pmax(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
 
 
 def _gather_one(x: torch.Tensor, axis: str) -> torch.Tensor:
+    rec = _recorder(x)
+    if rec is not None:
+        return rec.record("all-gather", axis, x, x.new_empty(
+            (rec.sizes[axis],) + tuple(x.shape)))
     group = current_mesh().get_group(axis)
     n = dist.get_world_size(group)
     staged = _staged(x, group)
@@ -218,6 +291,11 @@ def ppermute(x: torch.Tensor, axis: str | Sequence[str],
         raise ValueError(f"perm {perm} is not a permutation")
     if dst == [me]:  # to itself: no message
         return x.clone()
+    rec = _recorder(x)
+    if rec is not None:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        return rec.record("collective-permute", "+".join(axes), x, out) \
+            if dst else out
     x = x.contiguous()
     staged = _staged(x)
     send = _to_host(x) if staged and dst else x

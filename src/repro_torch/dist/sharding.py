@@ -30,9 +30,9 @@ of every array already: the train step splits the batch by rank, and on a
 (:mod:`repro_torch.dist.tensor_parallel`) hold their slice of every split
 weight and activation, with the collectives where GSPMD would put them.  So
 a constraint moves nothing; it checks that a split dimension is the rank's
-share.  Those layers exist for the dense and VLM families (``rules_for``
-records the family in the rules); the other families raise, naming their
-ROADMAP Queue A item.
+share.  Those layers exist for the dense, VLM and MoE families
+(``rules_for`` records the family in the rules); the other families
+raise, naming their ROADMAP Queue A item.
 """
 
 from __future__ import annotations
@@ -52,10 +52,10 @@ MESH_AXES = ("pod", "data", "model")
 
 #: the families whose layers run over a "model" axis of more than one rank
 #: (None: rules not made for a config, as ``tp_rules()`` alone)
-TP_FAMILIES = ("dense", "vlm", None)
+TP_FAMILIES = ("dense", "vlm", "moe", None)
 #: the ROADMAP Queue A item each other family's tensor-parallel layers wait
 #: for, in the order they are queued
-QUEUED_TP = {"moe": 20, "rwkv": 21, "hybrid": 22, "encdec": 23}
+QUEUED_TP = {"rwkv": 21, "hybrid": 22, "encdec": 23}
 
 
 def queued_tp(family: str | None) -> str:
@@ -64,7 +64,7 @@ def queued_tp(family: str | None) -> str:
     return (f"a 'model' axis of more than one rank needs tensor-parallel "
             f"layers for the {family} family (the port's counterpart of "
             f"GSPMD over tp_rules), ROADMAP Queue A item "
-            f"{QUEUED_TP.get(family, 20)}")
+            f"{QUEUED_TP.get(family, min(QUEUED_TP.values()))}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,9 +224,14 @@ def model_split(rules: ShardingRules | None, logical_axis: str) -> int:
 
 
 def check_tp_family(rules: ShardingRules | None) -> None:
-    """Raise where ``rules`` put more than one rank on the ``"model"`` axis
-    for a family that has no tensor-parallel layers yet."""
+    """Raise where ``rules`` split a weight or activation axis over more
+    than one rank of the ``"model"`` axis for a family that has no
+    tensor-parallel layers yet (the batch alone over it, as ``dp_rules``
+    put it, is data parallelism, which every family runs)."""
     if rules is None or rules.mesh is None or model_ranks(rules.mesh) == 1:
+        return
+    if not any("model" in _mesh_axes(v) for k, v in rules.table
+               if k != "batch"):
         return
     if rules.family not in TP_FAMILIES:
         raise NotImplementedError(queued_tp(rules.family))

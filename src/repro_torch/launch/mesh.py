@@ -5,8 +5,9 @@ process group this process has joined (``repro_torch.dist.ranks.spawn``
 starts them): the reference's ``jax.make_mesh`` over devices.  It is built
 on the group's backend: its device type is ``"cuda"`` under NCCL and
 ``"cpu"`` under gloo, which stages a card's tensors through the host.  The
-production mesh of 256 or 512 ranks (``make_production_mesh``) waits with
-the dry run, ROADMAP Queue A item 15.
+production mesh of 256 or 512 ranks (``make_production_mesh``) is its
+geometry alone, which the dry run (``repro_torch.launch.dryrun``) records
+collectives over.
 """
 
 from __future__ import annotations
@@ -15,6 +16,18 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.dist.ranks import mesh_sizes, set_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> dict[str, int]:
+    """The assigned production mesh's geometry as an {axis: size} mapping:
+    one pod is (16, 16) = 256 chips with axes (data, model), two pods
+    (2, 16, 16) = 512 chips with axes (pod, data, model).  A mapping, not
+    a ``DeviceMesh``: 256 or 512 processes cannot be spawned on one
+    machine.  ``rules_for``, ``ranks.mesh_sizes`` and ``ranks.recording``
+    take it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return dict(zip(axes, shape))
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):

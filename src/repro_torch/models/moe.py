@@ -17,6 +17,26 @@ The parameters are a ``Transformer`` whose ``DecoderLayer``s hold
 d_model, d_ff), ``w_down`` (E, d_ff, d_model)) in place of ``mlp``.  The
 forward pass is a Python loop over the layers.
 
+Over a ``"model"`` axis of more than one rank the attention half, the
+embedding and the head are the dense family's tensor-parallel layers, and
+the routed MLP takes one of the two placements ``rules_for`` gives, as the
+reference's GSPMD places them.  The router is whole on every rank and
+every rank of the axis holds the same tokens, so the routing (and with it
+the capacity, the drops and the load-balance loss) is the same on each:
+
+* experts split (``n_experts`` a multiple of the ranks): each rank holds
+  ``E / m`` experts, fills only their rows of the (B, E / m, C, D)
+  buffer, runs them and gathers back only their outputs; no all-to-all;
+* experts whole, d_ff split (the rest): every rank fills the whole buffer
+  and runs every expert on its d_ff slice, the dense MLP's column- and
+  row-split, one expert at a time.
+
+Either way a rank's output is a partial sum, added over the ranks by
+``reduce_from_model``; the tokens enter the experts and the gates enter
+the combine through ``copy_to_model``, so that their gradients (partial on
+each rank) are summed, while the load-balance loss, formed from the whole
+router probabilities that every rank holds, reaches the router once.
+
 Routing takes the top k experts by a stable descending sort of the router
 probabilities, so that tied probabilities go to the lower expert index, as
 ``jax.lax.top_k`` breaks ties; ``torch.topk`` promises no order.
@@ -27,10 +47,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import ranks
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.dist.sharding import (
     batch_axes,
     batch_ranks,
     constrain,
+    model_split,
     psum_batch,
 )
 
@@ -242,6 +265,16 @@ def _expert_ffn(buf: torch.Tensor, lp, e_buf: int, rules,
     return constrain(out, rules, axes + ("d_model",))
 
 
+def _model_placement(rules) -> str | None:
+    """How ``rules`` split the routed MLP over the ``"model"`` axis:
+    ``"experts"``, ``"d_ff"`` (experts whole), or None (nothing split)."""
+    if model_split(rules, "experts") > 1:
+        return "experts"
+    if model_split(rules, "d_ff") > 1:
+        return "d_ff"
+    return None
+
+
 def moe_mlp(
     lp,
     x: torch.Tensor,  # (B, S, D)
@@ -253,8 +286,14 @@ def moe_mlp(
     Dispatch is batched: the buffer keeps the batch axis, (B, E, C_row,
     D), with a capacity of ``max(1, int(S k / E capacity_factor))`` tokens
     an expert a row; a (token, choice) past its expert's capacity is
-    dropped (it adds zero at the last slot and gets zero back)."""
+    dropped (it adds zero at the last slot and gets zero back).  Over a
+    split ``"model"`` axis, see the module's docstring."""
+    placement = _model_placement(rules)
     if cfg.moe_flat_dispatch:
+        if placement is not None:
+            raise NotImplementedError(
+                "the flat MoE dispatch over a split 'model' axis: shard "
+                "with the batched dispatch")
         return _moe_mlp_flat(lp, x, cfg, rules)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -276,6 +315,19 @@ def moe_mlp(
 
     pos_in_exp = _queue_positions(onehot, 1)  # (B, S, k)
     keep = (pos_in_exp < cap) & (gate_vals > 0)
+    if placement is not None:
+        mesh = rules.mesh
+        x = tp.copy_to_model(x, mesh)
+        gate_vals = tp.copy_to_model(gate_vals, mesh)
+    if placement == "experts":
+        # this rank's experts only: the others' choices add zero at a
+        # clipped row and get zero back, as a dropped choice does
+        e_buf = lp.moe["w_up"].shape[0]
+        with ranks.use_mesh(mesh):
+            lo = ranks.axis_index(tp.MODEL) * e_buf
+        expert_idx = expert_idx - lo
+        keep = keep & (expert_idx >= 0) & (expert_idx < e_buf)
+        expert_idx = expert_idx.clamp(0, e_buf - 1)
     idx_e = expert_idx.reshape(b, s * k)
     idx_c = torch.clamp(pos_in_exp.long(), 0, cap - 1).reshape(b, s * k)
     # Gates in the model's dtype before any multiply, as the reference.
@@ -287,7 +339,10 @@ def moe_mlp(
     gathered = _combine_gather(out_buf, idx_e, idx_c, e_buf, cap, rules)
     gates = gate_vals.to(x.dtype).reshape(b, s * k)[..., None]
     gathered = gathered * gates * w[..., None]
-    return gathered.reshape(b, s, k, d).sum(dim=2), aux
+    out = gathered.reshape(b, s, k, d).sum(dim=2)
+    if placement is not None:
+        out = tp.reduce_from_model(out, mesh)
+    return out, aux
 
 
 def _moe_mlp_flat(
@@ -356,10 +411,13 @@ def forward(
 ) -> tuple[torch.Tensor, kvcache.Cache | None, torch.Tensor]:
     """Logits (B, S, vocab), or (B, 1, vocab) in decode mode, the cache
     (its buffers written in place, ``pos`` advanced by S in a new tensor)
-    and the mean over layers of the aux load-balance loss.
+    and the mean over layers of the aux load-balance loss.  Where ``rules``
+    split the vocab, train logits are this rank's slice, as the dense
+    family's.
     ``extra_embeds`` is accepted for the reference's signature."""
     del extra_embeds
-    x = params.embed[tokens.long()] if tokens.ndim == 2 else tokens
+    x = transformer._embed(params, tokens, rules) if tokens.ndim == 2 \
+        else tokens
     b, s, _ = x.shape
     steps = torch.arange(s, device=x.device, dtype=torch.int32)
     if mode == "decode":
@@ -384,11 +442,7 @@ def forward(
         new_cache = dict(cache)
         new_cache["pos"] = cache["pos"] + s
 
-    x = apply_norm(x, params.final_norm, cfg.norm)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    if mode == "decode":
-        x = x[:, -1:, :]
-    logits = constrain(x @ head, rules, ("batch", "seq", "vocab"))
+    logits = transformer._logits(params, x, cfg, rules, mode)
     return logits, new_cache, aux / cfg.n_layers
 
 
@@ -400,4 +454,5 @@ def train_loss(
 ) -> torch.Tensor:
     logits, _, aux = forward(params, batch["tokens"], cfg, rules,
                              mode="train")
-    return causal_lm_loss(logits, batch["tokens"]) + AUX_LOSS_COEF * aux
+    return causal_lm_loss(logits, batch["tokens"], rules) \
+        + AUX_LOSS_COEF * aux

@@ -17,9 +17,12 @@ column-split by heads and ``wo`` row-split, then summed over the ranks;
 the MLP likewise by d_ff; the embedding and the logits split by vocab.
 Where the rules split ``kv_dim`` but not the KV heads (one KV head, as
 gemma's MQA), the ranks gather k and v whole and each attends its own q
-heads to them.  Prefill and decode logits are gathered over the ranks, so
-that a caller sees the whole vocab; train logits stay split and the loss is
-the vocab-parallel cross-entropy.
+heads to them; where a rank's share of ``q_dim`` is not whole heads
+(gemma-2b, qwen1.5-32b and granite-moe-3b over 16 ranks), they gather q
+too, attend every head, and each keeps its columns of the output.
+Prefill and decode logits are gathered over the ranks, so that a caller
+sees the whole vocab; train logits stay split and the loss is the
+vocab-parallel cross-entropy.
 """
 
 from __future__ import annotations
@@ -227,9 +230,16 @@ def _attention_block(
     v = constrain(v, rules, ("batch", "seq", "heads"),
                   (None, None, cfg.kv_dim))
     d = cfg.head_dim
-    if q.shape[-1] % d:
-        raise NotImplementedError(
-            f"{q.shape[-1]} query columns a rank are not whole heads of {d}")
+    cols = None
+    if split and q.shape[-1] % d:
+        # a rank's query columns are not whole heads (the rules split
+        # q_dim, as GSPMD may): every rank gathers q (and below k and v)
+        # whole, attends every head, and keeps its columns of the output
+        # for its rows of wo
+        with ranks.use_mesh(mesh):
+            cols = slice(ranks.axis_index(tp.MODEL) * q.shape[-1],
+                         (ranks.axis_index(tp.MODEL) + 1) * q.shape[-1])
+        q = tp.gather_from_model(q, -1, mesh)
     if split and model_split(rules, "kv_heads") == 1:
         # the axis splits kv_dim but not the KV heads: every rank takes
         # them whole (before RoPE, which works per head)
@@ -250,6 +260,8 @@ def _attention_block(
     mine = slice(kv_lo, kv_lo + kv_n)
 
     def project(out):
+        if cols is not None:
+            out = out[..., cols]
         out = constrain(out, rules, ("batch", "seq", "heads"),
                         (None, None, cfg.q_dim))
         out = out @ lp.wo
@@ -349,14 +361,7 @@ def forward(
     with ``pos`` advanced by S (a new tensor).  Where ``rules`` split the
     vocab over more than one rank of ``"model"``, train logits are this
     rank's slice of the vocab."""
-    vocab_split = model_split(rules, "vocab") > 1
-    if tokens.ndim == 2:
-        if vocab_split:
-            x = tp.vocab_parallel_embed(params.embed, tokens, rules.mesh)
-        else:
-            x = params.embed[tokens.long()]
-    else:
-        x = tokens
+    x = _embed(params, tokens, rules) if tokens.ndim == 2 else tokens
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         # The scale rounded to x's type first, as the reference's
         # jnp.asarray(sqrt(d), x.dtype); a Python float, so that no tensor
@@ -391,6 +396,23 @@ def forward(
         new_cache["pos"] = cache["pos"] + (s if mode in ("decode", "prefill")
                                            else 0)
 
+    return _logits(params, x, cfg, rules, mode), new_cache
+
+
+def _embed(params, tokens: torch.Tensor, rules) -> torch.Tensor:
+    """The embedding's rows of ``tokens`` (B, S): from this rank's slice of
+    the table and summed over the ranks where ``rules`` split the vocab."""
+    if model_split(rules, "vocab") > 1:
+        return tp.vocab_parallel_embed(params.embed, tokens, rules.mesh)
+    return params.embed[tokens.long()]
+
+
+def _logits(params, x: torch.Tensor, cfg: ModelConfig, rules,
+            mode: str) -> torch.Tensor:
+    """The final norm and the head on the last hidden state ``x`` (its last
+    position in decode mode).  Where ``rules`` split the vocab, train
+    logits are this rank's slice and the others gathered whole."""
+    vocab_split = model_split(rules, "vocab") > 1
     x = apply_norm(x, params.final_norm, cfg.norm)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     if mode == "decode":
@@ -402,7 +424,7 @@ def forward(
                        (None, None, cfg.vocab))
     if vocab_split and mode != "train":
         logits = tp.gather_from_model(logits, -1, rules.mesh)
-    return logits, new_cache
+    return logits
 
 
 def train_loss(

@@ -28,7 +28,7 @@ error, is not retried and propagates to the caller (the reference retries
 and absorbs every exception).
 
 Over ranks: given ``rules`` on a mesh whose ``"model"`` axis has more
-than one rank (the dense and VLM families), every rank runs the same
+than one rank (the dense, VLM and MoE families), every rank runs the same
 engine on its slice of the parameters (``models.api.init_params(...,
 rules)``) and of the KV cache.  The logits come gathered over the ranks,
 so each rank samples from the whole vocab with the same generator, and the

@@ -22,8 +22,8 @@ reference's:
   slice (the clip taken from the norm of the whole gradient, the same on
   every rank) and the new params are all-gathered.
 
-On a ``"model"`` axis of more than one rank (the dense and VLM families;
-the others raise, naming their ROADMAP item) the params are split by
+On a ``"model"`` axis of more than one rank (the dense, VLM and MoE
+families; the others raise, naming their ROADMAP item) the params are split by
 their specs as well: each rank holds its slice of every leaf the rules
 split over ``"model"`` and runs the tensor-parallel layers
 (:mod:`repro_torch.dist.tensor_parallel`).  The gradients of those leaves
@@ -52,6 +52,7 @@ from repro_torch.dist.sharding import (
     batch_axes,
     batch_ranks,
     check_tp_family,
+    model_ranks,
     tree_specs,
 )
 from repro_torch.models import api as model_api
@@ -141,11 +142,13 @@ class _Layout:
             raise NotImplementedError(
                 "a sequence split over ranks (the rules' 'seq' axis) has "
                 "no counterpart in the port")
-        if cfg.moe_flat_dispatch and self.batch:
+        if cfg.moe_flat_dispatch and (self.batch
+                                      or model_ranks(mesh) > 1):
             raise NotImplementedError(
                 "the flat MoE dispatch's capacity counts the global "
-                "batch's tokens, which no rank holds; shard with the "
-                "batched dispatch")
+                "batch's tokens, which no rank holds, and its one buffer "
+                "has no split over a 'model' axis; shard with the batched "
+                "dispatch")
         # the gradients are reduced over the batch axes of more than one
         # rank (an axis of one would only copy them)
         self.reduced = tuple(a for a in self.batch if sizes[a] > 1)

@@ -210,6 +210,33 @@ def whole_tp_state(state, cfg, rules, mesh) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_collectives():
+    """Every all-reduce and all-gather of ``ranks`` inside the block, as a
+    recording mesh records them: ``(op, axis, operand bytes, output
+    bytes)``, in the list it yields (the train step sends nothing by
+    ``ppermute``)."""
+    records = []
+    reduce, gather = ranks._all_reduce, ranks._gather_one
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+
+    def all_reduce(x, op, axis):
+        out = reduce(x, op, axis)
+        records.append(("all-reduce", axis, size(x), size(out)))
+        return out
+
+    def gather_one(x, axis):
+        out = gather(x, axis)
+        records.append(("all-gather", axis, size(x), size(out)))
+        return out
+
+    ranks._all_reduce, ranks._gather_one = all_reduce, gather_one
+    try:
+        yield records
+    finally:
+        ranks._all_reduce, ranks._gather_one = reduce, gather
+
+
 def _tp_train(mesh, cases) -> list:
     import copy
 
@@ -218,13 +245,16 @@ def _tp_train(mesh, cases) -> list:
         rules = rules_for(cfg, mesh, "tp",
                           global_batch=batch["tokens"].shape[0])
         step = make_train_step(cfg, rules, mesh)
-        new, metrics = step(copy.deepcopy(state), batch)
+        state = copy.deepcopy(state)
+        with recorded_collectives() as records:
+            new, metrics = step(state, batch)
         split = step_split(cfg, rules, mesh)
         res = {"label": label, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"]), "step": int(new.step),
                "local_shapes": {k: tuple(p.shape) for k, p in
                                 new.params.named_parameters()},
+               "collectives": records,
                "replicated": {k: p.detach().clone() for k, p in
                               new.params.named_parameters()
                               if k not in split}}
@@ -304,6 +334,31 @@ def _tp_engine(mesh, cfg, seed, prompts, max_new) -> list:
         engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
     done = engine.run()
     return sorted((r.rid, r.status, list(r.output)) for r in done)
+
+
+def _tp_router(mesh, cases) -> dict:
+    """For each MoE case: the gradient of the loss, and of the
+    load-balance loss alone, reaching each layer's router on this rank's
+    slices over ``mesh`` (no data axis), with both losses."""
+    from repro_torch.models import api, moe
+
+    out = {}
+    for label, cfg, seed, tokens in cases:
+        rules = rules_for(cfg, mesh, "tp")
+        params = api.init_params(torch.Generator().manual_seed(seed), cfg,
+                                 "cpu", rules)
+        routers = [lp.router for lp in params.layers]
+        for r in routers:
+            r.requires_grad_(True)
+        toks = torch.from_numpy(tokens)
+        loss = api.train_loss(params, {"tokens": toks}, cfg, rules)
+        grad = torch.autograd.grad(loss, routers)
+        _, _, aux = moe.forward(params, toks, cfg, rules)
+        aux_grad = torch.autograd.grad(aux, routers)
+        out[label] = {"loss": float(loss), "aux": float(aux),
+                      "grad": [g.clone() for g in grad],
+                      "aux_grad": [g.clone() for g in aux_grad]}
+    return out
 
 
 def _tp_elastic(state, cfg, directory) -> dict:
@@ -389,7 +444,8 @@ def _tp_ops(mesh, inputs) -> dict:
 def tp_suite(device, work: dict) -> dict:
     """Every tensor-parallel case of ``tests/test_torch_tp.py`` on this
     rank: train steps and prefill/decode on each mesh of ``work["meshes"]``,
-    the engine and the operators on (1, 4), the elastic restore."""
+    the engines, the MoE routers' gradients and the operators on (1, 4),
+    the elastic restores."""
     out = {"rank": dist.get_rank()}
     for shape in work["meshes"]:
         mesh = make_mesh(shape, ("data", "model"))
@@ -397,6 +453,9 @@ def tp_suite(device, work: dict) -> dict:
         out[("serve", shape)] = _tp_serve(mesh, work["serve"])
     mesh = make_mesh((1, 4), ("data", "model"))
     out["engine"] = _tp_engine(mesh, *work["engine"])
+    out["moe_engine"] = _tp_engine(mesh, *work["moe_engine"])
+    out["router"] = _tp_router(mesh, work["router"])
     out["ops"] = _tp_ops(mesh, work["ops"])
     out["elastic"] = _tp_elastic(*work["elastic"])
+    out["moe_elastic"] = _tp_elastic(*work["moe_elastic"])
     return out

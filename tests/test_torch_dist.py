@@ -202,7 +202,7 @@ def test_constrain_is_the_identity_unless_the_model_axis_is_split():
     assert TS.constrain(x, rules.with_mesh({"data": 4, "model": 1}),
                         ("batch", "d_model")) is x
     split = rules.with_mesh({"data": 2, "model": 2})
-    for family in ("dense", "vlm", None):
+    for family in TS.TP_FAMILIES:
         r = split.with_family(family)
         assert TS.constrain(x, r, ("batch", "d_model")) is x
         assert TS.constrain(x, r, ("batch", "heads"), (None, 8)) is x
@@ -212,6 +212,11 @@ def test_constrain_is_the_identity_unless_the_model_axis_is_split():
     for family, item in TS.QUEUED_TP.items():
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             TS.constrain(x, split.with_family(family), ("batch", "d_model"))
+        # the batch alone over a model axis (dp_rules) is data
+        # parallelism, which every family runs
+        dp = TS.dp_rules(("data", "model")).with_mesh(
+            {"data": 2, "model": 2}).with_family(family)
+        assert TS.constrain(x, dp, ("batch", "d_model")) is x
 
 
 def test_spec_from_reference():

@@ -219,15 +219,28 @@ def test_zero1_shards_the_optimizer_state_and_dp_keeps_it_whole(train_runs,
 def test_the_model_axis_split_and_a_flat_moe_dispatch_raise(arch):
     """A model axis of more than one rank raises for the families that
     have no tensor-parallel layers yet, each naming its ROADMAP item (the
-    dense and VLM families run there, ``tests/test_torch_tp.py``); the
-    flat MoE dispatch raises under a split batch."""
-    if arch == "flat-dispatch":
+    dense, VLM and MoE families run there, ``tests/test_torch_tp.py``);
+    the flat MoE dispatch raises under a split batch, and under a split
+    model axis (in the train step, and in the layer itself)."""
+    if arch in ("flat-dispatch", "granite-moe-1b-a400m"):
         moe = dataclasses.replace(_torch_dist_ranks.replace_impl(
             get_smoke_config("granite-moe-1b-a400m")), moe_flat_dispatch=True)
+        mesh = {"data": 4, "model": 1} if arch == "flat-dispatch" \
+            else {"data": 1, "model": 4}
+        flavor = "dp" if arch == "flat-dispatch" else "tp"
         with pytest.raises(NotImplementedError, match="flat MoE dispatch"):
-            make_train_step(moe, rules_for(moe, {"data": 4, "model": 1},
-                                           "dp", global_batch=8),
-                            {"data": 4, "model": 1})
+            make_train_step(moe, rules_for(moe, mesh, flavor, global_batch=8),
+                            mesh)
+        if arch == "granite-moe-1b-a400m":
+            from repro_torch.models import api, moe as moe_mod
+
+            rules = rules_for(moe, mesh, "tp").with_mesh(mesh)
+            params = api.init_params(torch.Generator().manual_seed(0), moe,
+                                     "cpu")
+            x = torch.zeros(1, 4, moe.d_model)
+            with pytest.raises(NotImplementedError,
+                               match="flat MoE dispatch"):
+                moe_mod.moe_mlp(params.layers[0], x, moe, rules)
         return
     cfg = _torch_dist_ranks.replace_impl(get_smoke_config(arch))
     mesh = {"data": 2, "model": 2}

@@ -19,6 +19,7 @@ from __future__ import annotations
 import __future__
 import importlib
 import inspect
+import os
 import pkgutil
 
 import numpy as np
@@ -48,9 +49,8 @@ MISSING_OK = {
     ("kernels.decode_attention.kernel", "NEG_INF"): TPU,
     ("kernels.flash_attention.kernel", "NEG_INF"): TPU,
     ("kernels.md5.kernel", "md5_u32x2"): INCIDENTAL,
-    ("launch.mesh", "make_production_mesh"): "a mesh of 256 or 512 ranks; "
-                                             "waits with the dry run, "
-                                             "ROADMAP Queue A item 15",
+    ("utils.roofline", "ICI_BW"): "a TPU's inter-chip link; the port's "
+                                  "link is NVLINK_BW",
     ("models.transformer", "apply_rope"): INCIDENTAL,
     ("models.encdec", "layer_norm"): INCIDENTAL,
     ("models.config", "ModelConfig.jdtype"): "the JAX dtype; the port's is "
@@ -74,6 +74,8 @@ SIGNATURE_OK = {
        for m in ("models.rwkv", "models.transformer")},
     ("core.launch", "Context.synchronize"): "a method: it synchronizes the "
         "context's devices; the reference's is a static method",
+    ("utils.hlo_analysis", "collective_stats"): "takes a recording mesh's "
+        "records (ranks.recording): the port has no HLO text",
 }
 
 
@@ -101,15 +103,26 @@ def members(cls) -> set[str]:
 
 
 def port_modules() -> list[str]:
-    """The port's modules that have a counterpart in the reference."""
+    """The port's modules that have a counterpart in the reference.  The
+    environment is kept as it was: the reference's ``launch.dryrun`` sets
+    ``XLA_FLAGS`` (512 host devices) when imported, which would reach
+    every JAX test that this process runs after it."""
     out = []
-    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-        rel = info.name[len("repro_torch."):]
-        try:
-            importlib.import_module(f"repro.{rel}")
-        except ModuleNotFoundError:
-            continue
-        out.append(rel)
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        for info in pkgutil.walk_packages(repro_torch.__path__,
+                                          "repro_torch."):
+            rel = info.name[len("repro_torch."):]
+            try:
+                importlib.import_module(f"repro.{rel}")
+            except ModuleNotFoundError:
+                continue
+            out.append(rel)
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
     return sorted(out)
 
 

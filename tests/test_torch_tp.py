@@ -1,4 +1,4 @@
-"""Tensor parallelism over a ``"model"`` axis for the dense and VLM
+"""Tensor parallelism over a ``"model"`` axis for the dense, VLM and MoE
 families against the reference's GSPMD, on the CPU.
 
 The reference runs on 4 fake devices in one subprocess
@@ -7,7 +7,10 @@ ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
 ``tests/_torch_dist_ranks.py``, which imports no JAX), both on
 ``("data", "model")`` meshes of (2, 2) and (1, 4):
 
-* one train step of the phi3-mini-3.8b and gemma-2b smoke configs from the
+* one train step of the phi3-mini-3.8b, gemma-2b and granite-moe-1b smoke
+  configs (granite's 4 experts split over the axis, and with 5 experts,
+  which neither mesh divides, whole with d_ff split; both teacher-forced
+  at ``capacity_factor`` 8) from the
   reference's state at step 60 (moments from numpy) on 8 x 16 tokens,
   under ``rules_for`` "tp": the loss at rtol 1e-5, the gradient norm at
   1e-4, every master, moment and gathered param leaf within
@@ -17,15 +20,26 @@ ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
   phi3, gemma (MQA: its one KV head gathered whole), qwen (QKV biases, the
   int8 cache, each decode step from a given cache: ``_int8_states``) and
   internvl2 (patch embeddings; at (1, 4) half a KV head a
-  rank) smoke configs and phi3's at vocab 250 (which 4 does not divide,
+  rank) and both granite placements' smoke configs and phi3's at vocab
+  250 (which 4 does not divide,
   so (1, 4) keeps the vocab whole), against the reference's ``prefill``
   and ``decode_step`` jitted with ``in_shardings`` of the params' and the
   cache's specs (``tests/test_dryrun_small.py``'s construction, run), at
   1e-4;
+* phi3 with 2 heads of 16, so that at (1, 4) a rank's query columns are
+  half a head (gathered whole, every head attended, each rank keeping its
+  columns of the output, as at (16, 16) for gemma-2b, qwen1.5-32b and
+  granite-moe-3b), trained and served;
 * the engine on (1, 4): greedy tokens equal to the one-rank engine's, and
-  the same on every rank;
+  the same on every rank, for phi3 and granite;
 * a train state saved on (2, 2) restored onto (1, 4), (4, 1) and one rank,
-  bit for bit;
+  bit for bit, for phi3 and granite (its experts split on (2, 2));
+* the dry run of each train step on the meta device
+  (``launch.dryrun.cell_metrics``) records the all-reduces and
+  all-gathers the real step sent, op for op and byte for byte;
+* the router's gradient over (1, 4), of the loss and of the load-balance
+  loss alone, equal to one rank's for both placements (the replicated
+  probabilities reach the router once, not once a rank);
 * the autograd operators (``copy_to_model``, ``reduce_from_model``,
   ``gather_from_model``, the vocab-split embedding and cross-entropy)
   against one-rank autograd.
@@ -33,6 +47,7 @@ ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -52,7 +67,9 @@ from repro_torch.convert import (
     config_from_reference,
     train_state_from_reference,
 )
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.dist import ranks
+from repro_torch.launch import dryrun
 from repro_torch.launch.rules import rules_for
 from repro_torch.models import api
 from repro_torch.models.layers import softmax_xent
@@ -68,14 +85,31 @@ import _torch_dist_ranks
 
 N = 4
 MESHES = [(2, 2), (1, 4)]
-TRAIN_ARCHS = ["phi3-mini-3.8b", "gemma-2b"]
+#: the MoE cases' overrides: no token dropped, so that routing flips
+#: between two correct runs move no token past a capacity
+MOE = {"capacity_factor": 8.0}
+HALF_HEADS = {"n_heads": 2, "n_kv_heads": 2}
+#: train cases: label -> (arch, overrides of its smoke config); granite's
+#: 4 experts split over both meshes' "model" axis, its variant's 5 do not
+#: (d_ff splits instead)
+TRAIN = {"phi3-mini-3.8b": ("phi3-mini-3.8b", {}),
+         "gemma-2b": ("gemma-2b", {}),
+         # 2 heads of 16: half a head's query columns a rank at (1, 4)
+         "phi3-half-heads": ("phi3-mini-3.8b", HALF_HEADS),
+         "granite-moe-1b-a400m": ("granite-moe-1b-a400m", MOE),
+         "granite-moe-1b-5-experts": ("granite-moe-1b-a400m",
+                                      {**MOE, "n_experts": 5})}
+TRAIN_ARCHS = list(TRAIN)
+MOE_LABELS = ["granite-moe-1b-a400m", "granite-moe-1b-5-experts"]
 BATCH, SEQ = 8, 16
-#: serve cases: label -> (arch, vocab or None)
-SERVE = {"phi3-mini-3.8b": ("phi3-mini-3.8b", None),
-         "gemma-2b": ("gemma-2b", None),
-         "qwen1.5-32b": ("qwen1.5-32b", None),
-         "internvl2-26b": ("internvl2-26b", None),
-         "phi3-vocab-250": ("phi3-mini-3.8b", 250)}
+#: serve cases: label -> (arch, overrides of its smoke config)
+SERVE = {"phi3-mini-3.8b": ("phi3-mini-3.8b", {}),
+         "gemma-2b": ("gemma-2b", {}),
+         "qwen1.5-32b": ("qwen1.5-32b", {}),
+         "internvl2-26b": ("internvl2-26b", {}),
+         "phi3-vocab-250": ("phi3-mini-3.8b", {"vocab": 250}),
+         "phi3-half-heads": ("phi3-mini-3.8b", HALF_HEADS),
+         **{label: TRAIN[label] for label in MOE_LABELS}}
 PROMPT, DECODE_STEPS, MAX_LEN = (2, 8), 3, 32
 RANKS_TIMEOUT = 300
 
@@ -85,9 +119,13 @@ def _np(x):
 
 
 def _serve_cfg(label):
-    arch, vocab = SERVE[label]
-    cfg = r_smoke(arch)
-    return cfg if vocab is None else cfg.scaled(vocab=vocab)
+    arch, overrides = SERVE[label]
+    return r_smoke(arch).scaled(**overrides)
+
+
+def _train_cfg(label):
+    arch, overrides = TRAIN[label]
+    return r_smoke(arch).scaled(**overrides)
 
 
 def _with_history(state, rng, step):
@@ -100,8 +138,8 @@ def _with_history(state, rng, step):
 
 
 @functools.lru_cache(maxsize=None)
-def _train_reference(arch):
-    rcfg = r_smoke(arch)
+def _train_reference(label):
+    rcfg = _train_cfg(label)
     rng = np.random.default_rng(3)
     state = _with_history(r_train.init_train_state(jax.random.key(0), rcfg),
                           rng, 60)
@@ -159,9 +197,8 @@ from repro.models import api
 from repro.train import train_loop
 
 def serve_cfg(label):
-    arch, vocab = SERVE[label]
-    cfg = get_smoke_config(arch)
-    return cfg if vocab is None else cfg.scaled(vocab=vocab)
+    arch, overrides = SERVE[label]
+    return get_smoke_config(arch).scaled(**overrides)
 
 for shape in MESHES:
     mesh = jax.make_mesh(shape, ("data", "model"),
@@ -170,7 +207,7 @@ for shape in MESHES:
                                    is_leaf=lambda x: isinstance(x, P))
     tag = "x".join(map(str, shape))
     for arch in TRAIN_ARCHS:
-        cfg = get_smoke_config(arch)
+        cfg = get_smoke_config(TRAIN[arch][0]).scaled(**TRAIN[arch][1])
         tree = jax.tree.structure(train_loop.init_train_state(
             jax.random.key(0), cfg))
         data = np.load(f"{DIR}/{arch}.in.npz")
@@ -240,7 +277,7 @@ for shape in MESHES:
                                    is_leaf=lambda x: isinstance(x, P))
     tag = "x".join(map(str, shape))
     for label in GIVEN:
-        cfg = get_smoke_config(SERVE[label][0])
+        cfg = get_smoke_config(SERVE[label][0]).scaled(**SERVE[label][1])
         data = np.load(f"{DIR}/{label}.serve.npz")
         wrote = np.load(f"{DIR}/{label}.{tag}.wrote.npz")
         rules = rules_for(cfg, mesh, "tp", global_batch=data["tokens"].shape[0])
@@ -322,10 +359,16 @@ def tp_runs(tmp_path_factory):
     prompts = [np.random.default_rng(i).integers(0, ecfg.vocab, n)
                .astype(np.int32) for i, n in enumerate((5, 9, 3, 7))]
     work["engine"] = (ecfg, 0, prompts, 5)
+    work["moe_engine"] = (_moe_cfg(MOE_LABELS[0]), 0, prompts, 5)
+    work["router"] = [(label, _moe_cfg(label), 2, _router_tokens())
+                      for label in MOE_LABELS]
     work["ops"] = _ops_inputs()
     elastic = _elastic_state()
     work["elastic"] = (elastic[1], elastic[0], str(tmp / "ckpt"))
+    elastic = _elastic_state(_moe_cfg(MOE_LABELS[0]))
+    work["moe_elastic"] = (elastic[1], elastic[0], str(tmp / "moe_ckpt"))
     code = (f"MESHES = {MESHES!r}\nTRAIN_ARCHS = {TRAIN_ARCHS!r}\n"
+            f"TRAIN = {TRAIN!r}\n"
             f"SERVE = {SERVE!r}\nDIR = {str(tmp)!r}\nBATCH = {BATCH}\n"
             f"MAX_LEN = {MAX_LEN}\n" + REFERENCE)
     with _torch_dist_ranks.beside(run_with_devices, code, n_devices=N,
@@ -370,6 +413,19 @@ def tp_runs(tmp_path_factory):
                            range(1, DECODE_STEPS + 1)]
             ref["serve", label, shape] = logits
     return ref, port, single, work, str(tmp / "ckpt")
+
+
+def _moe_cfg(label):
+    """The port's config of an MoE train case, with the plain attention
+    (the train step refuses the CUDA kernels)."""
+    arch, overrides = TRAIN[label]
+    return dataclasses.replace(get_smoke_config(arch).scaled(**overrides),
+                               attention_impl="xla")
+
+
+def _router_tokens():
+    return np.random.default_rng(13).integers(0, 256, (BATCH, SEQ)) \
+        .astype(np.int32)
 
 
 def _close(got, want, what):
@@ -438,12 +494,33 @@ def test_tp_train_step_with_remat_equals_the_step_without(tp_runs, policy,
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_tp_dry_run_records_the_real_steps_collectives(tp_runs, arch, shape):
+    """``launch.dryrun.cell_metrics`` of the same step on the meta device
+    (the same config, batch and mesh, rank 0's state built from shapes)
+    records, op for op and byte for byte, the all-reduces and all-gathers
+    that the real step on 4 gloo ranks sent (rank 0's, and every rank's
+    equal).  Each is counted, not ordered: the carried state's parameters
+    are registered in the reference tree's key order, the dry run's in the
+    port's, and the gradients are reduced leaf by leaf in that order."""
+    _, port, _, work, _ = tp_runs
+    cfg = next(c[1] for c in work["train"] if c[0] == arch)
+    dry = dryrun.cell_metrics(cfg, ShapeSpec("t", SEQ, BATCH, "train"),
+                              {"data": shape[0], "model": shape[1]}, "tp")
+    real = [next(r for r in p["train", shape] if r["label"] == arch)
+            ["collectives"] for p in port]
+    assert dry["records"] and all(r == real[0] for r in real)
+    assert collections.Counter(dry["records"]) == \
+        collections.Counter(real[0])
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_tp_params_are_each_ranks_slice(tp_runs, arch, shape):
     """Each rank holds its share of every leaf the rules split over
     "model" and the whole of the rest."""
     _, port, single, _, _ = tp_runs
     one_state, _ = single[arch]
-    cfg = get_smoke_config(arch)
+    cfg = get_smoke_config(TRAIN[arch][0]).scaled(**TRAIN[arch][1])
     rules = rules_for(cfg, {"data": shape[0], "model": shape[1]}, "tp",
                       global_batch=BATCH)
     specs = train_state_specs(cfg, rules).params
@@ -516,6 +593,53 @@ def test_tp_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
         assert p["engine"] == want
 
 
+def test_tp_moe_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
+    """granite's engine over (1, 4), its 4 experts split: the greedy tokens
+    of one rank's engine, on every rank."""
+    _, port, _, work, _ = tp_runs
+    cfg, seed, prompts, max_new = work["moe_engine"]
+    params = api.init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
+    engine = ServeEngine(params, cfg, slots=2, max_len=32, seed=seed,
+                         device="cpu")
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+    want = sorted((r.rid, r.status, list(r.output)) for r in engine.run())
+    assert [len(w[2]) for w in want] == [max_new] * len(prompts)
+    for p in port:
+        assert p["moe_engine"] == want
+
+
+@pytest.mark.parametrize("label", MOE_LABELS)
+def test_tp_router_gradient_with_aux_equals_one_rank(tp_runs, label):
+    """Over (1, 4) the router is whole on every rank and so are its
+    probabilities: the gradient of the loss, and of the load-balance loss
+    alone, reaches each layer's router as on one rank (not once a rank);
+    the gate path's partial gradients are summed over the ranks."""
+    from repro_torch.models import moe
+
+    _, port, _, work, _ = tp_runs
+    _, cfg, seed, toks = next(c for c in work["router"] if c[0] == label)
+    params = api.init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
+    routers = [lp.router for lp in params.layers]
+    for r in routers:
+        r.requires_grad_(True)
+    batch = {"tokens": torch.from_numpy(toks)}
+    loss = api.train_loss(params, batch, cfg)
+    want = torch.autograd.grad(loss, routers)
+    _, _, aux = moe.forward(params, batch["tokens"], cfg)
+    want_aux = torch.autograd.grad(aux, routers)
+    assert float(aux.detach()) > 0
+    for p in port:
+        got = p["router"][label]
+        np.testing.assert_allclose(got["loss"], float(loss.detach()),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got["aux"], float(aux.detach()),
+                                   rtol=1e-6)
+        for i in range(cfg.n_layers):
+            _close(got["grad"][i], want[i], f"{label} router {i}")
+            _close(got["aux_grad"][i], want_aux[i], f"{label} aux {i}")
+
+
 def test_tp_engine_refuses_a_data_axis_and_other_families():
     cfg = get_smoke_config("phi3-mini-3.8b")
     params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -530,9 +654,9 @@ def test_tp_engine_refuses_a_data_axis_and_other_families():
         ServeEngine(None, rwkv, rules=rules, device="cpu")
 
 
-def _elastic_state():
-    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
-                              attention_impl="xla")
+def _elastic_state(cfg=None):
+    cfg = cfg or dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
+                                     attention_impl="xla")
     state = init_train_state(torch.Generator().manual_seed(0), cfg, "cpu")
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -566,6 +690,34 @@ def test_tp_state_saved_on_2x2_restores_bit_for_bit(tp_runs, onto):
         assert got["shapes"]["embed"] == (cfg.vocab // onto[1], cfg.d_model)
         assert got["shapes"]["layers.0.attn_norm.scale"] == \
             tuple(whole["layers.0.attn_norm.scale"].shape)
+
+
+@pytest.mark.parametrize("onto", [(1, 4), (4, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tp_moe_state_saved_on_2x2_restores_bit_for_bit(tp_runs, onto):
+    """granite's state saved on (2, 2), its 4 experts split 2 ways over
+    "model", restored onto (1, 4) (4 ways) and (4, 1) (whole), each rank's
+    slices equal to those of the whole state; and onto one rank."""
+    _, port, _, work, _ = tp_runs
+    state, cfg, directory = work["moe_elastic"]
+    for p in port:
+        el = p["moe_elastic"]
+        assert el["saved_shapes"]["layers.0.moe.w_up"] == (
+            cfg.n_experts // 2, cfg.d_model, cfg.d_ff)
+        got = el[onto]
+        assert got["equal"] and got["step"] == 3 and got["opt_step"] == 3
+        assert got["shapes"]["layers.0.moe.w_down"] == (
+            cfg.n_experts // onto[1], cfg.d_ff, cfg.d_model)
+        assert got["shapes"]["layers.0.router"] == (cfg.d_model,
+                                                    cfg.n_experts)
+    specs = train_state_specs(cfg, rules_for(cfg, {"data": 1, "model": 1},
+                                             "tp"))
+    template = init_train_state(torch.Generator().manual_seed(5), cfg, "cpu")
+    one, meta = restore_resharded(CheckpointManager(directory), template,
+                                  specs, None)
+    assert meta["step"] == 3
+    for a, b in zip(_leaves(state), _leaves(one)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_tp_state_saved_on_2x2_restores_onto_one_rank(tp_runs):

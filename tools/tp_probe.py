@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""The tensor-parallel phase of ``chip_smoke.py`` alone.
+"""The tensor-parallel and dry-run phases of ``chip_smoke.py`` alone.
 
-    python3 tools/tp_probe.py [--seed 0] [--rehearse]
+    python3 tools/tp_probe.py [--seed 0] [--rehearse] [--kernels]
 
 Needs one GPU (``--rehearse``: the CPU at toy sizes, measuring nothing).
 Prints the ``env`` and ``build`` phases' lines (the ranks load the library
-the build makes), then the ``tp`` phase's: 4 ranks on the card under gloo
-over a (1, 4) ``("data", "model")`` mesh serve phi3-mini-3.8b at full
-width and depth in bf16 (each rank's flash and decode attention on its 8
-heads, held against the plain version; the engine's sampled tokens equal
-on every rank), hold its f32 logits at two layers against one rank's,
-train gemma-2b at full width and depth (step 1's loss against one
+the build makes), with ``--kernels`` the ``kernels`` phase's (every
+kernel held against its plain version and timed, the tensor-parallel
+ranks' attention shapes among them), then the ``train`` phase's (whose
+step the dry run's roofline is set beside), then the ``tp`` phase's: 4
+ranks on the card under gloo over a (1, 4) ``("data", "model")`` mesh
+serve phi3-mini-3.8b and granite-moe-3b-a800m at full width and depth in
+bf16 (each rank's flash and decode attention on its heads, held against
+the plain version; the engine's sampled tokens equal on every rank), hold
+their f32 logits at two layers against one rank's, train gemma-2b and
+granite-moe-1b-a400m at full width and depth (step 1's loss against one
 card's), and at two layers hold the f32 step leaf by leaf against one
 rank's, take a ZeRO-1 step over (2, 2) and restore its checkpoint onto
-(1, 4) and one rank bit for bit; then the card's name and power limit.
+(1, 4) and one rank bit for bit; then the ``dryrun`` phase's (every cell
+of one pod on the meta device, checked against the ``tp`` and ``train``
+phases); then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,8 +38,11 @@ from chip_smoke import (  # noqa: E402
     FULL,
     TOY,
     phase_build,
+    phase_dryrun,
     phase_env,
+    phase_kernels,
     phase_tp,
+    phase_train,
 )
 
 
@@ -41,6 +50,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true")
+    ap.add_argument("--kernels", action="store_true",
+                    help="run the kernels phase after the build")
     args = ap.parse_args(argv)
     if args.rehearse:
         device, sizes = torch.device("cpu"), TOY
@@ -51,8 +62,13 @@ def main(argv=None) -> int:
     else:
         device, sizes = torch.device("cuda", 0), FULL
     env = phase_env(device)
-    phase_build(device)
-    phase_tp(sizes, device, args.seed)
+    build = phase_build(device)
+    if args.kernels:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        phase_kernels(sizes, device, gen, build)
+    train = phase_train(sizes, device, args.seed)
+    tp = phase_tp(sizes, device, args.seed)
+    phase_dryrun(sizes, tp, train)
     if device.type == "cuda":
         print(env["card"], flush=True)
     return 0
