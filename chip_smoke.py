@@ -85,7 +85,9 @@ import copy
 import dataclasses
 import gc
 import io
+import itertools
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -95,6 +97,7 @@ import tempfile
 import time
 import traceback
 import warnings
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -429,6 +432,30 @@ class Sizes:
     # the 8-slot decode
     tp_flash_granite: tuple = (1, 6, 2, 1024, 64)
     tp_decode_granite: tuple = (8, 6, 2, 2184, 64)
+    # rwkv6-3b's, recurrentgemma-2b's and whisper-medium's rank shapes over
+    # the same mesh: 10 of 40 WKV heads a rank (a prefill of 2048 tokens
+    # by route "chunk", the 8-slot decode step by "fma"); 640 of the 2560
+    # RG-LRU channels; whisper's 4 of 16 heads of 64: its encoder over
+    # 1500 frames and a decoder prefill of 320 tokens, self (causal) and
+    # cross (against the frames), and its 8-slot decode step, self (kv_len
+    # up to 448) and cross (kv_len 1500)
+    tp_wkv: tuple = (1, 10, 2048, 64)
+    tp_wkv_decode: tuple = (8, 10, 1, 64)
+    tp_lru: tuple = (1, 2048, 640)
+    tp_lru_decode: tuple = (8, 1, 640)
+    tp_flash_whisper_encoder: tuple = (1, 4, 4, 1500, 64)
+    tp_flash_whisper_self: tuple = (1, 4, 4, 320, 64)
+    tp_decode_whisper_self: tuple = (8, 4, 4, 448, 64)
+    tp_decode_whisper_cross: tuple = (8, 4, 4, 1500, 64)
+    # the engines of the families added to the tp phase last (rwkv6-3b,
+    # recurrentgemma-2b, whisper-medium) serve tp_requests_added requests
+    # of tp_new_added new tokens; the recurrent families' train steps over
+    # (1, 4) run the plain step loops (the kernels are forward-only), a
+    # Python step a token and layer, on a global batch of
+    # tp_train_batch_recurrent tokens
+    tp_requests_added: int = 4
+    tp_new_added: int = 8
+    tp_train_batch_recurrent: tuple = (4, 128)
     # the dry run on the meta device: every cell of one pod under "tp" and
     # "dp" (dryrun_archs None: every arch), over a process a core
     dryrun_archs: tuple | None = None
@@ -466,15 +493,30 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             tp_check_len=24, tp_f32_steps=2, tp_train_batch=(4, 16),
             tp_flash_granite=(1, 1, 1, 24, 12),
             tp_decode_granite=(3, 1, 1, 70, 12),
+            tp_wkv=(1, 1, 140, 16), tp_wkv_decode=(3, 1, 1, 16),
+            tp_lru=(1, 200, 16), tp_lru_decode=(3, 1, 16),
+            tp_flash_whisper_encoder=(1, 1, 1, 60, 16),
+            tp_flash_whisper_self=(1, 1, 1, 20, 16),
+            tp_decode_whisper_self=(3, 1, 1, 30, 16),
+            tp_decode_whisper_cross=(3, 1, 1, 60, 16),
+            tp_requests_added=4, tp_new_added=3,
+            tp_train_batch_recurrent=(4, 16),
             dryrun_archs=("granite-moe-1b-a400m", "rwkv6-3b"),
             reps=1)
 
-#: the tp phase's served archs, in turn: phi3-mini, then granite-moe-3b-a800m
-#: at full width and depth (10 of 40 experts a rank) by the phi3 traffic
-TP_SERVE_ARCHS = ("phi3-mini-3.8b", "granite-moe-3b-a800m")
-#: the tp phase's trained archs, in turn: gemma-2b, then granite-moe-1b-a400m
-#: at full width and depth (8 of 32 experts a rank) as gemma-2b is
-TP_TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m")
+#: the tp phase's served archs, in turn: phi3-mini, granite-moe-3b-a800m
+#: (10 of 40 experts a rank), rwkv6-3b (10 of 40 WKV heads),
+#: recurrentgemma-2b (640 of 2560 recurrent channels, 2.5 query heads a
+#: rank gathered whole) and whisper-medium (4 of 16 heads), at full width
+#: and depth by the phi3 traffic (whisper's inside its 448-token context)
+TP_SERVE_ARCHS = ("phi3-mini-3.8b", "granite-moe-3b-a800m", "rwkv6-3b",
+                  "recurrentgemma-2b", "whisper-medium")
+#: the tp phase's trained archs, in turn: gemma-2b, granite-moe-1b-a400m
+#: (8 of 32 experts a rank), rwkv6-3b, recurrentgemma-2b and whisper-medium
+#: at full width and depth as gemma-2b is
+TP_TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m", "rwkv6-3b",
+                  "recurrentgemma-2b", "whisper-medium")
+
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
 CS_R, CS_C = 8, 6  # co-clustering example: 8 row and 6 column clusters
@@ -2197,11 +2239,21 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                   "phi3_tp_rank": lambda: flash_inputs(sizes.tp_flash, bf16,
                                                        gen, device),
                   "granite_tp_rank": lambda: flash_inputs(
-                      sizes.tp_flash_granite, bf16, gen, device)},
+                      sizes.tp_flash_granite, bf16, gen, device),
+                  "whisper_tp_rank_encoder": lambda: flash_inputs(
+                      sizes.tp_flash_whisper_encoder, bf16, gen, device,
+                      causal=False),
+                  "whisper_tp_rank_self": lambda: flash_inputs(
+                      sizes.tp_flash_whisper_self, bf16, gen, device),
+                  "whisper_tp_rank_cross": lambda: flash_inputs(
+                      sizes.tp_flash_whisper_self, bf16, gen, device,
+                      t=sizes.tp_flash_whisper_encoder[3], causal=False)},
             # the planted faults are causal with S = T: the non-causal
             # shapes are held to the bf16 limit alone
             also_check={"whisper_encoder": flash_check,
-                        "whisper_cross": flash_check},
+                        "whisper_cross": flash_check,
+                        "whisper_tp_rank_encoder": flash_check,
+                        "whisper_tp_rank_cross": flash_check},
             # f32 (route "fma") and bf16 (route "wgmma": the TMA boxes'
             # zero fill at ragged S and T, D = 96 and 256, the masks)
             ragged=lambda: [
@@ -2262,7 +2314,12 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                   "phi3_tp_rank": lambda: decode_inputs(sizes.tp_decode,
                                                         bf16, gen, device),
                   "granite_tp_rank": lambda: decode_inputs(
-                      sizes.tp_decode_granite, bf16, gen, device)},
+                      sizes.tp_decode_granite, bf16, gen, device),
+                  "whisper_tp_rank_self": lambda: decode_inputs(
+                      sizes.tp_decode_whisper_self, bf16, gen, device),
+                  "whisper_tp_rank_cross": lambda: decode_inputs(
+                      sizes.tp_decode_whisper_cross, bf16, gen, device,
+                      kv_len=sizes.tp_decode_whisper_cross[3])},
             # f32 (route "fma") and bf16 (route "mma": T ragged, G = 10 and
             # 32 query heads a kv head, rows at kv_len 1 and T)
             ragged=lambda: [
@@ -2336,8 +2393,15 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             main_route="chunk",
             also={"decode": lambda: wkv_inputs(*sizes.wkv_decode,
                                                sizes.wkv_decode[-1], bf16,
-                                               gen, device)},
-            also_route={"decode": "fma"},
+                                               gen, device),
+                  "tp_rank": lambda: wkv_inputs(*sizes.tp_wkv,
+                                                sizes.tp_wkv[-1], bf16, gen,
+                                                device),
+                  "tp_rank_decode": lambda: wkv_inputs(
+                      *sizes.tp_wkv_decode, sizes.tp_wkv_decode[-1], bf16,
+                      gen, device)},
+            also_route={"decode": "fma", "tp_rank": "chunk",
+                        "tp_rank_decode": "fma"},
             also_check=wkv_check,
             ragged=lambda: [wkv_inputs(2, 3, 45, 16, 8, f32, gen, device),
                             wkv_inputs(1, 4, 70, 64, 64, f32, gen, device),
@@ -2377,8 +2441,13 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             main=lambda: lru_inputs(*sizes.lru, bf16, gen, device),
             main_route="chunk",
             also={"decode": lambda: lru_inputs(*sizes.lru_decode, bf16, gen,
-                                               device)},
-            also_route={"decode": "fma"},
+                                               device),
+                  "tp_rank": lambda: lru_inputs(*sizes.tp_lru, bf16, gen,
+                                                device),
+                  "tp_rank_decode": lambda: lru_inputs(
+                      *sizes.tp_lru_decode, bf16, gen, device)},
+            also_route={"decode": "fma", "tp_rank": "chunk",
+                        "tp_rank_decode": "fma"},
             also_check=lru_check,
             ragged=lambda: [lru_inputs(2, 50, 100, f32, gen, device,
                                        sweep=True),
@@ -4539,6 +4608,13 @@ DIST_AXES = ("pod", "data")
 DIST_TIMEOUT_S = 900.0
 
 
+#: what every spawned rank's environment sets: the CUDA allocator's
+#: segments grow in place, so that four ranks sharing the card hold no
+#: gigabytes of fragments each (the dist phase's replicated step peaks at
+#: 16.2 GB a rank of 79 GiB)
+RANK_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+
 def dist_device(device: torch.device):
     """What ``ranks.spawn`` is given: None on a card (each rank on
     ``cuda:rank`` modulo the cards, so all on ``cuda:0`` of one card), the
@@ -5019,7 +5095,7 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
     t1 = time.perf_counter()
     coll = ranks.spawn(dist_collectives_rank, n, backend="gloo",
                        device=where, args=(sizes, seed),
-                       timeout=DIST_TIMEOUT_S)
+                       timeout=DIST_TIMEOUT_S, env=RANK_ENV)
     out["spawn_and_collectives_seconds"] = time.perf_counter() - t1
     names = [k for k in coll[0] if isinstance(coll[0][k], dict)
              and "gb_per_s" in coll[0][k]]
@@ -5056,7 +5132,7 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
         t1 = time.perf_counter()
         out["nccl"] = ranks.spawn(dist_nccl_rank, 1, backend="nccl",
                                   device=where, args=(sizes, seed),
-                                  timeout=DIST_TIMEOUT_S)[0]
+                                  timeout=DIST_TIMEOUT_S, env=RANK_ENV)[0]
         out["nccl"]["spawn_seconds"] = time.perf_counter() - t1
     else:
         out["nccl"] = {"skipped": "rehearsal on the CPU: no NCCL"}
@@ -5066,7 +5142,7 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
         t1 = time.perf_counter()
         train = ranks.spawn(dist_train_rank, n, backend="gloo",
                             device=where, args=(sizes, seed, directory),
-                            timeout=DIST_TIMEOUT_S)
+                            timeout=DIST_TIMEOUT_S, env=RANK_ENV)
         out["train_seconds"] = time.perf_counter() - t1
         cfg = dist_train_config(sizes)
         out["train"] = {
@@ -5097,7 +5173,7 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
         t1 = time.perf_counter()
         halves = ranks.spawn(dist_restore_rank, 2, backend="gloo",
                              device=where, args=(sizes, seed, directory),
-                             timeout=DIST_TIMEOUT_S)
+                             timeout=DIST_TIMEOUT_S, env=RANK_ENV)
         out["restore_two_seconds"] = time.perf_counter() - t1
         two = merged_digests([h["digests"] for h in halves])
         t1 = time.perf_counter()
@@ -5150,33 +5226,89 @@ def tp_mesh(shape: tuple):
     return make_mesh(shape, ("data", "model"))
 
 
+def tp_serve_sizes(cfg, sizes: Sizes) -> dict:
+    """A served arch's check prompt, cache length, engine prompts and
+    engine traffic over the ranks: the ``tp_*`` sizes, whisper-medium's
+    inside its 448-token context (its serve phase's), the hybrid's check
+    prompt past its window (its serve phase's); the families added last
+    serve ``tp_requests_added`` requests of ``tp_new_added`` tokens."""
+    added = cfg.family in ("rwkv", "hybrid", "encdec")
+    out = {"check_len": sizes.tp_check_len, "max_len": sizes.tp_max_len,
+           "prompt": sizes.tp_prompt,
+           "requests": sizes.tp_requests_added if added
+           else sizes.tp_requests,
+           "new": sizes.tp_new_added if added else sizes.tp_new}
+    if cfg.family == "encdec":
+        out.update(check_len=min(sizes.tp_check_len,
+                                 sizes.serve_prompt_whisper[1]),
+                   max_len=sizes.serve_max_len_whisper,
+                   prompt=sizes.serve_prompt_whisper)
+    elif cfg.family == "hybrid":
+        out["check_len"] = sizes.serve_check_len_window
+    return out
+
+
+def state_leaves(state) -> dict:
+    """The tensors of a (nested) decode state by path."""
+    if isinstance(state, dict):
+        return {f"{k}/{p}".rstrip("/"): v for k, sub in state.items()
+                for p, v in state_leaves(sub).items()}
+    if isinstance(state, list):
+        return {f"{i}/{p}".rstrip("/"): v for i, sub in enumerate(state)
+                for p, v in state_leaves(sub).items()}
+    return {"": state}
+
+
+def kernel_shape(spy: Spy, args) -> list:
+    """The shape of one kernel call, as the kernels phase writes it."""
+    if spy.name == "flash_attention":
+        q, k = args[:2]
+        return [q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3]]
+    if spy.name == "cuda_decode":
+        q, k = args[:2]
+        return [q.shape[0], q.shape[1], k.shape[1], k.shape[2], q.shape[2]]
+    if spy.name == "wkv6":
+        return [*args[0].shape, args[2].shape[-1]]
+    return list(args[1].shape)  # rg_lru: gx (B, T, D)
+
+
 def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
                     gen: torch.Generator) -> dict:
-    """One prefill of ``tp_check_len`` tokens and one decode step on this
-    rank's heads, every flash- and decode-attention call held against its
-    plain version on f32 copies of its inputs within the bf16 limit."""
-    toks = torch.randint(0, cfg.vocab, (1, sizes.tp_check_len),
-                         generator=gen, device=device, dtype=torch.int32)
-    state = model_api.init_decode_state(cfg, 1, sizes.tp_max_len, device,
+    """One prefill of the check prompt and one decode step on this rank's
+    slices, every kernel call of both (``serve_spec``: flash and decode
+    attention on the rank's heads, WKV6 on its WKV heads, RG-LRU on its
+    channels) held against its plain version on f32 copies of its inputs
+    within the bf16 limit."""
+    spec, tps = serve_spec(cfg, sizes), tp_serve_sizes(cfg, sizes)
+    toks = torch.randint(0, cfg.vocab, (1, tps["check_len"]), generator=gen,
+                         device=device, dtype=torch.int32)
+    frames = serve_frames(cfg, gen, device)
+    state = model_api.init_decode_state(cfg, 1, tps["max_len"], device,
                                         rules)
-    out = {"cache_shape": list(state["k"].shape)}
-    with recorded(model_attention, "flash_attention") as calls:
-        logits, state = model_api.prefill(params, {"tokens": toks}, cfg,
-                                          state, rules)
-    q, k = calls[0][0][:2]
-    out["flash_shape"] = [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                          k.shape[2], q.shape[3]]
-    out["prefill"] = layer_gaps("tp prefill", calls, Spy(
-        model_attention, "flash_attention", attention_ref, cfg.n_layers))
-    del calls
-    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    with recorded(model_attention, "cuda_decode") as calls:
-        logits, state = model_api.decode_step(params, tok, cfg, state, rules)
-    q, k = calls[0][0][:2]
-    out["decode_shape"] = [q.shape[0], q.shape[1], k.shape[1], k.shape[2],
-                           q.shape[2]]
-    out["decode"] = layer_gaps("tp decode", calls, Spy(
-        model_attention, "cuda_decode", decode_attention_ref, cfg.n_layers))
+    out = {"state_shapes": {k: list(v.shape)
+                            for k, v in state_leaves(state).items()},
+           "shapes": {}}
+    for what in ("prefill", "decode"):
+        with spying(spec[what]) as calls:
+            if what == "prefill":
+                logits, state = model_api.prefill(
+                    params, prompt_batch(toks, frames), cfg, state, rules)
+            else:
+                logits, state = model_api.decode_step(params, tok, cfg,
+                                                      state, rules)
+        gaps = {}
+        for spy, c in zip(spec[what], calls):
+            out["shapes"][f"{what}/{spy.name}"] = kernel_shape(spy, c[0][0])
+            gaps[spy.name] = layer_gaps(f"tp {what}", c, spy)
+        out[what] = {"calls": sum(g["calls"] for g in gaps.values()),
+                     "max_abs_err": max(g["max_abs_err"]
+                                        for g in gaps.values()),
+                     "limit_share": max(g.get("limit_share", 0.0)
+                                        for g in gaps.values()),
+                     "by_kernel": gaps}
+        del calls
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     out["logits_digest"] = digest(logits)
     return out
 
@@ -5196,14 +5328,17 @@ def collective_seconds(tracer) -> dict:
 
 
 def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
-    """``ServeEngine`` on this rank's slices: ``tp_requests`` requests of
-    ``tp_new`` tokens, every count set to 0 just before, read just after."""
+    """``ServeEngine`` on this rank's slices: the requests of
+    ``tp_serve_sizes``, every count set to 0 just before, read just after;
+    each kernel's launches as ``serve_spec`` counts them for this run's
+    prefills and decode steps, by the route each takes."""
+    spec, tps = serve_spec(cfg, sizes), tp_serve_sizes(cfg, sizes)
     reqs = serve_traffic(dataclasses.replace(
-        sizes, serve_new=(sizes.tp_new, sizes.tp_new)), cfg.vocab, seed,
-        sizes.tp_requests, sizes.tp_prompt)
+        sizes, serve_new=(tps["new"], tps["new"])), cfg.vocab, seed,
+        tps["requests"], tps["prompt"])
     tracer = Tracer(clock=time.perf_counter)
     engine = ServeEngine(params, cfg, slots=sizes.serve_slots,
-                         max_len=sizes.tp_max_len, rules=rules, seed=seed,
+                         max_len=tps["max_len"], rules=rules, seed=seed,
                          tracer=tracer, device=device)
     ranks.barrier()
     zero_counts()
@@ -5226,7 +5361,7 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
     counts = {name: w.launches for name, w in WRAPPERS.items()}
     routes = route_counts()
     require(len(done) == len(reqs) and all(
-        r.status == "ok" and len(r.output) == sizes.tp_new for r in done),
+        r.status == "ok" and len(r.output) == tps["new"] for r in done),
         "tp: requests not ok:", [(r.rid, r.status, len(r.output))
                                  for r in done])
     prefills = [e for e in tracer.events if e["name"].startswith("prefill:")]
@@ -5235,23 +5370,29 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
     ttft = [(e["ts"] + e["dur"] - submitted[e["args"]["rid"]]) * 1e3
             for e in prefills]
     n_steps = engine.stats["steps"]
-    expect = {"flash_attention": cfg.n_layers * len(prefills),
-              "decode_attention": cfg.n_layers * n_steps}
+    expect = spec["expect"](len(prefills), n_steps)
     if device.type == "cuda":
         for name, n in counts.items():
-            require(n == expect.get(name, 0), "tp:", name, "launched", n,
-                    "times in the engine run, expected", expect.get(name, 0))
-        require(routes["flash_attention"]["wgmma"]
-                == counts["flash_attention"]
-                and routes["decode_attention"]["mma"]
-                == counts["decode_attention"], "tp: attention routes in "
-                "the engine run:", routes)
+            require(n == expect.get(name, 0), "tp:", cfg.name, name,
+                    "launched", n, "times in the engine run, expected",
+                    expect.get(name, 0))
+        want_routes = {"flash_attention": {"wgmma": expect.get(
+                           "flash_attention", 0)},
+                       "decode_attention": {"mma": expect.get(
+                           "decode_attention", 0)}}
+        if "expect_routes" in spec:
+            want_routes.update(spec["expect_routes"](
+                [len(r.prompt) for r in reqs], n_steps))
+        for name, want in want_routes.items():
+            got = {r: n for r, n in routes[name].items() if n}
+            require(got == {r: n for r, n in want.items() if n}, "tp:",
+                    cfg.name, name, "routes in the engine run", got,
+                    "expected", want)
     tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
     out = {"requests": len(reqs), "prefills": len(prefills),
            "decode_steps": n_steps,
-           "cache_bytes": sum(x.numel() * x.element_size()
-                              for x in engine.state.values()
-                              if isinstance(x, torch.Tensor)),
+           "cache_bytes": sum(x.numel() * x.element_size() for x in
+                              state_leaves(engine.state).values()),
            "prompt_lengths": sorted(len(r.prompt) for r in reqs),
            "outputs": {r.rid: list(r.output) for r in done},
            "ttft_ms": {"p50": pct(ttft, 50), "max": max(ttft)},
@@ -5261,34 +5402,40 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
            "staged_bytes": ranks.staged_bytes() - staged0,
            "collectives": collective_seconds(spans),
            "kernel_launches": counts, "expected_launches": expect,
-           "kernel_routes": {k: routes[k] for k in ("flash_attention",
-                                                    "decode_attention")}}
+           "kernel_routes": {k: routes[k] for k in expect if k in routes}}
     if device.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     return out
 
 
 def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
-    """(b) ``cfg`` at ``tp_f32_layers`` layers in f32: a prefill and
-    ``tp_f32_steps`` decode steps with the whole model (one rank's path),
-    then with this rank's slices of it over the mesh, the logits within
-    the serve phase's f32 limit; an MoE model's pass over the mesh replays
-    the whole model's expert choices (``routing``)."""
-    c32 = cfg.scaled(n_layers=sizes.tp_f32_layers, dtype="float32")
+    """(b) ``cfg`` at ``tp_f32_layers`` layers (the hybrid at three, one
+    attention block after two recurrent ones; whisper at as many on each
+    side) in f32: a prefill and ``tp_f32_steps`` decode steps with the
+    whole model (one rank's path), then with this rank's slices of it over
+    the mesh, the logits within the serve phase's f32 limit; an MoE
+    model's pass over the mesh replays the whole model's expert choices
+    (``routing``)."""
+    depth = 3 if cfg.family == "hybrid" else sizes.tp_f32_layers
+    c32 = cfg.scaled(n_layers=depth, dtype="float32",
+                     **({"n_enc_layers": depth} if cfg.family == "encdec"
+                        else {}))
+    tps = tp_serve_sizes(cfg, sizes)
     rules = rules_of(c32)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     params = model_api.init_params(gen, c32, device)
-    toks = torch.randint(0, c32.vocab, (1, sizes.tp_check_len),
-                         generator=gen, device=device, dtype=torch.int32)
+    toks = torch.randint(0, c32.vocab, (1, tps["check_len"]), generator=gen,
+                         device=device, dtype=torch.int32)
+    frames = serve_frames(c32, gen, device)
     steps = torch.randint(0, c32.vocab, (sizes.tp_f32_steps, 1, 1),
                           generator=gen, device=device, dtype=torch.int32)
 
     def run(r, replay=None):
-        state = model_api.init_decode_state(c32, 1, sizes.tp_max_len, device,
+        state = model_api.init_decode_state(c32, 1, tps["max_len"], device,
                                             r)
         with routing(replay) as routes:
-            logits, state = model_api.prefill(params, {"tokens": toks}, c32,
-                                              state, r)
+            logits, state = model_api.prefill(
+                params, prompt_batch(toks, frames), c32, state, r)
             out = [logits]
             for tok in steps:
                 logits, state = model_api.decode_step(params, tok, c32, state,
@@ -5304,10 +5451,11 @@ def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
         split, _ = run(rules, routes or None)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    errs = [check_close(f"tp/f32 {'prefill' if i == 0 else f'step {i}'}", a,
-                        b, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL)[0]
+    errs = [check_close(f"tp/f32 {cfg.name} "
+                        f"{'prefill' if i == 0 else f'step {i}'}", a, b,
+                        rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL)[0]
             for i, (a, b) in enumerate(zip(split, one))]
-    return {"n_layers": c32.n_layers, "prompt": sizes.tp_check_len,
+    return {"n_layers": c32.n_layers, "prompt": tps["check_len"],
             "decode_steps": sizes.tp_f32_steps, "max_abs_err": max(errs),
             "routes_replayed": len(routes),
             "max_abs_logit": max(float(x.abs().max()) for x in one),
@@ -5318,12 +5466,12 @@ def tp_serve_one(arch: str, mesh, sizes: Sizes, device,
                  seed: int) -> dict:
     """(a) ``arch`` at full width and depth in bf16 on this rank's slices
     over a (1, 4) mesh: the kernel check, then the engine; (b) the f32
-    check at two layers."""
+    check at two layers (three for the hybrid)."""
+    t0 = time.perf_counter()
     cfg = tp_config(arch, sizes.serve_smoke)
     require(cfg.attention_impl == "cuda", cfg.attention_impl)
     rules = rules_for(cfg, mesh, "tp")
     gen = torch.Generator(device=device).manual_seed(seed)
-    t0 = time.perf_counter()
     params = model_api.init_params(gen, cfg, device, rules)
     free(device)
     out = {"rank": ranks.axis_index("model"),
@@ -5339,16 +5487,16 @@ def tp_serve_one(arch: str, mesh, sizes: Sizes, device,
     out["f32"] = tp_f32_check(cfg, lambda c: rules_for(c, mesh, "tp"),
                               sizes, device, seed)
     free(device)
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
-def tp_serve_rank(device, sizes: Sizes, seed: int) -> dict:
-    """(a) and (b) for each of ``TP_SERVE_ARCHS`` in turn (phi3-mini, then
-    granite-moe-3b with its experts split over the ranks)."""
+def tp_serve_rank(device, sizes: Sizes, seed: int, archs: tuple) -> dict:
+    """(a) and (b) for each of ``archs`` in turn."""
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = tp_mesh((1, torch.distributed.get_world_size()))
     return {arch: tp_serve_one(arch, mesh, sizes, device, seed)
-            for arch in TP_SERVE_ARCHS}
+            for arch in archs}
 
 
 def in_turn(fn):
@@ -5363,25 +5511,48 @@ def in_turn(fn):
     return out
 
 
+def tp_train_batch(cfg, sizes: Sizes) -> tuple:
+    """A trained arch's global batch over the ranks, (batch, seq): the
+    ``tp_train_batch``, the recurrent families' ``tp_train_batch_recurrent``
+    (their plain scans step through every token)."""
+    return sizes.tp_train_batch_recurrent if cfg.family in (
+        "rwkv", "hybrid") else sizes.tp_train_batch
+
+
+def tp_train_inputs(cfg, sizes: Sizes, seed: int, device) -> dict:
+    """A trained arch's global batch (``tp_train_batch``) from the token
+    stream, whisper-medium's with frames of the encoder's input from
+    ``seed``."""
+    b, seq = tp_train_batch(cfg, sizes)
+    batch = train_tokens(cfg, b, seq, seed, device)
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=device).manual_seed(seed + 2)
+        batch["frames"] = torch.randn(
+            (b, cfg.enc_frames, cfg.d_model), generator=gen,
+            device=device).to(cfg.torch_dtype)
+    return batch
+
+
 def tp_train_full(cfg, sizes: Sizes, device, seed: int) -> dict:
     """(c) ``cfg`` at full width and depth in bf16 over (1, 4): one card's
-    ``tp_train_steps`` steps (rank 0, the others waiting), then as many
+    steps (rank 0, the others waiting; ``tp_train_inputs``), then as many
     steps of every rank from the same state, step 1's loss held against
     one card's."""
+    t0 = time.perf_counter()
     n = torch.distributed.get_world_size()
     mesh = tp_mesh((1, n))
-    batch = train_tokens(cfg, *sizes.tp_train_batch, seed, device)
+    batch = tp_train_inputs(cfg, sizes, seed, device)
+    n_steps = sizes.tp_train_steps
     me = ranks.axis_index("model")
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
-           "batch": list(sizes.tp_train_batch), "mesh": [1, n]}
+           "batch": list(batch["tokens"].shape), "steps": n_steps,
+           "mesh": [1, n]}
     if me == 0:
+        # one card's first step, whose loss the ranks' first is held to
         state = dist_state(cfg, device, seed, False)
         step = make_train_step(cfg, lr_schedule=lambda s: TRAIN_LR)
-        one = []
-        for _ in range(sizes.tp_train_steps):
-            state, m = step(state, batch)
-            one.append(float(m["loss"]))
-        out["one_card_losses"] = one
+        state, m = step(state, batch)
+        out["one_card_losses"] = [float(m["loss"])]
         del state, m, step
         free(device)
     ranks.barrier()
@@ -5396,14 +5567,14 @@ def tp_train_full(cfg, sizes: Sizes, device, seed: int) -> dict:
     prev = set_tracer(tracer)
     losses, step_s, staged = [], [], []
     try:
-        for _ in range(sizes.tp_train_steps):
+        for _ in range(n_steps):
             sync(device)
             before = ranks.staged_bytes()
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             state, m = step(state, batch)
             losses.append(float(m["loss"]))
             sync(device)
-            step_s.append(time.perf_counter() - t0)
+            step_s.append(time.perf_counter() - t1)
             staged.append(ranks.staged_bytes() - before)
     finally:
         set_tracer(prev)
@@ -5433,11 +5604,13 @@ def tp_train_full(cfg, sizes: Sizes, device, seed: int) -> dict:
     del state, step
     free(device)
     ranks.barrier()
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
-#: cells a split dimension of a leaf is cut into for its digests: every
-#: mesh the checkpoint goes between splits a dimension in 1, 2 or 4
+#: cells a split dimension of a leaf is cut into for its digests (in each
+#: block of a ``ranks.BlockedSpec``'s): every mesh the checkpoint goes
+#: between splits a dimension in 1, 2 or 4
 TP_CELLS = 4
 
 
@@ -5447,27 +5620,37 @@ def tp_cell_digests(state: TrainState, specs, canon) -> dict:
     ``TP_CELLS`` equal cells of the whole leaf, and a rank digests the
     cells its slice under ``specs`` on the current mesh holds, keyed by
     their global indices; ``specs`` None: the state is whole.  Cells
-    compare across meshes without moving a leaf between ranks."""
+    compare across meshes without moving a leaf between ranks.  A
+    blocked dimension (the hybrid's ``w_in``) is cut into ``TP_CELLS``
+    cells in each of its blocks."""
     def cells(x, spec, canon_spec):
-        offsets, wholes = [], []
+        parts = []  # a dimension's cells: (local start, size, global index)
         for dim, entry in enumerate(canon_spec):
+            if entry is None:
+                parts.append(None)
+                continue
             count, index = 1, 0
             axes = () if spec is None or spec[dim] is None else (
                 (spec[dim],) if isinstance(spec[dim], str) else spec[dim])
             axes = tuple(a for a in axes if ranks.axis_size(a) > 1)
             if axes:
                 count, index = ranks.axis_size(axes), ranks.axis_index(axes)
-            offsets.append(index * x.shape[dim])
-            wholes.append(x.shape[dim] * count)
-        dims = [d for d, e in enumerate(canon_spec) if e is not None]
+            blocks = canon_spec.blocks if isinstance(
+                canon_spec, ranks.BlockedSpec) and canon_spec.dim == dim \
+                else 1
+            size = x.shape[dim] * count // (blocks * TP_CELLS)
+            local = x.shape[dim] // blocks  # of a block, on this rank
+            parts.append([(b * local + i * size, size,
+                           b * TP_CELLS + index * local // size + i)
+                          for b in range(blocks)
+                          for i in range(local // size)])
+        dims = [d for d, p in enumerate(parts) if p is not None]
         out = {}
-        for idx in np.ndindex(*[x.shape[d] * TP_CELLS // wholes[d]
-                                for d in dims]):
+        for combo in itertools.product(*[parts[d] for d in dims]):
             block, key = x, []
-            for d, i in zip(dims, idx):
-                size = wholes[d] // TP_CELLS
-                block = block.narrow(d, i * size, size)
-                key.append(offsets[d] // size + i)
+            for d, (start, size, i) in zip(dims, combo):
+                block = block.narrow(d, start, size)
+                key.append(i)
             out[tuple(key)] = digest(block)
         return out
 
@@ -5507,13 +5690,19 @@ def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
     and after it); a bf16 ZeRO-1 step over (2, 2), saved, then restored
     onto (1, 4) and onto one rank, bit for bit by the digests of each
     leaf's cells, no leaf moved between ranks for them."""
+    began = time.perf_counter()
     n = torch.distributed.get_world_size()
-    cut = dataclasses.replace(cfg, n_layers=sizes.dist_train_layers)
-    batch = train_tokens(cut, *sizes.tp_train_batch, seed, device)
+    cut = dataclasses.replace(cfg, n_layers=sizes.dist_train_layers,
+                              **({"n_enc_layers": sizes.dist_train_layers}
+                                 if cfg.family == "encdec" else {}))
+    batch = tp_train_inputs(cut, sizes, seed, device)
     mesh = tp_mesh((1, n))
     me = ranks.axis_index("model")
     out = {"n_layers": cut.n_layers}
     c32 = dataclasses.replace(cut, dtype="float32")
+    # the f32 steps' inputs in f32 (whisper's frames)
+    batch32 = {k: x.float() if x.is_floating_point() else x
+               for k, x in batch.items()}
     rules = rules_for(c32, mesh, "tp", global_batch=batch["tokens"].shape[0])
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5522,7 +5711,7 @@ def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
             whole = dist_state(c32, device, seed, True)
             start = sliced_state(whole, c32, rules, mesh)
             with routing() as routes:
-                whole, m = make_train_step(c32)(whole, batch)
+                whole, m = make_train_step(c32)(whole, batch32)
             want = sliced_state(whole, c32, rules, mesh)
             metrics = {k: float(m[k]) for k in ("loss", "grad_norm")}
             del whole, m
@@ -5532,7 +5721,7 @@ def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
         # an MoE step over the ranks routes every token as the one-rank
         # step did: a rounding difference in the router can swap an expert
         with routing(routes or None):
-            state, m = make_train_step(c32, rules, mesh)(state, batch)
+            state, m = make_train_step(c32, rules, mesh)(state, batch32)
         out["routes_replayed"] = len(routes)
         worst = {}
         for tree in ("params", "master", "mu", "nu"):
@@ -5560,21 +5749,23 @@ def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
         torch.backends.cuda.matmul.allow_tf32 = tf32
     free(device)
     ranks.barrier()
+    out["f32_seconds"] = time.perf_counter() - began
 
     # a ZeRO-1 step over (2, 2), saved
     mesh = tp_mesh((2, n // 2))
     rules = rules_for(cut, mesh, "tp", global_batch=batch["tokens"].shape[0])
     canon = train_state_specs(cut, rules)
 
-    def local():
-        whole = dist_state(cut, device, seed, False)
-        part = local_train_state(whole, cut, rules, mesh)
-        del whole
-        free(device)
-        return part
-    state = in_turn(local)
+    # every rank at once: its slices of the whole model made from the
+    # seed, and their AdamW state (ZeRO-1 slices it at the first step), as
+    # a whole state made from the seed and sliced would be
+    t1 = time.perf_counter()
+    state = init_train_state(torch.Generator(device=device).manual_seed(
+        seed), cut, device, rules)
+    free(device)
     state, m = make_train_step(cut, rules, mesh, lr_schedule=lambda s:
                                TRAIN_LR)(state, batch)
+    out["zero1_seconds"] = time.perf_counter() - t1
     out["zero1_2x2"] = {"loss": float(m["loss"]), "local_master_shapes": {
         k: list(v.shape) for k, v in list(state.opt.master.items())[:3]}}
     require(np.isfinite(out["zero1_2x2"]["loss"]), "tp/2x2 loss")
@@ -5612,21 +5803,27 @@ def tp_train_checks(cfg, sizes: Sizes, device, seed: int,
         del whole
         free(device)
     ranks.barrier()
+    out["seconds"] = time.perf_counter() - began
     return out
 
 
-def tp_train_rank(device, sizes: Sizes, seed: int, directory: str) -> dict:
-    """(c) and (d) on this rank for each of ``TP_TRAIN_ARCHS`` in turn
-    (gemma-2b, then granite-moe-1b with its experts split over the
-    ranks)."""
+def tp_train_rank(device, sizes: Sizes, seed: int, directory: str,
+                  archs: tuple) -> dict:
+    """(c) and (d) on this rank for each of ``archs`` in turn; rank 0
+    prints each arch's seconds as it ends."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": torch.distributed.get_rank()}
-    for arch in TP_TRAIN_ARCHS:
+    for arch in archs:
         cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
         out[arch] = {
             "full": tp_train_full(cfg, sizes, device, seed),
             "checks": tp_train_checks(cfg, sizes, device, seed,
                                       os.path.join(directory, arch))}
+        if out["rank"] == 0:
+            checks = out[arch]["checks"]
+            emit({"phase": "tp_train_arch", "arch": arch,
+                  "full_seconds": out[arch]["full"]["seconds"],
+                  **{k: checks[k] for k in checks if "seconds" in k}})
     return out
 
 
@@ -5641,20 +5838,21 @@ def tp_serve_summary(serve: list, arch: str, device) -> dict:
             "tp:", arch, "the ranks' gathered logits differ")
     if device.type == "cuda":
         for e in engines:
-            require(e["kernel_launches"]["flash_attention"] > 0
-                    and e["kernel_launches"]["decode_attention"] > 0,
-                    "tp:", arch, "a rank launched no attention kernel", e)
+            require(all(e["kernel_launches"][name] > 0
+                        for name in e["expected_launches"]),
+                    "tp:", arch, "a rank launched no kernel of its path", e)
     first = by_rank[0]
     cfg = tp_config(arch, False)
+    kernels = list(first["engine"]["expected_launches"])
     return {
         "arch": arch, "n_layers": cfg.n_layers,
         "local_params": first["local_params"],
         "local_param_bytes": first["local_param_bytes"],
         "init_seconds": max(s["init_seconds"] for s in by_rank),
-        "flash_shape": first["check"]["flash_shape"],
-        "decode_shape": first["check"]["decode_shape"],
-        "cache_shape": first["check"]["cache_shape"],
-        "bf16_limit_share": {w: max(s["check"][w].get("limit_share", 0.0)
+        "seconds": max(s["seconds"] for s in by_rank),
+        "kernel_shapes": first["check"]["shapes"],
+        "state_shapes": first["check"]["state_shapes"],
+        "bf16_limit_share": {w: max(s["check"][w]["limit_share"]
                                     for s in by_rank)
                              for w in ("prefill", "decode")},
         "calls_checked_by_rank": [s["check"]["prefill"]["calls"]
@@ -5666,8 +5864,9 @@ def tp_serve_summary(serve: list, arch: str, device) -> dict:
             "decode_tokens_per_s", "staged_bytes", "collectives",
             "cache_bytes", "expected_launches", "kernel_routes")},
         "launches": {name: sum(e["kernel_launches"][name] for e in engines)
-                     for name in ("flash_attention", "decode_attention")},
-        "launches_by_rank": [e["kernel_launches"] for e in engines],
+                     for name in kernels},
+        "launches_by_rank": [{k: e["kernel_launches"][k] for k in kernels}
+                             for e in engines],
         "decode_step_ms_by_rank": [e["decode_step_ms"]["p50"]
                                    for e in engines],
         "peak_bytes_by_rank": [e.get("peak_bytes") for e in engines],
@@ -5705,7 +5904,9 @@ def tp_train_summary(train: list, arch: str, n: int) -> dict:
     return out
 
 
-def phase_tp(sizes: Sizes, device: torch.device, seed: int) -> dict:
+def phase_tp(sizes: Sizes, device: torch.device, seed: int,
+             serve_archs: tuple = TP_SERVE_ARCHS,
+             train_archs: tuple = TP_TRAIN_ARCHS) -> dict:
     """Tensor parallelism over a ``"model"`` axis of 4 ranks on the one
     card under gloo (NCCL refuses two ranks on one card): (a) phi3-mini
     and granite-moe-3b served at full width and depth in bf16, each rank's
@@ -5728,20 +5929,27 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int) -> dict:
         _build.load()  # the ranks load the library this process built
     t1 = time.perf_counter()
     serve = ranks.spawn(tp_serve_rank, n, backend="gloo", device=where,
-                        args=(sizes, seed), timeout=TP_TIMEOUT_S)
+                        args=(sizes, seed, serve_archs),
+                        timeout=TP_TIMEOUT_S, env=RANK_ENV)
     out["serve_seconds"] = time.perf_counter() - t1
     out["serve"] = {arch: tp_serve_summary(serve, arch, device)
-                    for arch in TP_SERVE_ARCHS}
+                    for arch in serve_archs}
+    # the served archs' results now, in case a trained one fails below
+    emit({"phase": "tp_serve", "seconds": out["serve_seconds"],
+          "serve": out["serve"]})
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
         train = ranks.spawn(tp_train_rank, n, backend="gloo", device=where,
-                            args=(sizes, seed, tmp), timeout=TP_TIMEOUT_S)
+                            args=(sizes, seed, tmp, train_archs),
+                            timeout=TP_TIMEOUT_S, env=RANK_ENV)
         out["train_seconds"] = time.perf_counter() - t1
     out["train"] = {arch: tp_train_summary(train, arch, n)
-                    for arch in TP_TRAIN_ARCHS}
-    for name in ("flash_attention", "decode_attention"):
-        out[f"{name}_launches"] = {arch: s["launches"][name]
-                                   for arch, s in out["serve"].items()}
+                    for arch in train_archs}
+    out["launches"] = {name: {arch: s["launches"][name]
+                              for arch, s in out["serve"].items()
+                              if name in s["launches"]}
+                       for name in WRAPPERS}
+    out["launches"] = {k: v for k, v in out["launches"].items() if v}
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -5759,9 +5967,9 @@ def dry_cell(cfg, seq: int, batch: int, kind: str, mesh: dict) -> dict:
                                mesh, "tp")
 
 
-def dry_cells(sizes: Sizes, flavor: str, mesh: dict) -> dict:
+def dry_cells(sizes: Sizes, flavor: str, mesh: dict, pool) -> dict:
     """Every cell of ``sizes.dryrun_archs`` (None: every arch) x shape over
-    ``mesh`` under ``flavor``, over a process a core: the
+    ``mesh`` under ``flavor``, each run in a process of ``pool``: the
     counts of each status, the seconds, each cell that ran by its dominant
     term, roofline fraction and bytes a rank, and the cells whose state a
     rank holds more bytes of than one card has (a finding, not a
@@ -5769,8 +5977,8 @@ def dry_cells(sizes: Sizes, flavor: str, mesh: dict) -> dict:
     cells = [(a, s) for a in (sizes.dryrun_archs or ARCHS)
              for s in SHAPE_NAMES]
     with tempfile.TemporaryDirectory() as tmp:
-        with contextlib.redirect_stdout(io.StringIO()):
-            res = dryrun.run_cells(cells, mesh, flavor, tmp)
+        res = dryrun.run_cells(cells, mesh, flavor, tmp, pool=pool,
+                               echo=False)
         failures = res.pop("failures")
         require(not failures, "dryrun:", flavor, "cells failed:",
                 [f[0] for f in failures], failures[:1])
@@ -5790,10 +5998,63 @@ def dry_cells(sizes: Sizes, flavor: str, mesh: dict) -> dict:
             "not_fitting": [k for k, c in ran.items() if not c["fits"]]}
 
 
-def phase_dryrun(sizes: Sizes, tp: dict, train: dict) -> dict:
-    """The dry run, host work on the meta device (the card idle): every
-    cell of one pod under ``tp`` and ``dp`` with the PASS, SKIP and QUEUED
-    counts and the seconds; then its exact checks against this run's card:
+def dryrun_start(sizes: Sizes, processes: int,
+                 serve_archs: tuple = TP_SERVE_ARCHS,
+                 train_archs: tuple = TP_TRAIN_ARCHS) -> dict:
+    """Start the dry run's host work on the meta device, which needs
+    nothing of the card, over one pool of ``processes`` processes: the
+    cells of this run's own shapes that ``phase_dryrun`` holds against the
+    ``tp`` phase (``serve_archs``' decode caches and ``train_archs``' steps
+    over (1, ``tp_ranks``)) and the ``train`` phase (gemma-2b's step on one
+    rank), then every cell of one pod under ``tp`` and ``dp`` (a thread
+    each feeds the pool).  ``main`` starts it after the build, so that it
+    runs on the cores the single-card phases leave idle; ``phase_dryrun``
+    waits for it and ``dryrun_stop`` ends it."""
+    t0 = time.perf_counter()
+    mesh = make_production_mesh()
+    on_tp = {"data": 1, "model": sizes.tp_ranks}
+    cells = {}
+    for arch in serve_archs:
+        cfg = tp_config(arch, sizes.serve_smoke)
+        cells["serve", arch] = (cfg, tp_serve_sizes(cfg, sizes)["max_len"],
+                                sizes.serve_slots, "decode", on_tp)
+    for arch in train_archs:
+        cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
+        b, seq = tp_train_batch(cfg, sizes)
+        cells["train", arch] = (cfg, seq, b, "train", on_tp)
+    cells["roofline", None] = (train_config(sizes), sizes.train_seq,
+                               sizes.train_batch, "train",
+                               {"data": 1, "model": 1})
+    procs = ProcessPoolExecutor(
+        max_workers=processes,
+        mp_context=multiprocessing.get_context("spawn"))
+    threads = ThreadPoolExecutor(max_workers=2)
+    return {"t0": t0, "mesh": mesh, "processes": processes,
+            "procs": procs, "threads": threads, "cells": cells,
+            "checks": {k: procs.submit(dry_cell, *a)
+                       for k, a in cells.items()},
+            "pod": {flavor: threads.submit(dry_cells, sizes, flavor, mesh,
+                                           procs)
+                    for flavor in ("tp", "dp")}}
+
+
+def dryrun_stop(started: dict | None) -> None:
+    """End a started dry run: the cells not begun dropped, the pools' threads
+    and processes joined once their running cells end."""
+    if started is None:
+        return
+    started["procs"].shutdown(wait=False, cancel_futures=True)
+    started["threads"].shutdown(wait=True, cancel_futures=True)
+    started["procs"].shutdown(wait=True)
+
+
+def phase_dryrun(sizes: Sizes, tp: dict, train: dict,
+                 started: dict | None = None) -> dict:
+    """The dry run, host work on the meta device (the card idle; started
+    by ``dryrun_start``, here where ``started`` is None, over a process a
+    core): every cell of one pod under ``tp`` and ``dp`` with the PASS,
+    SKIP and QUEUED counts and the seconds (the cells of the exact checks
+    run beside them); then its exact checks against this run's card:
     (a) the ``tp`` phase's served cells over (1, 4): the params' bytes a
     rank that phase measured, and its engine's cache bytes a rank; (b)
     the ``tp`` phase's train steps: each ``collective:*`` span's calls and
@@ -5801,18 +6062,37 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict) -> dict:
     ``train`` phase's gemma-2b cell (one rank) beside its measured step
     time, as a roofline fraction."""
     t0 = time.perf_counter()
-    mesh = make_production_mesh()
-    out = {"phase": "dryrun", "device": "meta", "mesh": mesh,
-           "paths": dryrun.PLAIN_PATHS}
-    for flavor in ("tp", "dp"):
-        out[flavor] = dry_cells(sizes, flavor, mesh)
-    n = tp["ranks"]
-    tp_mesh_sizes = {"data": 1, "model": n}
+    if started is None:
+        started = dryrun_start(sizes, len(os.sched_getaffinity(0)),
+                               tuple(tp["serve"]), tuple(tp["train"]))
+    try:
+        mesh = started["mesh"]
+        out = {"phase": "dryrun", "device": "meta", "mesh": mesh,
+               "paths": dryrun.PLAIN_PATHS,
+               "processes": started["processes"]}
+        for flavor, future in started["pod"].items():
+            out[flavor] = future.result()
+        metrics = {k: f.result() for k, f in started["checks"].items()}
+        out["background_seconds"] = time.perf_counter() - started["t0"]
+        out["wait_seconds"] = time.perf_counter() - t0
+    finally:
+        dryrun_stop(started)
+    cells = started["cells"]
+    require(set(tp["serve"]) == {a for k, a in cells if k == "serve"}
+            and set(tp["train"]) == {a for k, a in cells if k == "train"},
+            "dryrun: started for other archs than the tp phase's")
+    for arch, trained in tp["train"].items():
+        _, seq, b = cells["train", arch][:3]
+        require([b, seq] == trained["batch"], "dryrun:", arch, "cell of",
+                [b, seq], "against the tp phase's batch", trained["batch"])
+    b, seq = train["batch"]
+    if [b, seq] != [sizes.train_batch, sizes.train_seq]:
+        # the train phase halved its batch: that batch's cell
+        metrics["roofline", None] = dry_cell(train_config(sizes), seq, b,
+                                             "train", {"data": 1, "model": 1})
     out["tp_serve"] = {}
     for arch, served in tp["serve"].items():
-        cfg = tp_config(arch, sizes.serve_smoke)
-        m = dry_cell(cfg, sizes.tp_max_len, sizes.serve_slots, "decode",
-                     tp_mesh_sizes)
+        m = metrics["serve", arch]
         got = {"params_bytes": m["memory"]["params_bytes"],
                "cache_bytes": m["memory"]["cache_bytes"]}
         want = {"params_bytes": served["local_param_bytes"],
@@ -5821,11 +6101,9 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict) -> dict:
                 "against the tp phase's", want)
         out["tp_serve"][arch] = {**got, "equal": True}
     out["tp_train"] = {}
-    steps = sizes.tp_train_steps
     for arch, trained in tp["train"].items():
-        cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
-        b, seq = sizes.tp_train_batch
-        m = dry_cell(cfg, seq, b, "train", tp_mesh_sizes)
+        steps = trained["steps"]
+        m = metrics["train", arch]
         real = {k: {"calls": v["calls"], "bytes": v["bytes"]}
                 for k, v in trained["collective_seconds"].items()}
         want = {k: {"calls": v["calls"] * steps, "bytes": v["bytes"] * steps}
@@ -5836,8 +6114,7 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict) -> dict:
                                  "collectives_a_step": m["collectives"],
                                  "equal": True}
     cfg = train_config(sizes)
-    b, seq = train["batch"]
-    m = dry_cell(cfg, seq, b, "train", {"data": 1, "model": 1})
+    m = metrics["roofline", None]
     roof = dryrun.cell_roofline(m)
     out["train_roofline"] = {"arch": cfg.name, "batch": [b, seq], **roof}
     step_ms = train.get("median_step_ms_3_to_10")
@@ -5874,30 +6151,37 @@ def main(argv=None) -> int:
 
     env = phase_env(device)
     build = phase_build(device)
-    rows = phase_kernels(sizes, device, gen, build)
-
-    # The launch and streaming path: every count set to 0 just before, read
-    # just after.
-    zero_counts()
-    launch = phase_launch(sizes, device, gen)
-    stream = phase_stream(sizes, device, args.seed)
-    counts = {name: w.launches for name, w in WRAPPERS.items()}
-    routes = route_counts()
-    phase_sim(sizes, device, rows, stream)
-    # Each serving run zeroes and reads the counts around its engine run.
-    serves = {arch: phase_serve(sizes, device, args.seed, arch)
-              for arch in SERVE_ARCHS}
-    # The training path zeroes and reads the counts around its steps.
-    train = phase_train(sizes, device, args.seed)
-    # Each rank of the distribution phase zeroes and reads its own counts
-    # around its flash-decode path.
-    dist = phase_dist(sizes, device, args.seed)
-    # Each rank of the tensor-parallel phase zeroes and reads its own
-    # counts around its engine run.
-    tp = phase_tp(sizes, device, args.seed)
-    # The dry run: host work on the meta device, checked against the tp
+    # The dry run: host work on the meta device over half the cores, from
+    # here on beside the phases below, checked at the end against the tp
     # and train phases' measurements.
-    phase_dryrun(sizes, tp, train)
+    started = dryrun_start(sizes,
+                           max(1, len(os.sched_getaffinity(0)) // 2))
+    try:
+        rows = phase_kernels(sizes, device, gen, build)
+
+        # The launch and streaming path: every count set to 0 just before,
+        # read just after.
+        zero_counts()
+        launch = phase_launch(sizes, device, gen)
+        stream = phase_stream(sizes, device, args.seed)
+        counts = {name: w.launches for name, w in WRAPPERS.items()}
+        routes = route_counts()
+        phase_sim(sizes, device, rows, stream)
+        # Each serving run zeroes and reads the counts around its engine
+        # run.
+        serves = {arch: phase_serve(sizes, device, args.seed, arch)
+                  for arch in SERVE_ARCHS}
+        # The training path zeroes and reads the counts around its steps.
+        train = phase_train(sizes, device, args.seed)
+        # Each rank of the distribution phase zeroes and reads its own
+        # counts around its flash-decode path.
+        dist = phase_dist(sizes, device, args.seed)
+        # Each rank of the tensor-parallel phase zeroes and reads its own
+        # counts around its engine run.
+        tp = phase_tp(sizes, device, args.seed)
+        phase_dryrun(sizes, tp, train, started)
+    finally:
+        dryrun_stop(started)
     served = {arch: out["kernel_launches"] for arch, out in serves.items()}
     rwkv = served["rwkv6-3b"]
     hybrid = served["recurrentgemma-2b"]
@@ -5914,12 +6198,13 @@ def main(argv=None) -> int:
         "spmv_ell": counts["spmv_ell"], "md5": counts["md5"],
         "nbody": counts["nbody"], "correlate": counts["correlate"],
         "flash_attention": sum(n["flash_attention"] for n in served.values())
-        + sum(tp["flash_attention_launches"].values()),
+        + sum(tp["launches"]["flash_attention"].values()),
         "decode_attention": sum(n["decode_attention"]
                                 for n in served.values())
         + dist["decode_attention_launches"]
-        + sum(tp["decode_attention_launches"].values()),
-        "wkv6": rwkv["wkv6"], "rg_lru": hybrid["rg_lru"],
+        + sum(tp["launches"]["decode_attention"].values()),
+        "wkv6": rwkv["wkv6"] + sum(tp["launches"]["wkv6"].values()),
+        "rg_lru": hybrid["rg_lru"] + sum(tp["launches"]["rg_lru"].values()),
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
     # The two kernels launched at more than one shape, split by shape.
@@ -5935,8 +6220,9 @@ def main(argv=None) -> int:
            for name in ("flash_attention", "decode_attention")}}
     by_shape["decode_attention"]["dist phase"] = \
         dist["decode_attention_launches"]
-    for name in ("flash_attention", "decode_attention"):
-        for arch, count in tp[f"{name}_launches"].items():
+    by_shape["wkv6"] = {"serve phase": rwkv["wkv6"]}
+    for name, by_arch in tp["launches"].items():
+        for arch, count in by_arch.items():
             label = f"{arch.split('-')[0]}_tp_rank"
             by_shape[name][f"tp phase (4 ranks, {label})"] = count
     for row in rows:
@@ -5953,8 +6239,7 @@ def main(argv=None) -> int:
           "train_launches": train["kernel_launches"],
           "dist_launches": {"decode_attention":
                             dist["decode_attention_launches"]},
-          "tp_launches": {name: tp[f"{name}_launches"] for name in
-                          ("flash_attention", "decode_attention")}})
+          "tp_launches": tp["launches"]})
 
     if args.rehearse:
         emit({"kernels": rows})

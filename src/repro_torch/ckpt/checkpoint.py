@@ -125,23 +125,31 @@ class CheckpointManager:
 
         With ``specs`` (a tree of partition specs shaped as ``state``, such
         as ``train_state_specs``) every rank of the current mesh calls this
-        with its part of a sharded state: each leaf is gathered whole, rank
-        0 writes it and the others wait at a barrier until it is written
-        (such a save is always blocking)."""
+        with its part of a sharded state: each leaf in turn is gathered
+        whole on the mesh's first rank alone (``ranks.spec_gather_first``)
+        and copied to its host memory, that rank writes them and the others
+        wait at a barrier until they are written (such a save is always
+        blocking)."""
         self.wait()  # one in-flight save at a time
         leaves = _flatten_with_paths(state)
         if specs is not None:
             flat = _flatten_specs(specs)
-            leaves = [(k, ranks.spec_gather(v, flat[k])
-                       if isinstance(v, torch.Tensor) else v)
-                      for k, v in leaves]
-            mesh_axes = tuple(ranks.current_mesh().mesh_dim_names)
-            if ranks.axis_index(mesh_axes) != 0:
-                del leaves
+            writer = ranks.axis_index(
+                tuple(ranks.current_mesh().mesh_dim_names)) == 0
+            host_leaves = []
+            for k, v in leaves:
+                if isinstance(v, torch.Tensor):
+                    v = ranks.spec_gather_first(v, flat[k])
+                if writer:
+                    host_leaves.append((k, _to_host(v)))
+                del v
+            del leaves
+            if not writer:
                 ranks.barrier()
                 return
-        host_leaves = [(k, _to_host(v)) for k, v in leaves]
-        del leaves
+        else:
+            host_leaves = [(k, _to_host(v)) for k, v in leaves]
+            del leaves
         meta = dict(metadata or {})
         meta["step"] = int(step)
 

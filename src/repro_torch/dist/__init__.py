@@ -12,8 +12,8 @@
   ``all_gather``, ``ppermute``, ``axis_index``), and ``spawn``, which starts
   the ranks of one machine.
 * :mod:`repro_torch.dist.tensor_parallel` — the Megatron operators over
-  the ``"model"`` axis that the dense, VLM and MoE layers run on when the
-  rules split heads, d_ff, experts or vocab over more than one rank:
+  the ``"model"`` axis that every family's layers run on when the rules
+  split heads, d_ff, experts or vocab over more than one rank:
   ``copy_to_model``, ``reduce_from_model``, ``gather_from_model``, the
   vocab-split embedding lookup and cross-entropy.
 * :mod:`repro_torch.dist.collectives` — a ring all-reduce from
@@ -27,7 +27,6 @@
 from .sharding import (
     MESH_AXES,
     ShardingRules,
-    check_tp_family,
     constrain,
     derive_rules_from_plan,
     dp_rules,
@@ -59,7 +58,6 @@ from .ranks import spawn
 __all__ = [
     "MESH_AXES",
     "ShardingRules",
-    "check_tp_family",
     "constrain",
     "derive_rules_from_plan",
     "dp_rules",

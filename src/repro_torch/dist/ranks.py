@@ -343,15 +343,45 @@ def _spec_dims(spec: tuple) -> list[tuple[int, tuple[str, ...], int]]:
     return out
 
 
+class BlockedSpec(tuple):
+    """A partition spec whose array is ``blocks`` arrays laid end to end
+    along dimension ``dim`` (a fused projection, such as the hybrid's
+    ``w_in`` = [z | y]): ``spec_slice`` gives a rank its part of each block
+    along that dimension, side by side, and ``spec_gather`` puts the
+    blocks back.  As a tuple it is the partition spec itself, so that it
+    compares equal to the reference's spec of the same leaf."""
+
+    def __new__(cls, spec, dim: int, blocks: int):
+        out = super().__new__(cls, spec)
+        out.dim, out.blocks = dim, blocks
+        return out
+
+    def __getnewargs__(self):
+        return tuple(self), self.dim, self.blocks
+
+
+def _blocks(spec, dim: int) -> int:
+    return spec.blocks if isinstance(spec, BlockedSpec) and \
+        spec.dim == dim else 1
+
+
 def spec_slice(x: torch.Tensor, spec: tuple) -> torch.Tensor:
     """This rank's part of the whole array ``x`` under a partition spec on
-    the current mesh (a view), as a ``NamedSharding`` places it."""
+    the current mesh (a view, except along a ``BlockedSpec``'s blocked
+    dimension), as a ``NamedSharding`` places it."""
     for dim, axes, count in _spec_dims(spec):
-        if x.shape[dim] % count:
+        blocks = _blocks(spec, dim)
+        if x.shape[dim] % (count * blocks):
             raise ValueError(f"axis {dim} of size {x.shape[dim]} does not "
-                             f"split over {count} ranks of {axes}")
-        size = x.shape[dim] // count
-        x = x.narrow(dim, axis_index(axes) * size, size)
+                             f"split over {count} ranks of {axes}"
+                             + (f" in {blocks} blocks" if blocks > 1
+                                else ""))
+        size = x.shape[dim] // (count * blocks)
+        if blocks == 1:
+            x = x.narrow(dim, axis_index(axes) * size, size)
+        else:
+            x = x.unflatten(dim, (blocks, count * size)).narrow(
+                dim + 1, axis_index(axes) * size, size).flatten(dim, dim + 1)
     return x
 
 
@@ -360,8 +390,77 @@ def spec_gather(x: torch.Tensor, spec: tuple) -> torch.Tensor:
     (the inverse of ``spec_slice``); ``x`` itself where nothing is split."""
     for dim, axes, _ in _spec_dims(spec):
         parts = all_gather(x.contiguous(), axes)
-        x = torch.cat(list(parts.unbind(0)), dim=dim)
+        blocks = _blocks(spec, dim)
+        if blocks > 1:
+            parts = parts.unflatten(dim + 1, (blocks, -1)).movedim(0, dim + 1)
+            x = parts.flatten(dim + 1, dim + 2).flatten(dim, dim + 1)
+        else:
+            x = torch.cat(list(parts.unbind(0)), dim=dim)
     return x
+
+
+def _placed(whole: torch.Tensor, part: torch.Tensor, spec: tuple,
+            coords: dict) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(region of ``whole``, region of ``part``) pairs that put the part of
+    the rank at ``coords`` ({axis: index}) in its place under ``spec``
+    (block by block along a ``BlockedSpec``'s dimension)."""
+    sizes = mesh_sizes(current_mesh())
+    pairs = [(whole, part)]
+    for dim, axes, count in _spec_dims(spec):
+        index = 0
+        for a in axes:
+            index = index * sizes[a] + coords[a]
+        blocks = _blocks(spec, dim)
+        size = whole.shape[dim] // (count * blocks)
+        pairs = [(w.narrow(dim, b * count * size + index * size, size),
+                  p.narrow(dim, b * size, size))
+                 for w, p in pairs for b in range(blocks)]
+    return pairs
+
+
+def spec_gather_first(x: torch.Tensor, spec: tuple) -> torch.Tensor | None:
+    """The whole array of ``spec_gather``, on the first rank of the current
+    mesh only (None on the others), in host memory under gloo: each rank
+    holding a distinct part sends it once, to that rank (a rank whose
+    coordinates are 0 on every axis ``spec`` does not split), where
+    ``spec_gather`` sends every part to every rank.  For a checkpoint,
+    which one rank writes.  The mesh must span every rank."""
+    mesh = current_mesh()
+    order = [int(r) for r in mesh.mesh.flatten()]
+    if len(order) != dist.get_world_size():
+        raise NotImplementedError("a mesh that does not span every rank")
+    first, me = order[0], dist.get_rank()
+    dims = _spec_dims(spec)
+    if not dims:
+        return x if me == first else None
+    split = {a for _, axes, _ in dims for a in axes}
+    names = tuple(mesh.mesh_dim_names)
+
+    def coords_of(rank: int) -> dict:
+        at = (mesh.mesh == rank).nonzero()[0].tolist()
+        return dict(zip(names, at))
+
+    part = x.detach().contiguous()
+    if _staged(part):
+        part = _to_host(part)
+    senders = [r for r in order
+               if all(c == 0 for a, c in coords_of(r).items()
+                      if a not in split)]
+    if me != first:
+        if me in senders:
+            dist.send(part, dst=first)
+        return None
+    shape = list(part.shape)
+    for dim, _, count in dims:
+        shape[dim] *= count
+    whole = torch.empty(shape, dtype=part.dtype, device=part.device)
+    for r in senders:
+        got = part if r == me else torch.empty_like(part)
+        if r != me:
+            dist.recv(got, src=r)
+        for w, p in _placed(whole, got, spec, coords_of(r)):
+            w.copy_(p)
+    return whole
 
 
 def spec_shards(spec: tuple) -> bool:
@@ -396,7 +495,9 @@ def rank_device(device: torch.device | str | None,
 
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,
-               device, init_dir: str, timeout: float, args: tuple) -> None:
+               device, init_dir: str, timeout: float, args: tuple,
+               env: dict) -> None:
+    os.environ.update(env)
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
     dev = rank_device(device, rank)
@@ -417,7 +518,7 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
 def spawn(fn: Callable, world: int, *, backend: str | None = None,
           device: torch.device | str | None = None,
           init_dir: str | None = None, args: tuple = (),
-          timeout: float = TIMEOUT_S) -> list:
+          timeout: float = TIMEOUT_S, env: dict | None = None) -> list:
     """Run ``fn(device, *args)`` in ``world`` new processes, one a rank of a
     ``torch.distributed`` group, and return their return values by rank
     (each pickled; move tensors to the CPU first).
@@ -429,7 +530,8 @@ def spawn(fn: Callable, world: int, *, backend: str | None = None,
     ``init_dir`` (a new temporary directory when None, removed after).
     The group's collectives and the join each wait at most ``timeout``
     seconds; a rank that fails or a join that runs out makes this raise,
-    with every rank stopped."""
+    with every rank stopped.  ``env`` is set in each rank's environment
+    before it touches a card (such as ``PYTORCH_CUDA_ALLOC_CONF``)."""
     if device is None and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found for the ranks (pass "
                            "device='cpu' to run them on the CPU)")
@@ -446,7 +548,7 @@ def spawn(fn: Callable, world: int, *, backend: str | None = None,
 
     ctx = mp.start_processes(
         _rank_main, args=(fn, world, backend, device, init_dir, timeout,
-                          tuple(args)),
+                          tuple(args), dict(env or {})),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:

@@ -27,12 +27,10 @@ The mesh a rule table carries is a ``torch.distributed`` ``DeviceMesh`` of
 ranks (``repro_torch.launch.mesh.make_mesh``).  Each rank holds its own part
 of every array already: the train step splits the batch by rank, and on a
 ``"model"`` axis of more than one rank the tensor-parallel layers
-(:mod:`repro_torch.dist.tensor_parallel`) hold their slice of every split
-weight and activation, with the collectives where GSPMD would put them.  So
-a constraint moves nothing; it checks that a split dimension is the rank's
-share.  Those layers exist for the dense, VLM and MoE families
-(``rules_for`` records the family in the rules); the other families
-raise, naming their ROADMAP Queue A item.
+(:mod:`repro_torch.dist.tensor_parallel`) of every family hold their slice
+of every split weight and activation, with the collectives where GSPMD
+would put them.  So a constraint moves nothing; it checks that a split
+dimension is the rank's share.
 """
 
 from __future__ import annotations
@@ -50,37 +48,16 @@ Axes = Any
 # Default mesh-axis names of the production pod mesh.
 MESH_AXES = ("pod", "data", "model")
 
-#: the families whose layers run over a "model" axis of more than one rank
-#: (None: rules not made for a config, as ``tp_rules()`` alone)
-TP_FAMILIES = ("dense", "vlm", "moe", None)
-#: the ROADMAP Queue A item each other family's tensor-parallel layers wait
-#: for, in the order they are queued
-QUEUED_TP = {"rwkv": 21, "hybrid": 22, "encdec": 23}
-
-
-def queued_tp(family: str | None) -> str:
-    """Why ``family`` cannot run over a "model" axis of more than one rank:
-    the ROADMAP Queue A item its tensor-parallel layers wait for."""
-    return (f"a 'model' axis of more than one rank needs tensor-parallel "
-            f"layers for the {family} family (the port's counterpart of "
-            f"GSPMD over tp_rules), ROADMAP Queue A item "
-            f"{QUEUED_TP.get(family, min(QUEUED_TP.values()))}")
-
-
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
     """Immutable logical-axis -> mesh-axes table (plus an optional mesh).
 
     The attached ``mesh`` is only used by :func:`constrain`, the
     tensor-parallel layers and the sharded train step: rule tables built
-    without one (as in unit tests) make ``constrain`` a no-op.  ``family``
-    is the model family the rules were made for (``rules_for`` sets it),
-    which decides whether a "model" axis of more than one rank is
-    supported."""
+    without one (as in unit tests) make ``constrain`` a no-op."""
 
     table: tuple[tuple[str, Axes], ...] = ()
     mesh: Any = None
-    family: str | None = None
 
     # -- constructors -------------------------------------------------------
 
@@ -95,9 +72,6 @@ class ShardingRules:
 
     def with_mesh(self, mesh: Any) -> "ShardingRules":
         return dataclasses.replace(self, mesh=mesh)
-
-    def with_family(self, family: str | None) -> "ShardingRules":
-        return dataclasses.replace(self, family=family)
 
     # -- queries ------------------------------------------------------------
 
@@ -223,36 +197,20 @@ def model_split(rules: ShardingRules | None, logical_axis: str) -> int:
     return model_ranks(rules.mesh)
 
 
-def check_tp_family(rules: ShardingRules | None) -> None:
-    """Raise where ``rules`` split a weight or activation axis over more
-    than one rank of the ``"model"`` axis for a family that has no
-    tensor-parallel layers yet (the batch alone over it, as ``dp_rules``
-    put it, is data parallelism, which every family runs)."""
-    if rules is None or rules.mesh is None or model_ranks(rules.mesh) == 1:
-        return
-    if not any("model" in _mesh_axes(v) for k, v in rules.table
-               if k != "batch"):
-        return
-    if rules.family not in TP_FAMILIES:
-        raise NotImplementedError(queued_tp(rules.family))
-
-
 def constrain(x, rules: ShardingRules | None,
               logical_axes: Sequence[str | None],
               whole: Sequence[int | None] | None = None):
     """``x`` itself, always: each rank holds its part of every array
     already (the batch was split by rank before the model saw it, and the
     tensor-parallel layers hold their slice), so nothing moves.  On a mesh
-    whose ``"model"`` axis has more than one rank this is a check: the
-    family must have tensor-parallel layers (``check_tp_family``), and
-    where ``whole`` gives the whole array's size of a dimension (None: not
+    whose ``"model"`` axis has more than one rank this is a check: where
+    ``whole`` gives the whole array's size of a dimension (None: not
     checked) that the rules split over ``"model"``, ``x``'s size there must
     be the rank's share, which catches a layer that forgot to split."""
     if rules is None or rules.mesh is None:
         return x
     if model_ranks(rules.mesh) == 1:
         return x
-    check_tp_family(rules)
     if whole is None:
         return x
     sizes = mesh_sizes(rules.mesh)

@@ -33,10 +33,12 @@ params and writes the cache, a decode step reads both; and the inputs
 read once.  No program of the same step can move fewer.
 
 A cell the port cannot run yet is written as skipped with its reason, and
-counted apart: a family with no tensor-parallel layers under ``tp``
-(``QUEUED``, naming its ROADMAP Queue A item), and the sequence-split
-decode cells, which the reference runs under ``tp`` (``QUEUED``, item 24).
-The reference's own skips (``long_500k`` for full attention) are ``SKIP``.
+counted apart: the sequence-split decode cells, which the reference runs
+under ``tp`` for every attention family (whisper-medium's among them)
+(``QUEUED``, ROADMAP Queue A item 24).  Every family runs its train and
+prefill cells, and RWKV-6 and the hybrid their decode cells, over the
+``"model"`` axis.  The reference's own skips (``long_500k`` for full
+attention) are ``SKIP``.
 
 Artifacts land in
 ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>__<flavor>.json``.
@@ -73,7 +75,7 @@ from repro_torch.configs.shapes import (
 )
 from repro_torch.dist import ranks
 from repro_torch.dist.collectives import set_tracer
-from repro_torch.dist.sharding import QUEUED_TP, batch_ranks, queued_tp
+from repro_torch.dist.sharding import batch_ranks
 from repro_torch.kernels.rg_lru.kernel import rg_lru_route
 from repro_torch.kernels.rg_lru.ref import rg_lru_chunked_ref
 from repro_torch.kernels.rwkv6.kernel import wkv6_route
@@ -154,9 +156,6 @@ def cell_status(cfg, shape_name: str, mesh: dict,
     ok, why = applicable(cfg, shape_name)
     if not ok:
         return "SKIP", why
-    if flavor == "tp" and mesh.get("model", 1) > 1 \
-            and cfg.family in QUEUED_TP:
-        return "QUEUED", queued_tp(cfg.family)
     if _shard_seq(cfg, SHAPES[shape_name].kind, flavor):
         return "QUEUED", (
             f"a decode cache split by sequence over 'model' (the "
@@ -357,14 +356,23 @@ def _cell(arch: str, shape: str, mesh: dict, flavor: str, overrides: dict,
         f"mem/rank={mem['total_bytes'] / 1e9:.2f}GB fits={mem['fits']}")
 
 
+def _pooled(pool, todo: list) -> list:
+    futures = [(cid, pool.submit(_cell, *a)) for cid, a in todo]
+    return [(cid, f.result()) for cid, f in futures]
+
+
 def run_cells(cells, mesh: dict, flavor: str, out_dir: str, *,
               multi_pod: bool = False, overrides: dict | None = None,
-              tag: str = "", skip_existing: bool = False) -> dict:
+              tag: str = "", skip_existing: bool = False, pool=None,
+              echo: bool = True) -> dict:
     """Every (arch, shape) of ``cells`` over ``mesh``: its artifact (or
-    skip record) in ``out_dir``, a line printed for each; more than one
-    cell to run is spread over a process for each core this process may
+    skip record) in ``out_dir``, a line printed for each where ``echo``;
+    the cells to run go to ``pool`` where given (an executor whose
+    processes other work shares; the processes then reported None), else
+    more than one is spread over a process for each core this process may
     use.  Returns the counts of each status, the processes, the failures
     and the seconds."""
+    say = print if echo else (lambda *a, **k: None)
     t0 = time.perf_counter()
     os.makedirs(out_dir, exist_ok=True)
     tally = {"PASS": 0, "SKIP": 0, "QUEUED": 0, "FAIL": 0, "HAVE": 0}
@@ -380,20 +388,22 @@ def run_cells(cells, mesh: dict, flavor: str, out_dir: str, *,
                 json.dump({"arch": arch, "shape": shape, "skipped": True,
                            "status": status, "reason": why}, f, indent=2)
             tally[status] += 1
-            print(f"{status} {cid}: {why}", flush=True)
+            say(f"{status} {cid}: {why}", flush=True)
         elif skip_existing and os.path.exists(path):
             tally["HAVE"] += 1
-            print(f"HAVE {cid}", flush=True)
+            say(f"HAVE {cid}", flush=True)
         else:
             todo.append((cid, (arch, shape, mesh, flavor, overrides or {},
                                path)))
-    processes = min(len(os.sched_getaffinity(0)), len(todo))
-    if processes > 1:
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(max_workers=processes,
-                                 mp_context=ctx) as pool:
-            futures = [(cid, pool.submit(_cell, *a)) for cid, a in todo]
-            results = [(cid, f.result()) for cid, f in futures]
+    processes = None if pool is not None else max(
+        1, min(len(os.sched_getaffinity(0)), len(todo)))
+    if pool is not None:
+        results = _pooled(pool, todo)
+    elif processes > 1:
+        with ProcessPoolExecutor(
+                max_workers=processes,
+                mp_context=multiprocessing.get_context("spawn")) as own:
+            results = _pooled(own, todo)
     else:
         results = [(cid, _cell(*a)) for cid, a in todo]
     failures = []
@@ -401,8 +411,8 @@ def run_cells(cells, mesh: dict, flavor: str, out_dir: str, *,
         tally[status] += 1
         if status == "FAIL":
             failures.append((cid, text))
-        print(f"{status} {cid}: {text}", flush=True)
-    return {"cells": len(cells), **tally, "processes": max(processes, 1),
+        say(f"{status} {cid}: {text}", flush=True)
+    return {"cells": len(cells), **tally, "processes": processes,
             "failures": failures,
             "seconds": time.perf_counter() - t0}
 

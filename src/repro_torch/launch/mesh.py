@@ -12,9 +12,11 @@ collectives over.
 
 from __future__ import annotations
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from repro_torch.device import resolve_device
 from repro_torch.dist.ranks import mesh_sizes, set_mesh
 
 
@@ -48,3 +50,24 @@ def data_axes_of(mesh) -> tuple[str, ...]:
     """Axes used for data parallelism: everything except 'model'.
     ``mesh`` may be a ``DeviceMesh`` or an {axis: size} mapping."""
     return tuple(a for a in mesh_sizes(mesh) if a != "model")
+
+
+def parse_mesh(text: str | None) -> tuple[int, int] | None:
+    """``"1,4"`` as (1, 4); None passes through."""
+    if text is None:
+        return None
+    data, model = (int(x) for x in text.split(","))
+    return data, model
+
+
+def spawn_backend(device, world: int) -> tuple[str | None, str | None]:
+    """The backend and device of ``world`` ranks: gloo on the CPU where
+    ``device`` is the CPU; NCCL, one card a rank, where there are as many
+    cards; else gloo with every rank on the first card (NCCL refuses two
+    ranks on one card)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return "gloo", "cpu"
+    resolve_device(device)  # raises where there is no card
+    if torch.cuda.device_count() >= world:
+        return None, None
+    return "gloo", "cuda:0"

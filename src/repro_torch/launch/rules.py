@@ -16,10 +16,9 @@ reference's argument shardings must divide their dimensions exactly:
 
 The ``dp`` flavor is the Lightning-faithful baseline: batch-only
 superblocks, all weights replicated.  ``mesh`` is a ``DeviceMesh`` (which
-the rules then carry) or an {axis: size} mapping (a pure rule table).  The
-rules record ``cfg.family``, which decides whether the model's layers can
-run over a ``"model"`` axis of more than one rank
-(``repro_torch.dist.sharding.check_tp_family``).
+the rules then carry) or an {axis: size} mapping (a pure rule table).
+Every family's layers run over a ``"model"`` axis of more than one rank
+under these rules (:mod:`repro_torch.dist.tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -72,11 +71,10 @@ def rules_for(
             dp_rules(data_axes=axes)
             .updated(batch=batch_axes)
             .with_mesh(concrete)
-            .with_family(cfg.family)
         )
 
     r = tp_rules(data=data_axes, model="model", shard_seq=shard_seq)
-    r = r.with_mesh(concrete).with_family(cfg.family)
+    r = r.with_mesh(concrete)
 
     if global_batch is not None:
         r = r.updated(batch=fit_batch_axes(mesh, global_batch, data_axes))

@@ -4,6 +4,13 @@
         --smoke --requests 8 --prompt-len 32 --max-new 16
 
 runs on the GPU; ``--device cpu`` is the only way to run it on the CPU.
+``--mesh 1,4`` serves over 4 ranks on a ``("data", "model")`` mesh of
+(1, 4), every family's layers tensor-parallel over ``"model"`` (each rank
+its slices of the parameters and of the decode state, ``rules_for``
+"tp"): one card a rank where there are as many (NCCL), else every rank on
+the first card under gloo; ``--device cpu`` puts the ranks on the CPU
+(gloo).  A data axis of more than one rank raises (ROADMAP Queue A item
+24).
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.dist import ranks
+from repro_torch.launch.mesh import parse_mesh, spawn_backend
 from repro_torch.models import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -31,16 +40,49 @@ def run_serving(
     slots: int = 4,
     seed: int = 0,
     device: torch.device | str | None = None,
+    mesh: tuple[int, int] | None = None,
 ) -> dict:
     """Random parameters from ``seed`` and ``requests`` random prompts
-    through the engine on ``device`` (None: the GPU)."""
-    device = resolve_device(device)
+    through the engine on ``device`` (None: the GPU).  With ``mesh`` (data,
+    model), over that many ranks (``spawn_backend``), every rank with its
+    slices: rank 0's result, the ranks' sampled tokens required equal."""
+    kw = dict(smoke=smoke, requests=requests, prompt_len=prompt_len,
+              max_new=max_new, slots=slots, seed=seed)
+    if mesh is not None:
+        world = mesh[0] * mesh[1]
+        backend, where = spawn_backend(device, world)
+        out = ranks.spawn(_serve_rank, world, backend=backend, device=where,
+                          args=(arch, kw, tuple(mesh)))
+        if any(o.pop("outputs") != out[0]["outputs"] for o in out[1:]):
+            raise RuntimeError("the ranks sampled different tokens")
+        out[0].pop("outputs")
+        return {**out[0], "mesh": list(mesh), "backend": backend or "nccl"}
+    out = _serve(arch, device=resolve_device(device), **kw)
+    out.pop("outputs")
+    return out
+
+
+def _serve_rank(device, arch: str, kw: dict, mesh_shape: tuple) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    return _serve(arch, device=device, mesh=mesh, **kw)
+
+
+def _serve(arch: str, *, smoke: bool, requests: int, prompt_len: int,
+           max_new: int, slots: int, seed: int, device: torch.device,
+           mesh=None) -> dict:
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    rules = None
+    if mesh is not None:
+        from repro_torch.launch.rules import rules_for
+
+        rules = rules_for(cfg, mesh, "tp")
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(gen, cfg, device)
+    params = init_params(gen, cfg, device, rules)
     max_len = prompt_len + max_new + 8
     engine = ServeEngine(params, cfg, slots=slots, max_len=max_len,
-                         seed=seed, device=device)
+                         rules=rules, seed=seed, device=device)
     rng = np.random.default_rng(seed)
     t0 = time.time()
     for rid in range(requests):
@@ -61,6 +103,7 @@ def run_serving(
             (engine.stats["decode_tokens"] + engine.stats["prefill_tokens"])
             / max(dt, 1e-9), 1,
         ),
+        "outputs": {r.rid: list(r.output) for r in done},
     }
 
 
@@ -76,12 +119,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run on "
                          "the CPU)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL: serve over that many ranks on a "
+                         "('data', 'model') mesh, tensor-parallel over "
+                         "'model' (such as 1,4)")
     args = ap.parse_args(argv)
     print(json.dumps(run_serving(
         args.arch, smoke=args.smoke, requests=args.requests,
         prompt_len=args.prompt_len, max_new=args.max_new, slots=args.slots,
-        seed=args.seed, device=args.device,
-    ), indent=2))
+        seed=args.seed, device=args.device, mesh=parse_mesh(args.mesh)),
+        indent=2))
 
 
 if __name__ == "__main__":

@@ -8,6 +8,13 @@ loop with heartbeat and straggler monitoring, on one device:
 
 trains the full architecture on the GPU; ``--smoke`` selects the reduced
 config, and ``--device cpu`` is the only way to run on the CPU.
+``--mesh 2,2`` trains over 4 ranks on a ``("data", "model")`` mesh of (2,
+2) under ``rules_for`` "tp" (the batch split over ``"data"``, the ZeRO-1
+optimizer state over it, every family's layers tensor-parallel over
+``"model"``; checkpoints saved sharded and restored by
+``restore_resharded``): one card a rank where there are as many (NCCL),
+else every rank on the first card under gloo; with ``--device cpu`` the
+ranks are on the CPU (gloo).
 
 The step trains through the models' plain attention and scans
 (``attention_impl="xla"``), the reference's default and the path the
@@ -26,11 +33,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.ckpt import CheckpointManager
+from repro_torch.ckpt import CheckpointManager, restore_resharded
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.faults import FaultInjector
 from repro_torch.data.pipeline import DataConfig, TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.dist import ranks
 from repro_torch.dist.fault import (
     HeartbeatMonitor,
     StragglerMonitor,
@@ -39,7 +47,12 @@ from repro_torch.dist.fault import (
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import NULL_TRACER
-from repro_torch.train.train_loop import init_train_state, make_train_step
+from repro_torch.launch.mesh import parse_mesh, spawn_backend
+from repro_torch.train.train_loop import (
+    init_train_state,
+    make_train_step,
+    train_state_specs,
+)
 
 
 def run_training(
@@ -64,10 +77,30 @@ def run_training(
     tracer=None,
     device: torch.device | str | None = None,
     cfg: ModelConfig | None = None,
+    mesh: tuple[int, int] | None = None,
+    rules=None,
 ) -> dict:
     """Train ``arch`` (its smoke config with ``smoke``; ``cfg``, where
     given, in place of both) on ``device`` (None: the GPU) from random
-    parameters made from ``seed``, on the token stream from ``seed``."""
+    parameters made from ``seed``, on the token stream from ``seed``.
+    With ``mesh`` (data, model), over that many ranks
+    (``launch.mesh.spawn_backend``), each running this with ``rules``
+    (``rules_for`` "tp" on its ``DeviceMesh``): rank 0's result, the ranks'
+    losses required equal."""
+    if mesh is not None:
+        world = mesh[0] * mesh[1]
+        backend, where = spawn_backend(device, world)
+        kw = dict(smoke=smoke, steps=steps, batch=batch, seq=seq,
+                  microbatches=microbatches, ckpt_dir=ckpt_dir,
+                  ckpt_every=ckpt_every, seed=seed, log_every=log_every,
+                  fail_at_step=fail_at_step, fault_injector=fault_injector,
+                  supervisor_backoff=supervisor_backoff,
+                  jitter_seed=jitter_seed, cfg=cfg)
+        out = ranks.spawn(_train_rank, world, backend=backend, device=where,
+                          args=(arch, kw, tuple(mesh)))
+        if any(o["losses"] != out[0]["losses"] for o in out):
+            raise RuntimeError("the ranks' losses differ")
+        return {**out[0], "mesh": list(mesh), "backend": backend or "nccl"}
     device = resolve_device(device)
     reg = registry if registry is not None else default_registry()
     tracer = tracer or NULL_TRACER
@@ -77,8 +110,17 @@ def run_training(
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                       seed=seed)
     stream = TokenStream(data)
-    step_fn = make_train_step(cfg, microbatches=microbatches)
+    step_fn = make_train_step(cfg, rules, None if rules is None
+                              else rules.mesh, microbatches=microbatches)
+    specs = None if rules is None else train_state_specs(cfg, rules)
     ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
+    log = rules is None or ranks.axis_index(
+        tuple(rules.mesh.mesh_dim_names)) == 0
+
+    def restore(state, step=None):
+        if specs is None:
+            return ckpt.restore(state, step=step)
+        return restore_resharded(ckpt, state, specs, rules.mesh, step=step)
     monitor = HeartbeatMonitor(num_hosts=1)
     stragglers = StragglerMonitor(monitor)
     losses: list[float] = []
@@ -110,12 +152,12 @@ def run_training(
         published since, and train from another step than the event
         says."""
         gen = torch.Generator(device=device).manual_seed(seed)
-        state = init_train_state(gen, cfg, device)
+        state = init_train_state(gen, cfg, device, rules)
         first, entered["first"] = entered["first"], False
         if ckpt is not None and start > 0:
-            state, meta = ckpt.restore(state, step=start)
+            state, meta = restore(state, step=start)
         elif ckpt is not None and first and ckpt.latest_step() is not None:
-            state, meta = ckpt.restore(state)
+            state, meta = restore(state)
             start = meta["step"]
         step = start
         while step < steps:
@@ -146,12 +188,12 @@ def run_training(
             ):
                 raise RuntimeError(f"injected step failure at {step}")
             if ckpt is not None and step % ckpt_every == 0:
-                ckpt.save(step, state)
-            if step % log_every == 0:
+                ckpt.save(step, state, specs=specs)
+            if step % log_every == 0 and log:
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"({clock() - t0:.2f}s/step)")
         if ckpt is not None:
-            ckpt.save(steps, state, blocking=True)
+            ckpt.save(steps, state, blocking=True, specs=specs)
         return step
 
     if ckpt is not None:
@@ -177,6 +219,17 @@ def run_training(
     }
 
 
+def _train_rank(device, arch: str, kw: dict, mesh_shape: tuple) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.rules import rules_for
+
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    cfg = kw.pop("cfg") or (get_smoke_config(arch) if kw["smoke"]
+                            else get_config(arch))
+    rules = rules_for(cfg, mesh, "tp", global_batch=kw["batch"])
+    return run_training(arch, device=device, cfg=cfg, rules=rules, **kw)
+
+
 def dataclass_event(e) -> dict:
     return {"kind": e.kind, "step": e.step, "detail": e.detail}
 
@@ -194,11 +247,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run on "
                          "the CPU)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL: train over that many ranks on a "
+                         "('data', 'model') mesh (such as 2,2)")
     args = ap.parse_args(argv)
     result = run_training(
         args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
         seq=args.seq, microbatches=args.microbatches,
         ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device,
+        mesh=parse_mesh(args.mesh),
     )
     print(json.dumps({k: v for k, v in result.items() if k != "losses"},
                      indent=2))

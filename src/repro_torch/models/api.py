@@ -6,6 +6,12 @@ the dense and VLM families (``transformer``), the MoE family (``moe``),
 RWKV-6 (``rwkv``), the RecurrentGemma hybrid (``rglru``) and the Whisper
 encoder-decoder (``encdec``), whose prefill also takes the encoder's input
 frames (``batch["frames"]``).
+
+Every family runs over a ``"model"`` axis of ranks (``rules`` from
+``rules_for`` on a mesh): ``init_params`` and ``local_params`` give a rank
+its slices by ``param_specs``, ``init_decode_state`` its part of the decode
+state by ``state_specs``, and the family's layers run the tensor-parallel
+operators of :mod:`repro_torch.dist.tensor_parallel`.
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist import ranks
-from repro_torch.dist.sharding import check_tp_family, tree_specs
+from repro_torch.dist.ranks import BlockedSpec
+from repro_torch.dist.sharding import tree_specs
 
 from . import encdec, kvcache, moe, rglru, rwkv, transformer
 from .config import ModelConfig
@@ -50,18 +57,40 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 def local_params(params, cfg: ModelConfig, rules):
     """``params`` (the whole model) cut, in place, to this rank's slice of
     each leaf that ``rules`` split over ranks of their mesh (``"model"``:
-    heads, d_ff, vocab; a parameter is never split over the batch axes);
-    ``params`` itself where they split none."""
-    check_tp_family(rules)
+    heads, d_ff, vocab; a parameter is never split over the batch axes),
+    by ``param_specs``; ``params`` itself where they split none."""
     if rules is None or rules.mesh is None:
         return params
-    specs = tree_specs(rules, params_logical_axes_by_name(cfg))
+    specs = param_specs(cfg, rules)
     with ranks.use_mesh(rules.mesh), torch.no_grad():
         for name, p in params.named_parameters():
             if ranks.spec_shards(specs[name]):
                 p.data = ranks.spec_slice(p.data, specs[name]).clone(
                     memory_format=torch.contiguous_format)
     return params
+
+
+def param_specs(cfg: ModelConfig, rules) -> dict[str, tuple]:
+    """The partition spec of each parameter under ``rules``, keyed by its
+    name in ``named_parameters()`` (``blocked_specs`` of the tree
+    specs)."""
+    return blocked_specs(cfg, tree_specs(rules,
+                                         params_logical_axes_by_name(cfg)))
+
+
+def blocked_specs(cfg: ModelConfig, specs: dict[str, tuple]
+                  ) -> dict[str, tuple]:
+    """``specs`` (keyed by parameter name) with each leaf that the family
+    lays out as blocks end to end (its ``BLOCKED``: the hybrid's ``w_in``,
+    [z | y]) given as a ``ranks.BlockedSpec``, so that a rank's slice holds
+    its part of each block and the whole leaf stays the reference's."""
+    blocked = getattr(_family(cfg), "BLOCKED", {})
+    out = dict(specs)
+    for name, spec in specs.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in blocked and spec is not None:
+            out[name] = BlockedSpec(spec, *blocked[leaf])
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> torch.nn.Module:
@@ -127,15 +156,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: torch.device | str | None = None,
                       rules=None) -> dict:
     """An empty KV cache, or recurrent state, on ``device`` (None: the
-    GPU); this rank's KV heads where ``rules`` split them over ranks."""
-    check_tp_family(rules)
+    GPU); where ``rules`` split it over ranks of ``"model"``, this rank's
+    part of it (``state_specs``): its KV heads, its recurrent channels, or
+    its WKV heads."""
     mod = _family(cfg)
     if mod in _KV_CACHED:
         return kvcache.init_cache(cfg, batch, max_len, device=device,
                                   rules=rules)
     if mod is encdec:
-        return encdec.init_cache(cfg, batch, max_len, device)
-    return mod.init_state(cfg, batch, device)
+        return encdec.init_cache(cfg, batch, max_len, device, rules)
+    return mod.init_state(cfg, batch, device, rules)
 
 
 def state_logical_axes(cfg: ModelConfig) -> dict:
@@ -145,6 +175,18 @@ def state_logical_axes(cfg: ModelConfig) -> dict:
     if mod is encdec:
         return encdec.cache_logical_axes(cfg)
     return mod.state_logical_axes(cfg)
+
+
+def state_specs(cfg: ModelConfig, rules) -> dict:
+    """The partition spec of every leaf of the decode state under
+    ``rules``: the reference's (``state_logical_axes``), as the family's
+    ``state_specs`` hook, where it has one, places them (RWKV-6 splits its
+    WKV state by head where a rank's columns are whole heads; the
+    reference keeps it whole on every rank).  What ``init_decode_state``
+    makes on a rank is its slice of the whole state under these specs."""
+    specs = tree_specs(rules, state_logical_axes(cfg))
+    hook = getattr(_family(cfg), "state_specs", None)
+    return specs if hook is None else hook(cfg, rules, specs)
 
 
 @torch.no_grad()
@@ -172,7 +214,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, rules=None,
         if mode == "prefill":
             x, state = encdec._prefill_hidden(params, tokens, frames, cfg,
                                               state, rules)
-            return x @ params.embed.T, state
+            return transformer.lm_head(x, params.embed.T, cfg, rules,
+                                       mode), state
         enc_out = encdec.encode(params, frames, cfg, rules)
         return encdec.decode_train(params, tokens, enc_out, cfg, rules), None
     return mod.forward(params, tokens, cfg, rules, mode=mode, state=state,

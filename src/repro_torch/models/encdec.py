@@ -20,6 +20,17 @@ this one takes ``cfg.attention_impl`` (ROADMAP Queue C).
 The parameters are an ``EncDec`` module with the reference's layout
 (``x @ W``); the passes are Python loops over the layers, and the caches'
 buffers are written in place.
+
+Over a ``"model"`` axis of more than one rank (``rules`` from ``rules_for``
+on a mesh of ranks) every attention is the dense family's tensor-parallel
+attention (``transformer.tp_qkv`` and ``tp_out``: q, k and v column-split
+by heads, ``wo`` row-split and summed by ``reduce_from_model``); a
+cross-attention's ``wk`` and ``wv`` are column-split too, with the
+encoder's output passing ``copy_to_model`` at each layer's
+cross-attention.  The MLPs split d_ff (``mlp_apply``); the self- and
+cross-attention caches hold the rank's KV heads where the rules split
+them.  The embedding and the tied head split by vocab where it divides
+(whisper-medium's 51865 does not: there they stay whole).
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import constrain, model_split
 
 from . import kvcache
 from .attention import decode_attention, multihead_attention
@@ -48,7 +59,8 @@ from .layers import (
     softmax_xent,
 )
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
-from .transformer import DecoderLayer, _params
+from .transformer import (DecoderLayer, _embed, _heads as _kv_of, _params,
+                          kv_heads_attended, lm_head, tp_out, tp_q, tp_qkv)
 
 MAX_DECODE_LEN_AXIS = "kv_seq"
 #: rows of the learned decoder positions
@@ -183,21 +195,18 @@ def params_logical_axes(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
-    """(B, T, n_heads * head_dim) as (B, n_heads, T, head_dim)."""
-    b, t, _ = x.shape
-    return x.reshape(b, t, n_heads, head_dim).transpose(1, 2)
-
-
 def _mha(ap, xq, xkv, cfg, causal, rules, q_offset=0):
+    """Attention of ``xq`` to ``xkv`` through ``ap``'s weights, projected
+    by ``wo``; and the k and v (B, KV heads, T, head_dim) a cache keeps."""
     b, s, _ = xq.shape
-    q = _heads(xq @ ap["wq"], cfg.n_heads, cfg.head_dim)
-    k = _heads(xkv @ ap["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _heads(xkv @ ap["wv"], cfg.n_kv_heads, cfg.head_dim)
-    out = multihead_attention(q, k, v, impl=cfg.attention_impl,
-                              causal=causal, q_offset=q_offset)
-    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    return out @ ap["wo"]
+    q, k, v, cols, mine = tp_qkv(ap, xq, cfg, rules,
+                                 None if xkv is xq else xkv)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = multihead_attention(q, _kv_of(k, mine), _kv_of(v, mine),
+                              impl=cfg.attention_impl, causal=causal,
+                              q_offset=q_offset)
+    out = out.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.head_dim)
+    return tp_out(ap, out, cfg, rules, cols), k, v
 
 
 def _decode_impl(cfg: ModelConfig) -> str:
@@ -234,7 +243,7 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig,
 
 def _encoder_layer(lp, x, cfg, rules):
     h = apply_norm(x, lp.norm1, cfg.norm)
-    x = x + _mha(lp.attn, h, h, cfg, causal=False, rules=rules)
+    x = x + _mha(lp.attn, h, h, cfg, causal=False, rules=rules)[0]
     h = apply_norm(x, lp.norm2, cfg.norm)
     x = x + mlp_apply(lp.mlp, h, cfg.activation, rules)
     return constrain(x, rules, ("batch", "frames", "d_model"))
@@ -243,9 +252,10 @@ def _encoder_layer(lp, x, cfg, rules):
 def _decoder_layer(lp, x, enc_out, cfg, rules):
     """One decoder layer over a whole sequence (teacher forcing)."""
     h = apply_norm(x, lp.norm1, cfg.norm)
-    x = x + _mha(lp.self_attn, h, h, cfg, causal=True, rules=rules)
+    x = x + _mha(lp.self_attn, h, h, cfg, causal=True, rules=rules)[0]
     h = apply_norm(x, lp.norm_x, cfg.norm)
-    x = x + _mha(lp.cross_attn, h, enc_out, cfg, causal=False, rules=rules)
+    x = x + _mha(lp.cross_attn, h, enc_out, cfg, causal=False,
+                 rules=rules)[0]
     h = apply_norm(x, lp.norm2, cfg.norm)
     x = x + mlp_apply(lp.mlp, h, cfg.activation, rules)
     return constrain(x, rules, ("batch", "seq", "d_model"))
@@ -254,21 +264,24 @@ def _decoder_layer(lp, x, enc_out, cfg, rules):
 def decode_train(params: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor,
                  cfg: ModelConfig, rules=None,
                  q_offset: int = 0) -> torch.Tensor:
-    x = params.embed[tokens.long()]
+    """Logits of every position (this rank's slice of the vocab where
+    ``rules`` split it)."""
+    x = _embed(params, tokens, rules)
     s = tokens.shape[1]
     x = x + params.dec_pos[q_offset:q_offset + s][None]
     for lp in params.dec_layers:
         x = remat_call(cfg, "train", _decoder_layer, lp, x, enc_out, cfg,
                        rules)
     x = apply_norm(x, params.dec_norm, cfg.norm)
-    return constrain(x @ params.embed.T, rules, ("batch", "seq", "vocab"))
+    return lm_head(x, params.embed.T, cfg, rules, "train")
 
 
 def train_loss(params: EncDec, batch: dict, cfg: ModelConfig,
                rules=None) -> torch.Tensor:
     enc_out = encode(params, batch["frames"], cfg, rules)
     logits = decode_train(params, batch["tokens"], enc_out, cfg, rules)
-    return softmax_xent(logits[:, :-1, :], batch["tokens"][:, 1:])
+    return softmax_xent(logits[:, :-1, :], batch["tokens"][:, 1:],
+                        rules=rules)
 
 
 # ---------------------------------------------------------------------------
@@ -277,14 +290,17 @@ def train_loss(params: EncDec, batch: dict, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device | str | None = None) -> dict:
+               device: torch.device | str | None = None,
+               rules=None) -> dict:
     """Zeros on ``device`` (None: the GPU): the decoder's self-attention
     K and V up to ``max_len`` positions and its cross-attention K and V of
-    ``cfg.enc_frames`` frames, (L, B, KV, T, head_dim) each."""
+    ``cfg.enc_frames`` frames, (L, B, KV, T, head_dim) each; this rank's
+    KV heads where ``rules`` split them over ranks of ``"model"``."""
     device = resolve_device(device)
     L, dt = cfg.n_layers, cfg.torch_dtype
-    self_shape = (L, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    cross_shape = (L, batch, cfg.n_kv_heads, cfg.enc_frames, cfg.head_dim)
+    kv = cfg.n_kv_heads // model_split(rules, "kv_heads")
+    self_shape = (L, batch, kv, max_len, cfg.head_dim)
+    cross_shape = (L, batch, kv, cfg.enc_frames, cfg.head_dim)
     return {
         "self_k": torch.zeros(self_shape, dtype=dt, device=device),
         "self_v": torch.zeros(self_shape, dtype=dt, device=device),
@@ -317,23 +333,20 @@ def _prefill_hidden(params: EncDec, tokens: torch.Tensor,
     every prompt position (B, S, D) and the cache."""
     enc_out = encode(params, frames, cfg, rules)
     b, s = tokens.shape
-    x = params.embed[tokens.long()] + params.dec_pos[:s][None]
+    x = _embed(params, tokens, rules) + params.dec_pos[:s][None]
     start = torch.zeros((b,), dtype=torch.int32, device=x.device)
-    heads = (cfg.n_kv_heads, cfg.head_dim)
     for i, lp in enumerate(params.dec_layers):
         h = apply_norm(x, lp.norm1, cfg.norm)
-        _write_rows(cache["self_k"][i], _heads(h @ lp.self_attn["wk"],
-                                               *heads), start)
-        _write_rows(cache["self_v"][i], _heads(h @ lp.self_attn["wv"],
-                                               *heads), start)
-        x = x + _mha(lp.self_attn, h, h, cfg, causal=True, rules=rules)
+        out, k, v = _mha(lp.self_attn, h, h, cfg, causal=True, rules=rules)
+        _write_rows(cache["self_k"][i], k, start)
+        _write_rows(cache["self_v"][i], v, start)
+        x = x + out
         h = apply_norm(x, lp.norm_x, cfg.norm)
-        cache["cross_k"][i].copy_(_heads(enc_out @ lp.cross_attn["wk"],
-                                         *heads))
-        cache["cross_v"][i].copy_(_heads(enc_out @ lp.cross_attn["wv"],
-                                         *heads))
-        x = x + _mha(lp.cross_attn, h, enc_out, cfg, causal=False,
-                     rules=rules)
+        out, k, v = _mha(lp.cross_attn, h, enc_out, cfg, causal=False,
+                         rules=rules)
+        cache["cross_k"][i].copy_(k)
+        cache["cross_v"][i].copy_(v)
+        x = x + out
         h = apply_norm(x, lp.norm2, cfg.norm)
         x = x + mlp_apply(lp.mlp, h, cfg.activation, rules)
     new_cache = dict(cache)
@@ -347,7 +360,8 @@ def prefill(params: EncDec, tokens: torch.Tensor, frames: torch.Tensor,
     filling the self-attention cache and each layer's cross-attention K
     and V.  Returns the last position's logits (B, 1, V) and the cache."""
     x, new_cache = _prefill_hidden(params, tokens, frames, cfg, cache, rules)
-    return x[:, -1:, :] @ params.embed.T, new_cache
+    return lm_head(x[:, -1:, :], params.embed.T, cfg, rules, "prefill"), \
+        new_cache
 
 
 def decode_step(params: EncDec, token: torch.Tensor, cfg: ModelConfig,
@@ -355,27 +369,33 @@ def decode_step(params: EncDec, token: torch.Tensor, cfg: ModelConfig,
     """token: (B, 1) -> next-token logits (B, 1, V), updated cache."""
     b = token.shape[0]
     pos = cache["pos"]
-    x = params.embed[token.long()] + params.dec_pos[pos.long()][:, None, :]
+    x = _embed(params, token, rules) + params.dec_pos[pos.long()][:, None, :]
     impl = _decode_impl(cfg)
-    heads = (cfg.n_kv_heads, cfg.head_dim)
     n_frames = torch.full((b,), cache["cross_k"].shape[3],
                           dtype=torch.int32, device=x.device)
     for i, lp in enumerate(params.dec_layers):
         sk, sv = cache["self_k"][i], cache["self_v"][i]
         h = apply_norm(x, lp.norm1, cfg.norm)
-        q = (h @ lp.self_attn["wq"]).reshape(b, cfg.n_heads, cfg.head_dim)
-        _write_rows(sk, _heads(h @ lp.self_attn["wk"], *heads), pos)
-        _write_rows(sv, _heads(h @ lp.self_attn["wv"], *heads), pos)
-        attn = decode_attention(q, sk, sv, pos + 1, impl=impl)
-        x = x + attn.reshape(b, 1, cfg.q_dim) @ lp.self_attn["wo"]
+        q, k, v, cols, mine = tp_qkv(lp.self_attn, h, cfg, rules)
+        _write_rows(sk, k.transpose(1, 2), pos)
+        _write_rows(sv, v.transpose(1, 2), pos)
+        hq = q.shape[2]
+        attn = decode_attention(q[:, 0], _kv_of(sk, mine), _kv_of(sv, mine),
+                                pos + 1, impl=impl)
+        x = x + tp_out(lp.self_attn, attn.reshape(b, 1, hq * cfg.head_dim),
+                       cfg, rules, cols)
         h = apply_norm(x, lp.norm_x, cfg.norm)
-        qx = (h @ lp.cross_attn["wq"]).reshape(b, cfg.n_heads, cfg.head_dim)
-        xattn = decode_attention(qx, cache["cross_k"][i],
-                                 cache["cross_v"][i], n_frames, impl=impl)
-        x = x + xattn.reshape(b, 1, cfg.q_dim) @ lp.cross_attn["wo"]
+        qx, cols = tp_q(lp.cross_attn, h, cfg, rules)
+        xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+        mine = kv_heads_attended(cfg, hq, xk.shape[1], rules)
+        xattn = decode_attention(qx[:, 0], _kv_of(xk, mine),
+                                 _kv_of(xv, mine), n_frames, impl=impl)
+        x = x + tp_out(lp.cross_attn,
+                       xattn.reshape(b, 1, hq * cfg.head_dim), cfg, rules,
+                       cols)
         h = apply_norm(x, lp.norm2, cfg.norm)
         x = x + mlp_apply(lp.mlp, h, cfg.activation, rules)
     x = apply_norm(x, params.dec_norm, cfg.norm)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return x @ params.embed.T, new_cache
+    return lm_head(x, params.embed.T, cfg, rules, "decode"), new_cache

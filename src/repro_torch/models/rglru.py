@@ -17,6 +17,21 @@ versions); otherwise a decode step's attention is eager torch, as the
 reference's is plain ``einsum``.  Decode writes the new token's k, v and
 position into the ring buffer in place (as ``kvcache.update_layer`` does);
 the recurrent state comes back in new tensors.
+
+Over a ``"model"`` axis of more than one rank (``rules`` from ``rules_for``
+on a mesh of ranks) the recurrent width splits as ``d_ff``: a rank holds
+its channels of ``conv_w``, ``conv_b``, ``b_a``, ``b_x``, ``log_lambda``,
+``gate_a`` and ``gate_x`` (columns), its rows of ``w_out`` (summed by
+``reduce_from_model``), and of ``w_in`` = [z | y] its part of z *and* of y
+(``BLOCKED``: ``models.api.blocked_specs``).  The conv runs on the rank's
+z, so its tail stays local, and the gates, dense (w, w), take z gathered
+whole (``gather_from_model``): one gather a recurrent block.  The RG-LRU
+scan, its ``h`` state and the conv tail are the rank's channels.  The
+attention block is the dense family's tensor-parallel attention
+(``transformer.tp_qkv`` and ``tp_out``): with one KV head, k and v are
+gathered whole, so the ring-buffer cache is whole on every rank and every
+rank writes it alike.  The MLPs split d_ff (``mlp_apply``), the tied
+embedding and head the vocab.
 """
 
 from __future__ import annotations
@@ -28,7 +43,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import constrain, model_split
 from repro_torch.kernels.rg_lru import rg_lru, rg_lru_ref
 
 from .attention import decode_attention, multihead_attention
@@ -47,11 +63,15 @@ from .layers import (
     rms_norm,
 )
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
-from .transformer import DecoderLayer, _params
+from .transformer import (DecoderLayer, _embed, _heads, _logits, _params,
+                          tp_out, tp_qkv)
 
 LRU_C = 8.0
 #: parameters the reference creates in f32 whatever ``cfg.dtype`` is
 FLOAT32_PARAMS = ("log_lambda",)
+#: leaves laid out as blocks end to end: name -> (dimension, blocks);
+#: ``w_in`` is [z | y], and a rank holds its part of each
+BLOCKED = {"w_in": (1, 2)}
 
 
 class Group(nn.Module):
@@ -194,12 +214,14 @@ def params_logical_axes(cfg: ModelConfig) -> dict:
 
 
 def init_state(cfg: ModelConfig, batch: int,
-               device: torch.device | str | None = None) -> dict:
+               device: torch.device | str | None = None,
+               rules=None) -> dict:
     """Zeros, and -1 (empty) slot positions, on ``device`` (None: the
-    GPU)."""
+    GPU); this rank's recurrent channels (and KV heads, where ``rules``
+    split them) over ranks of ``"model"``."""
     device = resolve_device(device)
     g, tail = n_groups(cfg)
-    w = cfg.d_model
+    w = cfg.d_model // model_split(rules, "d_ff")
     cw = cfg.conv_width - 1
     win = cfg.window or 2048
 
@@ -211,7 +233,8 @@ def init_state(cfg: ModelConfig, batch: int,
                              device=device),
         }
 
-    kv = (g, batch, cfg.n_kv_heads, win, cfg.head_dim)
+    kv = (g, batch, cfg.n_kv_heads // model_split(rules, "kv_heads"), win,
+          cfg.head_dim)
     return {
         "rec1": rec_state((g,)),
         "rec2": rec_state((g,)),
@@ -262,43 +285,54 @@ def _rec_block(lp, x: torch.Tensor, cfg: ModelConfig, st: dict | None,
                rules):
     """Recurrent residual block; ``st`` = {conv, h} or None (fresh state).
     Always returns (x, new_state) — callers in train mode discard it."""
+    split = model_split(rules, "d_ff") > 1
+    mesh = rules.mesh if split else None
     xn = rms_norm(x, lp.norm["scale"])
+    if split:
+        xn = tp.copy_to_model(xn, mesh)
     z, y = (xn @ lp.w_in).chunk(2, dim=-1)
-    z = constrain(z, rules, ("batch", "seq", "d_ff"))
+    z = constrain(z, rules, ("batch", "seq", "d_ff"),
+                  (None, None, cfg.d_model))
     z, new_conv = _causal_conv(z, lp.conv_w, lp.conv_b,
                                st["conv"] if st is not None else None)
-    r = torch.sigmoid(z @ lp.gate_a + lp.b_a).float()
-    i = torch.sigmoid(z @ lp.gate_x + lp.b_x)
+    # the gates are dense (w, w): each rank's columns of them read all of z
+    zg = tp.gather_from_model(z, -1, mesh) if split else z
+    r = torch.sigmoid(zg @ lp.gate_a + lp.b_a).float()
+    i = torch.sigmoid(zg @ lp.gate_x + lp.b_x)
     log_a = -LRU_C * F.softplus(lp.log_lambda) * r  # (B,S,W) ≤ 0
     gx = i * z
     core = rg_lru if cfg.attention_impl == "cuda" else rg_lru_ref
     h, h_final = core(log_a.to(gx.dtype), gx,
                       st["h"] if st is not None else None, return_state=True)
-    x = x + (h * F.gelu(y, approximate="tanh")) @ lp.w_out
+    out = (h * F.gelu(y, approximate="tanh")) @ lp.w_out
+    x = x + (tp.reduce_from_model(out, mesh) if split else out)
     xn = rms_norm(x, lp.mlp_norm["scale"])
     x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)
     return x, {"conv": new_conv, "h": h_final}
 
 
-def _qkv(lp, xn: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """q (B, S, HQ, D) and k, v (B, S, HKV, D), q and k rotated."""
-    b, s, _ = xn.shape
-    q = (xn @ lp.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (xn @ lp.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (xn @ lp.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+def _qkv(lp, xn: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+         rules):
+    """q (B, S, HQ, D) and k, v (B, S, HKV, D), q and k rotated, with the
+    columns this rank keeps of the output and the KV heads its queries
+    attend to (``transformer.tp_qkv``)."""
+    q, k, v, cols, mine = tp_qkv(lp, xn, cfg, rules)
     return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+            apply_rope(k, positions, cfg.rope_theta), v, cols, mine)
 
 
 def _attn_block_train(lp, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor, rules, want_cache=False):
     b, s, _ = x.shape
     win = cfg.window or 2048
-    q, k, v = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg, positions)
+    q, k, v, cols, mine = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg,
+                               positions, rules)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    out = multihead_attention(q, k, v, impl=cfg.attention_impl, causal=True,
+    out = multihead_attention(q, _heads(k, mine), _heads(v, mine),
+                              impl=cfg.attention_impl, causal=True,
                               window=cfg.window)
-    x = x + out.transpose(1, 2).reshape(b, s, cfg.q_dim) @ lp.wo
+    out = out.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.head_dim)
+    x = x + tp_out(lp, out, cfg, rules, cols)
     xn = rms_norm(x, lp.mlp_norm["scale"])
     x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)
     if not want_cache:
@@ -306,7 +340,7 @@ def _attn_block_train(lp, x: torch.Tensor, cfg: ModelConfig,
     # The ring-buffer cache from the last `win` positions (prefill).
     w_eff = min(win, s)
     slots = torch.arange(s - w_eff, s, device=x.device) % win
-    k_cache = torch.zeros((b, cfg.n_kv_heads, win, cfg.head_dim),
+    k_cache = torch.zeros((b, k.shape[1], win, cfg.head_dim),
                           dtype=x.dtype, device=x.device)
     v_cache = torch.zeros_like(k_cache)
     k_cache[:, :, slots, :] = k[:, :, s - w_eff:, :]
@@ -326,15 +360,18 @@ def _attn_block_decode(lp, x: torch.Tensor, cfg: ModelConfig,
     """
     b = x.shape[0]  # one token a row
     win = cfg.window or 2048
-    q, k, v = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg, pos[:, None])
+    q, k, v, cols, mine = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg,
+                               pos[:, None], rules)
     rows = torch.arange(b, device=x.device)
     slot = (pos % win).long()  # (B,) per-row ring slot
     k_cache, v_cache, slot_pos = st["k"], st["v"], st["slot_pos"]
     k_cache[rows, :, slot, :] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, :, slot, :] = v[:, 0].to(v_cache.dtype)
     slot_pos[rows, slot] = pos.to(slot_pos.dtype)
+    kc, vc = _heads(k_cache, mine), _heads(v_cache, mine)
 
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    hq = q.shape[2]
     if cfg.attention_impl == "cuda":
         # The ring fills its slots in order and a slot's cache comes whole
         # from its own prefill, so the valid slots (0 <= slot_pos <= pos)
@@ -342,18 +379,19 @@ def _attn_block_decode(lp, x: torch.Tensor, cfg: ModelConfig,
         # cache as it lies, its kv heads shared by the group, and reads no
         # slot past them.
         kv_len = torch.clamp(pos + 1, max=win).to(torch.int32)
-        out = decode_attention(q[:, 0], k_cache, v_cache, kv_len,
-                               impl="cuda", scale=scale)
+        out = decode_attention(q[:, 0], kc, vc, kv_len, impl="cuda",
+                               scale=scale)
     else:
-        group = cfg.n_heads // cfg.n_kv_heads
-        kk = torch.repeat_interleave(k_cache, group, dim=1)
-        vv = torch.repeat_interleave(v_cache, group, dim=1)
+        group = hq // kc.shape[1]
+        kk = torch.repeat_interleave(kc, group, dim=1)
+        vv = torch.repeat_interleave(vc, group, dim=1)
         logits = torch.einsum("bhd,bhtd->bht", q[:, 0], kk).float() * scale
         valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
         logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
         p = torch.softmax(logits, dim=-1)
         out = torch.einsum("bht,bhtd->bhd", p.to(x.dtype), vv)
-    x = x + out.reshape(b, 1, cfg.q_dim) @ lp.wo
+    x = x + tp_out(lp, out.reshape(b, 1, hq * cfg.head_dim), cfg, rules,
+                   cols)
     xn = rms_norm(x, lp.mlp_norm["scale"])
     x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)
     return x, {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
@@ -391,8 +429,11 @@ def forward(
     extra_embeds=None,
 ):
     """Logits (B, S, vocab), or (B, 1, vocab) in decode mode, and the new
-    state (a prefill makes a fresh one; None in train mode)."""
-    x = params.embed[tokens.long()] if tokens.ndim == 2 else tokens
+    state (a prefill makes a fresh one; None in train mode).  Where
+    ``rules`` split the vocab over more than one rank of ``"model"``, train
+    logits are this rank's slice of the vocab and the others gathered
+    whole."""
+    x = _embed(params, tokens, rules) if tokens.ndim == 2 else tokens
     # The scale rounded to x's type first, as the reference's
     # jnp.asarray(sqrt(d), x.dtype) (a Python float: no copy to the device).
     x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
@@ -443,22 +484,20 @@ def forward(
             x, nst = _rec_block(lp, x, cfg, None, rules)
             tail_states.append(nst)
         if want:
-            new_state = init_state(cfg, b, x.device) if not caches else {
-                "rec1": _stack_rec(rec1), "rec2": _stack_rec(rec2),
-                "attn_k": torch.stack([c["k"] for c in caches]),
-                "attn_v": torch.stack([c["v"] for c in caches]),
-                "slot_pos": torch.stack([c["slot_pos"] for c in caches]),
-            }
+            if caches:
+                new_state = {
+                    "rec1": _stack_rec(rec1), "rec2": _stack_rec(rec2),
+                    "attn_k": torch.stack([c["k"] for c in caches]),
+                    "attn_v": torch.stack([c["v"] for c in caches]),
+                    "slot_pos": torch.stack([c["slot_pos"] for c in caches]),
+                }
+            else:
+                new_state = init_state(cfg, b, x.device, rules)
             new_state["tail"] = tail_states
             new_state["pos"] = torch.full((b,), s, dtype=torch.int32,
                                           device=x.device)
 
-    x = rms_norm(x, params.final_norm["scale"])
-    if mode == "decode":
-        x = x[:, -1:, :]
-    logits = x @ params.embed.T  # tied
-    logits = constrain(logits, rules, ("batch", "seq", "vocab"))
-    return logits, new_state
+    return _logits(params, x, cfg, rules, mode), new_state  # tied
 
 
 def train_loss(params: Griffin, batch: dict, cfg: ModelConfig,
@@ -467,4 +506,4 @@ def train_loss(params: Griffin, batch: dict, cfg: ModelConfig,
     attention (``attention_impl`` "xla"), as the reference trains: the
     RG-LRU and flash-attention kernels have no backward."""
     logits, _ = forward(params, batch["tokens"], cfg, rules, mode="train")
-    return causal_lm_loss(logits, batch["tokens"])
+    return causal_lm_loss(logits, batch["tokens"], rules)

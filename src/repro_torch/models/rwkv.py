@@ -12,6 +12,23 @@ loop over the layers.  With ``attention_impl="cuda"`` the recurrence is the
 hand-written WKV6 kernel (on a CPU tensor its wrapper takes the plain
 version); otherwise the plain ``wkv6_ref``.  The decode state is never
 written in place: each call returns new state tensors.
+
+Over a ``"model"`` axis of more than one rank (``rules`` from ``rules_for``
+on a mesh of ranks, which split ``heads`` where d_model divides) each rank
+holds its columns of ``wr``, ``wk``, ``wv``, ``wg``, ``wb``, ``w0`` and
+``gn_scale`` and its rows of ``wo``, and ``ck`` / ``cv`` split by d_ff as
+an MLP; ``mu``, ``mu_c``, ``wa``, ``cr`` and ``bonus`` are whole.
+``copy_to_model`` sits on the input of each column-split product (``xr``,
+``xk``, ``xv``, ``xg`` and ``tanh(xw @ wa)``; in the channel mix ``xk``
+alone, as ``xr`` feeds the whole ``cr``), so that the gradients of the
+whole leaves before them are summed over the ranks once; ``wo`` and ``cv``
+are row-split and their products summed by ``reduce_from_model``.  Where
+a rank's columns are whole WKV heads, the rank runs the recurrence on its
+heads with their rows of ``bonus`` and keeps their state
+(``wkv_head_split``); where they are not (2.5 heads a rank of rwkv6-3b
+over 16), the ranks gather r, k, v and w whole, run every head with the
+whole state, group-norm every head, and each keeps its columns.  The
+embedding and the head split by vocab, as the dense family's.
 """
 
 from __future__ import annotations
@@ -20,14 +37,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist import ranks
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import constrain, model_split
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
 
 from .config import ModelConfig
 from .layers import (causal_lm_loss, fan_in_init, init_device, norm_init,
                      normal_init, remat_call, rms_norm)
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
-from .transformer import Transformer
+from .transformer import Transformer, _embed, _logits
 
 LORA_DIM = 64
 #: parameters the reference creates in f32 whatever ``cfg.dtype`` is
@@ -134,11 +153,22 @@ def params_logical_axes(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def wkv_head_split(cfg: ModelConfig, rules) -> int:
+    """Ranks of the ``"model"`` axis that split the WKV heads (and their
+    decode state): the axis's where ``rules`` split ``heads`` and a rank's
+    columns are whole heads, else 1 (no split, or part-head columns, whose
+    ranks run every head and keep the whole state)."""
+    m = model_split(rules, "heads")
+    return m if (cfg.d_model // m) % cfg.wkv_head_dim == 0 else 1
+
+
 def init_state(cfg: ModelConfig, batch: int,
-               device: torch.device | str | None = None) -> dict:
-    """Zeros on ``device`` (None: the GPU)."""
+               device: torch.device | str | None = None,
+               rules=None) -> dict:
+    """Zeros on ``device`` (None: the GPU); the WKV state of this rank's
+    heads where ``rules`` split them (``wkv_head_split``)."""
     device = resolve_device(device)
-    h = _n_heads(cfg)
+    h = _n_heads(cfg) // wkv_head_split(cfg, rules)
     shift = (cfg.n_layers, batch, cfg.d_model)
     return {
         "wkv": torch.zeros(
@@ -153,7 +183,9 @@ def init_state(cfg: ModelConfig, batch: int,
 def state_logical_axes(cfg: ModelConfig) -> dict:
     return {
         # the wkv head axis is a count (40) that may not divide the model
-        # axis: the state stays replicated across it (H x K x V a sequence)
+        # axis: the reference keeps the state replicated across it (H x K x
+        # V a sequence); the port splits it where a rank's columns are
+        # whole heads (``state_specs``)
         "wkv": ("layers", "batch", None, None, None),
         "shift_t": ("layers", "batch", "d_model"),
         "shift_c": ("layers", "batch", "d_model"),
@@ -161,20 +193,34 @@ def state_logical_axes(cfg: ModelConfig) -> dict:
     }
 
 
+def state_specs(cfg: ModelConfig, rules, specs: dict) -> dict:
+    """``specs`` (the reference's, from ``state_logical_axes``) with the
+    WKV state split by head as ``rules`` split ``heads`` where a rank's
+    columns are whole heads (``wkv_head_split``): each rank keeps its
+    heads' state (``models.api.state_specs``)."""
+    if wkv_head_split(cfg, rules) > 1:
+        specs["wkv"] = (specs["wkv"][:2] + rules.spec(("heads",))
+                        + (None, None))
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 
-def _group_norm(x: torch.Tensor, scale: torch.Tensor,
-                n_heads: int) -> torch.Tensor:
-    """LayerNorm within each head's channels (RWKV's GroupNorm(H))."""
+def _group_norm(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
+                cols: slice | None = None) -> torch.Tensor:
+    """LayerNorm within each head's channels (RWKV's GroupNorm(H));
+    ``cols``: only those channels of the result, ``scale`` being theirs."""
     b, s, d = x.shape
     xh = x.reshape(b, s, n_heads, d // n_heads).float()
     mu = xh.mean(dim=-1, keepdim=True)
     var = ((xh - mu) ** 2).mean(dim=-1, keepdim=True)
-    xh = (xh - mu) * torch.rsqrt(var + 1e-5)
-    return (xh.reshape(b, s, d) * scale.float()).to(x.dtype)
+    xh = ((xh - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)
+    if cols is not None:
+        xh = xh[..., cols]
+    return (xh * scale.float()).to(x.dtype)
 
 
 def _token_shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
@@ -189,41 +235,66 @@ def time_mix(lp, x: torch.Tensor, cfg: ModelConfig,
              wkv_state: torch.Tensor | None, shift_prev: torch.Tensor | None,
              rules):
     b, s, d = x.shape
-    h = _n_heads(cfg)
     hd = cfg.wkv_head_dim
+    split = model_split(rules, "heads") > 1
+    mesh = rules.mesh if split else None
+    to_ranks = (lambda t: tp.copy_to_model(t, mesh)) if split else \
+        (lambda t: t)
     delta = _token_shift(x, shift_prev) - x
     mu = lp.mu
-    xr = x + delta * mu[0]
-    xk = x + delta * mu[1]
-    xv = x + delta * mu[2]
-    xg = x + delta * mu[3]
+    xr = to_ranks(x + delta * mu[0])
+    xk = to_ranks(x + delta * mu[1])
+    xv = to_ranks(x + delta * mu[2])
+    xg = to_ranks(x + delta * mu[3])
     xw = x + delta * mu[4]
 
-    r = (xr @ lp.wr).reshape(b, s, h, hd).transpose(1, 2)
-    k = (xk @ lp.wk).reshape(b, s, h, hd).transpose(1, 2)
-    v = (xv @ lp.wv).reshape(b, s, h, hd).transpose(1, 2)
+    r, k, v = xr @ lp.wr, xk @ lp.wk, xv @ lp.wv
     g = xg @ lp.wg
-    w_logit = lp.w0 + torch.tanh(xw @ lp.wa) @ lp.wb
-    w = torch.exp(-torch.exp(w_logit.float()))  # decay in (0, 1)
-    w = w.reshape(b, s, h, hd).transpose(1, 2)
+    w_logit = lp.w0 + to_ranks(torch.tanh(xw @ lp.wa)) @ lp.wb
+    w = torch.exp(-torch.exp(w_logit.float())).to(r.dtype)  # decay in (0, 1)
+    # a rank's columns of the heads' output: all of them, its whole heads,
+    # or (part-head columns) its slice of every head, gathered below
+    cols = None
+    bonus = tp.copy_to_model(lp.bonus, mesh) if split else lp.bonus
+    if split and wkv_head_split(cfg, rules) == 1:
+        with ranks.use_mesh(mesh):
+            lo = ranks.axis_index(tp.MODEL) * r.shape[-1]
+        cols = slice(lo, lo + r.shape[-1])
+        r, k, v, w = (tp.gather_from_model(t, -1, mesh) for t in (r, k, v, w))
+    elif split:
+        with ranks.use_mesh(mesh):
+            lo = ranks.axis_index(tp.MODEL) * (r.shape[-1] // hd)
+        bonus = bonus[lo:lo + r.shape[-1] // hd]
+    h = r.shape[-1] // hd
+
+    def heads(t):
+        return t.reshape(b, s, h, hd).transpose(1, 2)
 
     core = wkv6 if cfg.attention_impl == "cuda" else wkv6_ref
-    out, new_state = core(r, k, v, w.to(r.dtype), lp.bonus,
+    out, new_state = core(heads(r), heads(k), heads(v), heads(w), bonus,
                           initial_state=wkv_state, return_state=True)
-    out = out.transpose(1, 2).reshape(b, s, d)
-    out = _group_norm(out, lp.gn_scale, h)
+    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    out = _group_norm(out, lp.gn_scale, h, cols)
     out = out * F.silu(g)
-    out = constrain(out, rules, ("batch", "seq", "heads"))
-    return out @ lp.wo, new_state, x[:, -1, :]
+    out = constrain(out, rules, ("batch", "seq", "heads"), (None, None, d))
+    out = out @ lp.wo
+    return (tp.reduce_from_model(out, mesh) if split else out), new_state, \
+        x[:, -1, :]
 
 
 def channel_mix(lp, x: torch.Tensor, shift_prev: torch.Tensor | None, rules):
+    split = model_split(rules, "d_ff") > 1
     delta = _token_shift(x, shift_prev) - x
     xk = x + delta * lp.mu_c[0]
     xr = x + delta * lp.mu_c[1]
+    if split:
+        xk = tp.copy_to_model(xk, rules.mesh)
     kk = torch.square(F.relu(xk @ lp.ck))
     kk = constrain(kk, rules, ("batch", "seq", "d_ff"))
-    return torch.sigmoid(xr @ lp.cr) * (kk @ lp.cv), x[:, -1, :]
+    kv = kk @ lp.cv
+    if split:
+        kv = tp.reduce_from_model(kv, rules.mesh)
+    return torch.sigmoid(xr @ lp.cr) * kv, x[:, -1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +326,10 @@ def forward(
     extra_embeds=None,
 ):
     """Logits (B, S, vocab), or (B, 1, vocab) in decode mode, and the new
-    state (None without one)."""
-    x = params.embed[tokens.long()] if tokens.ndim == 2 else tokens
+    state (None without one).  Where ``rules`` split the vocab over more
+    than one rank of ``"model"``, train logits are this rank's slice of the
+    vocab and the others gathered whole."""
+    x = _embed(params, tokens, rules) if tokens.ndim == 2 else tokens
     new = {"wkv": [], "shift_t": [], "shift_c": []}
     for i, lp in enumerate(params.layers):
         wkv_s = sh_t = sh_c = None
@@ -274,13 +347,7 @@ def forward(
     if state is not None:
         new_state = {name: torch.stack(parts) for name, parts in new.items()}
         new_state["pos"] = state["pos"] + x.shape[1]
-
-    x = rms_norm(x, params.final_norm["scale"])
-    if mode == "decode":
-        x = x[:, -1:, :]
-    logits = x @ params.lm_head
-    logits = constrain(logits, rules, ("batch", "seq", "vocab"))
-    return logits, new_state
+    return _logits(params, x, cfg, rules, mode), new_state
 
 
 def train_loss(params: RWKV, batch: dict, cfg: ModelConfig,
@@ -289,4 +356,4 @@ def train_loss(params: RWKV, batch: dict, cfg: ModelConfig,
     (``attention_impl`` "xla"), as the reference trains: the WKV6 kernel
     has no backward."""
     logits, _ = forward(params, batch["tokens"], cfg, rules, mode="train")
-    return causal_lm_loss(logits, batch["tokens"])
+    return causal_lm_loss(logits, batch["tokens"], rules)

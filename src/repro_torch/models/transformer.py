@@ -199,6 +199,109 @@ def _kv_heads_for(cfg: ModelConfig, hq: int, hkv: int,
         f"{hq} query heads a rank straddle the KV heads' groups of {group}")
 
 
+def _q_heads(lp, h: torch.Tensor, cfg: ModelConfig, rules):
+    """q (B, S, heads, head_dim) of ``h`` (already past ``copy_to_model``
+    where the heads split) and the columns the rank keeps (``tp_qkv``)."""
+    b, s, _ = h.shape
+    q = h @ lp.wq
+    if cfg.qkv_bias:
+        q = q + lp.bq
+    q = constrain(q, rules, ("batch", "seq", "heads"), (None, None, cfg.q_dim))
+    d = cfg.head_dim
+    cols = None
+    if model_split(rules, "heads") > 1 and q.shape[-1] % d:
+        # a rank's query columns are not whole heads (the rules split
+        # q_dim, as GSPMD may): every rank gathers q (and k and v) whole,
+        # attends every head, and keeps its columns of the output for its
+        # rows of wo
+        with ranks.use_mesh(rules.mesh):
+            lo = ranks.axis_index(tp.MODEL) * q.shape[-1]
+        cols = slice(lo, lo + q.shape[-1])
+        q = tp.gather_from_model(q, -1, rules.mesh)
+    return q.reshape(b, s, q.shape[-1] // d, d), cols
+
+
+def _kv_heads(lp, h: torch.Tensor, cfg: ModelConfig, rules):
+    """k and v (B, S, heads, head_dim) of ``h`` (already past
+    ``copy_to_model`` where the heads split): the rank's KV heads, or all
+    of them where the rules split kv_dim but not the KV heads."""
+    b, s, _ = h.shape
+    k = h @ lp.wk
+    v = h @ lp.wv
+    if cfg.qkv_bias:
+        k, v = k + lp.bk, v + lp.bv
+    k = constrain(k, rules, ("batch", "seq", "heads"),
+                  (None, None, cfg.kv_dim))
+    v = constrain(v, rules, ("batch", "seq", "heads"),
+                  (None, None, cfg.kv_dim))
+    if model_split(rules, "heads") > 1 and \
+            model_split(rules, "kv_heads") == 1:
+        # the axis splits kv_dim but not the KV heads: every rank takes
+        # them whole (before RoPE, which works per head)
+        k = tp.gather_from_model(k, -1, rules.mesh)
+        v = tp.gather_from_model(v, -1, rules.mesh)
+    d = cfg.head_dim
+    return (k.reshape(b, s, k.shape[-1] // d, d),
+            v.reshape(b, s, v.shape[-1] // d, d))
+
+
+def _to_ranks(h: torch.Tensor, rules) -> torch.Tensor:
+    """``h`` through ``copy_to_model`` where ``rules`` split the heads."""
+    if model_split(rules, "heads") > 1:
+        return tp.copy_to_model(h, rules.mesh)
+    return h
+
+
+def kv_heads_attended(cfg: ModelConfig, hq: int, hkv: int, rules) -> slice:
+    """The KV heads of a rank's ``hkv`` that its ``hq`` query heads attend
+    to (``_kv_heads_for``)."""
+    mesh = rules.mesh if model_split(rules, "heads") > 1 else None
+    lo, n = _kv_heads_for(cfg, hq, hkv, mesh)
+    return slice(lo, lo + n)
+
+
+def tp_q(lp, h: torch.Tensor, cfg: ModelConfig, rules):
+    """q alone (as ``tp_qkv``), for a query against a cache of keys made
+    before: (q, the columns this rank keeps)."""
+    return _q_heads(lp, _to_ranks(h, rules), cfg, rules)
+
+
+def tp_qkv(lp, h: torch.Tensor, cfg: ModelConfig, rules,
+           h_kv: torch.Tensor | None = None):
+    """q of the normed input ``h`` (B, S, D) and k and v of ``h_kv`` (None:
+    ``h``; the encoder's output for a cross-attention), as (B, S, heads,
+    head_dim) before RoPE, from ``lp``'s ``wq``, ``wk``, ``wv`` (and QKV
+    biases), with the columns (None: all of them) that this rank keeps of
+    the attention's output and the slice of k's heads its queries attend
+    to.  Where ``rules`` split the heads over more than one rank of
+    ``"model"``, each input passes ``copy_to_model`` once and the products
+    are the rank's columns; k and v are gathered whole where the KV heads
+    are not split (one KV head, as gemma's MQA), and q too where a rank's
+    query columns are not whole heads (every rank then attends every head
+    and keeps its columns).  The head counts are the weights' own."""
+    hc = _to_ranks(h, rules)
+    q, cols = _q_heads(lp, hc, cfg, rules)
+    k, v = _kv_heads(lp, hc if h_kv is None else _to_ranks(h_kv, rules),
+                     cfg, rules)
+    return q, k, v, cols, kv_heads_attended(cfg, q.shape[2], k.shape[2],
+                                            rules)
+
+
+def tp_out(lp, out: torch.Tensor, cfg: ModelConfig, rules,
+           cols: slice | None) -> torch.Tensor:
+    """The attention's output (B, S, heads x head_dim) through ``wo``:
+    this rank's ``cols`` of it (``tp_qkv``) through its rows of ``wo``,
+    summed over the ranks where ``rules`` split the heads."""
+    if cols is not None:
+        out = out[..., cols]
+    out = constrain(out, rules, ("batch", "seq", "heads"),
+                    (None, None, cfg.q_dim))
+    out = out @ lp.wo
+    if model_split(rules, "heads") > 1:
+        out = tp.reduce_from_model(out, rules.mesh)
+    return out
+
+
 def _attention_block(
     lp: DecoderLayer,
     x: torch.Tensor,  # (B, S, D)
@@ -212,43 +315,12 @@ def _attention_block(
 ):
     """``rope``: the forward pass's ``rope_tables`` for ``positions``
     (made here when not given).  The head counts are the weights' own:
-    this rank's heads where the rules split them."""
+    this rank's heads where the rules split them (``tp_qkv``)."""
     b, s, _ = x.shape
-    split = model_split(rules, "heads") > 1
-    mesh = rules.mesh if split else None
-    h = apply_norm(x, lp.attn_norm, cfg.norm)
-    if split:
-        h = tp.copy_to_model(h, mesh)
-    q = h @ lp.wq
-    k = h @ lp.wk
-    v = h @ lp.wv
-    if cfg.qkv_bias:
-        q, k, v = q + lp.bq, k + lp.bk, v + lp.bv
-    q = constrain(q, rules, ("batch", "seq", "heads"), (None, None, cfg.q_dim))
-    k = constrain(k, rules, ("batch", "seq", "heads"),
-                  (None, None, cfg.kv_dim))
-    v = constrain(v, rules, ("batch", "seq", "heads"),
-                  (None, None, cfg.kv_dim))
     d = cfg.head_dim
-    cols = None
-    if split and q.shape[-1] % d:
-        # a rank's query columns are not whole heads (the rules split
-        # q_dim, as GSPMD may): every rank gathers q (and below k and v)
-        # whole, attends every head, and keeps its columns of the output
-        # for its rows of wo
-        with ranks.use_mesh(mesh):
-            cols = slice(ranks.axis_index(tp.MODEL) * q.shape[-1],
-                         (ranks.axis_index(tp.MODEL) + 1) * q.shape[-1])
-        q = tp.gather_from_model(q, -1, mesh)
-    if split and model_split(rules, "kv_heads") == 1:
-        # the axis splits kv_dim but not the KV heads: every rank takes
-        # them whole (before RoPE, which works per head)
-        k = tp.gather_from_model(k, -1, mesh)
-        v = tp.gather_from_model(v, -1, mesh)
-    hq, hkv = q.shape[-1] // d, k.shape[-1] // d
-    q = q.reshape(b, s, hq, d)
-    k = k.reshape(b, s, hkv, d)
-    v = v.reshape(b, s, hkv, d)
+    q, k, v, cols, mine = tp_qkv(lp, apply_norm(x, lp.attn_norm, cfg.norm),
+                                 cfg, rules)
+    hq = q.shape[2]
     if rope is None:
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope_tables(q, *rope)
@@ -256,16 +328,9 @@ def _attention_block(
     q = q.transpose(1, 2)  # (B, H, S, D)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    kv_lo, kv_n = _kv_heads_for(cfg, hq, hkv, mesh)
-    mine = slice(kv_lo, kv_lo + kv_n)
 
     def project(out):
-        if cols is not None:
-            out = out[..., cols]
-        out = constrain(out, rules, ("batch", "seq", "heads"),
-                        (None, None, cfg.q_dim))
-        out = out @ lp.wo
-        return x + (tp.reduce_from_model(out, mesh) if split else out)
+        return x + tp_out(lp, out, cfg, rules, cols)
 
     new_cache_l = None
     if mode == "decode":
@@ -412,11 +477,20 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig, rules,
     """The final norm and the head on the last hidden state ``x`` (its last
     position in decode mode).  Where ``rules`` split the vocab, train
     logits are this rank's slice and the others gathered whole."""
-    vocab_split = model_split(rules, "vocab") > 1
     x = apply_norm(x, params.final_norm, cfg.norm)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     if mode == "decode":
         x = x[:, -1:, :]
+    return lm_head(x, head, cfg, rules, mode)
+
+
+def lm_head(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig, rules,
+            mode: str) -> torch.Tensor:
+    """``x @ head``, ``head`` (d_model, vocab) this rank's columns where
+    ``rules`` split the vocab: then ``x`` passes ``copy_to_model``, and the
+    logits are gathered whole except in train mode, whose loss is the
+    vocab-parallel cross-entropy."""
+    vocab_split = model_split(rules, "vocab") > 1
     if vocab_split:
         x = tp.copy_to_model(x, rules.mesh)
     logits = x @ head

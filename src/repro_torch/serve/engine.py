@@ -28,9 +28,11 @@ error, is not retried and propagates to the caller (the reference retries
 and absorbs every exception).
 
 Over ranks: given ``rules`` on a mesh whose ``"model"`` axis has more
-than one rank (the dense, VLM and MoE families), every rank runs the same
-engine on its slice of the parameters (``models.api.init_params(...,
-rules)``) and of the KV cache.  The logits come gathered over the ranks,
+than one rank (every family), every rank runs the same engine on its
+slice of the parameters (``models.api.init_params(..., rules)``) and of
+the decode state (``models.api.state_specs``: its KV heads, its recurrent
+channels, its WKV heads), which the splice copies leaf by leaf as it
+lies.  The logits come gathered over the ranks,
 so each rank samples from the whole vocab with the same generator, and the
 ranks compare their tokens after every prefill and decode step (an
 all-gather): a rank that took another token would leave the others

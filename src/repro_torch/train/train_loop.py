@@ -22,9 +22,8 @@ reference's:
   slice (the clip taken from the norm of the whole gradient, the same on
   every rank) and the new params are all-gathered.
 
-On a ``"model"`` axis of more than one rank (the dense, VLM and MoE
-families; the others raise, naming their ROADMAP item) the params are split by
-their specs as well: each rank holds its slice of every leaf the rules
+On a ``"model"`` axis of more than one rank (every family) the params are
+split by their specs as well: each rank holds its slice of every leaf the rules
 split over ``"model"`` and runs the tensor-parallel layers
 (:mod:`repro_torch.dist.tensor_parallel`).  The gradients of those leaves
 are the rank's own; a replicated leaf (a norm's scale) gets the same
@@ -51,7 +50,6 @@ from repro_torch.dist.sharding import (
     ShardingRules,
     batch_axes,
     batch_ranks,
-    check_tp_family,
     model_ranks,
     tree_specs,
 )
@@ -101,11 +99,12 @@ def train_state_specs(
     port's state is: ``params`` and the optimizer's ``master``, ``mu`` and
     ``nu`` by parameter name (``named_parameters()``), ``step`` ``()``.
     Each is the reference's spec of that leaf with a stacked layer's
-    leading entry taken off."""
+    leading entry taken off (a ``ranks.BlockedSpec`` where the family lays
+    the leaf out as blocks, ``models.api.blocked_specs``)."""
     p_axes = model_api.params_logical_axes_by_name(cfg)
     o_axes = zero1_axes(p_axes) if zero1 else p_axes
-    params = tree_specs(rules, p_axes)
-    opt = tree_specs(rules, o_axes)
+    params = model_api.param_specs(cfg, rules)
+    opt = model_api.blocked_specs(cfg, tree_specs(rules, o_axes))
     return TrainState(
         params=params,
         opt=AdamWState(step=(), master=opt, mu=dict(opt), nu=dict(opt)),
@@ -131,7 +130,6 @@ class _Layout:
     def __init__(self, cfg: ModelConfig, rules: ShardingRules, mesh,
                  zero1: bool):
         rules = rules.with_mesh(mesh)
-        check_tp_family(rules)
         sizes = ranks.mesh_sizes(mesh)
         self.batch = batch_axes(rules)
         self.ranks = batch_ranks(rules)

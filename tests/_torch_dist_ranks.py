@@ -249,7 +249,10 @@ def _tp_train(mesh, cases) -> list:
         with recorded_collectives() as records:
             new, metrics = step(state, batch)
         split = step_split(cfg, rules, mesh)
-        res = {"label": label, "loss": float(metrics["loss"]),
+        with ranks.use_mesh(mesh):
+            index = ranks.axis_index("model")
+        res = {"label": label, "model_index": index,
+               "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"]), "step": int(new.step),
                "local_shapes": {k: tuple(p.shape) for k, p in
@@ -257,7 +260,11 @@ def _tp_train(mesh, cases) -> list:
                "collectives": records,
                "replicated": {k: p.detach().clone() for k, p in
                               new.params.named_parameters()
-                              if k not in split}}
+                              if k not in split},
+               # the hybrid's w_in ([z | y]): this rank's part of each block
+               "w_in": {k: p.detach().clone() for k, p in
+                        new.params.named_parameters()
+                        if k.endswith(".w_in")}}
         whole = whole_tp_state(new, cfg, rules, mesh)
         if dist.get_rank() == 0:
             res.update(whole)
@@ -272,19 +279,34 @@ def step_split(cfg, rules, mesh) -> set:
         return {k for k, s in specs.items() if ranks.spec_shards(s)}
 
 
+def _flat(tree, prefix="") -> dict:
+    """The tensors of a nested state by path, dict keys sorted (the
+    reference's ``jax.tree.leaves`` order)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}{i}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
 def _tp_serve(mesh, cases) -> list:
     """Prefill then decode steps teacher-forced on ``decode`` tokens, each
     rank on its rows of the batch (the data axis splits it), through the
     port's api with the reference's parameters carried onto the rank; each
     decode step from this rank's slice of a given cache where the case
-    gives the caches."""
+    gives the caches; the final state gathered whole by ``state_specs``
+    (where no cache is given)."""
     from repro_torch.convert import params_from_reference
     from repro_torch.models import api
 
-    from repro_torch.dist.sharding import tree_specs
-
     out = []
-    for label, cfg, np_params, tokens, decode, patches, max_len, given \
+    for label, cfg, np_params, tokens, decode, extra, max_len, given \
             in cases:
         b = tokens.shape[0]
         rules = rules_for(cfg, mesh, "tp", global_batch=b)
@@ -294,12 +316,13 @@ def _tp_serve(mesh, cases) -> list:
             rows = slice(ranks.axis_index("data") * (b // data),
                          (ranks.axis_index("data") + 1) * (b // data))
         batch = {"tokens": torch.from_numpy(tokens[rows])}
-        if patches is not None:
-            batch["patch_embeds"] = torch.from_numpy(patches[rows])
+        for key, name in (("patches", "patch_embeds"), ("frames", "frames")):
+            if key in extra:
+                batch[name] = torch.from_numpy(extra[key][rows])
         state = api.init_decode_state(cfg, b // data, max_len, "cpu", rules)
         logits, state = api.prefill(params, batch, cfg, state, rules)
         got = [logits.float().numpy()]
-        specs = tree_specs(rules, api.state_logical_axes(cfg))
+        specs = api.state_specs(cfg, rules)
         wrote = []
         for i, tok in enumerate(decode):
             if given is not None:  # this rank's slice of the given cache
@@ -314,10 +337,17 @@ def _tp_serve(mesh, cases) -> list:
                 with ranks.use_mesh(mesh):
                     wrote.append({k: ranks.spec_gather(v, specs[k]).numpy()
                                   for k, v in state.items()})
+        flat, flat_specs = _flat(state), _flat(specs)
+        whole = None
+        if given is None:
+            with ranks.use_mesh(mesh):
+                whole = {k: ranks.spec_gather(v, flat_specs[k]).float()
+                         .numpy() for k, v in flat.items()}
         out.append({"label": label, "rows": (rows.start, rows.stop),
                     "logits": got, "wrote": wrote if given else None,
+                    "state": whole,
                     "cache_shapes": {k: tuple(v.shape)
-                                     for k, v in state.items()}})
+                                     for k, v in flat.items()}})
     return out
 
 
@@ -444,8 +474,9 @@ def _tp_ops(mesh, inputs) -> dict:
 def tp_suite(device, work: dict) -> dict:
     """Every tensor-parallel case of ``tests/test_torch_tp.py`` on this
     rank: train steps and prefill/decode on each mesh of ``work["meshes"]``,
-    the engines, the MoE routers' gradients and the operators on (1, 4),
-    the elastic restores."""
+    the engines (phi3, granite and each of the RWKV, hybrid and
+    encoder-decoder families), the MoE routers' gradients and the operators
+    on (1, 4), the elastic restores."""
     out = {"rank": dist.get_rank()}
     for shape in work["meshes"]:
         mesh = make_mesh(shape, ("data", "model"))
@@ -454,8 +485,12 @@ def tp_suite(device, work: dict) -> dict:
     mesh = make_mesh((1, 4), ("data", "model"))
     out["engine"] = _tp_engine(mesh, *work["engine"])
     out["moe_engine"] = _tp_engine(mesh, *work["moe_engine"])
+    for label, case in work["family_engines"].items():
+        out["engine", label] = _tp_engine(mesh, *case)
     out["router"] = _tp_router(mesh, work["router"])
     out["ops"] = _tp_ops(mesh, work["ops"])
     out["elastic"] = _tp_elastic(*work["elastic"])
     out["moe_elastic"] = _tp_elastic(*work["moe_elastic"])
+    for label, case in work["family_elastic"].items():
+        out["elastic", label] = _tp_elastic(*case)
     return out

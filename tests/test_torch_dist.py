@@ -30,7 +30,7 @@ import repro.launch.rules as RR
 from repro.configs import ARCHS
 from repro.configs import get_config as r_config
 from repro.train import train_loop as r_train
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import spec_from_reference
 from repro_torch.dist import collectives, ranks, set_tracer
 from repro_torch.dist import sharding as TS
@@ -193,8 +193,8 @@ def test_train_state_specs_match_the_reference(arch):
 
 def test_constrain_is_the_identity_unless_the_model_axis_is_split():
     """``constrain`` never moves data.  On a model axis of more than one
-    rank it checks that a split dimension is the rank's share, and it
-    raises for a family with no tensor-parallel layers yet."""
+    rank it checks that a split dimension is the rank's share, for every
+    family's rules (each has tensor-parallel layers)."""
     x = torch.ones(4, 4)
     assert TS.constrain(x, None, ("batch", "d_model")) is x
     assert TS.constrain(x, TS.tp_rules(), ("batch", "d_model")) is x
@@ -202,21 +202,21 @@ def test_constrain_is_the_identity_unless_the_model_axis_is_split():
     assert TS.constrain(x, rules.with_mesh({"data": 4, "model": 1}),
                         ("batch", "d_model")) is x
     split = rules.with_mesh({"data": 2, "model": 2})
-    for family in TS.TP_FAMILIES:
-        r = split.with_family(family)
+    for arch in ("phi3-mini-3.8b", "granite-moe-1b-a400m", "rwkv6-3b",
+                 "recurrentgemma-2b", "whisper-medium"):
+        r = TR.rules_for(get_smoke_config(arch), {"data": 2, "model": 2},
+                         "tp").with_mesh({"data": 2, "model": 2})
         assert TS.constrain(x, r, ("batch", "d_model")) is x
         assert TS.constrain(x, r, ("batch", "heads"), (None, 8)) is x
         with pytest.raises(ValueError, match="share"):
             # a layer that forgot to split: the whole 4 of 4 columns
             TS.constrain(x, r, ("batch", "heads"), (None, 4))
-    for family, item in TS.QUEUED_TP.items():
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            TS.constrain(x, split.with_family(family), ("batch", "d_model"))
         # the batch alone over a model axis (dp_rules) is data
-        # parallelism, which every family runs
-        dp = TS.dp_rules(("data", "model")).with_mesh(
-            {"data": 2, "model": 2}).with_family(family)
-        assert TS.constrain(x, dp, ("batch", "d_model")) is x
+        # parallelism: nothing is checked
+        dp = TR.rules_for(get_smoke_config(arch), {"data": 2, "model": 2},
+                          "dp").with_mesh({"data": 2, "model": 2})
+        assert TS.constrain(x, dp, ("batch", "heads"), (None, 4)) is x
+    assert TS.constrain(x, split, ("batch", "heads"), (None, 8)) is x
 
 
 def test_spec_from_reference():

@@ -34,7 +34,6 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import config_from_reference, \
     train_state_from_reference
 from repro_torch.dist import ranks
-from repro_torch.dist.sharding import QUEUED_TP
 from repro_torch.launch.rules import rules_for
 from repro_torch.train.train_loop import (
     init_train_state,
@@ -217,11 +216,11 @@ def test_zero1_shards_the_optimizer_state_and_dp_keeps_it_whole(train_runs,
                                   "recurrentgemma-2b", "whisper-medium",
                                   "flat-dispatch"])
 def test_the_model_axis_split_and_a_flat_moe_dispatch_raise(arch):
-    """A model axis of more than one rank raises for the families that
-    have no tensor-parallel layers yet, each naming its ROADMAP item (the
-    dense, VLM and MoE families run there, ``tests/test_torch_tp.py``);
-    the flat MoE dispatch raises under a split batch, and under a split
-    model axis (in the train step, and in the layer itself)."""
+    """A model axis of more than one rank builds a tensor-parallel step for
+    every family (``tests/test_torch_tp.py`` runs them), each parameter's
+    slice the rank's share under its specs; the flat MoE dispatch raises
+    under a split batch, and under a split model axis (in the train step,
+    and in the layer itself)."""
     if arch in ("flat-dispatch", "granite-moe-1b-a400m"):
         moe = dataclasses.replace(_torch_dist_ranks.replace_impl(
             get_smoke_config("granite-moe-1b-a400m")), moe_flat_dispatch=True)
@@ -242,11 +241,18 @@ def test_the_model_axis_split_and_a_flat_moe_dispatch_raise(arch):
                                match="flat MoE dispatch"):
                 moe_mod.moe_mlp(params.layers[0], x, moe, rules)
         return
+    from repro_torch.models import api
+
     cfg = _torch_dist_ranks.replace_impl(get_smoke_config(arch))
     mesh = {"data": 2, "model": 2}
-    item = QUEUED_TP[cfg.family]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make_train_step(cfg, rules_for(cfg, mesh, "tp"), mesh)
+    rules = rules_for(cfg, mesh, "tp")
+    assert make_train_step(cfg, rules, mesh) is not None
+    specs = train_state_specs(cfg, rules.with_mesh(mesh)).params
+    whole = dict(api.param_shapes(cfg).named_parameters())
+    split = [name for name, spec in specs.items() if "model" in spec]
+    assert split
+    for name in split:
+        assert whole[name].shape[list(specs[name]).index("model")] % 2 == 0
 
 
 def test_checkpoint_saved_on_four_ranks_restores_onto_two_and_one(tmp_path):
@@ -302,3 +308,33 @@ def _torch_dist_ranks_leaves(state):
     opt = state.opt
     return [p.detach() for p in state.params.parameters()] + [opt.step] + [
         t for tree in (opt.master, opt.mu, opt.nu) for t in tree.values()]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b",
+                                  "whisper-medium"])
+def test_launchers_serve_and_train_over_a_mesh(arch, tmp_path):
+    """``launch.serve.run_serving`` over a (1, 4) mesh and
+    ``launch.train.run_training`` over (2, 2) (4 gloo ranks on the CPU,
+    ``--mesh``): the engine completes every request as one device does,
+    the ranks' tokens equal; the losses equal one device's at rtol 1e-5,
+    and a rerun with more steps resumes from the sharded checkpoint."""
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.launch.train import run_training
+
+    kw = dict(smoke=True, requests=3, prompt_len=8, max_new=4, slots=2,
+              device="cpu")
+    one = run_serving(arch, **kw)
+    over = run_serving(arch, mesh=(1, 4), **kw)
+    assert over["mesh"] == [1, 4] and over["backend"] == "gloo"
+    for key in ("arch", "completed", "decode_tokens", "prefill_tokens"):
+        assert over[key] == one[key], key
+    tkw = dict(smoke=True, batch=4, seq=16, device="cpu")
+    one = run_training(arch, steps=5, **tkw)
+    ckpt = str(tmp_path / "ckpt")
+    over = run_training(arch, steps=3, mesh=(2, 2), ckpt_dir=ckpt,
+                        ckpt_every=2, **tkw)
+    assert over["mesh"] == [2, 2] and over["steps"] == 3
+    np.testing.assert_allclose(over["losses"], one["losses"][:3], rtol=1e-5)
+    more = run_training(arch, steps=5, mesh=(2, 2), ckpt_dir=ckpt, **tkw)
+    assert more["steps"] == 5 and len(more["losses"]) == 2
+    np.testing.assert_allclose(more["losses"], one["losses"][3:], rtol=1e-5)

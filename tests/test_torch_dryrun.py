@@ -15,6 +15,8 @@ a real gloo run's in ``tests/test_torch_tp.py``, whose ranks run it.
 
 from __future__ import annotations
 
+import collections
+
 import json
 
 import jax
@@ -166,12 +168,12 @@ def test_small_mesh_train_and_decode_on_the_meta_device(arch):
     """``tests/test_dryrun_small.py``'s cells: each smoke config scaled as
     there, on a ``{data: 2, model: 4}`` recording mesh, a train step of 8
     x 32 tokens and a decode step against a 64-position cache, under
-    ``tp`` (rwkv6, whose tensor-parallel layers are queued, under ``dp``):
-    FLOPs counted, and collectives where the reference's has them."""
+    ``tp``: FLOPs counted, and collectives where the reference's has
+    them."""
     cfg = get_smoke_config(arch).scaled(
         d_model=64, d_ff=128 if arch != "granite-moe-1b-a400m" else 32)
     mesh = {"data": 2, "model": 4}
-    flavor = "dp" if cfg.family in dryrun.QUEUED_TP else "tp"
+    flavor = "tp"
     train = dryrun.cell_metrics(cfg, shapes.ShapeSpec("t", 32, 8, "train"),
                                 mesh, flavor)
     assert train["flops"] > 0 and train["bytes_accessed"] > 0
@@ -229,9 +231,18 @@ def test_cells_list_runs_skips_and_queued_items():
     assert status["phi3-mini-3.8b", "long_500k"][0] == "SKIP"
     assert status["phi3-mini-3.8b", "decode_32k"][0] == "QUEUED"
     assert "item 24" in status["phi3-mini-3.8b", "decode_32k"][1]
-    assert "item 21" in status["rwkv6-3b", "train_4k"][1]
-    assert "item 22" in status["recurrentgemma-2b", "long_500k"][1]
-    assert "item 23" in status["whisper-medium", "train_4k"][1]
+    # every family's tensor-parallel layers run (ROADMAP items 21-23):
+    # only the sequence-split decode cells wait, whisper's among them
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        assert status["rwkv6-3b", shape] == ("RUN", "")
+        assert status["recurrentgemma-2b", shape] == ("RUN", "")
+    assert status["whisper-medium", "train_4k"] == ("RUN", "")
+    assert status["whisper-medium", "prefill_32k"] == ("RUN", "")
+    assert "item 24" in status["whisper-medium", "decode_32k"][1]
+    tally = collections.Counter(v[0] for v in status.values())
+    assert tally == {"RUN": 24, "SKIP": 8, "QUEUED": 8}
+    assert all("item 24" in why for st, why in status.values()
+               if st == "QUEUED")
     for a in ARCHS:  # under dp every family runs
         for s in shapes.SHAPE_NAMES:
             got = dryrun.cell_status(get_config(a), s, mesh, "dp")[0]

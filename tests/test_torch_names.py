@@ -310,10 +310,11 @@ def test_constrain_and_rg_lru_ref_names():
 def test_the_tensor_parallel_names_and_their_module():
     """``dist.tensor_parallel`` is the port's own module (the reference has
     GSPMD in its place, so no counterpart is compared): the dist package
-    exports its operators and the family check, and the names the
-    reference's modules gained a counterpart for here take the reference's
-    parameters first (``init_params``, ``init_decode_state``,
-    ``params_from_reference`` append ``rules``)."""
+    exports its operators (and no family check: every family has
+    tensor-parallel layers), and the names the reference's modules gained a
+    counterpart for here take the reference's parameters first
+    (``init_params``, ``init_decode_state``, ``params_from_reference``
+    append ``rules``)."""
     import repro_torch.dist as D
     from repro_torch.dist import tensor_parallel as TP
     from repro_torch.models import api
@@ -321,7 +322,8 @@ def test_the_tensor_parallel_names_and_their_module():
     assert "dist.tensor_parallel" not in MODULES
     names = {"copy_to_model", "reduce_from_model", "gather_from_model",
              "vocab_parallel_embed", "vocab_parallel_xent"}
-    assert names | {"check_tp_family"} <= set(D.__all__)
+    assert names <= set(D.__all__)
+    assert not hasattr(D, "check_tp_family")
     for name in names:
         assert getattr(D, name) is getattr(TP, name)
     for fn in (api.init_params, api.init_decode_state):

@@ -1,5 +1,6 @@
-"""Tensor parallelism over a ``"model"`` axis for the dense, VLM and MoE
-families against the reference's GSPMD, on the CPU.
+"""Tensor parallelism over a ``"model"`` axis for every family (dense, VLM,
+MoE, RWKV-6, the RecurrentGemma hybrid and the Whisper encoder-decoder)
+against the reference's GSPMD, on the CPU.
 
 The reference runs on 4 fake devices in one subprocess
 (``tests/_subproc.run_with_devices``, in a thread), the port on 4 gloo
@@ -30,10 +31,19 @@ ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
   half a head (gathered whole, every head attended, each rank keeping its
   columns of the output, as at (16, 16) for gemma-2b, qwen1.5-32b and
   granite-moe-3b), trained and served;
+* the rwkv6-3b, recurrentgemma-2b and whisper-medium smoke configs trained
+  and served the same way (whisper with random frames), and an rwkv6-3b
+  variant with 2 WKV heads of 32, whose columns at (1, 4) are half a head
+  (r, k, v and w gathered whole, every head run on the whole state, as
+  rwkv6-3b's 2.5 heads a rank at (16, 16)), and a recurrentgemma-2b variant
+  with 2 query heads of 32 served (half a head a rank, as its 2.5 at (1,
+  4)); the hybrid's ``w_in`` holds on each rank its part of z and of y;
 * the engine on (1, 4): greedy tokens equal to the one-rank engine's, and
-  the same on every rank, for phi3 and granite;
+  the same on every rank, for phi3, granite, rwkv6-3b, recurrentgemma-2b
+  and whisper-medium;
 * a train state saved on (2, 2) restored onto (1, 4), (4, 1) and one rank,
-  bit for bit, for phi3 and granite (its experts split on (2, 2));
+  bit for bit, for phi3, granite (its experts split on (2, 2)), rwkv6-3b,
+  recurrentgemma-2b (its blocked ``w_in``) and whisper-medium;
 * the dry run of each train step on the meta device
   (``launch.dryrun.cell_metrics``) records the all-reduces and
   all-gathers the real step sent, op for op and byte for byte;
@@ -89,6 +99,11 @@ MESHES = [(2, 2), (1, 4)]
 #: between two correct runs move no token past a capacity
 MOE = {"capacity_factor": 8.0}
 HALF_HEADS = {"n_heads": 2, "n_kv_heads": 2}
+#: rwkv6-3b with 2 WKV heads of 32: half a head's columns a rank at (1, 4)
+RWKV_HALF_HEADS = {"n_heads": 2, "wkv_head_dim": 32}
+#: the families added to the dense, VLM and MoE cases: label -> arch
+FAMILIES = {"rwkv6-3b": "rwkv6-3b", "recurrentgemma-2b": "recurrentgemma-2b",
+            "whisper-medium": "whisper-medium"}
 #: train cases: label -> (arch, overrides of its smoke config); granite's
 #: 4 experts split over both meshes' "model" axis, its variant's 5 do not
 #: (d_ff splits instead)
@@ -98,7 +113,9 @@ TRAIN = {"phi3-mini-3.8b": ("phi3-mini-3.8b", {}),
          "phi3-half-heads": ("phi3-mini-3.8b", HALF_HEADS),
          "granite-moe-1b-a400m": ("granite-moe-1b-a400m", MOE),
          "granite-moe-1b-5-experts": ("granite-moe-1b-a400m",
-                                      {**MOE, "n_experts": 5})}
+                                      {**MOE, "n_experts": 5}),
+         **{label: (arch, {}) for label, arch in FAMILIES.items()},
+         "rwkv6-half-heads": ("rwkv6-3b", RWKV_HALF_HEADS)}
 TRAIN_ARCHS = list(TRAIN)
 MOE_LABELS = ["granite-moe-1b-a400m", "granite-moe-1b-5-experts"]
 BATCH, SEQ = 8, 16
@@ -109,9 +126,16 @@ SERVE = {"phi3-mini-3.8b": ("phi3-mini-3.8b", {}),
          "internvl2-26b": ("internvl2-26b", {}),
          "phi3-vocab-250": ("phi3-mini-3.8b", {"vocab": 250}),
          "phi3-half-heads": ("phi3-mini-3.8b", HALF_HEADS),
-         **{label: TRAIN[label] for label in MOE_LABELS}}
+         **{label: TRAIN[label] for label in MOE_LABELS},
+         **{label: (arch, {}) for label, arch in FAMILIES.items()},
+         "rwkv6-half-heads": ("rwkv6-3b", RWKV_HALF_HEADS),
+         # 2 query heads of 32 on one KV head: half a head a rank at (1, 4)
+         "recurrentgemma-half-heads": ("recurrentgemma-2b",
+                                       {"n_heads": 2, "head_dim": 32})}
 PROMPT, DECODE_STEPS, MAX_LEN = (2, 8), 3, 32
-RANKS_TIMEOUT = 300
+#: seconds the ranks, and the reference's subprocess, may take: a guard
+#: against a hang, far above their run (about 3 minutes alone)
+RANKS_TIMEOUT = 900
 
 
 def _np(x):
@@ -144,7 +168,15 @@ def _train_reference(label):
     state = _with_history(r_train.init_train_state(jax.random.key(0), rcfg),
                           rng, 60)
     toks = rng.integers(0, rcfg.vocab, (BATCH, SEQ)).astype(np.int32)
-    return rcfg, state, toks
+    batch = {"tokens": toks}
+    if rcfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (BATCH, rcfg.enc_frames, rcfg.d_model)).astype(np.float32)
+    return rcfg, state, batch
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _serve_inputs(label):
@@ -153,11 +185,14 @@ def _serve_inputs(label):
     toks = rng.integers(0, rcfg.vocab, PROMPT).astype(np.int32)
     decode = rng.integers(0, rcfg.vocab, (DECODE_STEPS, PROMPT[0], 1)) \
         .astype(np.int32)
-    patches = None
+    extra = {}
     if rcfg.family == "vlm":
-        patches = rng.standard_normal(
+        extra["patches"] = rng.standard_normal(
             (PROMPT[0], rcfg.n_patches, rcfg.d_model)).astype(np.float32)
-    return rcfg, toks, decode, patches
+    if rcfg.family == "encdec":
+        extra["frames"] = rng.standard_normal(
+            (PROMPT[0], rcfg.enc_frames, rcfg.d_model)).astype(np.float32)
+    return rcfg, toks, decode, extra
 
 
 def _int8_states(rcfg, toks, decode):
@@ -215,7 +250,10 @@ for shape in MESHES:
                                           for i in range(tree.num_leaves)])
         rules = rules_for(cfg, mesh, "tp", global_batch=BATCH)
         step = train_loop.make_train_step(cfg, rules, mesh, donate=False)
-        new, m = step(state, {"tokens": jnp.asarray(data["tokens"])})
+        batch = {"tokens": jnp.asarray(data["tokens"])}
+        if "frames" in data:
+            batch["frames"] = jnp.asarray(data["frames"])
+        new, m = step(state, batch)
         np.savez(f"{DIR}/{arch}.{tag}.out.npz",
                  *[np.asarray(x) for x in jax.tree.leaves(new)],
                  loss=np.asarray(m["loss"]),
@@ -233,10 +271,11 @@ for shape in MESHES:
         rows = NamedSharding(mesh, rules.spec(("batch", None)))
         batch = {"tokens": jnp.asarray(data["tokens"])}
         b_specs = {"tokens": rows}
-        if "patches" in data:
-            batch["patch_embeds"] = jnp.asarray(data["patches"], cfg.jdtype)
-            b_specs["patch_embeds"] = NamedSharding(
-                mesh, rules.spec(("batch", None, None)))
+        for key, name in (("patches", "patch_embeds"), ("frames", "frames")):
+            if key in data:
+                batch[name] = jnp.asarray(data[key], cfg.jdtype)
+                b_specs[name] = NamedSharding(
+                    mesh, rules.spec(("batch", None, None)))
         prefill = jax.jit(
             lambda p, bt, s: api.prefill(p, bt, cfg, s, rules),
             in_shardings=(named(p_specs), b_specs, named(s_specs)))
@@ -254,6 +293,8 @@ for shape in MESHES:
             logits, state = decode(params, jnp.asarray(tok), state)
             out.append(np.asarray(logits, np.float32))
         np.savez(f"{DIR}/{label}.{tag}.serve.out.npz", *out)
+        np.savez(f"{DIR}/{label}.{tag}.state.npz",
+                 *[np.asarray(x, np.float32) for x in jax.tree.leaves(state)])
 print("REFERENCE-OK")
 """
 
@@ -324,42 +365,42 @@ def tp_runs(tmp_path_factory):
     work = {"meshes": MESHES, "train": [], "serve": []}
     single = {}
     for arch in TRAIN_ARCHS:
-        rcfg, rstate, toks = _train_reference(arch)
+        rcfg, rstate, batch = _train_reference(arch)
         np.savez(tmp / f"{arch}.in.npz",
-                 *[np.asarray(x) for x in jax.tree.leaves(rstate)],
-                 tokens=toks)
+                 *[np.asarray(x) for x in jax.tree.leaves(rstate)], **batch)
         tcfg = config_from_reference(rcfg)
         tstate = _carried(rstate, tcfg)
-        batch = {"tokens": torch.from_numpy(toks)}
+        batch = _torch_batch(batch)
         work["train"].append((arch, tcfg, tstate, batch))
         single[arch] = make_train_step(tcfg, donate=False)(tstate, batch)
     # remat over the ranks: the recompute issues the layer's collectives
     # again inside the backward pass, in the same order on every rank
     for policy in ("nothing", "dots"):
         arch = "phi3-mini-3.8b"
-        rcfg, rstate, toks = _train_reference(arch)
+        rcfg, rstate, batch = _train_reference(arch)
         tcfg = dataclasses.replace(config_from_reference(rcfg), remat=True,
                                    remat_policy=policy)
         work["train"].append((f"{arch}/remat-{policy}", tcfg,
-                              _carried(rstate, tcfg),
-                              {"tokens": torch.from_numpy(toks)}))
+                              _carried(rstate, tcfg), _torch_batch(batch)))
     for label in SERVE:
-        rcfg, toks, decode, patches = _serve_inputs(label)
-        extra = {} if patches is None else {"patches": patches}
+        rcfg, toks, decode, extra = _serve_inputs(label)
+        inputs = dict(extra)
         states = _int8_states(rcfg, toks, decode) if rcfg.kv_quant else None
         for i, st in enumerate(states or ()):
-            extra.update({f"state{i}_{k}": v for k, v in st.items()})
+            extra = {**extra, **{f"state{i}_{k}": v for k, v in st.items()}}
         np.savez(tmp / f"{label}.serve.npz", tokens=toks, decode=decode,
                  **extra)
         np_params = jax.tree.map(lambda a: np.asarray(a, np.float32),
                                  r_api.init_params(jax.random.key(1), rcfg))
         work["serve"].append((label, config_from_reference(rcfg), np_params,
-                              toks, decode, patches, MAX_LEN, states))
+                              toks, decode, inputs, MAX_LEN, states))
     ecfg = get_smoke_config("phi3-mini-3.8b")
     prompts = [np.random.default_rng(i).integers(0, ecfg.vocab, n)
                .astype(np.int32) for i, n in enumerate((5, 9, 3, 7))]
     work["engine"] = (ecfg, 0, prompts, 5)
     work["moe_engine"] = (_moe_cfg(MOE_LABELS[0]), 0, prompts, 5)
+    work["family_engines"] = {label: (_moe_cfg(label), 0, prompts, 5)
+                              for label in FAMILIES}
     work["router"] = [(label, _moe_cfg(label), 2, _router_tokens())
                       for label in MOE_LABELS]
     work["ops"] = _ops_inputs()
@@ -367,12 +408,17 @@ def tp_runs(tmp_path_factory):
     work["elastic"] = (elastic[1], elastic[0], str(tmp / "ckpt"))
     elastic = _elastic_state(_moe_cfg(MOE_LABELS[0]))
     work["moe_elastic"] = (elastic[1], elastic[0], str(tmp / "moe_ckpt"))
+    work["family_elastic"] = {}
+    for label in FAMILIES:
+        cfg, state = _elastic_state(_moe_cfg(label))
+        work["family_elastic"][label] = (state, cfg,
+                                         str(tmp / f"{label}_ckpt"))
     code = (f"MESHES = {MESHES!r}\nTRAIN_ARCHS = {TRAIN_ARCHS!r}\n"
             f"TRAIN = {TRAIN!r}\n"
             f"SERVE = {SERVE!r}\nDIR = {str(tmp)!r}\nBATCH = {BATCH}\n"
             f"MAX_LEN = {MAX_LEN}\n" + REFERENCE)
     with _torch_dist_ranks.beside(run_with_devices, code, n_devices=N,
-                                  timeout=400) as out:
+                                  timeout=RANKS_TIMEOUT) as out:
         port = ranks.spawn(_torch_dist_ranks.tp_suite, N, backend="gloo",
                            device="cpu", init_dir=str(tmp / "rdv"),
                            args=(work,), timeout=RANKS_TIMEOUT)
@@ -412,12 +458,16 @@ def tp_runs(tmp_path_factory):
                 logits += [data[f"arr_{i}"] for i in
                            range(1, DECODE_STEPS + 1)]
             ref["serve", label, shape] = logits
+            data = np.load(tmp / f"{label}.{tag}.state.npz")
+            ref["state", label, shape] = [data[f"arr_{i}"]
+                                          for i in range(len(data.files))]
     return ref, port, single, work, str(tmp / "ckpt")
 
 
 def _moe_cfg(label):
-    """The port's config of an MoE train case, with the plain attention
-    (the train step refuses the CUDA kernels)."""
+    """The port's config of a train case (an MoE one, or one of
+    ``FAMILIES``), with the plain attention (the train step refuses the
+    CUDA kernels)."""
     arch, overrides = TRAIN[label]
     return dataclasses.replace(get_smoke_config(arch).scaled(**overrides),
                                attention_impl="xla")
@@ -517,29 +567,52 @@ def test_tp_dry_run_records_the_real_steps_collectives(tp_runs, arch, shape):
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_tp_params_are_each_ranks_slice(tp_runs, arch, shape):
     """Each rank holds its share of every leaf the rules split over
-    "model" and the whole of the rest."""
-    _, port, single, _, _ = tp_runs
+    "model" and the whole of the rest; the hybrid's ``w_in`` = [z | y]
+    holds the rank's part of z and its part of y (not a contiguous share
+    of the two, which would give two ranks halves of z and two halves of
+    y), equal to those columns of the whole new leaf."""
+    ref, port, single, _, _ = tp_runs
     one_state, _ = single[arch]
     cfg = get_smoke_config(TRAIN[arch][0]).scaled(**TRAIN[arch][1])
     rules = rules_for(cfg, {"data": shape[0], "model": shape[1]}, "tp",
                       global_batch=BATCH)
     specs = train_state_specs(cfg, rules).params
+    whole = dict(ref["train", arch, shape][0].params.named_parameters())
     for p in port:
         local = next(r for r in p["train", shape] if r["label"] == arch)
-        for name, whole in one_state.params.named_parameters():
-            want = list(whole.shape)
+        for name, leaf in one_state.params.named_parameters():
+            want = list(leaf.shape)
             for dim, entry in enumerate(specs[name]):
                 if entry == "model":
                     want[dim] //= shape[1]
             assert list(local["local_shapes"][name]) == want, name
+        assert bool(local["w_in"]) == (cfg.family == "hybrid")
+        for name, got in local["w_in"].items():
+            w = cfg.d_model
+            n = w // shape[1]
+            lo = local["model_index"] * n
+            z, y = whole[name][:, lo:lo + n], whole[name][:, w + lo:w + lo + n]
+            _close(got, torch.cat([z, y], dim=1), f"{arch} {shape} {name}")
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("label", list(SERVE))
 def test_tp_prefill_and_decode_match_the_reference(tp_runs, label, shape):
+    """The logits of a prefill and each decode step, and (where no cache is
+    given) the decode state the ranks hold gathered whole by
+    ``api.state_specs``, against the reference's GSPMD at 1e-4; each rank's
+    state is its slice of the whole state under those specs (its KV heads
+    where the rules split them, its WKV heads where its columns are whole
+    heads, its recurrent channels)."""
     ref, port, _, work, _ = tp_runs
     want = ref["serve", label, shape]
     rcfg = _serve_cfg(label)
+    cfg = config_from_reference(rcfg)
+    mesh = {"data": shape[0], "model": shape[1]}
+    rules = rules_for(cfg, mesh, "tp", global_batch=PROMPT[0]).with_mesh(mesh)
+    specs = _torch_dist_ranks._flat(api.state_specs(cfg, rules))
+    whole = _torch_dist_ranks._flat(api.init_decode_state(
+        cfg, PROMPT[0] // shape[0], MAX_LEN, "meta"))
     for p in port:
         got = next(r for r in p["serve", shape] if r["label"] == label)
         lo, hi = got["rows"]
@@ -550,15 +623,28 @@ def test_tp_prefill_and_decode_match_the_reference(tp_runs, label, shape):
                                        err_msg=f"{label} {shape} step {i}")
         if got["wrote"] is not None:
             _check_int8_writes(label, got["wrote"], work)
-        # the cache holds this rank's KV heads where the rules split them
-        rules = rules_for(config_from_reference(rcfg),
-                          {"data": shape[0], "model": shape[1]}, "tp",
-                          global_batch=PROMPT[0])
-        split = rules.spec(("kv_heads",))[0] == "model"
-        heads = rcfg.n_kv_heads // (shape[1] if split else 1)
-        cache = got["cache_shapes"]["k_q" if rcfg.kv_quant else "k"]
-        assert cache == (rcfg.n_layers, PROMPT[0] // shape[0], heads,
-                         MAX_LEN, rcfg.head_dim)
+        else:
+            state = ref["state", label, shape]
+            assert len(state) == len(got["state"])
+            for (name, g), w in zip(got["state"].items(), state):
+                np.testing.assert_allclose(
+                    g, w, rtol=1e-4, atol=1e-4,
+                    err_msg=f"{label} {shape} state {name}")
+        assert set(got["cache_shapes"]) == set(whole)
+        for name, leaf in whole.items():
+            local = list(leaf.shape)
+            for dim, entry in enumerate(specs[name]):
+                if entry == "model":
+                    local[dim] //= shape[1]
+            assert got["cache_shapes"][name] == tuple(local), name
+        if cfg.family in ("dense", "vlm", "moe"):
+            # the cache holds this rank's KV heads where the rules split
+            # them
+            split = rules.spec(("kv_heads",))[0] == "model"
+            heads = rcfg.n_kv_heads // (shape[1] if split else 1)
+            cache = got["cache_shapes"]["k_q" if rcfg.kv_quant else "k"]
+            assert cache == (rcfg.n_layers, PROMPT[0] // shape[0], heads,
+                             MAX_LEN, rcfg.head_dim)
 
 
 def _check_int8_writes(label, wrote, work):
@@ -579,9 +665,7 @@ def _check_int8_writes(label, wrote, work):
                                            want[key][:, b, :, p], rtol=1e-4)
 
 
-def test_tp_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
-    _, port, _, work, _ = tp_runs
-    cfg, seed, prompts, max_new = work["engine"]
+def _one_rank_engine(cfg, seed, prompts, max_new):
     params = api.init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
     engine = ServeEngine(params, cfg, slots=2, max_len=32, seed=seed,
                          device="cpu")
@@ -589,6 +673,12 @@ def test_tp_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
         engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
     want = sorted((r.rid, r.status, list(r.output)) for r in engine.run())
     assert [len(w[2]) for w in want] == [max_new] * len(prompts)
+    return want
+
+
+def test_tp_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
+    _, port, _, work, _ = tp_runs
+    want = _one_rank_engine(*work["engine"])
     for p in port:
         assert p["engine"] == want
 
@@ -597,16 +687,22 @@ def test_tp_moe_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
     """granite's engine over (1, 4), its 4 experts split: the greedy tokens
     of one rank's engine, on every rank."""
     _, port, _, work, _ = tp_runs
-    cfg, seed, prompts, max_new = work["moe_engine"]
-    params = api.init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
-    engine = ServeEngine(params, cfg, slots=2, max_len=32, seed=seed,
-                         device="cpu")
-    for rid, p in enumerate(prompts):
-        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
-    want = sorted((r.rid, r.status, list(r.output)) for r in engine.run())
-    assert [len(w[2]) for w in want] == [max_new] * len(prompts)
+    want = _one_rank_engine(*work["moe_engine"])
     for p in port:
         assert p["moe_engine"] == want
+
+
+@pytest.mark.parametrize("label", list(FAMILIES))
+def test_tp_family_engine_tokens_equal_one_rank_and_every_rank(tp_runs,
+                                                               label):
+    """rwkv6-3b's (a WKV head a rank), recurrentgemma-2b's (its recurrent
+    channels split, the ring cache whole) and whisper-medium's (zero frames,
+    as the engine makes them) engines over (1, 4): the greedy tokens of one
+    rank's engine, on every rank."""
+    _, port, _, work, _ = tp_runs
+    want = _one_rank_engine(*work["family_engines"][label])
+    for p in port:
+        assert p["engine", label] == want
 
 
 @pytest.mark.parametrize("label", MOE_LABELS)
@@ -641,17 +737,34 @@ def test_tp_router_gradient_with_aux_equals_one_rank(tp_runs, label):
 
 
 def test_tp_engine_refuses_a_data_axis_and_other_families():
+    """An engine over a data axis of more than one rank raises (ROADMAP
+    Queue A item 24); over a model axis every family builds one, its
+    decode state the rank's part: rwkv6-3b's WKV state one of 4 heads,
+    recurrentgemma-2b's recurrent state a quarter of its channels (the
+    ring cache of its one KV head whole), whisper-medium's caches one of 4
+    KV heads."""
     cfg = get_smoke_config("phi3-mini-3.8b")
     params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     mesh = {"data": 2, "model": 2}
     rules = rules_for(cfg, mesh, "tp").with_mesh(mesh)
     with pytest.raises(NotImplementedError, match="item 24"):
         ServeEngine(params, cfg, rules=rules, device="cpu")
-    rwkv = get_smoke_config("rwkv6-3b")
     mesh = {"data": 1, "model": 4}
-    rules = rules_for(rwkv, mesh, "tp").with_mesh(mesh)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        ServeEngine(None, rwkv, rules=rules, device="cpu")
+    shapes = {"rwkv6-3b": {"wkv": (2, 2, 1, 16, 16)},
+              "recurrentgemma-2b": {"attn_k": (2, 2, 1, 16, 16)},
+              "whisper-medium": {"self_k": (2, 2, 1, 32, 16),
+                                 "cross_k": (2, 2, 1, 16, 16)}}
+    for arch, want in shapes.items():
+        cfg = get_smoke_config(arch)
+        rules = rules_for(cfg, mesh, "tp").with_mesh(mesh)
+        engine = ServeEngine(None, cfg, slots=2, max_len=32, rules=rules,
+                             device="cpu")
+        for name, shape in want.items():
+            assert tuple(engine.state[name].shape) == shape, (arch, name)
+        if arch == "recurrentgemma-2b":
+            assert engine.state["rec1"]["h"].shape[-1] == cfg.d_model // 4
+            assert engine.state["tail"][0]["conv"].shape[-1] == \
+                cfg.d_model // 4
 
 
 def _elastic_state(cfg=None):
@@ -710,6 +823,45 @@ def test_tp_moe_state_saved_on_2x2_restores_bit_for_bit(tp_runs, onto):
             cfg.n_experts // onto[1], cfg.d_ff, cfg.d_model)
         assert got["shapes"]["layers.0.router"] == (cfg.d_model,
                                                     cfg.n_experts)
+    specs = train_state_specs(cfg, rules_for(cfg, {"data": 1, "model": 1},
+                                             "tp"))
+    template = init_train_state(torch.Generator().manual_seed(5), cfg, "cpu")
+    one, meta = restore_resharded(CheckpointManager(directory), template,
+                                  specs, None)
+    assert meta["step"] == 3
+    for a, b in zip(_leaves(state), _leaves(one)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("onto", [(1, 4), (4, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("label", list(FAMILIES))
+def test_tp_family_state_saved_on_2x2_restores_bit_for_bit(tp_runs, label,
+                                                           onto):
+    """rwkv6-3b's, recurrentgemma-2b's and whisper-medium's states saved on
+    (2, 2) restored onto (1, 4) and (4, 1), each rank's slices equal to
+    those of the whole state (the hybrid's ``w_in`` by blocks: each rank's
+    part of z and of y)."""
+    _, port, _, work, _ = tp_runs
+    state, cfg, _ = work["family_elastic"][label]
+    whole = dict(state.params.named_parameters())
+    for p in port:
+        el = p["elastic", label]
+        got = el[onto]
+        assert got["equal"] and got["step"] == 3 and got["opt_step"] == 3
+        for name, shape in got["shapes"].items():
+            if name.endswith("w_in"):
+                assert shape == (cfg.d_model, 2 * cfg.d_model // onto[1])
+            assert len(shape) == whole[name].ndim
+
+
+@pytest.mark.parametrize("label", list(FAMILIES))
+def test_tp_family_state_saved_on_2x2_restores_onto_one_rank(tp_runs, label):
+    """The whole leaves a sharded save wrote, read back on one rank, are
+    the state's own bit for bit (the hybrid's ``w_in`` as [z | y], the
+    reference's layout)."""
+    _, _, _, work, _ = tp_runs
+    state, cfg, directory = work["family_elastic"][label]
     specs = train_state_specs(cfg, rules_for(cfg, {"data": 1, "model": 1},
                                              "tp"))
     template = init_train_state(torch.Generator().manual_seed(5), cfg, "cpu")
@@ -822,17 +974,18 @@ def test_vocab_parallel_embed_matches_a_lookup(tp_runs):
 
 def test_tp_reaches_the_dense_and_vlm_families_and_slices_carried_params():
     """``make_train_step`` accepts a model axis of more than one rank for
-    the dense and VLM families (the others raise,
-    ``tests/test_torch_dist_train.py``), ``param_shapes`` builds the whole
-    module on the meta device, and reference params carried onto a rank
-    are its slices of them."""
-    for arch in ("gemma-2b", "internvl2-26b"):
+    every family, ``param_shapes`` builds the whole module on the meta
+    device, and reference params carried onto a rank are its slices of
+    them."""
+    for arch in ("gemma-2b", "internvl2-26b", *FAMILIES):
         cfg = dataclasses.replace(get_smoke_config(arch),
                                   attention_impl="xla")
         mesh = {"data": 2, "model": 2}
         rules = rules_for(cfg, mesh, "tp")
-        assert rules.family == cfg.family
+        assert rules.spec(("heads",)) == ("model",)
         make_train_step(cfg, rules, mesh)
+    cfg = dataclasses.replace(get_smoke_config("internvl2-26b"),
+                              attention_impl="xla")
     shapes = api.param_shapes(cfg)
     assert shapes.embed.shape == (cfg.vocab, cfg.d_model)
     assert shapes.embed.device.type == "meta"

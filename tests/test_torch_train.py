@@ -585,18 +585,19 @@ def test_train_step_refuses_the_forward_only_kernels():
     assert cfg.attention_impl == "cuda"
     with pytest.raises(ValueError, match="forward-only"):
         make_train_step(cfg)
-    # a "model" axis of 2 builds a tensor-parallel step for the dense and
-    # MoE families and waits for the RWKV family's layers; a (4, 1) mesh
-    # builds a data-parallel step
+    # a "model" axis of 2 builds a tensor-parallel step for every family;
+    # a (4, 1) mesh builds a data-parallel step
     from repro_torch.launch.rules import rules_for
 
     split = {"data": 2, "model": 2}
-    for arch in ("gemma-2b", "granite-moe-1b-a400m"):
+    for arch in ("gemma-2b", "granite-moe-1b-a400m", "rwkv6-3b",
+                 "recurrentgemma-2b", "whisper-medium"):
         assert make_train_step(_xla(arch), rules=rules_for(_xla(arch), split),
                                mesh=split) is not None
     rwkv = _xla("rwkv6-3b")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        make_train_step(rwkv, rules=rules_for(rwkv, split), mesh=split)
+    with pytest.raises(ValueError, match="forward-only"):
+        make_train_step(dataclasses.replace(rwkv, attention_impl="cuda"),
+                        rules=rules_for(rwkv, split), mesh=split)
     mesh = {"data": 4, "model": 1}
     assert make_train_step(_xla("gemma-2b"),
                            rules=rules_for(_xla("gemma-2b"), mesh),

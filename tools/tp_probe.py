@@ -2,6 +2,7 @@
 """The tensor-parallel and dry-run phases of ``chip_smoke.py`` alone.
 
     python3 tools/tp_probe.py [--seed 0] [--rehearse] [--kernels]
+        [--archs rwkv6-3b,whisper-medium] [--no-dryrun]
 
 Needs one GPU (``--rehearse``: the CPU at toy sizes, measuring nothing).
 Prints the ``env`` and ``build`` phases' lines (the ranks load the library
@@ -17,9 +18,12 @@ their f32 logits at two layers against one rank's, train gemma-2b and
 granite-moe-1b-a400m at full width and depth (step 1's loss against one
 card's), and at two layers hold the f32 step leaf by leaf against one
 rank's, take a ZeRO-1 step over (2, 2) and restore its checkpoint onto
-(1, 4) and one rank bit for bit; then the ``dryrun`` phase's (every cell
-of one pod on the meta device, checked against the ``tp`` and ``train``
-phases); then the card's name and power limit.
+(1, 4) and one rank bit for bit; rwkv6-3b, recurrentgemma-2b and
+whisper-medium are served and trained the same way; then the ``dryrun``
+phase's (every cell of one pod on the meta device, checked against the
+``tp`` and ``train`` phases); then the card's name and power limit.
+``--archs`` serves and trains only the archs named (of the phase's);
+``--no-dryrun`` leaves out the ``train`` and ``dryrun`` phases.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
     FULL,
     TOY,
+    TP_SERVE_ARCHS,
+    TP_TRAIN_ARCHS,
     phase_build,
     phase_dryrun,
     phase_env,
@@ -52,7 +58,17 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true")
     ap.add_argument("--kernels", action="store_true",
                     help="run the kernels phase after the build")
+    ap.add_argument("--archs", default=None,
+                    help="comma-separated archs to serve and train over "
+                         "the ranks (default: the tp phase's)")
+    ap.add_argument("--no-dryrun", action="store_true",
+                    help="leave out the train and dryrun phases")
     args = ap.parse_args(argv)
+    archs = args.archs.split(",") if args.archs else None
+    serve_archs = tuple(a for a in TP_SERVE_ARCHS
+                        if archs is None or a in archs)
+    train_archs = tuple(a for a in TP_TRAIN_ARCHS
+                        if archs is None or a in archs)
     if args.rehearse:
         device, sizes = torch.device("cpu"), TOY
     elif not torch.cuda.is_available():
@@ -66,9 +82,11 @@ def main(argv=None) -> int:
     if args.kernels:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         phase_kernels(sizes, device, gen, build)
-    train = phase_train(sizes, device, args.seed)
-    tp = phase_tp(sizes, device, args.seed)
-    phase_dryrun(sizes, tp, train)
+    train = None if args.no_dryrun else phase_train(sizes, device,
+                                                    args.seed)
+    tp = phase_tp(sizes, device, args.seed, serve_archs, train_archs)
+    if train is not None:
+        phase_dryrun(sizes, tp, train)
     if device.type == "cuda":
         print(env["card"], flush=True)
     return 0
