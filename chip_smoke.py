@@ -255,6 +255,7 @@ from repro_torch.launch.rules import rules_for  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
+from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import rglru as model_rglru  # noqa: E402
 from repro_torch.models import rwkv as model_rwkv  # noqa: E402
@@ -456,6 +457,12 @@ class Sizes:
     tp_requests_added: int = 4
     tp_new_added: int = 8
     tp_train_batch_recurrent: tuple = (4, 128)
+    # the cells over other meshes (TP_SEQ_CELLS) serve the tp traffic above
+    # on tp_seq_slots slots, which the data ranks split; a gemma-2b rank's
+    # decode over its run of the cache split by sequence (8 query heads
+    # gathered, one KV head of 256, 2184 / 4 positions)
+    tp_seq_slots: int = 8
+    tp_decode_gemma_seq: tuple = (8, 8, 1, 546, 256)
     # the dry run on the meta device: every cell of one pod under "tp" and
     # "dp" (dryrun_archs None: every arch), over a process a core
     dryrun_archs: tuple | None = None
@@ -500,7 +507,8 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             tp_decode_whisper_self=(3, 1, 1, 30, 16),
             tp_decode_whisper_cross=(3, 1, 1, 60, 16),
             tp_requests_added=4, tp_new_added=3,
-            tp_train_batch_recurrent=(4, 16),
+            tp_train_batch_recurrent=(4, 16), tp_seq_slots=4,
+            tp_decode_gemma_seq=(3, 4, 1, 10, 64),
             dryrun_archs=("granite-moe-1b-a400m", "rwkv6-3b"),
             reps=1)
 
@@ -516,6 +524,20 @@ TP_SERVE_ARCHS = ("phi3-mini-3.8b", "granite-moe-3b-a800m", "rwkv6-3b",
 #: at full width and depth as gemma-2b is
 TP_TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m", "rwkv6-3b",
                   "recurrentgemma-2b", "whisper-medium")
+#: the tp phase's served cells over other meshes, (arch, (data, model),
+#: shard_seq), in turn: gemma-2b over (1, 4) with its decode cache split
+#: by sequence over "model" (its one KV head leaves the axis to the
+#: sequence: a run of max_len / 4 positions a rank, the ranks' partials
+#: combined by their lse), and phi3-mini-3.8b over (2, 2) (4 of the 8
+#: slots a data rank, 16 of 32 heads a model rank)
+TP_SEQ_CELLS = (("gemma-2b", (1, 4), True),
+                ("phi3-mini-3.8b", (2, 2), False))
+
+
+def seq_cell_key(arch: str, shape: tuple, shard_seq: bool) -> str:
+    """A served cell's name: ``gemma-2b@1x4/shard_seq``."""
+    return (f"{arch}@{shape[0]}x{shape[1]}"
+            + ("/shard_seq" if shard_seq else ""))
 
 
 KM_F, KM_K = 4, 40  # the paper's K-Means: 4 features, 40 clusters
@@ -2317,6 +2339,8 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                       sizes.tp_decode_granite, bf16, gen, device),
                   "whisper_tp_rank_self": lambda: decode_inputs(
                       sizes.tp_decode_whisper_self, bf16, gen, device),
+                  "gemma_seq_rank": lambda: decode_inputs(
+                      sizes.tp_decode_gemma_seq, bf16, gen, device),
                   "whisper_tp_rank_cross": lambda: decode_inputs(
                       sizes.tp_decode_whisper_cross, bf16, gen, device,
                       kv_len=sizes.tp_decode_whisper_cross[3])},
@@ -5289,6 +5313,7 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
     out = {"state_shapes": {k: list(v.shape)
                             for k, v in state_leaves(state).items()},
            "shapes": {}}
+    split = kvcache.seq_run(rules)[0] > 1
     for what in ("prefill", "decode"):
         with spying(spec[what]) as calls:
             if what == "prefill":
@@ -5301,6 +5326,9 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
         for spy, c in zip(spec[what], calls):
             out["shapes"][f"{what}/{spy.name}"] = kernel_shape(spy, c[0][0])
             gaps[spy.name] = layer_gaps(f"tp {what}", c, spy)
+            if split and what == "decode" and spy.name == "cuda_decode":
+                out["seq"] = seq_split_check(c, state, cfg, rules,
+                                             tps["check_len"] + 1)
         out[what] = {"calls": sum(g["calls"] for g in gaps.values()),
                      "max_abs_err": max(g["max_abs_err"]
                                         for g in gaps.values()),
@@ -5310,6 +5338,67 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
         del calls
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     out["logits_digest"] = digest(logits)
+    return out
+
+
+def seq_split_check(calls, state, cfg, rules, kv_len: int) -> dict:
+    """A decode step over a cache split by sequence (``calls``: its
+    decode-attention calls on this rank, each on the rank's run with its
+    lse): a row whose run holds no key is zeros with lse -1e30; and at
+    layer 0 the combined output of the ranks' partials
+    (``decode_attention_seq_split``, on the cache after the step) within
+    the bf16 limit of the f32 plain version on the whole cache (gathered
+    over the ranks) and within ``DIST_DECODE_TOL`` of the kernel on it, as
+    the ``dist`` phase holds its flash-decode."""
+    t = state["k"].shape[3]
+    ranks_n, offset = kvcache.seq_run(rules, t)
+    empty = 0
+    for i, (_, kw, (o, lse)) in enumerate(calls):
+        rows = kw["kv_len"] == 0
+        require(not bool(o[rows].any()) and bool((lse[rows] == -1e30).all()),
+                "tp/seq: layer", i, "a row with no key in the run of rank",
+                offset // t, "is not zeros with lse -1e30")
+        empty += int(rows.sum())
+    require(empty == (len(calls) if offset >= kv_len else 0), "tp/seq:",
+            empty, "empty rows in a run at", offset, "of a row of", kv_len)
+    q = calls[0][0][0]
+    n = torch.full((q.shape[0],), kv_len, dtype=torch.int32, device=q.device)
+    k0, v0 = state["k"][0], state["v"][0]
+    combined = model_attention.decode_attention_seq_split(
+        q, k0, v0, n, offset, "model", mesh=rules.mesh)
+    with ranks.use_mesh(rules.mesh):
+        k, v = (torch.cat(list(ranks.all_gather(x.contiguous(),
+                                                "model").unbind(0)), dim=2)
+                for x in (k0, v0))
+    want32 = decode_attention_ref(*as_f32((q, k, v)), kv_len=n)
+    gap = bf16_check("tp/seq combined at layer 0", combined, want32)
+    whole = decode_attention(q, k, v, kv_len=n)
+    err = check_close("tp/seq combined at layer 0 against the whole cache",
+                      combined, whole, rtol=DIST_DECODE_TOL,
+                      atol=DIST_DECODE_TOL)
+    return {"ranks": ranks_n, "run": t, "offset": offset, "kv_len": kv_len,
+            "empty_rows": empty, "combined_shape": list(combined.shape),
+            "bf16_limit_share": gap["limit_share"],
+            "max_abs_err": gap["max_abs_err"],
+            "max_abs_err_against_whole_cache": err[0]}
+
+
+def decode_collectives(engine_tracer, spans) -> dict:
+    """The ``collective:*`` spans inside the engine's decode steps: each
+    kind's calls, bytes and host seconds over them all."""
+    steps = [(e["ts"], e["ts"] + e["dur"]) for e in engine_tracer.events
+             if e.get("ph") == "X" and e["name"] == "decode_step"]
+    out: dict = {}
+    for e in spans.events:
+        if e.get("ph") != "X" or not e["name"].startswith("collective:"):
+            continue
+        if not any(lo <= e["ts"] <= hi for lo, hi in steps):
+            continue
+        kind = out.setdefault(e["name"].split(":", 1)[1],
+                              {"seconds": 0.0, "calls": 0, "bytes": 0})
+        kind["seconds"] += e["dur"]
+        kind["calls"] += 1
+        kind["bytes"] += int(e["args"].get("bytes", 0))
     return out
 
 
@@ -5327,17 +5416,20 @@ def collective_seconds(tracer) -> dict:
     return out
 
 
-def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
-    """``ServeEngine`` on this rank's slices: the requests of
-    ``tp_serve_sizes``, every count set to 0 just before, read just after;
-    each kernel's launches as ``serve_spec`` counts them for this run's
-    prefills and decode steps, by the route each takes."""
+def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int,
+              slots: int | None = None) -> dict:
+    """``ServeEngine`` on this rank's slices on ``slots`` slots (None: the
+    serve phase's): the requests of ``tp_serve_sizes``, every count set to
+    0 just before, read just after; each kernel's launches as
+    ``serve_spec`` counts them for the prefills this rank's data group
+    runs (the owner of the slot, where the data ranks split the slots) and
+    for the decode steps, by the route each takes."""
     spec, tps = serve_spec(cfg, sizes), tp_serve_sizes(cfg, sizes)
     reqs = serve_traffic(dataclasses.replace(
         sizes, serve_new=(tps["new"], tps["new"])), cfg.vocab, seed,
         tps["requests"], tps["prompt"])
     tracer = Tracer(clock=time.perf_counter)
-    engine = ServeEngine(params, cfg, slots=sizes.serve_slots,
+    engine = ServeEngine(params, cfg, slots=slots or sizes.serve_slots,
                          max_len=tps["max_len"], rules=rules, seed=seed,
                          tracer=tracer, device=device)
     ranks.barrier()
@@ -5370,7 +5462,8 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
     ttft = [(e["ts"] + e["dur"] - submitted[e["args"]["rid"]]) * 1e3
             for e in prefills]
     n_steps = engine.stats["steps"]
-    expect = spec["expect"](len(prefills), n_steps)
+    mine = [e for e in prefills if engine.owns(e["args"]["slot"])]
+    expect = spec["expect"](len(mine), n_steps)
     if device.type == "cuda":
         for name, n in counts.items():
             require(n == expect.get(name, 0), "tp:", cfg.name, name,
@@ -5382,7 +5475,7 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
                            "decode_attention", 0)}}
         if "expect_routes" in spec:
             want_routes.update(spec["expect_routes"](
-                [len(r.prompt) for r in reqs], n_steps))
+                [e["args"]["prompt_len"] for e in mine], n_steps))
         for name, want in want_routes.items():
             got = {r: n for r, n in routes[name].items() if n}
             require(got == {r: n for r, n in want.items() if n}, "tp:",
@@ -5390,17 +5483,21 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int) -> dict:
                     "expected", want)
     tokens = engine.stats["prefill_tokens"] + engine.stats["decode_tokens"]
     out = {"requests": len(reqs), "prefills": len(prefills),
-           "decode_steps": n_steps,
+           "prefills_run": len(mine), "decode_steps": n_steps,
            "cache_bytes": sum(x.numel() * x.element_size() for x in
                               state_leaves(engine.state).values()),
            "prompt_lengths": sorted(len(r.prompt) for r in reqs),
            "outputs": {r.rid: list(r.output) for r in done},
-           "ttft_ms": {"p50": pct(ttft, 50), "max": max(ttft)},
+           "ttft_ms": {"p50": pct(ttft, 50), "p90": pct(ttft, 90),
+                       "max": max(ttft)},
            "decode_step_ms": {"p50": pct(steps, 50), "p90": pct(steps, 90)},
            "engine_seconds": wall, "tokens_per_s": tokens / wall,
            "decode_tokens_per_s": engine.stats["decode_tokens"] / wall,
            "staged_bytes": ranks.staged_bytes() - staged0,
+           "kv_bytes": sum(x.numel() * x.element_size() for k, x in
+                           state_leaves(engine.state).items() if k != "pos"),
            "collectives": collective_seconds(spans),
+           "decode_collectives": decode_collectives(tracer, spans),
            "kernel_launches": counts, "expected_launches": expect,
            "kernel_routes": {k: routes[k] for k in expect if k in routes}}
     if device.type == "cuda":
@@ -5491,12 +5588,64 @@ def tp_serve_one(arch: str, mesh, sizes: Sizes, device,
     return out
 
 
-def tp_serve_rank(device, sizes: Sizes, seed: int, archs: tuple) -> dict:
-    """(a) and (b) for each of ``archs`` in turn."""
+def tp_seq_one(arch: str, shape: tuple, shard_seq: bool, sizes: Sizes,
+               device, seed: int) -> dict:
+    """A cell of ``TP_SEQ_CELLS``: ``arch`` at full width and depth in bf16
+    on this rank's slices over a ``shape`` mesh, ``shard_seq`` splitting
+    its cache by sequence where the spec lets it: the kernel check (with
+    ``seq_split_check`` where it splits), the engine on ``tp_seq_slots``
+    slots, the f32 check at two layers; the rank's cache bytes beside one
+    card's engine's."""
+    t0 = time.perf_counter()
+    mesh = tp_mesh(shape)
+    cfg = tp_config(arch, sizes.serve_smoke)
+    require(cfg.attention_impl == "cuda", cfg.attention_impl)
+    rules = rules_for(cfg, mesh, "tp", shard_seq=shard_seq)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model_api.init_params(gen, cfg, device, rules)
+    free(device)
+    tps = tp_serve_sizes(cfg, sizes)
+    one_card = model_api.init_decode_state(cfg, sizes.tp_seq_slots,
+                                           tps["max_len"], "meta")
+    out = {"rank": ranks.axis_index(("data", "model")),
+           "coords": [ranks.axis_index("data"), ranks.axis_index("model")],
+           "seq_ranks": kvcache.seq_run(rules)[0],
+           "init_seconds": time.perf_counter() - t0,
+           "local_params": model_api.param_count(params),
+           "local_param_bytes": sum(p.numel() * p.element_size()
+                                    for p in params.parameters()),
+           "one_card_kv_bytes": sum(
+               x.numel() * x.element_size()
+               for k, x in state_leaves(one_card).items() if k != "pos")}
+    out["check"] = tp_kernel_check(params, cfg, rules, sizes, device, gen)
+    free(device)
+    engine = tp_engine(params, cfg, rules, sizes, device, seed,
+                       slots=sizes.tp_seq_slots)
+    out["engine"] = engine
+    out["kv_bytes"] = engine["kv_bytes"]
+    del params
+    free(device)
+    out["f32"] = tp_f32_check(
+        cfg, lambda c: rules_for(c, mesh, "tp", shard_seq=shard_seq), sizes,
+        device, seed)
+    free(device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_serve_rank(device, sizes: Sizes, seed: int, archs: tuple,
+                  seq_cells: tuple = ()) -> dict:
+    """(a) and (b) for each of ``archs`` in turn over (1, 4), then each
+    cell of ``seq_cells`` over its own mesh."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = tp_mesh((1, torch.distributed.get_world_size()))
-    return {arch: tp_serve_one(arch, mesh, sizes, device, seed)
-            for arch in archs}
+    out = {}
+    if archs:
+        mesh = tp_mesh((1, torch.distributed.get_world_size()))
+        out.update({arch: tp_serve_one(arch, mesh, sizes, device, seed)
+                    for arch in archs})
+    for cell in seq_cells:
+        out[seq_cell_key(*cell)] = tp_seq_one(*cell, sizes, device, seed)
+    return out
 
 
 def in_turn(fn):
@@ -5827,8 +5976,11 @@ def tp_train_rank(device, sizes: Sizes, seed: int, directory: str,
     return out
 
 
-def tp_serve_summary(serve: list, arch: str, device) -> dict:
-    """One served arch's results over the ranks, its gates checked."""
+def tp_serve_summary(serve: list, arch: str, device,
+                     config: str | None = None) -> dict:
+    """One served arch's results over the ranks (``arch``: the key of its
+    results, ``config`` the arch where that key names a cell), its gates
+    checked."""
     by_rank = [s[arch] for s in serve]
     engines = [s["engine"] for s in by_rank]
     require(all(e["outputs"] == engines[0]["outputs"] for e in engines),
@@ -5842,7 +5994,7 @@ def tp_serve_summary(serve: list, arch: str, device) -> dict:
                         for name in e["expected_launches"]),
                     "tp:", arch, "a rank launched no kernel of its path", e)
     first = by_rank[0]
-    cfg = tp_config(arch, False)
+    cfg = tp_config(config or arch, False)
     kernels = list(first["engine"]["expected_launches"])
     return {
         "arch": arch, "n_layers": cfg.n_layers,
@@ -5860,6 +6012,7 @@ def tp_serve_summary(serve: list, arch: str, device) -> dict:
                                   for s in by_rank],
         **{k: first["engine"][k] for k in (
             "requests", "prefills", "decode_steps", "prompt_lengths",
+            "kv_bytes",
             "ttft_ms", "decode_step_ms", "engine_seconds", "tokens_per_s",
             "decode_tokens_per_s", "staged_bytes", "collectives",
             "cache_bytes", "expected_launches", "kernel_routes")},
@@ -5873,6 +6026,46 @@ def tp_serve_summary(serve: list, arch: str, device) -> dict:
         "tokens_equal_on_every_rank": True,
         "f32": {**first["f32"],
                 "max_abs_err": max(s["f32"]["max_abs_err"] for s in by_rank)}}
+
+
+def tp_seq_summary(serve: list, cell: tuple, device) -> dict:
+    """A cell of ``TP_SEQ_CELLS`` over the ranks, its gates checked: the
+    tp served arch's (``tp_serve_summary``: tokens and gathered logits
+    equal on every rank, each rank's launches as its prefills and steps
+    give, the f32 logits), and where the cache splits by sequence, each
+    rank's check of its run (``seq_split_check``) and its cache a
+    ``1/m`` of one card's; the decode step's collectives a step."""
+    key = seq_cell_key(*cell)
+    arch, shape, shard_seq = cell
+    out = tp_serve_summary(serve, key, device, arch)
+    by_rank = [s[key] for s in serve]
+    engines = [s["engine"] for s in by_rank]
+    m = by_rank[0]["seq_ranks"]
+    require(m == (shape[1] if shard_seq and arch == "gemma-2b" else 1),
+            "tp/seq:", key, "split by sequence over", m, "ranks")
+    # a rank's cache: its data rank's slots, and its model rank's KV heads
+    # or run of the sequence: 1 / (data x model) of one card's (gemma-2b
+    # over (1, 4): a quarter)
+    require(all(s["kv_bytes"] * shape[0] * shape[1] == s["one_card_kv_bytes"]
+                for s in by_rank), "tp/seq:", key, "a rank's cache",
+            [s["kv_bytes"] for s in by_rank], "is not 1 /",
+            shape[0] * shape[1], "of one card's",
+            by_rank[0]["one_card_kv_bytes"])
+    if m > 1:
+        out["seq_check_by_rank"] = [s["check"]["seq"] for s in by_rank]
+    steps = engines[0]["decode_steps"]
+    dc = engines[0]["decode_collectives"]
+    out.update({
+        "mesh": list(shape), "shard_seq": shard_seq, "seq_ranks": m,
+        "prefills_run_by_rank": [e["prefills_run"] for e in engines],
+        "kv_bytes_a_rank": by_rank[0]["kv_bytes"],
+        "one_card_kv_bytes": by_rank[0]["one_card_kv_bytes"],
+        "decode_collectives": dc,
+        "collectives_a_step": {
+            "calls": sum(v["calls"] for v in dc.values()) / max(steps, 1),
+            "seconds": sum(v["seconds"] for v in dc.values())
+            / max(steps, 1)}})
+    return out
 
 
 def tp_train_summary(train: list, arch: str, n: int) -> dict:
@@ -5906,7 +6099,8 @@ def tp_train_summary(train: list, arch: str, n: int) -> dict:
 
 def phase_tp(sizes: Sizes, device: torch.device, seed: int,
              serve_archs: tuple = TP_SERVE_ARCHS,
-             train_archs: tuple = TP_TRAIN_ARCHS) -> dict:
+             train_archs: tuple = TP_TRAIN_ARCHS,
+             seq_cells: tuple = TP_SEQ_CELLS) -> dict:
     """Tensor parallelism over a ``"model"`` axis of 4 ranks on the one
     card under gloo (NCCL refuses two ranks on one card): (a) phi3-mini
     and granite-moe-3b served at full width and depth in bf16, each rank's
@@ -5917,8 +6111,11 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
     card's, and (d) at two layers the f32 step leaf by leaf against one
     rank's (granite's experts chosen as the one-rank step chose them), a
     ZeRO-1 step over (2, 2), its checkpoint restored onto (1, 4) and one
-    rank bit for bit.  Four ranks sharing one card measure correctness and
-    each collective's cost, not scaling."""
+    rank bit for bit; then (e) the cells of ``seq_cells`` in the same
+    spawn as (a): gemma-2b served over (1, 4) with its cache split by
+    sequence, phi3-mini over (2, 2) with its slots split over the data
+    ranks (``tp_seq_one``).  Four ranks sharing one card measure
+    correctness and each collective's cost, not scaling."""
     t0 = time.perf_counter()
     free(device)
     n = sizes.tp_ranks
@@ -5929,24 +6126,44 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
         _build.load()  # the ranks load the library this process built
     t1 = time.perf_counter()
     serve = ranks.spawn(tp_serve_rank, n, backend="gloo", device=where,
-                        args=(sizes, seed, serve_archs),
+                        args=(sizes, seed, serve_archs, seq_cells),
                         timeout=TP_TIMEOUT_S, env=RANK_ENV)
     out["serve_seconds"] = time.perf_counter() - t1
     out["serve"] = {arch: tp_serve_summary(serve, arch, device)
                     for arch in serve_archs}
+    out["seq"] = {seq_cell_key(*cell): tp_seq_summary(serve, cell, device)
+                  for cell in seq_cells}
+    out["seq_seconds"] = {k: v["seconds"] for k, v in out["seq"].items()}
     # the served archs' results now, in case a trained one fails below
     emit({"phase": "tp_serve", "seconds": out["serve_seconds"],
           "serve": out["serve"]})
-    with tempfile.TemporaryDirectory() as tmp:
-        t1 = time.perf_counter()
-        train = ranks.spawn(tp_train_rank, n, backend="gloo", device=where,
-                            args=(sizes, seed, tmp, train_archs),
-                            timeout=TP_TIMEOUT_S, env=RANK_ENV)
-        out["train_seconds"] = time.perf_counter() - t1
-    out["train"] = {arch: tp_train_summary(train, arch, n)
-                    for arch in train_archs}
+    for key, cell in out["seq"].items():
+        emit({"phase": "tp_seq", "cell": key, "mesh": cell["mesh"],
+              "shard_seq": cell["shard_seq"],
+              "decode_step_ms_p50": cell["decode_step_ms"]["p50"],
+              "ttft_ms_p50": cell["ttft_ms"]["p50"],
+              "ttft_ms_p90": cell["ttft_ms"]["p90"],
+              "tokens_per_s": cell["tokens_per_s"],
+              "staged_bytes": cell["staged_bytes"],
+              "collective_calls_a_step":
+                  cell["collectives_a_step"]["calls"],
+              "collective_seconds_a_step":
+                  cell["collectives_a_step"]["seconds"],
+              "seconds": cell["seconds"]})
+    out["train"] = {}
+    if train_archs:
+        with tempfile.TemporaryDirectory() as tmp:
+            t1 = time.perf_counter()
+            train = ranks.spawn(tp_train_rank, n, backend="gloo",
+                                device=where,
+                                args=(sizes, seed, tmp, train_archs),
+                                timeout=TP_TIMEOUT_S, env=RANK_ENV)
+            out["train_seconds"] = time.perf_counter() - t1
+        out["train"] = {arch: tp_train_summary(train, arch, n)
+                        for arch in train_archs}
+    served = {**out["serve"], **out["seq"]}
     out["launches"] = {name: {arch: s["launches"][name]
-                              for arch, s in out["serve"].items()
+                              for arch, s in served.items()
                               if name in s["launches"]}
                        for name in WRAPPERS}
     out["launches"] = {k: v for k, v in out["launches"].items() if v}
@@ -5960,11 +6177,12 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def dry_cell(cfg, seq: int, batch: int, kind: str, mesh: dict) -> dict:
+def dry_cell(cfg, seq: int, batch: int, kind: str, mesh: dict,
+             shard_seq: bool = False) -> dict:
     """One cell of this run's own shapes on the meta device, under
     ``tp``."""
     return dryrun.cell_metrics(cfg, ShapeSpec("chip_smoke", seq, batch, kind),
-                               mesh, "tp")
+                               mesh, "tp", shard_seq=shard_seq)
 
 
 def dry_cells(sizes: Sizes, flavor: str, mesh: dict, pool) -> dict:
@@ -5998,14 +6216,57 @@ def dry_cells(sizes: Sizes, flavor: str, mesh: dict, pool) -> dict:
             "not_fitting": [k for k, c in ran.items() if not c["fits"]]}
 
 
+def seq_dry_cells(sizes: Sizes, seq_cells: tuple = TP_SEQ_CELLS) -> dict:
+    """The dry run's cell of each of ``seq_cells``: its decode step over
+    its mesh (``shard_seq`` as the cell's) on ``tp_seq_slots`` slots
+    (``dry_cell``'s arguments)."""
+    out = {}
+    for arch, shape, shard_seq in seq_cells:
+        cfg = tp_config(arch, sizes.serve_smoke)
+        out[seq_cell_key(arch, shape, shard_seq)] = (
+            cfg, tp_serve_sizes(cfg, sizes)["max_len"], sizes.tp_seq_slots,
+            "decode", {"data": shape[0], "model": shape[1]}, shard_seq)
+    return out
+
+
+def seq_dry_checks(seq: dict, metrics: dict) -> dict:
+    """The exact checks of the ``tp`` phase's cells of ``TP_SEQ_CELLS``
+    (``seq``) against their dry cells (``metrics``, by the same keys): a
+    rank's params and cache bytes, and the ``collective:*`` spans of the
+    engine's decode steps (calls and bytes) as the dry cell's step's times
+    the steps."""
+    out = {}
+    for key, served in seq.items():
+        m = metrics[key]
+        got = {"params_bytes": m["memory"]["params_bytes"],
+               "cache_bytes": m["memory"]["cache_bytes"]}
+        want = {"params_bytes": served["local_param_bytes"],
+                "cache_bytes": served["cache_bytes"]}
+        require(got == want, "dryrun:", key, "a rank's bytes", got,
+                "against the tp phase's", want)
+        steps = served["decode_steps"]
+        real = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                for k, v in served["decode_collectives"].items()}
+        want = {k: {"calls": v["calls"] * steps, "bytes": v["bytes"] * steps}
+                for k, v in m["spans"].items()}
+        require(real == want, "dryrun:", key, "decode-step collective "
+                "spans", want, "against the tp phase's", steps, "steps'",
+                real)
+        out[key] = {**got, "spans_a_step": m["spans"],
+                    "collectives_a_step": m["collectives"], "equal": True}
+    return out
+
+
 def dryrun_start(sizes: Sizes, processes: int,
                  serve_archs: tuple = TP_SERVE_ARCHS,
-                 train_archs: tuple = TP_TRAIN_ARCHS) -> dict:
+                 train_archs: tuple = TP_TRAIN_ARCHS,
+                 seq_cells: tuple = TP_SEQ_CELLS) -> dict:
     """Start the dry run's host work on the meta device, which needs
     nothing of the card, over one pool of ``processes`` processes: the
     cells of this run's own shapes that ``phase_dryrun`` holds against the
     ``tp`` phase (``serve_archs``' decode caches and ``train_archs``' steps
-    over (1, ``tp_ranks``)) and the ``train`` phase (gemma-2b's step on one
+    over (1, ``tp_ranks``), and the decode steps of ``seq_cells`` over
+    their meshes) and the ``train`` phase (gemma-2b's step on one
     rank), then every cell of one pod under ``tp`` and ``dp`` (a thread
     each feeds the pool).  ``main`` starts it after the build, so that it
     runs on the cores the single-card phases leave idle; ``phase_dryrun``
@@ -6022,6 +6283,8 @@ def dryrun_start(sizes: Sizes, processes: int,
         cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
         b, seq = tp_train_batch(cfg, sizes)
         cells["train", arch] = (cfg, seq, b, "train", on_tp)
+    for key, args in seq_dry_cells(sizes, seq_cells).items():
+        cells["seq", key] = args
     cells["roofline", None] = (train_config(sizes), sizes.train_seq,
                                sizes.train_batch, "train",
                                {"data": 1, "model": 1})
@@ -6052,19 +6315,24 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict,
                  started: dict | None = None) -> dict:
     """The dry run, host work on the meta device (the card idle; started
     by ``dryrun_start``, here where ``started`` is None, over a process a
-    core): every cell of one pod under ``tp`` and ``dp`` with the PASS,
-    SKIP and QUEUED counts and the seconds (the cells of the exact checks
+    core): every cell of one pod under ``tp`` and ``dp`` with the PASS
+    and SKIP counts and the seconds (the cells of the exact checks
     run beside them); then its exact checks against this run's card:
     (a) the ``tp`` phase's served cells over (1, 4): the params' bytes a
     rank that phase measured, and its engine's cache bytes a rank; (b)
     the ``tp`` phase's train steps: each ``collective:*`` span's calls and
     bytes as the real steps recorded them; (c) the roofline of the
     ``train`` phase's gemma-2b cell (one rank) beside its measured step
-    time, as a roofline fraction."""
+    time, as a roofline fraction; (d) the ``tp`` phase's cells over other
+    meshes (gemma-2b's cache split by sequence over (1, 4), phi3-mini over
+    (2, 2)): (a)'s bytes, and their decode steps' ``collective:*`` spans
+    as (b) holds a train step's (``seq_dry_checks``)."""
     t0 = time.perf_counter()
     if started is None:
         started = dryrun_start(sizes, len(os.sched_getaffinity(0)),
-                               tuple(tp["serve"]), tuple(tp["train"]))
+                               tuple(tp["serve"]), tuple(tp["train"]),
+                               tuple(c for c in TP_SEQ_CELLS
+                                     if seq_cell_key(*c) in tp["seq"]))
     try:
         mesh = started["mesh"]
         out = {"phase": "dryrun", "device": "meta", "mesh": mesh,
@@ -6079,7 +6347,8 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict,
         dryrun_stop(started)
     cells = started["cells"]
     require(set(tp["serve"]) == {a for k, a in cells if k == "serve"}
-            and set(tp["train"]) == {a for k, a in cells if k == "train"},
+            and set(tp["train"]) == {a for k, a in cells if k == "train"}
+            and set(tp["seq"]) == {a for k, a in cells if k == "seq"},
             "dryrun: started for other archs than the tp phase's")
     for arch, trained in tp["train"].items():
         _, seq, b = cells["train", arch][:3]
@@ -6113,6 +6382,8 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict,
         out["tp_train"][arch] = {"spans_a_step": m["spans"],
                                  "collectives_a_step": m["collectives"],
                                  "equal": True}
+    out["tp_seq"] = seq_dry_checks(tp["seq"], {
+        key: metrics["seq", key] for key in tp["seq"]})
     cfg = train_config(sizes)
     m = metrics["roofline", None]
     roof = dryrun.cell_roofline(m)
@@ -6223,7 +6494,7 @@ def main(argv=None) -> int:
     by_shape["wkv6"] = {"serve phase": rwkv["wkv6"]}
     for name, by_arch in tp["launches"].items():
         for arch, count in by_arch.items():
-            label = f"{arch.split('-')[0]}_tp_rank"
+            label = arch if "@" in arch else f"{arch.split('-')[0]}_tp_rank"
             by_shape[name][f"tp phase (4 ranks, {label})"] = count
     for row in rows:
         row["launches"] = per_row[row["name"]]

@@ -40,7 +40,7 @@ from typing import Any, Mapping, Sequence
 
 from repro_torch.core.annotations import Annotation, parse
 
-from .ranks import mesh_sizes, psum_grad, use_mesh
+from .ranks import axis_index, mesh_sizes, psum_grad, use_mesh
 
 # A rule value: None (replicated), one mesh axis, or a tuple of mesh axes.
 Axes = Any
@@ -195,6 +195,29 @@ def model_split(rules: ShardingRules | None, logical_axis: str) -> int:
     if "model" not in _mesh_axes(rules.spec((logical_axis,))[0]):
         return 1
     return model_ranks(rules.mesh)
+
+
+def seq_run(rules: ShardingRules | None, spec: tuple | None, dim: int,
+            local: int | None = None) -> tuple[int, int]:
+    """(ranks, offset) of this rank's run of positions along dimension
+    ``dim`` of a leaf whose partition spec is ``spec``: the leaf's own
+    spec (``models.api.state_specs``), never one logical axis of the rules
+    alone, since a spec gives a mesh axis to its first dimension that
+    names it (a decode cache's KV heads before its sequence).  ``ranks``
+    is how many ranks split that dimension (1 where none does or the rules
+    carry no mesh); ``offset`` the first position of this rank's
+    ``local`` ones (0 where ``local`` is None or nothing splits it)."""
+    if rules is None or rules.mesh is None or not spec or dim >= len(spec):
+        return 1, 0
+    sizes = mesh_sizes(rules.mesh)
+    axes = tuple(a for a in _mesh_axes(spec[dim]) if sizes[a] > 1)
+    count = 1
+    for a in axes:
+        count *= sizes[a]
+    if count == 1 or local is None:
+        return count, 0
+    with use_mesh(rules.mesh):
+        return count, axis_index(axes) * local
 
 
 def constrain(x, rules: ShardingRules | None,

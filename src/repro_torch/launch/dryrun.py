@@ -32,12 +32,16 @@ reads and writes the params and the optimizer state, a prefill reads the
 params and writes the cache, a decode step reads both; and the inputs
 read once.  No program of the same step can move fewer.
 
-A cell the port cannot run yet is written as skipped with its reason, and
-counted apart: the sequence-split decode cells, which the reference runs
-under ``tp`` for every attention family (whisper-medium's among them)
-(``QUEUED``, ROADMAP Queue A item 24).  Every family runs its train and
-prefill cells, and RWKV-6 and the hybrid their decode cells, over the
-``"model"`` axis.  The reference's own skips (``long_500k`` for full
+Every cell the reference runs, runs here, every family over the
+``"model"`` axis.  A ``tp`` decode cell of an attention family runs under
+``shard_seq``, as the reference's: where the cache's spec splits its
+sequence over ``"model"`` (the KV heads whole: gemma-2b, qwen1.5-32b,
+granite-moe-1b/3b and internvl2-26b over 16 ranks), a rank's step holds
+``1/m`` of the sequence and records the real sequence-split step's
+collectives (the combine's three all-reduces a layer, and q's gather
+where the heads split into whole heads a rank); where the spec splits the
+KV heads instead (phi3-mini, stablelm-3b, whisper-medium), the sequence
+stays whole.  The reference's own skips (``long_500k`` for full
 attention) are ``SKIP``.
 
 Artifacts land in
@@ -47,7 +51,7 @@ Usage (``python -m repro_torch.launch.dryrun`` and):
     --arch phi3-mini-3.8b --shape train_4k
     --all                  # every cell, 1 pod, over a process a core
     --all --multi-pod      # 2 pods = 512 ranks
-    --list                 # show cells, skips and queued cells
+    --list                 # show cells and skips
 """
 
 from __future__ import annotations
@@ -106,8 +110,6 @@ ARTIFACT_DIR = os.path.join(
 #: ``torch.cuda.get_device_properties(0).total_memory`` of an NVIDIA H100
 #: 80GB HBM3, the card a cell's ``memory`` is set beside
 CARD_MEMORY_BYTES = 85_017_493_504
-#: the ROADMAP Queue A item the sequence-split decode cells wait for
-SHARD_SEQ_ITEM = 24
 #: what a cell runs in place of the CUDA kernels, which take no meta tensor
 PLAIN_PATHS = {"attention_impl": "xla",
                "scans": "the plain form of the kernel's route: "
@@ -151,16 +153,11 @@ def _shard_seq(cfg, kind: str, flavor: str) -> bool:
 
 def cell_status(cfg, shape_name: str, mesh: dict,
                 flavor: str) -> tuple[str, str]:
-    """(``RUN``, ``""``), (``SKIP``, the reference's reason) or
-    (``QUEUED``, the queue item and why) for one cell."""
+    """(``RUN``, ``""``) or (``SKIP``, the reference's reason) for one
+    cell."""
     ok, why = applicable(cfg, shape_name)
     if not ok:
         return "SKIP", why
-    if _shard_seq(cfg, SHAPES[shape_name].kind, flavor):
-        return "QUEUED", (
-            f"a decode cache split by sequence over 'model' (the "
-            f"reference's shard_seq) has no counterpart in the port yet, "
-            f"ROADMAP Queue A item {SHARD_SEQ_ITEM}")
     return "RUN", ""
 
 
@@ -375,7 +372,7 @@ def run_cells(cells, mesh: dict, flavor: str, out_dir: str, *,
     say = print if echo else (lambda *a, **k: None)
     t0 = time.perf_counter()
     os.makedirs(out_dir, exist_ok=True)
-    tally = {"PASS": 0, "SKIP": 0, "QUEUED": 0, "FAIL": 0, "HAVE": 0}
+    tally = {"PASS": 0, "SKIP": 0, "FAIL": 0, "HAVE": 0}
     todo = []
     for arch, shape in cells:
         status, why = cell_status(get_config(arch), shape, mesh, flavor)

@@ -9,8 +9,13 @@ runs on the GPU; ``--device cpu`` is the only way to run it on the CPU.
 its slices of the parameters and of the decode state, ``rules_for``
 "tp"): one card a rank where there are as many (NCCL), else every rank on
 the first card under gloo; ``--device cpu`` puts the ranks on the CPU
-(gloo).  A data axis of more than one rank raises (ROADMAP Queue A item
-24).
+(gloo).  ``--mesh 2,2`` splits the slots over 2 data ranks as well, and
+``--shard-seq`` splits the decode cache's sequence over ``"model"`` where
+its spec keeps the KV heads whole (``rules_for(..., shard_seq=True)``, as
+the reference's flag):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+        --smoke --device cpu --mesh 1,4 --shard-seq
 """
 
 from __future__ import annotations
@@ -41,13 +46,15 @@ def run_serving(
     seed: int = 0,
     device: torch.device | str | None = None,
     mesh: tuple[int, int] | None = None,
+    shard_seq: bool = False,
 ) -> dict:
     """Random parameters from ``seed`` and ``requests`` random prompts
     through the engine on ``device`` (None: the GPU).  With ``mesh`` (data,
     model), over that many ranks (``spawn_backend``), every rank with its
-    slices: rank 0's result, the ranks' sampled tokens required equal."""
+    slices (``shard_seq``: the cache's sequence split over ``"model"``):
+    rank 0's result, the ranks' sampled tokens required equal."""
     kw = dict(smoke=smoke, requests=requests, prompt_len=prompt_len,
-              max_new=max_new, slots=slots, seed=seed)
+              max_new=max_new, slots=slots, seed=seed, shard_seq=shard_seq)
     if mesh is not None:
         world = mesh[0] * mesh[1]
         backend, where = spawn_backend(device, world)
@@ -71,16 +78,23 @@ def _serve_rank(device, arch: str, kw: dict, mesh_shape: tuple) -> dict:
 
 def _serve(arch: str, *, smoke: bool, requests: int, prompt_len: int,
            max_new: int, slots: int, seed: int, device: torch.device,
-           mesh=None) -> dict:
+           shard_seq: bool = False, mesh=None) -> dict:
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     rules = None
+    max_len = prompt_len + max_new + 8
+    if shard_seq and mesh is not None:
+        # a run of whole positions for each rank of "model"
+        m = ranks.mesh_sizes(mesh)["model"]
+        max_len = -(-max_len // m) * m
     if mesh is not None:
         from repro_torch.launch.rules import rules_for
 
-        rules = rules_for(cfg, mesh, "tp")
+        rules = rules_for(cfg, mesh, "tp", shard_seq=shard_seq)
+    elif shard_seq:
+        raise ValueError("--shard-seq splits the cache over a mesh: give "
+                         "--mesh")
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(gen, cfg, device, rules)
-    max_len = prompt_len + max_new + 8
     engine = ServeEngine(params, cfg, slots=slots, max_len=max_len,
                          rules=rules, seed=seed, device=device)
     rng = np.random.default_rng(seed)
@@ -122,13 +136,18 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="DATA,MODEL: serve over that many ranks on a "
                          "('data', 'model') mesh, tensor-parallel over "
-                         "'model' (such as 1,4)")
+                         "'model', the slots split over 'data' (such as "
+                         "1,4 or 2,2)")
+    ap.add_argument("--shard-seq", action="store_true",
+                    help="split the decode cache's sequence over 'model' "
+                         "where its spec keeps the KV heads whole (the "
+                         "flash-decode distribution)")
     args = ap.parse_args(argv)
     print(json.dumps(run_serving(
         args.arch, smoke=args.smoke, requests=args.requests,
         prompt_len=args.prompt_len, max_new=args.max_new, slots=args.slots,
-        seed=args.seed, device=args.device, mesh=parse_mesh(args.mesh)),
-        indent=2))
+        seed=args.seed, device=args.device, mesh=parse_mesh(args.mesh),
+        shard_seq=args.shard_seq), indent=2))
 
 
 if __name__ == "__main__":

@@ -12,10 +12,12 @@ Three interchangeable implementations selected by ``cfg.attention_impl``:
 
 Decode-side attention (one token against the cache) has the ``cuda`` kernel
 and the plain path, both able to emit the log-sum-exp for combining
-sequence-split partials; ``combine_decode_partials`` combines the partials
-of ranks that each hold a shard of the cache's sequence axis (flash-decode
-over a mesh axis).  A rank whose shard holds no valid key of a row has
-zeros and lse -1e30 there, in both paths, which gets weight exactly 0.
+sequence-split partials, as does the eager attention on the int8 cache;
+``combine_decode_partials`` combines the partials of ranks that each hold
+a shard of the cache's sequence axis (flash-decode over a mesh axis), and
+``decode_attention_seq_split`` is a rank's whole part of it.  A rank whose
+shard holds no valid key of a row has zeros and lse -1e30 there, in every
+path, which gets weight exactly 0.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import ranks
+from repro_torch.dist.collectives import _span
 from repro_torch.kernels.decode_attention import decode_attention as cuda_decode
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    EMPTY_LSE,
+    decode_attention_ref,
+)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
 NEG_INF = -1e30
@@ -147,7 +153,8 @@ def decode_attention_quant(
     kv_len: torch.Tensor,  # (B,)
     *,
     scale: float | None = None,
-) -> torch.Tensor:
+    with_lse: bool = False,
+) -> Any:
     """Decode attention directly on the int8 cache, eager.  Quantization is
     per-token symmetric, so the scales factor out of both dots:
 
@@ -155,7 +162,10 @@ def decode_attention_quant(
         out       = sum_t (p[t] * v_s[t]) * v_q[t]
 
     Products of the int8 values (exact in the query's type) are summed in
-    float32, as the reference's ``preferred_element_type`` does.
+    float32, as the reference's ``preferred_element_type`` does.  With
+    ``with_lse`` also the log-sum-exp of the scaled logits (B, HQ); a row
+    with no valid key gives zeros and lse -1e30, as the decode kernel's
+    plain version does.
     """
     b, hq, d = q.shape
     _, hkv, t, _ = k_q.shape
@@ -169,11 +179,20 @@ def decode_attention_quant(
     mask = (torch.arange(t, device=q.device)[None, None, None, :]
             < kv_len[:, None, None, None])
     logits = logits.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
+    m = logits.amax(dim=-1, keepdim=True)
+    empty = m == float("-inf")  # no valid key in the row
+    m = m.masked_fill(empty, 0.0)
+    e = torch.exp(logits - m)
+    l = e.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    p = e / l
     pv = (p * v_s[:, :, None, :]).to(q.dtype)  # fold value scales in
     out = torch.einsum("bkgt,bktd->bkgd", pv.float(),
                        v_q.to(q.dtype).float())
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    if with_lse:
+        lse = (m + torch.log(l)).masked_fill(empty, EMPTY_LSE)
+        return out, lse.reshape(b, hq)
+    return out
 
 
 def combine_decode_partials(
@@ -184,9 +203,45 @@ def combine_decode_partials(
     """Flash-decode combine across a sequence-sharded cache axis: each
     rank's partial weighted by the softmax of its lse over the ranks along
     ``axis_name`` (a pmax, then psums of the weighted f32 partials and of
-    the weights).  Every rank of the axis calls it and gets the result."""
-    m = ranks.pmax(lse, axis_name)
-    w = torch.exp(lse - m)  # (B, H)
-    num = ranks.psum(out.float() * w[..., None], axis_name)
-    den = ranks.psum(w, axis_name)
+    the weights: three all-reduces, in one ``collective:*`` span).  Every
+    rank of the axis calls it and gets the result."""
+    with _span("collective:combine_decode_partials", axis=axis_name,
+               bytes=out.numel() * 4 + 2 * lse.numel() * lse.element_size()):
+        m = ranks.pmax(lse, axis_name)
+        w = torch.exp(lse - m)  # (B, H)
+        num = ranks.psum(out.float() * w[..., None], axis_name)
+        den = ranks.psum(w, axis_name)
     return (num / den[..., None]).to(out.dtype)
+
+
+def decode_attention_seq_split(
+    q: torch.Tensor,  # (B, HQ, D) every query head
+    k_cache: torch.Tensor,  # (B, HKV, T_local, D): this rank's run
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,  # (B,) valid lengths of the whole sequence
+    offset: int,  # the first position of this rank's run
+    axis_name: str = "model",
+    *,
+    mesh=None,
+    impl: str = "cuda",
+    scale: float | None = None,
+    scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """A rank's part of decode attention over a cache whose sequence is
+    split over ``axis_name`` (the reference's ``shard_seq``): its valid
+    length within its run, ``clamp(kv_len - offset, 0, T_local)``, then the
+    attention to its run with the log-sum-exp (the decode kernel, or with
+    ``scales`` = (k_s, v_s) the eager attention on the int8 cache), then
+    the combine over the ranks (``mesh``: None, the current one).  Every
+    rank of the axis calls it with every query head and gets the whole
+    output."""
+    local = torch.clamp(kv_len - offset, 0, k_cache.shape[2])
+    if scales is not None:
+        out, lse = decode_attention_quant(q, k_cache, scales[0], v_cache,
+                                          scales[1], local, scale=scale,
+                                          with_lse=True)
+    else:
+        out, lse = decode_attention(q, k_cache, v_cache, local, impl=impl,
+                                    scale=scale, with_lse=True)
+    with ranks.use_mesh(ranks.current_mesh() if mesh is None else mesh):
+        return combine_decode_partials(out, lse, axis_name)

@@ -60,7 +60,8 @@ from .layers import (
 )
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
 from .transformer import (DecoderLayer, _embed, _heads as _kv_of, _params,
-                          kv_heads_attended, lm_head, tp_out, tp_q, tp_qkv)
+                          kv_heads_attended, lm_head, seq_split_decode,
+                          tp_out, tp_q, tp_qkv)
 
 MAX_DECODE_LEN_AXIS = "kv_seq"
 #: rows of the learned decoder positions
@@ -295,11 +296,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeros on ``device`` (None: the GPU): the decoder's self-attention
     K and V up to ``max_len`` positions and its cross-attention K and V of
     ``cfg.enc_frames`` frames, (L, B, KV, T, head_dim) each; this rank's
-    KV heads where ``rules`` split them over ranks of ``"model"``."""
+    KV heads where ``rules`` split them over ranks of ``"model"``, or its
+    run of the self-attention cache's positions where they split its
+    sequence (``kvcache.seq_run``; the frames are never split)."""
     device = resolve_device(device)
     L, dt = cfg.n_layers, cfg.torch_dtype
     kv = cfg.n_kv_heads // model_split(rules, "kv_heads")
-    self_shape = (L, batch, kv, max_len, cfg.head_dim)
+    self_shape = (L, batch, kv, kvcache.local_len(rules, max_len),
+                  cfg.head_dim)
     cross_shape = (L, batch, kv, cfg.enc_frames, cfg.head_dim)
     return {
         "self_k": torch.zeros(self_shape, dtype=dt, device=device),
@@ -311,19 +315,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def cache_logical_axes(cfg: ModelConfig) -> dict:
-    kv = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+    kv = kvcache.KV_AXES
     xkv = ("layers", "batch", "kv_heads", "frames", "head_dim")
     return {"self_k": kv, "self_v": kv, "cross_k": xkv, "cross_v": xkv,
             "pos": ("batch",)}
 
 
 def _write_rows(buf: torch.Tensor, val: torch.Tensor,
-                pos: torch.Tensor) -> None:
+                pos: torch.Tensor, run=kvcache.WHOLE) -> None:
     """``buf[b, :, pos[b]:pos[b] + S] = val[b]`` for every row, the start
-    clamped as ``dynamic_update_slice`` clamps it; buf (B, KV, T, D), val
-    (B, KV, S, D)."""
+    clamped as ``dynamic_update_slice`` clamps it (on a rank's ``run`` of a
+    sequence split by the rules, ``kvcache.seq_run``, the tokens that fall
+    in it); buf (B, KV, T, D), val (B, KV, S, D)."""
     b, _, s, _ = val.shape
-    kvcache._write(buf, val, kvcache._slots(pos, b, s, buf.shape[2]))
+    kvcache._write(buf, val, kvcache._slots(pos, b, s, buf.shape[2], run))
 
 
 def _prefill_hidden(params: EncDec, tokens: torch.Tensor,
@@ -335,11 +340,12 @@ def _prefill_hidden(params: EncDec, tokens: torch.Tensor,
     b, s = tokens.shape
     x = _embed(params, tokens, rules) + params.dec_pos[:s][None]
     start = torch.zeros((b,), dtype=torch.int32, device=x.device)
+    run = kvcache.seq_run(rules, cache["self_k"].shape[3])
     for i, lp in enumerate(params.dec_layers):
         h = apply_norm(x, lp.norm1, cfg.norm)
         out, k, v = _mha(lp.self_attn, h, h, cfg, causal=True, rules=rules)
-        _write_rows(cache["self_k"][i], k, start)
-        _write_rows(cache["self_v"][i], v, start)
+        _write_rows(cache["self_k"][i], k, start, run)
+        _write_rows(cache["self_v"][i], v, start, run)
         x = x + out
         h = apply_norm(x, lp.norm_x, cfg.norm)
         out, k, v = _mha(lp.cross_attn, h, enc_out, cfg, causal=False,
@@ -373,19 +379,26 @@ def decode_step(params: EncDec, token: torch.Tensor, cfg: ModelConfig,
     impl = _decode_impl(cfg)
     n_frames = torch.full((b,), cache["cross_k"].shape[3],
                           dtype=torch.int32, device=x.device)
+    run = kvcache.seq_run(rules, cache["self_k"].shape[3])
     for i, lp in enumerate(params.dec_layers):
         sk, sv = cache["self_k"][i], cache["self_v"][i]
         h = apply_norm(x, lp.norm1, cfg.norm)
-        q, k, v, cols, mine = tp_qkv(lp.self_attn, h, cfg, rules)
-        _write_rows(sk, k.transpose(1, 2), pos)
-        _write_rows(sv, v.transpose(1, 2), pos)
+        q, k, v, cols, mine = tp_qkv(lp.self_attn, h, cfg, rules,
+                                     whole_q=run[0] > 1)
+        _write_rows(sk, k.transpose(1, 2), pos, run)
+        _write_rows(sv, v.transpose(1, 2), pos, run)
         hq = q.shape[2]
-        attn = decode_attention(q[:, 0], _kv_of(sk, mine), _kv_of(sv, mine),
-                                pos + 1, impl=impl)
-        x = x + tp_out(lp.self_attn, attn.reshape(b, 1, hq * cfg.head_dim),
-                       cfg, rules, cols)
+        if run[0] > 1:
+            attn = seq_split_decode(q[:, 0], sk, sv, pos + 1, run[1], cfg,
+                                    rules)
+        else:
+            attn = decode_attention(q[:, 0], _kv_of(sk, mine),
+                                    _kv_of(sv, mine), pos + 1, impl=impl)
+            attn = attn.reshape(b, 1, hq * cfg.head_dim)
+        x = x + tp_out(lp.self_attn, attn, cfg, rules, cols)
         h = apply_norm(x, lp.norm_x, cfg.norm)
         qx, cols = tp_q(lp.cross_attn, h, cfg, rules)
+        hq = qx.shape[2]
         xk, xv = cache["cross_k"][i], cache["cross_v"][i]
         mine = kv_heads_attended(cfg, hq, xk.shape[1], rules)
         xattn = decode_attention(qx[:, 0], _kv_of(xk, mine),

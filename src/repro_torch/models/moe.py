@@ -389,12 +389,13 @@ def _moe_mlp_flat(
 
 
 def _layer_fn(cfg: ModelConfig, rules, mode: str, x: torch.Tensor, lp,
-              cache_l: dict | None, positions: torch.Tensor, rope=None):
+              cache_l: dict | None, positions: torch.Tensor, rope=None,
+              run=kvcache.WHOLE):
     """One layer: the dense transformer's attention block, then the routed
     MLP.  Returns (x, the layer's cache, its aux loss)."""
     x = constrain(x, rules, ("batch", "seq", "d_model"))
     x, new_cache_l = transformer._attention_block(
-        lp, x, cfg, rules, positions, mode, cache_l, rope=rope)
+        lp, x, cfg, rules, positions, mode, cache_l, rope=rope, run=run)
     h = apply_norm(x, lp.mlp_norm, cfg.norm)
     moe_out, aux = moe_mlp(lp, h, cfg, rules)
     return x + moe_out, new_cache_l, aux
@@ -428,13 +429,14 @@ def forward(
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     layer_caches = kvcache.layer_slice(cache) if cache is not None else None
+    run = kvcache.cache_run(cache, rules)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.layers):
         cache_l = None
         if layer_caches is not None:
             cache_l = {name: buf[i] for name, buf in layer_caches.items()}
         x, _, layer_aux = remat_call(cfg, mode, _layer_fn, cfg, rules, mode,
-                                     x, lp, cache_l, positions, rope)
+                                     x, lp, cache_l, positions, rope, run)
         aux = aux + layer_aux
 
     new_cache = None

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import tensor_parallel as tp
-from repro_torch.dist.sharding import constrain, model_split
+from repro_torch.dist.sharding import constrain, model_split, seq_run
 from repro_torch.kernels.rg_lru import rg_lru, rg_lru_ref
 
 from .attention import decode_attention, multihead_attention
@@ -63,8 +63,8 @@ from .layers import (
     rms_norm,
 )
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
-from .transformer import (DecoderLayer, _embed, _heads, _logits, _params,
-                          tp_out, tp_qkv)
+from .transformer import (SEQ_SPLIT_WINDOW_ITEM, DecoderLayer, _embed,
+                          _heads, _logits, _params, tp_out, tp_qkv)
 
 LRU_C = 8.0
 #: parameters the reference creates in f32 whatever ``cfg.dtype`` is
@@ -220,6 +220,13 @@ def init_state(cfg: ModelConfig, batch: int,
     GPU); this rank's recurrent channels (and KV heads, where ``rules``
     split them) over ranks of ``"model"``."""
     device = resolve_device(device)
+    axes = state_logical_axes(cfg)
+    for name, dim in (("attn_k", 3), ("slot_pos", 2)):
+        if rules is not None and \
+                seq_run(rules, rules.spec(axes[name]), dim)[0] > 1:
+            raise NotImplementedError(
+                f"the hybrid's ring cache split by sequence ({name}): "
+                f"ROADMAP Queue A item {SEQ_SPLIT_WINDOW_ITEM}")
     g, tail = n_groups(cfg)
     w = cfg.d_model // model_split(rules, "d_ff")
     cw = cfg.conv_width - 1

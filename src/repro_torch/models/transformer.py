@@ -20,6 +20,10 @@ gemma's MQA), the ranks gather k and v whole and each attends its own q
 heads to them; where a rank's share of ``q_dim`` is not whole heads
 (gemma-2b, qwen1.5-32b and granite-moe-3b over 16 ranks), they gather q
 too, attend every head, and each keeps its columns of the output.
+Where the cache's spec splits its sequence over the ranks instead (the
+reference's ``shard_seq``, only where the KV heads stay whole), a decode
+step attends every query head to the rank's run of the cache and combines
+the ranks' partials by their lse (``seq_split_decode``).
 Prefill and decode logits are gathered over the ranks, so that a caller
 sees the whole vocab; train logits stay split and the loss is the
 vocab-parallel cross-entropy.
@@ -40,6 +44,7 @@ from . import kvcache
 from .attention import (
     decode_attention,
     decode_attention_quant,
+    decode_attention_seq_split,
     multihead_attention,
 )
 from .config import ModelConfig
@@ -58,6 +63,10 @@ from .layers import (
     rope_tables,
 )
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
+
+#: the ROADMAP Queue A item a sliding window or a ring cache split by
+#: sequence waits for
+SEQ_SPLIT_WINDOW_ITEM = 25
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -199,9 +208,11 @@ def _kv_heads_for(cfg: ModelConfig, hq: int, hkv: int,
         f"{hq} query heads a rank straddle the KV heads' groups of {group}")
 
 
-def _q_heads(lp, h: torch.Tensor, cfg: ModelConfig, rules):
+def _q_heads(lp, h: torch.Tensor, cfg: ModelConfig, rules,
+             whole: bool = False):
     """q (B, S, heads, head_dim) of ``h`` (already past ``copy_to_model``
-    where the heads split) and the columns the rank keeps (``tp_qkv``)."""
+    where the heads split) and the columns the rank keeps (``tp_qkv``);
+    ``whole``: every head, gathered where the heads split."""
     b, s, _ = h.shape
     q = h @ lp.wq
     if cfg.qkv_bias:
@@ -209,11 +220,11 @@ def _q_heads(lp, h: torch.Tensor, cfg: ModelConfig, rules):
     q = constrain(q, rules, ("batch", "seq", "heads"), (None, None, cfg.q_dim))
     d = cfg.head_dim
     cols = None
-    if model_split(rules, "heads") > 1 and q.shape[-1] % d:
+    if model_split(rules, "heads") > 1 and (whole or q.shape[-1] % d):
         # a rank's query columns are not whole heads (the rules split
-        # q_dim, as GSPMD may): every rank gathers q (and k and v) whole,
-        # attends every head, and keeps its columns of the output for its
-        # rows of wo
+        # q_dim, as GSPMD may), or the caller attends every head (a cache
+        # split by sequence): every rank gathers q whole, attends every
+        # head, and keeps its columns of the output for its rows of wo
         with ranks.use_mesh(rules.mesh):
             lo = ranks.axis_index(tp.MODEL) * q.shape[-1]
         cols = slice(lo, lo + q.shape[-1])
@@ -267,7 +278,7 @@ def tp_q(lp, h: torch.Tensor, cfg: ModelConfig, rules):
 
 
 def tp_qkv(lp, h: torch.Tensor, cfg: ModelConfig, rules,
-           h_kv: torch.Tensor | None = None):
+           h_kv: torch.Tensor | None = None, whole_q: bool = False):
     """q of the normed input ``h`` (B, S, D) and k and v of ``h_kv`` (None:
     ``h``; the encoder's output for a cross-attention), as (B, S, heads,
     head_dim) before RoPE, from ``lp``'s ``wq``, ``wk``, ``wv`` (and QKV
@@ -277,10 +288,11 @@ def tp_qkv(lp, h: torch.Tensor, cfg: ModelConfig, rules,
     ``"model"``, each input passes ``copy_to_model`` once and the products
     are the rank's columns; k and v are gathered whole where the KV heads
     are not split (one KV head, as gemma's MQA), and q too where a rank's
-    query columns are not whole heads (every rank then attends every head
-    and keeps its columns).  The head counts are the weights' own."""
+    query columns are not whole heads or ``whole_q`` asks for every head
+    (every rank then attends every head and keeps its columns).  The head
+    counts are the weights' own."""
     hc = _to_ranks(h, rules)
-    q, cols = _q_heads(lp, hc, cfg, rules)
+    q, cols = _q_heads(lp, hc, cfg, rules, whole_q)
     k, v = _kv_heads(lp, hc if h_kv is None else _to_ranks(h_kv, rules),
                      cfg, rules)
     return q, k, v, cols, kv_heads_attended(cfg, q.shape[2], k.shape[2],
@@ -312,14 +324,18 @@ def _attention_block(
     cache_l: dict | None,
     window: int | None = None,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+    run: tuple[int, int] = kvcache.WHOLE,
 ):
     """``rope``: the forward pass's ``rope_tables`` for ``positions``
-    (made here when not given).  The head counts are the weights' own:
-    this rank's heads where the rules split them (``tp_qkv``)."""
+    (made here when not given); ``run``: the cache's ``kvcache.seq_run``
+    (the forward pass's).  The head counts are the weights' own: this
+    rank's heads where the rules split them (``tp_qkv``), every head in a
+    decode over a cache split by sequence."""
     b, s, _ = x.shape
     d = cfg.head_dim
+    split = mode == "decode" and run[0] > 1
     q, k, v, cols, mine = tp_qkv(lp, apply_norm(x, lp.attn_norm, cfg.norm),
-                                 cfg, rules)
+                                 cfg, rules, whole_q=split)
     hq = q.shape[2]
     if rope is None:
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -335,9 +351,25 @@ def _attention_block(
     new_cache_l = None
     if mode == "decode":
         assert cache_l is not None
-        new_cache_l = kvcache.update_layer(cfg, cache_l, k, v, positions[:, 0])
+        new_cache_l = kvcache.update_layer(cfg, cache_l, k, v, positions[:, 0],
+                                           run)
         kv_len = positions[:, 0] + 1
-        if cfg.kv_quant and cfg.kv_fused and window is None:
+        fused = cfg.kv_quant and cfg.kv_fused and window is None
+        if split:
+            if window is not None:
+                raise NotImplementedError(
+                    f"a sliding window over a cache split by sequence: "
+                    f"ROADMAP Queue A item {SEQ_SPLIT_WINDOW_ITEM}")
+            if fused:
+                k_full, v_full = new_cache_l["k_q"], new_cache_l["v_q"]
+                scales = new_cache_l["k_s"], new_cache_l["v_s"]
+            else:
+                k_full, v_full = kvcache.read_layer(cfg, new_cache_l)
+                scales = None
+            out = seq_split_decode(q[:, :, 0], k_full, v_full, kv_len, run[1],
+                                   cfg, rules, scales=scales)
+            return project(out), new_cache_l
+        if fused:
             # Attend on the int8 cache directly: the scales factor out of
             # both dots, so the cache is read once, in int8.
             out = decode_attention_quant(
@@ -362,13 +394,30 @@ def _attention_block(
         if mode == "prefill" and cache_l is not None:
             new_cache_l = kvcache.update_layer(
                 cfg, cache_l, k, v,
-                torch.zeros((b,), dtype=torch.int32, device=x.device))
+                torch.zeros((b,), dtype=torch.int32, device=x.device), run)
         out = multihead_attention(
             q, _heads(k, mine), _heads(v, mine),
             impl=cfg.attention_impl, causal=True, window=window,
         )
     out = out.transpose(1, 2).reshape(b, s, hq * d)
     return project(out), new_cache_l
+
+
+def seq_split_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, offset: int, cfg: ModelConfig,
+                     rules, *, scales=None) -> torch.Tensor:
+    """Decode attention of ``q`` (B, heads, head_dim), every query head
+    (``tp_qkv(..., whole_q=True)``), against the rank's run of a cache
+    split by sequence over ``"model"`` (k and v (B, KV, T_local,
+    head_dim), every KV head, since the spec splits the sequence only
+    where it keeps the KV heads whole; ``scales``: an int8 cache's (k_s,
+    v_s)), the ranks' partials combined (``decode_attention_seq_split``):
+    the output (B, 1, q_dim)."""
+    out = decode_attention_seq_split(
+        q, k, v, kv_len, offset, tp.MODEL, mesh=rules.mesh,
+        impl="cuda" if cfg.attention_impl == "cuda" else "xla",
+        scales=scales)
+    return out.reshape(q.shape[0], 1, -1)
 
 
 def _heads(x: torch.Tensor, mine: slice) -> torch.Tensor:
@@ -401,10 +450,10 @@ def _windowed_decode(q, k, v, kv_len, window):
 
 def _layer_fn(cfg: ModelConfig, rules, mode: str, x: torch.Tensor,
               lp: DecoderLayer, cache_l: dict | None,
-              positions: torch.Tensor, rope=None):
+              positions: torch.Tensor, rope=None, run=kvcache.WHOLE):
     x = constrain(x, rules, ("batch", "seq", "d_model"))
     x, new_cache_l = _attention_block(
-        lp, x, cfg, rules, positions, mode, cache_l, rope=rope
+        lp, x, cfg, rules, positions, mode, cache_l, rope=rope, run=run
     )
     h = apply_norm(x, lp.mlp_norm, cfg.norm)
     x = x + mlp_apply(lp.mlp, h, cfg.activation, rules)
@@ -448,12 +497,13 @@ def forward(
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     layer_caches = kvcache.layer_slice(cache) if cache is not None else None
+    run = kvcache.cache_run(cache, rules)
     for i, lp in enumerate(params.layers):
         cache_l = None
         if layer_caches is not None:
             cache_l = {name: buf[i] for name, buf in layer_caches.items()}
         x, _ = remat_call(cfg, mode, _layer_fn, cfg, rules, mode, x, lp,
-                          cache_l, positions, rope)
+                          cache_l, positions, rope, run)
 
     new_cache = None
     if cache is not None:

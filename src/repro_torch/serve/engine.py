@@ -27,18 +27,28 @@ stalls on one bad request.  Any other exception, such as a kernel's CUDA
 error, is not retried and propagates to the caller (the reference retries
 and absorbs every exception).
 
-Over ranks: given ``rules`` on a mesh whose ``"model"`` axis has more
-than one rank (every family), every rank runs the same engine on its
-slice of the parameters (``models.api.init_params(..., rules)``) and of
-the decode state (``models.api.state_specs``: its KV heads, its recurrent
-channels, its WKV heads), which the splice copies leaf by leaf as it
-lies.  The logits come gathered over the ranks,
-so each rank samples from the whole vocab with the same generator, and the
+Over ranks: given ``rules`` on a mesh of ranks, every rank runs the same
+engine and keeps the same host book (the queue, ``slot_req``, the slots'
+tokens, the generator).  Over a ``"model"`` axis of more than one rank
+(every family) each rank holds its slice of the parameters
+(``models.api.init_params(..., rules)``) and of the decode state
+(``models.api.state_specs``: its KV heads, its run of the cache's sequence
+where the rules split it (``shard_seq``), its recurrent channels, its WKV
+heads), which the splice copies leaf by leaf as it lies; the logits come
+gathered over those ranks.  Over the data axes (``batch_ranks`` of the
+rules; the slot count must split evenly) data rank d holds slots
+``[d S / D, (d + 1) S / D)``: each decode step runs its rows, and the
+logits are gathered over the data axes; a prefill runs only on the owning
+data rank's model group, and its last logits row reaches the others by
+one all-gather in which they give zeros; only the owner splices.  Every
+rank then samples every slot in slot order with the same generator, so
+the tokens are the one-rank engine's, temperature included, and every rank
+probes the fault injector for every prefill and decode attempt in the same
+order, owner or not, so that retries and ``error`` statuses agree.  The
 ranks compare their tokens after every prefill and decode step (an
-all-gather): a rank that took another token would leave the others
-waiting in a collective, so the engine raises on every rank instead.  A
-data axis of more than one rank (a batch of slots split over ranks) is
-ROADMAP Queue A item 24 and raises.
+all-gather over the whole mesh): a rank that took another token would
+leave the others waiting in a collective, so the engine raises on every
+rank instead.
 
 Timing: a decode step's latency (``serve.decode_step_s``) and a request's
 time to first token (``serve.ttft_s``) end when the logits have reached
@@ -58,7 +68,7 @@ from repro_torch.core.faults import (FaultInjector, InjectedError,
                                      RecoveryPolicy)
 from repro_torch.device import resolve_device
 from repro_torch.dist import ranks
-from repro_torch.dist.sharding import model_ranks
+from repro_torch.dist.sharding import batch_axes, batch_ranks
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
@@ -100,15 +110,20 @@ class ServeEngine:
         With ``rules`` on a mesh of ranks, every rank of the mesh makes
         this engine with its own part of the parameters."""
         self.device = resolve_device(device)
-        self._model_ranks = 1
+        self._world = 1  # ranks of the mesh
+        self._data = 1  # ranks the slots split over
+        self._data_index = 0
         if rules is not None and rules.mesh is not None:
-            data = {a: n for a, n in ranks.mesh_sizes(rules.mesh).items()
-                    if a != "model" and n > 1}
-            if data:
-                raise NotImplementedError(
-                    f"an engine over a data axis of more than one rank "
-                    f"({data}): ROADMAP Queue A item 24")
-            self._model_ranks = model_ranks(rules.mesh)
+            for n in ranks.mesh_sizes(rules.mesh).values():
+                self._world *= n
+            self._data = batch_ranks(rules)
+            if slots % self._data:
+                raise ValueError(f"{slots} slots do not split over "
+                                 f"{self._data} data ranks")
+            if self._data > 1:
+                with ranks.use_mesh(rules.mesh):
+                    self._data_index = ranks.axis_index(batch_axes(rules))
+        self._local = slots // self._data  # slots a data rank holds
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -132,7 +147,7 @@ class ServeEngine:
             p, tok, cfg, st, rules)
         self._prefill = lambda p, batch, st: model_api.prefill(
             p, batch, cfg, st, rules)
-        self.state = model_api.init_decode_state(cfg, slots, max_len,
+        self.state = model_api.init_decode_state(cfg, self._local, max_len,
                                                  self.device, rules)
         self.slot_req: list[Request | None] = [None] * slots
         self.slot_tokens = np.zeros((slots,), np.int32)
@@ -177,23 +192,52 @@ class ServeEngine:
         self.registry.counter("serve.requests").labels(
             status=self._TERMINAL_STATUS.get(status, status)).inc()
 
+    def _owner(self, slot: int) -> int:
+        """The data rank that holds ``slot``."""
+        return slot // self._local
+
+    def owns(self, slot: int) -> bool:
+        """Whether this rank's data group holds ``slot`` (and so runs the
+        prefills that fill it)."""
+        return self._owner(slot) == self._data_index
+
+    def _gathered(self, rows: torch.Tensor | None, n: int) -> np.ndarray:
+        """The f32 logits (n x D rows, vocab) on the host, in slot order:
+        ``rows`` (n, vocab) this data rank's, all-gathered over the data
+        axes; None gives zeros (a rank that holds no rows of them)."""
+        if rows is None:
+            rows = torch.zeros((n, self.cfg.vocab), dtype=torch.float32,
+                               device=self.device)
+        rows = rows.float()
+        if self._data > 1:
+            with ranks.use_mesh(self.rules.mesh):
+                rows = ranks.all_gather(rows.contiguous(),
+                                        batch_axes(self.rules))
+            rows = rows.reshape(-1, rows.shape[-1])
+        return _host_logits(rows)
+
     def _fill_slots(self) -> None:
         for s in range(self.slots):
             while self.slot_req[s] is None and self.queue:
                 req = self.queue.pop(0)
                 self.registry.gauge("serve.queue_depth").set(len(self.queue))
+                owner = self._owner(s)
+                mine = self.owns(s)
                 try:
                     with self.tracer.span(f"prefill:r{req.rid}",
                                           stream="serve", cat="compute",
                                           rid=req.rid, slot=s,
                                           prompt_len=len(req.prompt)):
-                        logits, pstate = self._prefill_with_retry(req)
-                        last = _host_logits(logits[0, -1])
-                except InjectedError:  # retries exhausted
+                        out = self._prefill_with_retry(req, mine)
+                        last = self._gathered(
+                            out[0][:, -1] if mine else None, 1)[owner]
+                except InjectedError:  # retries exhausted, on every rank
                     self.stats["errors"] += 1
                     self._finish(s, req, "error")  # slot stays free
                     continue
-                self.state = _splice_state(self.state, pstate, s)
+                if mine:
+                    self.state = _splice_state(self.state, out[1],
+                                               s - owner * self._local)
                 tok = self._sample(last, req)
                 self._agree([tok])
                 req.output.append(int(tok))
@@ -207,11 +251,36 @@ class ServeEngine:
                 self.slot_age[s] = 0
                 self.stats["prefill_tokens"] += len(req.prompt)
 
-    def _prefill_with_retry(self, req: Request):
+    def _prefill_with_retry(self, req: Request, run: bool = True):
         """Prefill this prompt alone (batch=1, spliced into the slot),
-        retrying injected failures under the recovery policy."""
-        pcfg_state = model_api.init_decode_state(self.cfg, 1, self.max_len,
-                                                 self.device, self.rules)
+        retrying injected failures under the recovery policy; the fault
+        injector probed for every attempt whether or not this rank runs
+        the prefill (``run``: None where it does not)."""
+        attempt = 0
+        while True:
+            try:
+                if (self.fault_injector is not None
+                        and self.fault_injector.probe(
+                            "request", task=req.rid, site="prefill")):
+                    raise InjectedError(
+                        f"injected prefill failure: request {req.rid}"
+                    )
+                if not run:
+                    return None
+                return self._prefill(self.params, self._prompt(req),
+                                     model_api.init_decode_state(
+                                         self.cfg, 1, self.max_len,
+                                         self.device, self.rules))
+            except InjectedError:  # bounded retry
+                attempt += 1
+                if attempt > self.recovery.max_attempts:
+                    raise
+                self.stats["retries"] += 1
+
+    def _prompt(self, req: Request) -> dict:
+        """The batch of one prompt (the encoder-decoder's frames and the
+        VLM's patch embeddings zeros, as the reference's engine makes
+        them)."""
         batch = {"tokens": torch.as_tensor(
             np.asarray(req.prompt, np.int32)[None, :], device=self.device)}
         if self.cfg.family == "encdec":
@@ -222,24 +291,12 @@ class ServeEngine:
             batch["patch_embeds"] = torch.zeros(
                 (1, self.cfg.n_patches, self.cfg.d_model),
                 dtype=self.cfg.torch_dtype, device=self.device)
-        attempt = 0
-        while True:
-            try:
-                if (self.fault_injector is not None
-                        and self.fault_injector.probe(
-                            "request", task=req.rid, site="prefill")):
-                    raise InjectedError(
-                        f"injected prefill failure: request {req.rid}"
-                    )
-                return self._prefill(self.params, batch, pcfg_state)
-            except InjectedError:  # bounded retry
-                attempt += 1
-                if attempt > self.recovery.max_attempts:
-                    raise
-                self.stats["retries"] += 1
+        return batch
 
     def _decode_once(self) -> None:
-        toks = torch.as_tensor(self.slot_tokens[:, None], device=self.device)
+        lo = self._data_index * self._local
+        toks = torch.as_tensor(self.slot_tokens[lo:lo + self._local, None],
+                               device=self.device)
         attempt = 0
         t0 = self.clock()
         with self.tracer.span("decode_step", stream="serve", cat="compute",
@@ -258,7 +315,7 @@ class ServeEngine:
                     if attempt > self.recovery.max_attempts:
                         raise
                     self.stats["retries"] += 1
-            rows = _host_logits(logits[:, -1])
+            rows = self._gathered(logits[:, -1], self._local)
         self.registry.histogram("serve.decode_step_s").observe(
             self.clock() - t0)
         self.state = state
@@ -284,13 +341,13 @@ class ServeEngine:
                 self._finish(s, req, "timed_out")
 
     def _agree(self, tokens: list[int]) -> None:
-        """Every rank of the ``"model"`` axis took ``tokens``, or all of
-        them raise."""
-        if self._model_ranks == 1 or not tokens:
+        """Every rank of the mesh took ``tokens``, or all of them raise."""
+        if self._world == 1 or not tokens:
             return
         mine = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
         with ranks.use_mesh(self.rules.mesh):
-            every = ranks.all_gather(mine, "model")
+            every = ranks.all_gather(
+                mine, tuple(ranks.mesh_sizes(self.rules.mesh)))
         if not bool((every == every[0]).all()):
             raise RuntimeError(f"the ranks sampled different tokens: "
                                f"{every.tolist()}")

@@ -295,13 +295,16 @@ def _flat(tree, prefix="") -> dict:
     return {prefix.rstrip("/"): tree}
 
 
-def _tp_serve(mesh, cases) -> list:
+def _tp_serve(mesh, cases, shard_seq: bool = False) -> list:
     """Prefill then decode steps teacher-forced on ``decode`` tokens, each
     rank on its rows of the batch (the data axis splits it), through the
     port's api with the reference's parameters carried onto the rank; each
     decode step from this rank's slice of a given cache where the case
     gives the caches; the final state gathered whole by ``state_specs``
-    (where no cache is given)."""
+    (where no cache is given); the collectives of the first decode step
+    and its ``collective:*`` spans.  ``shard_seq``: the rules split the
+    cache's sequence over ``"model"`` where its spec keeps the KV heads
+    whole."""
     from repro_torch.convert import params_from_reference
     from repro_torch.models import api
 
@@ -309,7 +312,8 @@ def _tp_serve(mesh, cases) -> list:
     for label, cfg, np_params, tokens, decode, extra, max_len, given \
             in cases:
         b = tokens.shape[0]
-        rules = rules_for(cfg, mesh, "tp", global_batch=b)
+        rules = rules_for(cfg, mesh, "tp", global_batch=b,
+                          shard_seq=shard_seq)
         params = params_from_reference(np_params, cfg, "cpu", rules)
         with ranks.use_mesh(mesh):
             data = ranks.axis_size("data")
@@ -324,14 +328,24 @@ def _tp_serve(mesh, cases) -> list:
         got = [logits.float().numpy()]
         specs = api.state_specs(cfg, rules)
         wrote = []
+        records, spans = None, None
         for i, tok in enumerate(decode):
             if given is not None:  # this rank's slice of the given cache
                 with ranks.use_mesh(mesh):
                     state = {k: ranks.spec_slice(torch.from_numpy(v),
                                                  specs[k]).clone()
                              for k, v in given[i].items()}
-            logits, state = api.decode_step(
-                params, torch.from_numpy(tok[rows]), cfg, state, rules)
+            tracer = Tracer()
+            prev = set_tracer(tracer)
+            try:
+                with recorded_collectives() as recs:
+                    logits, state = api.decode_step(
+                        params, torch.from_numpy(tok[rows]), cfg, state,
+                        rules)
+            finally:
+                set_tracer(prev)
+            if records is None:
+                records, spans = recs, _span_counts(tracer)
             got.append(logits.float().numpy())
             if given is not None:  # the whole cache the ranks wrote
                 with ranks.use_mesh(mesh):
@@ -347,23 +361,80 @@ def _tp_serve(mesh, cases) -> list:
                     "logits": got, "wrote": wrote if given else None,
                     "state": whole,
                     "cache_shapes": {k: tuple(v.shape)
-                                     for k, v in flat.items()}})
+                                     for k, v in flat.items()},
+                    "collectives": records, "spans": spans})
     return out
 
 
-def _tp_engine(mesh, cfg, seed, prompts, max_new) -> list:
+def seq_decode_collectives(device, cfg, shape: tuple, tokens, step,
+                           max_len: int) -> dict:
+    """A prefill of ``tokens`` and one decode step of ``step`` on a
+    ``("data", "model")`` mesh of ``shape`` under ``shard_seq`` (this
+    rank's rows and its run of the cache): the decode step's collectives
+    as a recording mesh records them, and its ``collective:*`` spans."""
+    from repro_torch.models import api
+
+    mesh = make_mesh(shape, ("data", "model"))
+    b = tokens.shape[0]
+    rules = rules_for(cfg, mesh, "tp", global_batch=b, shard_seq=True)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu",
+                             rules)
+    with ranks.use_mesh(mesh):
+        n = b // ranks.axis_size("data")
+        rows = slice(ranks.axis_index("data") * n,
+                     (ranks.axis_index("data") + 1) * n)
+    state = api.init_decode_state(cfg, n, max_len, "cpu", rules)
+    _, state = api.prefill(params, {"tokens": torch.from_numpy(
+        tokens[rows])}, cfg, state, rules)
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    try:
+        with recorded_collectives() as records:
+            api.decode_step(params, torch.from_numpy(step[rows]), cfg,
+                            state, rules)
+    finally:
+        set_tracer(prev)
+    return {"records": records, "spans": _span_counts(tracer)}
+
+
+def _span_counts(tracer) -> dict:
+    """Calls and bytes of each ``collective:*`` span of ``tracer``, as the
+    dry run counts them."""
+    out: dict = {}
+    for e in tracer.events:
+        if e.get("ph") == "X" and e["name"].startswith("collective:"):
+            kind = out.setdefault(e["name"].split(":", 1)[1],
+                                  {"calls": 0, "bytes": 0})
+            kind["calls"] += 1
+            kind["bytes"] += int(e["args"].get("bytes", 0))
+    return out
+
+
+def _tp_engine(mesh, cfg, seed, prompts, max_new, slots=2, temps=None,
+               faults=(), shard_seq=False) -> list:
+    """The engine over ``mesh`` on this rank's slices: each request's
+    (rid, status, tokens), sorted, and the engine's retries and errors
+    where ``faults`` (``FaultSpec``s of an injector each rank makes) are
+    given.  ``temps``: each request's temperature (None: greedy)."""
+    from repro_torch.core.faults import FaultInjector
     from repro_torch.models import api
     from repro_torch.serve.engine import Request, ServeEngine
 
-    rules = rules_for(cfg, mesh, "tp")
+    rules = rules_for(cfg, mesh, "tp", shard_seq=shard_seq)
     params = api.init_params(torch.Generator().manual_seed(seed), cfg,
                              "cpu", rules)
-    engine = ServeEngine(params, cfg, slots=2, max_len=32, rules=rules,
-                         seed=seed, device="cpu")
+    engine = ServeEngine(params, cfg, slots=slots, max_len=32, rules=rules,
+                         seed=seed, device="cpu",
+                         fault_injector=FaultInjector(list(faults))
+                         if faults else None)
     for rid, p in enumerate(prompts):
-        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new,
+                              temperature=temps[rid] if temps else 0.0))
     done = engine.run()
-    return sorted((r.rid, r.status, list(r.output)) for r in done)
+    got = sorted((r.rid, r.status, list(r.output)) for r in done)
+    if not faults:
+        return got
+    return got, {k: engine.stats[k] for k in ("retries", "errors")}
 
 
 def _tp_router(mesh, cases) -> dict:
@@ -473,8 +544,9 @@ def _tp_ops(mesh, inputs) -> dict:
 
 def tp_suite(device, work: dict) -> dict:
     """Every tensor-parallel case of ``tests/test_torch_tp.py`` on this
-    rank: train steps and prefill/decode on each mesh of ``work["meshes"]``,
-    the engines (phi3, granite and each of the RWKV, hybrid and
+    rank: train steps and prefill/decode on each mesh of ``work["meshes"]``
+    (and the cases of ``work["seq_serve"]`` under ``shard_seq``), the
+    engines over a data axis (``work["data_engines"]``), the engines (phi3, granite and each of the RWKV, hybrid and
     encoder-decoder families), the MoE routers' gradients and the operators
     on (1, 4), the elastic restores."""
     out = {"rank": dist.get_rank()}
@@ -482,6 +554,11 @@ def tp_suite(device, work: dict) -> dict:
         mesh = make_mesh(shape, ("data", "model"))
         out[("train", shape)] = _tp_train(mesh, work["train"])
         out[("serve", shape)] = _tp_serve(mesh, work["serve"])
+        out[("seq", shape)] = _tp_serve(mesh, work["seq_serve"][shape],
+                                        shard_seq=True)
+    for key, shape, shard_seq, case in work["data_engines"]:
+        out["data_engine", key] = _tp_engine(
+            make_mesh(shape, ("data", "model")), *case, shard_seq=shard_seq)
     mesh = make_mesh((1, 4), ("data", "model"))
     out["engine"] = _tp_engine(mesh, *work["engine"])
     out["moe_engine"] = _tp_engine(mesh, *work["moe_engine"])

@@ -10,7 +10,9 @@ configs on a ``{data: 2, model: 4}`` recording mesh), the scans the dry
 run sets for its cells, a production cell through the CLI (its roofline's
 memory term from the least bytes), and ``examples/coclustering.py``'s counterpart against
 the reference's iteration.  The recorded collectives of a train step equal
-a real gloo run's in ``tests/test_torch_tp.py``, whose ranks run it.
+a real gloo run's in ``tests/test_torch_tp.py``, whose ranks run it; those
+of a decode step whose cache is split by sequence (gemma-2b's smoke config
+under ``shard_seq``) a gloo run's here.
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ from repro_torch.models import rglru as model_rglru
 from repro_torch.models import rwkv as model_rwkv
 from repro_torch.utils import roofline
 from repro_torch.utils.hlo_analysis import collective_stats
+from repro_torch.launch.rules import rules_for
+
+import _torch_dist_ranks
 
 DTYPES = {jnp.dtype(jnp.int32): torch.int32,
           jnp.dtype(jnp.float32): torch.float32,
@@ -223,26 +228,27 @@ def test_the_dry_run_sets_each_scan_to_its_kernels_route(t):
 
 
 def test_cells_list_runs_skips_and_queued_items():
+    """Every cell the reference runs, runs: under ``tp`` on (16, 16) 32
+    RUN and the reference's 8 SKIP (``long_500k`` for full attention),
+    none queued, the decode cells of the attention families among the runs
+    (under ``shard_seq``, as the reference's)."""
     mesh = make_production_mesh()
     status = {(a, s): dryrun.cell_status(get_config(a), s, mesh, "tp")
               for a in ARCHS for s in shapes.SHAPE_NAMES}
     assert status["phi3-mini-3.8b", "train_4k"] == ("RUN", "")
     assert status["granite-moe-3b-a800m", "prefill_32k"] == ("RUN", "")
     assert status["phi3-mini-3.8b", "long_500k"][0] == "SKIP"
-    assert status["phi3-mini-3.8b", "decode_32k"][0] == "QUEUED"
-    assert "item 24" in status["phi3-mini-3.8b", "decode_32k"][1]
-    # every family's tensor-parallel layers run (ROADMAP items 21-23):
-    # only the sequence-split decode cells wait, whisper's among them
+    for arch in ARCHS:  # every family's decode cell runs
+        assert status[arch, "decode_32k"] == ("RUN", "")
+        assert dryrun._shard_seq(get_config(arch), "decode", "tp") == (
+            get_config(arch).family not in ("rwkv", "hybrid"))
     for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
         assert status["rwkv6-3b", shape] == ("RUN", "")
         assert status["recurrentgemma-2b", shape] == ("RUN", "")
     assert status["whisper-medium", "train_4k"] == ("RUN", "")
     assert status["whisper-medium", "prefill_32k"] == ("RUN", "")
-    assert "item 24" in status["whisper-medium", "decode_32k"][1]
     tally = collections.Counter(v[0] for v in status.values())
-    assert tally == {"RUN": 24, "SKIP": 8, "QUEUED": 8}
-    assert all("item 24" in why for st, why in status.values()
-               if st == "QUEUED")
+    assert tally == {"RUN": 32, "SKIP": 8}
     for a in ARCHS:  # under dp every family runs
         for s in shapes.SHAPE_NAMES:
             got = dryrun.cell_status(get_config(a), s, mesh, "dp")[0]
@@ -250,12 +256,74 @@ def test_cells_list_runs_skips_and_queued_items():
                            else "SKIP")
 
 
+@pytest.mark.parametrize("arch,split", [("gemma-2b", True),
+                                        ("qwen1.5-32b", True),
+                                        ("phi3-mini-3.8b", False),
+                                        ("whisper-medium", False)])
+def test_a_production_decode_cell_splits_the_sequence_where_its_spec_does(
+        arch, split):
+    """At (16, 16) under ``shard_seq``, gemma-2b's one KV head and
+    qwen1.5-32b's 40 leave "model" to the cache's sequence: a rank holds
+    2048 of its 32768 positions, and each layer's step records the
+    combine (three all-reduces in a ``combine_decode_partials`` span);
+    phi3-mini's 32 KV heads and whisper-medium's 16 take it, and the
+    sequence stays whole, with no combine."""
+    cfg = get_config(arch)
+    mesh = {"data": 16, "model": 16}
+    spec = shapes.SHAPES["decode_32k"]
+    m = dryrun.cell_metrics(cfg, spec, mesh, "tp", shard_seq=True)
+    with ranks.recording(mesh) as rec:
+        rules = rules_for(cfg, rec, "tp", global_batch=spec.global_batch,
+                          shard_seq=True)
+        state = api.init_decode_state(cfg, spec.global_batch // 16,
+                                      spec.seq_len, "meta", rules)
+    leaf = state["self_k" if cfg.family == "encdec"
+                 else "k_q" if cfg.kv_quant else "k"]
+    assert leaf.shape[3] == spec.seq_len // (16 if split else 1)
+    assert m["memory"]["cache_bytes"] == sum(
+        x.numel() * x.element_size() for x in state.values())
+    layers = cfg.n_layers
+    if split:
+        assert m["spans"]["combine_decode_partials"]["calls"] == layers
+    else:
+        assert "combine_decode_partials" not in m["spans"]
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_a_seq_split_decode_cell_records_the_gloo_steps_collectives(shape):
+    """gemma-2b's smoke decode cell under ``shard_seq`` on the meta device
+    (``cell_metrics``, rank 0's) records the all-reduces and all-gathers
+    that a real decode step on 4 gloo ranks sent, op for op and byte for
+    byte, on every rank, and the same ``collective:*`` spans (calls and
+    bytes): the combine's three all-reduces a layer, q's gather, the
+    attention and MLP's ``reduce_from_model``, the logits' gather."""
+    cfg = get_smoke_config("gemma-2b")
+    b, max_len = 4, 24
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, cfg.vocab, (b, 8)).astype(np.int32)
+    step = rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32)
+    real = ranks.spawn(_torch_dist_ranks.seq_decode_collectives, 4,
+                       backend="gloo", device="cpu",
+                       args=(cfg, shape, tokens, step, max_len),
+                       timeout=300)
+    dry = dryrun.cell_metrics(cfg, shapes.ShapeSpec("d", max_len, b,
+                                                    "decode"),
+                              {"data": shape[0], "model": shape[1]}, "tp",
+                              shard_seq=True)
+    assert dry["spans"]["combine_decode_partials"]["calls"] == cfg.n_layers
+    for r in real:
+        assert collections.Counter(r["records"]) == \
+            collections.Counter(dry["records"])
+        assert r["spans"] == dry["spans"]
+
+
 def test_the_cli_lists_every_cell(capsys):
     assert dryrun.main(["--list"]) == 0
     lines = capsys.readouterr().out.splitlines()
     rows = [ln for ln in lines if ln.split()[0] in ARCHS]
     assert len(rows) == len(ARCHS) * len(shapes.SHAPE_NAMES)
-    assert all(ln.split()[2].rstrip(":") in ("RUN", "SKIP", "QUEUED")
+    assert all(ln.split()[2].rstrip(":") in ("RUN", "SKIP")
                for ln in rows)
 
 

@@ -38,9 +38,24 @@ ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
   rwkv6-3b's 2.5 heads a rank at (16, 16)), and a recurrentgemma-2b variant
   with 2 query heads of 32 served (half a head a rank, as its 2.5 at (1,
   4)); the hybrid's ``w_in`` holds on each rank its part of z and of y;
+* the decode cache split by sequence over ``"model"`` (the reference's
+  ``shard_seq``), ``max_len`` 24: a prefill of 2 x 8 tokens and three
+  teacher-forced decode steps of the gemma-2b smoke config at (1, 4) (runs
+  of 6 positions: the prompt straddles the first two, the decode writes
+  land in the second, the last two stay empty) and (2, 2), of
+  qwen1.5-32b's with 2 KV heads (the int8 cache, each step from a given
+  cache), granite-moe-1b's, internvl2-26b's and whisper-medium's with 2
+  heads of 32 at (1, 4), and phi3's, whose spec splits the KV heads and
+  keeps the sequence whole, against the reference's GSPMD under
+  ``rules_for(..., shard_seq=True)`` at 1e-4, the cache gathered by
+  ``state_specs`` equal to the reference's;
 * the engine on (1, 4): greedy tokens equal to the one-rank engine's, and
   the same on every rank, for phi3, granite, rwkv6-3b, recurrentgemma-2b
-  and whisper-medium;
+  and whisper-medium; and the phi3 and gemma engines over a data axis,
+  on (2, 2), (4, 1) and (2, 2) with ``shard_seq``, 4 slots and 6 requests
+  (greedy and by temperature, with and without injected faults): the
+  tokens, statuses, retries and errors of the one-rank engine, on every
+  rank;
 * a train state saved on (2, 2) restored onto (1, 4), (4, 1) and one rank,
   bit for bit, for phi3, granite (its experts split on (2, 2)), rwkv6-3b,
   recurrentgemma-2b (its blocked ``w_in``) and whisper-medium;
@@ -78,10 +93,11 @@ from repro_torch.convert import (
     train_state_from_reference,
 )
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.core.faults import FaultInjector, FaultSpec, RecoveryPolicy
 from repro_torch.dist import ranks
 from repro_torch.launch import dryrun
 from repro_torch.launch.rules import rules_for
-from repro_torch.models import api
+from repro_torch.models import api, kvcache
 from repro_torch.models.layers import softmax_xent
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.train.train_loop import (
@@ -133,6 +149,32 @@ SERVE = {"phi3-mini-3.8b": ("phi3-mini-3.8b", {}),
          "recurrentgemma-half-heads": ("recurrentgemma-2b",
                                        {"n_heads": 2, "head_dim": 32})}
 PROMPT, DECODE_STEPS, MAX_LEN = (2, 8), 3, 32
+#: the serve cases under ``shard_seq``: label -> (arch, overrides, meshes);
+#: the cache's sequence splits over "model" where its spec keeps the KV
+#: heads whole (every case here but phi3's, whose 4 KV heads split)
+SEQ_SERVE = {"seq-gemma-2b": ("gemma-2b", {}, [(1, 4), (2, 2)]),
+             "seq-qwen1.5-32b-2-kv-heads": ("qwen1.5-32b", {"n_kv_heads": 2},
+                                            [(1, 4)]),
+             "seq-granite-moe-1b-a400m": ("granite-moe-1b-a400m", MOE,
+                                          [(1, 4)]),
+             "seq-internvl2-26b": ("internvl2-26b", {}, [(1, 4)]),
+             "seq-whisper-2-heads": ("whisper-medium",
+                                     {"n_heads": 2, "n_kv_heads": 2,
+                                      "head_dim": 32}, [(1, 4)]),
+             "seq-phi3-mini-3.8b": ("phi3-mini-3.8b", {}, [(1, 4)])}
+SEQ_CASES = [(label, shape) for label, (_, _, meshes) in SEQ_SERVE.items()
+             for shape in meshes]
+SEQ_MAX_LEN = 24
+#: the engines over a data axis: (mesh, shard_seq)
+DATA_ENGINE_MESHES = [((2, 2), False), ((4, 1), False), ((2, 2), True)]
+DATA_ENGINE_ARCHS = ["phi3-mini-3.8b", "gemma-2b"]
+#: each request's temperature, and the faults each rank's injector makes:
+#: request 2's prefill fails past its retries (status "error"), request
+#: 4's once (retried), and the fourth decode step once (retried)
+ENGINE_TEMPS = (0.0, 0.8, 0.0, 0.8, 0.0, 0.8)
+ENGINE_FAULTS = (FaultSpec("request", task=2, times=0),
+                 FaultSpec("request", task=4, times=1),
+                 FaultSpec("decode", at=3, times=1))
 #: seconds the ranks, and the reference's subprocess, may take: a guard
 #: against a hang, far above their run (about 3 minutes alone)
 RANKS_TIMEOUT = 900
@@ -143,7 +185,8 @@ def _np(x):
 
 
 def _serve_cfg(label):
-    arch, overrides = SERVE[label]
+    arch, overrides = SERVE[label] if label in SERVE else \
+        SEQ_SERVE[label][:2]
     return r_smoke(arch).scaled(**overrides)
 
 
@@ -195,7 +238,7 @@ def _serve_inputs(label):
     return rcfg, toks, decode, extra
 
 
-def _int8_states(rcfg, toks, decode):
+def _int8_states(rcfg, toks, decode, max_len=MAX_LEN):
     """The cache before each decode step of the reference's one-device
     chain, for an int8 cache (``kv_quant``), and the one after the last.
 
@@ -212,7 +255,7 @@ def _int8_states(rcfg, toks, decode):
     entries the port wrote within one level of the reference's own, their
     scales at 1e-4."""
     params = r_api.init_params(jax.random.key(1), rcfg)
-    state = r_api.init_decode_state(rcfg, toks.shape[0], MAX_LEN)
+    state = r_api.init_decode_state(rcfg, toks.shape[0], max_len)
     _, state = r_api.prefill(params, {"tokens": jnp.asarray(toks)}, rcfg,
                              state)
     out = []
@@ -234,6 +277,42 @@ from repro.train import train_loop
 def serve_cfg(label):
     arch, overrides = SERVE[label]
     return get_smoke_config(arch).scaled(**overrides)
+
+def serve(label, cfg, mesh, named, tag, shard_seq, max_len):
+    data = np.load(f"{DIR}/{label}.serve.npz")
+    b = data["tokens"].shape[0]
+    rules = rules_for(cfg, mesh, "tp", global_batch=b, shard_seq=shard_seq)
+    p_specs = tree_specs(rules, api.params_logical_axes(cfg))
+    s_specs = tree_specs(rules, api.state_logical_axes(cfg))
+    params = jax.device_put(api.init_params(jax.random.key(1), cfg),
+                            named(p_specs))
+    rows = NamedSharding(mesh, rules.spec(("batch", None)))
+    batch = {"tokens": jnp.asarray(data["tokens"])}
+    b_specs = {"tokens": rows}
+    for key, name in (("patches", "patch_embeds"), ("frames", "frames")):
+        if key in data:
+            batch[name] = jnp.asarray(data[key], cfg.jdtype)
+            b_specs[name] = NamedSharding(
+                mesh, rules.spec(("batch", None, None)))
+    prefill = jax.jit(
+        lambda p, bt, s: api.prefill(p, bt, cfg, s, rules),
+        in_shardings=(named(p_specs), b_specs, named(s_specs)))
+    decode = jax.jit(
+        lambda p, t, s: api.decode_step(p, t, cfg, s, rules),
+        in_shardings=(named(p_specs), rows, named(s_specs)))
+    state = jax.device_put(api.init_decode_state(cfg, b, max_len),
+                           named(s_specs))
+    logits, state = prefill(params, batch, state)
+    out = [np.asarray(logits, np.float32)]
+    for tok in data["decode"]:
+        if "state0_pos" in data:  # the int8 cache: REFERENCE_GIVEN
+            break
+        state = jax.device_put(state, named(s_specs))
+        logits, state = decode(params, jnp.asarray(tok), state)
+        out.append(np.asarray(logits, np.float32))
+    np.savez(f"{DIR}/{label}.{tag}.serve.out.npz", *out)
+    np.savez(f"{DIR}/{label}.{tag}.state.npz",
+             *[np.asarray(x, np.float32) for x in jax.tree.leaves(state)])
 
 for shape in MESHES:
     mesh = jax.make_mesh(shape, ("data", "model"),
@@ -260,41 +339,11 @@ for shape in MESHES:
                  grad_norm=np.asarray(m["grad_norm"]),
                  lr=np.asarray(m["lr"]))
     for label in SERVE:
-        cfg = serve_cfg(label)
-        data = np.load(f"{DIR}/{label}.serve.npz")
-        b = data["tokens"].shape[0]
-        rules = rules_for(cfg, mesh, "tp", global_batch=b)
-        p_specs = tree_specs(rules, api.params_logical_axes(cfg))
-        s_specs = tree_specs(rules, api.state_logical_axes(cfg))
-        params = jax.device_put(api.init_params(jax.random.key(1), cfg),
-                                named(p_specs))
-        rows = NamedSharding(mesh, rules.spec(("batch", None)))
-        batch = {"tokens": jnp.asarray(data["tokens"])}
-        b_specs = {"tokens": rows}
-        for key, name in (("patches", "patch_embeds"), ("frames", "frames")):
-            if key in data:
-                batch[name] = jnp.asarray(data[key], cfg.jdtype)
-                b_specs[name] = NamedSharding(
-                    mesh, rules.spec(("batch", None, None)))
-        prefill = jax.jit(
-            lambda p, bt, s: api.prefill(p, bt, cfg, s, rules),
-            in_shardings=(named(p_specs), b_specs, named(s_specs)))
-        decode = jax.jit(
-            lambda p, t, s: api.decode_step(p, t, cfg, s, rules),
-            in_shardings=(named(p_specs), rows, named(s_specs)))
-        state = jax.device_put(api.init_decode_state(cfg, b, MAX_LEN),
-                               named(s_specs))
-        logits, state = prefill(params, batch, state)
-        out = [np.asarray(logits, np.float32)]
-        for tok in data["decode"]:
-            if "state0_pos" in data:  # the int8 cache: REFERENCE_GIVEN
-                break
-            state = jax.device_put(state, named(s_specs))
-            logits, state = decode(params, jnp.asarray(tok), state)
-            out.append(np.asarray(logits, np.float32))
-        np.savez(f"{DIR}/{label}.{tag}.serve.out.npz", *out)
-        np.savez(f"{DIR}/{label}.{tag}.state.npz",
-                 *[np.asarray(x, np.float32) for x in jax.tree.leaves(state)])
+        serve(label, serve_cfg(label), mesh, named, tag, False, MAX_LEN)
+    for label, (arch, overrides, shapes) in SEQ.items():
+        if tuple(shape) in [tuple(x) for x in shapes]:
+            serve(label, get_smoke_config(arch).scaled(**overrides), mesh,
+                  named, tag, True, SEQ_MAX_LEN)
 print("REFERENCE-OK")
 """
 
@@ -317,11 +366,14 @@ for shape in MESHES:
     named = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
                                    is_leaf=lambda x: isinstance(x, P))
     tag = "x".join(map(str, shape))
-    for label in GIVEN:
-        cfg = get_smoke_config(SERVE[label][0]).scaled(**SERVE[label][1])
+    for label, (arch, overrides, shard_seq, shapes) in GIVEN.items():
+        if tuple(shape) not in [tuple(x) for x in shapes]:
+            continue
+        cfg = get_smoke_config(arch).scaled(**overrides)
         data = np.load(f"{DIR}/{label}.serve.npz")
         wrote = np.load(f"{DIR}/{label}.{tag}.wrote.npz")
-        rules = rules_for(cfg, mesh, "tp", global_batch=data["tokens"].shape[0])
+        rules = rules_for(cfg, mesh, "tp", global_batch=data["tokens"].shape[0],
+                          shard_seq=shard_seq)
         p_specs = tree_specs(rules, api.params_logical_axes(cfg))
         s_specs = tree_specs(rules, api.state_logical_axes(cfg))
         params = jax.device_put(api.init_params(jax.random.key(1), cfg),
@@ -394,6 +446,27 @@ def tp_runs(tmp_path_factory):
                                  r_api.init_params(jax.random.key(1), rcfg))
         work["serve"].append((label, config_from_reference(rcfg), np_params,
                               toks, decode, inputs, MAX_LEN, states))
+    work["seq_serve"] = {shape: [] for shape in MESHES}
+    for label, (_, _, meshes) in SEQ_SERVE.items():
+        rcfg, toks, decode, extra = _serve_inputs(label)
+        inputs = dict(extra)
+        states = _int8_states(rcfg, toks, decode, SEQ_MAX_LEN) \
+            if rcfg.kv_quant else None
+        for i, st in enumerate(states or ()):
+            extra = {**extra, **{f"state{i}_{k}": v for k, v in st.items()}}
+        np.savez(tmp / f"{label}.serve.npz", tokens=toks, decode=decode,
+                 **extra)
+        np_params = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                 r_api.init_params(jax.random.key(1), rcfg))
+        for shape in meshes:
+            work["seq_serve"][shape].append(
+                (label, config_from_reference(rcfg), np_params, toks,
+                 decode, inputs, SEQ_MAX_LEN, states))
+    work["data_engines"] = [
+        (key, shape, shard_seq, _data_engine_case(arch, faulty))
+        for arch in DATA_ENGINE_ARCHS for shape, shard_seq in
+        DATA_ENGINE_MESHES for faulty in (False, True)
+        for key in [_data_engine_key(arch, shape, shard_seq, faulty)]]
     ecfg = get_smoke_config("phi3-mini-3.8b")
     prompts = [np.random.default_rng(i).integers(0, ecfg.vocab, n)
                .astype(np.int32) for i, n in enumerate((5, 9, 3, 7))]
@@ -416,23 +489,29 @@ def tp_runs(tmp_path_factory):
     code = (f"MESHES = {MESHES!r}\nTRAIN_ARCHS = {TRAIN_ARCHS!r}\n"
             f"TRAIN = {TRAIN!r}\n"
             f"SERVE = {SERVE!r}\nDIR = {str(tmp)!r}\nBATCH = {BATCH}\n"
-            f"MAX_LEN = {MAX_LEN}\n" + REFERENCE)
+            f"MAX_LEN = {MAX_LEN}\nSEQ = {SEQ_SERVE!r}\n"
+            f"SEQ_MAX_LEN = {SEQ_MAX_LEN}\n" + REFERENCE)
     with _torch_dist_ranks.beside(run_with_devices, code, n_devices=N,
                                   timeout=RANKS_TIMEOUT) as out:
         port = ranks.spawn(_torch_dist_ranks.tp_suite, N, backend="gloo",
                            device="cpu", init_dir=str(tmp / "rdv"),
                            args=(work,), timeout=RANKS_TIMEOUT)
     assert "REFERENCE-OK" in out["result"]
-    given = [label for label in SERVE if _serve_cfg(label).kv_quant]
-    for shape in MESHES:
-        tag = "x".join(map(str, shape))
-        for label in given:
-            wrote = next(r for r in port[0]["serve", shape]
+    given = {label: (*SERVE[label], False, MESHES) for label in SERVE
+             if _serve_cfg(label).kv_quant}
+    given.update({label: (arch, overrides, True, meshes)
+                  for label, (arch, overrides, meshes) in SEQ_SERVE.items()
+                  if _serve_cfg(label).kv_quant})
+    for label, (_, _, shard_seq, meshes) in given.items():
+        for shape in meshes:
+            tag = "x".join(map(str, shape))
+            wrote = next(r for r in port[0]["seq" if shard_seq else "serve",
+                                             shape]
                          if r["label"] == label)["wrote"]
             np.savez(tmp / f"{label}.{tag}.wrote.npz",
                      **{f"w{i}_{k}": v for i, st in enumerate(wrote)
                         for k, v in st.items()})
-    code = (f"MESHES = {MESHES!r}\nSERVE = {SERVE!r}\nGIVEN = {given!r}\n"
+    code = (f"MESHES = {MESHES!r}\nGIVEN = {given!r}\n"
             f"DIR = {str(tmp)!r}\n" + REFERENCE_GIVEN)
     assert "REFERENCE-GIVEN-OK" in run_with_devices(code, n_devices=N,
                                                     timeout=300)
@@ -448,7 +527,9 @@ def tp_runs(tmp_path_factory):
             ref["train", arch, shape] = (
                 _carried(new, config_from_reference(rcfg)),
                 {k: float(data[k]) for k in ("loss", "grad_norm", "lr")})
-        for label in SERVE:
+        seq = [label for label, (_, _, meshes) in SEQ_SERVE.items()
+               if shape in meshes]
+        for label in [*SERVE, *seq]:
             data = np.load(tmp / f"{label}.{tag}.serve.out.npz")
             logits = [data["arr_0"]]
             if label in given:
@@ -604,17 +685,67 @@ def test_tp_prefill_and_decode_match_the_reference(tp_runs, label, shape):
     state is its slice of the whole state under those specs (its KV heads
     where the rules split them, its WKV heads where its columns are whole
     heads, its recurrent channels)."""
+    _held_to_the_reference(tp_runs, label, shape, "serve", MAX_LEN)
+
+
+@pytest.mark.parametrize("label,shape", SEQ_CASES,
+                         ids=[f"{label}-{'x'.join(map(str, shape))}"
+                              for label, shape in SEQ_CASES])
+def test_tp_seq_split_prefill_and_decode_match_the_reference(tp_runs, label,
+                                                             shape):
+    """Under ``shard_seq`` (the reference's flash-decode distribution):
+    the logits of a prefill and three decode steps and the cache gathered
+    whole by ``api.state_specs`` (an int8 cache: the entries the ranks
+    wrote within one level) against the reference's GSPMD at 1e-4; each
+    rank's cache holds its run of ``max_len / m`` positions where the
+    cache's spec splits the sequence (every KV head), and the whole
+    sequence where it splits the KV heads instead (phi3).  gemma at (1, 4):
+    runs of 6, the prompt's 8 positions in the first two and the decode
+    writes in the second, the last two runs all zeros."""
+    rules = _held_to_the_reference(tp_runs, label, shape, "seq",
+                                   SEQ_MAX_LEN)
+    cfg = config_from_reference(_serve_cfg(label))
+    m = shape[1]
+    split = rules.spec(("kv_heads",))[0] != "model"
+    assert split == (label != "seq-phi3-mini-3.8b")
+    assert api.state_specs(cfg, rules)[
+        "self_k" if cfg.family == "encdec" else
+        "k_q" if cfg.kv_quant else "k"][3] == ("model" if split else None)
+    assert kvcache.seq_run(rules)[0] == (m if split else 1)
+    _, port, _, _, _ = tp_runs
+    for p in port:
+        got = next(r for r in p["seq", shape] if r["label"] == label)
+        key = "self_k" if cfg.family == "encdec" else \
+            "k_q" if cfg.kv_quant else "k"
+        heads = cfg.n_kv_heads // (1 if split else m)
+        assert got["cache_shapes"][key] == (
+            cfg.n_layers, PROMPT[0] // shape[0], heads,
+            SEQ_MAX_LEN // (m if split else 1), cfg.head_dim)
+    if label == "seq-gemma-2b" and shape == (1, 4):
+        got = next(r for r in port[0]["seq", shape] if r["label"] == label)
+        k = got["state"]["k"]  # whole: the ranks' runs of 6 in order
+        written = PROMPT[1] + DECODE_STEPS
+        assert (np.abs(k[:, :, :, :written]).max(axis=-1) > 0).all()
+        assert not k[:, :, :, written:].any()
+        assert written <= 2 * SEQ_MAX_LEN // m
+
+
+def _held_to_the_reference(tp_runs, label, shape, kind, max_len):
+    """The prefill's and decode steps' logits of a serve case (``kind``
+    "serve", or "seq" under ``shard_seq``) on every rank, and its state,
+    against the reference's; returns the rules."""
     ref, port, _, work, _ = tp_runs
     want = ref["serve", label, shape]
     rcfg = _serve_cfg(label)
     cfg = config_from_reference(rcfg)
     mesh = {"data": shape[0], "model": shape[1]}
-    rules = rules_for(cfg, mesh, "tp", global_batch=PROMPT[0]).with_mesh(mesh)
+    rules = rules_for(cfg, mesh, "tp", global_batch=PROMPT[0],
+                      shard_seq=kind == "seq").with_mesh(mesh)
     specs = _torch_dist_ranks._flat(api.state_specs(cfg, rules))
     whole = _torch_dist_ranks._flat(api.init_decode_state(
-        cfg, PROMPT[0] // shape[0], MAX_LEN, "meta"))
+        cfg, PROMPT[0] // shape[0], max_len, "meta"))
     for p in port:
-        got = next(r for r in p["serve", shape] if r["label"] == label)
+        got = next(r for r in p[kind, shape] if r["label"] == label)
         lo, hi = got["rows"]
         assert len(got["logits"]) == DECODE_STEPS + 1
         for i, (g, w) in enumerate(zip(got["logits"], want)):
@@ -622,7 +753,7 @@ def test_tp_prefill_and_decode_match_the_reference(tp_runs, label, shape):
             np.testing.assert_allclose(g, w[lo:hi], rtol=1e-4, atol=1e-4,
                                        err_msg=f"{label} {shape} step {i}")
         if got["wrote"] is not None:
-            _check_int8_writes(label, got["wrote"], work)
+            _check_int8_writes(label, got["wrote"], work, kind)
         else:
             state = ref["state", label, shape]
             assert len(state) == len(got["state"])
@@ -644,14 +775,18 @@ def test_tp_prefill_and_decode_match_the_reference(tp_runs, label, shape):
             heads = rcfg.n_kv_heads // (shape[1] if split else 1)
             cache = got["cache_shapes"]["k_q" if rcfg.kv_quant else "k"]
             assert cache == (rcfg.n_layers, PROMPT[0] // shape[0], heads,
-                             MAX_LEN, rcfg.head_dim)
+                             max_len // kvcache.seq_run(rules)[0],
+                             rcfg.head_dim)
+    return rules
 
 
-def _check_int8_writes(label, wrote, work):
+def _check_int8_writes(label, wrote, work, kind="serve"):
     """The int8 entries and scales the port's ranks wrote for each decode
     step's token, against the reference's one-device chain's: the entries
     within one level, the scales at 1e-5."""
-    states = next(c for c in work["serve"] if c[0] == label)[-1]
+    cases = work["serve"] if kind == "serve" else \
+        [c for by_shape in work["seq_serve"].values() for c in by_shape]
+    states = next(c for c in cases if c[0] == label)[-1]
     for i, mine in enumerate(wrote):
         pos = states[i]["pos"]
         want = states[i + 1]
@@ -665,15 +800,40 @@ def _check_int8_writes(label, wrote, work):
                                            want[key][:, b, :, p], rtol=1e-4)
 
 
-def _one_rank_engine(cfg, seed, prompts, max_new):
+def _one_rank_engine(cfg, seed, prompts, max_new, slots=2, temps=None,
+                     faults=()):
+    """The one-rank engine's (rid, status, tokens) of each request, sorted,
+    and where ``faults`` are given its retries and errors."""
     params = api.init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
-    engine = ServeEngine(params, cfg, slots=2, max_len=32, seed=seed,
-                         device="cpu")
+    engine = ServeEngine(params, cfg, slots=slots, max_len=32, seed=seed,
+                         device="cpu",
+                         fault_injector=FaultInjector(list(faults))
+                         if faults else None)
     for rid, p in enumerate(prompts):
-        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new,
+                              temperature=temps[rid] if temps else 0.0))
     want = sorted((r.rid, r.status, list(r.output)) for r in engine.run())
-    assert [len(w[2]) for w in want] == [max_new] * len(prompts)
-    return want
+    if not faults:
+        assert [len(w[2]) for w in want] == [max_new] * len(prompts)
+        return want
+    return want, {k: engine.stats[k] for k in ("retries", "errors")}
+
+
+def _data_engine_key(arch, shape, shard_seq, faulty):
+    return (f"{arch}/{'x'.join(map(str, shape))}"
+            f"{'/shard_seq' if shard_seq else ''}"
+            f"{'/faults' if faulty else ''}")
+
+
+def _data_engine_case(arch, faulty):
+    """(cfg, seed, prompts, max_new, slots, temps, faults) of an engine
+    over a data axis: 4 slots, 6 requests (so that slots refill), greedy
+    and by temperature, with ``ENGINE_FAULTS`` where ``faulty``."""
+    cfg = get_smoke_config(arch)
+    prompts = [np.random.default_rng(20 + i).integers(0, cfg.vocab, n)
+               .astype(np.int32) for i, n in enumerate((5, 9, 3, 7, 4, 6))]
+    return (cfg, 0, prompts, 5, 4, ENGINE_TEMPS,
+            ENGINE_FAULTS if faulty else ())
 
 
 def test_tp_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
@@ -736,20 +896,52 @@ def test_tp_router_gradient_with_aux_equals_one_rank(tp_runs, label):
             _close(got["aux_grad"][i], want_aux[i], f"{label} aux {i}")
 
 
+@pytest.mark.parametrize("faulty", [False, True], ids=["clean", "faults"])
+@pytest.mark.parametrize("shape,shard_seq", DATA_ENGINE_MESHES,
+                         ids=["2x2", "4x1", "2x2-shard_seq"])
+@pytest.mark.parametrize("arch", DATA_ENGINE_ARCHS)
+def test_tp_engine_over_a_data_axis_equals_one_rank(tp_runs, arch, shape,
+                                                    shard_seq, faulty):
+    """The engine with its 4 slots split over the data ranks (2 a rank on
+    (2, 2), 1 on (4, 1); gemma's cache also split by sequence over
+    "model" under ``shard_seq``): 6 requests, greedy and by temperature,
+    give the one-rank engine's tokens and statuses on every rank; with
+    faults injected (a prefill that fails past its retries, one retried,
+    a decode step retried) also its retries and errors."""
+    _, port, _, work, _ = tp_runs
+    key = _data_engine_key(arch, shape, shard_seq, faulty)
+    case = next(c[3] for c in work["data_engines"] if c[0] == key)
+    want = _one_rank_engine(*case)
+    if faulty:
+        statuses = {rid: status for rid, status, _ in want[0]}
+        assert statuses[2] == "error"
+        # request 2's every retry, request 4's one, the decode step's one
+        assert want[1] == {"retries": RecoveryPolicy().max_attempts + 2,
+                           "errors": 1}
+    for p in port:
+        assert p["data_engine", key] == want
+
+
 def test_tp_engine_refuses_a_data_axis_and_other_families():
-    """An engine over a data axis of more than one rank raises (ROADMAP
-    Queue A item 24); over a model axis every family builds one, its
-    decode state the rank's part: rwkv6-3b's WKV state one of 4 heads,
-    recurrentgemma-2b's recurrent state a quarter of its channels (the
-    ring cache of its one KV head whole), whisper-medium's caches one of 4
-    KV heads."""
+    """An engine refuses slots that its data ranks do not split evenly,
+    and the hybrid's ring cache split by sequence (ROADMAP Queue A item
+    25); over a model axis every family builds one, its decode state the
+    rank's part: rwkv6-3b's WKV state one of 4 heads, recurrentgemma-2b's
+    recurrent state a quarter of its channels (the ring cache of its one
+    KV head whole), whisper-medium's caches one of 4 KV heads."""
     cfg = get_smoke_config("phi3-mini-3.8b")
     params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     mesh = {"data": 2, "model": 2}
     rules = rules_for(cfg, mesh, "tp").with_mesh(mesh)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        ServeEngine(params, cfg, rules=rules, device="cpu")
+    with pytest.raises(ValueError, match="3 slots do not split over 2"):
+        ServeEngine(params, cfg, slots=3, rules=rules, device="cpu")
     mesh = {"data": 1, "model": 4}
+    cfg = get_smoke_config("recurrentgemma-2b")
+    rules = rules_for(cfg, mesh, "tp", shard_seq=True).with_mesh(mesh)
+    assert api.state_specs(cfg, rules)["attn_k"][3] == "model"
+    with pytest.raises(NotImplementedError, match="item 25"):
+        ServeEngine(None, cfg, slots=2, max_len=32, rules=rules,
+                    device="cpu")
     shapes = {"rwkv6-3b": {"wkv": (2, 2, 1, 16, 16)},
               "recurrentgemma-2b": {"attn_k": (2, 2, 1, 16, 16)},
               "whisper-medium": {"self_k": (2, 2, 1, 32, 16),

@@ -2,7 +2,7 @@
 """The tensor-parallel and dry-run phases of ``chip_smoke.py`` alone.
 
     python3 tools/tp_probe.py [--seed 0] [--rehearse] [--kernels]
-        [--archs rwkv6-3b,whisper-medium] [--no-dryrun]
+        [--archs rwkv6-3b,whisper-medium] [--no-dryrun] [--seq]
 
 Needs one GPU (``--rehearse``: the CPU at toy sizes, measuring nothing).
 Prints the ``env`` and ``build`` phases' lines (the ranks load the library
@@ -23,7 +23,13 @@ whisper-medium are served and trained the same way; then the ``dryrun``
 phase's (every cell of one pod on the meta device, checked against the
 ``tp`` and ``train`` phases); then the card's name and power limit.
 ``--archs`` serves and trains only the archs named (of the phase's);
-``--no-dryrun`` leaves out the ``train`` and ``dryrun`` phases.
+``--no-dryrun`` leaves out the ``train`` and ``dryrun`` phases.  The tp
+phase ends with its cells over other meshes (``TP_SEQ_CELLS``): gemma-2b
+over (1, 4) with its decode cache split by sequence (``shard_seq``),
+phi3-mini-3.8b over (2, 2) with its slots split over the data ranks.
+``--seq`` runs those cells alone (no other arch served or trained, no
+``train`` phase), then their dry cells on the meta device held against
+them exactly (a rank's bytes; the decode step's collective spans).
 """
 
 from __future__ import annotations
@@ -43,12 +49,16 @@ from chip_smoke import (  # noqa: E402
     TOY,
     TP_SERVE_ARCHS,
     TP_TRAIN_ARCHS,
+    dry_cell,
+    emit,
     phase_build,
     phase_dryrun,
     phase_env,
     phase_kernels,
     phase_tp,
     phase_train,
+    seq_dry_cells,
+    seq_dry_checks,
 )
 
 
@@ -63,8 +73,14 @@ def main(argv=None) -> int:
                          "the ranks (default: the tp phase's)")
     ap.add_argument("--no-dryrun", action="store_true",
                     help="leave out the train and dryrun phases")
+    ap.add_argument("--seq", action="store_true",
+                    help="only the tp phase's cells over other meshes "
+                         "(gemma-2b's cache split by sequence, phi3-mini "
+                         "over (2, 2)) and their dry cells")
     args = ap.parse_args(argv)
     archs = args.archs.split(",") if args.archs else None
+    if args.seq:
+        archs = []
     serve_archs = tuple(a for a in TP_SERVE_ARCHS
                         if archs is None or a in archs)
     train_archs = tuple(a for a in TP_TRAIN_ARCHS
@@ -82,11 +98,15 @@ def main(argv=None) -> int:
     if args.kernels:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         phase_kernels(sizes, device, gen, build)
-    train = None if args.no_dryrun else phase_train(sizes, device,
-                                                    args.seed)
+    train = None if args.no_dryrun or args.seq else phase_train(
+        sizes, device, args.seed)
     tp = phase_tp(sizes, device, args.seed, serve_archs, train_archs)
     if train is not None:
         phase_dryrun(sizes, tp, train)
+    elif args.seq:
+        metrics = {k: dry_cell(*a) for k, a in seq_dry_cells(sizes).items()}
+        emit({"phase": "dryrun_seq",
+              "tp_seq": seq_dry_checks(tp["seq"], metrics)})
     if device.type == "cuda":
         print(env["card"], flush=True)
     return 0
