@@ -90,6 +90,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -97,6 +98,7 @@ import tempfile
 import time
 import traceback
 import warnings
+from typing import Callable
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
@@ -131,6 +133,11 @@ from repro_torch.configs import (  # noqa: E402
     get_smoke_config,
 )
 from repro_torch.configs.shapes import SHAPE_NAMES, ShapeSpec  # noqa: E402
+from repro_torch.core.mesh import (  # noqa: E402
+    is_rank_mesh,
+    local_worker,
+    shard_of,
+)
 from repro_torch.core.streaming import stream_kmeans  # noqa: E402
 from repro_torch.data import DataConfig, TokenStream  # noqa: E402
 from repro_torch.dist import (  # noqa: E402
@@ -2680,7 +2687,7 @@ def md5_prefix_body(views, info):
 
 
 def phase_launch(sizes: Sizes, device: torch.device,
-                 gen: torch.Generator) -> dict:
+                 gen: torch.Generator, store: str | None = None) -> dict:
     """The annotated-kernel launch path: every body calls the port's public
     wrapper, every launch goes through the planner and ``Context.launch``."""
     t0 = time.perf_counter()
@@ -3039,14 +3046,299 @@ def phase_launch(sizes: Sizes, device: torch.device,
     out["launch_records"] = len(ctx.records)
     out["launch_count_metric"] = ctx.registry.snapshot()
     # The mesh pass: five of the applications over MESH_WORKERS workers.
-    out["mesh"] = mesh_pass(sizes, device, gen)
+    out["mesh"] = mesh_pass(sizes, device, gen, store)
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
 
 
-def mesh_pass(sizes: Sizes, device: torch.device,
-              gen: torch.Generator) -> dict:
+STENCIL_DEF = KernelDef.define(
+    "stencil", halo_stencil_body,
+    "global i => read input[i-1:i+1], write output[i]")
+HOTSPOT_DEF = KernelDef.define(
+    "hotspot", halo_hotspot_body,
+    "global [i, j] => read temp[i-1:i+1, j-1:j+1], read power[i,j], "
+    "write out[i,j]")
+KMEANS_DEF = KernelDef.define(
+    "kmeans", kmeans_body,
+    "global i => read points[i,:], read centroids[:,:], "
+    "reduce(+) sums[:,:], reduce(+) counts[:]")
+MD5_DEF = KernelDef.define("md5", md5_prefix_body,
+                           "global i => reduce(min) found[:]",
+                           scalars=("target",))
+
+
+def gemm_body(views, info):
+    return {"C": gemm(views["A"], views["B"])}
+
+
+GEMM_DEF = KernelDef.define(
+    "gemm", gemm_body,
+    "global [i, j] => read A[i,:], read B[:,j], write C[i,j]")
+
+
+def md5_targets(n: int) -> tuple:
+    """(digest, expected index) of the planted key, then of no key."""
+    return ((md5_digest(n - MD5_PLANT_BELOW_N), n - MD5_PLANT_BELOW_N),
+            (MD5_NO_MATCH, n))
+
+
+def place_stencil(ctx, inp, sizes):
+    n, w = sizes.stencil_n, ctx.num_devices
+    dist = StencilDist(n // w, 1)
+    return (ctx.array(inp["x"], dist=dist, name="input"),
+            ctx.zeros((n,), dist=dist, name="output"))
+
+
+def run_stencil(ctx, placed, sizes):
+    """Ten launches with buffer swap."""
+    n, w = sizes.stencil_n, ctx.num_devices
+    a, b = placed
+    for _ in range(10):
+        res = ctx.launch(STENCIL_DEF, grid=(n,), work_dist=BlockWork(n // w),
+                         args={"input": a, "output": b})
+        a, b = res["output"], a
+    return a
+
+
+def place_hotspot(ctx, inp, sizes):
+    (rows, cols), w = sizes.hotspot, ctx.num_devices
+    slab = rows // w
+    return (ctx.array(inp["temp"], dist=StencilDist(slab, 1), name="temp"),
+            ctx.array(inp["power"], dist=BlockDist(slab), name="power"),
+            ctx.zeros((rows, cols), dist=StencilDist(slab, 1), name="out"))
+
+
+def run_hotspot(ctx, placed, sizes):
+    """The launch phase's steps, buffers swapped."""
+    (rows, cols), w = sizes.hotspot, ctx.num_devices
+    temp, power, nxt = placed
+    for _ in range(sizes.hotspot_steps):
+        res = ctx.launch(HOTSPOT_DEF, grid=(rows, cols),
+                         work_dist=BlockWork(rows // w),
+                         args={"temp": temp, "power": power, "out": nxt})
+        temp, nxt = res["out"], temp
+    return temp
+
+
+def place_kmeans(ctx, inp, sizes):
+    return (ctx.array(inp["points"], dist=RowDist(ctx.num_devices),
+                      name="points"),
+            ctx.zeros((KM_K, KM_F), dist=ReplicatedDist(), name="sums"),
+            ctx.zeros((KM_K,), dist=ReplicatedDist(), name="counts"),
+            torch.from_numpy(np.array(inp["centroids"])).to(ctx.device))
+
+
+def run_kmeans(ctx, placed, sizes):
+    """The launch phase's iterations, reduce(+); the counts and sums of
+    each."""
+    n, w = sizes.kmeans_n, ctx.num_devices
+    points, sums, counts, cen = placed
+    trace = []
+    for _ in range(sizes.kmeans_iters):
+        res = ctx.launch(
+            KMEANS_DEF, grid=(n,), work_dist=BlockWork(n // w),
+            args={"points": points,
+                  "centroids": ctx.array(cen, name="centroids"),
+                  "sums": sums, "counts": counts})
+        cnt, tot = res["counts"].value, res["sums"].value
+        trace.append((cnt, tot))
+        cen = tot / cnt.clamp(min=1.0)[:, None]
+    return trace
+
+
+def place_gemm(ctx, inp, sizes):
+    g = sizes.gemm
+    return {"A": ctx.array(inp["a"], dist=RowDist(), name="A"),
+            "B": ctx.array(inp["b"], dist=RowDist(), name="B"),
+            "C": ctx.zeros((g, g), dist=RowDist(), name="C")}
+
+
+def run_gemm(ctx, placed, sizes):
+    """The f32 GEMM, B gathered."""
+    g = sizes.gemm
+    return ctx.launch(GEMM_DEF, grid=(g, g), args=placed)["C"]
+
+
+def place_md5(ctx, inp, sizes):
+    return None
+
+
+def run_md5(ctx, placed, sizes):
+    """reduce(min): the planted key, then no match."""
+    n, w = sizes.md5_n, ctx.num_devices
+    return [int(ctx.launch(
+        MD5_DEF, grid=(n,), work_dist=BlockWork(n // w),
+        scalars={"target": t},
+        args={"found": ctx.full((1,), n, dtype=torch.int32,
+                                name="found")})["found"].value[0])
+        for t, _ in md5_targets(n)]
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchApp:
+    """One application of the mesh and ranks passes: ``place(ctx, inputs,
+    sizes)`` puts its arrays on the context's mesh from host arrays,
+    ``run(ctx, placed, sizes)`` launches it; its body calls ``wrapper``
+    ``launches(sizes)`` times a worker by ``route`` (on the card)."""
+
+    place: Callable
+    run: Callable
+    wrapper: str | None = None
+    route: str | None = None
+    launches: Callable = lambda sizes: 0
+
+
+LAUNCH_APPS = {
+    "stencil": LaunchApp(place_stencil, run_stencil),
+    "hotspot": LaunchApp(place_hotspot, run_hotspot, "hotspot", None,
+                         lambda sizes: sizes.hotspot_steps),
+    "kmeans": LaunchApp(place_kmeans, run_kmeans, "kmeans", "private",
+                        lambda sizes: sizes.kmeans_iters),
+    "gemm": LaunchApp(place_gemm, run_gemm, "gemm", "pipe",
+                      lambda sizes: 1),
+    "md5": LaunchApp(place_md5, run_md5, "md5", "unwind",
+                     lambda sizes: len(md5_targets(sizes.md5_n))),
+}
+
+
+def launch_inputs(tag: str, sizes: Sizes, gen: torch.Generator,
+                  device) -> dict:
+    """An application's inputs, made on ``device`` from ``gen`` and handed
+    back in host memory (each context places them from there)."""
+    if tag == "stencil":
+        inp = {"x": torch.rand((sizes.stencil_n,), generator=gen,
+                               device=device)}
+    elif tag == "hotspot":
+        temp, power = hotspot_inputs(sizes.hotspot, gen, device)
+        inp = {"temp": temp, "power": power}
+    elif tag == "kmeans":
+        centers = lattice_centers(gen, device)
+        inp = {"points": clustered_points(sizes.kmeans_n, centers, gen),
+               "centroids": start_centroids(centers, gen)}
+    elif tag == "gemm":
+        g = sizes.gemm
+        a, b = gemm_inputs(g, g, g, torch.float32, gen, device)
+        inp = {"a": a, "b": b}
+    else:
+        inp = {}
+    return {k: v.cpu().numpy() for k, v in inp.items()}
+
+
+def launch_result(result) -> dict:
+    """An application's result in host memory, as the store keeps it."""
+    if isinstance(result, list) and result and isinstance(result[0], int):
+        return {"found": np.asarray(result, dtype=np.int64)}
+    if isinstance(result, list):
+        return {"counts": torch.stack([c for c, _ in result]).cpu().numpy(),
+                "sums": torch.stack([t for _, t in result]).cpu().numpy()}
+    return {"whole": result.to_numpy()}
+
+
+def held_part(arr, whole: np.ndarray) -> torch.Tensor:
+    """The part of the whole array ``whole`` that ``arr`` holds: its shard
+    on a rank mesh, the whole otherwise; on ``arr``'s device."""
+    part = whole
+    if is_rank_mesh(arr.mesh):
+        part = shard_of(whole, arr.partition_spec(), arr.mesh,
+                        local_worker(arr.mesh))
+    return torch.from_numpy(np.array(part)).to(arr.device)
+
+
+def launch_check(name: str, tag: str, result, want: dict,
+                 sizes: Sizes) -> dict:
+    """``result`` against the one-worker run's ``want`` (host arrays):
+    the stencil, HotSpot and the GEMM bit-equal (a rank's shard against
+    its part), K-Means' counts equal and sums within rtol 1e-4 atol 1e-3,
+    MD5 the same index and n with no match."""
+    if tag == "md5":
+        expect = [e for _, e in md5_targets(sizes.md5_n)]
+        one = [int(v) for v in want["found"]]
+        require(result == one == expect, name, "found", result,
+                "one worker", one, "expected", expect)
+        return {"answers": result}
+    if tag == "kmeans":
+        err = 0.0
+        for it, (cnt, tot) in enumerate(result):
+            c1 = torch.from_numpy(np.array(want["counts"][it])).to(
+                cnt.device)
+            s1 = torch.from_numpy(np.array(want["sums"][it])).to(tot.device)
+            require(torch.equal(c1, cnt), name,
+                    "counts differ at iteration", it)
+            err = max(err, check_close(f"{name}/sums/{it}", tot, s1,
+                                       rtol=1e-4, atol=1e-3)[0])
+        return {"counts_equal": True, "sums_max_abs_err": err}
+    one = held_part(result, want["whole"])
+    many = result.value
+    require(torch.equal(one, many), name, "differs from one worker by",
+            float((one.double() - many.double()).abs().max())
+            if one.shape == many.shape else f"shape {tuple(many.shape)}")
+    return {"bit_equal": True}
+
+
+def store_save(store: str, tag: str, arrays: dict) -> None:
+    for key, value in arrays.items():
+        np.save(os.path.join(store, f"{tag}.{key}.npy"), value)
+
+
+def store_load(store: str, tag: str) -> dict:
+    """An entry of the store, each array memory-mapped: a rank reads only
+    the slice it places."""
+    prefix = f"{tag}."
+    return {name[len(prefix):-4]: np.load(os.path.join(store, name),
+                                          mmap_mode="r")
+            for name in sorted(os.listdir(store))
+            if name.startswith(prefix) and "." not in name[len(prefix):-4]}
+
+
+def launch_run(ctx, tag: str, inp: dict, sizes: Sizes, device) -> tuple:
+    """(result, seconds, peak bytes): ``tag`` placed on ``ctx`` from host
+    inputs, then run and synchronized.  The seconds cover the run; the
+    peak (card only, else None) covers placement and run, over what the
+    card held before."""
+    app = LAUNCH_APPS[tag]
+    on_card = device.type == "cuda"
+    free(device)
+    if on_card:
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    placed = app.place(ctx, inp, sizes)
+    if is_rank_mesh(ctx.mesh):
+        ranks.barrier()
+    sync(device)
+    t0 = time.perf_counter()
+    result = app.run(ctx, placed, sizes)
+    ctx.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base if on_card \
+        else None
+    return result, seconds, peak
+
+
+def counted(name: str, app: LaunchApp, before: tuple, expect: int,
+            on_card: bool) -> int | None:
+    """The wrapper's launches since ``before`` ((launches, routes)),
+    required to be ``expect`` and all by the app's route, on the card."""
+    wr = WRAPPERS.get(app.wrapper)
+    if wr is None or not on_card:
+        return None
+    n = wr.launches - before[0]
+    require(n == expect, f"{name}:", n, "launches of", app.wrapper, "not",
+            expect)
+    if app.route:
+        by = wr.routes[app.route] - before[1].get(app.route, 0)
+        require(by == n, f"{name}:", by, "of", n, "launches by route",
+                app.route)
+    return n
+
+
+def wrapper_state(app: LaunchApp) -> tuple:
+    wr = WRAPPERS.get(app.wrapper)
+    return (wr.launches, dict(getattr(wr, "routes", {}))) if wr else (0, {})
+
+
+def mesh_pass(sizes: Sizes, device: torch.device, gen: torch.Generator,
+              store: str | None = None) -> dict:
     """The launch phase's applications over ``MESH_WORKERS`` workers on the
     one device (``Context(num_workers=...)``), each held against the same
     application over one worker on the same inputs in this run: the
@@ -3056,168 +3348,160 @@ def mesh_pass(sizes: Sizes, device: torch.device,
     wrapper's counter must rise ``MESH_WORKERS`` times per launch (each
     worker's body calls it), by the route the one-worker run takes; the
     seconds of both runs (synchronized) are what the split costs on one
-    card in halo copies, gathers and launches."""
+    card in halo copies, gathers and launches, and their peak device
+    bytes (placement included) what each holds.  The inputs are made on
+    the card from ``gen`` and placed from host memory; with ``store`` (a
+    directory), each application's inputs and one-worker result are
+    written there for the ranks pass (``ranks_launch``)."""
     on_card = device.type == "cuda"
     w = MESH_WORKERS
-    ctxs = {1: Context(device=device),
-            w: Context(device=device, num_workers=w)}
     out = {"workers": w}
-
-    def both(tag, inputs, run, compare, wrapper=None, route=None,
-             launches=0):
-        results, seconds, counts = {}, {}, {}
-        for k, ctx in ctxs.items():
-            wr = WRAPPERS.get(wrapper)
-            before = (wr.launches, dict(getattr(wr, "routes", {}))) \
-                if wr else (0, {})
-            sync(device)
-            t1 = time.perf_counter()
-            results[k] = run(ctx, *inputs)
-            ctx.synchronize()
-            seconds[k] = time.perf_counter() - t1
-            if wr and on_card:
-                n = wr.launches - before[0]
-                require(n == k * launches, f"mesh/{tag}:", n, "launches of",
-                        wrapper, "over", k, "workers, not", k * launches)
-                if route:
-                    by = wr.routes[route] - before[1][route]
-                    require(by == n, f"mesh/{tag}:", by, "of", n,
-                            "launches by route", route)
+    for tag, app in LAUNCH_APPS.items():
+        inp = launch_inputs(tag, sizes, gen, device)
+        seconds, peaks, counts = {}, {}, {}
+        want = None
+        for k in (1, w):
+            ctx = Context(device=device, num_workers=k)
+            before = wrapper_state(app)
+            result, seconds[k], peaks[k] = launch_run(ctx, tag, inp, sizes,
+                                                      device)
+            n = counted(f"mesh/{tag}", app, before,
+                        k * app.launches(sizes), on_card)
+            if n is not None:
                 counts[k] = n
-        detail = compare(f"mesh/{tag}", results[1], results[w])
-        rec = ctxs[w].records[-1]
+            if k == 1:
+                want = launch_result(result)
+                if store is not None:
+                    store_save(store, tag, inp)
+                    store_save(store, tag + ".want", want)
+            else:
+                detail = launch_check(f"mesh/{tag}", tag, result, want,
+                                      sizes)
+            del result
+        rec = ctx.records[-1]
         out[tag] = {"comm": {a: p.value for a, p in rec.comm.items()},
                     "in_specs": rec.in_specs, "out_specs": rec.out_specs,
                     "seconds_1_worker": seconds[1],
                     f"seconds_{w}_workers": seconds[w],
+                    "peak_bytes_1_worker": peaks[1],
+                    f"peak_bytes_{w}_workers": peaks[w],
                     **({"kernel_launches": counts} if counts else {}),
                     **detail}
+        del inp, want
+    return out
 
-    def equal(name, one, many):
-        require(torch.equal(one, many), name, "differs from one worker by",
-                float((one.double() - many.double()).abs().max()))
-        return {"bit_equal": True}
 
-    # the stencil, ten launches with buffer swap
-    stencil = KernelDef.define(
-        "stencil", halo_stencil_body,
-        "global i => read input[i-1:i+1], write output[i]")
-    n = sizes.stencil_n
+# ---------------------------------------------------------------------------
+# The launch path over ranks
+# ---------------------------------------------------------------------------
 
-    def run_stencil(ctx, x0):
-        dist = StencilDist(n // w, 1)
-        a = ctx.array(x0, dist=dist, name="input")
-        b = ctx.zeros((n,), dist=dist, name="output")
-        for _ in range(10):
-            res = ctx.launch(stencil, grid=(n,), work_dist=BlockWork(n // w),
-                             args={"input": a, "output": b})
-            a, b = res["output"], a
-        return a.value
+#: a rank's peak device bytes over the one-worker run's, at most: K-Means
+#: holds a quarter of the points; HotSpot's body adds copies of the shard
+#: (the halo'd slab, the padded power, the output)
+RANKS_PEAK_SHARE = {"kmeans": 0.30, "hotspot": 0.50}
 
-    both("stencil", (torch.rand((n,), generator=gen, device=device),),
-         run_stencil, equal)
 
-    # HotSpot, the launch phase's steps
-    hotspot = KernelDef.define(
-        "hotspot", halo_hotspot_body,
-        "global [i, j] => read temp[i-1:i+1, j-1:j+1], read power[i,j], "
-        "write out[i,j]")
-    rows, cols = sizes.hotspot
-    steps = sizes.hotspot_steps
+def ranks_launch(device, sizes: Sizes, store: str, world: int) -> dict:
+    """The mesh pass's applications over a rank mesh ``(world,)``
+    ``("data",)`` in this rank: each placed from the store's host inputs
+    (the rank's slice only), run (``Context(mesh=<DeviceMesh>)``: HALO by
+    ``ppermute``, GATHER by the tiled gather, REDUCE by ``psum`` /
+    ``pmin``) and held against the one-worker run's result in the store;
+    each wrapper's counter at one a launch, by the one-worker run's route.
+    Per application: seconds (from a barrier, synchronized), the
+    ``collective:*`` spans' seconds, staged bytes and peak device bytes of
+    this rank."""
+    mesh = make_mesh((world,), ("data",))
+    on_card = device.type == "cuda"
+    out = {"rank": torch.distributed.get_rank(), "world": world,
+           "backend": torch.distributed.get_backend()}
+    for tag, app in LAUNCH_APPS.items():
+        tracer = Tracer(clock=time.perf_counter)
+        ctx = Context(mesh=mesh, device=device, tracer=tracer)
+        before = wrapper_state(app)
+        staged = ranks.staged_bytes()
+        result, seconds, peak = launch_run(ctx, tag, store_load(store, tag),
+                                           sizes, device)
+        staged = ranks.staged_bytes() - staged
+        launches = counted(f"ranks/{tag}", app, before, app.launches(sizes),
+                           on_card)
+        detail = launch_check(f"ranks/{tag}", tag, result,
+                              store_load(store, tag + ".want"), sizes)
+        held = result.value.shape if hasattr(result, "value") else None
+        spans = collective_seconds(tracer)
+        rec = ctx.records[-1]
+        out[tag] = {"comm": {a: p.value for a, p in rec.comm.items()},
+                    "in_specs": rec.in_specs, "out_specs": rec.out_specs,
+                    "seconds": seconds, "peak_bytes": peak,
+                    "staged_bytes": staged,
+                    "collective_seconds": sum(v["seconds"]
+                                              for v in spans.values()),
+                    "collectives": spans, "launches": launches,
+                    "held_shape": list(held) if held is not None else None,
+                    **detail}
+        del result
+        free(device)
+    return out
 
-    def run_hotspot(ctx, temp0, power0):
-        slab = rows // w
-        temp = ctx.array(temp0, dist=StencilDist(slab, 1), name="temp")
-        power = ctx.array(power0, dist=BlockDist(slab), name="power")
-        nxt = ctx.zeros((rows, cols), dist=StencilDist(slab, 1), name="out")
-        for _ in range(steps):
-            res = ctx.launch(hotspot, grid=(rows, cols),
-                             work_dist=BlockWork(slab),
-                             args={"temp": temp, "power": power, "out": nxt})
-            temp, nxt = res["out"], temp
-        return temp.value
 
-    both("hotspot", hotspot_inputs((rows, cols), gen, device), run_hotspot,
-         equal, "hotspot", None, steps)
+def ranks_launch_rank(device, sizes: Sizes, store: str) -> dict:
+    """The ranks pass alone in a spawned rank."""
+    return ranks_launch(device, sizes, store,
+                        torch.distributed.get_world_size())
 
-    # K-Means, the launch phase's iterations, reduce(+)
-    kmeans = KernelDef.define(
-        "kmeans", kmeans_body,
-        "global i => read points[i,:], read centroids[:,:], "
-        "reduce(+) sums[:,:], reduce(+) counts[:]")
-    n = sizes.kmeans_n
 
-    def run_kmeans(ctx, pts, cen):
-        points = ctx.array(pts, dist=RowDist(w), name="points")
-        sums = ctx.zeros((KM_K, KM_F), dist=ReplicatedDist(), name="sums")
-        counts = ctx.zeros((KM_K,), dist=ReplicatedDist(), name="counts")
-        trace = []
-        for _ in range(sizes.kmeans_iters):
-            res = ctx.launch(
-                kmeans, grid=(n,), work_dist=BlockWork(n // w),
-                args={"points": points,
-                      "centroids": ctx.array(cen, name="centroids"),
-                      "sums": sums, "counts": counts})
-            cnt, tot = res["counts"].value, res["sums"].value
-            trace.append((cnt, tot))
-            cen = tot / cnt.clamp(min=1.0)[:, None]
-        return trace
+def ranks_summary(runs: list[dict], mesh: dict, device) -> dict:
+    """The ranks pass's numbers beside the mesh pass's, and its gates: a
+    rank's peak device bytes at most ``RANKS_PEAK_SHARE`` of the one-worker
+    run's, and the records equal to the one-controller mesh's."""
+    out = {"ranks": len(runs), "backend": runs[0]["backend"]}
+    for tag in LAUNCH_APPS:
+        per = [r[tag] for r in runs]
+        row = {"seconds": max(p["seconds"] for p in per),
+               "seconds_by_rank": [p["seconds"] for p in per],
+               "collective_seconds_by_rank":
+               [p["collective_seconds"] for p in per],
+               "collective_share": max(p["collective_seconds"]
+                                       / p["seconds"] for p in per),
+               "collectives": per[0]["collectives"],
+               "staged_bytes_by_rank": [p["staged_bytes"] for p in per],
+               "peak_bytes_by_rank": [p["peak_bytes"] for p in per],
+               "held_shape": per[0]["held_shape"],
+               "launches_by_rank": [p["launches"] for p in per],
+               "comm": per[0]["comm"],
+               **{k: per[0][k] for k in ("bit_equal", "counts_equal",
+                                         "answers") if k in per[0]}}
+        if "sums_max_abs_err" in per[0]:
+            row["sums_max_abs_err"] = max(p["sums_max_abs_err"]
+                                          for p in per)
+        one = mesh[tag]
+        for key in ("seconds_1_worker", f"seconds_{MESH_WORKERS}_workers",
+                    "peak_bytes_1_worker",
+                    f"peak_bytes_{MESH_WORKERS}_workers"):
+            row["mesh_" + key] = one[key]
+        require(all(p["comm"] == one["comm"]
+                    and p["in_specs"] == one["in_specs"]
+                    and p["out_specs"] == one["out_specs"] for p in per),
+                f"ranks/{tag}: records differ from the one-controller mesh")
+        if device.type == "cuda" and one["peak_bytes_1_worker"]:
+            share = max(p["peak_bytes"] for p in per) \
+                / one["peak_bytes_1_worker"]
+            row["peak_share_of_1_worker"] = share
+            if tag in RANKS_PEAK_SHARE:
+                require(share <= RANKS_PEAK_SHARE[tag], f"ranks/{tag}: a "
+                        "rank's peak is", share, "of one worker's, over",
+                        RANKS_PEAK_SHARE[tag])
+        out[tag] = row
+    return out
 
-    def kmeans_close(name, one, many):
-        err = 0.0
-        for it, ((c1, s1), (cw, sw)) in enumerate(zip(one, many)):
-            require(torch.equal(c1, cw), name, "counts differ at iteration",
-                    it)
-            err = max(err, check_close(f"{name}/sums/{it}", sw, s1,
-                                       rtol=1e-4, atol=1e-3)[0])
-        return {"counts_equal": True, "sums_max_abs_err": err}
 
-    centers = lattice_centers(gen, device)
-    both("kmeans", (clustered_points(n, centers, gen),
-                    start_centroids(centers, gen)), run_kmeans, kmeans_close,
-         "kmeans", "private", sizes.kmeans_iters)
-
-    # the f32 GEMM, B gathered
-    gemm_def = KernelDef.define(
-        "gemm", lambda v, info: {"C": gemm(v["A"], v["B"])},
-        "global [i, j] => read A[i,:], read B[:,j], write C[i,j]")
-    g = sizes.gemm
-
-    def run_gemm(ctx, a, b):
-        return ctx.launch(
-            gemm_def, grid=(g, g),
-            args={"A": ctx.array(a, dist=RowDist(), name="A"),
-                  "B": ctx.array(b, dist=RowDist(), name="B"),
-                  "C": ctx.zeros((g, g), dist=RowDist(), name="C")}
-        )["C"].value
-
-    both("gemm", gemm_inputs(g, g, g, torch.float32, gen, device), run_gemm,
-         equal, "gemm", "pipe" if on_card else None, 1)
-
-    # MD5, reduce(min): the planted key, then no match
-    md5_def = KernelDef.define("md5", md5_prefix_body,
-                               "global i => reduce(min) found[:]",
-                               scalars=("target",))
-    n = sizes.md5_n
-    targets = ((md5_digest(n - MD5_PLANT_BELOW_N), n - MD5_PLANT_BELOW_N),
-               (MD5_NO_MATCH, n))
-
-    def run_md5(ctx):
-        return [int(ctx.launch(
-            md5_def, grid=(n,), work_dist=BlockWork(n // w),
-            scalars={"target": t},
-            args={"found": ctx.full((1,), n, dtype=torch.int32,
-                                    name="found")})["found"].value[0])
-            for t, _ in targets]
-
-    def md5_same(name, one, many):
-        want = [e for _, e in targets]
-        require(one == many == want, name, "found", many, "one worker",
-                one, "expected", want)
-        return {"answers": many}
-
-    both("md5", (), run_md5, md5_same, "md5", "unwind" if on_card else None,
-         len(targets))
+def ranks_counts(runs: list[dict]) -> dict:
+    """Wrapper -> launches summed over the ranks."""
+    out: dict = {}
+    for tag, app in LAUNCH_APPS.items():
+        if app.wrapper:
+            out[app.wrapper] = out.get(app.wrapper, 0) + sum(
+                r[tag]["launches"] or 0 for r in runs)
     return out
 
 
@@ -4671,11 +4955,13 @@ def dist_record(name, fn, want, device, reps, *, rtol, atol,
             "max_abs_err": err[0]}
 
 
-def dist_collectives_rank(device, sizes: Sizes, seed: int) -> dict:
+def dist_collectives_rank(device, sizes: Sizes, seed: int,
+                          store: str | None = None) -> dict:
     """(a) Each collective on this rank's part of inputs every rank makes
     from ``seed``, held against the one-process computation on all of
     them, with its bytes, seconds, GB/s and staged bytes; then (b)
-    flash-decode over 4 shards of the cache."""
+    flash-decode over 4 shards of the cache; then, with ``store`` (the
+    mesh pass's), the ranks pass (``ranks_launch``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     make_mesh((2, 2), DIST_AXES)
     n, me = ranks.axis_size(DIST_AXES), ranks.axis_index(DIST_AXES)
@@ -4733,6 +5019,8 @@ def dist_collectives_rank(device, sizes: Sizes, seed: int) -> dict:
     out["compressed_psum"]["limit"] = scale * n * 1.01 + 1e-5
     del xs, x, flat
     out["flash_decode"] = dist_decode_rank(device, sizes, seed)
+    if store is not None:
+        out["launch"] = ranks_launch(device, sizes, store, n)
     return out
 
 
@@ -4801,10 +5089,12 @@ def dist_decode_rank(device, sizes: Sizes, seed: int) -> dict:
     return out
 
 
-def dist_nccl_rank(device, sizes: Sizes, seed: int) -> dict:
+def dist_nccl_rank(device, sizes: Sizes, seed: int,
+                   store: str | None = None) -> dict:
     """The NCCL path at world size 1 (NCCL refuses two ranks on one card):
     each primitive and collective on a card tensor, which a world of one
-    returns as it is, and nothing staged."""
+    returns as it is, and nothing staged; with ``store``, the ranks pass's
+    launches on a rank mesh of 1."""
     mesh = make_mesh((1, 1), DIST_AXES)
     require(torch.distributed.get_backend() == "nccl"
             and mesh.device_type == "cuda", "dist/nccl: backend",
@@ -4833,9 +5123,12 @@ def dist_nccl_rank(device, sizes: Sizes, seed: int) -> dict:
                                  sizes.reps)
     staged = ranks.staged_bytes() - before
     require(staged == 0, "dist/nccl staged", staged, "bytes")
-    return {"backend": "nccl", "world": 1, "checked": sorted(results)
-            + ["compressed_psum"], "staged_bytes": staged,
-            "psum_seconds": seconds}
+    out = {"backend": "nccl", "world": 1, "checked": sorted(results)
+           + ["compressed_psum"], "staged_bytes": staged,
+           "psum_seconds": seconds}
+    if store is not None:
+        out["launch"] = ranks_launch(device, sizes, store, 1)
+    return out
 
 
 def digest(x: torch.Tensor) -> tuple[int, int]:
@@ -5094,15 +5387,19 @@ def merged_digests(parts: list[dict]) -> dict:
     return out
 
 
-def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
+def phase_dist(sizes: Sizes, device: torch.device, seed: int,
+               store: str | None = None, mesh: dict | None = None) -> dict:
     """The distribution layer over ranks on the one card: 4 ranks under
     gloo (NCCL refuses two ranks on one card; gloo stages a card tensor
     through pinned host memory, which each collective's staged bytes
     count) for (a) the collectives and (b) flash-decode over a
-    sequence-sharded cache, one rank under NCCL, (c) gemma-2b's
-    data-parallel step and (d) the elastic restore of its ZeRO-1 state
-    onto 2 ranks and 1.  Four ranks sharing one card measure correctness
-    and each collective's cost; they measure no scaling."""
+    sequence-sharded cache, then, with the mesh pass's ``store`` and
+    numbers (``mesh``), the ranks pass: its applications launched over
+    the 4 ranks (``ranks_launch``) and on the NCCL rank as a rank mesh of
+    1; one rank under NCCL, (c) gemma-2b's data-parallel step and (d) the
+    elastic restore of its ZeRO-1 state onto 2 ranks and 1.  Four ranks
+    sharing one card measure correctness and each collective's cost; they
+    measure no scaling."""
     t0 = time.perf_counter()
     free(device)
     n = sizes.dist_ranks
@@ -5118,9 +5415,14 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
         _build.load()
     t1 = time.perf_counter()
     coll = ranks.spawn(dist_collectives_rank, n, backend="gloo",
-                       device=where, args=(sizes, seed),
+                       device=where, args=(sizes, seed, store),
                        timeout=DIST_TIMEOUT_S, env=RANK_ENV)
     out["spawn_and_collectives_seconds"] = time.perf_counter() - t1
+    if store is not None:
+        out["ranks_pass"] = ranks_summary([c["launch"] for c in coll], mesh,
+                                          device)
+        out["ranks_pass_launches"] = ranks_counts([c["launch"]
+                                                   for c in coll])
     names = [k for k in coll[0] if isinstance(coll[0][k], dict)
              and "gb_per_s" in coll[0][k]]
     out["collectives"] = {name: {
@@ -5155,9 +5457,16 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
     if device.type == "cuda":
         t1 = time.perf_counter()
         out["nccl"] = ranks.spawn(dist_nccl_rank, 1, backend="nccl",
-                                  device=where, args=(sizes, seed),
+                                  device=where, args=(sizes, seed, store),
                                   timeout=DIST_TIMEOUT_S, env=RANK_ENV)[0]
         out["nccl"]["spawn_seconds"] = time.perf_counter() - t1
+        if store is not None:
+            one = out["nccl"].pop("launch")
+            out["nccl"]["ranks_pass"] = {
+                tag: {k: one[tag][k] for k in ("seconds", "peak_bytes",
+                                               "launches", "held_shape")}
+                for tag in LAUNCH_APPS}
+            out["nccl_launches"] = ranks_counts([one])
     else:
         out["nccl"] = {"skipped": "rehearsal on the CPU: no NCCL"}
 
@@ -5222,6 +5531,33 @@ def phase_dist(sizes: Sizes, device: torch.device, seed: int) -> dict:
                           "onto": [2, 1], "bit_equal": True,
                           "local_master_shapes_two":
                           halves[0]["local_master_shapes"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def phase_ranks(sizes: Sizes, device: torch.device, store: str,
+                mesh: dict) -> dict:
+    """The ranks pass alone (``tools/dist_probe.py --launch``): the mesh
+    pass's applications over 4 gloo ranks on the one card and on one NCCL
+    rank, in spawns of their own."""
+    t0 = time.perf_counter()
+    free(device)
+    where = dist_device(device)
+    if device.type == "cuda":
+        _build.load()
+    runs = ranks.spawn(ranks_launch_rank, sizes.dist_ranks, backend="gloo",
+                       device=where, args=(sizes, store),
+                       timeout=DIST_TIMEOUT_S, env=RANK_ENV)
+    out = {"phase": "ranks", **ranks_summary(runs, mesh, device),
+           "launches": ranks_counts(runs)}
+    if device.type == "cuda":
+        one = ranks.spawn(ranks_launch_rank, 1, backend="nccl", device=where,
+                          args=(sizes, store), timeout=DIST_TIMEOUT_S,
+                          env=RANK_ENV)[0]
+        out["nccl"] = {tag: {k: one[tag][k] for k in (
+            "seconds", "peak_bytes", "launches", "held_shape")}
+            for tag in LAUNCH_APPS}
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -6427,13 +6763,15 @@ def main(argv=None) -> int:
     # and train phases' measurements.
     started = dryrun_start(sizes,
                            max(1, len(os.sched_getaffinity(0)) // 2))
+    # the mesh pass's inputs and one-worker results, for the ranks pass
+    store = tempfile.mkdtemp(prefix="launch-store-")
     try:
         rows = phase_kernels(sizes, device, gen, build)
 
         # The launch and streaming path: every count set to 0 just before,
         # read just after.
         zero_counts()
-        launch = phase_launch(sizes, device, gen)
+        launch = phase_launch(sizes, device, gen, store)
         stream = phase_stream(sizes, device, args.seed)
         counts = {name: w.launches for name, w in WRAPPERS.items()}
         routes = route_counts()
@@ -6445,14 +6783,17 @@ def main(argv=None) -> int:
         # The training path zeroes and reads the counts around its steps.
         train = phase_train(sizes, device, args.seed)
         # Each rank of the distribution phase zeroes and reads its own
-        # counts around its flash-decode path.
-        dist = phase_dist(sizes, device, args.seed)
+        # counts around its flash-decode path, and reads them around each
+        # application of the ranks pass.
+        dist = phase_dist(sizes, device, args.seed, store, launch["mesh"])
+        shutil.rmtree(store, ignore_errors=True)
         # Each rank of the tensor-parallel phase zeroes and reads its own
         # counts around its engine run.
         tp = phase_tp(sizes, device, args.seed)
         phase_dryrun(sizes, tp, train, started)
     finally:
         dryrun_stop(started)
+        shutil.rmtree(store, ignore_errors=True)
     served = {arch: out["kernel_launches"] for arch, out in serves.items()}
     rwkv = served["rwkv6-3b"]
     hybrid = served["recurrentgemma-2b"]
@@ -6478,6 +6819,12 @@ def main(argv=None) -> int:
         "rg_lru": hybrid["rg_lru"] + sum(tp["launches"]["rg_lru"].values()),
     }
     require(per_row["gemm"] + per_row["gemm_bf16"] == counts["gemm"])
+    # the ranks pass's launches, in the ranks of the dist phase
+    over_ranks = dist["ranks_pass_launches"]
+    on_nccl = dist.get("nccl_launches", {})
+    in_parent = {name: per_row[name] for name in over_ranks}
+    for name in over_ranks:
+        per_row[name] += over_ranks[name] + on_nccl.get(name, 0)
     # The two kernels launched at more than one shape, split by shape.
     by_shape = {
         "kmeans": {"launch phase": launch["kmeans"]["kernel_launches"],
@@ -6491,6 +6838,11 @@ def main(argv=None) -> int:
            for name in ("flash_attention", "decode_attention")}}
     by_shape["decode_attention"]["dist phase"] = \
         dist["decode_attention_launches"]
+    for name in over_ranks:
+        by_shape.setdefault(name, {"launch phase and mesh pass":
+                                   in_parent[name]})
+        by_shape[name]["ranks pass (4 gloo ranks)"] = over_ranks[name]
+        by_shape[name]["ranks pass (one NCCL rank)"] = on_nccl.get(name, 0)
     by_shape["wkv6"] = {"serve phase": rwkv["wkv6"]}
     for name, by_arch in tp["launches"].items():
         for arch, count in by_arch.items():
@@ -6509,7 +6861,9 @@ def main(argv=None) -> int:
           "serve_launches": served,
           "train_launches": train["kernel_launches"],
           "dist_launches": {"decode_attention":
-                            dist["decode_attention_launches"]},
+                            dist["decode_attention_launches"],
+                            "ranks_pass": over_ranks,
+                            "ranks_pass_nccl": on_nccl},
           "tp_launches": tp["launches"]})
 
     if args.rehearse:

@@ -11,7 +11,12 @@ Public API (mirrors the paper's host-code surface, Fig. 9):
   :class:`TileWork`, :class:`MeshWork`
 * :func:`~repro_torch.core.annotations.parse` — the data-annotation DSL
 * :class:`~repro_torch.core.mesh.Mesh`, :func:`make_mesh` — workers with
-  named axes, and :func:`collective_reduce`, the combine across them
+  named axes, and :func:`collective_reduce`, the combine across them; on
+  a rank mesh (``Context(mesh=<DeviceMesh>)``, one ``torch.distributed``
+  rank a worker, each holding only its shards) its rank form
+  :func:`collective_reduce_ranks`, and :func:`is_rank_mesh`,
+  :func:`mesh_shape`, :func:`mesh_size`, :func:`mesh_coords`, the one
+  surface both kinds of mesh share
 * the paper's runtime model: :class:`MemoryManager` (per-worker LRU
   spilling across device, host and disk, §3.4) and :class:`Simulator`
   (the discrete-event scheduler with staging throttle, prefetch, the d2d
@@ -56,11 +61,18 @@ from .memory import (
     OutOfMemory,
     Tier,
 )
-from .mesh import Mesh, make_mesh
+from .mesh import (
+    Mesh,
+    is_rank_mesh,
+    make_mesh,
+    mesh_coords,
+    mesh_shape,
+    mesh_size,
+)
 from .ndrange import Affine, Region
 from .plan_ir import ArgPlan, CommPattern, ExecutionPlan, LaunchPlan, TaskKind
 from .planner import ArrayMeta, Planner, Topology
-from .reductions import collective_reduce
+from .reductions import collective_reduce, collective_reduce_ranks
 from .scheduler import SimResult, Simulator
 from .superblock import BlockWork, EvenWork, MeshWork, Superblock, TileWork
 
@@ -69,12 +81,15 @@ __all__ = [
     "BlockDist", "BlockWork", "Chunk", "ColDist", "CommPattern", "Context",
     "CustomDist", "DistributedArray", "Distribution", "EvenWork",
     "ExecutionPlan", "FaultInjector", "FaultSpec", "HardwareModel",
-    "InjectedError", "InjectedFault", "Interconnect", "KernelDef",
+    "InjectedError", "InjectedFault", "Interconnect", "is_rank_mesh",
+    "KernelDef",
     "LaunchPlan", "make_array", "make_mesh", "MemoryManager", "Mesh",
+    "mesh_coords", "mesh_shape", "mesh_size",
     "MeshWork", "OutOfMemory", "parse", "Planner", "RecoveryPolicy",
     "Region", "ReplicatedDist", "RowDist", "SimResult", "Simulator",
     "StencilDist", "Superblock", "SuperblockInfo", "TaskKind", "Tier",
     "TileDist", "TileWork", "Topology", "collective_reduce",
+    "collective_reduce_ranks",
     "corrupt_transfer", "decorrelated_jitter", "fail_launch",
     "fail_request", "fail_step", "fail_task", "kill_worker", "spurious_oom",
     "timeout_transfer",

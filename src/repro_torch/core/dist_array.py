@@ -1,12 +1,20 @@
 """Distributed multi-dimensional arrays (paper §2.2) on ``torch.Tensor``.
 
 A :class:`DistributedArray` pairs a tensor with a chunk
-:class:`~repro_torch.core.distributions.Distribution`.  ``value`` is always
-the logical global tensor, on the context's device.  Without a mesh the
-chunk structure exists only in planner metadata (exactly the paper's
-"distributions affect performance, not correctness"); on a
+:class:`~repro_torch.core.distributions.Distribution`.  Without a mesh, or
+on a :class:`~repro_torch.core.mesh.Mesh` of workers on one controller,
+``value`` is the logical global tensor, on the context's device.  Without a
+mesh the chunk structure exists only in planner metadata (exactly the
+paper's "distributions affect performance, not correctness"); on a
 :class:`~repro_torch.core.mesh.Mesh` the distribution's partition spec says
 which piece of it each worker holds (:meth:`DistributedArray.shards`).
+
+On a rank mesh (a ``DeviceMesh`` of ``torch.distributed`` ranks) ``value``
+is this rank's shard alone, on the rank's device, as the reference's
+``device_put`` onto a ``NamedSharding`` leaves each device its shard:
+``shape``, ``nbytes`` and ``meta()`` stay global (the planner plans on
+global shapes), and ``to_numpy()`` and ``read_region()`` are collective,
+the whole array on every rank.
 """
 
 from __future__ import annotations
@@ -19,9 +27,18 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import ranks
 
 from .distributions import Distribution, ReplicatedDist
-from .mesh import Mesh, check_divisible, shard_of
+from .mesh import (
+    Mesh,
+    check_divisible,
+    is_rank_mesh,
+    local_worker,
+    mesh_size,
+    shard_of,
+    shard_shape,
+)
 from .ndrange import Region
 from .planner import ArrayMeta
 
@@ -32,6 +49,21 @@ class Sharding(NamedTuple):
 
     mesh: Mesh
     spec: tuple
+
+
+def placement_spec(dist: Distribution, mesh, mesh_axes: Sequence[str],
+                   ndim: int) -> tuple:
+    """``dist``'s spec over ``mesh_axes``, padded with None (or cut) to
+    ``ndim``; () without a mesh or for a replicated distribution.  An
+    entry naming one axis is that name, and one naming none is None, as
+    the reference's ``PartitionSpec`` has them."""
+    if mesh is None or isinstance(dist, ReplicatedDist):
+        return ()
+    spec = tuple(
+        (e[0] if len(e) == 1 else e or None) if isinstance(e, tuple)
+        else e for e in dist.partition_spec(tuple(mesh_axes)))
+    spec = spec + (None,) * (ndim - len(spec))
+    return spec[:ndim]
 
 
 # eq=False: comparing two arrays field by field would compare tensors
@@ -45,11 +77,16 @@ class DistributedArray:
     dist: Distribution
     mesh: Mesh | None = None
     mesh_axes: tuple[str, ...] = ()
+    #: the global shape where ``value`` is a rank's shard (a rank mesh);
+    #: None where ``value`` is the whole array
+    global_shape: tuple[int, ...] | None = None
 
     # -- metadata ---------------------------------------------------------------
 
     @property
     def shape(self) -> tuple[int, ...]:
+        if self.global_shape is not None:
+            return self.global_shape
         return tuple(self.value.shape)
 
     @property
@@ -75,15 +112,9 @@ class DistributedArray:
     def partition_spec(self) -> tuple:
         """The distribution's spec over ``mesh_axes``, padded with None (or
         cut) to the array's rank; () without a mesh or for a replicated
-        array.  An entry naming one axis is that name, and one naming none
-        is None, as the reference's ``PartitionSpec`` has them."""
-        if self.mesh is None or isinstance(self.dist, ReplicatedDist):
-            return ()
-        spec = tuple(
-            (e[0] if len(e) == 1 else e or None) if isinstance(e, tuple)
-            else e for e in self.dist.partition_spec(self.mesh_axes))
-        spec = spec + (None,) * (len(self.shape) - len(spec))
-        return spec[: len(self.shape)]
+        array (:func:`placement_spec`)."""
+        return placement_spec(self.dist, self.mesh, self.mesh_axes,
+                              len(self.shape))
 
     def sharding(self) -> Sharding | None:
         if self.mesh is None:
@@ -91,14 +122,16 @@ class DistributedArray:
         return Sharding(self.mesh, self.partition_spec())
 
     def chunks(self, num_devices: int | None = None):
-        nd = num_devices or (self.mesh.size if self.mesh is not None else 1)
+        nd = num_devices or (mesh_size(self.mesh) if self.mesh is not None
+                             else 1)
         return self.dist.chunks(self.shape, nd)
 
     def shards(self) -> list[torch.Tensor]:
         """Each worker's piece of ``value`` by the partition spec, by flat
         worker index: views where the worker lies on ``value``'s device,
-        copies otherwise.  Without a mesh, ``[value]``."""
-        if self.mesh is None:
+        copies otherwise.  Without a mesh, ``[value]``; on a rank mesh,
+        ``[value]`` too: a rank holds its own shard only."""
+        if self.mesh is None or is_rank_mesh(self.mesh):
             return [self.value]
         spec = self.partition_spec()
         return [shard_of(self.value, spec, self.mesh, w)
@@ -107,7 +140,13 @@ class DistributedArray:
     # -- data access --------------------------------------------------------------
 
     def to_numpy(self) -> np.ndarray:
-        return self.value.detach().cpu().numpy()
+        """The whole array on the host.  On a rank mesh every rank's shard
+        is gathered: a collective, which every rank of the mesh calls."""
+        value = self.value
+        if is_rank_mesh(self.mesh):
+            with ranks.use_mesh(self.mesh):
+                value = ranks.spec_gather(value, self.partition_spec())
+        return value.detach().cpu().numpy()
 
     def read_region(self, region: Region) -> np.ndarray:
         return self.to_numpy()[region.to_slices()]
@@ -139,17 +178,60 @@ def make_array(
     numpy array is copied, never aliased: launches are functional updates,
     and the caller's buffer stays the caller's.  On a mesh of more than one
     worker, a sharded axis that does not split evenly raises, as the
-    reference's placement does."""
-    if device is None:
+    reference's placement does.
+
+    On a rank mesh ``value`` is the whole array, which every rank passes:
+    a rank takes its own slice of it first (of the host array, where it is
+    one) and moves only that slice to ``device``, which is then required.
+    The uneven split raises on every rank alike, before any collective."""
+    rank = is_rank_mesh(mesh)
+    if rank:
+        if device is None:
+            raise ValueError("an array on a rank mesh needs the rank's "
+                             "device")
+        shape = tuple(value.shape)
+        spec = placement_spec(dist, mesh, mesh_axes, len(shape))
+        check_divisible(shape, spec, mesh, f"array {name!r}")
+        value = shard_of(value, spec, mesh, local_worker(mesh))
+    elif device is None:
         device = (mesh.devices.flat[0] if mesh is not None
                   else resolve_device(None))
     if isinstance(value, np.ndarray):
-        if torch.device(device).type == "cpu" or not value.flags.writeable:
+        if torch.device(device).type == "cpu" or not value.flags.writeable \
+                or not value.flags.c_contiguous:
             value = np.array(value)
         value = torch.from_numpy(value)
     arr = DistributedArray(name=name, value=value.to(device).contiguous(),
-                           dist=dist, mesh=mesh, mesh_axes=tuple(mesh_axes))
-    if mesh is not None and mesh.size > 1:
+                           dist=dist, mesh=mesh, mesh_axes=tuple(mesh_axes),
+                           global_shape=shape if rank else None)
+    if not rank and mesh is not None and mesh.size > 1:
         check_divisible(arr.shape, arr.partition_spec(), mesh,
                         f"array {name!r}")
     return arr
+
+
+def full_array(
+    name: str,
+    shape: Sequence[int],
+    fill,
+    dtype: torch.dtype,
+    dist: Distribution,
+    mesh=None,
+    mesh_axes: Sequence[str] = (),
+    *,
+    device: torch.device | str | None = None,
+) -> DistributedArray:
+    """An array of ``shape`` filled with ``fill``, placed as
+    :func:`make_array` places one; on a rank mesh only this rank's shard
+    is allocated."""
+    shape = tuple(int(s) for s in shape)
+    if not is_rank_mesh(mesh):
+        return make_array(name, torch.full(shape, fill, dtype=dtype,
+                                           device=device),
+                          dist, mesh, mesh_axes, device=device)
+    spec = placement_spec(dist, mesh, mesh_axes, len(shape))
+    check_divisible(shape, spec, mesh, f"array {name!r}")
+    value = torch.full(shard_shape(shape, spec, mesh), fill, dtype=dtype,
+                       device=device)
+    return DistributedArray(name=name, value=value, dist=dist, mesh=mesh,
+                            mesh_axes=tuple(mesh_axes), global_shape=shape)

@@ -31,6 +31,19 @@ execution:
 Each worker's body makes its own kernel calls, so a launch over k workers
 launches each kernel k times; workers on one GPU run one after another on
 its current stream.
+
+* **a rank mesh** (``Context(mesh=<DeviceMesh>)``, the ``DeviceMesh`` of
+  ``repro_torch.launch.mesh.make_mesh`` over ``torch.distributed`` ranks)
+  — the reference's ``shard_map`` as SPMD: every rank calls
+  ``Context.launch`` alike, holds only its own shards and runs its own
+  superblock's body.  The patterns are carried by the collectives of
+  :mod:`repro_torch.dist.ranks`: HALO by two ``ppermute`` chains along the
+  first mesh axis, GATHER by ``all_gather_tiled`` over each sharded
+  dimension's axes, REDUCE by ``collective_reduce_ranks`` (``psum``,
+  ``pmin``, ``pmax``, or a gather and a product).  Each emits a
+  ``collective:halo`` / ``collective:gather`` / ``collective:reduce`` span
+  on stream ``dist`` with the bytes it sends.  A written output is the
+  rank's shard under its spec; a reduced one is held whole by every rank.
 """
 
 from __future__ import annotations
@@ -42,18 +55,30 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import ranks
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import NULL_TRACER
 
 from . import annotations as ann_mod
 from .annotations import REDUCE as MODE_REDUCE, Annotation
-from .dist_array import DistributedArray, make_array
+from .dist_array import DistributedArray, full_array, make_array
 from .distributions import Distribution, ReplicatedDist
-from .faults import FaultInjector, RecoveryPolicy
-from .mesh import Mesh, assemble, make_mesh, shard_of
+from .faults import FaultInjector, InjectedError, RecoveryPolicy
+from .mesh import (
+    Mesh,
+    assemble,
+    is_rank_mesh,
+    local_worker,
+    make_mesh,
+    mesh_coords,
+    mesh_shape,
+    mesh_size,
+    shard_of,
+    spec_axes,
+)
 from .plan_ir import CommPattern, ExecutionPlan, LaunchPlan
 from .planner import Planner, Topology
-from .reductions import collective_reduce
+from .reductions import collective_reduce, collective_reduce_ranks
 from .superblock import EvenWork, WorkDistribution
 
 
@@ -129,7 +154,9 @@ class Context:
         works as there); the port's own two are keyword-only.  ``device``
         holds the global arrays (None: the GPU, or the mesh's first
         worker's device); ``num_workers=k`` is shorthand for a 1-D mesh
-        ``("data",)`` of k workers, all on ``device``."""
+        ``("data",)`` of k workers, all on ``device``.  On a rank mesh
+        ``device`` holds this rank's shards, and None is the rank's card
+        (``ranks.rank_device``), which raises where there is none."""
         if num_workers < 1:
             raise ValueError(f"num_workers must be at least 1, got "
                              f"{num_workers}")
@@ -137,12 +164,16 @@ class Context:
             if mesh is not None:
                 raise ValueError("give a mesh or num_workers, not both")
             mesh = make_mesh((num_workers,), ("data",), device)
-        if mesh is not None and device is None:
+        if is_rank_mesh(mesh):
+            self.device = ranks.rank_device(
+                device, torch.distributed.get_rank())
+        elif mesh is not None and device is None:
             self.device = mesh.devices.flat[0]
         else:
             self.device = resolve_device(device)
         self.mesh = mesh
-        self.mesh_axes = tuple(mesh_axes or (mesh.axis_names if mesh else ()))
+        self.mesh_axes = tuple(mesh_axes or (
+            tuple(mesh_shape(mesh)) if mesh is not None else ()))
         # Observability: launches emit plan/execute spans on the ``driver``
         # stream and count launches/retries/recoveries on the registry
         # (resolved lazily so ``use_registry`` redirects us too).
@@ -154,7 +185,8 @@ class Context:
         self.fault_injector = fault_injector
         self.recovery = recovery or RecoveryPolicy()
         self.fault_events: list[dict] = []
-        self.topology = Topology(mesh.size if mesh else 1, devices_per_node)
+        self.topology = Topology(mesh_size(mesh) if mesh is not None else 1,
+                                 devices_per_node)
         # Plan caching (repeated launches skip re-planning) shares this
         # context's registry so hit/miss counters land with the launch ones.
         self.planner = Planner(self.topology, registry=registry,
@@ -193,17 +225,18 @@ class Context:
         )
 
     def zeros(self, shape, dtype=torch.float32, dist=None, name=None):
-        return self.array(
-            torch.zeros(shape, dtype=dtype, device=self.device), dist, name)
+        return self.full(shape, 0, dtype, dist, name)
 
     def ones(self, shape, dtype=torch.float32, dist=None, name=None):
-        return self.array(
-            torch.ones(shape, dtype=dtype, device=self.device), dist, name)
+        return self.full(shape, 1, dtype, dist, name)
 
     def full(self, shape, fill, dtype=torch.float32, dist=None, name=None):
-        return self.array(
-            torch.full(shape, fill, dtype=dtype, device=self.device),
-            dist, name)
+        """An array of ``fill``; on a rank mesh only this rank's shard is
+        allocated."""
+        return full_array(
+            name or self._fresh_name("arr"), shape, fill, dtype,
+            dist or ReplicatedDist(), self.mesh, self.mesh_axes,
+            device=self.device)
 
     # -- launch ------------------------------------------------------------------
 
@@ -238,13 +271,19 @@ class Context:
         with self.tracer.span(f"launch:{kernel.name}", stream="driver",
                               cat="compute", grid=list(grid),
                               devices=self.num_devices):
-            if self.mesh is None or self.mesh.size == 1:
+            if self.mesh is None or mesh_size(self.mesh) == 1:
                 outputs = self._with_recovery(
                     kernel, lambda: self._execute_single(kernel, grid, args,
                                                          scalars)
                 )
                 in_specs = {n: () for n in args}
                 out_specs = {n: () for n in outputs}
+            elif is_rank_mesh(self.mesh):
+                outputs, in_specs, out_specs = self._with_recovery(
+                    kernel, lambda: self._execute_ranks(kernel, grid, args,
+                                                        scalars, plan,
+                                                        work_dist)
+                )
             else:
                 outputs, in_specs, out_specs = self._with_recovery(
                     kernel, lambda: self._execute_mesh(kernel, grid, args,
@@ -269,20 +308,31 @@ class Context:
         attempt raises — retry up to ``recovery.max_attempts`` times before
         propagating.  Launches are functional (bodies and kernel wrappers
         allocate their outputs and never write into an input), so
-        re-execution is always safe."""
+        re-execution is always safe.
+
+        On a rank mesh only injected failures retry.  The probe comes
+        before the attempt and, with the same injector and seed on every
+        rank, decides alike on all of them, so they retry together and
+        their ``fault_events`` agree.  A real exception raised on one rank
+        propagates at once: the others may be waiting in a collective of
+        the attempt, which no retry could rejoin, and ``ranks.spawn`` stops
+        every rank within its timeout."""
         if self.fault_injector is None:
             return attempt_fn()
+        ranked = is_rank_mesh(self.mesh) and mesh_size(self.mesh) > 1
         attempt = 0
         while True:
             try:
                 if self.fault_injector.probe(
                     "launch", task=len(self.records), site=kernel.name
                 ):
-                    raise RuntimeError(
+                    raise InjectedError(
                         f"injected launch failure: {kernel.name}"
                     )
                 result = attempt_fn()
             except Exception as exc:  # noqa: BLE001 — retried, then re-raised
+                if ranked and not isinstance(exc, InjectedError):
+                    raise
                 attempt += 1
                 self.fault_events.append({
                     "kind": "launch_failure", "launch": kernel.name,
@@ -311,11 +361,11 @@ class Context:
     def synchronize(self, *arrays: DistributedArray) -> None:
         """Block until dispatched work completes (paper Fig. 9 line 21):
         a synchronise of the context's device and of every CUDA device of
-        its mesh.  ``arrays`` are accepted for the reference's call shape;
-        kernels are enqueued in order on each device, so waiting for the
-        devices covers them."""
+        its mesh (on a rank mesh, of the rank's own device).  ``arrays``
+        are accepted for the reference's call shape; kernels are enqueued
+        in order on each device, so waiting for the devices covers them."""
         devices = {self.device}
-        if self.mesh is not None:
+        if self.mesh is not None and not is_rank_mesh(self.mesh):
             devices.update(self.mesh.worker_devices())
         for device in devices:
             if device.type == "cuda":
@@ -360,42 +410,16 @@ class Context:
         mesh = self.mesh
         assert mesh is not None
         axes = self.mesh_axes
-        ann = kernel.annotation
-        # The work distribution splits one grid axis over all the workers.
-        split_axis = getattr(work_dist, "axis", 0)
         patterns = {a.array: a for a in plan.args}
-
-        in_specs = {
-            name: () if patterns[name].pattern is CommPattern.REPLICATED
-            else arr.partition_spec()
-            for name, arr in args.items()
-        }
-        written = [s.array for s in ann.stmts if s.writes]
-        out_specs: dict[str, tuple] = {}
-        for name in written:
-            ap = patterns[name]
-            if (ap.pattern in (CommPattern.REDUCE, CommPattern.REPLICATED)
-                    or ap.mode == MODE_REDUCE):
-                out_specs[name] = ()  # one result, held by every worker
-            else:
-                out_specs[name] = args[name].partition_spec()
+        in_specs, out_specs, written = _specs(kernel, args, patterns)
 
         n_shards = mesh.size
-        sb_threads = grid[split_axis] // n_shards
         shards = {name: [shard_of(arr.value, in_specs[name], mesh, w)
                          for w in range(n_shards)]
                   for name, arr in args.items()}
         per_worker = []
         for w in range(n_shards):
-            coords = mesh.coords(w)
-            idx = coords[axes[0]]
-            for ax in axes[1:]:
-                idx = idx * mesh.shape[ax] + coords[ax]
-            offset = [0] * len(grid)
-            offset[split_axis] = idx * sb_threads
-            local_shape = list(grid)
-            local_shape[split_axis] = sb_threads
-
+            info = _superblock(grid, scalars, work_dist, mesh, axes, w)
             views: dict[str, torch.Tensor] = {}
             for name, arr in args.items():
                 ap = patterns[name]
@@ -412,13 +436,6 @@ class Context:
                     # where the worker lies on its device: bodies never
                     # write their views)
                     views[name] = arr.value.to(mesh.devices.flat[w])
-            info = SuperblockInfo(
-                grid=grid,
-                thread_offset=tuple(offset),
-                local_shape=tuple(local_shape),
-                device_index=idx,
-                scalars=scalars,
-            )
             outs = dict(kernel.body(views, info))
             per_worker.append([outs[name] for name in written])
 
@@ -433,6 +450,141 @@ class Context:
                 outputs[name] = assemble(pieces, out_specs[name], mesh,
                                          self.device)
         return outputs, in_specs, out_specs
+
+    # -- execution over ranks ---------------------------------------------------------
+
+    def _execute_ranks(
+        self,
+        kernel: KernelDef,
+        grid: tuple[int, ...],
+        args: Mapping[str, DistributedArray],
+        scalars: dict[str, Any],
+        plan: LaunchPlan,
+        work_dist: WorkDistribution,
+    ) -> tuple[dict[str, torch.Tensor], dict[str, tuple], dict[str, tuple]]:
+        """The reference's ``shard_body`` in this rank: its views from its
+        own shards and the collectives each pattern needs, its
+        superblock's body, then its outputs: a written one is its shard
+        under ``out_spec``, a reduced one the combined whole (sliced to the
+        rank's shard where the array's own spec splits it, so that
+        ``value`` is always the shard under ``partition_spec()``)."""
+        mesh, axes = self.mesh, self.mesh_axes
+        patterns = {a.array: a for a in plan.args}
+        in_specs, out_specs, written = _specs(kernel, args, patterns)
+        me = local_worker(mesh)
+        info = _superblock(grid, scalars, work_dist, mesh, axes, me)
+        span = dict(worker=me, stream="dist", cat="dist")
+        with ranks.use_mesh(mesh):
+            views: dict[str, torch.Tensor] = {}
+            for name, arr in args.items():
+                pattern = patterns[name].pattern
+                held = arr.partition_spec()
+                if pattern is CommPattern.HALO:
+                    halo = patterns[name].halo_width or (1,)
+                    views[name] = _halo_exchange_ranks(
+                        arr.value, halo, axes, self.tracer, span)
+                elif pattern in (CommPattern.LOCAL, CommPattern.REDUCE) or \
+                        not any(map(spec_axes, held)):
+                    # REDUCE: the partial buffer, which the body replaces
+                    views[name] = arr.value
+                else:
+                    # GATHER, REPLICATED of a split array, and SCATTER and
+                    # the rest by the gather fallback: every shard
+                    views[name] = _gather_ranks(arr.value, held, self.tracer,
+                                                span)
+            outs = dict(kernel.body(views, info))
+            outputs: dict[str, torch.Tensor] = {}
+            for name in written:
+                ap, out = patterns[name], outs[name]
+                if ap.pattern is CommPattern.REDUCE or ap.mode == MODE_REDUCE:
+                    with self.tracer.span(
+                            "collective:reduce", op=ap.reduce_op or "+",
+                            bytes=out.numel() * out.element_size(), **span):
+                        out = collective_reduce_ranks(ap.reduce_op or "+",
+                                                      out, axes)
+                held = args[name].partition_spec()
+                if not out_specs[name] and any(map(spec_axes, held)):
+                    out = shard_of(out, held, mesh, me).contiguous()
+                outputs[name] = out
+        return outputs, in_specs, out_specs
+
+
+def _specs(kernel: KernelDef, args: Mapping[str, DistributedArray],
+           patterns: Mapping[str, Any]):
+    """(in_specs, out_specs, written) of a launch on a mesh, as the
+    reference's ``_execute_mesh`` derives them: a REPLICATED argument's
+    spec is (), a reduced or replicated output's () (one result, held by
+    every worker), every other its array's partition spec."""
+    in_specs = {
+        name: () if patterns[name].pattern is CommPattern.REPLICATED
+        else arr.partition_spec()
+        for name, arr in args.items()
+    }
+    written = [s.array for s in kernel.annotation.stmts if s.writes]
+    out_specs: dict[str, tuple] = {}
+    for name in written:
+        ap = patterns[name]
+        if (ap.pattern in (CommPattern.REDUCE, CommPattern.REPLICATED)
+                or ap.mode == MODE_REDUCE):
+            out_specs[name] = ()
+        else:
+            out_specs[name] = args[name].partition_spec()
+    return in_specs, out_specs, written
+
+
+def _superblock(grid: tuple[int, ...], scalars: dict[str, Any],
+                work_dist: WorkDistribution, mesh, axes: Sequence[str],
+                worker: int) -> SuperblockInfo:
+    """Worker ``worker``'s superblock: its flat index over ``axes`` (the
+    reference's ``idx * mesh.shape[ax] + axis_index(ax)``), and its share
+    of the one grid axis the work distribution splits over all the
+    workers."""
+    coords, shape = mesh_coords(mesh, worker), mesh_shape(mesh)
+    idx = coords[axes[0]]
+    for ax in axes[1:]:
+        idx = idx * shape[ax] + coords[ax]
+    split_axis = getattr(work_dist, "axis", 0)
+    sb_threads = grid[split_axis] // mesh_size(mesh)
+    offset = [0] * len(grid)
+    offset[split_axis] = idx * sb_threads
+    local_shape = list(grid)
+    local_shape[split_axis] = sb_threads
+    return SuperblockInfo(grid=grid, thread_offset=tuple(offset),
+                          local_shape=tuple(local_shape), device_index=idx,
+                          scalars=scalars)
+
+
+def _gather_ranks(x: torch.Tensor, spec: tuple, tracer,
+                  span: dict) -> torch.Tensor:
+    """The whole array from every rank's shard ``x`` under ``spec``: a
+    tiled gather over each sharded dimension's axes (the reference's
+    ``all_gather(..., tiled=True)``), in ``shard_index``'s order."""
+    with tracer.span("collective:gather",
+                     bytes=x.numel() * x.element_size(), **span):
+        return ranks.spec_gather(x, spec)
+
+
+def _halo_exchange_ranks(x: torch.Tensor, halo: tuple[int, ...],
+                         axes: Sequence[str], tracer,
+                         span: dict) -> torch.Tensor:
+    """This rank's shard with ``halo`` cells of its +-1 neighbours along
+    the first mesh axis on either side, by two ``ranks.ppermute`` chains:
+    each rank's last cells to the next rank, its first to the previous.
+    The two end shards receive zeros: no rank sends to them, where the
+    reference's rings send around and zero what arrives."""
+    axis = axes[0]
+    n = ranks.axis_size(axis)
+    h = next((v for v in halo if v), 1)
+    dim = next((i for i, v in enumerate(halo) if v), 0)
+    first = x.narrow(dim, 0, h)
+    last = x.narrow(dim, x.shape[dim] - h, h)
+    with tracer.span("collective:halo", bytes=2 * last.numel()
+                     * last.element_size(), **span):
+        from_left = ranks.ppermute(last, axis,
+                                   [(i, i + 1) for i in range(n - 1)])
+        from_right = ranks.ppermute(first, axis,
+                                    [(i + 1, i) for i in range(n - 1)])
+    return torch.cat([from_left, x, from_right], dim=dim)
 
 
 def _halo_exchange(

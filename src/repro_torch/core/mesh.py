@@ -10,6 +10,15 @@ Partition specs stay plain tuples of axis names or ``None``, one entry per
 array axis, as :meth:`Distribution.partition_spec` returns them; an entry
 may also be a tuple of axis names, sharding that array axis over their
 product.
+
+A *rank mesh* is the other kind a launch takes: the ``DeviceMesh`` of
+``repro_torch.launch.mesh.make_mesh`` over the ranks of a
+``torch.distributed`` group, one process a worker, each holding only its
+own shards (the reference's mesh under JAX's multi-controller model).
+:func:`mesh_shape`, :func:`mesh_size` and :func:`mesh_coords` read both
+kinds alike, and :func:`shard_index`, :func:`check_divisible` and
+:func:`shard_of` take either; :func:`local_worker` is a rank's own flat
+index.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import ranks
 
 
 class Mesh:
@@ -92,6 +102,39 @@ def make_mesh(
     return Mesh(arr.reshape(shape), axis_names)
 
 
+def is_rank_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a mesh of ranks (a ``DeviceMesh``), not of
+    workers on one controller."""
+    return mesh is not None and not isinstance(mesh, Mesh)
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """Axis name -> size, in axis order, of a :class:`Mesh` or a rank
+    mesh."""
+    if isinstance(mesh, Mesh):
+        return mesh.shape
+    return ranks.mesh_sizes(mesh)
+
+
+def mesh_size(mesh) -> int:
+    return math.prod(mesh_shape(mesh).values())
+
+
+def mesh_coords(mesh, worker: int) -> dict[str, int]:
+    """Axis name -> worker ``worker``'s index along it (its flat index
+    unravelled row-major over the axes, for either kind of mesh)."""
+    shape = mesh_shape(mesh)
+    return dict(zip(shape, map(int, np.unravel_index(
+        worker, tuple(shape.values())))))
+
+
+def local_worker(mesh) -> int:
+    """This rank's flat index on a rank mesh: ``ranks.axis_index`` over
+    all of its axes, row-major."""
+    with ranks.use_mesh(mesh):
+        return ranks.axis_index(tuple(mesh_shape(mesh)))
+
+
 def spec_axes(entry) -> tuple[str, ...]:
     """One entry of a partition spec as a tuple of axis names (() for
     None)."""
@@ -100,33 +143,46 @@ def spec_axes(entry) -> tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def shard_index(mesh: Mesh, worker: int, axes: tuple[str, ...]):
+def shard_index(mesh, worker: int, axes: tuple[str, ...]):
     """(index, count): which of the ``count`` pieces along an array axis
     sharded over ``axes`` the worker holds."""
-    coords = mesh.coords(worker)
+    coords, shape = mesh_coords(mesh, worker), mesh_shape(mesh)
     index, count = 0, 1
     for ax in axes:
-        index = index * mesh.shape[ax] + coords[ax]
-        count *= mesh.shape[ax]
+        index = index * shape[ax] + coords[ax]
+        count *= shape[ax]
     return index, count
 
 
-def check_divisible(shape: Sequence[int], spec: tuple, mesh: Mesh,
+def check_divisible(shape: Sequence[int], spec: tuple, mesh,
                     what: str) -> None:
     """Raise where a sharded axis does not split evenly, as the reference's
     placement on a ``NamedSharding`` does."""
+    sizes = mesh_shape(mesh)
     for dim, entry in enumerate(spec):
-        count = math.prod(mesh.shape[ax] for ax in spec_axes(entry))
+        count = math.prod(sizes[ax] for ax in spec_axes(entry))
         if shape[dim] % count:
             raise ValueError(
                 f"{what}: axis {dim} of size {shape[dim]} does not split "
                 f"over {count} workers of mesh axes {spec_axes(entry)}")
 
 
-def shard_of(value: torch.Tensor, spec: tuple, mesh: Mesh,
-             worker: int) -> torch.Tensor:
-    """The worker's piece of ``value`` by ``spec``: a view where the worker
-    lies on ``value``'s device, a copy on the worker's device otherwise."""
+def shard_shape(shape: Sequence[int], spec: tuple, mesh) -> tuple:
+    """The shape of one worker's piece of an array of ``shape`` by
+    ``spec`` (an even split: see :func:`check_divisible`)."""
+    sizes = mesh_shape(mesh)
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        out[dim] //= math.prod(sizes[ax] for ax in spec_axes(entry))
+    return tuple(out)
+
+
+def shard_of(value, spec: tuple, mesh, worker: int):
+    """The worker's piece of ``value`` by ``spec``: on a :class:`Mesh`, a
+    view where the worker lies on ``value``'s device, a copy on the
+    worker's device otherwise; on a rank mesh, a view of ``value`` (a
+    tensor or a numpy array, which a rank slices before it moves anything
+    to its device)."""
     check_divisible(value.shape, spec, mesh, "shard")
     piece = value
     for dim, entry in enumerate(spec):
@@ -134,7 +190,11 @@ def shard_of(value: torch.Tensor, spec: tuple, mesh: Mesh,
         if axes:
             index, count = shard_index(mesh, worker, axes)
             size = value.shape[dim] // count
-            piece = piece.narrow(dim, index * size, size)
+            cut = [slice(None)] * value.ndim
+            cut[dim] = slice(index * size, (index + 1) * size)
+            piece = piece[tuple(cut)]
+    if is_rank_mesh(mesh):
+        return piece
     return piece.to(mesh.devices.flat[worker])
 
 

@@ -2,8 +2,10 @@
 
 Lightning allocates temporary memory for block-level partials and then
 performs a multi-level reduction: superblock → device → node → global.
-This module holds the per-op combining functions (single-device path) and
-the combine across a mesh's workers (``collective_reduce``).
+This module holds the per-op combining functions (single-device path), the
+combine across a mesh's workers on one controller (``collective_reduce``)
+and its rank form, run by every rank of a rank mesh
+(``collective_reduce_ranks``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from repro_torch.dist import ranks
 
 
 def _extreme(dtype: torch.dtype, largest: bool) -> torch.Tensor:
@@ -67,3 +71,26 @@ def collective_reduce(op: str, partials: Sequence[torch.Tensor],
     if op == "*":
         return torch.prod(torch.stack(parts), dim=0, dtype=first.dtype)
     return reduce_stack(op, parts)
+
+
+def collective_reduce_ranks(op: str, x: torch.Tensor,
+                            axis_names=()) -> torch.Tensor:
+    """The reference's ``collective_reduce`` over ranks: every rank of the
+    current rank mesh (``ranks.use_mesh``) calls it with its own partial
+    ``x`` and gets the combined result.  ``+`` is ``ranks.psum``, ``min``
+    ``ranks.pmin``, ``max`` ``ranks.pmax``; ``*`` gathers the partials and
+    takes their product in index order (gloo and NCCL have a product
+    all-reduce, but the reference's gather keeps one order on every
+    rank); any other op raises.  With no axes, ``x`` itself."""
+    if isinstance(axis_names, str):
+        axis_names = (axis_names,)
+    axis_names = tuple(axis_names)
+    if op not in REDUCE_FNS:
+        raise ValueError(f"unsupported reduce op {op!r}")
+    if not axis_names:
+        return x
+    if op == "*":
+        return torch.prod(ranks.all_gather(x, axis_names), dim=0,
+                          dtype=x.dtype)
+    return {"+": ranks.psum, "min": ranks.pmin,
+            "max": ranks.pmax}[op](x, axis_names)

@@ -8,8 +8,9 @@
   ``derive_rules_from_plan`` derives partition specs from a Lightning
   annotation (point accesses shard, slice and halo accesses replicate).
 * :mod:`repro_torch.dist.ranks` — the named-axis primitives over
-  ``torch.distributed`` ranks on a ``DeviceMesh`` (``psum``, ``pmax``,
-  ``all_gather``, ``ppermute``, ``axis_index``), and ``spawn``, which starts
+  ``torch.distributed`` ranks on a ``DeviceMesh`` (``psum``, ``pmin``,
+  ``pmax``, ``all_gather``, ``all_gather_tiled``, ``ppermute``,
+  ``axis_index``), and ``spawn``, which starts
   the ranks of one machine.
 * :mod:`repro_torch.dist.tensor_parallel` — the Megatron operators over
   the ``"model"`` axis that every family's layers run on when the rules

@@ -14,9 +14,11 @@ collective of the port goes through its functions:
 * ``ppermute``: point-to-point sends by a permutation of indices along the
   axes (``batch_isend_irecv`` with the peers' global ranks); an index that
   no pair sends to receives zeros;
-* ``psum`` / ``pmax``: all-reduce, one axis after another over a tuple;
+* ``psum`` / ``pmin`` / ``pmax``: all-reduce, one axis after another over
+  a tuple;
 * ``all_gather``: the ranks' tensors stacked on a new leading axis, in
-  index order;
+  index order; ``all_gather_tiled``: concatenated along an existing
+  dimension in index order (``lax.all_gather(..., tiled=True)``);
 * ``psum_grad``: ``psum`` with a backward (the psum of the gradient), for a
   batch statistic inside a train step's forward pass.
 
@@ -96,7 +98,7 @@ class RecordingMesh:
     rank's ``coords`` along each axis (0 where not given).  The primitives
     of this module, under it, record in ``records`` one ``(op, axis,
     operand bytes, output bytes)`` for each call the real mesh would make
-    (an axis of one rank included): ``psum`` and
+    (an axis of one rank included): ``psum``, ``pmin`` and
     ``pmax`` an ``"all-reduce"`` an axis, ``all_gather`` an
     ``"all-gather"`` an axis, ``ppermute`` a ``"collective-permute"``
     where this rank sends (axis the names joined by ``+``)."""
@@ -254,6 +256,12 @@ def pmax(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
     return x
 
 
+def pmin(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
+    for a in _axes(axis):
+        x = _all_reduce(x, dist.ReduceOp.MIN, a)
+    return x
+
+
 def _gather_one(x: torch.Tensor, axis: str) -> torch.Tensor:
     rec = _recorder(x)
     if rec is not None:
@@ -279,6 +287,16 @@ def all_gather(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
     return x.reshape((lead,) + tuple(x.shape[len(axes):]))
 
 
+def all_gather_tiled(x: torch.Tensor, axis: str | Sequence[str],
+                     dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` concatenated along its dimension
+    ``dim`` in index order (row-major over a tuple of axes, as
+    ``axis_index`` counts them): ``lax.all_gather(x, axis, axis=dim,
+    tiled=True)``."""
+    parts = all_gather(x, axis)
+    return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+
 def ppermute(x: torch.Tensor, axis: str | Sequence[str],
              perm: Sequence[tuple[int, int]]) -> torch.Tensor:
     """``x`` sent from index i to index j along ``axis`` for each (i, j) of
@@ -299,7 +317,9 @@ def ppermute(x: torch.Tensor, axis: str | Sequence[str],
     x = x.contiguous()
     staged = _staged(x)
     send = _to_host(x) if staged and dst else x
-    recv = torch.zeros_like(send) if src else None
+    # staged, a rank that only receives still receives into host memory
+    recv = torch.zeros(x.shape, dtype=x.dtype,
+                       device="cpu" if staged else x.device) if src else None
     ops = []
     if dst:
         ops.append(dist.P2POp(dist.isend, send, _global_rank(axes, dst[0])))
@@ -389,13 +409,13 @@ def spec_gather(x: torch.Tensor, spec: tuple) -> torch.Tensor:
     """The whole array from every rank's part ``x`` under a partition spec
     (the inverse of ``spec_slice``); ``x`` itself where nothing is split."""
     for dim, axes, _ in _spec_dims(spec):
-        parts = all_gather(x.contiguous(), axes)
         blocks = _blocks(spec, dim)
-        if blocks > 1:
-            parts = parts.unflatten(dim + 1, (blocks, -1)).movedim(0, dim + 1)
-            x = parts.flatten(dim + 1, dim + 2).flatten(dim, dim + 1)
-        else:
-            x = torch.cat(list(parts.unbind(0)), dim=dim)
+        if blocks == 1:
+            x = all_gather_tiled(x.contiguous(), axes, dim)
+            continue
+        parts = all_gather(x.contiguous(), axes)
+        parts = parts.unflatten(dim + 1, (blocks, -1)).movedim(0, dim + 1)
+        x = parts.flatten(dim + 1, dim + 2).flatten(dim, dim + 1)
     return x
 
 
