@@ -467,9 +467,12 @@ class Sizes:
     # the cells over other meshes (TP_SEQ_CELLS) serve the tp traffic above
     # on tp_seq_slots slots, which the data ranks split; a gemma-2b rank's
     # decode over its run of the cache split by sequence (8 query heads
-    # gathered, one KV head of 256, 2184 / 4 positions)
+    # gathered, one KV head of 256, 2184 / 4 positions), and a
+    # recurrentgemma-2b rank's over its run of the ring (10 query heads,
+    # one KV head of 256, 2048 / 4 slots)
     tp_seq_slots: int = 8
     tp_decode_gemma_seq: tuple = (8, 8, 1, 546, 256)
+    tp_decode_rgemma_seq: tuple = (8, 10, 1, 512, 256)
     # the dry run on the meta device: every cell of one pod under "tp" and
     # "dp" (dryrun_archs None: every arch), over a process a core
     dryrun_archs: tuple | None = None
@@ -516,6 +519,7 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             tp_requests_added=4, tp_new_added=3,
             tp_train_batch_recurrent=(4, 16), tp_seq_slots=4,
             tp_decode_gemma_seq=(3, 4, 1, 10, 64),
+            tp_decode_rgemma_seq=(3, 5, 1, 10, 64),
             dryrun_archs=("granite-moe-1b-a400m", "rwkv6-3b"),
             reps=1)
 
@@ -535,10 +539,13 @@ TP_TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m", "rwkv6-3b",
 #: shard_seq), in turn: gemma-2b over (1, 4) with its decode cache split
 #: by sequence over "model" (its one KV head leaves the axis to the
 #: sequence: a run of max_len / 4 positions a rank, the ranks' partials
-#: combined by their lse), and phi3-mini-3.8b over (2, 2) (4 of the 8
-#: slots a data rank, 16 of 32 heads a model rank)
+#: combined by their lse), phi3-mini-3.8b over (2, 2) (4 of the 8 slots a
+#: data rank, 16 of 32 heads a model rank), and recurrentgemma-2b over
+#: (1, 4) with its ring split by sequence (a run of 512 of the 2048 slots
+#: of its one KV head a rank)
 TP_SEQ_CELLS = (("gemma-2b", (1, 4), True),
-                ("phi3-mini-3.8b", (2, 2), False))
+                ("phi3-mini-3.8b", (2, 2), False),
+                ("recurrentgemma-2b", (1, 4), True))
 
 
 def seq_cell_key(arch: str, shape: tuple, shard_seq: bool) -> str:
@@ -2348,6 +2355,8 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                       sizes.tp_decode_whisper_self, bf16, gen, device),
                   "gemma_seq_rank": lambda: decode_inputs(
                       sizes.tp_decode_gemma_seq, bf16, gen, device),
+                  "recurrentgemma_seq_rank": lambda: decode_inputs(
+                      sizes.tp_decode_rgemma_seq, bf16, gen, device),
                   "whisper_tp_rank_cross": lambda: decode_inputs(
                       sizes.tp_decode_whisper_cross, bf16, gen, device,
                       kv_len=sizes.tp_decode_whisper_cross[3])},
@@ -5664,7 +5673,7 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
             gaps[spy.name] = layer_gaps(f"tp {what}", c, spy)
             if split and what == "decode" and spy.name == "cuda_decode":
                 out["seq"] = seq_split_check(c, state, cfg, rules,
-                                             tps["check_len"] + 1)
+                                             tps["check_len"])
         out[what] = {"calls": sum(g["calls"] for g in gaps.values()),
                      "max_abs_err": max(g["max_abs_err"]
                                         for g in gaps.values()),
@@ -5674,20 +5683,64 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
         del calls
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     out["logits_digest"] = digest(logits)
+    if split and cfg.family == "hybrid":
+        out["ring"] = ring_positions_check(params, cfg, rules, spec, device,
+                                           gen)
     return out
 
 
-def seq_split_check(calls, state, cfg, rules, kv_len: int) -> dict:
-    """A decode step over a cache split by sequence (``calls``: its
-    decode-attention calls on this rank, each on the rank's run with its
-    lse): a row whose run holds no key is zeros with lse -1e30; and at
-    layer 0 the combined output of the ranks' partials
+def ring_positions_check(params, cfg, rules, spec: dict, device,
+                         gen: torch.Generator) -> list:
+    """The hybrid's ring split by sequence where its runs hand over: a
+    prefill of ``window - 1`` tokens, then decode steps at position
+    ``window - 1`` (the ring's last slot, in the last rank's run) and
+    ``window`` (slot 0 after the wrap, in the first rank's); and a prompt
+    of half a run, whose decode step finds every later run empty (zeros,
+    lse -1e30); ``seq_split_check`` at each step."""
+    win = cfg.window
+    run = win // model_rglru.ring_run(cfg, rules)[0]
+    which = [s.name for s in spec["decode"]].index("cuda_decode")
+    out = []
+    for prompt, steps in ((win - 1, 2), (max(1, run // 2), 1)):
+        toks = torch.randint(0, cfg.vocab, (1, prompt + steps),
+                             generator=gen, device=device, dtype=torch.int32)
+        state = model_api.init_decode_state(cfg, 1, win, device, rules)
+        _, state = model_api.prefill(params, prompt_batch(
+            toks[:, :prompt], None), cfg, state, rules)
+        for i in range(steps):
+            with spying(spec["decode"]) as calls:
+                _, state = model_api.decode_step(
+                    params, toks[:, prompt + i:prompt + i + 1], cfg, state,
+                    rules)
+            out.append(seq_split_check(calls[which], state, cfg, rules,
+                                       prompt + i))
+            del calls
+    return out
+
+
+def seq_split_check(calls, state, cfg, rules, pos: int) -> dict:
+    """A decode step at position ``pos`` over a cache split by sequence
+    (``calls``: its decode-attention calls on this rank, each on the
+    rank's run with its lse): a row whose run holds no key is zeros with
+    lse -1e30; and at layer 0 the combined output of the ranks' partials
     (``decode_attention_seq_split``, on the cache after the step) within
     the bf16 limit of the f32 plain version on the whole cache (gathered
     over the ranks) and within ``DIST_DECODE_TOL`` of the kernel on it, as
-    the ``dist`` phase holds its flash-decode."""
-    t = state["k"].shape[3]
-    ranks_n, offset = kvcache.seq_run(rules, t)
+    the ``dist`` phase holds its flash-decode.  The hybrid's ring
+    (``attn_k``, ``attn_v``): its valid length ``min(pos + 1, window)``,
+    the slots the gathered ``slot_pos`` marks valid its first
+    ``min(pos + 1, window)`` (the prefix the kernel path relies on), the
+    new token's slot holding ``pos``, and the plain version on the whole
+    ring masked by that ``slot_pos``."""
+    ring = cfg.family == "hybrid"
+    names = ("attn_k", "attn_v") if ring else ("k", "v")
+    t = state[names[0]].shape[3]
+    if ring:
+        ranks_n, offset = model_rglru.ring_run(cfg, rules)
+        kv_len = min(pos + 1, cfg.window)
+    else:
+        ranks_n, offset = kvcache.seq_run(rules, t)
+        kv_len = pos + 1
     empty = 0
     for i, (_, kw, (o, lse)) in enumerate(calls):
         rows = kw["kv_len"] == 0
@@ -5699,20 +5752,35 @@ def seq_split_check(calls, state, cfg, rules, kv_len: int) -> dict:
             empty, "empty rows in a run at", offset, "of a row of", kv_len)
     q = calls[0][0][0]
     n = torch.full((q.shape[0],), kv_len, dtype=torch.int32, device=q.device)
-    k0, v0 = state["k"][0], state["v"][0]
+    k0, v0 = state[names[0]][0], state[names[1]][0]
     combined = model_attention.decode_attention_seq_split(
         q, k0, v0, n, offset, "model", mesh=rules.mesh)
+
+    def gathered(x, dim):
+        return torch.cat(list(ranks.all_gather(x.contiguous(),
+                                               "model").unbind(0)), dim=dim)
+
     with ranks.use_mesh(rules.mesh):
-        k, v = (torch.cat(list(ranks.all_gather(x.contiguous(),
-                                                "model").unbind(0)), dim=2)
-                for x in (k0, v0))
-    want32 = decode_attention_ref(*as_f32((q, k, v)), kv_len=n)
+        k, v = gathered(k0, 2), gathered(v0, 2)
+        slot_pos = gathered(state["slot_pos"][0], 1) if ring else None
+    if ring:
+        valid = (slot_pos >= 0) & (slot_pos <= pos)
+        require(bool((slot_pos[:, pos % cfg.window] == pos).all())
+                and bool(valid[:, :kv_len].all())
+                and int(valid.sum()) == kv_len * valid.shape[0],
+                "tp/seq: the ring's valid slots at position", pos,
+                "are not its first", kv_len)
+        want32 = model_attention.decode_attention_masked(
+            *as_f32((q, k, v)), valid)[0]
+    else:
+        want32 = decode_attention_ref(*as_f32((q, k, v)), kv_len=n)
     gap = bf16_check("tp/seq combined at layer 0", combined, want32)
     whole = decode_attention(q, k, v, kv_len=n)
     err = check_close("tp/seq combined at layer 0 against the whole cache",
                       combined, whole, rtol=DIST_DECODE_TOL,
                       atol=DIST_DECODE_TOL)
-    return {"ranks": ranks_n, "run": t, "offset": offset, "kv_len": kv_len,
+    return {"ranks": ranks_n, "run": t, "offset": offset, "pos": pos,
+            "kv_len": kv_len,
             "empty_rows": empty, "combined_shape": list(combined.shape),
             "bf16_limit_share": gap["limit_share"],
             "max_abs_err": gap["max_abs_err"],
@@ -5832,6 +5900,7 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int,
            "staged_bytes": ranks.staged_bytes() - staged0,
            "kv_bytes": sum(x.numel() * x.element_size() for k, x in
                            state_leaves(engine.state).items() if k != "pos"),
+           "ring_bytes": ring_bytes(engine.state),
            "collectives": collective_seconds(spans),
            "decode_collectives": decode_collectives(tracer, spans),
            "kernel_launches": counts, "expected_launches": expect,
@@ -5839,6 +5908,14 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int,
     if device.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     return out
+
+
+def ring_bytes(state) -> int:
+    """The bytes of the hybrid's ring cache in a decode state (``attn_k``,
+    ``attn_v``, ``slot_pos``; 0 for another family's)."""
+    return sum(x.numel() * x.element_size()
+               for k, x in state_leaves(state).items()
+               if k in ("attn_k", "attn_v", "slot_pos"))
 
 
 def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
@@ -5930,8 +6007,9 @@ def tp_seq_one(arch: str, shape: tuple, shard_seq: bool, sizes: Sizes,
     on this rank's slices over a ``shape`` mesh, ``shard_seq`` splitting
     its cache by sequence where the spec lets it: the kernel check (with
     ``seq_split_check`` where it splits), the engine on ``tp_seq_slots``
-    slots, the f32 check at two layers; the rank's cache bytes beside one
-    card's engine's."""
+    slots, the f32 check at two layers (three for the hybrid); the rank's
+    cache bytes (and the hybrid's ring bytes) beside one card's
+    engine's."""
     t0 = time.perf_counter()
     mesh = tp_mesh(shape)
     cfg = tp_config(arch, sizes.serve_smoke)
@@ -5952,13 +6030,15 @@ def tp_seq_one(arch: str, shape: tuple, shard_seq: bool, sizes: Sizes,
                                     for p in params.parameters()),
            "one_card_kv_bytes": sum(
                x.numel() * x.element_size()
-               for k, x in state_leaves(one_card).items() if k != "pos")}
+               for k, x in state_leaves(one_card).items() if k != "pos"),
+           "one_card_ring_bytes": ring_bytes(one_card)}
     out["check"] = tp_kernel_check(params, cfg, rules, sizes, device, gen)
     free(device)
     engine = tp_engine(params, cfg, rules, sizes, device, seed,
                        slots=sizes.tp_seq_slots)
     out["engine"] = engine
     out["kv_bytes"] = engine["kv_bytes"]
+    out["ring_bytes"] = engine["ring_bytes"]
     del params
     free(device)
     out["f32"] = tp_f32_check(
@@ -6377,7 +6457,7 @@ def tp_seq_summary(serve: list, cell: tuple, device) -> dict:
     by_rank = [s[key] for s in serve]
     engines = [s["engine"] for s in by_rank]
     m = by_rank[0]["seq_ranks"]
-    require(m == (shape[1] if shard_seq and arch == "gemma-2b" else 1),
+    require(m == (shape[1] if shard_seq else 1),
             "tp/seq:", key, "split by sequence over", m, "ranks")
     # a rank's cache: its data rank's slots, and its model rank's KV heads
     # or run of the sequence: 1 / (data x model) of one card's (gemma-2b
@@ -6389,6 +6469,20 @@ def tp_seq_summary(serve: list, cell: tuple, device) -> dict:
             by_rank[0]["one_card_kv_bytes"])
     if m > 1:
         out["seq_check_by_rank"] = [s["check"]["seq"] for s in by_rank]
+    if "ring" in by_rank[0]["check"]:
+        # the hybrid's ring: a rank's run of its slots, a quarter of one
+        # card's ring; the handovers' checks on every rank
+        require(all(s["ring_bytes"] * shape[0] * shape[1]
+                    == s["one_card_ring_bytes"] for s in by_rank),
+                "tp/seq:", key, "a rank's ring", by_rank[0]["ring_bytes"],
+                "is not 1 /", shape[0] * shape[1], "of one card's",
+                by_rank[0]["one_card_ring_bytes"])
+        out["ring_checks_by_rank"] = [s["check"]["ring"] for s in by_rank]
+        out["ring_positions"] = [c["pos"] for c in by_rank[0]["check"]["ring"]]
+        out["ring_bytes_a_rank"] = by_rank[0]["ring_bytes"]
+        out["one_card_ring_bytes"] = by_rank[0]["one_card_ring_bytes"]
+        out["ring_share"] = out["ring_bytes_a_rank"] / \
+            out["one_card_ring_bytes"]
     steps = engines[0]["decode_steps"]
     dc = engines[0]["decode_collectives"]
     out.update({
@@ -6400,7 +6494,10 @@ def tp_seq_summary(serve: list, cell: tuple, device) -> dict:
         "collectives_a_step": {
             "calls": sum(v["calls"] for v in dc.values()) / max(steps, 1),
             "seconds": sum(v["seconds"] for v in dc.values())
-            / max(steps, 1)}})
+            / max(steps, 1)},
+        "combine_a_step": {
+            k: v / max(steps, 1) for k, v in
+            dc.get("combine_decode_partials", {}).items()}})
     return out
 
 
@@ -6450,7 +6547,9 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
     rank bit for bit; then (e) the cells of ``seq_cells`` in the same
     spawn as (a): gemma-2b served over (1, 4) with its cache split by
     sequence, phi3-mini over (2, 2) with its slots split over the data
-    ranks (``tp_seq_one``).  Four ranks sharing one card measure
+    ranks, recurrentgemma-2b over (1, 4) with its ring split by sequence
+    (``tp_seq_one``; its combine also held where the runs hand over,
+    ``ring_positions_check``).  Four ranks sharing one card measure
     correctness and each collective's cost, not scaling."""
     t0 = time.perf_counter()
     free(device)
@@ -6485,6 +6584,10 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
                   cell["collectives_a_step"]["calls"],
               "collective_seconds_a_step":
                   cell["collectives_a_step"]["seconds"],
+              "combine_a_step": cell["combine_a_step"],
+              **({"ring_share": cell["ring_share"],
+                  "ring_positions": cell["ring_positions"]}
+                 if "ring_share" in cell else {}),
               "seconds": cell["seconds"]})
     out["train"] = {}
     if train_archs:
@@ -6661,8 +6764,9 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict,
     ``train`` phase's gemma-2b cell (one rank) beside its measured step
     time, as a roofline fraction; (d) the ``tp`` phase's cells over other
     meshes (gemma-2b's cache split by sequence over (1, 4), phi3-mini over
-    (2, 2)): (a)'s bytes, and their decode steps' ``collective:*`` spans
-    as (b) holds a train step's (``seq_dry_checks``)."""
+    (2, 2), recurrentgemma-2b's ring split by sequence over (1, 4)): (a)'s
+    bytes, and their decode steps' ``collective:*`` spans as (b) holds a
+    train step's (``seq_dry_checks``)."""
     t0 = time.perf_counter()
     if started is None:
         started = dryrun_start(sizes, len(os.sched_getaffinity(0)),

@@ -15,7 +15,9 @@ and the plain path, both able to emit the log-sum-exp for combining
 sequence-split partials, as does the eager attention on the int8 cache;
 ``combine_decode_partials`` combines the partials of ranks that each hold
 a shard of the cache's sequence axis (flash-decode over a mesh axis), and
-``decode_attention_seq_split`` is a rank's whole part of it.  A rank whose
+``decode_attention_seq_split`` is a rank's whole part of it.
+``decode_attention_masked`` attends to the keys a mask marks (a ring's
+slots by their positions, a sliding window) with its lse.  A rank whose
 shard holds no valid key of a row has zeros and lse -1e30 there, in every
 path, which gets weight exactly 0.
 """
@@ -193,6 +195,36 @@ def decode_attention_quant(
         lse = (m + torch.log(l)).masked_fill(empty, EMPTY_LSE)
         return out, lse.reshape(b, hq)
     return out
+
+
+def decode_attention_masked(
+    q: torch.Tensor,  # (B, HQ, D)
+    k: torch.Tensor,  # (B, HKV, T, D)
+    v: torch.Tensor,
+    valid: torch.Tensor,  # (B, T) bool: the keys each row attends to
+    *,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eager decode attention to the keys ``valid`` marks, with f32
+    logits: (out (B, HQ, D) in q's dtype, lse (B, HQ) f32), a row with no
+    valid key zeros with lse -1e30, as the decode kernel gives them.  The
+    keys need not be a prefix: a ring's slots by their positions, or a
+    sliding window's lower bound."""
+    b, hq, d = q.shape
+    group = hq // k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    kk = torch.repeat_interleave(k, group, dim=1)
+    vv = torch.repeat_interleave(v, group, dim=1)
+    logits = torch.einsum("bhd,bhtd->bht", q, kk).float() * scale
+    logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    empty = m == float("-inf")
+    m = m.masked_fill(empty, 0.0)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("bht,bhtd->bhd", (p / l).to(q.dtype), vv)
+    lse = (m + torch.log(l)).masked_fill(empty, EMPTY_LSE).squeeze(-1)
+    return out, lse
 
 
 def combine_decode_partials(

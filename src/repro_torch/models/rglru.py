@@ -32,6 +32,19 @@ attention block is the dense family's tensor-parallel attention
 gathered whole, so the ring-buffer cache is whole on every rank and every
 rank writes it alike.  The MLPs split d_ff (``mlp_apply``), the tied
 embedding and head the vocab.
+
+Where ``attn_k``'s spec splits the ring's slots over ``"model"`` (the
+reference's ``shard_seq``, ``ring_run``), a rank holds a run of
+``window / m`` consecutive slots of ``attn_k``, ``attn_v`` and
+``slot_pos``: a prefill keeps that run of the ring it builds, and a decode
+step writes the new token only where its slot ``pos % window`` falls in
+the run, attends every query head to the run and combines the ranks'
+partials by their lse.  The ring fills its slots in order and a row's ring
+comes whole from its own prefill, so the valid slots of the whole ring are
+always the first ``min(pos + 1, window)``, and a rank's a prefix of its
+run: the kernel path takes the run as it lies with that length
+(``decode_attention_seq_split``), the plain path masks the run by its own
+``slot_pos``.
 """
 
 from __future__ import annotations
@@ -44,10 +57,18 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import tensor_parallel as tp
-from repro_torch.dist.sharding import constrain, model_split, seq_run
+from repro_torch.dist import ranks
+from repro_torch.dist.sharding import constrain, model_split
 from repro_torch.kernels.rg_lru import rg_lru, rg_lru_ref
 
-from .attention import decode_attention, multihead_attention
+from . import kvcache
+from .attention import (
+    combine_decode_partials,
+    decode_attention,
+    decode_attention_masked,
+    decode_attention_seq_split,
+    multihead_attention,
+)
 from .config import ModelConfig
 from .layers import (
     apply_rope,
@@ -63,8 +84,8 @@ from .layers import (
     rms_norm,
 )
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
-from .transformer import (SEQ_SPLIT_WINDOW_ITEM, DecoderLayer, _embed,
-                          _heads, _logits, _params, tp_out, tp_qkv)
+from .transformer import (DecoderLayer, _embed, _heads, _logits, _params,
+                          tp_out, tp_qkv)
 
 LRU_C = 8.0
 #: parameters the reference creates in f32 whatever ``cfg.dtype`` is
@@ -213,24 +234,28 @@ def params_logical_axes(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def ring_run(cfg: ModelConfig, rules) -> tuple[int, int]:
+    """(ranks, offset) of this rank's run of the ring's ``window`` slots
+    under ``rules``: ``attn_k`` has the KV cache's axes, so its own spec
+    splits the slots as ``kvcache.seq_run`` reads them (1 rank where it
+    gives "model" to the KV heads), in runs of ``window / m``
+    (``kvcache.local_len``: ``m`` must divide the window)."""
+    return kvcache.seq_run(rules, kvcache.local_len(rules,
+                                                    cfg.window or 2048))
+
+
 def init_state(cfg: ModelConfig, batch: int,
                device: torch.device | str | None = None,
                rules=None) -> dict:
     """Zeros, and -1 (empty) slot positions, on ``device`` (None: the
     GPU); this rank's recurrent channels (and KV heads, where ``rules``
-    split them) over ranks of ``"model"``."""
+    split them, or its run of the ring's slots, ``ring_run``) over ranks
+    of ``"model"``."""
     device = resolve_device(device)
-    axes = state_logical_axes(cfg)
-    for name, dim in (("attn_k", 3), ("slot_pos", 2)):
-        if rules is not None and \
-                seq_run(rules, rules.spec(axes[name]), dim)[0] > 1:
-            raise NotImplementedError(
-                f"the hybrid's ring cache split by sequence ({name}): "
-                f"ROADMAP Queue A item {SEQ_SPLIT_WINDOW_ITEM}")
     g, tail = n_groups(cfg)
     w = cfg.d_model // model_split(rules, "d_ff")
     cw = cfg.conv_width - 1
-    win = cfg.window or 2048
+    win = kvcache.local_len(rules, cfg.window or 2048)
 
     def rec_state(lead):
         return {
@@ -261,12 +286,21 @@ def state_logical_axes(cfg: ModelConfig) -> dict:
     rec_tail = {"conv": ("batch", None, "d_ff"), "h": ("batch", "d_ff")}
     return {
         "rec1": dict(rec), "rec2": dict(rec),
-        "attn_k": ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
-        "attn_v": ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+        "attn_k": kvcache.KV_AXES, "attn_v": kvcache.KV_AXES,
         "slot_pos": ("layers", "batch", "kv_seq"),
         "tail": [dict(rec_tail) for _ in range(tail)],
         "pos": ("batch",),
     }
+
+
+def state_specs(cfg: ModelConfig, rules, specs: dict) -> dict:
+    """``specs`` (the reference's, from ``state_logical_axes``) with
+    ``slot_pos``'s slots split as ``attn_k``'s are (``ring_run``): where
+    the spec gives ``"model"`` to the KV heads, the ring's slots stay
+    whole on every rank, and so do their positions
+    (``models.api.state_specs``)."""
+    specs["slot_pos"] = specs["slot_pos"][:2] + specs["attn_k"][3:4]
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -319,17 +353,21 @@ def _rec_block(lp, x: torch.Tensor, cfg: ModelConfig, st: dict | None,
 
 
 def _qkv(lp, xn: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-         rules):
+         rules, whole_q: bool = False):
     """q (B, S, HQ, D) and k, v (B, S, HKV, D), q and k rotated, with the
     columns this rank keeps of the output and the KV heads its queries
-    attend to (``transformer.tp_qkv``)."""
-    q, k, v, cols, mine = tp_qkv(lp, xn, cfg, rules)
+    attend to (``transformer.tp_qkv``; ``whole_q``: every query head)."""
+    q, k, v, cols, mine = tp_qkv(lp, xn, cfg, rules, whole_q=whole_q)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v, cols, mine)
 
 
 def _attn_block_train(lp, x: torch.Tensor, cfg: ModelConfig,
-                      positions: torch.Tensor, rules, want_cache=False):
+                      positions: torch.Tensor, rules, want_cache=False,
+                      run: tuple[int, int] = kvcache.WHOLE):
+    """The block over a whole sequence; with ``want_cache`` (a prefill)
+    also the ring cache of its last ``window`` positions, this rank's
+    ``run`` of its slots (``ring_run``)."""
     b, s, _ = x.shape
     win = cfg.window or 2048
     q, k, v, cols, mine = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg,
@@ -344,37 +382,65 @@ def _attn_block_train(lp, x: torch.Tensor, cfg: ModelConfig,
     x = x + mlp_apply(lp.mlp, xn, cfg.activation, rules)
     if not want_cache:
         return x, None
-    # The ring-buffer cache from the last `win` positions (prefill).
+    return x, ring_cache(k.to(x.dtype), v.to(x.dtype), positions, win, run)
+
+
+def ring_cache(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+               win: int, run: tuple[int, int] = kvcache.WHOLE) -> dict:
+    """The ring-buffer cache a prefill leaves: the last ``win`` of the
+    sequence's k and v (B, KV, S, D) at slots ``position % win`` and their
+    positions in ``slot_pos`` (-1: empty), this rank's ``run`` of the
+    slots (``ring_run``)."""
+    b, hkv, s, d = k.shape
     w_eff = min(win, s)
-    slots = torch.arange(s - w_eff, s, device=x.device) % win
-    k_cache = torch.zeros((b, k.shape[1], win, cfg.head_dim),
-                          dtype=x.dtype, device=x.device)
+    slots = torch.arange(s - w_eff, s, device=k.device) % win
+    k_cache = torch.zeros((b, hkv, win, d), dtype=k.dtype, device=k.device)
     v_cache = torch.zeros_like(k_cache)
     k_cache[:, :, slots, :] = k[:, :, s - w_eff:, :]
     v_cache[:, :, slots, :] = v[:, :, s - w_eff:, :]
-    slot_pos = torch.full((b, win), -1, dtype=torch.int32, device=x.device)
+    slot_pos = torch.full((b, win), -1, dtype=torch.int32, device=k.device)
     slot_pos[:, slots] = positions[:, s - w_eff:].to(torch.int32)
-    return x, {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
+    m, offset = run
+    if m > 1:
+        mine = slice(offset, offset + win // m)
+        k_cache, v_cache = k_cache[:, :, mine], v_cache[:, :, mine]
+        slot_pos = slot_pos[:, mine]
+    return {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
+
+
+def ring_write(st: dict, k: torch.Tensor, v: torch.Tensor,
+               pos: torch.Tensor, win: int,
+               run: tuple[int, int] = kvcache.WHOLE) -> None:
+    """One token's k and v (B, KV, 1, D) and position ``pos`` (B,) into
+    slot ``pos % win`` of the ring ``st`` (``k``, ``v``, ``slot_pos``), in
+    place; on a rank's ``run`` of the slots, only where the slot falls in
+    it (``kvcache.update_layer``'s write: no host waits)."""
+    slots = kvcache._slots(pos % win, k.shape[0], 1, st["k"].shape[2], run)
+    kvcache._write(st["k"], k, slots)
+    kvcache._write(st["v"], v, slots)
+    kvcache._write(st["slot_pos"][:, None], pos[:, None, None], slots)
 
 
 def _attn_block_decode(lp, x: torch.Tensor, cfg: ModelConfig,
-                       pos: torch.Tensor, st: dict, rules):
+                       pos: torch.Tensor, st: dict, rules,
+                       run: tuple[int, int] = kvcache.WHOLE):
     """One-token local attention against the ring-buffer window cache.
 
     The cache holds the last ``window`` tokens; the new entry overwrites
     slot ``pos % window`` in place, and ``slot_pos`` records each slot's
-    absolute position (−1 = empty) for masking.
+    absolute position (−1 = empty) for masking.  Where ``run``
+    (``ring_run``) splits the slots, ``st`` holds this rank's run of them:
+    the entry is written only where its slot falls in the run (no host
+    waits: ``kvcache.update_layer``'s write), every query head attends to
+    the run, and the ranks' partials are combined by their lse.
     """
     b = x.shape[0]  # one token a row
     win = cfg.window or 2048
+    split = run[0] > 1
     q, k, v, cols, mine = _qkv(lp, rms_norm(x, lp.norm["scale"]), cfg,
-                               pos[:, None], rules)
-    rows = torch.arange(b, device=x.device)
-    slot = (pos % win).long()  # (B,) per-row ring slot
+                               pos[:, None], rules, whole_q=split)
+    ring_write(st, k.transpose(1, 2), v.transpose(1, 2), pos, win, run)
     k_cache, v_cache, slot_pos = st["k"], st["v"], st["slot_pos"]
-    k_cache[rows, :, slot, :] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, :, slot, :] = v[:, 0].to(v_cache.dtype)
-    slot_pos[rows, slot] = pos.to(slot_pos.dtype)
     kc, vc = _heads(k_cache, mine), _heads(v_cache, mine)
 
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -382,21 +448,24 @@ def _attn_block_decode(lp, x: torch.Tensor, cfg: ModelConfig,
     if cfg.attention_impl == "cuda":
         # The ring fills its slots in order and a slot's cache comes whole
         # from its own prefill, so the valid slots (0 <= slot_pos <= pos)
-        # are always the first min(pos + 1, window): the kernel takes the
-        # cache as it lies, its kv heads shared by the group, and reads no
-        # slot past them.
+        # are always the first min(pos + 1, window), and a rank's the
+        # first of its run: the kernel takes the cache as it lies, its kv
+        # heads shared by the group, and reads no slot past them.
         kv_len = torch.clamp(pos + 1, max=win).to(torch.int32)
-        out = decode_attention(q[:, 0], kc, vc, kv_len, impl="cuda",
-                               scale=scale)
+        if split:
+            out = decode_attention_seq_split(
+                q[:, 0], kc, vc, kv_len, run[1], tp.MODEL, mesh=rules.mesh,
+                impl="cuda", scale=scale)
+        else:
+            out = decode_attention(q[:, 0], kc, vc, kv_len, impl="cuda",
+                                   scale=scale)
     else:
-        group = hq // kc.shape[1]
-        kk = torch.repeat_interleave(kc, group, dim=1)
-        vv = torch.repeat_interleave(vc, group, dim=1)
-        logits = torch.einsum("bhd,bhtd->bht", q[:, 0], kk).float() * scale
         valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-        logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
-        p = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bht,bhtd->bhd", p.to(x.dtype), vv)
+        out, lse = decode_attention_masked(q[:, 0], kc, vc, valid,
+                                           scale=scale)
+        if split:
+            with ranks.use_mesh(rules.mesh):
+                out = combine_decode_partials(out, lse, tp.MODEL)
     x = x + tp_out(lp, out.reshape(b, 1, hq * cfg.head_dim), cfg, rules,
                    cols)
     xn = rms_norm(x, lp.mlp_norm["scale"])
@@ -415,14 +484,15 @@ def _stack_rec(states: list[dict]) -> dict:
 
 
 def _group_fn(cfg: ModelConfig, rules, x: torch.Tensor, gp: Group,
-              positions: torch.Tensor, want_cache: bool):
+              positions: torch.Tensor, want_cache: bool,
+              run: tuple[int, int] = kvcache.WHOLE):
     """One (rec, rec, attn) group over a whole sequence from fresh state:
     (x, both recurrent blocks' final states, the attention block's ring
-    cache or None)."""
+    cache, this rank's ``run`` of its slots, or None)."""
     x, n1 = _rec_block(gp.rec1, x, cfg, None, rules)
     x, n2 = _rec_block(gp.rec2, x, cfg, None, rules)
     x, cache = _attn_block_train(gp.attn, x, cfg, positions, rules,
-                                 want_cache=want_cache)
+                                 want_cache=want_cache, run=run)
     return x, n1, n2, cache
 
 
@@ -452,6 +522,7 @@ def forward(
         positions = steps[None, :].expand(b, s)
 
     new_state = None
+    run = ring_run(cfg, rules)
     if state is not None and mode == "decode":
         rec1, rec2 = [], []
         for gi, gp in enumerate(params.groups):
@@ -464,7 +535,7 @@ def forward(
             x, _ = _attn_block_decode(
                 gp.attn, x, cfg, state["pos"],
                 {"k": state["attn_k"][gi], "v": state["attn_v"][gi],
-                 "slot_pos": state["slot_pos"][gi]}, rules)
+                 "slot_pos": state["slot_pos"][gi]}, rules, run)
             rec1.append(n1)
             rec2.append(n2)
         new_state = dict(state)
@@ -482,7 +553,7 @@ def forward(
         rec1, rec2, caches = [], [], []
         for gp in params.groups:
             x, n1, n2, cache = remat_call(cfg, mode, _group_fn, cfg, rules, x,
-                                          gp, positions, want)
+                                          gp, positions, want, run)
             rec1.append(n1)
             rec2.append(n2)
             caches.append(cache)

@@ -23,7 +23,8 @@ too, attend every head, and each keeps its columns of the output.
 Where the cache's spec splits its sequence over the ranks instead (the
 reference's ``shard_seq``, only where the KV heads stay whole), a decode
 step attends every query head to the rank's run of the cache and combines
-the ranks' partials by their lse (``seq_split_decode``).
+the ranks' partials by their lse (``seq_split_decode``; under a sliding
+window, to the positions of its run that the window keeps).
 Prefill and decode logits are gathered over the ranks, so that a caller
 sees the whole vocab; train logits stay split and the loss is the
 vocab-parallel cross-entropy.
@@ -42,7 +43,9 @@ from repro_torch.dist.sharding import constrain, model_split
 
 from . import kvcache
 from .attention import (
+    combine_decode_partials,
     decode_attention,
+    decode_attention_masked,
     decode_attention_quant,
     decode_attention_seq_split,
     multihead_attention,
@@ -63,10 +66,6 @@ from .layers import (
     rope_tables,
 )
 from .layers import remat_policy_of  # noqa: F401  (public, as the reference's)
-
-#: the ROADMAP Queue A item a sliding window or a ring cache split by
-#: sequence waits for
-SEQ_SPLIT_WINDOW_ITEM = 25
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -356,10 +355,6 @@ def _attention_block(
         kv_len = positions[:, 0] + 1
         fused = cfg.kv_quant and cfg.kv_fused and window is None
         if split:
-            if window is not None:
-                raise NotImplementedError(
-                    f"a sliding window over a cache split by sequence: "
-                    f"ROADMAP Queue A item {SEQ_SPLIT_WINDOW_ITEM}")
             if fused:
                 k_full, v_full = new_cache_l["k_q"], new_cache_l["v_q"]
                 scales = new_cache_l["k_s"], new_cache_l["v_s"]
@@ -367,7 +362,7 @@ def _attention_block(
                 k_full, v_full = kvcache.read_layer(cfg, new_cache_l)
                 scales = None
             out = seq_split_decode(q[:, :, 0], k_full, v_full, kv_len, run[1],
-                                   cfg, rules, scales=scales)
+                                   cfg, rules, scales=scales, window=window)
             return project(out), new_cache_l
         if fused:
             # Attend on the int8 cache directly: the scales factor out of
@@ -405,18 +400,29 @@ def _attention_block(
 
 def seq_split_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, offset: int, cfg: ModelConfig,
-                     rules, *, scales=None) -> torch.Tensor:
+                     rules, *, scales=None,
+                     window: int | None = None) -> torch.Tensor:
     """Decode attention of ``q`` (B, heads, head_dim), every query head
     (``tp_qkv(..., whole_q=True)``), against the rank's run of a cache
     split by sequence over ``"model"`` (k and v (B, KV, T_local,
     head_dim), every KV head, since the spec splits the sequence only
     where it keeps the KV heads whole; ``scales``: an int8 cache's (k_s,
     v_s)), the ranks' partials combined (``decode_attention_seq_split``):
-    the output (B, 1, q_dim)."""
-    out = decode_attention_seq_split(
-        q, k, v, kv_len, offset, tp.MODEL, mesh=rules.mesh,
-        impl="cuda" if cfg.attention_impl == "cuda" else "xla",
-        scales=scales)
+    the output (B, 1, q_dim).  With a sliding ``window`` the rank's
+    valid positions, ``[max(kv_len - window, 0), kv_len)`` within its
+    run, are not a prefix of it: it attends to them by their mask
+    (``decode_attention_masked``, f32 logits as ``_windowed_decode``) and
+    the partials go through the same combine."""
+    if window is None:
+        out = decode_attention_seq_split(
+            q, k, v, kv_len, offset, tp.MODEL, mesh=rules.mesh,
+            impl="cuda" if cfg.attention_impl == "cuda" else "xla",
+            scales=scales)
+    else:
+        out, lse = decode_attention_masked(
+            q, k, v, _window_mask(kv_len, window, offset, k.shape[2]))
+        with ranks.use_mesh(rules.mesh):
+            out = combine_decode_partials(out, lse, tp.MODEL)
     return out.reshape(q.shape[0], 1, -1)
 
 
@@ -428,24 +434,21 @@ def _heads(x: torch.Tensor, mine: slice) -> torch.Tensor:
     return x[:, mine].contiguous()
 
 
+def _window_mask(kv_len: torch.Tensor, window: int, offset: int,
+                 t: int) -> torch.Tensor:
+    """(B, t): which of positions ``offset .. offset + t - 1`` a sliding
+    window keeps, ``[max(kv_len - window, 0), kv_len)`` of each row."""
+    pos = offset + torch.arange(t, device=kv_len.device)
+    lo = torch.clamp(kv_len - window, min=0)[:, None]
+    return (pos >= lo) & (pos < kv_len[:, None])
+
+
 def _windowed_decode(q, k, v, kv_len, window):
     """Decode attention with a sliding window: positions below
     kv_len - window are masked out (materialized path; window caches are
     small)."""
-    b, hq, d = q.shape
-    _, hkv, t, _ = k.shape
-    group = hq // hkv
-    scale = 1.0 / math.sqrt(d)
-    kk = torch.repeat_interleave(k, group, dim=1)
-    vv = torch.repeat_interleave(v, group, dim=1)
-    logits = torch.einsum("bhd,bhtd->bht", q, kk).float() * scale
-    pos = torch.arange(t, device=q.device)[None, None, :]
-    lo = (kv_len - window)[:, None, None]
-    hi = kv_len[:, None, None]
-    mask = (pos >= torch.clamp(lo, min=0)) & (pos < hi)
-    logits = logits.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bht,bhtd->bhd", p.to(q.dtype), vv)
+    return decode_attention_masked(
+        q, k, v, _window_mask(kv_len, window, 0, k.shape[2]))[0]
 
 
 def _layer_fn(cfg: ModelConfig, rules, mode: str, x: torch.Tensor,

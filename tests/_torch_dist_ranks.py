@@ -237,14 +237,14 @@ def recorded_collectives():
         ranks._all_reduce, ranks._gather_one = reduce, gather
 
 
-def _tp_train(mesh, cases) -> list:
+def _tp_train(mesh, cases, microbatches: int = 1) -> list:
     import copy
 
     out = []
     for label, cfg, state, batch in cases:
         rules = rules_for(cfg, mesh, "tp",
                           global_batch=batch["tokens"].shape[0])
-        step = make_train_step(cfg, rules, mesh)
+        step = make_train_step(cfg, rules, mesh, microbatches=microbatches)
         state = copy.deepcopy(state)
         with recorded_collectives() as records:
             new, metrics = step(state, batch)
@@ -363,6 +363,38 @@ def _tp_serve(mesh, cases, shard_seq: bool = False) -> list:
                     "cache_shapes": {k: tuple(v.shape)
                                      for k, v in flat.items()},
                     "collectives": records, "spans": spans})
+    return out
+
+
+def _tp_window(mesh, cases) -> list:
+    """A dense sliding window in one decode step of a layer's
+    ``_attention_block`` over a cache split by sequence (``shard_seq``):
+    each rank on its rows, its heads and its run of the given whole cache
+    (a layer axis of one in front, sliced by ``state_specs``), with the
+    reference's parameters carried onto it; the block's output."""
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models import api, kvcache, transformer
+
+    out = []
+    for label, window, cfg, np_params, x, positions, cache in cases:
+        b = x.shape[0]
+        rules = rules_for(cfg, mesh, "tp", global_batch=b, shard_seq=True)
+        lp = params_from_reference(np_params, cfg, "cpu", rules).layers[0]
+        specs = api.state_specs(cfg, rules)
+        with ranks.use_mesh(mesh):
+            n = b // ranks.axis_size("data")
+            rows = slice(ranks.axis_index("data") * n,
+                         (ranks.axis_index("data") + 1) * n)
+            cache_l = {k: ranks.spec_slice(torch.from_numpy(v)[None],
+                                           specs[k])[0].clone()
+                       for k, v in cache.items()}
+        run = kvcache.cache_run(cache_l, rules)
+        got, _ = transformer._attention_block(
+            lp, torch.from_numpy(x[rows]), cfg, rules,
+            torch.from_numpy(positions[rows]), "decode", cache_l,
+            window=window, run=run)
+        out.append({"label": label, "window": window, "run": run,
+                    "rows": (rows.start, rows.stop), "out": _np(got)})
     return out
 
 
@@ -544,8 +576,10 @@ def _tp_ops(mesh, inputs) -> dict:
 
 def tp_suite(device, work: dict) -> dict:
     """Every tensor-parallel case of ``tests/test_torch_tp.py`` on this
-    rank: train steps and prefill/decode on each mesh of ``work["meshes"]``
-    (and the cases of ``work["seq_serve"]`` under ``shard_seq``), the
+    rank: train steps (also by 2 microbatches) and prefill/decode on each
+    mesh of ``work["meshes"]`` (and the cases of ``work["seq_serve"]``,
+    the dense windows of ``work["windows"]`` and the engines of
+    ``work["seq_engines"]`` under ``shard_seq``), the
     engines over a data axis (``work["data_engines"]``), the engines (phi3, granite and each of the RWKV, hybrid and
     encoder-decoder families), the MoE routers' gradients and the operators
     on (1, 4), the elastic restores."""
@@ -556,6 +590,12 @@ def tp_suite(device, work: dict) -> dict:
         out[("serve", shape)] = _tp_serve(mesh, work["serve"])
         out[("seq", shape)] = _tp_serve(mesh, work["seq_serve"][shape],
                                         shard_seq=True)
+        out[("micro", shape)] = _tp_train(mesh, work["micro"],
+                                          microbatches=2)
+        out[("window", shape)] = _tp_window(mesh, work["windows"])
+        for key, case in work["seq_engines"].get(shape, {}).items():
+            out["seq_engine", shape, key] = _tp_engine(mesh, *case,
+                                                       shard_seq=True)
     for key, shape, shard_seq, case in work["data_engines"]:
         out["data_engine", key] = _tp_engine(
             make_mesh(shape, ("data", "model")), *case, shard_seq=shard_seq)

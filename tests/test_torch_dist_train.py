@@ -338,3 +338,21 @@ def test_launchers_serve_and_train_over_a_mesh(arch, tmp_path):
     more = run_training(arch, steps=5, mesh=(2, 2), ckpt_dir=ckpt, **tkw)
     assert more["steps"] == 5 and len(more["losses"]) == 2
     np.testing.assert_allclose(more["losses"], one["losses"][3:], rtol=1e-5)
+
+
+def test_launcher_serves_the_hybrid_with_its_ring_split_by_sequence():
+    """``launch/serve.py --arch recurrentgemma-2b --mesh 1,4 --shard-seq``
+    (4 gloo ranks on the CPU, each with its run of 4 of the smoke ring's
+    16 slots): prompts of 20 tokens, past the window, and 6 requests on 2
+    slots give every rank the one-device engine's greedy tokens."""
+    from repro_torch.launch import serve
+
+    kw = dict(smoke=True, requests=6, prompt_len=20, max_new=6, slots=2,
+              seed=0)
+    one = serve._serve("recurrentgemma-2b", device=torch.device("cpu"), **kw)
+    over = ranks.spawn(serve._serve_rank, 4, backend="gloo", device="cpu",
+                       args=("recurrentgemma-2b", dict(kw, shard_seq=True),
+                             (1, 4)), timeout=300)
+    assert len(one["outputs"]) == 6
+    for rank in over:
+        assert rank["outputs"] == one["outputs"]

@@ -48,14 +48,24 @@ ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
   heads of 32 at (1, 4), and phi3's, whose spec splits the KV heads and
   keeps the sequence whole, against the reference's GSPMD under
   ``rules_for(..., shard_seq=True)`` at 1e-4, the cache gathered by
-  ``state_specs`` equal to the reference's;
+  ``state_specs`` equal to the reference's; and recurrentgemma-2b's with
+  its ring of 16 slots split by sequence at (1, 4) and (2, 2), a 14-token
+  prompt whose decode steps wrap the ring and a 20-token one whose
+  prefill does;
+* a dense sliding window through ``_attention_block`` in decode mode over
+  a cache split by sequence (gemma-2b's, and qwen1.5-32b's int8 cache),
+  against the reference's ``_attention_block`` on one device at 1e-4;
 * the engine on (1, 4): greedy tokens equal to the one-rank engine's, and
   the same on every rank, for phi3, granite, rwkv6-3b, recurrentgemma-2b
   and whisper-medium; and the phi3 and gemma engines over a data axis,
   on (2, 2), (4, 1) and (2, 2) with ``shard_seq``, 4 slots and 6 requests
   (greedy and by temperature, with and without injected faults): the
   tokens, statuses, retries and errors of the one-rank engine, on every
-  rank;
+  rank; recurrentgemma-2b's engine with its ring split by sequence on
+  (1, 4) and (2, 2), by both attention paths, short prompts spliced into
+  rows whose ring was full;
+* the phi3 and gemma train steps by 2 microbatches on both meshes: the
+  one-rank step's loss and gradient norm;
 * a train state saved on (2, 2) restored onto (1, 4), (4, 1) and one rank,
   bit for bit, for phi3, granite (its experts split on (2, 2)), rwkv6-3b,
   recurrentgemma-2b (its blocked ``w_in``) and whisper-medium;
@@ -97,7 +107,7 @@ from repro_torch.core.faults import FaultInjector, FaultSpec, RecoveryPolicy
 from repro_torch.dist import ranks
 from repro_torch.launch import dryrun
 from repro_torch.launch.rules import rules_for
-from repro_torch.models import api, kvcache
+from repro_torch.models import api, kvcache, rglru
 from repro_torch.models.layers import softmax_xent
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.train.train_loop import (
@@ -161,10 +171,37 @@ SEQ_SERVE = {"seq-gemma-2b": ("gemma-2b", {}, [(1, 4), (2, 2)]),
              "seq-whisper-2-heads": ("whisper-medium",
                                      {"n_heads": 2, "n_kv_heads": 2,
                                       "head_dim": 32}, [(1, 4)]),
-             "seq-phi3-mini-3.8b": ("phi3-mini-3.8b", {}, [(1, 4)])}
+             "seq-phi3-mini-3.8b": ("phi3-mini-3.8b", {}, [(1, 4)]),
+             # the hybrid's ring of 16 slots split into runs of 4 (or 8)
+             "seq-recurrentgemma-2b": ("recurrentgemma-2b", {},
+                                       [(1, 4), (2, 2)]),
+             "seq-recurrentgemma-2b-long": ("recurrentgemma-2b", {},
+                                            [(1, 4)])}
+#: serve cases with a prompt and decode steps of their own, (batch,
+#: tokens) and steps: the hybrid's ring (the smoke window of 16 slots)
+#: wraps from slot 15 to 0 in the decode steps after a 14-token prompt,
+#: and in the prefill of a 20-token one
+OWN_PROMPTS = {"seq-recurrentgemma-2b": ((2, 14), 4),
+               "seq-recurrentgemma-2b-long": ((2, 20), 4)}
 SEQ_CASES = [(label, shape) for label, (_, _, meshes) in SEQ_SERVE.items()
              for shape in meshes]
 SEQ_MAX_LEN = 24
+#: the hybrid's engine under ``shard_seq`` on each mesh: 2 slots, 6
+#: requests, so that the short prompts are spliced into rows whose ring
+#: was full (the prompts of 18 and 20 tokens)
+SEQ_ENGINE_PROMPTS = (18, 3, 20, 5, 2, 9)
+SEQ_ENGINE_IMPLS = ("cuda", "xla")
+#: a dense sliding window through ``_attention_block`` in decode mode
+#: over a cache of ``SEQ_MAX_LEN`` split by sequence: label -> (arch,
+#: overrides) (one KV head, so that the sequence splits on both meshes),
+#: each window (its first position inside a run, at a run's edge, past
+#: whole runs), each row's new position
+WINDOW_ARCHS = {"gemma-2b": ("gemma-2b", {}),
+                "qwen1.5-32b-int8": ("qwen1.5-32b", {"n_kv_heads": 1})}
+WINDOW_SIZES = {"inside": 5, "edge": 6, "past": 3}
+WINDOW_POS = (12, 17, 23, 15)
+#: the train cases also run by 2 microbatches
+MICRO_ARCHS = ["gemma-2b", "phi3-mini-3.8b"]
 #: the engines over a data axis: (mesh, shard_seq)
 DATA_ENGINE_MESHES = [((2, 2), False), ((4, 1), False), ((2, 2), True)]
 DATA_ENGINE_ARCHS = ["phi3-mini-3.8b", "gemma-2b"]
@@ -222,11 +259,17 @@ def _torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def _prompt_of(label):
+    """A serve case's (batch, tokens) prompt and its decode steps."""
+    return OWN_PROMPTS.get(label, (PROMPT, DECODE_STEPS))
+
+
 def _serve_inputs(label):
     rcfg = _serve_cfg(label)
     rng = np.random.default_rng(5)
-    toks = rng.integers(0, rcfg.vocab, PROMPT).astype(np.int32)
-    decode = rng.integers(0, rcfg.vocab, (DECODE_STEPS, PROMPT[0], 1)) \
+    prompt, steps = _prompt_of(label)
+    toks = rng.integers(0, rcfg.vocab, prompt).astype(np.int32)
+    decode = rng.integers(0, rcfg.vocab, (steps, prompt[0], 1)) \
         .astype(np.int32)
     extra = {}
     if rcfg.family == "vlm":
@@ -425,6 +468,13 @@ def tp_runs(tmp_path_factory):
         batch = _torch_batch(batch)
         work["train"].append((arch, tcfg, tstate, batch))
         single[arch] = make_train_step(tcfg, donate=False)(tstate, batch)
+    work["micro"] = []
+    for arch in MICRO_ARCHS:
+        tcfg, tstate, batch = next(c[1:] for c in work["train"]
+                                   if c[0] == arch)
+        work["micro"].append((arch, tcfg, tstate, batch))
+        single["micro", arch] = make_train_step(
+            tcfg, microbatches=2, donate=False)(tstate, batch)
     # remat over the ranks: the recompute issues the layer's collectives
     # again inside the backward pass, in the same order on every rank
     for policy in ("nothing", "dots"):
@@ -462,6 +512,10 @@ def tp_runs(tmp_path_factory):
             work["seq_serve"][shape].append(
                 (label, config_from_reference(rcfg), np_params, toks,
                  decode, inputs, SEQ_MAX_LEN, states))
+    work["windows"], single["windows"] = _window_cases()
+    work["seq_engines"] = {
+        shape: {impl: _seq_engine_case(impl) for impl in SEQ_ENGINE_IMPLS}
+        for shape in MESHES}
     work["data_engines"] = [
         (key, shape, shard_seq, _data_engine_case(arch, faulty))
         for arch in DATA_ENGINE_ARCHS for shape, shard_seq in
@@ -532,17 +586,67 @@ def tp_runs(tmp_path_factory):
         for label in [*SERVE, *seq]:
             data = np.load(tmp / f"{label}.{tag}.serve.out.npz")
             logits = [data["arr_0"]]
+            steps = _prompt_of(label)[1]
             if label in given:
                 data = np.load(tmp / f"{label}.{tag}.given.out.npz")
-                logits += [data[f"arr_{i}"] for i in range(DECODE_STEPS)]
+                logits += [data[f"arr_{i}"] for i in range(steps)]
             else:
-                logits += [data[f"arr_{i}"] for i in
-                           range(1, DECODE_STEPS + 1)]
+                logits += [data[f"arr_{i}"] for i in range(1, steps + 1)]
             ref["serve", label, shape] = logits
             data = np.load(tmp / f"{label}.{tag}.state.npz")
             ref["state", label, shape] = [data[f"arr_{i}"]
                                           for i in range(len(data.files))]
     return ref, port, single, work, str(tmp / "ckpt")
+
+
+def _window_cases():
+    """The dense windows' cases (label, window, config, params, x,
+    positions, the whole one-layer cache) for the ranks, and the
+    reference's ``_attention_block`` output of each on one device."""
+    from repro.models import kvcache as r_kvcache
+    from repro.models import transformer as r_transformer
+
+    cases, want = [], {}
+    for label, (arch, overrides) in WINDOW_ARCHS.items():
+        rcfg = r_smoke(arch).scaled(**overrides)
+        rng = np.random.default_rng(17)
+        params = r_api.init_params(jax.random.key(1), rcfg)
+        np_params = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+        b = len(WINDOW_POS)
+        x = rng.standard_normal((b, 1, rcfg.d_model)).astype(np.float32)
+        positions = np.asarray(WINDOW_POS, np.int32)[:, None]
+        shape = (b, rcfg.n_kv_heads, SEQ_MAX_LEN, rcfg.head_dim)
+        if rcfg.kv_quant:
+            cache = {k: rng.integers(-127, 128, shape).astype(np.int8)
+                     for k in ("k_q", "v_q")}
+            cache.update({k: (rng.random(shape[:-1]) * 0.02)
+                          .astype(np.float32) for k in ("k_s", "v_s")})
+        else:
+            cache = {k: rng.standard_normal(shape).astype(np.float32)
+                     for k in ("k", "v")}
+        assert set(cache) == set(r_kvcache.cache_logical_axes(rcfg)) - {
+            "pos"}
+        lp = jax.tree.map(lambda a: a[0], params["layers"])
+        for case, window in WINDOW_SIZES.items():
+            out, _ = r_transformer._attention_block(
+                lp, jnp.asarray(x), rcfg, None, jnp.asarray(positions),
+                "decode", {k: jnp.asarray(v) for k, v in cache.items()},
+                window=window)
+            want[label, case] = np.asarray(out, np.float32)
+            cases.append((f"{label}/{case}", window,
+                          config_from_reference(rcfg), np_params, x,
+                          positions, cache))
+    return cases, want
+
+
+def _seq_engine_case(impl):
+    """(cfg, seed, prompts, max_new, slots) of the hybrid's engine under
+    ``shard_seq`` by ``attention_impl`` ``impl``."""
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                              attention_impl=impl)
+    prompts = [np.random.default_rng(30 + i).integers(0, cfg.vocab, n)
+               .astype(np.int32) for i, n in enumerate(SEQ_ENGINE_PROMPTS)]
+    return cfg, 0, prompts, 5, 2
 
 
 def _moe_cfg(label):
@@ -701,26 +805,35 @@ def test_tp_seq_split_prefill_and_decode_match_the_reference(tp_runs, label,
     cache's spec splits the sequence (every KV head), and the whole
     sequence where it splits the KV heads instead (phi3).  gemma at (1, 4):
     runs of 6, the prompt's 8 positions in the first two and the decode
-    writes in the second, the last two runs all zeros."""
+    writes in the second, the last two runs all zeros.  The hybrid's ring
+    of 16 slots splits into runs of 4 (8 at (2, 2)) of ``attn_k``,
+    ``attn_v`` and ``slot_pos``, through the ring's wrap in the decode
+    steps after a 14-token prompt and in the prefill of a 20-token one."""
     rules = _held_to_the_reference(tp_runs, label, shape, "seq",
                                    SEQ_MAX_LEN)
     cfg = config_from_reference(_serve_cfg(label))
     m = shape[1]
     split = rules.spec(("kv_heads",))[0] != "model"
     assert split == (label != "seq-phi3-mini-3.8b")
-    assert api.state_specs(cfg, rules)[
-        "self_k" if cfg.family == "encdec" else
-        "k_q" if cfg.kv_quant else "k"][3] == ("model" if split else None)
+    key = {"encdec": "self_k", "hybrid": "attn_k"}.get(
+        cfg.family, "k_q" if cfg.kv_quant else "k")
+    assert api.state_specs(cfg, rules)[key][3] == ("model" if split
+                                                   else None)
     assert kvcache.seq_run(rules)[0] == (m if split else 1)
+    layers, length = cfg.n_layers, SEQ_MAX_LEN
+    if cfg.family == "hybrid":
+        layers, length = rglru.n_groups(cfg)[0], cfg.window
+        assert api.state_specs(cfg, rules)["slot_pos"][2] == "model"
     _, port, _, _, _ = tp_runs
     for p in port:
         got = next(r for r in p["seq", shape] if r["label"] == label)
-        key = "self_k" if cfg.family == "encdec" else \
-            "k_q" if cfg.kv_quant else "k"
         heads = cfg.n_kv_heads // (1 if split else m)
         assert got["cache_shapes"][key] == (
-            cfg.n_layers, PROMPT[0] // shape[0], heads,
-            SEQ_MAX_LEN // (m if split else 1), cfg.head_dim)
+            layers, _prompt_of(label)[0][0] // shape[0], heads,
+            length // (m if split else 1), cfg.head_dim)
+        if cfg.family == "hybrid":
+            assert got["cache_shapes"]["slot_pos"] == (
+                layers, _prompt_of(label)[0][0] // shape[0], length // m)
     if label == "seq-gemma-2b" and shape == (1, 4):
         got = next(r for r in port[0]["seq", shape] if r["label"] == label)
         k = got["state"]["k"]  # whole: the ranks' runs of 6 in order
@@ -738,16 +851,17 @@ def _held_to_the_reference(tp_runs, label, shape, kind, max_len):
     want = ref["serve", label, shape]
     rcfg = _serve_cfg(label)
     cfg = config_from_reference(rcfg)
+    prompt, steps = _prompt_of(label)
     mesh = {"data": shape[0], "model": shape[1]}
-    rules = rules_for(cfg, mesh, "tp", global_batch=PROMPT[0],
+    rules = rules_for(cfg, mesh, "tp", global_batch=prompt[0],
                       shard_seq=kind == "seq").with_mesh(mesh)
     specs = _torch_dist_ranks._flat(api.state_specs(cfg, rules))
     whole = _torch_dist_ranks._flat(api.init_decode_state(
-        cfg, PROMPT[0] // shape[0], max_len, "meta"))
+        cfg, prompt[0] // shape[0], max_len, "meta"))
     for p in port:
         got = next(r for r in p[kind, shape] if r["label"] == label)
         lo, hi = got["rows"]
-        assert len(got["logits"]) == DECODE_STEPS + 1
+        assert len(got["logits"]) == steps + 1
         for i, (g, w) in enumerate(zip(got["logits"], want)):
             assert g.shape == w[lo:hi].shape == (hi - lo, 1, rcfg.vocab)
             np.testing.assert_allclose(g, w[lo:hi], rtol=1e-4, atol=1e-4,
@@ -834,6 +948,63 @@ def _data_engine_case(arch, faulty):
                .astype(np.int32) for i, n in enumerate((5, 9, 3, 7, 4, 6))]
     return (cfg, 0, prompts, 5, 4, ENGINE_TEMPS,
             ENGINE_FAULTS if faulty else ())
+
+
+@pytest.mark.parametrize("impl", SEQ_ENGINE_IMPLS)
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+def test_tp_hybrid_engine_with_its_ring_split_equals_one_rank(tp_runs, shape,
+                                                              impl):
+    """recurrentgemma-2b's engine with its ring split by sequence
+    (``shard_seq``: runs of 4 slots at (1, 4), of 8 at (2, 2) with a slot
+    a data rank), by the kernel path (``attention_impl`` "cuda", whose
+    wrappers take the plain versions on the CPU) and the plain one: 6
+    requests on 2 slots, the short prompts spliced into rows whose ring
+    was full, give the one-rank engine's greedy tokens on every rank."""
+    _, port, _, work, _ = tp_runs
+    case = work["seq_engines"][shape][impl]
+    want = _one_rank_engine(*case)
+    for p in port:
+        assert p["seq_engine", shape, impl] == want
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("case", list(WINDOW_SIZES))
+@pytest.mark.parametrize("label", list(WINDOW_ARCHS))
+def test_tp_windowed_decode_over_a_split_cache_matches_the_reference(
+        tp_runs, label, case, shape):
+    """``_attention_block(..., window=w)`` in decode mode on each rank's
+    run of a cache split by sequence (gemma's, and qwen's int8 cache read
+    through ``read_layer``), the ranks' masked partials combined, against
+    the reference's ``_attention_block`` with the window on the whole
+    cache, on the same numpy inputs, at 1e-4; rows whose window starts
+    inside a run, at a run's edge (position 12 or 18) and past whole
+    runs."""
+    _, port, single, _, _ = tp_runs
+    want = single["windows"][label, case]
+    for p in port:
+        got = next(r for r in p["window", shape]
+                   if r["label"] == f"{label}/{case}")
+        assert got["run"][0] == shape[1]
+        lo, hi = got["rows"]
+        np.testing.assert_allclose(got["out"], want[lo:hi], rtol=1e-4,
+                                   atol=1e-4, err_msg=f"{label} {case}")
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", MICRO_ARCHS)
+def test_tp_train_step_by_microbatches_equals_one_rank(tp_runs, arch, shape):
+    """A train step by 2 microbatches over a model axis: the loss and the
+    gradient norm of the one-rank step by 2 microbatches, from the same
+    carried state at step 60, on every rank."""
+    _, port, single, _, _ = tp_runs
+    _, one = single["micro", arch]
+    for p in port:
+        got = next(r for r in p["micro", shape] if r["label"] == arch)
+        np.testing.assert_allclose(got["loss"], float(one["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norm"], float(one["grad_norm"]),
+                                   rtol=1e-4)
+        assert got["step"] == 61
 
 
 def test_tp_engine_tokens_equal_one_rank_and_every_rank(tp_runs):
@@ -923,12 +1094,12 @@ def test_tp_engine_over_a_data_axis_equals_one_rank(tp_runs, arch, shape,
 
 
 def test_tp_engine_refuses_a_data_axis_and_other_families():
-    """An engine refuses slots that its data ranks do not split evenly,
-    and the hybrid's ring cache split by sequence (ROADMAP Queue A item
-    25); over a model axis every family builds one, its decode state the
+    """An engine refuses slots that its data ranks do not split evenly;
+    over a model axis every family builds one, its decode state the
     rank's part: rwkv6-3b's WKV state one of 4 heads, recurrentgemma-2b's
     recurrent state a quarter of its channels (the ring cache of its one
-    KV head whole), whisper-medium's caches one of 4 KV heads."""
+    KV head whole, or under ``shard_seq`` a run of 4 of its 16 slots),
+    whisper-medium's caches one of 4 KV heads."""
     cfg = get_smoke_config("phi3-mini-3.8b")
     params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     mesh = {"data": 2, "model": 2}
@@ -939,9 +1110,10 @@ def test_tp_engine_refuses_a_data_axis_and_other_families():
     cfg = get_smoke_config("recurrentgemma-2b")
     rules = rules_for(cfg, mesh, "tp", shard_seq=True).with_mesh(mesh)
     assert api.state_specs(cfg, rules)["attn_k"][3] == "model"
-    with pytest.raises(NotImplementedError, match="item 25"):
-        ServeEngine(None, cfg, slots=2, max_len=32, rules=rules,
-                    device="cpu")
+    engine = ServeEngine(None, cfg, slots=2, max_len=32, rules=rules,
+                         device="cpu")
+    assert tuple(engine.state["attn_k"].shape) == (2, 2, 1, 4, 16)
+    assert tuple(engine.state["slot_pos"].shape) == (2, 2, 4)
     shapes = {"rwkv6-3b": {"wkv": (2, 2, 1, 16, 16)},
               "recurrentgemma-2b": {"attn_k": (2, 2, 1, 16, 16)},
               "whisper-medium": {"self_k": (2, 2, 1, 32, 16),

@@ -3,6 +3,7 @@
 
     python3 tools/tp_probe.py [--seed 0] [--rehearse] [--kernels]
         [--archs rwkv6-3b,whisper-medium] [--no-dryrun] [--seq]
+        [--seq-archs recurrentgemma-2b]
 
 Needs one GPU (``--rehearse``: the CPU at toy sizes, measuring nothing).
 Prints the ``env`` and ``build`` phases' lines (the ranks load the library
@@ -26,10 +27,12 @@ phase's (every cell of one pod on the meta device, checked against the
 ``--no-dryrun`` leaves out the ``train`` and ``dryrun`` phases.  The tp
 phase ends with its cells over other meshes (``TP_SEQ_CELLS``): gemma-2b
 over (1, 4) with its decode cache split by sequence (``shard_seq``),
-phi3-mini-3.8b over (2, 2) with its slots split over the data ranks.
+phi3-mini-3.8b over (2, 2) with its slots split over the data ranks,
+recurrentgemma-2b over (1, 4) with its ring split by sequence.
 ``--seq`` runs those cells alone (no other arch served or trained, no
 ``train`` phase), then their dry cells on the meta device held against
-them exactly (a rank's bytes; the decode step's collective spans).
+them exactly (a rank's bytes; the decode step's collective spans);
+``--seq-archs`` keeps only the cells of the archs named.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
     FULL,
     TOY,
+    TP_SEQ_CELLS,
     TP_SERVE_ARCHS,
     TP_TRAIN_ARCHS,
     dry_cell,
@@ -76,8 +80,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", action="store_true",
                     help="only the tp phase's cells over other meshes "
                          "(gemma-2b's cache split by sequence, phi3-mini "
-                         "over (2, 2)) and their dry cells")
+                         "over (2, 2), recurrentgemma-2b's ring split by "
+                         "sequence) and their dry cells")
+    ap.add_argument("--seq-archs", default=None,
+                    help="comma-separated: only the cells over other "
+                         "meshes of these archs")
     args = ap.parse_args(argv)
+    seq_cells = tuple(c for c in TP_SEQ_CELLS if args.seq_archs is None
+                      or c[0] in args.seq_archs.split(","))
     archs = args.archs.split(",") if args.archs else None
     if args.seq:
         archs = []
@@ -100,11 +110,13 @@ def main(argv=None) -> int:
         phase_kernels(sizes, device, gen, build)
     train = None if args.no_dryrun or args.seq else phase_train(
         sizes, device, args.seed)
-    tp = phase_tp(sizes, device, args.seed, serve_archs, train_archs)
+    tp = phase_tp(sizes, device, args.seed, serve_archs, train_archs,
+                  seq_cells)
     if train is not None:
         phase_dryrun(sizes, tp, train)
     elif args.seq:
-        metrics = {k: dry_cell(*a) for k, a in seq_dry_cells(sizes).items()}
+        metrics = {k: dry_cell(*a)
+                   for k, a in seq_dry_cells(sizes, seq_cells).items()}
         emit({"phase": "dryrun_seq",
               "tp_seq": seq_dry_checks(tp["seq"], metrics)})
     if device.type == "cuda":
