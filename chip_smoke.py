@@ -20,7 +20,11 @@ local attention), granite-moe-3b-a800m (flash and decode attention at a
 GQA group of 3, beside top-8 routing over 40 experts; its plain passes
 replay the kernel passes' expert choices) and whisper-medium (flash
 attention non-causal over 1500 encoder frames and in the decoder, decode
-attention against the self- and cross-attention caches); then training
+attention against the self- and cross-attention caches), then qwen1.5-32b
+at 32 of its 64 layers (QKV biases; the int8 cache, whose eager decode
+is timed beside the decode kernel), internvl2-26b (256 patch embeddings
+before each prompt; a GQA group of 6 at head dim 128) and stablelm-3b
+(LayerNorm; head dim 80), each on cut traffic; then training
 with gemma-2b at full width and depth in bf16 (``attention_impl="xla"``:
 the kernels are forward-only), ten steps of 8 x 512 tokens from the token
 stream with remat, after one step held against the CPU in f32 at two
@@ -37,7 +41,10 @@ then tensor parallelism over a ``"model"`` axis of 4 ranks on the card:
 phi3-mini-3.8b and granite-moe-3b-a800m (its 40 experts 10 a rank) served
 at full width and depth on each rank's heads, gemma-2b and
 granite-moe-1b-a400m trained at full width and depth, with their f32
-checks against one rank and a checkpoint restored across meshes; then the
+checks against one rank and a checkpoint restored across meshes, and
+cells over other meshes (a cache or ring split by sequence; phi3-mini and
+granite-moe-3b-a800m over (2, 2), the engine's slots split over the data
+ranks, no all-reduce over the data axis in their engine runs); then the
 dry run on the meta device (every cell of one pod of 256 ranks under
 ``tp`` and ``dp``), its bytes and collectives held exactly against what
 the ``tp`` phase measured and its roofline beside the ``train`` phase's
@@ -80,6 +87,7 @@ line says ``"ok": false``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -266,6 +274,7 @@ from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import rglru as model_rglru  # noqa: E402
 from repro_torch.models import rwkv as model_rwkv  # noqa: E402
+from repro_torch.models import transformer as model_transformer  # noqa: E402
 from repro_torch.models.layers import causal_lm_loss, rms_norm  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
     analyze,
@@ -368,6 +377,19 @@ class Sizes:
     whisper_frames: int = 1500
     decode_granite: tuple = (8, 24, 8, 2184, 64)
     decode_whisper_cross: tuple = (8, 16, 16, 1500, 64)
+    # qwen1.5-32b's prefill of 2048 tokens (40 heads of 128, QKV biases)
+    # and its 8-slot int8 decode (the eager decode_attention_quant: no
+    # kernel, timed beside the kernels); internvl2-26b's prefill of 2048
+    # tokens after its 256 patch embeddings and 8-slot decode against
+    # prompt + 256 + new positions (48 query heads on 8 KV heads of 128: a
+    # group of 6); stablelm-3b's (32 heads of 80, padded into the 128-wide
+    # tile)
+    flash_qwen: tuple = (1, 40, 40, 2048, 128)
+    decode_qwen_int8: tuple = (8, 40, 40, 2184, 128)
+    flash_internvl: tuple = (1, 48, 8, 2304, 128)
+    decode_internvl: tuple = (8, 48, 8, 2440, 128)
+    flash_stablelm: tuple = (1, 32, 32, 2048, 80)
+    decode_stablelm: tuple = (8, 32, 32, 2184, 80)
     # the correlator: (C, T, A) channels, samples, antennas (1.61 GB f32)
     corr: tuple = (1024, 768, 256)
     # the recurrent scans at the serving path's shapes: rwkv6-3b's prefill
@@ -392,6 +414,12 @@ class Sizes:
     serve_prompt_whisper: tuple = (16, 320)
     serve_max_len_whisper: int = 448
     profile_steps: int = 3
+    # the archs served last (qwen1.5-32b, internvl2-26b, stablelm-3b)
+    # serve serve_requests_added requests of serve_new_added new tokens,
+    # and profile profile_steps_added calls of each kind
+    serve_requests_added: int = 8
+    serve_new_added: tuple = (8, 16)
+    profile_steps_added: int = 1
     # the training path: gemma-2b at full width and depth (its smoke
     # config in a rehearsal), a global batch of train_batch x train_seq
     # tokens from the token stream, train_steps steps; the card-against-CPU
@@ -473,6 +501,11 @@ class Sizes:
     tp_seq_slots: int = 8
     tp_decode_gemma_seq: tuple = (8, 8, 1, 546, 256)
     tp_decode_rgemma_seq: tuple = (8, 10, 1, 512, 256)
+    # a granite-moe-3b-a800m rank over (2, 2): 12 of 24 query heads on 4 of
+    # 8 KV heads, the check prefill of tp_check_len tokens, and the decode
+    # of its data rank's 4 of the 8 slots
+    tp_flash_granite_2x2: tuple = (1, 12, 4, 1024, 64)
+    tp_decode_granite_2x2: tuple = (4, 12, 4, 2184, 64)
     # the dry run on the meta device: every cell of one pod under "tp" and
     # "dp" (dryrun_archs None: every arch), over a process a core
     dryrun_archs: tuple | None = None
@@ -494,13 +527,17 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             flash_whisper_cross=(1, 4, 4, 20, 32), whisper_frames=60,
             decode_granite=(3, 6, 2, 70, 32),
             decode_whisper_cross=(3, 4, 4, 60, 32),
+            flash_qwen=(1, 4, 4, 24, 16), decode_qwen_int8=(3, 4, 4, 70, 16),
+            flash_internvl=(1, 8, 2, 32, 8), decode_internvl=(3, 8, 2, 70, 8),
+            flash_stablelm=(1, 4, 4, 24, 16),
+            decode_stablelm=(3, 4, 4, 70, 16),
             corr=(4, 40, 70), wkv=(1, 4, 140, 16), wkv_decode=(3, 4, 1, 16),
             lru=(1, 160, 64), lru_decode=(3, 1, 64),
             serve_smoke=True, serve_requests=6, serve_requests_recurrent=6,
             serve_slots=3, serve_prompt=(4, 24), serve_new=(2, 6),
             serve_check_len=24, serve_check_len_window=24,
             serve_prompt_whisper=(4, 20), serve_max_len_whisper=30,
-            profile_steps=1,
+            profile_steps=1, serve_requests_added=4, serve_new_added=(2, 4),
             train_smoke=True, train_batch=4, train_seq=16,
             train_check_batch=(2, 8),
             dist_elems=1 << 10, dist_matmul=(64, 128, 32),
@@ -520,6 +557,8 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             tp_train_batch_recurrent=(4, 16), tp_seq_slots=4,
             tp_decode_gemma_seq=(3, 4, 1, 10, 64),
             tp_decode_rgemma_seq=(3, 5, 1, 10, 64),
+            tp_flash_granite_2x2=(1, 2, 1, 24, 12),
+            tp_decode_granite_2x2=(2, 2, 1, 70, 12),
             dryrun_archs=("granite-moe-1b-a400m", "rwkv6-3b"),
             reps=1)
 
@@ -540,12 +579,15 @@ TP_TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m", "rwkv6-3b",
 #: by sequence over "model" (its one KV head leaves the axis to the
 #: sequence: a run of max_len / 4 positions a rank, the ranks' partials
 #: combined by their lse), phi3-mini-3.8b over (2, 2) (4 of the 8 slots a
-#: data rank, 16 of 32 heads a model rank), and recurrentgemma-2b over
-#: (1, 4) with its ring split by sequence (a run of 512 of the 2048 slots
-#: of its one KV head a rank)
+#: data rank, 16 of 32 heads a model rank), recurrentgemma-2b over (1, 4)
+#: with its ring split by sequence (a run of 512 of the 2048 slots of its
+#: one KV head a rank), and granite-moe-3b-a800m over (2, 2) (4 slots a
+#: data rank, 20 of 40 experts and 12 of 24 heads a model rank: the MoE
+#: engine over a data axis)
 TP_SEQ_CELLS = (("gemma-2b", (1, 4), True),
                 ("phi3-mini-3.8b", (2, 2), False),
-                ("recurrentgemma-2b", (1, 4), True))
+                ("recurrentgemma-2b", (1, 4), True),
+                ("granite-moe-3b-a800m", (2, 2), False))
 
 
 def seq_cell_key(arch: str, shape: tuple, shard_seq: bool) -> str:
@@ -2283,7 +2325,15 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                       sizes.tp_flash_whisper_self, bf16, gen, device),
                   "whisper_tp_rank_cross": lambda: flash_inputs(
                       sizes.tp_flash_whisper_self, bf16, gen, device,
-                      t=sizes.tp_flash_whisper_encoder[3], causal=False)},
+                      t=sizes.tp_flash_whisper_encoder[3], causal=False),
+                  "qwen": lambda: flash_inputs(sizes.flash_qwen, bf16, gen,
+                                               device),
+                  "internvl2": lambda: flash_inputs(sizes.flash_internvl,
+                                                    bf16, gen, device),
+                  "stablelm": lambda: flash_inputs(sizes.flash_stablelm,
+                                                   bf16, gen, device),
+                  "granite_2x2_rank": lambda: flash_inputs(
+                      sizes.tp_flash_granite_2x2, bf16, gen, device)},
             # the planted faults are causal with S = T: the non-causal
             # shapes are held to the bf16 limit alone
             also_check={"whisper_encoder": flash_check,
@@ -2311,6 +2361,12 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                              causal=False),
                 flash_inputs((1, 6, 2, 100, 64), bf16, gen, device, t=300,
                              causal=False),
+                # D = 128 at a group of 6 and D = 80 (padded into the
+                # 128-wide tile), S and T ragged
+                flash_inputs((1, 12, 2, 300, 128), bf16, gen, device),
+                flash_inputs((1, 4, 4, 150, 80), bf16, gen, device),
+                flash_inputs((1, 4, 4, 40, 80), bf16, gen, device, t=170,
+                             q_offset=130),
             ],
             first=lambda q, k, v, kw: flash_attention_cuda(
                 q, k, v, route="fma", **kw),
@@ -2359,7 +2415,13 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                       sizes.tp_decode_rgemma_seq, bf16, gen, device),
                   "whisper_tp_rank_cross": lambda: decode_inputs(
                       sizes.tp_decode_whisper_cross, bf16, gen, device,
-                      kv_len=sizes.tp_decode_whisper_cross[3])},
+                      kv_len=sizes.tp_decode_whisper_cross[3]),
+                  "internvl2": lambda: decode_inputs(sizes.decode_internvl,
+                                                     bf16, gen, device),
+                  "stablelm": lambda: decode_inputs(sizes.decode_stablelm,
+                                                    bf16, gen, device),
+                  "granite_2x2_rank": lambda: decode_inputs(
+                      sizes.tp_decode_granite_2x2, bf16, gen, device)},
             # f32 (route "fma") and bf16 (route "mma": T ragged, G = 10 and
             # 32 query heads a kv head, rows at kv_len 1 and T)
             ragged=lambda: [
@@ -2371,6 +2433,9 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                 decode_inputs((2, 8, 1, 300, 256), f32, gen, device),
                 decode_inputs((3, 10, 1, 300, 256), bf16, gen, device),
                 decode_inputs((2, 32, 1, 200, 128), bf16, gen, device),
+                # a group of 6 at D = 128 and D = 80, T ragged
+                decode_inputs((3, 12, 2, 300, 128), bf16, gen, device),
+                decode_inputs((3, 4, 4, 300, 80), bf16, gen, device),
             ],
             first=lambda q, k, v, n: decode_attention_cuda(
                 q, k, v, n, route="fma"),
@@ -3801,16 +3866,33 @@ BF16_LOGIT_TOL = 5e-2
 #: f32 at full width: the reference's test_prefill_decode_matches_full_forward.
 F32_LOGIT_TOL = 2e-3
 
+#: the configurations served last, on traffic cut to fit the run's time
+#: (``serve_requests_added``, ``serve_new_added``, ``profile_steps_added``):
+#: qwen1.5-32b (QKV biases, the int8 cache; its depth cut, SERVE_DEPTH),
+#: internvl2-26b (the VLM's 256 patch embeddings before each prompt; GQA at
+#: a group of 6, head dim 128) and stablelm-3b (LayerNorm, head dim 80)
+SERVE_ARCHS_ADDED = ("qwen1.5-32b", "internvl2-26b", "stablelm-3b")
 #: one model of each family the port serves, in the order the runs go
 SERVE_ARCHS = ("phi3-mini-3.8b", "rwkv6-3b", "recurrentgemma-2b",
-               "granite-moe-3b-a800m", "whisper-medium")
+               "granite-moe-3b-a800m", "whisper-medium") + SERVE_ARCHS_ADDED
+#: the served depth where the full one does not fit the card beside the
+#: checks: qwen1.5-32b's 64 layers are 70.4e9 B of bf16 weights, and with
+#: an 8-slot int8 cache (11.8e9 B at max_len 2184) and the f32 check's
+#: 10e9 B they pass its 85.0e9 B; 32 layers hold 36.7e9 B and 5.9e9 B
+SERVE_DEPTH = {"qwen1.5-32b": 32}
 #: depth of the f32 check at full width: two layers, three for the hybrid,
 #: whose two would be two recurrent blocks and no attention block, and six
 #: for rwkv6-3b, the most at which its two f32 paths still agree (its
 #: logits after each block, tools/depth_divergence.py: 3.6e-5 of the
 #: largest logit after block 6, 6e-4 after block 8 and 18 % after 32); the
 #: encoder-decoder's cut is two layers on each side
-F32_LAYERS = {"dense": 2, "rwkv": 6, "hybrid": 3, "moe": 2, "encdec": 2}
+F32_LAYERS = {"dense": 2, "rwkv": 6, "hybrid": 3, "moe": 2, "encdec": 2,
+              "vlm": 2}
+#: the int8 cache's prefill then decode against the full forward (which
+#: attends to unquantized keys and values): the reference's own limit for
+#: an int8 cache against a bf16 one (tests/test_models.py,
+#: test_int8_kv_cache_close_to_bf16), element-wise, in either dtype
+INT8_LOGIT_TOL = (0.1, 0.15)  # rtol, atol
 #: With random weights rwkv6-3b amplifies rounding through depth, and the
 #: reference's own two WKV paths do so too (tests/test_torch_recurrent.py,
 #: test_rwkv_amplifies_rounding_through_depth): in bf16 its kernel and
@@ -3820,6 +3902,14 @@ F32_LAYERS = {"dense": 2, "rwkv": 6, "hybrid": 3, "moe": 2, "encdec": 2}
 #: held to the bf16 limit, and its bf16 logits, the prefill then decode
 #: among them, are gated at this depth
 RWKV_LOGIT_LAYERS = 1
+
+
+def quant_decode_plain(q, k_q, k_s, v_q, v_s, kv_len, **kw):
+    """``decode_attention_quant``'s plain version: the decode attention's
+    plain version on the dequantized cache."""
+    return decode_attention_ref(q, k_q.float() * k_s[..., None],
+                                v_q.float() * v_s[..., None], kv_len=kv_len,
+                                **kw)
 
 
 def serve_traffic(sizes: Sizes, vocab: int, seed: int, n: int,
@@ -3960,11 +4050,23 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                 "expect": lambda prefills, steps: {
                     "flash_attention": flash * prefills,
                     "decode_attention": 2 * cfg.n_layers * steps}}
+    # the VLM's prefill prepends its patch embeddings, which the cache
+    # holds; the int8 cache's decode is the eager decode_attention_quant
+    # (no kernel in the reference either), held against its plain version
+    # on the dequantized cache as the kernels are
+    patches = cfg.n_patches if cfg.family == "vlm" else 0
+    if cfg.kv_quant and cfg.kv_fused:
+        decode = Spy(model_transformer, "decode_attention_quant",
+                     quant_decode_plain, cfg.n_layers)
+        attention_profile = dict(attention_profile, decode_step=())
+    else:
+        decode = Spy(model_attention, "cuda_decode", decode_attention_ref,
+                     cfg.n_layers)
     return {"prefill": [Spy(model_attention, "flash_attention", attention_ref,
                             cfg.n_layers)],
-            "decode": [Spy(model_attention, "cuda_decode",
-                           decode_attention_ref, cfg.n_layers)],
+            "decode": [decode],
             "logit_layers": None, "check_len": sizes.serve_check_len,
+            "patches": patches,
             "profile": attention_profile,
             # the MoE family routes: the plain path replays the kernel
             # path's expert choices (``routing``).  Routed freely, the two
@@ -3980,7 +4082,8 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                                if cfg.family == "moe" else cfg),
             "expect": lambda prefills, steps: {
                 "flash_attention": cfg.n_layers * prefills,
-                "decode_attention": cfg.n_layers * steps}}
+                "decode_attention": (0 if decode.name != "cuda_decode"
+                                     else cfg.n_layers * steps)}}
 
 
 def layer_gaps(what: str, calls, spy: Spy) -> dict:
@@ -4086,18 +4189,22 @@ def expert_sets_agree(a: list, b: list) -> float:
     return float(torch.cat(same).double().mean())
 
 
-def serve_frames(cfg, gen, device) -> torch.Tensor | None:
-    """The encoder's input of one request (1, enc_frames, d_model), normal,
-    in the model's dtype; None for a family without an encoder."""
-    if cfg.family != "encdec":
-        return None
-    return torch.randn((1, cfg.enc_frames, cfg.d_model), generator=gen,
-                       device=device).to(cfg.torch_dtype)
+def serve_extras(cfg, gen, device) -> dict:
+    """A request's inputs besides its tokens, normal, in the model's dtype:
+    the encoder's (``frames``, (1, enc_frames, d_model)), the VLM's patch
+    embeddings (``patch_embeds``, (1, n_patches, d_model)); none for the
+    other families."""
+    name, n = {"encdec": ("frames", cfg.enc_frames),
+               "vlm": ("patch_embeds", cfg.n_patches)}.get(cfg.family,
+                                                          (None, 0))
+    if name is None:
+        return {}
+    return {name: torch.randn((1, n, cfg.d_model), generator=gen,
+                              device=device).to(cfg.torch_dtype)}
 
 
-def prompt_batch(toks: torch.Tensor, frames: torch.Tensor | None) -> dict:
-    return {"tokens": toks} if frames is None else {"tokens": toks,
-                                                    "frames": frames}
+def prompt_batch(toks: torch.Tensor, extras: dict) -> dict:
+    return {"tokens": toks, **extras}
 
 
 @torch.no_grad()
@@ -4126,16 +4233,20 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
     replay = spec.get("replay", False)
     f32 = cfg.torch_dtype == torch.float32
     n, slots = spec["check_len"], sizes.serve_slots
-    max_len = max(max_len, n + 1)
+    patches = spec.get("patches", 0)
+    max_len = max(max_len, patches + n + 1)
     toks = torch.randint(0, cfg.vocab, (1, n), generator=gen, device=device,
                          dtype=torch.int32)
-    frames = serve_frames(cfg, gen, device)
-    out = {"prefill_tokens": n}
+    extras = serve_extras(cfg, gen, device)
+    out = {"prefill_tokens": n, "patches": patches}
 
     def prefill_logits(c, state, replayed=None):
+        # the logits of every position, the VLM's patches first
         with routing(replayed) as routes:
-            got = model_api.forward(params, toks, c, mode="prefill",
-                                    state=state, frames=frames)[0]
+            got = model_api.forward(
+                params, toks, c, mode="prefill", state=state,
+                frames=extras.get("frames"),
+                extra_embeds=extras.get("patch_embeds"))[0]
         return got, routes
 
     state = model_api.init_decode_state(cfg, 1, max_len, device)
@@ -4164,7 +4275,7 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
     for i, p in enumerate(prompts):
         one = model_api.init_decode_state(cfg, 1, max_len, device)
         state = _splice_state(state, model_api.prefill(
-            params, prompt_batch(p[None], frames), cfg, one)[1], i)
+            params, prompt_batch(p[None], extras), cfg, one)[1], i)
     step = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
                          device=device, dtype=torch.int32)
     # A dense model's call writes its own k/v at ``pos`` before reading the
@@ -4177,7 +4288,8 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
     del calls
     with routing(step_routes if replay else None):
         dec.append(model_api.decode_step(params, step, plain, state)[0])
-    out["decode"] = dict(logits_gap(*dec), kv_len=(lengths + 1).tolist())
+    out["decode"] = dict(logits_gap(*dec),
+                         kv_len=(patches + lengths + 1).tolist())
     if replay:
         with routing() as free_routes:
             free = model_api.decode_step(params, step, plain, state)[0]
@@ -4186,11 +4298,11 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
             expert_sets_agree=expert_sets_agree(step_routes, free_routes))
 
     tf = spec.get("teacher_forced", cfg)
-    full, full_routes = logits[0][:, n - 3:], kernel_routes
+    full, full_routes = logits[0][:, -3:], kernel_routes
     if tf is not cfg:
         got, full_routes = prefill_logits(
             tf, model_api.init_decode_state(tf, 1, max_len, device))
-        full = got[:, n - 3:]
+        full = got[:, -3:]
         del got
 
     def replayed(cols):
@@ -4199,7 +4311,7 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
     one = model_api.init_decode_state(tf, 1, max_len, device)
     with routing(replayed(slice(0, n - 3))):
         _, one = model_api.prefill(params, prompt_batch(toks[:, :n - 3],
-                                                        frames), tf, one)
+                                                        extras), tf, one)
     stepped = []
     for i in range(n - 3, n):
         with routing(replayed(slice(i, i + 1))):
@@ -4208,13 +4320,20 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
         stepped.append(lg[:, -1])
     stepped = torch.stack(stepped, dim=1)
     out["prefill_then_decode"] = logits_gap(stepped, full)
+    pairs = {"prefill": logits, "decode": dec,
+             "prefill_then_decode": (stepped, full)}
+    if cfg.kv_quant:
+        # the int8 cache's steps attend to quantized keys and values, the
+        # full forward to the unquantized ones: the reference's int8 limit
+        check_close("serve/int8 prefill then decode", *pairs.pop(
+            "prefill_then_decode"), rtol=INT8_LOGIT_TOL[0],
+            atol=INT8_LOGIT_TOL[1])
     if f32:
-        for what, got, want in (("prefill", *logits), ("decode", *dec),
-                                ("prefill then decode", stepped, full)):
+        for what, (got, want) in pairs.items():
             check_close(f"serve/f32 {what}", got, want, rtol=F32_LOGIT_TOL,
                         atol=F32_LOGIT_TOL)
     elif gate_logits:
-        for what in ("prefill", "decode", "prefill_then_decode"):
+        for what in pairs:
             require(out[what]["rel_to_max"] <= BF16_LOGIT_TOL, "serve/bf16",
                     what, out[what])
     out["logits_gated"] = f32 or gate_logits
@@ -4250,22 +4369,24 @@ def device_breakdown(prof, calls: int, top: int = 8) -> dict:
 
 @torch.no_grad()
 def serve_profile(params, cfg, sizes: Sizes, device, state, step,
-                  toks, frames=None) -> dict:
+                  toks, extras: dict) -> dict:
     """The ported kernels' share of a decode step of all slots and of a
     prefill of the check prompt: CUDA-event times of the step (the
     host's issue time included), the device time of all kernels and of the
     ported ones from ``torch.profiler`` over the same calls, the largest
     kernels, and where a call waits for the device."""
     n = sizes.profile_steps
+    spec = serve_spec(cfg, sizes)
     calls = {
         "decode_step": lambda: model_api.decode_step(params, step, cfg,
                                                      state),
         "prefill": lambda: model_api.prefill(
-            params, prompt_batch(toks, frames), cfg,
-            model_api.init_decode_state(cfg, 1, toks.shape[1], device)),
+            params, prompt_batch(toks, extras), cfg,
+            model_api.init_decode_state(
+                cfg, 1, spec.get("patches", 0) + toks.shape[1], device)),
     }
     out = {}
-    for what, kernels in serve_spec(cfg, sizes)["profile"].items():
+    for what, kernels in spec["profile"].items():
         fn = calls[what]
         out[f"{what}_ms"] = time_ms(fn, device, n)
         with torch.profiler.profile(
@@ -4317,6 +4438,58 @@ def pct(values, q) -> float:
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
+@torch.no_grad()
+def int8_decode_profile(cfg, sizes: Sizes, device, gen) -> dict:
+    """The int8 cache's decode attention, the eager
+    ``decode_attention_quant`` (the reference has no kernel there either),
+    at the serving shape ``decode_qwen_int8`` with ``kv_len`` spread as
+    ``decode_inputs`` spreads it: its time, the device bytes it allocates
+    beyond its inputs, the least time of its bytes (int8 keys and values up
+    to ``kv_len`` and their f32 scales read once, q and the output), its
+    output against the f32 plain version on the dequantized cache, and
+    beside it the decode-attention kernel on the same cache dequantized to
+    bf16 (what a kernel reading the int8 cache would have to beat)."""
+    b, hq, hkv, t, d = sizes.decode_qwen_int8
+    q, k, v, n = decode_inputs((b, hq, hkv, t, d), cfg.torch_dtype, gen,
+                               device)
+    (k_q, k_s), (v_q, v_s) = kvcache._quantize(k), kvcache._quantize(v)
+    del k, v
+
+    def quant():
+        return model_attention.decode_attention_quant(q, k_q, k_s, v_q, v_s,
+                                                      n)
+    got = quant()
+    gap = bf16_check("int8 decode", got, quant_decode_plain(
+        q.float(), k_q, k_s, v_q, v_s, n))
+    del got
+    ms = time_ms(quant, device, sizes.reps)
+    peak = None
+    if device.type == "cuda":
+        sync(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        quant()
+        sync(device)
+        peak = torch.cuda.max_memory_allocated(device) - base
+    keys = float(n.sum())
+    bound_ms, bound_by = bound(
+        2 * hkv * keys * (d * k_q.element_size() + k_s.element_size())
+        + 2 * q.numel() * q.element_size(), 4.0 * hq * d * keys,
+        rate_of(q.dtype))
+    k16 = kvcache._dequantize(k_q, k_s, q.dtype)
+    v16 = kvcache._dequantize(v_q, v_s, q.dtype)
+    kernel_ms = time_ms(lambda: decode_attention(q, k16, v16, kv_len=n),
+                        device, sizes.reps, queued=KERNEL_HOST_S)
+    return {"shape": [b, hq, hkv, t, d], "kv_len": n.tolist(), "ms": ms,
+            "extra_peak_bytes": peak,
+            "cache_bytes": sum(x.numel() * x.element_size()
+                               for x in (k_q, k_s, v_q, v_s)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bf16_limit_share": gap["limit_share"],
+            "max_abs_err": gap["max_abs_err"],
+            "kernel_on_bf16_cache_ms": kernel_ms}
+
+
 def phase_serve(sizes: Sizes, device: torch.device, seed: int,
                 arch: str) -> dict:
     """LM serving with ``arch`` at full width and depth in bf16: the bf16
@@ -4329,16 +4502,22 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
     t0 = time.perf_counter()
     on_card = device.type == "cuda"
     cfg = get_smoke_config(arch) if sizes.serve_smoke else get_config(arch)
+    published_layers = cfg.n_layers
+    cfg = cfg.scaled(n_layers=min(cfg.n_layers,
+                                  SERVE_DEPTH.get(arch, cfg.n_layers)))
     require(cfg.attention_impl == "cuda", cfg.attention_impl)
     spec = serve_spec(cfg, sizes)
     prompt = spec.get("prompt", sizes.serve_prompt)
-    max_len = spec.get("max_len", prompt[1] + sizes.serve_new[1] + 8)
+    max_len = spec.get("max_len", spec.get("patches", 0) + prompt[1]
+                       + sizes.serve_new[1] + 8)
+    added = arch in SERVE_ARCHS_ADDED
     gen = torch.Generator(device=device).manual_seed(seed)
     t1 = time.perf_counter()
     params = model_api.init_params(gen, cfg, device)
     sync(device)
     out = {"phase": "serve", "arch": cfg.name, "family": cfg.family,
            "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "published_layers": published_layers,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
            "d_ff": cfg.d_ff, "vocab": cfg.vocab,
@@ -4352,6 +4531,10 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
            **({"n_enc_layers": cfg.n_enc_layers,
                "enc_frames": cfg.enc_frames} if cfg.family == "encdec"
               else {}),
+           **({"n_patches": cfg.n_patches} if cfg.family == "vlm" else {}),
+           **({"kv_quant": True, "qkv_bias": cfg.qkv_bias}
+              if cfg.kv_quant else {}),
+           **({"norm": cfg.norm} if cfg.norm != "rmsnorm" else {}),
            "params": model_api.param_count(params),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
@@ -4374,10 +4557,14 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         toks = torch.randint(0, cfg.vocab, (1, spec["check_len"]),
                              generator=gen, device=device, dtype=torch.int32)
         t1 = time.perf_counter()
-        out["profile"] = serve_profile(params, cfg, sizes, device, state,
-                                       step, toks,
-                                       serve_frames(cfg, gen, device))
+        out["profile"] = serve_profile(
+            params, cfg, dataclasses.replace(
+                sizes, profile_steps=sizes.profile_steps_added) if added
+            else sizes, device, state, step, toks,
+            serve_extras(cfg, gen, device))
         out["profile"]["seconds"] = time.perf_counter() - t1
+    if cfg.kv_quant:
+        out["int8_decode"] = int8_decode_profile(cfg, sizes, device, gen)
     del state, step
 
     depth = F32_LAYERS[cfg.family]
@@ -4401,9 +4588,14 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
             torch.cuda.empty_cache()
 
     t1 = time.perf_counter()
-    reqs = serve_traffic(sizes, cfg.vocab, seed,
-                         sizes.serve_requests if cfg.family == "dense"
-                         else sizes.serve_requests_recurrent, prompt)
+    if added:
+        reqs = serve_traffic(dataclasses.replace(
+            sizes, serve_new=sizes.serve_new_added), cfg.vocab, seed,
+            sizes.serve_requests_added, prompt)
+    else:
+        reqs = serve_traffic(sizes, cfg.vocab, seed,
+                             sizes.serve_requests if cfg.family == "dense"
+                             else sizes.serve_requests_recurrent, prompt)
     tracer = Tracer(clock=time.perf_counter)
     engine = ServeEngine(params, cfg, slots=sizes.serve_slots,
                          max_len=max_len, seed=seed, tracer=tracer,
@@ -5652,7 +5844,7 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
     spec, tps = serve_spec(cfg, sizes), tp_serve_sizes(cfg, sizes)
     toks = torch.randint(0, cfg.vocab, (1, tps["check_len"]), generator=gen,
                          device=device, dtype=torch.int32)
-    frames = serve_frames(cfg, gen, device)
+    extras = serve_extras(cfg, gen, device)
     state = model_api.init_decode_state(cfg, 1, tps["max_len"], device,
                                         rules)
     out = {"state_shapes": {k: list(v.shape)
@@ -5663,7 +5855,7 @@ def tp_kernel_check(params, cfg, rules, sizes: Sizes, device,
         with spying(spec[what]) as calls:
             if what == "prefill":
                 logits, state = model_api.prefill(
-                    params, prompt_batch(toks, frames), cfg, state, rules)
+                    params, prompt_batch(toks, extras), cfg, state, rules)
             else:
                 logits, state = model_api.decode_step(params, tok, cfg,
                                                       state, rules)
@@ -5706,7 +5898,7 @@ def ring_positions_check(params, cfg, rules, spec: dict, device,
                              generator=gen, device=device, dtype=torch.int32)
         state = model_api.init_decode_state(cfg, 1, win, device, rules)
         _, state = model_api.prefill(params, prompt_batch(
-            toks[:, :prompt], None), cfg, state, rules)
+            toks[:, :prompt], {}), cfg, state, rules)
         for i in range(steps):
             with spying(spec["decode"]) as calls:
                 _, state = model_api.decode_step(
@@ -5820,6 +6012,27 @@ def collective_seconds(tracer) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def all_reduces_by_axis():
+    """Every all-reduce of ``ranks`` inside the block (``psum``, ``pmax``,
+    ``pmin`` and what calls them), by mesh axis: calls and bytes, in the
+    dict it yields."""
+    counts: dict = {}
+    inner = ranks._all_reduce
+
+    def all_reduce(x, op, axis):
+        c = counts.setdefault(axis, {"calls": 0, "bytes": 0})
+        c["calls"] += 1
+        c["bytes"] += x.numel() * x.element_size()
+        return inner(x, op, axis)
+
+    ranks._all_reduce = all_reduce
+    try:
+        yield counts
+    finally:
+        ranks._all_reduce = inner
+
+
 def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int,
               slots: int | None = None) -> dict:
     """``ServeEngine`` on this rank's slices on ``slots`` slots (None: the
@@ -5846,11 +6059,12 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int,
     submitted = {}
     t1 = time.perf_counter()
     try:
-        for r in reqs:
-            submitted[r.rid] = time.perf_counter()
-            engine.submit(r)
-        done = engine.run(max_steps=100_000)
-        sync(device)
+        with all_reduces_by_axis() as reduced:
+            for r in reqs:
+                submitted[r.rid] = time.perf_counter()
+                engine.submit(r)
+            done = engine.run(max_steps=100_000)
+            sync(device)
     finally:
         set_tracer(prev)
     wall = time.perf_counter() - t1
@@ -5903,6 +6117,7 @@ def tp_engine(params, cfg, rules, sizes: Sizes, device, seed: int,
            "ring_bytes": ring_bytes(engine.state),
            "collectives": collective_seconds(spans),
            "decode_collectives": decode_collectives(tracer, spans),
+           "all_reduces_by_axis": reduced,
            "kernel_launches": counts, "expected_launches": expect,
            "kernel_routes": {k: routes[k] for k in expect if k in routes}}
     if device.type == "cuda":
@@ -5936,7 +6151,7 @@ def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
     params = model_api.init_params(gen, c32, device)
     toks = torch.randint(0, c32.vocab, (1, tps["check_len"]), generator=gen,
                          device=device, dtype=torch.int32)
-    frames = serve_frames(c32, gen, device)
+    extras = serve_extras(c32, gen, device)
     steps = torch.randint(0, c32.vocab, (sizes.tp_f32_steps, 1, 1),
                           generator=gen, device=device, dtype=torch.int32)
 
@@ -5945,7 +6160,7 @@ def tp_f32_check(cfg, rules_of, sizes: Sizes, device, seed: int) -> dict:
                                             r)
         with routing(replay) as routes:
             logits, state = model_api.prefill(
-                params, prompt_batch(toks, frames), c32, state, r)
+                params, prompt_batch(toks, extras), c32, state, r)
             out = [logits]
             for tok in steps:
                 logits, state = model_api.decode_step(params, tok, c32, state,
@@ -6483,10 +6698,19 @@ def tp_seq_summary(serve: list, cell: tuple, device) -> dict:
         out["one_card_ring_bytes"] = by_rank[0]["one_card_ring_bytes"]
         out["ring_share"] = out["ring_bytes_a_rank"] / \
             out["one_card_ring_bytes"]
+    # the engine's prefills run on the owner's model group alone, so no
+    # collective over the data axis may run inside the model: the engine
+    # itself only gathers over it (the logits, the sampled tokens)
+    require(all("data" not in e["all_reduces_by_axis"] for e in engines),
+            "tp/seq:", key, "all-reduces over the data axis in the engine "
+            "run:", [e["all_reduces_by_axis"] for e in engines])
     steps = engines[0]["decode_steps"]
     dc = engines[0]["decode_collectives"]
     out.update({
         "mesh": list(shape), "shard_seq": shard_seq, "seq_ranks": m,
+        "all_reduces_by_axis": engines[0]["all_reduces_by_axis"],
+        "spans_a_step": {k: v["calls"] / max(steps, 1)
+                         for k, v in dc.items()},
         "prefills_run_by_rank": [e["prefills_run"] for e in engines],
         "kv_bytes_a_rank": by_rank[0]["kv_bytes"],
         "one_card_kv_bytes": by_rank[0]["one_card_kv_bytes"],
@@ -6549,7 +6773,9 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
     sequence, phi3-mini over (2, 2) with its slots split over the data
     ranks, recurrentgemma-2b over (1, 4) with its ring split by sequence
     (``tp_seq_one``; its combine also held where the runs hand over,
-    ``ring_positions_check``).  Four ranks sharing one card measure
+    ``ring_positions_check``), granite-moe-3b-a800m over (2, 2) (the MoE
+    engine over a data axis); every cell's engine run sends no all-reduce
+    over the data axis.  Four ranks sharing one card measure
     correctness and each collective's cost, not scaling."""
     t0 = time.perf_counter()
     free(device)
@@ -6585,6 +6811,8 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
               "collective_seconds_a_step":
                   cell["collectives_a_step"]["seconds"],
               "combine_a_step": cell["combine_a_step"],
+              "spans_a_step": cell["spans_a_step"],
+              "all_reduces_by_axis": cell["all_reduces_by_axis"],
               **({"ring_share": cell["ring_share"],
                   "ring_positions": cell["ring_positions"]}
                  if "ring_share" in cell else {}),
@@ -6691,8 +6919,17 @@ def seq_dry_checks(seq: dict, metrics: dict) -> dict:
         require(real == want, "dryrun:", key, "decode-step collective "
                 "spans", want, "against the tp phase's", steps, "steps'",
                 real)
+        # every collective of the decode step by (op, axis): none over the
+        # data axis (an MoE layer's load statistics are reduced over it in
+        # training only)
+        by_axis = collections.Counter(f"{op} {axis}" for op, axis, _, _ in
+                                      m["records"])
+        require(not any(k.endswith(" data") for k in by_axis), "dryrun:",
+                key, "a decode step's collectives over the data axis:",
+                dict(by_axis))
         out[key] = {**got, "spans_a_step": m["spans"],
-                    "collectives_a_step": m["collectives"], "equal": True}
+                    "collectives_a_step": m["collectives"],
+                    "collectives_by_axis": dict(by_axis), "equal": True}
     return out
 
 
@@ -6764,9 +7001,10 @@ def phase_dryrun(sizes: Sizes, tp: dict, train: dict,
     ``train`` phase's gemma-2b cell (one rank) beside its measured step
     time, as a roofline fraction; (d) the ``tp`` phase's cells over other
     meshes (gemma-2b's cache split by sequence over (1, 4), phi3-mini over
-    (2, 2), recurrentgemma-2b's ring split by sequence over (1, 4)): (a)'s
-    bytes, and their decode steps' ``collective:*`` spans as (b) holds a
-    train step's (``seq_dry_checks``)."""
+    (2, 2), recurrentgemma-2b's ring split by sequence over (1, 4),
+    granite-moe-3b-a800m over (2, 2)): (a)'s bytes, and their decode steps'
+    ``collective:*`` spans as (b) holds a train step's, none of their
+    collectives over the data axis (``seq_dry_checks``)."""
     t0 = time.perf_counter()
     if started is None:
         started = dryrun_start(sizes, len(os.sched_getaffinity(0)),

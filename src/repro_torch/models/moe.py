@@ -280,6 +280,7 @@ def moe_mlp(
     x: torch.Tensor,  # (B, S, D)
     cfg: ModelConfig,
     rules,
+    mode: str = "train",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed expert MLP.  Returns (output, aux load-balance loss).
 
@@ -287,7 +288,14 @@ def moe_mlp(
     D), with a capacity of ``max(1, int(S k / E capacity_factor))`` tokens
     an expert a row; a (token, choice) past its expert's capacity is
     dropped (it adds zero at the last slot and gets zero back).  Over a
-    split ``"model"`` axis, see the module's docstring."""
+    split ``"model"`` axis, see the module's docstring.
+
+    In ``"train"`` mode over a batch split across ranks, the load
+    statistics are the global batch's (an all-reduce each over the batch
+    ranks); in ``"prefill"`` and ``"decode"`` they are the rank's own rows,
+    with no collective: serving drops ``aux``, and an engine over a data
+    axis runs a prefill on the owner's model group alone, where a
+    collective over the batch ranks would never complete."""
     placement = _model_placement(rules)
     if cfg.moe_flat_dispatch:
         if placement is not None:
@@ -302,7 +310,7 @@ def moe_mlp(
 
     probs, gate_vals, expert_idx = _route(lp, x, cfg)  # (B, S, E), (B, S, k)
     onehot = F.one_hot(expert_idx, e).float()  # (B, S, k, E)
-    if batch_axes(rules):
+    if mode == "train" and batch_axes(rules):
         # The load statistics are the global batch's, as GSPMD forms them
         # from a batch split over ranks: sums over every rank's rows.
         rows = b * batch_ranks(rules)
@@ -397,7 +405,7 @@ def _layer_fn(cfg: ModelConfig, rules, mode: str, x: torch.Tensor, lp,
     x, new_cache_l = transformer._attention_block(
         lp, x, cfg, rules, positions, mode, cache_l, rope=rope, run=run)
     h = apply_norm(x, lp.mlp_norm, cfg.norm)
-    moe_out, aux = moe_mlp(lp, h, cfg, rules)
+    moe_out, aux = moe_mlp(lp, h, cfg, rules, mode)
     return x + moe_out, new_cache_l, aux
 
 

@@ -443,18 +443,22 @@ def _span_counts(tracer) -> dict:
 
 
 def _tp_engine(mesh, cfg, seed, prompts, max_new, slots=2, temps=None,
-               faults=(), shard_seq=False) -> list:
+               faults=(), np_params=None, shard_seq=False) -> list:
     """The engine over ``mesh`` on this rank's slices: each request's
     (rid, status, tokens), sorted, and the engine's retries and errors
     where ``faults`` (``FaultSpec``s of an injector each rank makes) are
-    given.  ``temps``: each request's temperature (None: greedy)."""
+    given.  ``temps``: each request's temperature (None: greedy);
+    ``np_params``: the reference's parameters (None: the port's own from
+    ``seed``)."""
+    from repro_torch.convert import params_from_reference
     from repro_torch.core.faults import FaultInjector
     from repro_torch.models import api
     from repro_torch.serve.engine import Request, ServeEngine
 
     rules = rules_for(cfg, mesh, "tp", shard_seq=shard_seq)
     params = api.init_params(torch.Generator().manual_seed(seed), cfg,
-                             "cpu", rules)
+                             "cpu", rules) if np_params is None else \
+        params_from_reference(np_params, cfg, "cpu", rules)
     engine = ServeEngine(params, cfg, slots=slots, max_len=32, rules=rules,
                          seed=seed, device="cpu",
                          fault_injector=FaultInjector(list(faults))
@@ -467,6 +471,32 @@ def _tp_engine(mesh, cfg, seed, prompts, max_new, slots=2, temps=None,
     if not faults:
         return got
     return got, {k: engine.stats[k] for k in ("retries", "errors")}
+
+
+def _tp_moe_modes(cases) -> dict:
+    """``moe_mlp`` of one layer on this rank's rows of the batch (split
+    over the data ranks) with the reference's parameters, over each case's
+    mesh, in each mode: its output, its aux and the collectives it
+    sent."""
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models import moe
+
+    out = {}
+    for label, shape, cfg, np_params, x in cases:
+        mesh = make_mesh(shape, ("data", "model"))
+        rules = rules_for(cfg, mesh, "tp", global_batch=x.shape[0])
+        lp = params_from_reference(np_params, cfg, "cpu", rules).layers[0]
+        with ranks.use_mesh(mesh):
+            n = x.shape[0] // ranks.axis_size("data")
+            lo = ranks.axis_index("data") * n
+        for mode in ("train", "prefill", "decode"):
+            with recorded_collectives() as records:
+                got, aux = moe.moe_mlp(lp, torch.from_numpy(x[lo:lo + n]),
+                                       cfg, rules, mode)
+            out["moe_mlp", label, shape, mode] = {
+                "rows": (lo, lo + n), "records": list(records),
+                "out": _np(got), "aux": float(aux)}
+    return out
 
 
 def _tp_router(mesh, cases) -> dict:
@@ -605,6 +635,7 @@ def tp_suite(device, work: dict) -> dict:
     for label, case in work["family_engines"].items():
         out["engine", label] = _tp_engine(mesh, *case)
     out["router"] = _tp_router(mesh, work["router"])
+    out.update(_tp_moe_modes(work["moe_modes"]))
     out["ops"] = _tp_ops(mesh, work["ops"])
     out["elastic"] = _tp_elastic(*work["elastic"])
     out["moe_elastic"] = _tp_elastic(*work["moe_elastic"])

@@ -197,6 +197,32 @@ def test_small_mesh_train_and_decode_on_the_meta_device(arch):
         assert "reduce_from_model" in train["spans"]
 
 
+#: a granite-moe-1b smoke cell's collectives on a ``{data: 2, model: 4}``
+#: recording mesh by (op, axis), ``test_small_mesh_...``'s widths: a
+#: serving step sends only the model axis's (the two ``psum_batch``
+#: all-reduces of each MoE layer's load statistics, 4 over 2 layers, went
+#: when ``moe_mlp`` began to reduce them in training only); a train step
+#: keeps them
+MOE_CELL_COLLECTIVES = {
+    "train": {("all-reduce", "model"): 20, ("all-gather", "model"): 4,
+              ("all-reduce", "data"): 29, ("all-gather", "data"): 22},
+    "prefill": {("all-reduce", "model"): 5, ("all-gather", "model"): 5},
+    "decode": {("all-reduce", "model"): 5, ("all-gather", "model"): 5}}
+
+
+@pytest.mark.parametrize("kind", list(MOE_CELL_COLLECTIVES))
+def test_moe_cells_reduce_over_the_data_axis_only_in_training(kind):
+    """The dry run of a granite-moe-1b cell over a data axis of 2: every
+    collective its step sends, counted by op and axis."""
+    cfg = get_smoke_config("granite-moe-1b-a400m").scaled(d_model=64,
+                                                          d_ff=32)
+    seq = 64 if kind == "decode" else 32
+    m = dryrun.cell_metrics(cfg, shapes.ShapeSpec("m", seq, 8, kind),
+                            {"data": 2, "model": 4}, "tp")
+    got = collections.Counter((op, axis) for op, axis, _, _ in m["records"])
+    assert dict(got) == MOE_CELL_COLLECTIVES[kind]
+
+
 @pytest.mark.parametrize("t", [16, 256])
 def test_the_dry_run_sets_each_scan_to_its_kernels_route(t):
     """Inside ``plain_scans`` the models' plain scans are the plain form of

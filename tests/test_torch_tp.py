@@ -57,13 +57,19 @@ ranks (``repro_torch.dist.ranks.spawn``, rank bodies in
   against the reference's ``_attention_block`` on one device at 1e-4;
 * the engine on (1, 4): greedy tokens equal to the one-rank engine's, and
   the same on every rank, for phi3, granite, rwkv6-3b, recurrentgemma-2b
-  and whisper-medium; and the phi3 and gemma engines over a data axis,
-  on (2, 2), (4, 1) and (2, 2) with ``shard_seq``, 4 slots and 6 requests
-  (greedy and by temperature, with and without injected faults): the
-  tokens, statuses, retries and errors of the one-rank engine, on every
-  rank; recurrentgemma-2b's engine with its ring split by sequence on
+  and whisper-medium; and the phi3, gemma, granite-moe-1b and
+  granite-moe-3b engines over a data axis, on (2, 2), (4, 1) and (2, 2)
+  with ``shard_seq``, 4 slots and 6 requests (greedy and by temperature,
+  with and without injected faults): the tokens, statuses, retries and
+  errors of the one-rank engine, on every rank, the MoE engines on the
+  reference's parameters also its request 0's tokens; the other six
+  families' engines on (2, 2) and (4, 1), clean; recurrentgemma-2b's engine with its ring split by sequence on
   (1, 4) and (2, 2), by both attention paths, short prompts spliced into
   rows whose ring was full;
+* ``moe_mlp`` of one layer with the batch split over the data ranks of
+  (2, 2) and (4, 1), on the reference's parameters: two all-reduces over
+  the data axis in ``"train"`` mode (``aux`` the reference's GSPMD
+  value), none in ``"prefill"`` and ``"decode"``;
 * the phi3 and gemma train steps by 2 microbatches on both meshes: the
   one-rank step's loss and gradient norm;
 * a train state saved on (2, 2) restored onto (1, 4), (4, 1) and one rank,
@@ -100,6 +106,7 @@ from repro_torch.ckpt import CheckpointManager, restore_resharded
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import (
     config_from_reference,
+    params_from_reference,
     train_state_from_reference,
 )
 from repro_torch.configs.shapes import ShapeSpec
@@ -144,6 +151,11 @@ TRAIN = {"phi3-mini-3.8b": ("phi3-mini-3.8b", {}),
          "rwkv6-half-heads": ("rwkv6-3b", RWKV_HALF_HEADS)}
 TRAIN_ARCHS = list(TRAIN)
 MOE_LABELS = ["granite-moe-1b-a400m", "granite-moe-1b-5-experts"]
+#: ``moe_mlp`` of one layer over a batch split across the data ranks, in
+#: each mode: the meshes and the batch (rows, tokens)
+MOE_MODE_MESHES = [(2, 2), (4, 1)]
+MOE_MODES = ("train", "prefill", "decode")
+MOE_MODE_BATCH = (4, 16)
 BATCH, SEQ = 8, 16
 #: serve cases: label -> (arch, overrides of its smoke config)
 SERVE = {"phi3-mini-3.8b": ("phi3-mini-3.8b", {}),
@@ -204,7 +216,18 @@ WINDOW_POS = (12, 17, 23, 15)
 MICRO_ARCHS = ["gemma-2b", "phi3-mini-3.8b"]
 #: the engines over a data axis: (mesh, shard_seq)
 DATA_ENGINE_MESHES = [((2, 2), False), ((4, 1), False), ((2, 2), True)]
-DATA_ENGINE_ARCHS = ["phi3-mini-3.8b", "gemma-2b"]
+DATA_ENGINE_ARCHS = ["phi3-mini-3.8b", "gemma-2b", "granite-moe-1b-a400m",
+                     "granite-moe-3b-a800m"]
+#: the MoE engines over a data axis take the reference's parameters
+#: (``jax.random.key(0)``), and request 0 (greedy) gives the tokens of the
+#: reference's engine on one device (and on 4 under GSPMD, on both meshes)
+#: on the same prompts, 4 slots and ``max_len`` 32
+REFERENCE_FIRST_TOKENS = {"granite-moe-1b-a400m": [19, 62, 226, 69, 29],
+                          "granite-moe-3b-a800m": [28, 52, 115, 0, 28]}
+#: the other families' engines over a data axis, clean: (mesh, shard_seq)
+DATA_FAMILY_ARCHS = ["rwkv6-3b", "recurrentgemma-2b", "whisper-medium",
+                     "qwen1.5-32b", "internvl2-26b", "stablelm-3b"]
+DATA_FAMILY_MESHES = [((2, 2), False), ((4, 1), False)]
 #: each request's temperature, and the faults each rank's injector makes:
 #: request 2's prefill fails past its retries (status "error"), request
 #: 4's once (retried), and the fourth decode step once (retried)
@@ -387,6 +410,24 @@ for shape in MESHES:
         if tuple(shape) in [tuple(x) for x in shapes]:
             serve(label, get_smoke_config(arch).scaled(**overrides), mesh,
                   named, tag, True, SEQ_MAX_LEN)
+
+from repro.models import moe
+for shape in MOE_MODE_MESHES:
+    mesh = jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    tag = "x".join(map(str, shape))
+    for label in MOE_LABELS:
+        cfg = get_smoke_config(TRAIN[label][0]).scaled(**TRAIN[label][1])
+        x = jnp.asarray(np.load(f"{DIR}/{label}.moe_mlp.npz")["x"])
+        rules = rules_for(cfg, mesh, "tp", global_batch=x.shape[0])
+        lp = jax.tree.map(lambda a: a[0],
+                          api.init_params(jax.random.key(1), cfg)["layers"])
+        rows = NamedSharding(mesh, rules.spec(("batch", None, None)))
+        out, aux = jax.jit(lambda p, v: moe.moe_mlp(p, v, cfg, rules),
+                           in_shardings=(None, rows))(lp, x)
+        np.savez(f"{DIR}/{label}.{tag}.moe_mlp.out.npz",
+                 out=np.asarray(out, np.float32),
+                 aux=np.asarray(aux, np.float32))
 print("REFERENCE-OK")
 """
 
@@ -521,6 +562,11 @@ def tp_runs(tmp_path_factory):
         for arch in DATA_ENGINE_ARCHS for shape, shard_seq in
         DATA_ENGINE_MESHES for faulty in (False, True)
         for key in [_data_engine_key(arch, shape, shard_seq, faulty)]]
+    work["data_engines"] += [
+        (_data_engine_key(arch, shape, shard_seq, False), shape, shard_seq,
+         _data_engine_case(arch, False))
+        for arch in DATA_FAMILY_ARCHS
+        for shape, shard_seq in DATA_FAMILY_MESHES]
     ecfg = get_smoke_config("phi3-mini-3.8b")
     prompts = [np.random.default_rng(i).integers(0, ecfg.vocab, n)
                .astype(np.int32) for i, n in enumerate((5, 9, 3, 7))]
@@ -530,6 +576,16 @@ def tp_runs(tmp_path_factory):
                               for label in FAMILIES}
     work["router"] = [(label, _moe_cfg(label), 2, _router_tokens())
                       for label in MOE_LABELS]
+    work["moe_modes"] = []
+    for label in MOE_LABELS:
+        rcfg = _train_cfg(label)
+        x = np.random.default_rng(19).standard_normal(
+            MOE_MODE_BATCH + (rcfg.d_model,)).astype(np.float32)
+        np.savez(tmp / f"{label}.moe_mlp.npz", x=x)
+        np_params = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                 r_api.init_params(jax.random.key(1), rcfg))
+        work["moe_modes"] += [(label, shape, config_from_reference(rcfg),
+                               np_params, x) for shape in MOE_MODE_MESHES]
     work["ops"] = _ops_inputs()
     elastic = _elastic_state()
     work["elastic"] = (elastic[1], elastic[0], str(tmp / "ckpt"))
@@ -544,7 +600,8 @@ def tp_runs(tmp_path_factory):
             f"TRAIN = {TRAIN!r}\n"
             f"SERVE = {SERVE!r}\nDIR = {str(tmp)!r}\nBATCH = {BATCH}\n"
             f"MAX_LEN = {MAX_LEN}\nSEQ = {SEQ_SERVE!r}\n"
-            f"SEQ_MAX_LEN = {SEQ_MAX_LEN}\n" + REFERENCE)
+            f"SEQ_MAX_LEN = {SEQ_MAX_LEN}\nMOE_LABELS = {MOE_LABELS!r}\n"
+            f"MOE_MODE_MESHES = {MOE_MODE_MESHES!r}\n" + REFERENCE)
     with _torch_dist_ranks.beside(run_with_devices, code, n_devices=N,
                                   timeout=RANKS_TIMEOUT) as out:
         port = ranks.spawn(_torch_dist_ranks.tp_suite, N, backend="gloo",
@@ -596,6 +653,11 @@ def tp_runs(tmp_path_factory):
             data = np.load(tmp / f"{label}.{tag}.state.npz")
             ref["state", label, shape] = [data[f"arr_{i}"]
                                           for i in range(len(data.files))]
+    for shape in MOE_MODE_MESHES:
+        tag = "x".join(map(str, shape))
+        for label in MOE_LABELS:
+            data = np.load(tmp / f"{label}.{tag}.moe_mlp.out.npz")
+            ref["moe_mlp", label, shape] = (data["out"], float(data["aux"]))
     return ref, port, single, work, str(tmp / "ckpt")
 
 
@@ -915,10 +977,13 @@ def _check_int8_writes(label, wrote, work, kind="serve"):
 
 
 def _one_rank_engine(cfg, seed, prompts, max_new, slots=2, temps=None,
-                     faults=()):
+                     faults=(), np_params=None):
     """The one-rank engine's (rid, status, tokens) of each request, sorted,
-    and where ``faults`` are given its retries and errors."""
-    params = api.init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
+    and where ``faults`` are given its retries and errors; on the
+    reference's parameters where ``np_params`` are given."""
+    params = api.init_params(torch.Generator().manual_seed(seed), cfg,
+                             "cpu") if np_params is None else \
+        params_from_reference(np_params, cfg, "cpu")
     engine = ServeEngine(params, cfg, slots=slots, max_len=32, seed=seed,
                          device="cpu",
                          fault_injector=FaultInjector(list(faults))
@@ -939,15 +1004,27 @@ def _data_engine_key(arch, shape, shard_seq, faulty):
             f"{'/faults' if faulty else ''}")
 
 
+@functools.cache
+def _reference_params(arch):
+    """The reference's smoke parameters of ``arch`` from
+    ``jax.random.key(0)``, as float32 numpy arrays."""
+    return jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        r_api.init_params(jax.random.key(0), r_smoke(arch)))
+
+
 def _data_engine_case(arch, faulty):
-    """(cfg, seed, prompts, max_new, slots, temps, faults) of an engine
-    over a data axis: 4 slots, 6 requests (so that slots refill), greedy
-    and by temperature, with ``ENGINE_FAULTS`` where ``faulty``."""
+    """(cfg, seed, prompts, max_new, slots, temps, faults, np_params) of an
+    engine over a data axis: 4 slots, 6 requests (so that slots refill),
+    greedy and by temperature, with ``ENGINE_FAULTS`` where ``faulty``;
+    an MoE engine on the reference's parameters
+    (``REFERENCE_FIRST_TOKENS``), the others on the port's own."""
     cfg = get_smoke_config(arch)
     prompts = [np.random.default_rng(20 + i).integers(0, cfg.vocab, n)
                .astype(np.int32) for i, n in enumerate((5, 9, 3, 7, 4, 6))]
     return (cfg, 0, prompts, 5, 4, ENGINE_TEMPS,
-            ENGINE_FAULTS if faulty else ())
+            ENGINE_FAULTS if faulty else (),
+            _reference_params(arch) if arch in REFERENCE_FIRST_TOKENS
+            else None)
 
 
 @pytest.mark.parametrize("impl", SEQ_ENGINE_IMPLS)
@@ -1067,6 +1144,45 @@ def test_tp_router_gradient_with_aux_equals_one_rank(tp_runs, label):
             _close(got["aux_grad"][i], want_aux[i], f"{label} aux {i}")
 
 
+@pytest.mark.parametrize("mode", MOE_MODES)
+@pytest.mark.parametrize("shape", MOE_MODE_MESHES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("label", MOE_LABELS)
+def test_moe_mlp_reduces_over_the_batch_ranks_only_in_training(
+        tp_runs, label, shape, mode):
+    """``moe_mlp`` of one layer with the batch split over the data ranks
+    (granite's 4 experts split over "model" at (2, 2), its 5-expert
+    variant whole with d_ff split): in ``"train"`` mode its two
+    all-reduces over the batch ranks (the expert load and the mean
+    probability), so that ``aux`` is the global batch's, the reference's
+    GSPMD value at 1e-5; in ``"prefill"`` and ``"decode"`` mode none, and
+    ``aux`` the rank's own rows' (one rank's ``moe_mlp`` on them).  Over
+    "model" only ``reduce_from_model``'s all-reduce a call; the output is
+    the reference's rows in every mode."""
+    from repro_torch.models import moe
+
+    ref, port, _, work, _ = tp_runs
+    want_out, want_aux = ref["moe_mlp", label, shape]
+    cfg, np_params, x = next(c[2:] for c in work["moe_modes"]
+                             if c[:2] == (label, shape))
+    lp = params_from_reference(np_params, cfg, "cpu").layers[0]
+    model = shape[1] > 1
+    for p in port:
+        got = p["moe_mlp", label, shape, mode]
+        rows = slice(*got["rows"])
+        over = collections.Counter(axis for _, axis, _, _ in got["records"])
+        want = {"data": 2 if mode == "train" else 0, "model": int(model)}
+        assert dict(over) == {k: n for k, n in want.items() if n}, \
+            got["records"]
+        np.testing.assert_allclose(got["out"], want_out[rows], rtol=1e-4,
+                                   atol=1e-6)
+        if mode == "train":
+            np.testing.assert_allclose(got["aux"], want_aux, rtol=1e-5)
+        else:
+            _, aux = moe.moe_mlp(lp, torch.from_numpy(x[rows]), cfg, None)
+            np.testing.assert_allclose(got["aux"], float(aux), rtol=1e-6)
+
+
 @pytest.mark.parametrize("faulty", [False, True], ids=["clean", "faults"])
 @pytest.mark.parametrize("shape,shard_seq", DATA_ENGINE_MESHES,
                          ids=["2x2", "4x1", "2x2-shard_seq"])
@@ -1074,11 +1190,14 @@ def test_tp_router_gradient_with_aux_equals_one_rank(tp_runs, label):
 def test_tp_engine_over_a_data_axis_equals_one_rank(tp_runs, arch, shape,
                                                     shard_seq, faulty):
     """The engine with its 4 slots split over the data ranks (2 a rank on
-    (2, 2), 1 on (4, 1); gemma's cache also split by sequence over
-    "model" under ``shard_seq``): 6 requests, greedy and by temperature,
-    give the one-rank engine's tokens and statuses on every rank; with
-    faults injected (a prefill that fails past its retries, one retried,
-    a decode step retried) also its retries and errors."""
+    (2, 2), 1 on (4, 1); the cache also split by sequence over "model"
+    under ``shard_seq`` where its spec leaves the sequence to the axis):
+    6 requests, greedy and by temperature, give the one-rank engine's
+    tokens and statuses on every rank; with faults injected (a prefill
+    that fails past its retries, one retried, a decode step retried) also
+    its retries and errors.  The MoE engines' prefills run on the owner's
+    model group alone, so their routed MLPs reduce nothing over the data
+    axis there (``moe_mlp`` in ``"prefill"`` and ``"decode"`` mode)."""
     _, port, _, work, _ = tp_runs
     key = _data_engine_key(arch, shape, shard_seq, faulty)
     case = next(c[3] for c in work["data_engines"] if c[0] == key)
@@ -1089,6 +1208,43 @@ def test_tp_engine_over_a_data_axis_equals_one_rank(tp_runs, arch, shape,
         # request 2's every retry, request 4's one, the decode step's one
         assert want[1] == {"retries": RecoveryPolicy().max_attempts + 2,
                            "errors": 1}
+    for p in port:
+        assert p["data_engine", key] == want
+
+
+@pytest.mark.parametrize("faulty", [False, True], ids=["clean", "faults"])
+@pytest.mark.parametrize("shape,shard_seq", DATA_ENGINE_MESHES,
+                         ids=["2x2", "4x1", "2x2-shard_seq"])
+@pytest.mark.parametrize("arch", list(REFERENCE_FIRST_TOKENS))
+def test_tp_moe_engine_over_a_data_axis_gives_the_reference_tokens(
+        tp_runs, arch, shape, shard_seq, faulty):
+    """granite-moe-1b's and granite-moe-3b's engines over a data axis, on
+    the reference's parameters: request 0 (greedy, never faulted) gives
+    on every rank the tokens of the reference's engine on the same
+    prompts."""
+    _, port, _, _, _ = tp_runs
+    key = _data_engine_key(arch, shape, shard_seq, faulty)
+    for p in port:
+        got = p["data_engine", key]
+        rid, status, tokens = (got[0] if faulty else got)[0]
+        assert (rid, status) == (0, "ok")
+        assert tokens == REFERENCE_FIRST_TOKENS[arch]
+
+
+@pytest.mark.parametrize("shape,shard_seq", DATA_FAMILY_MESHES,
+                         ids=["2x2", "4x1"])
+@pytest.mark.parametrize("arch", DATA_FAMILY_ARCHS)
+def test_tp_family_engine_over_a_data_axis_equals_one_rank(tp_runs, arch,
+                                                           shape, shard_seq):
+    """The other families' engines (RWKV-6, the hybrid, the
+    encoder-decoder, the int8 cache with QKV biases, the VLM's patch
+    prefix, LayerNorm at head dim 80) with their 4 slots split over the
+    data ranks: 6 requests, greedy and by temperature, give the one-rank
+    engine's tokens and statuses on every rank."""
+    _, port, _, work, _ = tp_runs
+    key = _data_engine_key(arch, shape, shard_seq, False)
+    case = next(c[3] for c in work["data_engines"] if c[0] == key)
+    want = _one_rank_engine(*case)
     for p in port:
         assert p["data_engine", key] == want
 
