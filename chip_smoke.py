@@ -21,8 +21,9 @@ GQA group of 3, beside top-8 routing over 40 experts; its plain passes
 replay the kernel passes' expert choices) and whisper-medium (flash
 attention non-causal over 1500 encoder frames and in the decoder, decode
 attention against the self- and cross-attention caches), then qwen1.5-32b
-at 32 of its 64 layers (QKV biases; the int8 cache, whose eager decode
-is timed beside the decode kernel), internvl2-26b (256 patch embeddings
+at 32 of its 64 layers (QKV biases; the int8 cache, read by the decode
+kernel on the int8 cache, timed beside its plain version and the decode
+kernel on the dequantized cache), internvl2-26b (256 patch embeddings
 before each prompt; a GQA group of 6 at head dim 128) and stablelm-3b
 (LayerNorm; head dim 80), each on cut traffic; then training
 with gemma-2b at full width and depth in bf16 (``attention_impl="xla"``:
@@ -40,7 +41,7 @@ ZeRO-1 checkpoint onto 2 ranks and 1, and one rank runs the NCCL path;
 then tensor parallelism over a ``"model"`` axis of 4 ranks on the card:
 phi3-mini-3.8b and granite-moe-3b-a800m (its 40 experts 10 a rank) served
 at full width and depth on each rank's heads, gemma-2b and
-granite-moe-1b-a400m trained at full width and depth, with their f32
+granite-moe-1b-a400m trained at full width and half depth, with their f32
 checks against one rank and a checkpoint restored across meshes, and
 cells over other meshes (a cache or ring split by sequence; phi3-mini and
 granite-moe-3b-a800m over (2, 2), the engine's slots split over the data
@@ -56,10 +57,11 @@ copy rates, its FP32 rate (the f32 GEMM) and its memory beside the
 simulator's ``HardwareModel()`` constants, which they must match within
 ``SIM_RATE_RANGE``, and sets the port's ``Simulator``'s prediction for the
 stream phase's workload beside what that phase measured.  GEMM, flash
-attention, decode attention, the correlator, WKV6, RG-LRU, K-Means, SpMV,
-MD5 and N-Body have more than one route (``"wgmma"``: the tensor cores fed
-by TMA; ``"mma"``: decode attention's query heads on the tensor cores by
-``mma.sync``, fed by ``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA
+attention, decode attention (on a bf16 cache and on an int8 one), the
+correlator, WKV6, RG-LRU, K-Means, SpMV, MD5 and N-Body have more than one
+route (``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode
+attention's query heads on the tensor cores by ``mma.sync``, fed by
+``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA
 cores with its loads one stage ahead; ``"tri"``: the correlator's tiles
 with i <= j, the rest mirrored; ``"chunk"``: WKV6 and RG-LRU as scans over
 chunks of time; ``"private"``: K-Means with several points a thread and
@@ -204,6 +206,10 @@ from repro_torch.kernels.correlator.kernel import (  # noqa: E402
 )
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_cuda,
+    decode_attention_quant_cuda,
+)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_quant_ref,
 )
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda,
@@ -315,6 +321,7 @@ WRAPPERS = {
     "nbody": nbody_cuda,
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
+    "decode_attention_int8": decode_attention_quant_cuda,
     "correlate": correlate_cuda,
     "wkv6": wkv6_cuda,
     "rg_lru": rg_lru_cuda,
@@ -378,14 +385,16 @@ class Sizes:
     decode_granite: tuple = (8, 24, 8, 2184, 64)
     decode_whisper_cross: tuple = (8, 16, 16, 1500, 64)
     # qwen1.5-32b's prefill of 2048 tokens (40 heads of 128, QKV biases)
-    # and its 8-slot int8 decode (the eager decode_attention_quant: no
-    # kernel, timed beside the kernels); internvl2-26b's prefill of 2048
-    # tokens after its 256 patch embeddings and 8-slot decode against
-    # prompt + 256 + new positions (48 query heads on 8 KV heads of 128: a
-    # group of 6); stablelm-3b's (32 heads of 80, padded into the 128-wide
-    # tile)
+    # and its 8-slot decode on the int8 cache (the int8 decode kernel), and
+    # one rank's run of that cache split by sequence over 4 ranks (546 of
+    # 2184 positions, rows that end before the run empty); internvl2-26b's
+    # prefill of 2048 tokens after its 256 patch embeddings and 8-slot
+    # decode against prompt + 256 + new positions (48 query heads on 8 KV
+    # heads of 128: a group of 6); stablelm-3b's (32 heads of 80, padded
+    # into the 128-wide tile)
     flash_qwen: tuple = (1, 40, 40, 2048, 128)
     decode_qwen_int8: tuple = (8, 40, 40, 2184, 128)
+    decode_qwen_int8_seq_rank: tuple = (8, 40, 40, 546, 128)
     flash_internvl: tuple = (1, 48, 8, 2304, 128)
     decode_internvl: tuple = (8, 48, 8, 2440, 128)
     flash_stablelm: tuple = (1, 32, 32, 2048, 80)
@@ -437,32 +446,37 @@ class Sizes:
     # flash-decode over 4 shards of dist_decode's cache (phi3-mini's decode
     # shape), and gemma-2b's data-parallel step at dist_train_layers
     # layers on train_batch x train_seq tokens, timed over dist_train_steps
+    # (2 since PR 32, 3 before: the run's 1200 s)
     dist_ranks: int = 4
     dist_elems: int = 1 << 24
     dist_matmul: tuple = (4096, 8192, 4096)
     dist_decode: tuple = (8, 32, 32, 2184, 96)
     dist_train_layers: int = 2
-    dist_train_steps: int = 3
+    dist_train_steps: int = 2
     # tensor parallelism over a (1, 4) ("data", "model") mesh of 4 ranks on
     # the one card: phi3-mini served at full width and depth (8 query and 8
     # KV heads a rank: a prefill of tp_check_len tokens at tp_flash, the
     # 8-slot decode at tp_decode) by tp_requests requests of tp_prompt
     # tokens and tp_new new ones, its f32 logits at tp_f32_layers layers
     # over tp_f32_steps decode steps against one rank's; gemma-2b trained
-    # at full width and depth, tp_train_steps steps of tp_train_batch
-    # tokens, and its checks at dist_train_layers layers
+    # at full width and tp_train_depth of its depth, tp_train_steps steps
+    # of tp_train_batch tokens, and its checks at dist_train_layers
+    # layers.  Cut in PR 32 to keep the run inside its 1200 s (one run took
+    # 1190 s): tp_new 16 (32 before), tp_train_steps 2 (3 before) and
+    # tp_train_depth half the layers (all before)
     tp_ranks: int = 4
     tp_flash: tuple = (1, 8, 8, 1024, 96)
     tp_decode: tuple = (8, 8, 8, 2184, 96)
     tp_requests: int = 8
     tp_prompt: tuple = (128, 1024)
-    tp_new: int = 32
+    tp_new: int = 16
     tp_max_len: int = 2184
     tp_check_len: int = 1024
     tp_f32_layers: int = 2
     tp_f32_steps: int = 4
     tp_train_batch: tuple = (4, 512)
-    tp_train_steps: int = 3
+    tp_train_steps: int = 2
+    tp_train_depth: float = 0.5
     # granite-moe-3b-a800m's rank shapes over the same (1, 4) mesh (6 of
     # 24 query heads and 2 of 8 KV heads a rank): the check prefill and
     # the 8-slot decode
@@ -528,6 +542,7 @@ TOY = Sizes(stencil_n=1 << 12, hotspot=(96, 160), hotspot_steps=3,
             decode_granite=(3, 6, 2, 70, 32),
             decode_whisper_cross=(3, 4, 4, 60, 32),
             flash_qwen=(1, 4, 4, 24, 16), decode_qwen_int8=(3, 4, 4, 70, 16),
+            decode_qwen_int8_seq_rank=(3, 4, 4, 18, 16),
             flash_internvl=(1, 8, 2, 32, 8), decode_internvl=(3, 8, 2, 70, 8),
             flash_stablelm=(1, 4, 4, 24, 16),
             decode_stablelm=(3, 4, 4, 70, 16),
@@ -571,7 +586,7 @@ TP_SERVE_ARCHS = ("phi3-mini-3.8b", "granite-moe-3b-a800m", "rwkv6-3b",
                   "recurrentgemma-2b", "whisper-medium")
 #: the tp phase's trained archs, in turn: gemma-2b, granite-moe-1b-a400m
 #: (8 of 32 experts a rank), rwkv6-3b, recurrentgemma-2b and whisper-medium
-#: at full width and depth as gemma-2b is
+#: at full width and ``tp_train_depth`` of their depth as gemma-2b is
 TP_TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m", "rwkv6-3b",
                   "recurrentgemma-2b", "whisper-medium")
 #: the tp phase's served cells over other meshes, (arch, (data, model),
@@ -1387,6 +1402,106 @@ def decode_main_check(name, got, want, *inputs):
     return abs_err, rel_err, extra
 
 
+def quant_inputs(shape, dtype, gen, device, kv_len=None, run=None):
+    """(q, k_q, k_s, v_q, v_s, kv_len) for a (B, HQ, HKV, T, D) shape: q,
+    keys and values as ``decode_inputs`` makes them, the cache quantized as
+    the model's ``kvcache`` writes it (int8, f32 scales max |x| / 127 a
+    token).  With ``run`` = (rank, ranks) the cache is that rank's run of T
+    positions of a cache ``ranks`` times as long, split by sequence: kv_len
+    is ``clamp(whole - rank T, 0, T)`` for lengths ``whole`` spread over
+    the whole cache with both ends present, so a row that ends before the
+    run is empty."""
+    b, hq, hkv, t, d = shape
+    q, k, v, n = decode_inputs(shape, dtype, gen, device, kv_len)
+    if run is not None:
+        rank, m = run
+        whole = torch.randint(1, m * t + 1, (b,), generator=gen,
+                              device=device)
+        whole[0], whole[-1] = 1, m * t
+        n = (whole - rank * t).clamp(0, t).to(torch.int32)
+    (k_q, k_s), (v_q, v_s) = kvcache._quantize(k), kvcache._quantize(v)
+    return q, k_q, k_s, v_q, v_s, n
+
+
+def quant_work(q, k_q, k_s, v_q, v_s, kv_len):
+    """The int8 K and V up to kv_len and their f32 scales, q and out, and
+    the f32 lse, once each; 4 D operations a (key, query head), at the rate
+    of q's type."""
+    b, hq, d = q.shape
+    hkv, t = k_q.shape[1], k_q.shape[2]
+    keys = float(kv_len.clamp(max=t).sum())
+    return bound(2 * hkv * keys * (d * k_q.element_size() + k_s.element_size())
+                 + 2 * q.numel() * q.element_size() + 4 * b * hq,
+                 4.0 * hq * d * keys, rate_of(q.dtype))
+
+
+def quant_check(name, got, want, *inputs):
+    """The int8 cache's (out, lse) against the f32 plain version on the
+    dequantized cache (``quant_decode_plain``): f32 within the attention
+    tolerance (2e-4 on the output, 1e-4 on the lse); bf16 within the bf16
+    limit, its lse within ``BF16_LSE_ATOL``, and the output within the
+    reference sweep's 3e-2."""
+    if got[0].dtype != torch.bfloat16:
+        tol, lse_tol = ATTN_TOL[torch.float32]
+        err = check_close(f"{name}/out", got[0], want[0], rtol=tol, atol=tol)
+        check_close(f"{name}/lse", got[1], want[1], rtol=lse_tol,
+                    atol=lse_tol)
+        return err
+    tol = ATTN_TOL[torch.bfloat16][0]
+    err = check_close(f"{name}/out", got[0], want[0], rtol=tol, atol=tol)
+    gap = bf16_check(name, got[0], want[0], got[1], want[1])
+    return gap["max_abs_err"], err[1], {
+        "bf16_limit_share": gap["limit_share"],
+        "bf16_lse_limit_share": gap["lse_limit_share"]}
+
+
+def quant_faults(inputs, want32) -> list[dict]:
+    """Outputs of wrong int8 kernels, held to the bf16 limit like
+    ``planted_faults``: each must fail it.  The decode kernel's three tile
+    faults on the dequantized cache, and three of the scales: k_s dropped
+    from the logits, v_s dropped from p, and l summed from p v_s instead
+    of p."""
+    q, k_q, k_s, v_q, v_s, n = inputs
+    q = q.float()
+    k = k_q.float() * k_s[..., None]
+    v = v_q.float() * v_s[..., None]
+    rows = planted_faults("decode", (q, k, v, n), want32)
+    ones = torch.ones_like(k_s)
+    # l from p v_s: the output divided by the rows' p-weighted mean v_s
+    group = q.shape[1] // k.shape[1]
+    t = k.shape[2]
+    logits = torch.einsum("bhd,bhtd->bht", q,
+                          k.repeat_interleave(group, 1)) / q.shape[-1] ** 0.5
+    valid = torch.arange(t, device=q.device)[None, None, :] \
+        < n.long()[:, None, None]
+    logits = logits.masked_fill(~valid, float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    vs = v_s.repeat_interleave(group, 1)
+    l_ratio = p.sum(-1) / (p * vs).sum(-1)
+    faults = {
+        "k_scale_dropped": quant_decode_plain(q, k_q, ones, v_q, v_s, n,
+                                              with_lse=True),
+        "v_scale_dropped": quant_decode_plain(q, k_q, k_s, v_q, ones, n,
+                                              with_lse=True),
+        "l_with_v_scale": (want32[0] * l_ratio[..., None],
+                           want32[1] - torch.log(l_ratio)),
+    }
+    for label, (out, lse) in faults.items():
+        gap = bf16_gap(out.to(torch.bfloat16), want32[0])
+        gap["lse_limit_share"] = bf16_lse_gap(lse, want32[1])
+        require(gap["limit_share"] > 1 or gap["lse_limit_share"] > 1,
+                f"planted fault {label} passes the bf16 limit:", gap)
+        rows.append({"fault": label, **gap})
+    return rows
+
+
+def quant_main_check(name, got, want, *inputs):
+    abs_err, rel_err, *extra = quant_check(name, got, want, *inputs)
+    extra = extra[0] if extra else {}
+    extra["planted_faults"] = quant_faults(inputs, want)
+    return abs_err, rel_err, extra
+
+
 def gemm_check(name, got, want, a, b):
     """Against the plain version in the inputs' type (f32 1e-4: the order
     of summation; bf16 2e-2: the result's own rounding); in f32 also
@@ -1884,6 +1999,8 @@ ROUTE_KERNELS = {
                         "fma": (("flash_attention_kernel",), None)},
     "decode_attention": {"mma": (("decode_mma_kernel",), "HMMA"),
                          "fma": (("decode_attention_kernel",), None)},
+    "decode_attention_int8": {"mma": (("decode_int8_mma_kernel",), "HMMA"),
+                              "fma": (("decode_int8_kernel",), None)},
     "correlate": {"tri": (("correlate_tri_kernel",), None),
                   "fma": (("correlate_kernel",), None)},
     "wkv6": {"chunk": (("wkv6_deltas_kernel", "wkv6_carry_kernel",
@@ -1905,13 +2022,14 @@ ROUTE_KERNELS = {
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: instances of the redesigned routes' kernels, whose spills ptxas reports:
 #: GEMM wgmma 2 (bf16 and f32 out) and pipe 1, flash attention wgmma 3,
-#: decode attention mma 6 (group and head-dim classes), correlator tri 2
+#: decode attention mma 6 (group and head-dim classes) and on the int8
+#: cache mma 6 (the same classes), correlator tri 2
 #: (f32 and bf16 samples), wkv6 chunk 5 (its first and last passes for f32
 #: and bf16, the carry once), rg_lru chunk 4 (both passes for f32 and
 #: bf16), kmeans private 4 (one for each f of 2, 4, 8, 16), spmv_ell bin 3
 #: (the finite pass, which route "fma" runs too, scatter, gather), md5
 #: unwind 1, nbody tile 2 (the sums and the slices' combine)
-REDESIGNED_INSTANCES = 33
+REDESIGNED_INSTANCES = 39
 
 
 def tensor_core_counts(sass: dict) -> dict:
@@ -2452,6 +2570,58 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             queued=KERNEL_HOST_S,
             shape=lambda q, k, v, n: [q.shape[0], q.shape[1], k.shape[1],
                                       k.shape[2], q.shape[2]],
+        ),
+        # qwen1.5-32b's decode step on its int8 cache (8 slots, kv_len over
+        # [1, T]) by route "mma", its first version (route "fma") timed
+        # beside it, and one rank's run of that cache split by sequence
+        # over 4 ranks (rows that end before the run empty, with the lse
+        # the combine takes).  It replaces no pallas_call: the reference
+        # decodes the int8 cache by XLA's fusion of decode_attention_quant.
+        # No single PyTorch call takes the int8 cache with its scales, so
+        # there is no library time.
+        dict(
+            name="decode_attention_int8", wrapper="decode_attention_int8",
+            source="src/repro_torch/csrc/decode_attention_int8.cu",
+            replaces="none (no pallas_call): src/repro/models/"
+                     "attention.py:142 decode_attention_quant, XLA-fused",
+            main=lambda: quant_inputs(sizes.decode_qwen_int8, bf16, gen,
+                                      device),
+            main_route="mma",
+            also={"qwen_seq_rank": lambda: quant_inputs(
+                sizes.decode_qwen_int8_seq_rank, bf16, gen, device,
+                run=(2, 4))},
+            also_check=quant_check,
+            # bf16 by route "mma": a group of 6 at D = 128, D = 80, group
+            # 64 at D = 64, group 10 at D = 256, a rank's run with empty
+            # rows; by "fma": D = 40 in bf16, and f32 (the serve phase's
+            # f32 checks) at qwen's heads and at a group of 4, T ragged
+            ragged=lambda: [
+                quant_inputs((3, 12, 2, 300, 128), bf16, gen, device),
+                quant_inputs((3, 4, 4, 300, 80), bf16, gen, device),
+                quant_inputs((1, 64, 1, 100, 64), bf16, gen, device),
+                quant_inputs((2, 10, 1, 300, 256), bf16, gen, device),
+                quant_inputs((4, 8, 8, 70, 128), bf16, gen, device,
+                             run=(1, 3)),
+                quant_inputs((2, 4, 2, 150, 40), bf16, gen, device),
+                quant_inputs((3, 40, 40, 200, 128), f32, gen, device),
+                quant_inputs((2, 8, 2, 300, 64), f32, gen, device,
+                             run=(1, 2)),
+            ],
+            first=lambda q, kq, ks, vq, vs, n: decode_attention_quant_cuda(
+                q, kq, ks, vq, vs, n, route="fma"),
+            fn=lambda q, kq, ks, vq, vs, n:
+                model_attention.decode_attention_quant(
+                    q, kq, ks, vq, vs, n, with_lse=True),
+            plain=lambda q, kq, ks, vq, vs, n: quant_decode_plain(
+                q.float(), kq, ks, vq, vs, n, with_lse=True),
+            library=None,
+            check=quant_check,
+            main_check=quant_main_check,
+            work=quant_work,
+            queued=KERNEL_HOST_S,
+            shape=lambda q, kq, ks, vq, vs, n: [
+                q.shape[0], q.shape[1], kq.shape[1], kq.shape[2],
+                q.shape[2]],
         ),
         # The paper's correlator at (C, T, A) = (1024, 768, 256) f32, the
         # size of the launch phase, by route "tri" (the tiles with i <= j,
@@ -3872,6 +4042,10 @@ F32_LOGIT_TOL = 2e-3
 #: internvl2-26b (the VLM's 256 patch embeddings before each prompt; GQA at
 #: a group of 6, head dim 128) and stablelm-3b (LayerNorm, head dim 80)
 SERVE_ARCHS_ADDED = ("qwen1.5-32b", "internvl2-26b", "stablelm-3b")
+#: the attention kernels' wrappers, whose routes the serve phases require:
+#: the tensor cores in bf16, route "fma" in f32
+ATTENTION_WRAPPERS = ("flash_attention", "decode_attention",
+                      "decode_attention_int8")
 #: one model of each family the port serves, in the order the runs go
 SERVE_ARCHS = ("phi3-mini-3.8b", "rwkv6-3b", "recurrentgemma-2b",
                "granite-moe-3b-a800m", "whisper-medium") + SERVE_ARCHS_ADDED
@@ -3960,13 +4134,16 @@ class Spy:
     called on f32 copies of the same arguments, ``calls`` is how many a pass
     makes.  A second result is an lse (held to ``BF16_LSE_ATOL`` in bf16)
     or a final state (held to the bf16 limit); ``tol`` is the f32 tolerance
-    of the output and of the second result."""
+    of the output and of the second result.  ``card_only``: a kernel's own
+    wrapper, which a CPU tensor never reaches, so a rehearsal records no
+    call of it."""
     module: object
     name: str
     plain: object
     calls: int
     second: str = "lse"
     tol: tuple = ATTN_TOL[torch.float32]
+    card_only: bool = False
 
 
 def serve_spec(cfg, sizes: Sizes) -> dict:
@@ -4051,17 +4228,23 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                     "flash_attention": flash * prefills,
                     "decode_attention": 2 * cfg.n_layers * steps}}
     # the VLM's prefill prepends its patch embeddings, which the cache
-    # holds; the int8 cache's decode is the eager decode_attention_quant
-    # (no kernel in the reference either), held against its plain version
-    # on the dequantized cache as the kernels are
+    # holds; the int8 cache's decode is the decode kernel on the int8 cache
+    # (the reference's XLA-fused decode_attention_quant), its wrapper's
+    # calls held against its plain version on the dequantized cache (f32)
+    # with their lse, as the kernels are
     patches = cfg.n_patches if cfg.family == "vlm" else 0
     if cfg.kv_quant and cfg.kv_fused:
-        decode = Spy(model_transformer, "decode_attention_quant",
-                     quant_decode_plain, cfg.n_layers)
-        attention_profile = dict(attention_profile, decode_step=())
+        decode = Spy(model_attention, "decode_attention_quant_cuda",
+                     lambda *a, **kw: quant_decode_plain(
+                         *a, with_lse=True, **kw),
+                     cfg.n_layers, card_only=True)
+        attention_profile = dict(attention_profile, decode_step=(
+            "decode_int8_mma_kernel", "decode_mma_combine_kernel"))
+        wrapper = "decode_attention_int8"
     else:
         decode = Spy(model_attention, "cuda_decode", decode_attention_ref,
                      cfg.n_layers)
+        wrapper = "decode_attention"
     return {"prefill": [Spy(model_attention, "flash_attention", attention_ref,
                             cfg.n_layers)],
             "decode": [decode],
@@ -4082,8 +4265,7 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                                if cfg.family == "moe" else cfg),
             "expect": lambda prefills, steps: {
                 "flash_attention": cfg.n_layers * prefills,
-                "decode_attention": (0 if decode.name != "cuda_decode"
-                                     else cfg.n_layers * steps)}}
+                wrapper: cfg.n_layers * steps}}
 
 
 def layer_gaps(what: str, calls, spy: Spy) -> dict:
@@ -4281,9 +4463,11 @@ def serve_check(params, cfg, sizes: Sizes, device, gen, max_len,
     # A dense model's call writes its own k/v at ``pos`` before reading the
     # cache, and a hybrid's its own ring slot; the recurrent state is not
     # written: both calls read the same prefix.
-    with spying(spec["decode"]) as calls, routing() as step_routes:
+    spies = [spy for spy in spec["decode"]
+             if device.type == "cuda" or not spy.card_only]
+    with spying(spies) as calls, routing() as step_routes:
         dec = [model_api.decode_step(params, step, cfg, state)[0]]
-    for spy, seen in zip(spec["decode"], calls):
+    for spy, seen in zip(spies, calls):
         out[f"decode_{spy.name}"] = layer_gaps("decode", seen, spy)
     del calls
     with routing(step_routes if replay else None):
@@ -4440,54 +4624,62 @@ def pct(values, q) -> float:
 
 @torch.no_grad()
 def int8_decode_profile(cfg, sizes: Sizes, device, gen) -> dict:
-    """The int8 cache's decode attention, the eager
-    ``decode_attention_quant`` (the reference has no kernel there either),
-    at the serving shape ``decode_qwen_int8`` with ``kv_len`` spread as
-    ``decode_inputs`` spreads it: its time, the device bytes it allocates
-    beyond its inputs, the least time of its bytes (int8 keys and values up
-    to ``kv_len`` and their f32 scales read once, q and the output), its
-    output against the f32 plain version on the dequantized cache, and
-    beside it the decode-attention kernel on the same cache dequantized to
-    bf16 (what a kernel reading the int8 cache would have to beat)."""
-    b, hq, hkv, t, d = sizes.decode_qwen_int8
-    q, k, v, n = decode_inputs((b, hq, hkv, t, d), cfg.torch_dtype, gen,
-                               device)
-    (k_q, k_s), (v_q, v_s) = kvcache._quantize(k), kvcache._quantize(v)
-    del k, v
+    """Decode attention on the int8 cache at the serving shape
+    ``decode_qwen_int8``, ``kv_len`` spread as ``decode_inputs`` spreads
+    it: the kernel (``decode_attention_quant`` on card tensors, the route
+    it takes) and its plain version (``decode_attention_quant_ref``, which
+    widens the whole cache to bf16 and then f32), each with its time and
+    the device bytes it allocates beyond its inputs (the kernel's: its
+    outputs and the splits' scratch); the least time of the bytes (int8
+    keys and values up to ``kv_len`` and their f32 scales read once, q,
+    the output and the lse), the kernel's output against the f32 plain
+    version on the dequantized cache, and beside them the decode-attention
+    kernel on the same cache dequantized to bf16."""
+    q, k_q, k_s, v_q, v_s, n = quant_inputs(sizes.decode_qwen_int8,
+                                            cfg.torch_dtype, gen, device)
 
-    def quant():
+    def kernel():
         return model_attention.decode_attention_quant(q, k_q, k_s, v_q, v_s,
-                                                      n)
-    got = quant()
-    gap = bf16_check("int8 decode", got, quant_decode_plain(
-        q.float(), k_q, k_s, v_q, v_s, n))
-    del got
-    ms = time_ms(quant, device, sizes.reps)
-    peak = None
-    if device.type == "cuda":
+                                                      n, with_lse=True)
+
+    def plain():
+        return decode_attention_quant_ref(q, k_q, k_s, v_q, v_s, n)
+
+    wrapper = WRAPPERS["decode_attention_int8"]
+    (got, lse), route = routed(wrapper, kernel, device)
+    want = quant_decode_plain(q.float(), k_q, k_s, v_q, v_s, n,
+                              with_lse=True)
+    gap = bf16_check("int8 decode", got, want[0], lse, want[1])
+    del got, lse, want
+
+    def extra_peak(fn):
+        if device.type != "cuda":
+            return None
         sync(device)
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        quant()
+        fn()
         sync(device)
-        peak = torch.cuda.max_memory_allocated(device) - base
-    keys = float(n.sum())
-    bound_ms, bound_by = bound(
-        2 * hkv * keys * (d * k_q.element_size() + k_s.element_size())
-        + 2 * q.numel() * q.element_size(), 4.0 * hq * d * keys,
-        rate_of(q.dtype))
+        return torch.cuda.max_memory_allocated(device) - base
+
+    bound_ms, bound_by = quant_work(q, k_q, k_s, v_q, v_s, n)
     k16 = kvcache._dequantize(k_q, k_s, q.dtype)
     v16 = kvcache._dequantize(v_q, v_s, q.dtype)
-    kernel_ms = time_ms(lambda: decode_attention(q, k16, v16, kv_len=n),
-                        device, sizes.reps, queued=KERNEL_HOST_S)
-    return {"shape": [b, hq, hkv, t, d], "kv_len": n.tolist(), "ms": ms,
-            "extra_peak_bytes": peak,
+    return {"shape": list(sizes.decode_qwen_int8), "kv_len": n.tolist(),
+            "route": route,
+            "ms": time_ms(kernel, device, sizes.reps, queued=KERNEL_HOST_S),
+            "extra_peak_bytes": extra_peak(kernel),
+            "plain_ms": time_ms(plain, device, sizes.reps),
+            "plain_extra_peak_bytes": extra_peak(plain),
             "cache_bytes": sum(x.numel() * x.element_size()
                                for x in (k_q, k_s, v_q, v_s)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bf16_limit_share": gap["limit_share"],
+            "bf16_lse_limit_share": gap["lse_limit_share"],
             "max_abs_err": gap["max_abs_err"],
-            "kernel_on_bf16_cache_ms": kernel_ms}
+            "kernel_on_bf16_cache_ms": time_ms(
+                lambda: decode_attention(q, k16, v16, kv_len=n), device,
+                sizes.reps, queued=KERNEL_HOST_S)}
 
 
 def phase_serve(sizes: Sizes, device: torch.device, seed: int,
@@ -4546,7 +4738,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
                         gate_logits=spec["logit_layers"] is None)
     state, step = check.pop("state"), check.pop("step")
     # Every bf16 attention call of the check took the tensor cores.
-    for name in ("flash_attention", "decode_attention"):
+    for name in ATTENTION_WRAPPERS:
         check[f"{name}_routes"] = {
             r: n - routes_before[name][r]
             for r, n in WRAPPERS[name].routes.items()}
@@ -4576,9 +4768,19 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
     for key, cut in cuts.items():
         t1 = time.perf_counter()
         cut_params = model_api.init_params(gen, cut, device)
+        before = route_counts()
         checked = serve_check(cut_params, cut, sizes, device, gen, max_len)
         for drop in ("state", "step"):
             checked.pop(drop)
+        if key == "check_f32":
+            # f32 attention takes the CUDA cores: route "fma" alone
+            checked["routes"] = {
+                name: {r: n - before[name][r]
+                       for r, n in WRAPPERS[name].routes.items()}
+                for name in ATTENTION_WRAPPERS}
+            require(all(n == 0 for by_route in checked["routes"].values()
+                        for r, n in by_route.items() if r != "fma"),
+                    "f32 attention took the tensor cores:", checked["routes"])
         out[key] = dict(checked, n_layers=cut.n_layers,
                         **({"n_enc_layers": cut.n_enc_layers}
                            if cut.family == "encdec" else {}),
@@ -4607,15 +4809,19 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         torch.cuda.reset_peak_memory_stats(device)
     submitted = {}
     t1 = time.perf_counter()
-    for r in reqs:
-        submitted[r.rid] = time.perf_counter()
-        engine.submit(r)
-    done = engine.run(max_steps=100_000)
-    sync(device)
+    # on the card no decode on the int8 cache takes the plain version
+    with recorded(model_attention, "decode_attention_quant_ref") as plain:
+        for r in reqs:
+            submitted[r.rid] = time.perf_counter()
+            engine.submit(r)
+        done = engine.run(max_steps=100_000)
+        sync(device)
     wall = time.perf_counter() - t1
     counts = {name: w.launches for name, w in WRAPPERS.items()}
     routes = route_counts()
 
+    require(not (on_card and plain), len(plain), "int8 decode calls of the "
+            "engine run took the plain version")
     require(len(done) == len(reqs), "completed", len(done), "of", len(reqs))
     bad = [(r.rid, r.status, len(r.output), r.max_new_tokens) for r in done
            if r.status != "ok" or len(r.output) != r.max_new_tokens]
@@ -4635,9 +4841,9 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         require(routes["flash_attention"]["wgmma"]
                 == counts["flash_attention"], "flash attention routes in "
                 "the engine run:", routes["flash_attention"])
-        require(routes["decode_attention"]["mma"]
-                == counts["decode_attention"], "decode attention routes in "
-                "the engine run:", routes["decode_attention"])
+        for name in ("decode_attention", "decode_attention_int8"):
+            require(routes[name]["mma"] == counts[name], name, "routes in "
+                    "the engine run:", routes[name])
     prompt_lens = [e["args"]["prompt_len"] for e in prefills]
     expect_routes = spec.get("expect_routes", lambda *a: {})(prompt_lens,
                                                              n_steps)
@@ -4663,6 +4869,7 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         "decode_tokens_per_s": engine.stats["decode_tokens"] / wall,
         "kernel_launches": counts, "expected_launches": expect,
         "kernel_routes": routes, "expected_routes": expect_routes,
+        "int8_plain_calls": len(plain),
     })
     if on_card:
         out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -5783,6 +5990,21 @@ def tp_config(arch: str, smoke: bool, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
+def tp_train_config(arch: str, sizes: Sizes):
+    """A trained arch over the ranks: its config (the smoke one where
+    ``train_smoke``) with ``attention_impl="xla"`` (the kernels are
+    forward-only), cut to ``tp_train_depth`` of its layers, at least 2
+    (both stacks of the encoder-decoder)."""
+    cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
+
+    def cut(n: int) -> int:
+        return min(n, max(2, round(n * sizes.tp_train_depth)))
+
+    return cfg.scaled(n_layers=cut(cfg.n_layers),
+                      **({"n_enc_layers": cut(cfg.n_enc_layers)}
+                         if cfg.family == "encdec" else {}))
+
+
 def tp_mesh(shape: tuple):
     return make_mesh(shape, ("data", "model"))
 
@@ -6314,7 +6536,7 @@ def tp_train_inputs(cfg, sizes: Sizes, seed: int, device) -> dict:
 
 
 def tp_train_full(cfg, sizes: Sizes, device, seed: int) -> dict:
-    """(c) ``cfg`` at full width and depth in bf16 over (1, 4): one card's
+    """(c) ``cfg`` (``tp_train_config``) in bf16 over (1, 4): one card's
     steps (rank 0, the others waiting; ``tp_train_inputs``), then as many
     steps of every rank from the same state, step 1's loss held against
     one card's."""
@@ -6594,7 +6816,7 @@ def tp_train_rank(device, sizes: Sizes, seed: int, directory: str,
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": torch.distributed.get_rank()}
     for arch in archs:
-        cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
+        cfg = tp_train_config(arch, sizes)
         out[arch] = {
             "full": tp_train_full(cfg, sizes, device, seed),
             "checks": tp_train_checks(cfg, sizes, device, seed,
@@ -6764,7 +6986,7 @@ def phase_tp(sizes: Sizes, device: torch.device, seed: int,
     flash and decode attention on its heads (8 of 32; 6 of 24 on 2 of 8
     KV heads), granite's experts 10 a rank, (b) their f32 logits at two
     layers against one rank's, (c) gemma-2b's and granite-moe-1b's
-    full-width and full-depth train steps, step 1's loss against one
+    full-width train steps at ``tp_train_depth``, step 1's loss against one
     card's, and (d) at two layers the f32 step leaf by leaf against one
     rank's (granite's experts chosen as the one-rank step chose them), a
     ZeRO-1 step over (2, 2), its checkpoint restored onto (1, 4) and one
@@ -6956,7 +7178,7 @@ def dryrun_start(sizes: Sizes, processes: int,
         cells["serve", arch] = (cfg, tp_serve_sizes(cfg, sizes)["max_len"],
                                 sizes.serve_slots, "decode", on_tp)
     for arch in train_archs:
-        cfg = tp_config(arch, sizes.train_smoke, attention_impl="xla")
+        cfg = tp_train_config(arch, sizes)
         b, seq = tp_train_batch(cfg, sizes)
         cells["train", arch] = (cfg, seq, b, "train", on_tp)
     for key, args in seq_dry_cells(sizes, seq_cells).items():
@@ -7157,6 +7379,8 @@ def main(argv=None) -> int:
                                 for n in served.values())
         + dist["decode_attention_launches"]
         + sum(tp["launches"]["decode_attention"].values()),
+        "decode_attention_int8": sum(n["decode_attention_int8"]
+                                     for n in served.values()),
         "wkv6": rwkv["wkv6"] + sum(tp["launches"]["wkv6"].values()),
         "rg_lru": hybrid["rg_lru"] + sum(tp["launches"]["rg_lru"].values()),
     }
@@ -7177,7 +7401,7 @@ def main(argv=None) -> int:
                    "prefills and decode steps (route fma)":
                    hybrid_routes["fma"]},
         **{name: {arch: n[name] for arch, n in served.items() if n[name]}
-           for name in ("flash_attention", "decode_attention")}}
+           for name in ATTENTION_WRAPPERS}}
     by_shape["decode_attention"]["dist phase"] = \
         dist["decode_attention_launches"]
     for name in over_ranks:

@@ -59,19 +59,14 @@
 // P.V.
 //
 // Both routes write the output as acc / max(l, 1e-30) in q's type and lse =
-// m + log(max(l, 1e-30)) in f32.  Build without --use_fast_math.
+// m + log(max(l, 1e-30)) in f32.  Build without --use_fast_math.  The
+// combine kernels and route "mma"'s warp-level products and four-warp
+// combine live in decode_attention.cuh, shared with the kernels on the int8
+// cache (decode_attention_int8.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include "hopper.cuh"
+#include "decode_attention.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int BT = 64;     // keys per tile (two threads a key)
-constexpr int OMAX = 32;   // outputs a thread owns: group * D <= 4096
-constexpr float kNegInf = -1e30f;
 
 __device__ inline void widen16(const uint4& raw, const float*, float* f) {
   const float4 a = *reinterpret_cast<const float4*>(&raw);
@@ -88,25 +83,6 @@ __device__ inline void widen16(const uint4& raw, const __nv_bfloat16*,
     f[2 * i + 1] = x.y;
   }
 }
-
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ inline float round_p(float p) { return p; }
-template <>
-__device__ inline float round_p<__nv_bfloat16>(float p) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-__device__ inline void store_out(float* p, float v) { *p = v; }
-__device__ inline void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ inline size_t align16(size_t bytes) { return (bytes + 15) & ~15; }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -264,31 +240,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One block a (batch, query head): the splits' partials weighted by
-// exp(m_s - M), divided by the weighted sum of their l.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ part_acc,
-                      const float* __restrict__ part_m,
-                      const float* __restrict__ part_l, T* __restrict__ out,
-                      float* __restrict__ lse, int splits, int D) {
-  const long long row = blockIdx.x;
-  const float* pm = part_m + row * splits;
-  const float* pl = part_l + row * splits;
-  float M = kNegInf;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, pm[s]);
-  float L = 0.f;
-  for (int s = 0; s < splits; ++s) L += pl[s] * expf(pm[s] - M);
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float o = 0.f;
-    for (int s = 0; s < splits; ++s)
-      o = fmaf(part_acc[(row * splits + s) * D + d], expf(pm[s] - M), o);
-    store_out(out + row * D + d, o * inv);
-  }
-  if (threadIdx.x == 0) lse[row] = M + logf(fmaxf(L, 1e-30f));
-}
-
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
            void* out, void* lse, void* part_acc, void* part_m, void* part_l,
@@ -308,12 +259,9 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
       static_cast<float*>(part_acc), static_cast<float*>(part_m),
       static_cast<float*>(part_l), HKV, G, T_len, D, tiles_per_split, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  decode_combine_kernel<T><<<B * HKV * G, kThreads, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<T*>(out),
-      static_cast<float*>(lse), splits, D);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return combine_fma<T>(part_acc, part_m, part_l, out, lse, B * HKV * G,
+                        splits, D, stream);
 }
 
 
@@ -321,52 +269,12 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
 
 namespace mma {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int BT = 16 * kWarps;  // keys a tile: 16 a warp
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Bytes of one row of a tile in shared memory: D bf16 values and 16 bytes
-// of padding, so that the 8 rows one ldmatrix reads start in 8 different
-// groups of 4 banks (2 D + 16 is 16 times an odd number for D % 16 == 0).
-__host__ __device__ inline int row_bytes(int D) { return 2 * D + 16; }
-
-// Shared memory of a block: the queries (16 MT padded rows), then the ring
-// of STAGES x (K tile, V tile); after the loop the ring holds the four
-// warps' m, l, weights and accumulators.
 template <int MT, int STAGES>
 inline size_t smem_bytes(int D) {
   const size_t rows = 16 * MT, rb = row_bytes(D);
   const size_t ring = STAGES * 2 * BT * rb;
-  const size_t warps = sizeof(float) * (kWarps * rows * (3 + D) + 2 * rows);
+  const size_t warps = finish_bytes(rows, D);
   return rows * rb + (ring > warps ? ring : warps);
-}
-
-// A value reduced over the block (max, or sum in a fixed order) and handed
-// to every thread; `red` holds one float a warp of shared memory.
-template <bool MAX>
-__device__ float block_reduce(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = MAX ? fmaxf(v, o) : v + o;
-  }
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < static_cast<int>(blockDim.x / 32); ++w)
-    v = MAX ? fmaxf(v, red[w]) : v + red[w];
-  __syncthreads();  // red is free again
-  return v;
-}
-
-// Splits of row b that hold keys: the split s covers keys from
-// s * tiles_per_split * BT, so those below kv_len[b].
-__device__ inline int live_splits(int end, int tiles_per_split, int splits) {
-  const int keys = tiles_per_split * BT;
-  return min(splits, (end + keys - 1) / keys);
 }
 
 template <int MT, int DMAX, int STAGES>
@@ -452,29 +360,8 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint8_t* ks = ring + (i % STAGES) * stage_bytes + warp * 16 * rb;
       const uint8_t* vs = ks + BT * rb;
 
-      // S = Q K^T for the warp's 16 keys (two n8 tiles), k16 steps over D.
       float s[MT][2][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < DMAX / 16; ++kd) {
-        if (kd * 16 >= D) break;
-        uint32_t kf[4];
-        hopper::ldmatrix_x4(kf, ks + ((lane & 7) + ((lane >> 4) << 3)) * rb
-                                    + (kd * 16 + ((lane >> 3) & 1) * 8) * 2);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t qf[4];
-          hopper::ldmatrix_x4(qf, Qs + (mt * 16 + (lane & 15)) * rb
-                                      + (kd * 16 + (lane >> 4) * 8) * 2);
-          hopper::mma_bf16_16816(s[mt][0], qf, kf[0], kf[1]);
-          hopper::mma_bf16_16816(s[mt][1], qf, kf[2], kf[3]);
-        }
-      }
+      warp_scores<MT, DMAX>(s, Qs, ks, rb, D, lane);
 
       // Online softmax in base 2, rows l/4 (h = 0) and l/4 + 8 (h = 1) of
       // each m16 tile; the quad's four lanes hold a row's 16 scores.
@@ -518,147 +405,13 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pf[mt][3] = hopper::pack_bf16(s[mt][1][2], s[mt][1][3]);
       }
 
-      // acc += P V: the warp's 16 keys are the k16 step, V read as it lies
-      // (keys along k) through ldmatrix's transpose, 16 columns a load.
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) {
-        if (j * 16 >= D) break;
-        uint32_t vf[4];
-        hopper::ldmatrix_x4_trans(
-            vf, vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * rb
-                    + (j * 16 + (lane >> 4) * 8) * 2);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          hopper::mma_bf16_16816(acc[mt][2 * j], pf[mt], vf[0], vf[1]);
-          hopper::mma_bf16_16816(acc[mt][2 * j + 1], pf[mt], vf[2], vf[3]);
-        }
-      }
+      warp_pv<MT, DMAX>(acc, pf, vs, rb, D, lane);
     }
 
-    // The four warps' (m, l, acc) into shared memory (the ring is free once
-    // every copy has landed and every warp is past its last tile).
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l_run[mt][h] += __shfl_xor_sync(0xffffffffu, l_run[mt][h], 1);
-        l_run[mt][h] += __shfl_xor_sync(0xffffffffu, l_run[mt][h], 2);
-      }
-    hopper::cp_async_wait<0>();
-    __syncthreads();
-    float* wm = reinterpret_cast<float*>(ring);  // (kWarps, ROWS)
-    float* wl = wm + kWarps * ROWS;
-    float* wt = wl + kWarps * ROWS;  // each warp's weight exp2(m_w - M)
-    float* ML = wt + kWarps * ROWS;  // M, then the combined l, a row
-    float* Os = ML + 2 * ROWS;       // (kWarps, ROWS, D)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = mt * 16 + lane / 4 + 8 * h;
-        if ((lane & 3) == 0) {
-          wm[warp * ROWS + row] = m_run[mt][h];
-          wl[warp * ROWS + row] = l_run[mt][h];
-        }
-        if (row < G) {
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int col = j * 8 + 2 * (lane & 3);
-            if (j * 8 < D)
-              *reinterpret_cast<float2*>(Os + (warp * ROWS + row) * D + col) =
-                  make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
-          }
-        }
-      }
-    __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      float M = kNegInf;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * ROWS + g]);
-      float L = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float wgt = exp2f(wm[w * ROWS + g] - M);
-        wt[w * ROWS + g] = wgt;
-        L = fmaf(wl[w * ROWS + g], wgt, L);
-      }
-      ML[g] = M;
-      ML[ROWS + g] = L;
-      if (splits == 1) {
-        lse[head0 + g] = M * kLn2 + logf(fmaxf(L, 1e-30f));
-      } else {
-        part_m[(head0 + g) * splits + split] = M;
-        part_l[(head0 + g) * splits + split] = L;
-      }
-    }
-    __syncthreads();
-    for (int o = tid; o < G * D; o += kThreads) {
-      const int g = o / D, d = o % D;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w)
-        sum = fmaf(Os[(w * ROWS + g) * D + d], wt[w * ROWS + g], sum);
-      if (splits == 1)
-        out[head0 * D + o] = __float2bfloat16(sum / fmaxf(ML[ROWS + g], 1e-30f));
-      else
-        part_acc[((head0 + g) * splits + split) * D + d] = sum;
-    }
+    finish_warps<MT, NT>(acc, m_run, l_run, ring, G, D, head0, split,
+                         splits, out, lse, part_acc, part_m, part_l);
   } else if (splits == 1) {
-    // kv_len 0: zeros, as the first kernel gives.
-    for (int o = tid; o < G * D; o += kThreads)
-      out[head0 * D + o] = __float2bfloat16(0.f);
-    for (int g = tid; g < G; g += kThreads)
-      lse[head0 + g] = kNegInf + logf(1e-30f);
-  }
-}
-
-// One block a (batch, query head) row: the splits that hold keys, each
-// weighted by exp2(m_s - M) taken once (the threads over the splits), then
-// the weighted sums divided by the weighted sum of l (the threads over the
-// columns).  The work is a few dependent reads from L2, so the reads that
-// do not wait on kv_len are issued with it.  `ws` holds splits + 4 floats
-// of shared memory.
-__global__ void __launch_bounds__(kThreads)
-decode_mma_combine_kernel(const float* __restrict__ part_acc,
-                          const float* __restrict__ part_m,
-                          const float* __restrict__ part_l,
-                          const int* __restrict__ kv_len,
-                          bf16* __restrict__ out, float* __restrict__ lse,
-                          int HQ, int T_len, int splits, int tiles_per_split,
-                          int D) {
-  extern __shared__ float ws[];
-  float* red = ws + splits;
-  const long long row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* pm = part_m + row * splits;
-  const float* pl = part_l + row * splits;
-  // Every split's m and l (those past the live ones are never used).
-  float m_s = kNegInf, l_s = 0.f;
-  if (tid < splits) {
-    m_s = pm[tid];
-    l_s = pl[tid];
-  }
-  const int end = min(max(kv_len[row / HQ], 0), T_len);
-  const int n_s = live_splits(end, tiles_per_split, splits);
-  float M = kNegInf;
-  for (int s = tid; s < n_s; s += kThreads)
-    M = fmaxf(M, s == tid ? m_s : pm[s]);
-  M = block_reduce<true>(M, red);
-  float L = 0.f;
-  for (int s = tid; s < n_s; s += kThreads) {
-    ws[s] = exp2f((s == tid ? m_s : pm[s]) - M);
-    L = fmaf(s == tid ? l_s : pl[s], ws[s], L);
-  }
-  L = block_reduce<false>(L, red);  // its barrier also publishes ws
-  if (tid == 0)
-    lse[row] = (M == kNegInf ? kNegInf : M * kLn2) + logf(fmaxf(L, 1e-30f));
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-  for (int d = tid; d < D; d += kThreads) {
-    const float* pa = part_acc + row * splits * D + d;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int s = 0; s < n_s; ++s) acc = fmaf(pa[s * D], ws[s], acc);
-    out[row * D + d] = __float2bfloat16(acc * inv);
+    empty_rows(G, D, head0, out, lse);
   }
 }
 
@@ -682,14 +435,9 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
       static_cast<float*>(part_l), HKV, G, T_len, D, tiles_per_split,
       scale_log2);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  decode_mma_combine_kernel<<<B * HKV * G, kThreads,
-                              sizeof(float) * (splits + 4), stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<const int*>(kv_len),
-      static_cast<bf16*>(out), static_cast<float*>(lse), HKV * G, T_len,
-      splits, tiles_per_split, D);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return combine_mma(part_acc, part_m, part_l, kv_len, out, lse, B, HKV * G,
+                     T_len, splits, tiles_per_split, D, stream);
 }
 
 }  // namespace mma

@@ -2,8 +2,9 @@
 // (csrc/gemm.cu and csrc/flash_attention.cu): mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors, the wgmma products those kernels issue,
 // setmaxnreg, and the host helper that encodes a TMA tensor map; and the
-// pieces of decode attention's route "mma" (csrc/decode_attention.cu):
-// cp.async copies, ldmatrix and the warp-wide mma.sync m16n8k16 product.
+// pieces of decode attention's route "mma" (csrc/decode_attention.cu, and
+// on the int8 cache csrc/decode_attention_int8.cu): cp.async copies,
+// ldmatrix and the warp-wide mma.sync m16n8k16 product.
 //
 // Written from the PTX of the instructions themselves; nothing here is a
 // ready-made GEMM.  Every tile these helpers see lies in shared memory in
@@ -287,6 +288,14 @@ __device__ inline void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// The same for 4 bytes (through L1: cp.async.cg takes 16 only), for rows
+// of f32 that need not be 16-byte aligned; `src` 4-byte aligned.
+__device__ inline void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ inline void cp_async_commit() {

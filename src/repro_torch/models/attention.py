@@ -12,7 +12,7 @@ Three interchangeable implementations selected by ``cfg.attention_impl``:
 
 Decode-side attention (one token against the cache) has the ``cuda`` kernel
 and the plain path, both able to emit the log-sum-exp for combining
-sequence-split partials, as does the eager attention on the int8 cache;
+sequence-split partials, on a cache in q's dtype and on the int8 cache;
 ``combine_decode_partials`` combines the partials of ranks that each hold
 a shard of the cache's sequence axis (flash-decode over a mesh axis), and
 ``decode_attention_seq_split`` is a rank's whole part of it.
@@ -32,8 +32,12 @@ import torch.nn.functional as F
 from repro_torch.dist import ranks
 from repro_torch.dist.collectives import _span
 from repro_torch.kernels.decode_attention import decode_attention as cuda_decode
+from repro_torch.kernels.decode_attention.kernel import (
+    decode_attention_quant_cuda,
+)
 from repro_torch.kernels.decode_attention.ref import (
     EMPTY_LSE,
+    decode_attention_quant_ref,
     decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -156,45 +160,29 @@ def decode_attention_quant(
     *,
     scale: float | None = None,
     with_lse: bool = False,
+    impl: str = "cuda",
 ) -> Any:
-    """Decode attention directly on the int8 cache, eager.  Quantization is
+    """Decode attention directly on the int8 cache.  Quantization is
     per-token symmetric, so the scales factor out of both dots:
 
         logits[t] = k_s[t] * (q . k_q[t])
         out       = sum_t (p[t] * v_s[t]) * v_q[t]
 
-    Products of the int8 values (exact in the query's type) are summed in
-    float32, as the reference's ``preferred_element_type`` does.  With
-    ``with_lse`` also the log-sum-exp of the scaled logits (B, HQ); a row
-    with no valid key gives zeros and lse -1e30, as the decode kernel's
-    plain version does.
+    On a CUDA tensor with ``impl`` "cuda" this launches the hand-written
+    kernel, which reads the cache once, in int8, up to ``kv_len``; a CPU
+    tensor, or another ``impl``, takes the plain version
+    (``decode_attention_quant_ref``).  With ``with_lse`` also the
+    log-sum-exp of the scaled logits (B, HQ); a row with no valid key gives
+    zeros and lse -1e30, as the decode kernel does.
     """
-    b, hq, d = q.shape
-    _, hkv, t, _ = k_q.shape
-    group = hq // hkv
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    qg = q.reshape(b, hkv, group, d)
-
-    raw = torch.einsum("bkgd,bktd->bkgt", qg.float(),
-                       k_q.to(q.dtype).float())
-    logits = raw * k_s[:, :, None, :] * scale  # (B, KV, G, T)
-    mask = (torch.arange(t, device=q.device)[None, None, None, :]
-            < kv_len[:, None, None, None])
-    logits = logits.masked_fill(~mask, float("-inf"))
-    m = logits.amax(dim=-1, keepdim=True)
-    empty = m == float("-inf")  # no valid key in the row
-    m = m.masked_fill(empty, 0.0)
-    e = torch.exp(logits - m)
-    l = e.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-    p = e / l
-    pv = (p * v_s[:, :, None, :]).to(q.dtype)  # fold value scales in
-    out = torch.einsum("bkgt,bktd->bkgd", pv.float(),
-                       v_q.to(q.dtype).float())
-    out = out.reshape(b, hq, d).to(q.dtype)
-    if with_lse:
-        lse = (m + torch.log(l)).masked_fill(empty, EMPTY_LSE)
-        return out, lse.reshape(b, hq)
-    return out
+    if impl != "cuda" or q.device.type == "cpu":
+        return decode_attention_quant_ref(q, k_q, k_s, v_q, v_s, kv_len,
+                                          scale=scale, with_lse=with_lse)
+    out, lse = decode_attention_quant_cuda(
+        q.contiguous(), k_q.contiguous(), k_s.contiguous(), v_q.contiguous(),
+        v_s.contiguous(), kv_len.to(q.device, torch.int32).contiguous(),
+        scale=scale)
+    return (out, lse) if with_lse else out
 
 
 def decode_attention_masked(
@@ -263,7 +251,7 @@ def decode_attention_seq_split(
     split over ``axis_name`` (the reference's ``shard_seq``): its valid
     length within its run, ``clamp(kv_len - offset, 0, T_local)``, then the
     attention to its run with the log-sum-exp (the decode kernel, or with
-    ``scales`` = (k_s, v_s) the eager attention on the int8 cache), then
+    ``scales`` = (k_s, v_s) the one on the int8 cache), then
     the combine over the ranks (``mesh``: None, the current one).  Every
     rank of the axis calls it with every query head and gets the whole
     output."""
@@ -271,7 +259,7 @@ def decode_attention_seq_split(
     if scales is not None:
         out, lse = decode_attention_quant(q, k_cache, scales[0], v_cache,
                                           scales[1], local, scale=scale,
-                                          with_lse=True)
+                                          with_lse=True, impl=impl)
     else:
         out, lse = decode_attention(q, k_cache, v_cache, local, impl=impl,
                                     scale=scale, with_lse=True)

@@ -366,12 +366,13 @@ def _attention_block(
             return project(out), new_cache_l
         if fused:
             # Attend on the int8 cache directly: the scales factor out of
-            # both dots, so the cache is read once, in int8.
+            # both dots, and the kernel reads the cache once, in int8 (the
+            # plain version, for a CPU tensor or another impl, widens it).
             out = decode_attention_quant(
                 q[:, :, 0],
                 new_cache_l["k_q"][:, mine], new_cache_l["k_s"][:, mine],
                 new_cache_l["v_q"][:, mine], new_cache_l["v_s"][:, mine],
-                kv_len,
+                kv_len, impl=cfg.attention_impl,
             )
             out = out[:, :, None, :].transpose(1, 2)
             return project(out.reshape(b, s, hq * d)), new_cache_l

@@ -1,13 +1,14 @@
 """The multi-route kernels' route functions, on the CPU.
 
-``gemm_route``, ``flash_route``, ``decode_route``, ``correlate_route``,
+``gemm_route``, ``flash_route``, ``decode_route``, ``decode_quant_route``,
+``correlate_route``,
 ``wkv6_route``, ``rg_lru_route``, ``kmeans_route``, ``spmv_route`` and
 ``md5_route`` pick a kernel before
 the launch from dtype, shape and alignment alone: ``"wgmma"`` (tensor cores fed by TMA) where TMA can
 describe bf16 operands, ``"pipe"`` (f32 on the CUDA cores, its loads a
 stage ahead) for f32 GEMM operands of 16-byte rows, ``"mma"``
 (``mma.sync`` tensor cores) for bf16 decode attention whose group fits the
-kernel, ``"tri"`` (the correlator's tiles with i <= j, the rest mirrored)
+kernel, on a bf16 cache or an int8 one, ``"tri"`` (the correlator's tiles with i <= j, the rest mirrored)
 for more than one tile of antennas, ``"chunk"`` (WKV6 and RG-LRU as scans
 over chunks of time) for T of two chunks or more (three for RG-LRU),
 ``"private"`` (K-Means with several points a thread and accumulators
@@ -174,6 +175,50 @@ def test_decode_bf16_takes_the_tensor_cores(what, shape):
 ])
 def test_decode_route_sends_the_rest_to_fma(what, args):
     assert decode_kernel.decode_route(*args) == "fma", what
+
+
+def _decode_int8(b, hq, hkv, t, d, dtype, offset=0, cache_offset=0):
+    """q (b, hq, d) in ``dtype`` ``offset`` elements into its buffer, k_q
+    and v_q (b, hkv, t, d) int8 ``cache_offset`` bytes into theirs."""
+    q = torch.zeros(offset + b * hq * d, dtype=dtype)[offset:]
+    k = torch.zeros(cache_offset + b * hkv * t * d,
+                    dtype=torch.int8)[cache_offset:]
+    return (q.view(b, hq, d), k.view(b, hkv, t, d),
+            k.clone().view(b, hkv, t, d))
+
+
+@pytest.mark.parametrize("what,shape", [
+    ("qwen1.5-32b's decode", (8, 40, 40, 2184, 128)),
+    ("a sequence-split rank's run", (8, 40, 40, 546, 128)),
+    ("group 6 of 128", (3, 12, 2, 300, 128)),
+    ("D = 80", (3, 4, 4, 300, 80)),
+    ("group 10 of 256", (3, 10, 1, 300, 256)),
+    ("group 64 of 64", (1, 64, 1, 70, 64)),
+    ("D = 16", (2, 4, 2, 50, 16)),
+])
+def test_decode_int8_with_bf16_queries_takes_the_tensor_cores(what, shape):
+    """The int8 cache's route "mma" takes what the bf16 cache's does."""
+    args = _decode_int8(*shape, bf16)
+    assert decode_kernel.decode_quant_route(*args) == "mma", what
+    assert decode_kernel.decode_route(*_decode(*shape, bf16)) == "mma", what
+
+
+@pytest.mark.parametrize("what,args", [
+    ("f32 queries (the serve phase's f32 checks)",
+     _decode_int8(8, 40, 40, 300, 128, f32)),
+    ("f32 group 6", _decode_int8(3, 12, 2, 300, 128, f32)),
+    ("D = 40", _decode_int8(2, 4, 2, 64, 40, bf16)),
+    ("group 20 of 256: 32 rows x 256 > 4096",
+     _decode_int8(1, 20, 1, 64, 256, bf16)),
+    ("group 65", _decode_int8(1, 65, 1, 64, 16, bf16)),
+    ("heads not a multiple of kv heads", _decode_int8(1, 6, 4, 64, 64, bf16)),
+    ("q one element in", _decode_int8(2, 4, 2, 64, 64, bf16, offset=1)),
+    ("the cache 4 bytes in", _decode_int8(2, 4, 2, 64, 64, bf16,
+                                          cache_offset=4)),
+    ("a bf16 cache", _decode(2, 4, 2, 64, 64, bf16)),
+])
+def test_decode_int8_route_sends_the_rest_to_fma(what, args):
+    assert decode_kernel.decode_quant_route(*args) == "fma", what
 
 
 def _samples(c, t, a, dtype):
@@ -387,6 +432,7 @@ def test_md5_unwinds_every_search(n):
     (gemm_kernel, "gemm_cuda", ("wgmma", "pipe", "fma")),
     (flash_kernel, "flash_attention_cuda", ("wgmma", "fma")),
     (decode_kernel, "decode_attention_cuda", ("mma", "fma")),
+    (decode_kernel, "decode_attention_quant_cuda", ("mma", "fma")),
     (corr_kernel, "correlate_cuda", ("tri", "fma")),
     (wkv_kernel, "wkv6_cuda", ("chunk", "fma")),
     (lru_kernel, "rg_lru_cuda", ("chunk", "fma")),

@@ -2,6 +2,7 @@
 """Decode attention with the cache split over blocks, or not, on one GPU.
 
     python3 tools/decode_splits.py [--route mma] [--seed 0] [--steps 10]
+    python3 tools/decode_splits.py --int8 [--route mma]
 
 Times the decode-attention kernel of ``--route`` (``"mma"``, the tensor
 cores, or ``"fma"``, the first kernel; ``src/repro_torch/csrc/
@@ -17,8 +18,15 @@ with the plan and with one split, in the order plan, one, one, plan: its
 time by CUDA events (the host's issue included) and its device time by
 ``torch.profiler``; and the wrapper's host time a call with the plan and
 with one split.  Prints ``chip_smoke.py``'s env line, then one JSON line
-of results.  Needs one CUDA device; inputs, timers and limits are
-``chip_smoke.py``'s.
+of results.  ``--int8`` times the kernel on the int8 cache instead
+(``src/repro_torch/csrc/decode_attention_int8.cu``, its wrapper
+``decode_attention_quant_cuda``) at qwen1.5-32b's decode shape (8 slots x
+40 kv heads of 128, T = 2184, kv_len over [1, T]) and at one rank's run of
+that cache split by sequence over 4 ranks (T = 546, rows that end before
+the run empty), by split count as above and held to ``chip_smoke.py``'s
+``quant_check``, each split count also for the decode kernel on the same
+cache dequantized to bf16; no decode step.  Needs one CUDA device; inputs,
+timers and limits are ``chip_smoke.py``'s.
 """
 
 from __future__ import annotations
@@ -76,6 +84,24 @@ def host_us(fn, device, calls: int = 200) -> float:
     return spent / calls * 1e6
 
 
+def sweep(calls: dict, want, device, reps: int) -> dict:
+    """``{label: {split count or "plan": [ms, ms]}}``: each of ``calls``
+    (label -> a call giving (out, lse)) at each split count, in turns up
+    and down, held to the bf16 limit of the f32 plain version ``want``
+    (``chip_smoke.quant_check``, which holds out and lse alike) and
+    timed."""
+    ms = {label: {} for label in calls}
+    for order in (list(SPLITS) + [None], [None] + list(SPLITS)[::-1]):
+        for s in order:
+            key = "plan" if s is None else str(s)
+            with forced_splits(s):
+                for label, call in calls.items():
+                    smoke.quant_check(f"{label} splits={s}", call(), want)
+                    ms[label].setdefault(key, []).append(smoke.time_ms(
+                        call, device, reps, queued=smoke.KERNEL_HOST_S))
+    return ms
+
+
 def kernel_times(shape, gen, device, reps: int, route: str) -> dict:
     """One draw of the inputs (kv_len over [1, T]) at ``shape``: each split
     count in turns, up and down."""
@@ -85,21 +111,12 @@ def kernel_times(shape, gen, device, reps: int, route: str) -> dict:
     out = {"shape": list(shape), "kv_len": n.tolist(), "route": route,
            "plan": list(dk.split_plan(shape[0], shape[2], shape[3], device,
                                       route)),
-           "bound_ms": smoke.decode_work(q, k, v, n)[0], "ms": {}}
+           "bound_ms": smoke.decode_work(q, k, v, n)[0]}
 
     def call():
         return dk.decode_attention_cuda(q, k, v, n, route=route)
 
-    for order in (list(SPLITS) + [None], [None] + list(SPLITS)[::-1]):
-        for s in order:
-            with forced_splits(s):
-                got = call()
-                smoke.bf16_check(f"splits={s}", got[0], want[0], got[1],
-                                 want[1])
-                ms = smoke.time_ms(call, device, reps,
-                                   queued=smoke.KERNEL_HOST_S)
-            out["ms"].setdefault("plan" if s is None else str(s), []) \
-                .append(ms)
+    out.update(sweep({"ms": call}, want, device, reps))
     # The wrapper's host work a call: the plan (scratch, two launches)
     # against one split (one launch).
     for s in (None, 1, 1, None):
@@ -107,6 +124,35 @@ def kernel_times(shape, gen, device, reps: int, route: str) -> dict:
             us = host_us(call, device)
         out.setdefault("host_us", {}).setdefault(
             "plan" if s is None else str(s), []).append(us)
+    return out
+
+
+def int8_times(shape, gen, device, reps: int, route: str,
+               run=None) -> dict:
+    """``kernel_times`` for the kernel on the int8 cache (``run``: a rank's
+    run of a cache split by sequence, as ``chip_smoke.quant_inputs``
+    makes it), with the decode kernel on the cache dequantized to bf16
+    timed beside it at each split count."""
+    q, k_q, k_s, v_q, v_s, n = smoke.quant_inputs(shape, torch.bfloat16,
+                                                  gen, device, run=run)
+    want = smoke.quant_decode_plain(q.float(), k_q, k_s, v_q, v_s, n,
+                                    with_lse=True)
+    k16 = (k_q.float() * k_s[..., None]).bfloat16()
+    v16 = (v_q.float() * v_s[..., None]).bfloat16()
+    out = {"shape": list(shape), "kv_len": n.tolist(), "route": route,
+           "plan": list(dk.split_plan(shape[0], shape[2], shape[3], device,
+                                      route)),
+           "bound_ms": smoke.quant_work(q, k_q, k_s, v_q, v_s, n)[0]}
+
+    def call():
+        return dk.decode_attention_quant_cuda(q, k_q, k_s, v_q, v_s, n,
+                                              route=route)
+
+    def bf16_call():
+        return dk.decode_attention_cuda(q, k16, v16, n, route=route)
+
+    out.update(sweep({"ms": call, "bf16_cache_ms": bf16_call}, want, device,
+                     reps))
     return out
 
 
@@ -166,6 +212,9 @@ def main() -> int:
     ap.add_argument("--route", choices=dk.ROUTES, default="mma")
     ap.add_argument("--no-step", action="store_true",
                     help="time the kernel alone, not a decode step")
+    ap.add_argument("--int8", action="store_true",
+                    help="the kernel on the int8 cache, at qwen1.5-32b's "
+                         "shapes (no decode step)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_splits: no CUDA device", file=sys.stderr)
@@ -175,14 +224,24 @@ def main() -> int:
     t0 = time.perf_counter()
     res = {"card": smoke.phase_env(device)["card"],
            "sm_count": torch.cuda.get_device_properties(0)
-           .multi_processor_count,
-           **{name: [kernel_times(shape, gen, device, args.reps,
-                                  args.route) for _ in range(args.draws)]
-              for name, shape in (
-                  ("phi3", smoke.FULL.decode),
-                  ("gemma", smoke.FULL.decode_gemma),
-                  ("recurrentgemma", smoke.FULL.decode_rgemma))}}
-    if not args.no_step:
+           .multi_processor_count}
+    if args.int8:
+        res.update({name: [int8_times(shape, gen, device, args.reps,
+                                      args.route, run)
+                           for _ in range(args.draws)]
+                    for name, shape, run in (
+                        ("qwen", smoke.FULL.decode_qwen_int8, None),
+                        ("qwen_seq_rank",
+                         smoke.FULL.decode_qwen_int8_seq_rank, (2, 4)))})
+    else:
+        res.update({name: [kernel_times(shape, gen, device, args.reps,
+                                        args.route)
+                           for _ in range(args.draws)]
+                    for name, shape in (
+                        ("phi3", smoke.FULL.decode),
+                        ("gemma", smoke.FULL.decode_gemma),
+                        ("recurrentgemma", smoke.FULL.decode_rgemma))})
+    if not args.no_step and not args.int8:
         res["step"] = step_times(gen, device, args.steps)
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps(res), flush=True)

@@ -3,7 +3,7 @@
 in one call.
 
     python3 tools/decode_step_ab.py --root DIR [--arch recurrentgemma-2b]
-        [--prefill N]
+        [--prefill N] [--layers N]
 
 Imports ``chip_smoke.py`` and ``repro_torch`` from the checkout at
 ``--root`` (this tree, or a ``git archive`` of another commit unpacked
@@ -15,9 +15,13 @@ window of 2048).  Prints one JSON line: the step by CUDA events (the host's
 issue included, median of ``--steps``), its device time and largest
 kernels by ``torch.profiler``, and the hand-written kernels' launches a
 step.  ``--prefill N`` times a batch-1 prefill of N random tokens instead
-(a fresh state each call), as the serving engine runs one.  Run it for two
-roots in turns (A, B, B, A) in one call: only there are the two
-comparable.  Needs one CUDA device.
+(a fresh state each call), as the serving engine runs one.  ``--layers
+N`` cuts the depth (qwen1.5-32b's 64 layers do not fit the card with
+``chip_smoke.py``'s checks; it serves 32); an int8 cache (``kv_quant``) is
+filled with random entries in [-127, 127] and scales of about 2.5 / 127,
+as normal keys and values quantize.  Run it for two roots in turns (A, B,
+B, A) in one call: only there are the two comparable.  Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -45,6 +49,13 @@ def fill_state(state: dict, cfg, lens: torch.Tensor, gen) -> None:
             pos = torch.arange(first, n, dtype=torch.int32,
                                device=lens.device)
             state["slot_pos"][:, r, pos % win] = pos
+    elif "k_q" in state:
+        for name in ("k_q", "v_q"):
+            state[name].copy_(torch.randint(
+                -127, 128, state[name].shape, generator=gen,
+                device=lens.device, dtype=torch.int8))
+        for name in ("k_s", "v_s"):
+            state[name].uniform_(2.0 / 127, 3.0 / 127, generator=gen)
     else:
         for name in ("k", "v"):
             for layer in state[name]:
@@ -60,6 +71,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--prefill", type=int, default=0,
                     help="time a prefill of this many tokens instead")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path[:0] = [os.path.join(root, "src"), root]
@@ -73,6 +86,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = cfg.scaled(n_layers=args.layers)
     params = model_api.init_params(gen, cfg, device)
     if args.prefill:
         n = args.prefill
@@ -113,7 +128,8 @@ def main() -> int:
             step()
         smoke.sync(device)
     print(json.dumps({
-        "root": args.root, "arch": cfg.name, **what,
+        "root": args.root, "arch": cfg.name, "n_layers": cfg.n_layers,
+        **what,
         "step_ms_median": statistics.median(wall), "step_ms": wall,
         "kernel_launches_a_step": launches,
         **smoke.device_breakdown(prof, 3, top=12)}), flush=True)
