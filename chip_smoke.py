@@ -41,8 +41,9 @@ ZeRO-1 checkpoint onto 2 ranks and 1, and one rank runs the NCCL path;
 then tensor parallelism over a ``"model"`` axis of 4 ranks on the card:
 phi3-mini-3.8b and granite-moe-3b-a800m (its 40 experts 10 a rank) served
 at full width and depth on each rank's heads, gemma-2b and
-granite-moe-1b-a400m trained at full width and half depth, with their f32
-checks against one rank and a checkpoint restored across meshes, and
+granite-moe-1b-a400m trained at full width and a quarter of their depth,
+with their f32 checks against one rank and a checkpoint restored across
+meshes, and
 cells over other meshes (a cache or ring split by sequence; phi3-mini and
 granite-moe-3b-a800m over (2, 2), the engine's slots split over the data
 ranks, no all-reduce over the data axis in their engine runs); then the
@@ -61,7 +62,9 @@ attention, decode attention (on a bf16 cache and on an int8 one), the
 correlator, WKV6, RG-LRU, K-Means, SpMV, MD5 and N-Body have more than one
 route (``"wgmma"``: the tensor cores fed by TMA; ``"mma"``: decode
 attention's query heads on the tensor cores by ``mma.sync``, fed by
-``cp.async``; ``"pipe"``: the f32 GEMM on the CUDA
+``cp.async``; ``"gemv"``: decode attention on the int8 cache with a small
+group's query heads on the CUDA cores, the int8 bytes widened in registers
+and fed by a ring of bulk copies; ``"pipe"``: the f32 GEMM on the CUDA
 cores with its loads one stage ahead; ``"tri"``: the correlator's tiles
 with i <= j, the rest mirrored; ``"chunk"``: WKV6 and RG-LRU as scans over
 chunks of time; ``"private"``: K-Means with several points a thread and
@@ -74,7 +77,8 @@ kernels, on the CUDA cores): the run
 requires the redesigned route for the main-path calls, the tensor cores'
 instructions (``HGMMA``, ``HMMA``) in those routes' kernels only, no
 register spills in them, and times their first version
-(``"fma"``) beside them.  Any
+(``"fma"``) beside them (and, for the int8 cache, route ``"mma"``, the
+route ``"gemv"`` replaced on the main path).  Any
 exception or any comparison outside its tolerance ends the run with a
 non-zero exit code.  The last three
 lines of the output are the kernel table, the card's name and power limit,
@@ -205,6 +209,7 @@ from repro_torch.kernels.correlator.kernel import (  # noqa: E402
     correlate_route,
 )
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    GEMV_DIMS,
     decode_attention_cuda,
     decode_attention_quant_cuda,
 )
@@ -408,10 +413,11 @@ class Sizes:
     wkv_decode: tuple = (8, 40, 1, 64)
     lru: tuple = (1, 2048, 2560)
     lru_decode: tuple = (8, 1, 2560)
-    # the LM serving path
+    # the LM serving path (16 requests since PR 33, 24 before: the run's
+    # 1200 s)
     serve_smoke: bool = False  # the full configs, not their smoke ones
-    serve_requests: int = 24
-    serve_requests_recurrent: int = 24  # rwkv6-3b's and recurrentgemma-2b's
+    serve_requests: int = 16
+    serve_requests_recurrent: int = 16  # rwkv6-3b's and recurrentgemma-2b's
     serve_slots: int = 8
     serve_prompt: tuple = (128, 2048)  # prompt lengths, heavy-tailed
     serve_new: tuple = (32, 128)  # max_new_tokens, uniform
@@ -446,13 +452,13 @@ class Sizes:
     # flash-decode over 4 shards of dist_decode's cache (phi3-mini's decode
     # shape), and gemma-2b's data-parallel step at dist_train_layers
     # layers on train_batch x train_seq tokens, timed over dist_train_steps
-    # (2 since PR 32, 3 before: the run's 1200 s)
+    # (1 since PR 33, 2 in PR 32, 3 before: the run's 1200 s)
     dist_ranks: int = 4
     dist_elems: int = 1 << 24
     dist_matmul: tuple = (4096, 8192, 4096)
     dist_decode: tuple = (8, 32, 32, 2184, 96)
     dist_train_layers: int = 2
-    dist_train_steps: int = 2
+    dist_train_steps: int = 1
     # tensor parallelism over a (1, 4) ("data", "model") mesh of 4 ranks on
     # the one card: phi3-mini served at full width and depth (8 query and 8
     # KV heads a rank: a prefill of tp_check_len tokens at tp_flash, the
@@ -463,7 +469,8 @@ class Sizes:
     # of tp_train_batch tokens, and its checks at dist_train_layers
     # layers.  Cut in PR 32 to keep the run inside its 1200 s (one run took
     # 1190 s): tp_new 16 (32 before), tp_train_steps 2 (3 before) and
-    # tp_train_depth half the layers (all before)
+    # tp_train_depth half the layers (all before); in PR 33 (a run took
+    # 1133.6 s) tp_train_depth a quarter
     tp_ranks: int = 4
     tp_flash: tuple = (1, 8, 8, 1024, 96)
     tp_decode: tuple = (8, 8, 8, 2184, 96)
@@ -476,7 +483,7 @@ class Sizes:
     tp_f32_steps: int = 4
     tp_train_batch: tuple = (4, 512)
     tp_train_steps: int = 2
-    tp_train_depth: float = 0.5
+    tp_train_depth: float = 0.25
     # granite-moe-3b-a800m's rank shapes over the same (1, 4) mesh (6 of
     # 24 query heads and 2 of 8 KV heads a rank): the check prefill and
     # the 8-slot decode
@@ -1458,9 +1465,11 @@ def quant_check(name, got, want, *inputs):
 def quant_faults(inputs, want32) -> list[dict]:
     """Outputs of wrong int8 kernels, held to the bf16 limit like
     ``planted_faults``: each must fail it.  The decode kernel's three tile
-    faults on the dequantized cache, and three of the scales: k_s dropped
+    faults on the dequantized cache, three of the scales: k_s dropped
     from the logits, v_s dropped from p, and l summed from p v_s instead
-    of p."""
+    of p; and, at route "gemv"'s head dims, one key slot of a warp (the
+    keys of one group of D / 16 lanes, every (512 / D)-th key) left out of
+    the warp's reduce."""
     q, k_q, k_s, v_q, v_s, n = inputs
     q = q.float()
     k = k_q.float() * k_s[..., None]
@@ -1486,6 +1495,12 @@ def quant_faults(inputs, want32) -> list[dict]:
         "l_with_v_scale": (want32[0] * l_ratio[..., None],
                            want32[1] - torch.log(l_ratio)),
     }
+    if q.shape[-1] in GEMV_DIMS:
+        slots = 512 // q.shape[-1]
+        pos = torch.arange(t, device=q.device)[None, None, :]
+        keep = valid & (pos % slots != slots - 1)
+        out, lse = masked_attention(q[:, :, None], k, v, keep[:, None])
+        faults["slot_dropped"] = (out[:, :, 0], lse[:, :, 0])
     for label, (out, lse) in faults.items():
         gap = bf16_gap(out.to(torch.bfloat16), want32[0])
         gap["lse_limit_share"] = bf16_lse_gap(lse, want32[1])
@@ -1999,7 +2014,8 @@ ROUTE_KERNELS = {
                         "fma": (("flash_attention_kernel",), None)},
     "decode_attention": {"mma": (("decode_mma_kernel",), "HMMA"),
                          "fma": (("decode_attention_kernel",), None)},
-    "decode_attention_int8": {"mma": (("decode_int8_mma_kernel",), "HMMA"),
+    "decode_attention_int8": {"gemv": (("decode_int8_gemv_kernel",), None),
+                              "mma": (("decode_int8_mma_kernel",), "HMMA"),
                               "fma": (("decode_int8_kernel",), None)},
     "correlate": {"tri": (("correlate_tri_kernel",), None),
                   "fma": (("correlate_kernel",), None)},
@@ -2023,13 +2039,14 @@ TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 #: instances of the redesigned routes' kernels, whose spills ptxas reports:
 #: GEMM wgmma 2 (bf16 and f32 out) and pipe 1, flash attention wgmma 3,
 #: decode attention mma 6 (group and head-dim classes) and on the int8
-#: cache mma 6 (the same classes), correlator tri 2
+#: cache mma 6 (the same classes) and gemv 9 (head dims 64, 128, 256 by
+#: the heads held, 1, 2 and 4), correlator tri 2
 #: (f32 and bf16 samples), wkv6 chunk 5 (its first and last passes for f32
 #: and bf16, the carry once), rg_lru chunk 4 (both passes for f32 and
 #: bf16), kmeans private 4 (one for each f of 2, 4, 8, 16), spmv_ell bin 3
 #: (the finite pass, which route "fma" runs too, scatter, gather), md5
 #: unwind 1, nbody tile 2 (the sums and the slices' combine)
-REDESIGNED_INSTANCES = 39
+REDESIGNED_INSTANCES = 48
 
 
 def tensor_core_counts(sass: dict) -> dict:
@@ -2572,36 +2589,56 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
                                       k.shape[2], q.shape[2]],
         ),
         # qwen1.5-32b's decode step on its int8 cache (8 slots, kv_len over
-        # [1, T]) by route "mma", its first version (route "fma") timed
-        # beside it, and one rank's run of that cache split by sequence
-        # over 4 ranks (rows that end before the run empty, with the lse
-        # the combine takes).  It replaces no pallas_call: the reference
-        # decodes the int8 cache by XLA's fusion of decode_attention_quant.
+        # [1, T]) by route "gemv", its first version (route "fma") and the
+        # route it replaced there ("mma") timed beside it, and one rank's
+        # run of that cache split by sequence over 4 ranks (rows that end
+        # before the run empty, with the lse the combine takes).  It
+        # replaces no pallas_call: the reference decodes the int8 cache by
+        # XLA's fusion of decode_attention_quant.
         # No single PyTorch call takes the int8 cache with its scales, so
         # there is no library time.
         dict(
             name="decode_attention_int8", wrapper="decode_attention_int8",
-            source="src/repro_torch/csrc/decode_attention_int8.cu",
+            # route "gemv"'s source; "mma" and "fma" are in
+            # src/repro_torch/csrc/decode_attention_int8.cu
+            source="src/repro_torch/csrc/decode_attention_int8_gemv.cu",
             replaces="none (no pallas_call): src/repro/models/"
                      "attention.py:142 decode_attention_quant, XLA-fused",
             main=lambda: quant_inputs(sizes.decode_qwen_int8, bf16, gen,
                                       device),
-            main_route="mma",
+            main_route="gemv",
+            earlier_route="mma",
             also={"qwen_seq_rank": lambda: quant_inputs(
                 sizes.decode_qwen_int8_seq_rank, bf16, gen, device,
                 run=(2, 4))},
             also_check=quant_check,
             # bf16 by route "mma": a group of 6 at D = 128, D = 80, group
             # 64 at D = 64, group 10 at D = 256, a rank's run with empty
-            # rows; by "fma": D = 40 in bf16, and f32 (the serve phase's
-            # f32 checks) at qwen's heads and at a group of 4, T ragged
+            # rows at a group of 6; by "gemv": T = 300 and 70 at groups 1,
+            # 2 and 4 (D = 128), D = 64 and 256, a rank's run with empty
+            # rows, kv_len 1; by "fma": D = 40 in bf16, and f32 (the serve
+            # phase's f32 checks) at qwen's heads and at a group of 4, T
+            # ragged
             ragged=lambda: [
                 quant_inputs((3, 12, 2, 300, 128), bf16, gen, device),
                 quant_inputs((3, 4, 4, 300, 80), bf16, gen, device),
                 quant_inputs((1, 64, 1, 100, 64), bf16, gen, device),
                 quant_inputs((2, 10, 1, 300, 256), bf16, gen, device),
+                quant_inputs((4, 24, 4, 70, 128), bf16, gen, device,
+                             run=(1, 3)),
+                quant_inputs((3, 4, 4, 300, 128), bf16, gen, device),
+                quant_inputs((4, 8, 8, 70, 128), bf16, gen, device),
+                quant_inputs((3, 8, 4, 300, 128), bf16, gen, device),
+                quant_inputs((2, 4, 2, 70, 128), bf16, gen, device),
+                quant_inputs((3, 8, 2, 300, 128), bf16, gen, device),
+                quant_inputs((2, 8, 2, 70, 128), bf16, gen, device),
+                quant_inputs((2, 8, 4, 300, 64), bf16, gen, device),
+                quant_inputs((2, 4, 4, 300, 256), bf16, gen, device),
+                quant_inputs((2, 8, 2, 150, 256), bf16, gen, device),
                 quant_inputs((4, 8, 8, 70, 128), bf16, gen, device,
                              run=(1, 3)),
+                quant_inputs((3, 4, 4, 300, 128), bf16, gen, device,
+                             kv_len=1),
                 quant_inputs((2, 4, 2, 150, 40), bf16, gen, device),
                 quant_inputs((3, 40, 40, 200, 128), f32, gen, device),
                 quant_inputs((2, 8, 2, 300, 64), f32, gen, device,
@@ -2609,6 +2646,8 @@ def kernel_cases(sizes: Sizes, device: torch.device, gen: torch.Generator):
             ],
             first=lambda q, kq, ks, vq, vs, n: decode_attention_quant_cuda(
                 q, kq, ks, vq, vs, n, route="fma"),
+            earlier=lambda q, kq, ks, vq, vs, n: decode_attention_quant_cuda(
+                q, kq, ks, vq, vs, n, route="mma"),
             fn=lambda q, kq, ks, vq, vs, n:
                 model_attention.decode_attention_quant(
                     q, kq, ks, vq, vs, n, with_lse=True),
@@ -2767,7 +2806,9 @@ def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
     kernel, the plain version and the library call timed, and the bound of
     the work, and for a two-route kernel the route it took (which must be
     ``route_wanted``, else the case's ``main_route``) and, where that is
-    not the first version, the first version's time on the same inputs."""
+    not the first version, the first version's time on the same inputs
+    (and the ``earlier`` route's, where the case names one that the main
+    route replaced)."""
     wrapper = WRAPPERS[case["wrapper"]]
     got, route = routed(wrapper, lambda: case["fn"](*inputs), device)
     route_wanted = route_wanted or case.get("main_route")
@@ -2808,6 +2849,13 @@ def measure(case: dict, inputs, sizes: Sizes, device: torch.device,
         first = {"first_version_route": "fma", "first_version_ms": time_ms(
             lambda: case["first"](*inputs), device, sizes.reps,
             queued=queued)}
+    earlier = case.get("earlier_route")
+    if earlier and route_wanted not in ("fma", earlier) \
+            and device.type == "cuda":
+        first.update({"earlier_version_route": earlier,
+                      "earlier_version_ms": time_ms(
+                          lambda: case["earlier"](*inputs), device,
+                          sizes.reps, queued=queued)})
     return {
         "max_abs_err": abs_err, "max_rel_err": rel_err,
         **({"kernel_route": route} if route else {}), **first,
@@ -2849,7 +2897,10 @@ def phase_kernels(sizes: Sizes, device: torch.device,
         ragged_shape = case["shape"](*raggeds[0])
         del raggeds, inputs, got
         if case.get("main_route") and device.type == "cuda":
-            require({"fma", case["main_route"]} <= set(ragged_routes), name,
+            want = {"fma", case["main_route"]} | (
+                {case["earlier_route"]} if case.get("earlier_route")
+                else set())
+            require(want <= set(ragged_routes), name,
                     "ragged cases took only", ragged_routes)
 
         row = {"name": name, "route": "cuda", "source": case["source"],
@@ -4239,7 +4290,7 @@ def serve_spec(cfg, sizes: Sizes) -> dict:
                          *a, with_lse=True, **kw),
                      cfg.n_layers, card_only=True)
         attention_profile = dict(attention_profile, decode_step=(
-            "decode_int8_mma_kernel", "decode_mma_combine_kernel"))
+            "decode_int8_gemv_kernel", "decode_mma_combine_kernel"))
         wrapper = "decode_attention_int8"
     else:
         decode = Spy(model_attention, "cuda_decode", decode_attention_ref,
@@ -4633,8 +4684,9 @@ def int8_decode_profile(cfg, sizes: Sizes, device, gen) -> dict:
     outputs and the splits' scratch); the least time of the bytes (int8
     keys and values up to ``kv_len`` and their f32 scales read once, q,
     the output and the lse), the kernel's output against the f32 plain
-    version on the dequantized cache, and beside them the decode-attention
-    kernel on the same cache dequantized to bf16."""
+    version on the dequantized cache, and beside them route "mma" on the
+    same inputs (the route "gemv" replaced there) and the decode-attention
+    kernel on the same cache dequantized to bf16, in turns."""
     q, k_q, k_s, v_q, v_s, n = quant_inputs(sizes.decode_qwen_int8,
                                             cfg.torch_dtype, gen, device)
 
@@ -4665,9 +4717,30 @@ def int8_decode_profile(cfg, sizes: Sizes, device, gen) -> dict:
     bound_ms, bound_by = quant_work(q, k_q, k_s, v_q, v_s, n)
     k16 = kvcache._dequantize(k_q, k_s, q.dtype)
     v16 = kvcache._dequantize(v_q, v_s, q.dtype)
+
+    def mma():
+        return decode_attention_quant_cuda(q, k_q, k_s, v_q, v_s, n,
+                                           route="mma")
+
+    def bf16_cache():
+        return decode_attention(q, k16, v16, kv_len=n)
+
+    # kernel, mma, bf16 cache, then back: the medians of the two turns
+    # (route "mma" only on the card: its wrapper takes no CPU tensor)
+    turns = {"ms": kernel, "mma_ms": mma,
+             "kernel_on_bf16_cache_ms": bf16_cache}
+    if device.type != "cuda":
+        del turns["mma_ms"]
+    times = {label: [] for label in turns}
+    for order in (list(turns), list(turns)[::-1]):
+        for label in order:
+            times[label].append(time_ms(turns[label], device, sizes.reps,
+                                        queued=KERNEL_HOST_S))
     return {"shape": list(sizes.decode_qwen_int8), "kv_len": n.tolist(),
             "route": route,
-            "ms": time_ms(kernel, device, sizes.reps, queued=KERNEL_HOST_S),
+            **{label: None if None in ts else statistics.median(ts)
+               for label, ts in times.items()},
+            "turns_ms": times,
             "extra_peak_bytes": extra_peak(kernel),
             "plain_ms": time_ms(plain, device, sizes.reps),
             "plain_extra_peak_bytes": extra_peak(plain),
@@ -4676,10 +4749,7 @@ def int8_decode_profile(cfg, sizes: Sizes, device, gen) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bf16_limit_share": gap["limit_share"],
             "bf16_lse_limit_share": gap["lse_limit_share"],
-            "max_abs_err": gap["max_abs_err"],
-            "kernel_on_bf16_cache_ms": time_ms(
-                lambda: decode_attention(q, k16, v16, kv_len=n), device,
-                sizes.reps, queued=KERNEL_HOST_S)}
+            "max_abs_err": gap["max_abs_err"]}
 
 
 def phase_serve(sizes: Sizes, device: torch.device, seed: int,
@@ -4841,8 +4911,9 @@ def phase_serve(sizes: Sizes, device: torch.device, seed: int,
         require(routes["flash_attention"]["wgmma"]
                 == counts["flash_attention"], "flash attention routes in "
                 "the engine run:", routes["flash_attention"])
-        for name in ("decode_attention", "decode_attention_int8"):
-            require(routes[name]["mma"] == counts[name], name, "routes in "
+        for name, route in (("decode_attention", "mma"),
+                            ("decode_attention_int8", "gemv")):
+            require(routes[name][route] == counts[name], name, "routes in "
                     "the engine run:", routes[name])
     prompt_lens = [e["args"]["prompt_len"] for e in prefills]
     expect_routes = spec.get("expect_routes", lambda *a: {})(prompt_lens,

@@ -278,7 +278,10 @@ __device__ __forceinline__ void empty_rows(int G, int D, long long head0,
 // the weighted sums divided by the weighted sum of l (the threads over the
 // columns).  The work is a few dependent reads from L2, so the reads that
 // do not wait on kv_len are issued with it.  `ws` holds splits + 4 floats
-// of shared memory.
+// of shared memory.  Launched as a programmatic dependent of the first
+// kernel, it may start once each of that kernel's blocks has executed
+// griddepcontrol.launch_dependents or exited, and waits for the kernel's
+// memory at griddepcontrol.wait.
 __global__ void __launch_bounds__(kThreads)
 decode_mma_combine_kernel(const float* __restrict__ part_acc,
                           const float* __restrict__ part_m,
@@ -287,6 +290,7 @@ decode_mma_combine_kernel(const float* __restrict__ part_acc,
                           bf16* __restrict__ out, float* __restrict__ lse,
                           int HQ, int T_len, int splits, int tiles_per_split,
                           int D) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   extern __shared__ float ws[];
   float* red = ws + splits;
   const long long row = blockIdx.x;
@@ -324,18 +328,31 @@ decode_mma_combine_kernel(const float* __restrict__ part_acc,
 }
 
 // Route "mma"'s combine of `splits` partials of B * HQ rows, or nothing for
-// one split; cudaGetLastError().
+// one split; cudaGetLastError().  It is launched as a programmatic
+// dependent of the first kernel, just before it on the stream: a first
+// kernel that executes griddepcontrol.launch_dependents as its blocks
+// start (the int8 cache's route "gemv") lets it start during its tail.
 inline int combine_mma(void* part_acc, void* part_m, void* part_l,
                        const void* kv_len, void* out, void* lse, int B, int HQ,
                        int T_len, int splits, int tiles_per_split, int D,
                        cudaStream_t stream) {
   if (splits == 1) return static_cast<int>(cudaSuccess);
-  decode_mma_combine_kernel<<<B * HQ, kThreads, sizeof(float) * (splits + 4),
-                              stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<const int*>(kv_len),
-      static_cast<bf16*>(out), static_cast<float*>(lse), HQ, T_len, splits,
-      tiles_per_split, D);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * HQ);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * (splits + 4);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, decode_mma_combine_kernel, static_cast<const float*>(part_acc),
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const int*>(kv_len), static_cast<bf16*>(out),
+      static_cast<float*>(lse), HQ, T_len, splits, tiles_per_split, D);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // Single-token (decode) attention on an int8 KV cache for Hopper (sm_90a):
 // one query token per (batch, query head), masked at kv_len[b], with the
-// output and the log-sum-exp m + log l of every head, by two routes.
+// output and the log-sum-exp m + log l of every head, by three routes:
+// "gemv" in csrc/decode_attention_int8_gemv.cu, "mma" and "fma" here.
 //
 // Replaces no `pallas_call`: the reference has no Pallas kernel for this.
 // It is the counterpart of the reference's XLA-fused
@@ -25,22 +26,23 @@
 // (csrc/decode_attention.cuh), no key at or past kv_len read.  A row with
 // kv_len 0 gives zeros and lse = -1e30.
 //
-// "mma" -- bf16 q, D a multiple of 16, the group padded to 16, 32 or 64 rows
-// times D at most 4096, 16-byte-aligned bases: route "mma" of the bf16
-// kernel with the cache in int8.  A block of 4 warps takes one (batch, kv
-// head, split); 16-byte cp.async copies fill a ring of 2 (D > 128) or 3
-// tiles of int8 K and V and 4-byte ones their scales (a rank's run of the
-// cache need not start on 16 bytes).  Each warp widens its own 16 keys and
+// "mma" -- the bf16 shapes route "gemv" does not take (larger groups, D =
+// 80): D a multiple of 16, the group padded to 16, 32 or 64 rows times D
+// at most 4096, 16-byte-aligned bases: route "mma" of the bf16 kernel with
+// the cache in int8.  A block of 4 warps takes one (batch, kv head,
+// split); 16-byte cp.async copies fill a ring of 2 (D > 128) or 3 tiles of
+// int8 K and V and 4-byte ones their scales (a rank's run of the cache
+// need not start on 16 bytes).  Each warp widens its own 16 keys and
 // values of the landed tile to bf16 in a slab of shared memory of its own
 // (exact: |x| <= 127; by integer and FADD instructions, `widen_int8x16`,
-// not the conversion unit), and the bf16 kernel's fragment loads and mma.sync
-// products then run on the slab unchanged: S = Q K^T, each column times
-// k_s * scale in base 2, online softmax; p times v_s rounded to bf16 as the
-// A operand of P V (the reference rounds pv = p * v_s to q's type before
-// its second einsum), l summed from the unrounded p without v_s.  Widening
-// in registers (prmt) would save the slab's round trip: later work.
+// not the conversion unit), and the bf16 kernel's fragment loads and
+// mma.sync products then run on the slab unchanged: S = Q K^T, each column
+// times k_s * scale in base 2, online softmax; p times v_s rounded to bf16
+// as the A operand of P V (the reference rounds pv = p * v_s to q's type
+// before its second einsum), l summed from the unrounded p without v_s.
+// What held it back at a group of 1 is in route "gemv"'s note.
 //
-// "fma" -- everything else: f32 q, and bf16 shapes the first route does not
+// "fma" -- everything else: f32 q, and bf16 shapes the other routes do not
 // take (D a multiple of 4).  A block of 128 threads takes one (batch, kv
 // head, split) and all `group` query heads, loads each 64-key tile of int8
 // K and V in 4-byte words and their scales into shared memory, and works
@@ -49,8 +51,8 @@
 // the tile's max and sum; p * v_s (rounded to bf16 for bf16 q) times v_q
 // for the (head, column) outputs each thread owns.
 //
-// Both routes write the output as acc / max(l, 1e-30) in q's type and lse =
-// m + log(max(l, 1e-30)) in f32.  Build without --use_fast_math.
+// Every route writes the output as acc / max(l, 1e-30) in q's type and lse
+// = m + log(max(l, 1e-30)) in f32.  Build without --use_fast_math.
 
 #include "decode_attention.cuh"
 

@@ -4,7 +4,8 @@
 // setmaxnreg, and the host helper that encodes a TMA tensor map; and the
 // pieces of decode attention's route "mma" (csrc/decode_attention.cu, and
 // on the int8 cache csrc/decode_attention_int8.cu): cp.async copies,
-// ldmatrix and the warp-wide mma.sync m16n8k16 product.
+// ldmatrix and the warp-wide mma.sync m16n8k16 product; and the 1-D bulk
+// copy that feeds the int8 cache's route "gemv".
 //
 // Written from the PTX of the instructions themselves; nothing here is a
 // ready-made GEMM.  Every tile these helpers see lies in shared memory in
@@ -124,6 +125,18 @@ __device__ inline void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA's 1-D form (cp.async.bulk, no tensor map): `bytes` contiguous bytes,
+// a multiple of 16, from global to shared memory, both 16-byte aligned; the
+// bytes land on `bar` as transactions, so arm it first (mbar_expect_tx).
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

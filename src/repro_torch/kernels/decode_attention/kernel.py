@@ -1,6 +1,7 @@
-"""Launches the decode-attention CUDA kernels by one of two routes: on a
-cache in q's dtype (``csrc/decode_attention.cu``) and on an int8 cache with
-per-token scales (``csrc/decode_attention_int8.cu``)."""
+"""Launches the decode-attention CUDA kernels: on a cache in q's dtype
+(``csrc/decode_attention.cu``, by one of two routes) and on an int8 cache
+with per-token scales (by one of three: ``csrc/decode_attention_int8_gemv.cu``
+and ``csrc/decode_attention_int8.cu``)."""
 
 from __future__ import annotations
 
@@ -12,9 +13,15 @@ from .. import _build
 from ..common import cdiv, check_cuda_tensor, resolve_route, sm_count
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the routes: the group's query heads on the tensor cores (mma.sync) fed by
-#: a cp.async ring, and the first kernel (CUDA cores)
+#: the routes on a cache in q's dtype: the group's query heads on the tensor
+#: cores (mma.sync) fed by a cp.async ring, and the first kernel (CUDA
+#: cores)
 ROUTES = ("mma", "fma")
+#: the int8 cache's routes: a small group's query heads on the CUDA cores,
+#: each lane's int8 bytes widened in registers, fed by a ring of bulk copies
+#: ("gemv"); then the two above, on int8 keys and values widened to bf16 in
+#: shared memory ("mma") or read as 4-byte words ("fma")
+QUANT_ROUTES = ("gemv", "mma", "fma")
 #: keys per tile of both kernels (their ``BT``)
 TILE = 64
 #: the kernels' limits: query heads a block takes, and their outputs (for
@@ -36,8 +43,28 @@ MAX_GROUP_X_DIM = 4096
 #: 0.072-0.085 in 35; gemma-2b's 0.097 in one, 0.022 in 9, 0.020 in 18 (2
 #: tiles) and 0.023-0.028 in 35; recurrentgemma-2b's 0.090 in one, 0.0195 in
 #: 16 (2 tiles) and 0.022-0.028 in 32 (1 tile).
-BLOCKS_PER_SM = {"fma": 16, "mma": 2}
+#: Route "gemv" (the int8 cache) fits 4 blocks an SM at D = 128 and aims
+#: at them, within ``GEMV_TILES_PER_SPLIT`` tiles a split: on an H100
+#: (``tools/decode_splits.py --int8 --route gemv``, two draws, NVIDIA H100
+#: 80GB HBM3 at 700 W) qwen1.5-32b's decode shape took 0.059-0.061 ms in
+#: one split, 0.052-0.054 in 2, 0.050-0.057 in 5 (7 tiles, the plan),
+#: 0.052-0.056 in 9 and 0.061-0.064 in 35; its rank's run 0.016-0.018 in
+#: 1-5 splits (the plan 2) and 0.018-0.020 in 9.
+BLOCKS_PER_SM = {"fma": 16, "mma": 2, "gemv": 4}
 MMA_TILES_PER_SPLIT = (2, 7)
+GEMV_TILES_PER_SPLIT = (2, 8)
+#: head dims route "gemv" takes: 16 bytes of a key row a lane, so 4, 8 or
+#: 16 lanes a row and a warp's 32 lanes on whole rows
+GEMV_DIMS = (64, 128, 256)
+#: The largest group route "gemv" takes: the crossover with route "mma" at
+#: D = 128 (``tools/decode_splits.py --int8 --route gemv``, 48 query heads
+#: over 8 slots, T = 2184, NVIDIA H100 80GB HBM3 at 700 W): "gemv" against
+#: "mma" 0.041 against 0.070 ms at a group of 1, 0.035 against 0.050 at 2,
+#: 0.026 against 0.033 at 4, 0.029 against 0.027 at 6 and 0.025 against
+#: 0.025 at 8 (a build with 8 heads, which spills).  Each lane holds 16
+#: columns of every head's query and its accumulators in registers; the
+#: package builds 1, 2 and 4 heads.
+GEMV_MAX_GROUP = 4
 
 
 def _mma_rows(group: int) -> int:
@@ -69,27 +96,51 @@ def decode_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
         else "fma"
 
 
+def _gemv_takes(q: torch.Tensor, k_q: torch.Tensor,
+                v_q: torch.Tensor) -> bool:
+    """Route "gemv" takes a bf16 q with a head dim of ``GEMV_DIMS``, at
+    most ``GEMV_MAX_GROUP`` query heads a kv head, and 16-byte-aligned
+    bases."""
+    d, hq, hkv = q.shape[-1], q.shape[1], k_q.shape[1]
+    group = hq // hkv if hkv and hq % hkv == 0 else 0
+    return (q.dtype == torch.bfloat16 and d in GEMV_DIMS
+            and 0 < group <= GEMV_MAX_GROUP
+            and all(x.data_ptr() % 16 == 0 for x in (q, k_q, v_q)))
+
+
 def decode_quant_route(q: torch.Tensor, k_q: torch.Tensor,
                        v_q: torch.Tensor) -> str:
-    """The int8 cache's kernel a call takes, as ``decode_route`` chooses:
-    ``"mma"`` (each warp's int8 keys and values widened to bf16 in shared
-    memory, then the group's query heads on the tensor cores) for a bf16 q
-    and an int8 cache that ``_mma_takes``; ``"fma"`` for the rest: f32 q,
-    held at 2e-4, and shapes such as D = 40."""
-    return "mma" if k_q.dtype == v_q.dtype == torch.int8 \
-        and _mma_takes(q, k_q, v_q) else "fma"
+    """The int8 cache's kernel a call takes, from dtype, shape and
+    alignment alone: ``"gemv"`` (a small group's query heads on the CUDA
+    cores, the int8 bytes widened in registers) for a bf16 q and an int8
+    cache that ``_gemv_takes``, as qwen1.5-32b's decode (a group of 1 at D
+    = 128) and its rank's run of a cache split by sequence; ``"mma"`` (each
+    warp's int8 keys and values widened to bf16 in shared memory, then the
+    group's query heads on the tensor cores) for the other bf16 shapes that
+    ``_mma_takes``, as larger groups and D = 80; ``"fma"`` for the rest:
+    f32 q, held at 2e-4, and shapes such as D = 40."""
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
+        return "fma"
+    if _gemv_takes(q, k_q, v_q):
+        return "gemv"
+    return "mma" if _mma_takes(q, k_q, v_q) else "fma"
+
+
+#: tiles a split, at least and at most, by route
+_TILES_PER_SPLIT = {"mma": MMA_TILES_PER_SPLIT, "gemv": GEMV_TILES_PER_SPLIT}
 
 
 def split_plan(batch: int, kv_heads: int, t: int, device: torch.device,
                route: str = "fma") -> tuple[int, int]:
     """(splits, tiles a split): enough blocks for the route's
     ``BLOCKS_PER_SM`` on each SM, in whole tiles, no split empty for a
-    full-length row; for route "mma" also within ``MMA_TILES_PER_SPLIT``
-    tiles a split (fewer where the cache has fewer)."""
+    full-length row; for routes "mma" and "gemv" also within
+    ``MMA_TILES_PER_SPLIT`` or ``GEMV_TILES_PER_SPLIT`` tiles a split
+    (fewer where the cache has fewer)."""
     tiles = cdiv(t, TILE)
     want = cdiv(BLOCKS_PER_SM[route] * sm_count(device.index),
                 batch * kv_heads)
-    fewest, most = MMA_TILES_PER_SPLIT if route == "mma" else (1, tiles)
+    fewest, most = _TILES_PER_SPLIT.get(route, (1, tiles))
     splits = max(1, min(tiles, max(want, cdiv(tiles, most))))
     per_split = max(cdiv(tiles, splits), min(fewest, tiles))
     return cdiv(tiles, per_split), per_split
@@ -115,16 +166,24 @@ def _check_sizes(b: int, hq: int, hkv: int, t: int, d: int, vec: int,
         raise ValueError(f"grid too large: B={b}, HKV={hkv}")
 
 
-def _attend(symbols: tuple[str, str], route: str, q: torch.Tensor,
-            cache: tuple, kv_len: torch.Tensor, hkv: int, t: int,
-            scale: float | None
+#: the C entry point of each route, on a cache in q's dtype and on the
+#: int8 cache; route "fma"'s also takes q's type
+_SYMBOLS = {"mma": "decode_attention_mma", "fma": "decode_attention_fwd"}
+_QUANT_SYMBOLS = {"gemv": "decode_attention_int8_gemv",
+                  "mma": "decode_attention_int8_mma",
+                  "fma": "decode_attention_int8_fwd"}
+
+
+def _attend(symbol: str, route: str, q: torch.Tensor, cache: tuple,
+            kv_len: torch.Tensor, hkv: int, t: int, scale: float | None,
+            lib: ctypes.CDLL | None = None
             ) -> tuple[torch.Tensor, torch.Tensor, int | None]:
-    """(out, lse, the launcher's error code) of one launch of route
-    ``route``'s C entry point (``symbols``: route "mma"'s, then route
-    "fma"'s, which also takes q's type) on ``cache`` (its tensors, in the
-    entry point's order), into new tensors, with the splits' scratch; an
-    empty q or cache gives zeros and lse -1e30 and launches nothing
-    (error code None)."""
+    """(out, lse, the launcher's error code) of one launch of the C entry
+    point ``symbol`` (the package's library's, or ``lib``'s: a probe's
+    build of a variant) by route ``route``'s split plan on ``cache`` (its
+    tensors, in the entry point's order), into new tensors, with the
+    splits' scratch; an empty q or cache gives zeros and lse -1e30 and
+    launches nothing (error code None)."""
     b, hq, d = q.shape
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
@@ -148,15 +207,15 @@ def _attend(symbols: tuple[str, str], route: str, q: torch.Tensor,
         + [ctypes.c_float]
     sizes = [b, hkv, hq // hkv, t, d, splits, per_split]
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    typed = [_TYPE_CODES[q.dtype]] if route == "fma" else []
+    argtypes += [ctypes.c_int] * len(typed) + [ctypes.c_void_p]
+    if lib is None:
+        fn = _build.bind(symbol, argtypes)
+    else:
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     with torch.cuda.device(q.device):
-        if route == "mma":
-            fn = _build.bind(symbols[0], argtypes + [ctypes.c_void_p])
-            err = fn(*args, *sizes, float(scale), stream)
-        else:
-            fn = _build.bind(symbols[1], argtypes + [ctypes.c_int,
-                                                     ctypes.c_void_p])
-            err = fn(*args, *sizes, float(scale), _TYPE_CODES[q.dtype],
-                     stream)
+        err = fn(*args, *sizes, float(scale), *typed, stream)
     return out, lse, err
 
 
@@ -192,8 +251,8 @@ def decode_attention_cuda(
             raise ValueError(f"{name} must be 16-byte aligned")
     route = resolve_route(route, decode_route(q, k, v), ROUTES,
                           "decode attention")
-    out, lse, err = _attend(("decode_attention_mma", "decode_attention_fwd"),
-                            route, q, (k, v), kv_len, hkv, t, scale)
+    out, lse, err = _attend(_SYMBOLS[route], route, q, (k, v), kv_len, hkv,
+                            t, scale)
     if err is None:
         return out, lse
     decode_attention_cuda.launches += 1
@@ -221,9 +280,11 @@ def decode_attention_quant_cuda(
     """Decode attention on the int8 cache: (out (B, HQ, D) in q's dtype,
     lse (B, HQ) f32) into new tensors, the scales folded into the two
     products.  Keys at and past ``kv_len[b]`` are neither read nor
-    counted.  ``route`` None takes ``decode_quant_route``'s choice;
-    ``"fma"`` forces the first kernel.  A failed launch raises; no route is
-    tried after another fails."""
+    counted.  ``route`` None takes ``decode_quant_route``'s choice of
+    ``"gemv"``, ``"mma"`` and ``"fma"``; ``"mma"`` forces the tensor cores
+    on inputs ``"gemv"`` takes (every one of them, to time the two on the
+    same inputs), ``"fma"`` the first kernel on any.  A failed launch
+    raises; no route is tried after another fails."""
     check_cuda_tensor("q", q, tuple(_TYPE_CODES), 3)
     for name, x in (("k_q", k_q), ("v_q", v_q)):
         check_cuda_tensor(name, x, (torch.int8,), 4, device=q.device)
@@ -243,11 +304,13 @@ def decode_attention_quant_cuda(
     for name, x in (("k_q", k_q), ("v_q", v_q)):
         if x.data_ptr() % 4:
             raise ValueError(f"{name} must be 4-byte aligned")
-    route = resolve_route(route, decode_quant_route(q, k_q, v_q), ROUTES,
+    chosen = decode_quant_route(q, k_q, v_q)
+    if route == "mma" and chosen == "gemv":
+        chosen = "mma"  # route "mma" takes whatever "gemv" takes
+    route = resolve_route(route, chosen, QUANT_ROUTES,
                           "decode attention on the int8 cache")
-    out, lse, err = _attend(
-        ("decode_attention_int8_mma", "decode_attention_int8_fwd"), route, q,
-        (k_q, k_s, v_q, v_s), kv_len, hkv, t, scale)
+    out, lse, err = _attend(_QUANT_SYMBOLS[route], route, q,
+                            (k_q, k_s, v_q, v_s), kv_len, hkv, t, scale)
     if err is None:
         return out, lse
     decode_attention_quant_cuda.launches += 1
@@ -258,4 +321,4 @@ def decode_attention_quant_cuda(
 
 #: launches of the int8 cache's CUDA kernels in this process, and by route
 decode_attention_quant_cuda.launches = 0
-decode_attention_quant_cuda.routes = dict.fromkeys(ROUTES, 0)
+decode_attention_quant_cuda.routes = dict.fromkeys(QUANT_ROUTES, 0)

@@ -169,7 +169,11 @@ def decode_attention_quant(
         out       = sum_t (p[t] * v_s[t]) * v_q[t]
 
     On a CUDA tensor with ``impl`` "cuda" this launches the hand-written
-    kernel, which reads the cache once, in int8, up to ``kv_len``; a CPU
+    kernel, which reads the cache once, in int8, up to ``kv_len``, by the
+    route ``decode_quant_route`` gives: qwen1.5-32b's bf16 decode (a group
+    of 1 at D = 128), and its rank's run of a cache split by sequence, by
+    ``"gemv"`` on the CUDA cores; larger groups and D = 80 by ``"mma"``;
+    f32 queries by ``"fma"``.  A CPU
     tensor, or another ``impl``, takes the plain version
     (``decode_attention_quant_ref``).  With ``with_lse`` also the
     log-sum-exp of the scaled logits (B, HQ); a row with no valid key gives

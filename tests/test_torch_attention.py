@@ -264,6 +264,33 @@ def test_decode_split_plan_of_the_tensor_core_route(monkeypatch, batch,
     assert per_split <= 7 and (per_split >= 2 or tiles < 2)
 
 
+@pytest.mark.parametrize("batch,kv_heads,t,plan", [
+    (8, 40, 2184, (5, 7)),    # qwen1.5-32b's decode on its int8 cache
+    (8, 40, 546, (2, 5)),     # a rank's run of it split by sequence
+    (8, 1, 2184, (18, 2)),    # one kv head: 2 tiles a split, not 1
+    (64, 64, 2184, (5, 7)),   # enough blocks, still at most 8 tiles a split
+    (1, 1, 10, (1, 1)),       # one tile
+])
+def test_decode_split_plan_of_the_int8_cuda_core_route(monkeypatch, batch,
+                                                       kv_heads, t, plan):
+    """Route "gemv" of the int8 cache aims at ``BLOCKS_PER_SM["gemv"]``
+    blocks an SM within ``GEMV_TILES_PER_SPLIT`` tiles a split, and no split
+    of a full-length row is empty (pure host arithmetic, an H100's 132
+    SMs)."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    monkeypatch.setattr(dk, "sm_count", lambda index: 132)
+    splits, per_split = dk.split_plan(batch, kv_heads, t,
+                                      torch.device("cuda", 0), "gemv")
+    assert (splits, per_split) == plan
+    tiles = -(-t // dk.TILE)
+    fewest, most = dk.GEMV_TILES_PER_SPLIT
+    assert (splits - 1) * per_split < tiles <= splits * per_split
+    assert per_split <= most and (per_split >= fewest or tiles < fewest)
+    blocks = batch * kv_heads * splits
+    assert blocks >= min(dk.BLOCKS_PER_SM["gemv"] * 132,
+                         batch * kv_heads * -(-tiles // fewest))
+
+
 # -- models/attention.py ------------------------------------------------------------
 
 

@@ -415,7 +415,7 @@ def test_build_is_keyed_by_the_sources():
     assert [p.name for p in srcs] == [
         "black_scholes.cu", "cluster_sums.cu", "correlator.cu",
         "decode_attention.cu", "decode_attention_int8.cu",
-        "flash_attention.cu", "gemm.cu", "hotspot.cu",
+        "decode_attention_int8_gemv.cu", "flash_attention.cu", "gemm.cu", "hotspot.cu",
         "kmeans.cu", "md5.cu", "nbody.cu", "rg_lru.cu", "spmv_ell.cu",
         "wkv6.cu"]
     assert _build.build_dir() == ROOT / "build" / "repro_torch"

@@ -200,14 +200,20 @@ def test_the_wrapper_refuses_cpu_tensors():
 
 
 def test_the_kernels_tile_is_the_wrappers():
-    """The wrapper's split plan counts in the sources' 64-key tiles."""
+    """The wrapper's split plan counts in the sources' 64-key tiles (route
+    "gemv"'s own among them), and each of its routes has its C entry
+    point."""
     header = (CSRC / "decode_attention.cuh").read_text()
     assert int(re.search(r"constexpr int BT = (\d+);", header).group(1)) \
         == decode_kernel.TILE
-    source = (CSRC / "decode_attention_int8.cu").read_text()
-    for entry in ("decode_attention_int8_fwd", "decode_attention_int8_mma"):
+    source = "".join((CSRC / name).read_text() for name in (
+        "decode_attention_int8.cu", "decode_attention_int8_gemv.cu"))
+    tiles = re.findall(r"constexpr int BT = (\d+);", source)
+    assert tiles and all(int(n) == decode_kernel.TILE for n in tiles)
+    for route in decode_kernel.QUANT_ROUTES:
+        entry = decode_kernel._QUANT_SYMBOLS[route]
         assert f'extern "C" int {entry}(' in source
-    assert "Replaces no `pallas_call`" in source
+    assert source.count("Replaces no `pallas_call`") == 2
 
 
 def _pair(impl):
@@ -272,3 +278,36 @@ def test_the_sequence_split_int8_decode_passes_its_impl(impl, monkeypatch):
         TA.decode_attention_seq_split(q, k_q, v_q, n, 6, impl=impl,
                                       scales=(k_s, v_s))
     assert seen == [(impl, True)]
+
+
+def test_the_probes_variants_find_their_lines_in_the_source():
+    """``tools/int8_decode_probe.py`` builds its ablation of routes "mma"
+    and "gemv" from copies of the source edited line by line, and
+    ``tools/decode_splits.py`` its group sweep's build with an instance of 8
+    heads: every line they edit is in the source once, so that a change of
+    the kernel cannot leave a variant unedited."""
+    import importlib.util
+    import sys
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    try:
+        mods = {}
+        for name in ("int8_decode_probe", "decode_splits"):
+            spec = importlib.util.spec_from_file_location(
+                name, root / "tools" / f"{name}.py")
+            mods[name] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mods[name])
+    finally:
+        sys.path.remove(str(root))
+    probe = mods["int8_decode_probe"]
+    for variants, path in ((probe.VARIANTS, probe.SOURCE),
+                           (probe.GEMV_VARIANTS, probe.GEMV_SOURCE)):
+        source = path.read_text()
+        for olds, _ in variants.values():
+            for old, _ in olds:
+                assert source.count(old) == 1, old
+        for entry in probe.ENTRIES:
+            assert source.count(f'extern "C" int {entry}(') <= 1
+    assert probe.GEMV_SOURCE.read_text().count(
+        mods["decode_splits"]._DISPATCH) == 1

@@ -8,7 +8,9 @@ the launch from dtype, shape and alignment alone: ``"wgmma"`` (tensor cores fed 
 describe bf16 operands, ``"pipe"`` (f32 on the CUDA cores, its loads a
 stage ahead) for f32 GEMM operands of 16-byte rows, ``"mma"``
 (``mma.sync`` tensor cores) for bf16 decode attention whose group fits the
-kernel, on a bf16 cache or an int8 one, ``"tri"`` (the correlator's tiles with i <= j, the rest mirrored)
+kernel, on a bf16 cache or an int8 one, ``"gemv"`` (a small group's query
+heads on the CUDA cores) for bf16 decode attention on the int8 cache at
+head dims 64, 128 and 256, ``"tri"`` (the correlator's tiles with i <= j, the rest mirrored)
 for more than one tile of antennas, ``"chunk"`` (WKV6 and RG-LRU as scans
 over chunks of time) for T of two chunks or more (three for RG-LRU),
 ``"private"`` (K-Means with several points a thread and accumulators
@@ -190,14 +192,37 @@ def _decode_int8(b, hq, hkv, t, d, dtype, offset=0, cache_offset=0):
 @pytest.mark.parametrize("what,shape", [
     ("qwen1.5-32b's decode", (8, 40, 40, 2184, 128)),
     ("a sequence-split rank's run", (8, 40, 40, 546, 128)),
+    ("group 2 of 128", (3, 8, 4, 300, 128)),
+    ("group 3 of 128", (2, 6, 2, 70, 128)),
+    ("group 4 of 128", (3, 8, 2, 300, 128)),
+    ("group 2 of 64", (2, 8, 4, 300, 64)),
+    ("group 4 of 256", (2, 8, 2, 150, 256)),
+])
+def test_decode_int8_small_groups_take_the_cuda_cores(what, shape):
+    """Route "gemv" takes a bf16 q on the int8 cache at D = 64, 128 and 256
+    with at most ``GEMV_MAX_GROUP`` query heads a kv head: qwen1.5-32b's
+    decode (a group of 1) and its rank's run among them.  The bf16 cache
+    has no such route."""
+    args = _decode_int8(*shape, bf16)
+    assert shape[1] // shape[2] <= decode_kernel.GEMV_MAX_GROUP
+    assert decode_kernel.decode_quant_route(*args) == "gemv", what
+    assert decode_kernel.decode_route(*_decode(*shape, bf16)) == "mma", what
+
+
+@pytest.mark.parametrize("what,shape", [
     ("group 6 of 128", (3, 12, 2, 300, 128)),
     ("D = 80", (3, 4, 4, 300, 80)),
     ("group 10 of 256", (3, 10, 1, 300, 256)),
     ("group 64 of 64", (1, 64, 1, 70, 64)),
     ("D = 16", (2, 4, 2, 50, 16)),
+    ("group 8 of 128", (1, 8, 1, 70, 128)),
+    ("group 1 at D = 80", (2, 4, 4, 70, 80)),
+    ("group 1 at D = 96", (2, 4, 4, 70, 96)),
 ])
 def test_decode_int8_with_bf16_queries_takes_the_tensor_cores(what, shape):
-    """The int8 cache's route "mma" takes what the bf16 cache's does."""
+    """The int8 cache's route "mma" takes what the bf16 cache's does but
+    route "gemv": groups over ``GEMV_MAX_GROUP``, head dims other than 64,
+    128 and 256."""
     args = _decode_int8(*shape, bf16)
     assert decode_kernel.decode_quant_route(*args) == "mma", what
     assert decode_kernel.decode_route(*_decode(*shape, bf16)) == "mma", what
@@ -432,7 +457,7 @@ def test_md5_unwinds_every_search(n):
     (gemm_kernel, "gemm_cuda", ("wgmma", "pipe", "fma")),
     (flash_kernel, "flash_attention_cuda", ("wgmma", "fma")),
     (decode_kernel, "decode_attention_cuda", ("mma", "fma")),
-    (decode_kernel, "decode_attention_quant_cuda", ("mma", "fma")),
+    (decode_kernel, "decode_attention_quant_cuda", ("gemv", "mma", "fma")),
     (corr_kernel, "correlate_cuda", ("tri", "fma")),
     (wkv_kernel, "wkv6_cuda", ("chunk", "fma")),
     (lru_kernel, "rg_lru_cuda", ("chunk", "fma")),
@@ -441,11 +466,14 @@ def test_md5_unwinds_every_search(n):
     (md5_kernel, "md5_search_cuda", ("unwind", "fma")),
 ])
 def test_two_route_wrappers_count_launches_by_route(kernel, fn, routes):
-    """Each multi-route wrapper has its own routes, the first kernel
-    (``"fma"``) last, and counts its launches by route."""
+    """Each multi-route wrapper has its own routes (the module's
+    ``ROUTES``, or for the int8 cache's decode ``QUANT_ROUTES``), the
+    first kernel (``"fma"``) last, and counts its launches by route."""
     wrapper = getattr(kernel, fn)
-    assert kernel.ROUTES == routes
-    assert set(wrapper.routes) == set(kernel.ROUTES)
+    assert routes[-1] == "fma"
+    assert routes == (kernel.QUANT_ROUTES if fn.endswith("quant_cuda")
+                      else kernel.ROUTES)
+    assert tuple(wrapper.routes) == routes
     assert all(isinstance(n, int) for n in wrapper.routes.values())
 
 
