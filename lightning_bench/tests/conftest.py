@@ -1,0 +1,13 @@
+"""The benchmark's own tests, on the CPU at tiny sizes:
+
+    python3 -m pytest -q lightning_bench/tests
+"""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+for path in (os.path.join(ROOT, "src"), ROOT, HERE):
+    if path not in sys.path:
+        sys.path.insert(0, path)
